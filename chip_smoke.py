@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero):
   1. The card (nvidia-smi name and power limit, torch/CUDA versions) and the
-     build of every kernel from `oryx_tpu_torch/csrc`.
+     build of every kernel from `oryx_tpu_torch/csrc` (one nvcc per source,
+     in parallel).
   2. The main path's host side at full width (`config.oryx_7b()`, a
      four-request image/multi-image/video/text mix), then each kernel call
      shape of that path (ViT segments, compressor regions, decoder prefill,
@@ -29,6 +30,31 @@ Phases (any failure exits non-zero):
      host is barely slowed): device time by kernel family, the top
      kernels, and the device's idle share inside the trace (1 - union of
      kernel intervals / the call's wall).
+  7. The serving engine, `ContinuousScheduler`, at full width on the
+     phase-1 weights: 4 slots, 64-token pages, 8-step chunks, max_ctx
+     4096, the default 256-page pool, greedy; the four requests above at
+     32 new tokens plus four text requests at 8/16/24/48 (8 requests on
+     4 slots). The split engine (paged prefill through the flash kernel,
+     decode through the paged-decode kernel K3) and the ragged engine
+     (prefill_chunk 512: every step one packed dispatch through the
+     ragged-paged kernel K4), twice each: every request finishes with its
+     usage, the two runs of an engine give identical tokens, and K3 (split)
+     or K4 (ragged) launched. Walls, TTFTs, tokens/s, dispatches by kind,
+     peak memory. The first run of each engine records the paged kernels'
+     call operands (one call per forward, on layer 0's pool). A fifth,
+     split-engine run under torch.profiler, as in phase 5.
+  6. (Runs after 7.) Each paged kernel at the largest call phase 7
+     recorded - K3 on a split decode step, K4 on a ragged step with
+     prefill lanes and on a pure decode step - and the flash kernel at the
+     split engine's largest paged prefill, with random bf16 q and pages,
+     against its plain twin (atol = rtol = 1e-2, every row sees a key).
+     The paged kernels are called through the public wrappers the model
+     calls (`ragged_decode_attention`, `ragged_paged_attention`), on q in
+     the recorded layout and the int operands as recorded. Wrapper and
+     twin times, gather_pages + SDPA with an explicit mask as a two-call
+     yardstick, and the least time the card could take.
+  8. The tiny fp32 config through both engines on the card (kernel path)
+     and on the CPU (plain twins): replies, finish reasons and usage equal.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -37,6 +63,8 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -55,9 +83,10 @@ EOS = 151645
 
 
 class ByteTokenizer:
-    """Stand-in byte-level tokenizer: ids 0..255 are bytes; any other id
-    (random weights emit them) decodes to a fixed placeholder. Keeps the
-    ids of every decode call, so a run's tokens can be compared."""
+    """Stand-in byte-level tokenizer: encodes text as its UTF-8 bytes, and
+    decodes losslessly (ASCII as itself, any other id - random weights emit
+    them - as "<id>"), so equal replies mean equal tokens. Keeps the ids of
+    every decode call, so a run's tokens can be compared."""
 
     def __init__(self) -> None:
         self.decoded: list[list[int]] = []
@@ -68,12 +97,10 @@ class ByteTokenizer:
     def decode(self, ids, skip_special_tokens=True):
         ids = [int(i) for i in ids]
         self.decoded.append(ids)
-        out = bytearray()
-        for i in ids:
-            if skip_special_tokens and i == EOS:
-                continue
-            out += bytes([i]) if i < 256 else b"<?>"
-        return out.decode("utf-8", errors="replace")
+        return "".join(
+            chr(i) if i < 128 else f"<{i}>" for i in ids
+            if not (skip_special_tokens and i == EOS)
+        )
 
 
 def requests():
@@ -293,6 +320,8 @@ def kernel_family(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_fwd (hand-written attention)"
+    if "paged_bf16" in n or "paged_f32" in n:
+        return "paged attention K3/K4 (hand-written)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                             "sm90_", "sm80_")):
         return "GEMM/GEMV (cuBLAS: F.linear, torch.matmul)"
@@ -305,16 +334,16 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_main_path(pipe, reqs) -> None:
-    """One chat_batch under torch.profiler, CUDA activity only: device time
-    by kernel family, the top kernels, and the device's idle share inside
-    the trace. Raises when the trace holds no device time."""
+def profile_call(fn) -> None:
+    """fn() under torch.profiler, CUDA activity only: device time by kernel
+    family, the top kernels, and the device's idle share inside the trace.
+    Raises when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.chat_batch(reqs, max_new_tokens=MAX_NEW)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [
@@ -355,6 +384,328 @@ def profile_main_path(pipe, reqs) -> None:
         print(f"    {us / 1e3:10.2f} ms  x{count[name]:<6d} {name[:90]}")
 
 
+# ---- serving engine (phases 6-8) -------------------------------------------
+
+SERVE = dict(num_slots=4, page_size=64, chunk=8, max_ctx=4096)
+PREFILL_CHUNK = 512  # ragged engine: pf_width = 512 / 8 = 64 lanes
+
+
+def serve_requests():
+    """(request, max_new) x 8: the chat_batch mix at MAX_NEW tokens plus
+    four text requests of other lengths, so slots free and admit at chunk
+    boundaries."""
+    texts = [("Name three colours.", 8), ("Count to ten.", 16),
+             ("What is a paged KV cache?", 24),
+             ("Tell me a long story about a lighthouse keeper.", 48)]
+    return [(r, MAX_NEW) for r in requests()] + [
+        ({"question": q}, n) for q, n in texts
+    ]
+
+
+class PagedCallRecorder:
+    """While active, keeps q's layout (shape and strides) and the int
+    operands, as given, of every paged-kernel call made on layer 0 of
+    `sched`'s pool (one call per forward), cloned on the device without a
+    sync, for phase 6 to replay through the same wrappers."""
+
+    def __init__(self, sched):
+        self.layer0 = sched.kv_pages["k"][0].data_ptr()
+        self.calls: dict[str, list] = {"paged_decode": [], "ragged_paged": []}
+
+    def __enter__(self):
+        from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+        self._orig = (pa.ragged_decode_attention, pa.ragged_paged_attention)
+        dec, rag = self._orig
+
+        def rec_dec(q, k, v, bt, lens, **kw):
+            if k.data_ptr() == self.layer0:
+                self.calls["paged_decode"].append(
+                    ((tuple(q.shape), q.stride()), bt.clone(), lens.clone())
+                )
+            return dec(q, k, v, bt, lens, **kw)
+
+        def rec_rag(q, k, v, bt, seg, pos, **kw):
+            if k.data_ptr() == self.layer0:
+                self.calls["ragged_paged"].append(
+                    ((tuple(q.shape), q.stride()), bt.clone(), seg.clone(),
+                     pos.clone())
+                )
+            return rag(q, k, v, bt, seg, pos, **kw)
+
+        pa.ragged_decode_attention = rec_dec
+        pa.ragged_paged_attention = rec_rag
+        return self
+
+    def __exit__(self, *exc):
+        from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+        pa.ragged_decode_attention, pa.ragged_paged_attention = self._orig
+        return False
+
+
+def run_scheduler(pipe, ragged: bool, record: bool):
+    """One scheduler run over serve_requests(); returns a dict of what it
+    served, what it cost and which kernels it launched (counts zeroed just
+    before the run and read just after)."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    sched = ContinuousScheduler(
+        pipe, autostart=False, ragged=ragged,
+        prefill_chunk=PREFILL_CHUNK if ragged else None, **SERVE,
+    )
+    reqs = serve_requests()
+    recorder = PagedCallRecorder(sched) if record else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()
+    pa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with recorder or contextlib.nullcontext():
+        handles = [sched.submit(r, n) for r, n in reqs]
+        sched.start()
+        results = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched.close()
+    sched.check_pool_invariant()
+    paged = collections.Counter()
+    for key, n in pa.LAUNCHES.items():
+        paged[key[0]] += n
+    return {
+        "results": results, "caps": [n for _, n in reqs], "wall": wall,
+        "ttft": [h.debug["ttft_s"] for h in handles],
+        "metrics": sched.metrics, "peak": torch.cuda.max_memory_allocated(),
+        "flash": dict(fa.LAUNCHES), "paged": dict(paged),
+        "paged_keys": dict(pa.LAUNCHES), "recorder": recorder,
+    }
+
+
+def check_serving_run(mode: str, i: int, run: dict) -> None:
+    """Print one phase-7 run and fail on a request without its usage or a
+    missing kernel launch."""
+    m = run["metrics"]
+    gen = sum(u[1] for _, _, u in run["results"])
+    print(f"  {mode} run {i}: wall {run['wall']:.3f} s | {gen} tokens, "
+          f"{gen / run['wall']:.1f} tok/s | dispatches "
+          f"{dict(m['dispatches_total'])} | evicted {m['evicted']} | peak "
+          f"{run['peak'] / 1e9:.2f} GB | paged launches {run['paged']} | "
+          f"flash launches {sum(run['flash'].values())}")
+    print(f"    TTFT s: {[round(t, 4) for t in run['ttft']]}")
+    for r, ((reply, reason, (pt, gt)), cap) in enumerate(
+        zip(run["results"], run["caps"])
+    ):
+        print(f"    request {r}: prompt {pt}, generated {gt}/{cap} "
+              f"({reason}), reply {reply[:32]!r}")
+        if pt < 1 or not (
+            gt == cap if reason == "length" else 1 <= gt <= cap
+        ):
+            raise SystemExit(f"{mode}: request {r} has usage {(pt, gt)}")
+    want = "ragged_paged" if mode == "ragged" else "paged_decode"
+    other = "paged_decode" if mode == "ragged" else "ragged_paged"
+    if not run["paged"].get(want) or run["paged"].get(other):
+        raise SystemExit(f"{mode}: paged kernel launches {run['paged']}")
+    if not run["flash"]:
+        raise SystemExit(f"{mode}: the flash kernel never launched")
+
+
+def _pick(calls, work):
+    """The recorded call with the most work (host reads after the run)."""
+    if not calls:
+        raise SystemExit("phase 7 recorded no call of this kind")
+    return max(calls, key=work)
+
+
+def paged_kernel_case(name, kind, call, pool_shape, gen):
+    """Kernel vs plain twin at one recorded call, both through the public
+    functions the model calls, on q in the recorded layout and the int
+    operands as the model passed them; returns the table row."""
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    P, ps, Hk, D = pool_shape
+    (q_shape, q_stride), bt = call[0], call[1]
+    R, Hq = q_shape[0], q_shape[-2]
+    dev = bt.device
+    kp = paged_kv.init_paged_pool(1, P, ps, Hk, D, dtype=torch.bfloat16,
+                                  device=dev)[0]
+    vp = paged_kv.init_paged_pool(1, P, ps, Hk, D, dtype=torch.bfloat16,
+                                  device=dev)[0]
+    kp.copy_(torch.randn(kp.shape, generator=gen, device=dev))
+    vp.copy_(torch.randn(vp.shape, generator=gen, device=dev))
+    q = torch.empty_strided(q_shape, q_stride, dtype=torch.bfloat16,
+                            device=dev)
+    q.copy_(torch.randn(q_shape, generator=gen, device=dev))
+    S, maxp = bt.shape
+    if kind == "paged_decode":
+        lens = call[2]
+        seg = torch.arange(R, device=dev)
+        visible = lens.long()
+        kernel = lambda: pa.ragged_decode_attention(  # noqa: E731
+            q, kp, vp, bt, lens)
+        plain = lambda: paged_kv.ragged_decode_attention(  # noqa: E731
+            q, kp, vp, bt, lens)
+    else:
+        seg, pos = call[2], call[3]
+        visible = pos.long() + 1
+        kernel = lambda: pa.ragged_paged_attention(  # noqa: E731
+            q, kp, vp, bt, seg, pos)
+        plain = lambda: paged_kv.ragged_paged_attention(  # noqa: E731
+            q, kp, vp, bt, seg, pos)
+    before = sum(pa.LAUNCHES.values())
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if sum(pa.LAUNCHES.values()) != before + 1:
+        raise SystemExit(f"{name}: the wrapper did not launch the kernel")
+    if got.shape != q.shape or got.dtype != q.dtype:
+        raise SystemExit(f"{name}: output {tuple(got.shape)} {got.dtype}")
+    got, ref = got.reshape(R, Hq, D), ref.reshape(R, Hq, D)
+    keep = visible > 0
+    g, r = got[keep].float(), ref[keep].float()
+    err = (g - r).abs()
+    max_err = float(err.max())
+    ok = bool((err <= TOL + TOL * r.abs()).all()) and bool(
+        torch.isfinite(g).all()
+    )
+    print(f"  {name}: q {tuple(q.shape)} stride {q_stride} pool "
+          f"{tuple(kp.shape)} table {tuple(bt.shape)} {bt.dtype}, ints "
+          f"{(call[2].dtype)}, visible slots per row "
+          f"{visible.min().item()}..{visible.max().item()} "
+          f"max_abs_err={max_err:.3e} ok={ok}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain twin")
+    ms = cuda_time_ms(kernel, iters=50)
+    plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
+    # Yardstick, two PyTorch calls: gather the rows' pages, then SDPA with
+    # an explicit boolean mask (GQA without repeating k/v).
+    K = maxp * ps
+    mask = (
+        torch.arange(K, device=dev)[None, :] < visible[:, None]
+    )[:, None, None, :]
+    segl = seg.long().clamp(0, S - 1)
+
+    def library():
+        k = paged_kv.gather_pages(kp, bt)[segl].transpose(1, 2)
+        v = paged_kv.gather_pages(vp, bt)[segl].transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(R, Hq, 1, D), k, v, attn_mask=mask, enable_gqa=True,
+        )
+
+    library_ms = cuda_time_ms(library, iters=10)
+    # Least time: q and o once, the int operands once, and the k/v rows some
+    # query sees once (a segment's visible prefix is the longest row's),
+    # vs 4 * D flops per visible (query head, slot) pair.
+    seg_host, vis_host = segl.tolist(), visible.tolist()
+    longest: dict[int, int] = {}
+    for s_, n in zip(seg_host, vis_host):
+        longest[s_] = max(longest.get(s_, 0), n)
+    kv_rows = sum(longest.values())
+    nbytes = (
+        2 * q.numel() * 2 + bt.numel() * 4
+        + R * 4 * (1 if kind == "paged_decode" else 2)
+        + 2 * kv_rows * Hk * D * 2
+    )
+    flops = 4.0 * D * Hq * sum(vis_host)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"    kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | gather+sdpa "
+          f"{library_ms:.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
+          f"({kv_rows} kv rows read, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "oryx_tpu_torch/csrc/paged_attention.cu",
+        "replaces": (
+            "oryx_tpu/ops/pallas/paged_attention.py:144"
+            if kind == "paged_decode"
+            else "oryx_tpu/ops/pallas/paged_attention.py:528"
+        ),
+        "launches": 0,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def paged_prefill_case(pipe, prompt_len: int, gen):
+    """The split engine's flash-kernel call for its longest prompt: the
+    bucketed prompt against the gathered max_ctx-wide stream, kv-masked at
+    the prompt length (the gather itself is random bf16)."""
+    from oryx_tpu_torch.ops.packing import round_up_bucket
+
+    cfg = pipe.cfg.llm
+    dev = pipe.device
+    T, K = round_up_bucket(prompt_len), SERVE["max_ctx"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    slots = torch.arange(K, device=dev)[None]
+    return ("paged_prefill", dict(
+        q=rnd(1, T, cfg.num_heads, cfg.head_dim),
+        k=rnd(1, K, cfg.num_kv_heads, cfg.head_dim),
+        v=rnd(1, K, cfg.num_kv_heads, cfg.head_dim), causal=True,
+        q_positions=torch.arange(T, device=dev)[None],
+        kv_mask=(slots < prompt_len).int(),
+    ), torch.arange(T, device=dev)[None] < prompt_len)
+
+
+def tiny_engines_on_card() -> None:
+    """Phase 8: the tiny fp32 config (input-sensitive weights) through the
+    split and ragged engines on the card and on the CPU: equal replies."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() >= 2:
+                p.mul_(20)
+    rng = np.random.default_rng(0)
+
+    def img(h, w):
+        return rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8)
+
+    reqs = [
+        ({"question": "hi there"}, 9),
+        ({"question": "what is this?", "images": [img(40, 56)]}, 6),
+        ({"question": "compare", "images": [img(60, 30), img(28, 28)]}, 7),
+        ({"question": "what happens?", "images": [img(42, 42)] * 4,
+          "is_video": True}, 5),
+    ]
+    geom = dict(num_slots=2, page_size=16, chunk=4, max_ctx=512)
+    for ragged in (False, True):
+        out = []
+        pa.LAUNCHES.clear()
+        for device in ("cpu", "cuda"):
+            sched = ContinuousScheduler(
+                Pipeline(ByteTokenizer(), params, cfg, device=device),
+                autostart=False, ragged=ragged,
+                prefill_chunk=32 if ragged else None, **geom,
+            )
+            hs = [sched.submit(r, n) for r, n in reqs]
+            sched.start()
+            out.append([h.result(timeout=600) for h in hs])
+            sched.close()
+        mode = "ragged" if ragged else "split"
+        print(f"  {mode}: card == cpu: {out[0] == out[1]}; paged launches "
+              f"on the card {sum(pa.LAUNCHES.values())}; replies "
+              f"{[r[0][:12] for r in out[1]]}")
+        if out[0] != out[1] or not pa.LAUNCHES:
+            raise SystemExit(f"tiny {mode} engine on the card differs from "
+                             f"the CPU: {out[1]} vs {out[0]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -370,12 +721,21 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    build.load("flash_attention")
-    print(f"built flash_attention in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_logs.get("flash_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    # One nvcc per source, all started together.
+    def timed_build(name):
+        t = time.perf_counter()
+        build.build(name)
+        return time.perf_counter() - t
+
+    sources = ("flash_attention", "paged_attention")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        secs = dict(zip(sources, ex.map(timed_build, sources)))
+    for name in sources:
+        build.load(name)
+        print(f"built {name} in {secs[name]:.1f} s")
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # ---- 2. kernel vs plain twin at the main path's shapes ----------------
     cfg = dataclasses.replace(config.oryx_7b(), attn_impl="pallas")
@@ -478,7 +838,83 @@ def main() -> int:
     walls = [f"{r[5]:.3f}" for r in results]
     print(f"phase 5: chat_batch under torch.profiler ({card}); unprofiled "
           f"walls of phase 3: {walls} s")
-    profile_main_path(pipe, reqs)
+    profile_call(lambda: pipe.chat_batch(reqs, max_new_tokens=MAX_NEW))
+
+    # ---- 7. the serving engine at full width ------------------------------
+    print(f"phase 7: ContinuousScheduler, oryx_7b bf16, greedy, {SERVE}, "
+          f"{len(serve_requests())} requests ({card})")
+    spipe = Pipeline(ByteTokenizer(), params, cfg, device="cuda")
+    serving = {}
+    for mode in ("split", "ragged"):
+        runs = [run_scheduler(spipe, mode == "ragged", record=i == 0)
+                for i in range(2)]
+        for i, run in enumerate(runs):
+            check_serving_run(mode, i, run)
+        if runs[1]["results"] != runs[0]["results"]:
+            raise SystemExit(f"{mode}: the two runs produced different "
+                             "tokens")
+        print(f"  {mode}: tokens identical across the two runs")
+        serving[mode] = runs[0]
+    same = sum(
+        a[0] == b[0] for a, b in zip(serving["split"]["results"],
+                                     serving["ragged"]["results"])
+    )
+    print(f"  split vs ragged replies equal (bf16, not asserted): "
+          f"{same}/{len(serve_requests())}")
+    print("  one more split-engine run under torch.profiler:")
+    profile_call(lambda: run_scheduler(spipe, False, record=False))
+
+    # ---- 6. paged kernels at the serving shapes ---------------------------
+    print(f"phase 6: paged kernels vs plain twins at phase 7's call shapes, "
+          f"bf16, atol=rtol={TOL} ({card})")
+    llm = cfg.llm
+    # The default pool: num_slots * max_ctx / page_size pages.
+    pool_shape = (SERVE["num_slots"] * SERVE["max_ctx"] // SERVE["page_size"],
+                  SERVE["page_size"], llm.num_kv_heads, llm.head_dim)
+    gen = torch.Generator("cuda").manual_seed(2)
+    dec_calls = serving["split"]["recorder"].calls["paged_decode"]
+    rag_calls = serving["ragged"]["recorder"].calls["ragged_paged"]
+    S = SERVE["num_slots"]
+    cases = [
+        ("paged_decode[decode]", "paged_decode",
+         _pick(dec_calls, lambda c: int(c[2].sum()))),
+        ("ragged_paged[prefill]", "ragged_paged",
+         _pick([c for c in rag_calls if c[0][0][0] > S],
+               lambda c: int((c[3] + 1).sum()))),
+        ("ragged_paged[decode]", "ragged_paged",
+         _pick([c for c in rag_calls if c[0][0][0] == S],
+               lambda c: int((c[3] + 1).sum()))),
+    ]
+    for name, kind, call in cases:
+        row = paged_kernel_case(name, kind, call, pool_shape, gen)
+        mode = "split" if kind == "paged_decode" else "ragged"
+        # Launches of the run the call was recorded in, split by whether
+        # the dispatch carried prefill lanes (R > S).
+        row["launches"] = sum(
+            n for key, n in serving[mode]["paged_keys"].items()
+            if key[0] == kind and (
+                kind == "paged_decode"
+                or (key[1] > S) == name.endswith("[prefill]")
+            )
+        )
+        print(f"  launches {name}: {row['launches']}")
+        if row["launches"] == 0:
+            raise SystemExit(f"{name} was never launched on the serving "
+                             "path")
+        rows.append(row)
+    longest = max(u[0] for _, _, u in serving["split"]["results"])
+    name, kw, keep = paged_prefill_case(spipe, longest, gen)
+    key, row = check_kernel_case(name, kw, keep)
+    row["launches"] = serving["split"]["flash"].get(key, 0)
+    print(f"  launches {row['name']}: {row['launches']}")
+    if row["launches"] == 0:
+        raise SystemExit(f"{row['name']} was never launched on the serving "
+                         "path")
+    rows.append(row)
+
+    # ---- 8. tiny fp32 engines on the card ---------------------------------
+    print(f"phase 8: tiny fp32 engines, card vs CPU ({card})")
+    tiny_engines_on_card()
 
     print(card)
     print(json.dumps({"kernels": rows}))

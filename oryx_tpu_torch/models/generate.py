@@ -1,15 +1,25 @@
-"""Autoregressive generation: dense-KV prefill + decode loop (port of
-`oryx_tpu.models.generate`, dense path).
+"""Autoregressive generation (port of `oryx_tpu.models.generate`): the
+dense-KV prefill + decode loop, and the paged programs of the
+continuous-batching engine (paged prefill, chunked decode, the packed
+ragged step, `generate_paged`).
 
 The JAX package runs the decode as one compiled `lax.while_loop`; here it is
 a Python loop over the step, which exits as soon as every row has finished
 (one host read of the finished flags per step). Right-padded batches
 advance with per-row positions, so mixed-length multimodal prefills need no
-left-padding shuffle.
+left-padding shuffle. The paged programs' `lax.scan` over `chunk` steps is
+a Python loop with no host read inside: the caller syncs once per dispatch,
+at the harvest.
+
+RNG: JAX's per-row threefry keys become one `torch.Generator` per row (None
+for a greedy row, which draws nothing), so a row's draws never depend on
+its neighbours. The two frameworks draw different numbers: greedy tokens
+match JAX, seeded sampling is held by replaying the port against itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -17,6 +27,7 @@ import torch
 
 from oryx_tpu_torch.config import GenerationConfig, LLMConfig
 from oryx_tpu_torch.models import qwen2
+from oryx_tpu_torch.ops import paged_kv as paged_kv_lib
 
 
 def sample_token(
@@ -48,6 +59,68 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32
     )
+
+
+def truncate_logits_rows(
+    logits: torch.Tensor,  # [S, V]
+    *,
+    temperature: torch.Tensor,  # [S] float (0 => greedy for that row)
+    top_p: torch.Tensor,  # [S] float
+    top_k: torch.Tensor,  # [S] int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row temperature scale + top-k + top-p truncation. Returns
+    (truncated logits [S, V], -inf outside the nucleus; is_greedy [S]).
+    Greedy rows pass through at t = 1."""
+    V = logits.shape[-1]
+    is_greedy = temperature <= 0.0
+    t = torch.where(is_greedy, 1.0, temperature.float())[:, None]
+    l = logits.float() / t
+    tk = top_k.long().clamp(0, V)
+    srt = torch.sort(l, dim=-1).values  # ascending
+    kth = torch.gather(srt, 1, (V - tk).clamp(0, V - 1)[:, None])
+    l = torch.where((tk > 0)[:, None] & (l < kth), -torch.inf, l)
+    srt_d = torch.sort(l, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(srt_d, dim=-1), dim=-1)
+    # Smallest prefix with cumulative prob >= top_p (keeps the top token);
+    # an index past the end (rounding) cuts nothing, as XLA's fill does.
+    cutoff_idx = torch.sum(cum < top_p.float()[:, None], dim=-1).clamp(
+        max=V - 1
+    )
+    cutoff = torch.gather(srt_d, 1, cutoff_idx[:, None])
+    l = torch.where((top_p < 1.0)[:, None] & (l < cutoff), -torch.inf, l)
+    return l, is_greedy
+
+
+def sample_token_rows(
+    logits: torch.Tensor,  # [S, V]
+    generators,  # [S] torch.Generator per sampling row, None = greedy
+    *,
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+) -> torch.Tensor:
+    """Per-row sampling for continuous batching: every row carries its own
+    (temperature, top_p, top_k) and generator, so a row's draw is a
+    function of that row alone. Rows with no generator, or temperature 0,
+    take the argmax (first maximum on ties); sampling rows draw one
+    Gumbel-max sample over the truncated logits. Returns [S] int32."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    rows = [i for i, g in enumerate(generators) if g is not None]
+    if not rows:
+        return greedy
+    S, V = logits.shape
+    l, is_greedy = truncate_logits_rows(
+        logits, temperature=temperature, top_p=top_p, top_k=top_k
+    )
+    u = torch.full((S, V), 0.5, dtype=torch.float32, device=logits.device)
+    for i in rows:
+        u[i] = torch.rand(V, generator=generators[i], device=logits.device)
+    tiny = torch.finfo(torch.float32).tiny
+    g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    sampled = torch.argmax(l + g, dim=-1).to(torch.int32)
+    drew = torch.zeros(S, dtype=torch.bool, device=logits.device)
+    drew[rows] = True
+    return torch.where(drew & ~is_greedy, sampled, greedy)
 
 
 def make_stop_sequences(stop_strs: list[str], tokenizer) -> torch.Tensor | None:
@@ -258,3 +331,518 @@ def _make_decode_step(
         return (cache, nxt, cur_len + 1, finished, recent), (tok, finished)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Paged chunked decode (continuous-batching serving path)
+# ---------------------------------------------------------------------------
+
+
+def paged_prefill(
+    params,
+    cfg: LLMConfig,
+    inputs_embeds: torch.Tensor,  # [B, T, H] right-padded
+    lengths: torch.Tensor,  # [B] real TOTAL lengths (incl. cached prefix)
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    kv_pages: dict,  # qwen2.init_paged_kv_cache (written in place)
+    start: torch.Tensor,  # [B] (or [1]) first logical slot to write
+    generators,  # [B] per-row generators (None = greedy)
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    *,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+):
+    """Prompt prefill into a PAGED cache + first sampled token: K/V land in
+    the rows' pages through their block tables. With `start` > 0 only the
+    suffix is prefilled, at absolute positions. Each sampling row draws
+    once from its generator. Returns (kv_pages, tok0 [B] int32)."""
+    B, T, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    start = start.to(device=dev, dtype=torch.long).expand(B)
+    lengths = lengths.to(device=dev, dtype=torch.long)
+    positions = start[:, None] + torch.arange(T, device=dev)[None, :]
+    K = block_tables.shape[1] * kv_pages["k"].shape[2]
+    kv_mask = (
+        torch.arange(K, device=dev)[None, :] < lengths[:, None]
+    ).to(torch.int32)
+    h, kv_pages = qwen2.forward(
+        params, cfg,
+        inputs_embeds=inputs_embeds, positions=positions,
+        kv_cache=kv_pages, write_slots=start, kv_mask=kv_mask,
+        block_tables=block_tables, kv_lengths=lengths.to(torch.int32),
+        attn_impl=attn_impl, compute_dtype=compute_dtype,
+        return_hidden=True,
+    )
+    # Project only each row's last real position (a row whose last token
+    # lies outside this window gets a discarded sample).
+    last = (lengths - 1 - start).clamp(0, T - 1)
+    logits = qwen2.logits_from_hidden(
+        params, cfg, h[torch.arange(B, device=dev), last]
+    )
+    tok0 = sample_token_rows(
+        logits, generators, temperature=temperature, top_p=top_p,
+        top_k=top_k,
+    )
+    return kv_pages, tok0
+
+
+def slice_embeds(embeds: torch.Tensor, start: int, *, width: int
+                 ) -> torch.Tensor:
+    """[B, T, H] -> the [B, width, H] window at offset `start`, clamped
+    into range as XLA's dynamic_slice clamps; callers pad `embeds` so that
+    no chunk start needs the clamp (`pad_embeds_for_chunks`)."""
+    start = min(max(int(start), 0), embeds.shape[1] - width)
+    return embeds[:, start:start + width]
+
+
+def pad_embeds_for_chunks(embeds: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Zero-pad [B, T, H] on the token axis so every `chunk`-wide window
+    starting at an offset < T stays in bounds. The padded columns prefill
+    garbage KV past each row's real length, which decode overwrites
+    before reading or masks out."""
+    B, _, H = embeds.shape
+    pad = torch.zeros((B, chunk, H), dtype=embeds.dtype, device=embeds.device)
+    return torch.cat([embeds, pad], dim=1)
+
+
+def paged_prefill_chunks(
+    params,
+    cfg: LLMConfig,
+    inputs_embeds: torch.Tensor,  # [B, T, H] right-padded
+    lengths: torch.Tensor,  # [B] real TOTAL lengths (incl. cached prefix)
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    kv_pages: dict,
+    start: int,  # shared first logical slot to write
+    generators,  # [B] per-row generators (None = greedy)
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    top_k: torch.Tensor,
+    *,
+    prefill_chunk: int,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+):
+    """`paged_prefill` in bounded `prefill_chunk`-token windows. Valid-slot
+    KV and the first token equal the single-shot call's: a row samples
+    (and draws from its generator) only in the window that holds its last
+    real token. Returns (kv_pages, tok0 [B] int32)."""
+    B = inputs_embeds.shape[0]
+    dev = inputs_embeds.device
+    host_len = [int(x) for x in lengths.tolist()]  # once, at admission
+    lengths = lengths.to(device=dev, dtype=torch.long)
+    generators = list(generators)
+    embeds = pad_embeds_for_chunks(inputs_embeds, prefill_chunk)
+    tok0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+    off = start
+    while off < max(host_len):
+        end = off + prefill_chunk
+        final = [off <= n - 1 < end for n in host_len]
+        kv_pages, tok = paged_prefill(
+            params, cfg,
+            slice_embeds(embeds, off - start, width=prefill_chunk),
+            lengths.clamp(max=end), block_tables, kv_pages,
+            torch.tensor([off], device=dev),
+            [g if f else None for g, f in zip(generators, final)],
+            temperature, top_p, top_k,
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+        )
+        tok0 = torch.where(torch.tensor(final, device=dev), tok, tok0)
+        off = end
+    return kv_pages, tok0
+
+
+def _feed_ids(cfg: LLMConfig, tok: torch.Tensor) -> torch.Tensor:
+    """Token ids to embed. A finished row keeps feeding eos_token_id, which
+    may lie past a small vocab (test configs); XLA clamps such gathers, so
+    the port clamps too. The row's outputs are discarded either way."""
+    return tok.long().clamp(max=cfg.vocab_size - 1)
+
+
+def paged_decode_chunk(
+    params,
+    cfg: LLMConfig,
+    kv_pages: dict,  # written in place
+    block_tables: torch.Tensor,  # [S, max_pages] int32
+    tok: torch.Tensor,  # [S] next token to feed per slot
+    lengths: torch.Tensor,  # [S] kv tokens held per slot (frozen on finish)
+    finished: torch.Tensor,  # [S] bool (True for finished AND empty slots)
+    recent: torch.Tensor,  # [S, stop_L] rolling stop window (-2 init)
+    generators,  # [S] per-slot generators (None = greedy or empty)
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    stop_sequences: torch.Tensor | None = None,  # [Sq, L]
+    *,
+    chunk: int,
+    eos: int,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+):
+    """`chunk` decode steps over a FIXED-SLOT batch with a paged cache, the
+    continuous-batching inner loop. Finished and empty slots still flow
+    through the math, but their cache writes are dropped (write_mask) and
+    their lengths freeze. No host read inside: the caller harvests once.
+    Returns (kv_pages, tok, lengths, finished, recent, toks [S, chunk],
+    fin [S, chunk])."""
+    dev = tok.device
+    K = block_tables.shape[1] * kv_pages["k"].shape[2]
+    slot_ar = torch.arange(K, device=dev)[None, :]
+    cur_len = lengths
+    toks, fins = [], []
+    for _ in range(chunk):
+        logits, kv_pages = qwen2.forward(
+            params, cfg,
+            input_ids=_feed_ids(cfg, tok)[:, None],
+            positions=cur_len.long()[:, None],
+            kv_cache=kv_pages, write_slots=cur_len,
+            kv_mask=(slot_ar <= cur_len[:, None]).to(torch.int32),
+            block_tables=block_tables, write_mask=~finished,
+            kv_lengths=cur_len + 1,
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+        )
+        nxt = sample_token_rows(
+            logits[:, 0], generators,
+            temperature=temperature, top_p=top_p, top_k=top_k,
+        )
+        if recent.shape[1]:
+            recent = torch.cat([recent[:, 1:], tok[:, None]], dim=1)
+        finished = (
+            finished | (tok == eos)
+            | paged_kv_lib.stop_window_hit(recent, stop_sequences)
+        )
+        nxt = torch.where(finished, eos, nxt)
+        cur_len = cur_len + (~finished).to(torch.int32)
+        toks.append(tok)
+        fins.append(finished)
+        tok = nxt
+    return (kv_pages, tok, cur_len, finished, recent,
+            torch.stack(toks, dim=1), torch.stack(fins, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# Ragged fused prefill+decode step (one dispatch per engine step)
+# ---------------------------------------------------------------------------
+
+
+def pack_prefill_window(embeds: torch.Tensor, off: int, width: int
+                        ) -> torch.Tensor:
+    """The [1, width, H] prefill window at logical offset `off` of a
+    prompt's embeds [1, T, H], zero-padded past the prompt end, on the
+    embeds' device: the dispatch operand keeps one shape for any prompt
+    length."""
+    T, H = embeds.shape[1], embeds.shape[2]
+    out = torch.zeros((1, width, H), dtype=embeds.dtype, device=embeds.device)
+    n = max(0, min(width, T - off))
+    if n:
+        out[0, :n] = embeds[0, off:off + n]
+    return out
+
+
+def unpack_ragged_rows(toks: np.ndarray, live: list[int]
+                       ) -> dict[int, list[int]]:
+    """Per-slot token streams from a harvest, restricted to the slots that
+    were live DURING the dispatch."""
+    return {s: [int(t) for t in toks[s]] for s in live}
+
+
+def paged_ragged_step(
+    params,
+    cfg: LLMConfig,
+    kv_pages: dict,  # written in place
+    block_tables: torch.Tensor,  # [S, max_pages] int32
+    tok: torch.Tensor,  # [S] next token to feed per slot
+    lengths: torch.Tensor,  # [S] kv tokens held per slot (frozen on finish)
+    finished: torch.Tensor,  # [S] bool (True for finished AND empty slots)
+    recent: torch.Tensor,  # [S, stop_L] rolling stop window (-2 init)
+    generators,  # [S] per-slot generators (None = greedy or empty)
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    stop_sequences: torch.Tensor | None,  # [Sq, L]
+    pf_embeds: torch.Tensor | None = None,  # [1, chunk*pf_width, H]
+    pf_slot: int = 0,  # slot the prefill belongs to
+    pf_off: int = 0,  # logical offset of the window start
+    pf_len: int = 0,  # total prompt length (incl. prefix)
+    pf_generator=None,  # the admitting request's generator (None = greedy)
+    pf_temp: torch.Tensor | None = None,  # [1]
+    pf_top_p: torch.Tensor | None = None,  # [1]
+    pf_top_k: torch.Tensor | None = None,  # [1]
+    *,
+    chunk: int,
+    pf_width: int,
+    eos: int,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+):
+    """ONE dispatch for a mixed prefill+decode engine step. Each of the
+    `chunk` iterations runs one packed forward over R = S + pf_width rows:
+    rows 0..S-1 are the decode lanes (one token per slot, the semantics of
+    `paged_decode_chunk`), rows S.. are `pf_width` consecutive suffix
+    tokens of the one admitting slot's prompt, so a dispatch advances the
+    prefill by chunk * pf_width tokens while every resident stream decodes
+    `chunk` tokens. Prefill lanes always write (window overshoot past the
+    prompt writes garbage that is overwritten before it is read). The
+    prompt's first token is sampled, one draw from `pf_generator`, in the
+    iteration whose window holds the prompt's last token. pf_width = 0 is
+    a pure packed decode step.
+
+    Returns (kv_pages, tok, lengths, finished, recent, toks [S, chunk],
+    fin [S, chunk], pf_tok0 ([] int32, or None when no window held the
+    prompt's last token))."""
+    S = tok.shape[0]
+    W = pf_width
+    dev = tok.device
+    cur_len = lengths
+    seg0 = torch.arange(S, dtype=torch.int32, device=dev)
+    pf_seg = torch.full((W,), pf_slot, dtype=torch.int32, device=dev)
+    pf_ar = torch.arange(W, dtype=torch.int32, device=dev)
+    pf_wm = torch.ones((W,), dtype=torch.bool, device=dev)
+    pf_tok0 = None
+    toks, fins = [], []
+    for i in range(chunk):
+        emb = params.embed.weight[_feed_ids(cfg, tok)]  # [S, H]
+        if compute_dtype is not None:
+            emb = emb.to(compute_dtype)
+        seg, pos, wm = seg0, cur_len, ~finished
+        if W:
+            win = pf_embeds[0, i * W:(i + 1) * W].to(emb.dtype)
+            emb = torch.cat([emb, win], dim=0)
+            pos = torch.cat([pos, pf_off + i * W + pf_ar])
+            seg = torch.cat([seg, pf_seg])
+            wm = torch.cat([wm, pf_wm])
+        h, kv_pages = qwen2.forward(
+            params, cfg,
+            inputs_embeds=emb[None], positions=pos[None],
+            kv_cache=kv_pages, block_tables=block_tables,
+            q_segments=seg[None], write_mask=wm[None],
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+            return_hidden=True,
+        )
+        nxt = sample_token_rows(
+            qwen2.logits_from_hidden(params, cfg, h[0, :S]), generators,
+            temperature=temperature, top_p=top_p, top_k=top_k,
+        )
+        if recent.shape[1]:
+            recent = torch.cat([recent[:, 1:], tok[:, None]], dim=1)
+        finished = (
+            finished | (tok == eos)
+            | paged_kv_lib.stop_window_hit(recent, stop_sequences)
+        )
+        nxt = torch.where(finished, eos, nxt)
+        cur_len = cur_len + (~finished).to(torch.int32)
+        j = pf_len - 1 - pf_off - i * W  # the prompt's last token, if here
+        if W and 0 <= j < W:
+            pf_tok0 = sample_token_rows(
+                qwen2.logits_from_hidden(params, cfg, h[0, S + j][None]),
+                [pf_generator],
+                temperature=pf_temp, top_p=pf_top_p, top_k=pf_top_k,
+            )[0]
+        toks.append(tok)
+        fins.append(finished)
+        tok = nxt
+    return (kv_pages, tok, cur_len, finished, recent,
+            torch.stack(toks, dim=1), torch.stack(fins, dim=1), pf_tok0)
+
+
+# ---------------------------------------------------------------------------
+# Paged generation driver
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedState:
+    """Host half of a paged decode: the device page pool plus the block
+    tables and free list that address it (owned by serve/scheduler.py for
+    continuous batching)."""
+
+    kv_pages: dict
+    block_tables: np.ndarray  # [B, max_pages] int32 (sentinel-padded)
+    allocator: paged_kv_lib.PageAllocator
+
+    @property
+    def page_size(self) -> int:
+        return self.allocator.page_size
+
+
+def _grow_block_tables(
+    state: PagedState, row_tokens: list[int], max_pages: int
+) -> np.ndarray:
+    """Ensure each row's block table covers row_tokens[b] logical slots,
+    allocating from the state's free list; widens (or narrows, freeing
+    what falls off) the table to `max_pages` columns, sentinel-padded.
+    Raises OutOfPagesError with nothing allocated if the pool cannot
+    satisfy the TOTAL ask."""
+    alloc = state.allocator
+    bt = state.block_tables
+    B, old = bt.shape
+    out = np.full((B, max_pages), alloc.sentinel, np.int32)
+    out[:, : min(old, max_pages)] = bt[:, : min(old, max_pages)]
+    if old > max_pages:
+        dropped = [
+            int(p) for b in range(B) for p in bt[b, max_pages:]
+            if p != alloc.sentinel
+        ]
+        if dropped:
+            alloc.free(dropped)
+    held = [int((out[b] != alloc.sentinel).sum()) for b in range(B)]
+    need = [
+        max(0, alloc.pages_for(row_tokens[b]) - held[b]) for b in range(B)
+    ]
+    if sum(need) > alloc.num_free:
+        raise paged_kv_lib.OutOfPagesError(
+            f"need {sum(need)} pages, {alloc.num_free} free"
+        )
+    for b in range(B):
+        pages = alloc.alloc(need[b])
+        out[b, held[b]: held[b] + need[b]] = pages
+    state.block_tables = out
+    return out
+
+
+def row_generator(device: torch.device, seed: int, row: int = 0
+                  ) -> torch.Generator:
+    """The sampling generator of row `row` under `seed`, on `device`."""
+    state = np.random.SeedSequence([int(seed), int(row)]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+@torch.inference_mode()
+def generate_paged(
+    params,
+    cfg: LLMConfig,
+    gen_cfg: GenerationConfig,
+    *,
+    inputs_embeds: torch.Tensor,  # [B, T, H] (suffix only when `start`)
+    lengths,  # [B] real TOTAL lengths (incl. cached prefix)
+    max_new_tokens: int,
+    page_size: int = 64,
+    chunk: int = 8,
+    kv_capacity: int | None = None,
+    num_pages: int | None = None,
+    seed: int = 0,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+    stop_sequences: torch.Tensor | None = None,
+    state: PagedState | None = None,
+    start=None,
+    return_state: bool = False,
+    prefill_chunk: int | None = None,
+    ragged: bool = False,
+    device="cuda",
+):
+    """`generate`, but over a paged KV cache in `chunk`-step dispatches: the
+    reference driver of the continuous-batching path (the scheduler runs
+    the same `paged_prefill` / `paged_decode_chunk` / `paged_ragged_step`
+    with slots owned by different requests). Runs on `device` (the card
+    unless the caller asks for the CPU); `params` must live there.
+
+    kv_capacity: logical KV width per row (a multiple of page_size);
+    defaults to the bucket of max(lengths) + the chunk-padded decode
+    window. num_pages: pool size; defaults to the exact ragged need.
+    state/start: prefix KV reuse (pass the previous turn's state and
+    prefill only the suffix). prefill_chunk: prefill in bounded windows
+    (needs one shared `start`). ragged: decode through
+    `paged_ragged_step` (packed rows) instead of `paged_decode_chunk`.
+    Sampling rows draw from per-row generators seeded from `seed`.
+
+    Returns host tensors (tokens [B, max_new_tokens] int32, num_generated
+    [B] int32, finished [B] bool)[, state]."""
+    from oryx_tpu_torch.models.params import resolve_device
+    from oryx_tpu_torch.ops.packing import round_up_bucket
+
+    dev = resolve_device(device)
+    inputs_embeds = inputs_embeds.to(dev)
+    B = inputs_embeds.shape[0]
+    padded_new = -(-max_new_tokens // chunk) * chunk
+    host_len = [int(x) for x in torch.as_tensor(lengths).tolist()]
+    lengths = torch.tensor(host_len, dtype=torch.int32, device=dev)
+    row_tokens = [n + padded_new for n in host_len]
+    if kv_capacity is None:
+        kv_capacity = round_up_bucket(max(row_tokens))
+    if kv_capacity % page_size:
+        raise ValueError(f"{kv_capacity=} not a multiple of {page_size=}")
+    max_pages = kv_capacity // page_size
+    if state is None:
+        if num_pages is None:
+            num_pages = sum(-(-n // page_size) for n in row_tokens)
+        allocator = paged_kv_lib.PageAllocator(num_pages, page_size)
+        state = PagedState(
+            kv_pages=qwen2.init_paged_kv_cache(
+                cfg, num_pages, page_size,
+                dtype=compute_dtype or torch.float32, device=dev,
+            ),
+            block_tables=np.full((B, max_pages), allocator.sentinel,
+                                 np.int32),
+            allocator=allocator,
+        )
+    elif state.block_tables.shape[0] != B:
+        raise ValueError(
+            f"state holds {state.block_tables.shape[0]} rows, batch has {B}"
+        )
+    bt = torch.from_numpy(
+        _grow_block_tables(state, row_tokens, max_pages)
+    ).to(dev)
+    starts = [0] * B if start is None else [
+        int(x) for x in torch.as_tensor(start).expand(B).tolist()
+    ]
+    temp = torch.full((B,), gen_cfg.temperature, device=dev)
+    top_p = torch.full((B,), gen_cfg.top_p, device=dev)
+    top_k = torch.full((B,), gen_cfg.top_k, dtype=torch.int32, device=dev)
+    gens = [
+        row_generator(dev, seed, b) if gen_cfg.temperature > 0 else None
+        for b in range(B)
+    ]
+    if prefill_chunk:
+        if len(set(starts)) != 1:
+            raise ValueError(
+                f"prefill_chunk needs one shared start, got {sorted(set(starts))}"
+            )
+        state.kv_pages, tok = paged_prefill_chunks(
+            params, cfg, inputs_embeds, lengths, bt, state.kv_pages,
+            starts[0], gens, temp, top_p, top_k,
+            prefill_chunk=prefill_chunk, attn_impl=attn_impl,
+            compute_dtype=compute_dtype,
+        )
+    else:
+        state.kv_pages, tok = paged_prefill(
+            params, cfg, inputs_embeds, lengths, bt, state.kv_pages,
+            torch.tensor(starts, device=dev), gens, temp, top_p, top_k,
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+        )
+    if stop_sequences is not None:
+        stop_sequences = stop_sequences.to(dev)
+    stop_L = 0 if stop_sequences is None else stop_sequences.shape[1]
+    recent = torch.full((B, stop_L), -2, dtype=torch.int32, device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    cur_len = lengths
+    eos = gen_cfg.eos_token_id
+    toks_out = np.full((B, padded_new), eos, np.int32)
+    fin_out = np.ones((B, padded_new), bool)
+    common = dict(chunk=chunk, eos=eos, attn_impl=attn_impl,
+                  compute_dtype=compute_dtype)
+    done = 0
+    while done < max_new_tokens:
+        args = (params, cfg, state.kv_pages, bt, tok, cur_len, finished,
+                recent, gens, temp, top_p, top_k, stop_sequences)
+        if ragged:
+            out = paged_ragged_step(*args, pf_width=0, **common)
+        else:
+            out = paged_decode_chunk(*args, **common)
+        state.kv_pages, tok, cur_len, finished, recent, toks, fin = out[:7]
+        # The once-per-dispatch harvest (the early exit needs host bools).
+        toks_out[:, done:done + chunk] = toks.cpu().numpy()
+        fin_out[:, done:done + chunk] = fin.cpu().numpy()
+        done += chunk
+        if fin_out[:, done - 1].all():
+            break
+    toks_out = toks_out[:, :max_new_tokens]
+    fin_out = fin_out[:, :max_new_tokens]
+    any_fin = fin_out.any(axis=1)
+    num = np.where(
+        any_fin, fin_out.argmax(axis=1) + 1, max_new_tokens
+    ).astype(np.int32)
+    out = (torch.from_numpy(toks_out), torch.from_numpy(num),
+           torch.from_numpy(any_fin))
+    return out + (state,) if return_state else out

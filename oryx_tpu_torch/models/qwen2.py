@@ -2,11 +2,12 @@
 
 Parameters live in `nn.Module`s (`Qwen2`, one `DecoderLayer` per layer,
 linear weights in PyTorch's [out, in] layout); `forward` is a plain function
-over them with the JAX function's arguments. Two attention paths are
-ported: no cache (right-padded prefill) and the dense KV cache
-([L, B, S, Hk, D], updated IN PLACE, where the JAX package returns a new
-cache). Paged and ragged caches, ring attention, LoRA and packed-training
-segment ids belong to later slices.
+over them with the JAX function's arguments. Attention paths ported: no
+cache (right-padded prefill), the dense KV cache ([L, B, S, Hk, D]), and the
+paged pool ([L, P, page_size, Hk, D] addressed through block tables, in
+per-row and packed ragged form). Caches are updated IN PLACE where the JAX
+package returns a new cache. Quantized pools, ring attention, LoRA and
+packed-training segment ids belong to later slices.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from oryx_tpu_torch.models.params import (
     materialize,
     resolve_device,
 )
+from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.attention import attention
+from oryx_tpu_torch.ops.cuda import paged_attention
 from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
 from oryx_tpu_torch.ops.norms import RMSNorm
 from oryx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -85,6 +88,25 @@ def init_kv_cache(
     }
 
 
+def init_paged_kv_cache(
+    cfg: LLMConfig, num_pages: int, page_size: int,
+    dtype: torch.dtype = torch.bfloat16, device="cuda",
+) -> dict[str, torch.Tensor]:
+    """Page-pool cache {"k", "v"}: [L, P, page_size, Hk, D] zeros, dense in
+    `dtype` (ops/paged_kv.init_paged_pool: each layer has a sink page
+    behind it for dropped writes). Rows address it through the block
+    tables passed to `forward`."""
+    device = resolve_device(device)
+
+    def pool():
+        return paged_kv.init_paged_pool(
+            cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+            cfg.head_dim, dtype=dtype, device=device,
+        )
+
+    return {"k": pool(), "v": pool()}
+
+
 def _cache_write(cache_layer: torch.Tensor, new: torch.Tensor,
                  slots: torch.Tensor) -> None:
     """Write new [B, T, Hk, D] into cache [B, S, Hk, D] at per-row start
@@ -127,9 +149,15 @@ def _block(
     write_slots: torch.Tensor | None,
     kv_mask: torch.Tensor | None,
     attn_fn,
+    block_tables: torch.Tensor | None = None,
+    write_index: torch.Tensor | None = None,
+    kv_lengths: torch.Tensor | None = None,
+    q_segments: torch.Tensor | None = None,
+    attn_impl: str = "xla",
 ) -> torch.Tensor:
     """One decoder block. h: [B, T, H]; writes k/v into the cache layer
-    views in place when given."""
+    views in place when given (a paged layer at `write_index`, the pool
+    rows `forward` computed once for every layer)."""
     B, T, _ = h.shape
     x = lp.input_norm(h)
     q = _linear(x, lp.q_proj).view(B, T, cfg.num_heads, cfg.head_dim)
@@ -137,7 +165,41 @@ def _block(
     v = _linear(x, lp.v_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
 
-    if cache_k is not None:
+    if cache_k is not None and block_tables is not None:
+        rows = (B * T, cfg.num_kv_heads, cfg.head_dim)
+        paged_kv.scatter_rows(cache_k, write_index, k.reshape(rows))
+        paged_kv.scatter_rows(cache_v, write_index, v.reshape(rows))
+    if cache_k is not None and block_tables is not None and (
+        q_segments is not None
+    ):
+        # Packed ragged mode: the T axis is one buffer of rows from many
+        # sequences; each row reads through the table of its own segment,
+        # causally at its own position.
+        ragged = (
+            paged_attention.ragged_paged_attention if attn_impl == "pallas"
+            else paged_kv.ragged_paged_attention
+        )
+        attn_out = ragged(
+            q[0], cache_k, cache_v, block_tables, q_segments[0], positions[0]
+        )[None]
+    elif cache_k is not None and block_tables is not None:
+        if attn_impl == "pallas" and T == 1 and kv_lengths is not None:
+            # Decode: pages read in place through the block table.
+            attn_out = paged_attention.ragged_decode_attention(
+                q, cache_k, cache_v, block_tables, kv_lengths
+            )
+        else:
+            # Plain path and any T > 1 paged prefill: gather the logical
+            # stream, then the cached-attention call of the dense cache.
+            attn_out = attn_fn(
+                q,
+                paged_kv.gather_pages(cache_k, block_tables),
+                paged_kv.gather_pages(cache_v, block_tables),
+                q_positions=positions,
+                kv_positions=None,
+                kv_mask=kv_mask,
+            )
+    elif cache_k is not None:
         _cache_write(cache_k, k, write_slots)
         _cache_write(cache_v, v, write_slots)
         attn_out = attn_fn(
@@ -185,6 +247,10 @@ def forward(
     kv_cache: dict[str, torch.Tensor] | None = None,
     write_slots: torch.Tensor | None = None,
     kv_mask: torch.Tensor | None = None,
+    block_tables: torch.Tensor | None = None,
+    write_mask: torch.Tensor | None = None,
+    kv_lengths: torch.Tensor | None = None,
+    q_segments: torch.Tensor | None = None,
     attn_impl: str = "xla",
     compute_dtype: torch.dtype | None = None,
     logits_dtype: torch.dtype = torch.float32,
@@ -201,6 +267,19 @@ def forward(
         first-slot indices, default positions[:, 0]) and attention runs over
         the whole cache with `kv_mask` [B, S] validity.
       kv_mask: without a cache, [B, T] padding mask; with one, [B, S].
+      block_tables: paged mode - kv_cache is from `init_paged_kv_cache` and
+        row b's logical slots map through block_tables[b] ([B, max_pages],
+        sentinel = P); kv_mask then spans the logical stream
+        [B, max_pages * page_size]. write_mask [B] gates the rows' writes;
+        kv_lengths [B] (valid kv count incl. the current token) sends a
+        single-token step under attn_impl="pallas" to the paged decode
+        kernel.
+      q_segments: packed ragged mode ([1, T], needs block_tables): the T
+        axis packs rows of many sequences, q_segments names each row's
+        slot, `positions` its absolute position, block_tables is
+        [num_slots, max_pages] and write_mask is per row [1, T]. Each row
+        writes through its slot's table and attends its slot's pages
+        causally at its own position (kv_mask/kv_lengths unused).
       return_hidden: return the final-norm hidden states instead of logits
         (callers project only the rows they need, `logits_from_hidden`).
 
@@ -221,7 +300,29 @@ def forward(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     if kv_cache is not None and write_slots is None:
         write_slots = positions[:, 0]
+    if q_segments is not None:
+        if block_tables is None or kv_cache is None:
+            raise ValueError(
+                "q_segments (packed ragged serving) requires a paged "
+                "kv_cache with block_tables"
+            )
+        if B != 1:
+            raise ValueError(
+                f"q_segments packs many sequences into ONE row; got B={B}"
+            )
     attn_fn = _attn_fn(attn_impl)
+    index = None
+    if kv_cache is not None and block_tables is not None:
+        P, ps = kv_cache["k"].shape[1:3]
+        if q_segments is not None:
+            index = paged_kv.write_index_packed(
+                P, ps, block_tables, q_segments[0], positions[0],
+                write_mask=None if write_mask is None else write_mask[0],
+            )
+        else:
+            index = paged_kv.write_index(
+                P, ps, block_tables, write_slots, T, write_mask=write_mask
+            )
 
     for i, lp in enumerate(params.layers):
         h = _block(
@@ -232,6 +333,11 @@ def forward(
             write_slots=write_slots,
             kv_mask=kv_mask,
             attn_fn=attn_fn,
+            block_tables=block_tables,
+            write_index=index,
+            kv_lengths=kv_lengths,
+            q_segments=q_segments,
+            attn_impl=attn_impl,
         )
 
     h = params.final_norm(h)

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` is compiled with nvcc into a shared library with a
 plain C interface, at first use, into `oryx_tpu_torch/_build/` (listed in
 .gitignore), and loaded with ctypes. The library file is named after a hash
 of its source and flags, so an edited kernel is rebuilt and a stale one is
-never loaded. An exclusive file lock serializes concurrent builds across
-processes. A failed compile or load raises: there is no fallback.
+never loaded. An exclusive file lock per source serializes concurrent
+builds of it across processes (different sources build in parallel). A
+failed compile or load raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def build(name: str) -> Path:
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lf:
+    with open(BUILD_DIR / f".{name}.lock", "w") as lf:
         fcntl.flock(lf, fcntl.LOCK_EX)
         if out.exists():  # another process built it while we waited
             return out

@@ -1,0 +1,191 @@
+"""Paged attention: the hand-written Hopper kernels K3/K4 and their plain
+twins.
+
+Port of the Pallas TPU kernels `oryx_tpu.ops.pallas.paged_attention`
+(`ragged_decode_attention` -> `_paged_decode`, K3; `ragged_paged_attention`
+-> `_ragged_paged`, K4). The CUDA source is
+`oryx_tpu_torch/csrc/paged_attention.cu`; see its header for the layout and
+what bounds it. K3 is a front end over K4's kernel (segment = row, length =
+kv_lengths).
+
+The wrappers have the Pallas wrappers' signatures. Only the innermost call
+depends on the device:
+  * CUDA tensors -> the kernel (bf16 or fp32), or a raise;
+  * CPU tensors  -> the plain twins in `ops/paged_kv.py` (gather the pages,
+    plain attention).
+The TPU grid table (`heads_per_block` and its autotuner) is VMEM tuning
+and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from oryx_tpu_torch.ops import paged_kv
+from oryx_tpu_torch.ops.cuda import build
+
+# Kernel launches, keyed by (kernel, R, Hk, G, D, P, page_size, max_pages).
+# Only `_launch` adds to it, once per launch.
+LAUNCHES: collections.Counter = collections.Counter()
+
+GMAX = 16  # q heads per kv head one kernel tile holds
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C argument lists: q, k, v, o, q row stride, block tables, the int [R]
+# operands, the shape ints, scale, bf16, stream.
+_ARGTYPES = {
+    "paged_decode": [_P] * 4 + [ctypes.c_longlong] + [_P] * 2 + [_I] * 7
+    + [ctypes.c_float, _I, _P],
+    "ragged_paged": [_P] * 4 + [ctypes.c_longlong] + [_P] * 3 + [_I] * 8
+    + [ctypes.c_float, _I, _P],
+}
+_fns: dict[str, object] = {}
+
+
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load("paged_attention"), f"oryx_{name}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _check_ints(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
+    if (
+        x.dtype != torch.int32 or tuple(x.shape) != shape
+        or not x.is_contiguous() or x.device != dev
+    ):
+        raise ValueError(
+            f"{name}: need contiguous int32 {list(shape)} on {dev}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+
+
+def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
+    """Launch `name` ("paged_decode" or "ragged_paged") on q [R, Hq, D].
+    `ints` are the kernel's int32 [R] operands: (kv_lengths,) or
+    (q_segments, q_positions). Returns o [R, Hq, D] in q's dtype."""
+    R, Hq, D = q.shape
+    P, ps, Hk, _ = k_pages.shape
+    S, maxp = block_tables.shape
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+        x.dtype != q.dtype for x in (k_pages, v_pages)
+    ):
+        raise ValueError(
+            f"q/k/v dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}: need "
+            "all bf16 or all fp32"
+        )
+    if tuple(v_pages.shape) != (P, ps, Hk, D) or k_pages.shape[3] != D:
+        raise ValueError(
+            f"pages k {tuple(k_pages.shape)} v {tuple(v_pages.shape)} do not "
+            f"match q {tuple(q.shape)}"
+        )
+    if Hq % Hk or Hq // Hk > GMAX or D > 128:
+        raise ValueError(
+            f"Hq={Hq} Hk={Hk} D={D}: need Hq % Hk == 0, Hq // Hk <= {GMAX} "
+            "and D <= 128"
+        )
+    bf16 = q.dtype == torch.bfloat16
+    for nm, x in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{nm}: need a contiguous tensor on {dev}")
+        if bf16 and x.data_ptr() % 16:
+            raise ValueError(f"{nm}: the bf16 kernel needs 16-byte alignment")
+    if bf16 and D % 8:
+        raise ValueError(f"D={D}: the bf16 kernel needs D % 8 == 0")
+    if q.stride(2) != 1 or q.stride(1) != D:
+        raise ValueError("q: heads and features must be contiguous")
+    _check_ints("block_tables", block_tables, (S, maxp), dev)
+    for i, x in enumerate(ints):
+        _check_ints(f"int operand {i}", x, (R,), dev)
+    if name == "paged_decode" and S != R:
+        raise ValueError(f"block_tables has {S} rows for {R} queries")
+
+    o = torch.empty((R, Hq, D), dtype=q.dtype, device=dev)
+    G = Hq // Hk
+    extra = (S,) if name == "ragged_paged" else ()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn(name)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            o.data_ptr(), q.stride(0), block_tables.data_ptr(),
+            *(x.data_ptr() for x in ints),
+            R, Hk, G, D, P, ps, *extra, maxp, float(scale), int(bf16),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {err} (q "
+            f"{tuple(q.shape)} {q.dtype}, pages {tuple(k_pages.shape)})"
+        )
+    LAUNCHES[(name, R, Hk, G, D, P, ps, maxp)] += 1
+    return o
+
+
+def _i32(x: torch.Tensor, dev) -> torch.Tensor:
+    return x.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def ragged_decode_attention(
+    q,  # [B, 1, Hq, D] or [B, Hq, D]
+    k_pages,  # [P, page_size, Hk, D]
+    v_pages,
+    block_tables,  # [B, max_pages] int (sentinel >= P for unallocated)
+    kv_lengths,  # [B] valid kv count INCLUDING the current token
+    *,
+    scale: float | None = None,
+):
+    """K3: drop-in for ops.paged_kv.ragged_decode_attention; pages are read
+    in place through the block table."""
+    squeezed = q.dim() == 3
+    if q.device.type == "cpu":
+        return paged_kv.ragged_decode_attention(
+            q, k_pages, v_pages, block_tables, kv_lengths, scale=scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_decode_attention: unsupported {q.device}")
+    q3 = q if squeezed else q[:, 0]
+    if not squeezed and q.shape[1] != 1:
+        raise ValueError(f"paged decode is single-token (got Tq={q.shape[1]})")
+    D = q3.shape[-1]
+    out = _launch(
+        "paged_decode", q3, k_pages, v_pages, _i32(block_tables, q.device),
+        (_i32(kv_lengths, q.device),), D**-0.5 if scale is None else scale,
+    )
+    return out if squeezed else out[:, None]
+
+
+def ragged_paged_attention(
+    q,  # [R, Hq, D] packed query rows
+    k_pages,  # [P, page_size, Hk, D]
+    v_pages,
+    block_tables,  # [S, max_pages] int (sentinel >= P for unallocated)
+    q_segments,  # [R] owning slot per packed row
+    q_positions,  # [R] absolute position per packed row
+    *,
+    scale: float | None = None,
+):
+    """K4: drop-in for ops.paged_kv.ragged_paged_attention: R packed rows
+    with mixed query lengths, each reading its own sequence's pages in
+    place through the block table."""
+    if q.device.type == "cpu":
+        return paged_kv.ragged_paged_attention(
+            q, k_pages, v_pages, block_tables, q_segments, q_positions,
+            scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_attention: unsupported {q.device}")
+    dev = q.device
+    return _launch(
+        "ragged_paged", q, k_pages, v_pages, _i32(block_tables, dev),
+        (_i32(q_segments, dev), _i32(q_positions, dev)),
+        q.shape[-1] ** -0.5 if scale is None else scale,
+    )

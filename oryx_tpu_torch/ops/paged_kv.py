@@ -1,0 +1,394 @@
+"""Paged KV cache: fixed-size pages, block tables, ragged attention (port of
+`oryx_tpu.ops.paged_kv`, dense pools).
+
+K/V of every sequence live in one pool of fixed-size pages per layer
+([num_pages, page_size, Hk, D]); a sequence owns an ordered list of page
+indices, its block table. Logical slot `s` of a sequence lives at page
+`block_table[s // page_size]`, offset `s % page_size`. Unallocated table
+entries hold the allocator's sentinel (== num_pages).
+
+Out-of-range semantics are the JAX package's, made explicit (PyTorch raises
+on the CPU and device-asserts on CUDA where XLA drops or clips):
+  * writes routed through the sentinel, and rows whose write mask is off,
+    are DROPPED: they land in a sink page that `init_paged_pool` places
+    right after each layer's last page and that nothing ever reads, so a
+    masked row costs no branch and no host sync;
+  * writes to a slot past the block table's width are dropped too. (The
+    JAX writers differ there: the per-row one reads the table with fill
+    semantics and lands such a slot in page 0, which may belong to another
+    sequence; the packed one clamps it into the row's last page. A decode
+    chunk that runs past max_ctx, or a prefill window that overshoots it,
+    makes such writes; what they carry is never read.)
+  * gathers CLIP to the last real page (P - 1); whatever they read is past
+    every row's valid length and masked out of attention.
+
+Pieces:
+  * `PageAllocator`: the host-side free list with refcounts and owner tags.
+  * `write_pages` / `write_pages_packed` / `gather_pages`: page I/O (the
+    writers' pool-row index, `write_index` / `write_index_packed`, is the
+    same for every layer; the model computes it once per forward and
+    each layer only scatters, `scatter_rows`).
+  * `ragged_decode_attention` / `ragged_paged_attention`: the plain PyTorch
+    twins of the hand-written paged kernels K3/K4
+    (ops/cuda/paged_attention.py): gather the rows' pages into a
+    contiguous stream and run the plain attention.
+  * `stop_window_hit`: the device-side stop predicate of the decode steps.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from oryx_tpu_torch.ops.attention import attention
+
+
+class OutOfPagesError(RuntimeError):
+    """The free list cannot satisfy an allocation (caller should evict or
+    defer admission: a scheduling signal, not a crash)."""
+
+
+class PageAllocator:
+    """Host-side free-list allocator over `num_pages` fixed-size pages, with
+    per-page reference counts.
+
+    LIFO recycling: freshly freed pages are handed out first. Allocation is
+    all-or-nothing, so a failed admission never leaks a partial block table.
+    `alloc` hands out pages at refcount 1, `share` adds a holder, `free`
+    drops one; a page returns to the free list at refcount 0. Freeing an
+    unallocated page, or more references than a page holds, raises with the
+    page id before anything changes. Every reference carries an owner tag
+    (accounting only; an untagged transition stamps "?").
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 1 or page_size < 1:
+            raise ValueError(
+                f"need >= 1 page/slot, got {num_pages=} {page_size=}"
+            )
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self._free: list[int] = list(range(num_pages - 1, -1, -1))
+        self._refs: list[int] = [0] * num_pages
+        self._owners: list[list[str]] = [[] for _ in range(num_pages)]
+        # Low-water mark of the free list since construction.
+        self.min_free: int = num_pages
+
+    @property
+    def sentinel(self) -> int:
+        """Block-table filler for unallocated entries: one past the pool
+        (writes drop, gathers clip)."""
+        return self.num_pages
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def pages_for(self, num_tokens: int) -> int:
+        """Pages needed to hold `num_tokens` KV slots."""
+        return max(0, -(-num_tokens // self.page_size))
+
+    def _check_page(self, page: int) -> None:
+        if not 0 <= page < self.num_pages:
+            raise ValueError(f"page {page} outside pool of {self.num_pages}")
+
+    def alloc(self, n: int, *, owner: str | None = None) -> list[int]:
+        if n > len(self._free):
+            raise OutOfPagesError(
+                f"need {n} pages, {len(self._free)} free of {self.num_pages}"
+            )
+        if n <= 0:
+            return []
+        out = self._free[-n:][::-1]
+        del self._free[-n:]
+        tag = owner or "?"
+        for p in out:
+            self._refs[p] = 1
+            self._owners[p] = [tag]
+        self.min_free = min(self.min_free, len(self._free))
+        return out
+
+    def share(self, pages: list[int], *, owner: str | None = None) -> None:
+        """Add one reference per page. All-or-nothing: sharing a free page
+        raises with the page id before anything changes."""
+        for p in pages:
+            self._check_page(p)
+            if self._refs[p] <= 0:
+                raise ValueError(f"share of unallocated page {p}")
+        tag = owner or "?"
+        for p in pages:
+            self._refs[p] += 1
+            self._owners[p].append(tag)
+
+    def free(self, pages: list[int], *, owner: str | None = None) -> None:
+        """Drop one reference per page; pages reaching refcount 0 return to
+        the free list (in `pages` order, LIFO-recycled). Raises with the
+        page id, before changing anything, on a double free or when one
+        call drops more references to a page than it holds. `owner`
+        removes that holder's tag (else the most recent one)."""
+        for p, n in Counter(pages).items():
+            self._check_page(p)
+            if self._refs[p] <= 0:
+                raise ValueError(f"double free of page {p}")
+            if n > self._refs[p]:
+                raise ValueError(
+                    f"freeing {n} references to page {p}, which holds "
+                    f"only {self._refs[p]}"
+                )
+        released = []
+        for p in pages:
+            self._refs[p] -= 1
+            tags = self._owners[p]
+            if owner is not None and owner in tags:
+                tags.remove(owner)
+            elif tags:
+                tags.pop()
+            if self._refs[p] == 0:
+                released.append(p)
+        self._free.extend(reversed(released))
+
+    def check_invariant(self, holders=None) -> None:
+        """Pool accounting invariant; raises RuntimeError on violation.
+
+        Always: the free list and the refcounts partition the pool. With
+        `holders` (one page list per live holder), also: every page's
+        refcount equals its holder count (nothing leaked, nothing
+        double-held)."""
+        allocated = {p for p, r in enumerate(self._refs) if r > 0}
+        if any(r < 0 for r in self._refs):
+            raise RuntimeError(f"negative refcount: {self._refs}")
+        free_set = set(self._free)
+        if len(free_set) != len(self._free):
+            raise RuntimeError(f"duplicate pages in free list: {self._free}")
+        if free_set & allocated:
+            raise RuntimeError(
+                f"pages both free and allocated: {sorted(free_set & allocated)}"
+            )
+        if len(self._free) + len(allocated) != self.num_pages:
+            raise RuntimeError(
+                f"pool accounting broken: {len(self._free)} free + "
+                f"{len(allocated)} allocated != {self.num_pages} pages"
+            )
+        if holders is None:
+            return
+        held: Counter = Counter()
+        for pages in holders:
+            held.update(int(p) for p in pages)
+        for p in range(self.num_pages):
+            if held.get(p, 0) != self._refs[p]:
+                raise RuntimeError(
+                    f"page {p}: refcount {self._refs[p]} but "
+                    f"{held.get(p, 0)} holders"
+                )
+
+
+def init_paged_pool(
+    num_layers: int, num_pages: int, page_size: int, num_kv_heads: int,
+    head_dim: int, *, dtype: torch.dtype, device,
+) -> torch.Tensor:
+    """One zeroed pool plane [L, P, page_size, Hk, D]: a view of a buffer
+    holding one more page per layer, the sink that dropped writes land in
+    (never read; gathers clip to P - 1 and the kernels clamp there too)."""
+    buf = torch.zeros(
+        (num_layers, num_pages + 1, page_size, num_kv_heads, head_dim),
+        dtype=dtype, device=device,
+    )
+    return buf[:, :num_pages]
+
+
+def _rows_with_sink(cache_layer: torch.Tensor) -> torch.Tensor:
+    """[P * ps + 1, Hk, D] row view of a layer from `init_paged_pool`: row
+    P * ps is the first row of the layer's sink page. Raises for a tensor
+    that has no sink behind it."""
+    P, ps, Hk, D = cache_layer.shape
+    row = Hk * D
+    if cache_layer.stride() != (ps * row, row, D, 1):
+        raise ValueError(
+            "cache_layer must be a contiguous [P, page_size, Hk, D] layer "
+            "of a pool made by init_paged_pool"
+        )
+    end = cache_layer.storage_offset() + (P * ps + 1) * row
+    if cache_layer.untyped_storage().nbytes() < end * cache_layer.element_size():
+        raise ValueError(
+            "cache_layer has no sink page behind it: make the pool with "
+            "init_paged_pool (dropped writes need somewhere to land)"
+        )
+    return cache_layer.as_strided((P * ps + 1, Hk, D), (row, D, 1))
+
+
+def write_index(
+    num_pages: int, page_size: int,
+    block_tables: torch.Tensor,  # [B, max_pages] int (sentinel = P)
+    start: torch.Tensor,  # [B] first logical slot per row
+    T: int,
+    *,
+    write_mask: torch.Tensor | None = None,  # [B] bool rows that may write
+) -> torch.Tensor:
+    """Pool rows [B * T] ((b, t) row-major) that T contiguous tokens per
+    row land on: token t of row b at logical slot start[b] + t, page
+    block_tables[b, slot // page_size], offset slot % page_size. A dropped
+    write (write_mask False, a sentinel page, a slot past the table's
+    width) gets the sink row P * page_size. The same for every layer, so a
+    forward computes it once."""
+    P, ps = num_pages, page_size
+    maxp = block_tables.shape[1]
+    slots = start.long()[:, None] + torch.arange(T, device=start.device)
+    col = torch.div(slots, ps, rounding_mode="floor")
+    page = torch.gather(block_tables.long(), 1, col.clamp(0, maxp - 1))
+    ok = (col < maxp) & (page >= 0) & (page < P)
+    if write_mask is not None:
+        ok = ok & write_mask.bool()[:, None]
+    return torch.where(ok, page * ps + slots % ps, P * ps).reshape(-1)
+
+
+def write_index_packed(
+    num_pages: int, page_size: int,
+    block_tables: torch.Tensor,  # [S, max_pages] int (sentinel = P)
+    q_segments: torch.Tensor,  # [R] owning slot per packed row
+    q_positions: torch.Tensor,  # [R] logical slot index per row
+    *,
+    write_mask: torch.Tensor | None = None,  # [R] bool rows that may write
+) -> torch.Tensor:
+    """Pool rows [R] of R packed tokens, each routed through its own
+    sequence's table: row r at logical slot q_positions[r] of sequence
+    q_segments[r] (clamped into [0, S - 1]); the sink row P * page_size for
+    a dropped write, as in `write_index`."""
+    P, ps = num_pages, page_size
+    S, maxp = block_tables.shape
+    seg = torch.clamp(q_segments.long(), 0, S - 1)
+    pos = q_positions.long()
+    col = torch.div(pos, ps, rounding_mode="floor")
+    page = block_tables.long()[seg, col.clamp(0, maxp - 1)]
+    ok = (col >= 0) & (col < maxp) & (page >= 0) & (page < P)
+    if write_mask is not None:
+        ok = ok & write_mask.bool()
+    return torch.where(ok, page * ps + pos % ps, P * ps)
+
+
+def scatter_rows(cache_layer: torch.Tensor, index: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """pool_rows[index[i]] = new[i] ([N, Hk, D] rows), IN PLACE, with an
+    index from `write_index` / `write_index_packed`."""
+    rows = _rows_with_sink(cache_layer)
+    rows.index_put_((index,), new.to(rows.dtype))
+
+
+def write_pages(
+    cache_layer: torch.Tensor,  # [P, page_size, Hk, D] (init_paged_pool)
+    new: torch.Tensor,  # [B, T, Hk, D]
+    block_tables: torch.Tensor,  # [B, max_pages] int (sentinel = P)
+    start: torch.Tensor,  # [B] first logical slot per row
+    *,
+    write_mask: torch.Tensor | None = None,  # [B] bool rows that may write
+) -> torch.Tensor:
+    """Write T contiguous tokens per row into the page pool, IN PLACE (see
+    `write_index` for where each lands and which writes drop). Returns the
+    layer."""
+    P, ps, Hk, D = cache_layer.shape
+    B, T = new.shape[:2]
+    index = write_index(P, ps, block_tables, start, T, write_mask=write_mask)
+    scatter_rows(cache_layer, index, new.reshape(B * T, Hk, D))
+    return cache_layer
+
+
+def write_pages_packed(
+    cache_layer: torch.Tensor,  # [P, page_size, Hk, D] (init_paged_pool)
+    new: torch.Tensor,  # [R, Hk, D] packed new K or V rows
+    block_tables: torch.Tensor,  # [S, max_pages] int (sentinel = P)
+    q_segments: torch.Tensor,  # [R] owning slot per packed row
+    q_positions: torch.Tensor,  # [R] logical slot index per row
+    *,
+    write_mask: torch.Tensor | None = None,  # [R] bool rows that may write
+) -> torch.Tensor:
+    """Write R packed tokens into the pool, IN PLACE, each through its own
+    sequence's block table (see `write_index_packed`). Returns the layer."""
+    P, ps = cache_layer.shape[:2]
+    index = write_index_packed(
+        P, ps, block_tables, q_segments, q_positions, write_mask=write_mask
+    )
+    scatter_rows(cache_layer, index, new)
+    return cache_layer
+
+
+def gather_pages(
+    cache_layer: torch.Tensor,  # [P, page_size, Hk, D]
+    block_tables: torch.Tensor,  # [B, max_pages]
+) -> torch.Tensor:
+    """Each row's logical KV stream [B, max_pages * page_size, Hk, D].
+    Sentinel entries clip to the last real page; what they read is past
+    every row's valid length and masked out of attention."""
+    P, ps, Hk, D = cache_layer.shape
+    B, maxp = block_tables.shape
+    idx = torch.clamp(block_tables.long(), 0, P - 1)
+    return cache_layer[idx].reshape(B, maxp * ps, Hk, D)
+
+
+def ragged_decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D] (or [B, Hq, D])
+    k_pages: torch.Tensor,  # [P, page_size, Hk, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages]
+    kv_lengths: torch.Tensor,  # [B] valid kv count INCLUDING the current token
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain twin of K3: single-token paged decode attention. Each query
+    attends to its own ragged KV prefix through its block table. Returns
+    [B, 1, Hq, D] (or [B, Hq, D], matching q)."""
+    squeezed = q.dim() == 3
+    if squeezed:
+        q = q[:, None]
+    K = block_tables.shape[1] * k_pages.shape[1]
+    k = gather_pages(k_pages, block_tables)
+    v = gather_pages(v_pages, block_tables)
+    lengths = kv_lengths.long()
+    kv_mask = torch.arange(K, device=q.device)[None, :] < lengths[:, None]
+    out = attention(
+        q, k, v, causal=True,
+        q_positions=(lengths - 1)[:, None],
+        kv_positions=None,  # arange over logical slots == absolute positions
+        kv_mask=kv_mask.int(), scale=scale,
+    )
+    return out[:, 0] if squeezed else out
+
+
+def stop_window_hit(
+    recent: torch.Tensor,  # [S, stop_L] rolling recent-token window
+    stop_sequences: torch.Tensor | None,  # [Sq, stop_L] (-1 = wildcard)
+) -> torch.Tensor:
+    """Row s is True when its window's tail matches ANY stop sequence
+    (right-aligned; -1 template entries are wildcards). The window starts
+    at -2, which matches nothing. Returns [S] bool."""
+    if stop_sequences is None:
+        return torch.zeros(recent.shape[0], dtype=torch.bool,
+                           device=recent.device)
+    m = (stop_sequences[None] == -1) | (recent[:, None, :] == stop_sequences[None])
+    return torch.any(torch.all(m, dim=-1), dim=-1)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,  # [R, Hq, D] packed query rows
+    k_pages: torch.Tensor,  # [P, page_size, Hk, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, max_pages]
+    q_segments: torch.Tensor,  # [R] owning slot per packed row
+    q_positions: torch.Tensor,  # [R] absolute position per row
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain twin of K4: packed ragged paged attention. Row r attends to
+    the KV prefix of sequence q_segments[r] (clamped into [0, S - 1]),
+    causally at its own position: slot j is visible iff
+    j <= q_positions[r]. A decode row and a chunked-prefill row are the
+    same case under this mask. Returns [R, Hq, D]."""
+    S = block_tables.shape[0]
+    seg = torch.clamp(q_segments.long(), 0, S - 1)
+    k_r = gather_pages(k_pages, block_tables)[seg]  # [R, K, Hk, D]
+    v_r = gather_pages(v_pages, block_tables)[seg]
+    out = attention(
+        q[:, None], k_r, v_r, causal=True,
+        q_positions=q_positions.long()[:, None],
+        kv_positions=None, scale=scale,
+    )
+    return out[:, 0]

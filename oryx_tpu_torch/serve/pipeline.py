@@ -48,6 +48,43 @@ def stop_cut(text: str, stops: Sequence[str]) -> tuple[str, bool]:
     return (text[:cut], True) if cut >= 0 else (text, False)
 
 
+def stop_token_count(
+    tokenizer, emitted: Sequence[int], stops: Sequence[str],
+    chunk_start: int,
+) -> int:
+    """Minimal token-prefix length of `emitted` whose decoded text contains
+    a stop string (completion counts through the token completing the
+    stop). The stop completed in the tokens from `chunk_start` on (earlier
+    prefixes were checked clean), so only that tail is scanned."""
+    for k in range(chunk_start + 1, len(emitted) + 1):
+        if stop_cut(
+            tokenizer.decode(list(emitted[:k]), skip_special_tokens=True),
+            stops,
+        )[1]:
+            return k
+    return len(emitted)
+
+
+def stable_text_prefix(text: str, stops: Sequence[str]) -> str:
+    """The prefix of `text` that can never change as more tokens decode:
+    hold back an incomplete UTF-8 tail (U+FFFD), any suffix that could grow
+    into a stop string, and leading/trailing whitespace (replies are
+    stripped at both ends; rstripped text re-emits once non-whitespace
+    follows)."""
+    text = text.lstrip()
+    while text.endswith("�"):
+        text = text[:-1]
+    held = 0
+    for s in stops:
+        for i in range(len(s) - 1, 0, -1):
+            if text.endswith(s[:i]):
+                held = max(held, i)
+                break
+    if held:
+        text = text[: len(text) - held]
+    return text.rstrip()
+
+
 class Pipeline:
     """Chat interface over a loaded model on one device.
 
@@ -198,6 +235,33 @@ class Pipeline:
         return (
             ids, images, [factor] * len(images), [per_img_cap] * len(images)
         )
+
+    def _prompt_embeds(self, cfg, ids, imgs, factors, caps
+                       ) -> tuple[torch.Tensor, int]:
+        """One prompt row -> (decoder input embeds [1, T_bucket, H] on the
+        pipeline's device, real length): the prompt prep of the serving
+        engine (ViT + compressor + splice for a multimodal prompt, the
+        embedding lookup of the bucketed ids for text)."""
+        if imgs:
+            packed = packing.pack_raw_images(
+                imgs, patch_size=cfg.vision.patch_size,
+                base_grid=cfg.vision.base_grid,
+                side_factors=factors, max_patches=caps,
+            )
+            batch = splice.build_mm_batch([ids], splice.query_slots(packed))
+            embeds = oryx.mm_embeds(
+                self.params, cfg,
+                oryx.stage_mm_arrays(packed, batch, self.device),
+            )
+            return embeds, int(batch.lengths[0])
+        L = len(ids)
+        rows = np.zeros((1, packing.round_up_bucket(L)), np.int64)
+        rows[0, :L] = ids
+        with torch.inference_mode():
+            embeds = self.params.llm.embed.weight[
+                torch.from_numpy(rows).to(self.device)
+            ]
+        return embeds, L
 
     def pack_requests(
         self, requests: Sequence[dict[str, Any]]

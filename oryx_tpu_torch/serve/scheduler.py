@@ -1,0 +1,898 @@
+"""Continuous-batching scheduler over the paged decode path (port of
+`oryx_tpu.serve.scheduler.ContinuousScheduler`, the engine core).
+
+A slot array + an admission queue around one pipeline:
+
+  * The device runs one fixed-shape step forever: `paged_decode_chunk` over
+    `num_slots` rows, `chunk` tokens per dispatch. Which request owns a
+    slot is host state (block tables, lengths, per-slot sampling) edited
+    between chunks.
+  * A request is admitted the moment a slot AND enough KV pages are free:
+    its prompt (text or multimodal, the pipeline's prompt prep) prefills
+    into its own pages (`paged_prefill`) and it decodes from the next
+    chunk on, mid-flight of everyone else.
+  * A finished row's pages return to the free list at the chunk boundary
+    and the head of the queue takes the slot.
+  * Per-slot sampling state and per-request generators mean mixed
+    sampling configs share the step and a row's samples never depend on
+    its neighbours, which is what makes EVICTION sound: when the page
+    pool runs dry the youngest slot is evicted and requeued, and its
+    replay (same generator seed, same prompt) re-emits the same tokens,
+    which `_Request.replay` skips so the client stream never repeats.
+
+EOS and the template stop are detected on the device (the step freezes
+finished rows); request stop strings and max_tokens are enforced on the
+host at harvest, with the trim / stable-prefix text rules of the
+pipeline.
+
+Ragged mode (`ragged=True`): `_prefill_step` + `_step_chunk` fuse into
+`_ragged_step`, ONE dispatch per engine step (`paged_ragged_step`) whose
+packed rows carry every live slot's decode token plus `pf_width` prompt
+tokens of the one admitting request.
+
+Threads: `submit` runs on any thread; the engine loop (`_run`) runs on its
+own. They share only the queue and the shutdown flag, under `_cond`. The
+loop syncs with the device once per dispatch, at the harvest.
+
+Not ported yet: the prefix cache (splice, copy-on-write, host spill),
+int8 pools, speculation and the fused megastep, the metrics registry,
+traces, journal, audit, numerics probes, profiling, deadlines, degraded
+modes, watchdog and forensics, meshes, and supervised restart/drain.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from oryx_tpu_torch.models import generate as generate_lib
+from oryx_tpu_torch.models import oryx, qwen2
+from oryx_tpu_torch.ops import paged_kv
+from oryx_tpu_torch.serve import pipeline as pipeline_lib
+
+
+class AdmissionRejected(RuntimeError):
+    """submit() refused the request without queueing it: the bounded queue
+    is full ("backpressure") or the scheduler is closed ("closed")."""
+
+    def __init__(self, message: str, *, reason: str,
+                 retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.reason = reason
+        self.retry_after_s = retry_after_s
+
+
+class RequestHandle:
+    """Consumer side of a scheduled request.
+
+    `events` carries ("delta", text), ("end", finish_reason, usage) or
+    ("error", message), at most one terminal event. `result()` blocks for
+    the terminal event and returns the assembled reply. Setting
+    `cancelled` releases the slot at the next harvest or prefill step.
+    """
+
+    def __init__(self, request_id: str = "") -> None:
+        self.events: queue.Queue[tuple] = queue.Queue()
+        self.done = threading.Event()
+        self.reply: str | None = None
+        self.finish_reason: str = "stop"
+        self.usage: tuple[int, int] | None = None
+        self.error: str | None = None
+        # "invalid_request" = rejected at admission, "server_error" =
+        # anything else.
+        self.error_kind: str = "server_error"
+        self.cancelled = False
+        self.streaming = False
+        self.debug: dict[str, Any] = {}
+        self.request_id = request_id
+
+    def result(self, timeout: float | None = None):
+        """(reply, finish_reason, usage) or raises RuntimeError."""
+        if not self.done.wait(timeout):
+            raise TimeoutError("request did not complete in time")
+        if self.error is not None:
+            raise RuntimeError(self.error)
+        return self.reply, self.finish_reason, self.usage
+
+
+@dataclasses.dataclass
+class _Request:
+    request: dict[str, Any]
+    max_new: int
+    sampling: dict[str, Any]
+    handle: RequestHandle
+    submit_time: float
+    stops: list[str]
+    # Filled at first admission and kept, so an evicted request never
+    # re-runs the prompt prep: decoder embeds [1, T_bucket, H] on the
+    # pool's device, the real length, the sampling knobs.
+    embeds: Any = None
+    embeds_p: Any = None  # chunk-padded embeds (pad_embeds_for_chunks)
+    length: int = 0
+    seed: int = 0
+    temp: float = 0.0
+    topp: float = 1.0
+    topk: int = 0
+    # Per placement: the sampling generator (None = greedy), made from
+    # `seed` at every placement so a replay redraws the same numbers, and
+    # its knobs as [1] device tensors.
+    generator: Any = None
+    knobs: Any = None
+    # Admission prefill state: logical KV tokens already in place, and
+    # whether the slot has started decoding.
+    prefill_pos: int = 0
+    activated: bool = False
+    ttft_done: bool = False
+    # Host text state (survives eviction: replay re-derives the same tokens
+    # and `replay` skips re-processing them).
+    emitted: list[int] = dataclasses.field(default_factory=list)
+    text_done: str = ""
+    processed: int = 0  # tokens consumed from the device stream
+    replay: int = 0  # tokens to skip after an eviction re-admission
+    admit_seq: int = -1  # admission order (eviction picks the youngest)
+
+
+class ContinuousScheduler:
+    """Slot map + admission queue + paged KV pool around one pipeline. The
+    pool, and every dispatch, lives on the pipeline's device (the card,
+    unless the pipeline was built with device="cpu").
+
+    seed: the sampling seed of requests that carry none ("seed" in their
+    sampling dict).
+    """
+
+    def __init__(
+        self,
+        pipe,
+        *,
+        num_slots: int = 4,
+        page_size: int = 64,
+        chunk: int = 8,
+        max_ctx: int = 2048,
+        num_pages: int | None = None,
+        seed: int = 0,
+        autostart: bool = True,
+        prefill_chunk: int | None = None,
+        max_queue: int | None = None,
+        ragged: bool = False,
+    ):
+        for name, v in (
+            ("num_slots", num_slots), ("page_size", page_size),
+            ("chunk", chunk), ("max_ctx", max_ctx),
+        ):
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"{name} must be a positive integer, got {v!r}"
+                )
+        if num_pages is not None and (
+            not isinstance(num_pages, int) or num_pages < 1
+        ):
+            raise ValueError(
+                f"num_pages must be a positive integer, got {num_pages!r}"
+            )
+        if prefill_chunk is not None and (
+            not isinstance(prefill_chunk, int) or prefill_chunk < 1
+        ):
+            raise ValueError(
+                "prefill_chunk must be a positive integer or None, "
+                f"got {prefill_chunk!r}"
+            )
+        if max_ctx % page_size:
+            raise ValueError(f"{max_ctx=} not a multiple of {page_size=}")
+        if ragged and prefill_chunk is None:
+            raise ValueError(
+                "ragged=True fuses chunked prefill into the decode "
+                "dispatch; set prefill_chunk (the per-step prompt budget "
+                "that sizes the packed buffer's prefill lanes)"
+            )
+        self.pipe = pipe
+        self.cfg = pipe.cfg
+        self.device = pipe.device
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.chunk = chunk
+        self.max_ctx = max_ctx
+        self.max_pages = max_ctx // page_size
+        self.num_pages = num_pages or num_slots * self.max_pages
+        self.seed = seed
+        self.prefill_chunk = prefill_chunk
+        self.max_queue = max_queue
+        # Ragged mode: each of a dispatch's `chunk` packed forwards carries
+        # pf_width prompt tokens, so a dispatch advances the admission by
+        # chunk * pf_width >= prefill_chunk tokens.
+        self.ragged = bool(ragged)
+        self.pf_width = -(-prefill_chunk // chunk) if ragged else 0
+        self._win = chunk  # decode tokens a dispatch may write per slot
+        self._dtype = oryx.compute_dtype(self.cfg)
+        # Counters under the JAX engine's metric names (engine thread only;
+        # read them once the loop has stopped).
+        self.metrics: dict[str, Any] = {
+            "admitted": 0, "completed": 0, "evicted": 0, "cancelled": 0,
+            "chunks": 0, "prefill_tokens_total": 0,
+            "dispatches_total": collections.Counter(),
+            "decode_steps_total": 0, "decode_steps_useful": 0,
+            "decode_steps_wasted": 0,
+        }
+        S = num_slots
+        self.allocator = paged_kv.PageAllocator(self.num_pages, page_size)
+        self._sentinel = self.allocator.sentinel
+        self.kv_pages = qwen2.init_paged_kv_cache(
+            self.cfg.llm, self.num_pages, page_size, dtype=self._dtype,
+            device=self.device,
+        )
+        # Engine-thread state: one row per slot.
+        self.slots: list[_Request | None] = [None] * S
+        self.bt = np.full((S, self.max_pages), self._sentinel, np.int32)
+        self.tok = np.zeros((S,), np.int32)
+        self.lengths = np.zeros((S,), np.int32)
+        self.finished = np.ones((S,), bool)  # empty slots ride as finished
+        self.temp = np.zeros((S,), np.float32)
+        self.top_p = np.ones((S,), np.float32)
+        self.top_k = np.zeros((S,), np.int32)
+        self.gens: list[torch.Generator | None] = [None] * S
+        self.stop_sequences = (
+            None if pipe.stop_sequences is None
+            else pipe.stop_sequences.to(self.device)
+        )
+        stop_L = (
+            0 if self.stop_sequences is None else self.stop_sequences.shape[1]
+        )
+        self.recent = np.full((S, stop_L), -2, np.int32)
+        self._admit_seq = 0
+        self._next_id = 0
+        self.chunks_run = 0
+        # The only state shared with submit() threads.
+        self._cond = threading.Condition()
+        self._queue: collections.deque[_Request] = collections.deque()  # guarded-by: _cond
+        self._shutdown = False  # guarded-by: _cond
+        self._thread = threading.Thread(
+            target=self._run, name="oryx-engine", daemon=True
+        )
+        if autostart:
+            self._thread.start()
+
+    # ---- public API -------------------------------------------------------
+
+    def start(self) -> None:
+        if not self._thread.is_alive():
+            self._thread.start()
+
+    def submit(
+        self,
+        request: dict[str, Any],
+        max_new: int,
+        sampling: dict[str, Any] | None = None,
+        *,
+        streaming: bool = False,
+    ) -> RequestHandle:
+        """Queue one request ({"question", optional "images", "is_video",
+        "history"}); sampling may set temperature, top_p, top_k, seed and
+        stop. Raises AdmissionRejected, queueing nothing, when the bounded
+        queue is full or the scheduler is closed."""
+        sampling = sampling or {}
+        stops = (
+            [self.pipe.conv.stop_str] if self.pipe.conv.stop_str else []
+        ) + [s for s in (sampling.get("stop") or []) if s]
+        with self._cond:
+            rid = f"req-{self._next_id}"
+            self._next_id += 1
+            h = RequestHandle(rid)
+            h.streaming = streaming
+            req = _Request(
+                request=request, max_new=max_new, sampling=sampling,
+                handle=h, submit_time=time.monotonic(), stops=stops,
+            )
+            reject = None
+            if self._shutdown:
+                reject = ("closed", "scheduler is closed")
+            elif (
+                self.max_queue is not None
+                and len(self._queue) >= self.max_queue
+            ):
+                reject = ("backpressure", f"admission queue full "
+                          f"({len(self._queue)} >= {self.max_queue})")
+            else:
+                self._queue.append(req)
+                self._cond.notify()
+        if reject is not None:
+            raise AdmissionRejected(reject[1], reason=reject[0])
+        return h
+
+    def cancel(self, handle: RequestHandle) -> None:
+        """Cancel a submitted request wherever it lives; the engine loop
+        frees its slot and pages at the next harvest or prefill step."""
+        handle.cancelled = True
+
+    def queue_len(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    def alive(self) -> bool:
+        """The engine loop thread is running."""
+        return self._thread.is_alive()
+
+    def stop(self) -> None:
+        """Stop the loop without waiting for resident requests."""
+        self.close()
+
+    def close(self) -> None:
+        with self._cond:
+            self._shutdown = True
+            self._cond.notify()
+        if self._thread.is_alive():
+            self._thread.join(timeout=30)
+
+    def check_pool_invariant(self) -> None:
+        """Every page is free or held by exactly the slot whose block table
+        names it; raises RuntimeError otherwise. Call on a quiesced
+        engine (tests between bursts)."""
+        self.allocator.check_invariant([
+            [int(p) for p in self.bt[s] if p != self._sentinel]
+            for s in range(self.num_slots)
+        ])
+
+    # ---- queue access (the engine thread is the queue's only consumer) ----
+
+    def _queue_head(self) -> _Request | None:
+        with self._cond:
+            return self._queue[0] if self._queue else None
+
+    def _pop_head(self) -> None:
+        with self._cond:
+            self._queue.popleft()
+
+    def _take_queue(self) -> list[_Request]:
+        with self._cond:
+            out = list(self._queue)
+            self._queue.clear()
+            return out
+
+    # ---- slot bookkeeping -------------------------------------------------
+
+    def _held(self, s: int) -> int:
+        return int((self.bt[s] != self._sentinel).sum())
+
+    @staticmethod
+    def _owner_tag(req: _Request | None) -> str | None:
+        return None if req is None else f"req:{req.handle.request_id}"
+
+    def _free_slot_pages(self, s: int, owner: str | None = None) -> None:
+        pages = [int(p) for p in self.bt[s] if p != self._sentinel]
+        if pages:
+            self.allocator.free(
+                pages, owner=owner or self._owner_tag(self.slots[s])
+            )
+        self.bt[s] = self._sentinel
+
+    def _clear_slot(self, s: int) -> None:
+        self._free_slot_pages(s)
+        self.slots[s] = None
+        self.finished[s] = True
+        self.lengths[s] = 0
+        self.tok[s] = 0
+        self.temp[s] = 0.0
+        self.top_p[s] = 1.0
+        self.top_k[s] = 0
+        self.recent[s] = -2
+        self.gens[s] = None
+
+    def _grow_slot(self, s: int, tokens: int,
+                   req: _Request | None = None) -> bool:
+        """Extend slot s's block table to cover `tokens` logical slots;
+        False when the free list cannot. The ask is clamped to max_ctx (the
+        table is max_pages wide; near the ceiling the last chunk's overshoot
+        steps stay in the row's own discarded tail). `req` is the owner
+        (default: the slot's occupant)."""
+        tokens = min(tokens, self.max_ctx)
+        held = self._held(s)
+        need = self.allocator.pages_for(tokens) - held
+        if need <= 0:
+            return True
+        if need > self.allocator.num_free:
+            return False
+        pages = self.allocator.alloc(
+            need, owner=self._owner_tag(req or self.slots[s])
+        )
+        self.bt[s, held:held + need] = pages
+        return True
+
+    def _reset_pool(self) -> None:
+        """Fresh page pool + allocator + empty slot state, after a failed
+        dispatch left the pool in an unknown state (callers have errored
+        out every in-flight request)."""
+        self.allocator = paged_kv.PageAllocator(
+            self.num_pages, self.page_size
+        )
+        self.kv_pages = qwen2.init_paged_kv_cache(
+            self.cfg.llm, self.num_pages, self.page_size, dtype=self._dtype,
+            device=self.device,
+        )
+        self.bt[:] = self._sentinel
+        self.slots = [None] * self.num_slots
+        self.gens = [None] * self.num_slots
+        self.finished[:] = True
+        self.lengths[:] = 0
+        self.tok[:] = 0
+        self.recent[:] = -2
+        self.check_pool_invariant()
+
+    # ---- scheduling loop --------------------------------------------------
+
+    def _run(self) -> None:
+        with torch.inference_mode():
+            while True:
+                with self._cond:
+                    if self._shutdown:
+                        return
+                    if not self._queue and all(
+                        r is None for r in self.slots
+                    ):
+                        self._cond.wait(timeout=0.1)
+                        continue
+                try:
+                    self._admit()
+                    if self.ragged:
+                        # Prefill lanes and decode lanes ride ONE dispatch.
+                        self._ragged_step()
+                    else:
+                        # Each engine step advances the in-flight admission
+                        # by at most one prefill chunk, then runs one decode
+                        # chunk for the resident streams.
+                        self._prefill_step()
+                        if any(
+                            r is not None and r.activated for r in self.slots
+                        ):
+                            self._ensure_capacity()
+                            self._step_chunk()
+                except Exception as e:  # surface to every in-flight client
+                    self._fail_all(f"{type(e).__name__}: {e}")
+
+    def _fail_all(self, msg: str) -> None:
+        """A step failed: error out every resident and queued request and
+        rebuild the pool, so the engine keeps serving new traffic."""
+        for s, req in enumerate(self.slots):
+            if req is not None:
+                self._finish_error(s, msg)
+        for r in self._take_queue():
+            self._reject_queued(r, msg)
+        self._reset_pool()
+
+    def _reject_queued(
+        self, req: _Request, msg: str, *, kind: str = "server_error"
+    ) -> None:
+        """Error out a request already popped from the queue and never
+        placed (it holds no pages)."""
+        req.handle.error = msg
+        req.handle.error_kind = kind
+        req.handle.events.put(("error", msg))
+        req.handle.done.set()
+
+    def _cancel_queued(self, req: _Request) -> None:
+        """A client hang-up before admission (no slot, no pages)."""
+        self.metrics["cancelled"] += 1
+
+    def _cancel_slot(self, s: int, req: _Request, where: str) -> None:
+        """A client hang-up while holding slot s (mid-prefill or
+        mid-decode, `where`): its pages return now."""
+        self.metrics["cancelled"] += 1
+        req.handle.debug["cancelled"] = where
+        self._clear_slot(s)
+
+    def _prepare(self, req: _Request) -> None:
+        """Prompt prep at the queue head (once per request): decoder
+        embeds, length, sampling knobs, and the size checks. Raises
+        ValueError for a request that can never be served."""
+        gen = self.cfg.generation
+        ids, imgs, factors, caps = self.pipe._prepare_request(req.request)
+        req.embeds, req.length = self.pipe._prompt_embeds(
+            self.cfg, ids, imgs, factors, caps
+        )
+        s_ = req.sampling
+        req.temp = float(s_.get("temperature", gen.temperature) or 0.0)
+        req.topp = float(s_.get("top_p", gen.top_p) or 1.0)
+        req.topk = int(s_.get("top_k", gen.top_k) or 0)
+        req.seed = int(s_.get("seed") or self.seed)
+        if req.length + req.max_new > self.max_ctx:
+            raise ValueError(
+                f"prompt ({req.length}) + max_tokens ({req.max_new}) "
+                f"exceeds max_ctx {self.max_ctx}"
+            )
+        need = self.allocator.pages_for(req.length + self._win)
+        if need > self.num_pages:
+            raise ValueError(
+                f"prompt needs {need} KV pages but the whole pool holds "
+                f"{self.num_pages} (raise num_pages, or lower the prompt "
+                "length / max_ctx)"
+            )
+
+    def _admit(self) -> None:
+        while True:
+            if any(r is not None and not r.activated for r in self.slots):
+                # A chunked prefill is in flight: one admission at a time.
+                break
+            free = [s for s, r in enumerate(self.slots) if r is None]
+            if not free:
+                break
+            req = self._queue_head()
+            if req is None:
+                break
+            if req.handle.cancelled:
+                self._pop_head()
+                self._cancel_queued(req)
+                continue
+            if req.embeds is None:
+                try:
+                    self._prepare(req)
+                except Exception as e:  # the request is rejected, not the engine
+                    self._pop_head()
+                    self._reject_queued(
+                        req, f"{type(e).__name__}: {e}",
+                        kind=(
+                            "invalid_request" if isinstance(e, ValueError)
+                            else "server_error"
+                        ),
+                    )
+                    continue
+            s = free[0]
+            # FIFO head-of-line: if the head does not fit, nobody jumps it.
+            if not self._splice_and_grow(s, req):
+                break
+            self._pop_head()
+            self._place(s, req)
+            if self.prefill_chunk is None:
+                # Unchunked: the whole prefill now, so the slot activates
+                # before the next queue head is examined.
+                self._advance_prefill(s, req)
+
+    def _splice_and_grow(self, s: int, req: _Request) -> bool:
+        """Take pages for the prompt plus one decode chunk into slot s's
+        block table; False, with nothing held, when the pool cannot. (The
+        prefix-cache splice of the JAX engine is not ported.)"""
+        if not self._grow_slot(s, req.length + self._win, req=req):
+            self._free_slot_pages(s, owner=self._owner_tag(req))
+            return False
+        return True
+
+    def _place(self, s: int, req: _Request) -> None:
+        """Claim slot s for `req` (pages already held) and start its
+        prefill. The slot stays finished on the device, so decode steps
+        skip it, until `_activate`."""
+        self.slots[s] = req
+        req.activated = False
+        req.prefill_pos = 0
+        self.finished[s] = True
+        self.lengths[s] = 0
+        self.tok[s] = 0
+        req.generator = (
+            generate_lib.row_generator(self.device, req.seed)
+            if req.temp > 0 else None
+        )
+        req.knobs = (
+            torch.tensor([req.temp], dtype=torch.float32, device=self.device),
+            torch.tensor([req.topp], dtype=torch.float32, device=self.device),
+            torch.tensor([req.topk], dtype=torch.int32, device=self.device),
+        )
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+
+    def _prefill_step(self) -> None:
+        """Advance every admitting slot by at most one prefill chunk; a slot
+        whose prefill completes activates and joins the next decode
+        chunk."""
+        for s, req in enumerate(self.slots):
+            if req is None or req.activated:
+                continue
+            if req.handle.cancelled:
+                self._cancel_slot(s, req, "mid-prefill")
+                continue
+            self._advance_prefill(s, req)
+
+    def _advance_prefill(self, s: int, req: _Request) -> None:
+        off, L = req.prefill_pos, req.length
+        if self.prefill_chunk is None:
+            emb, end = req.embeds, L
+        else:
+            width = self.prefill_chunk
+            if req.embeds_p is None:
+                req.embeds_p = generate_lib.pad_embeds_for_chunks(
+                    req.embeds, width
+                )
+            emb = generate_lib.slice_embeds(req.embeds_p, off, width=width)
+            end = min(off + width, L)
+        dev = self.device
+        # Only the window holding the prompt's last token samples (and
+        # draws from the request's generator).
+        final = end >= L
+        self.kv_pages, tok0 = generate_lib.paged_prefill(
+            self.pipe.params.llm, self.cfg.llm, emb,
+            torch.tensor([end], device=dev),
+            torch.tensor(self.bt[s][None], device=dev),
+            self.kv_pages,
+            torch.tensor([off], device=dev),
+            [req.generator if final else None], *req.knobs,
+            attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
+        )
+        req.prefill_pos = end
+        self.metrics["prefill_tokens_total"] += end - off
+        self.metrics["dispatches_total"]["prefill"] += 1
+        if final:
+            self._activate(s, req, int(tok0.reshape(-1)[0]))  # one read
+
+    def _activate(self, s: int, req: _Request, tok0: int) -> None:
+        """Prefill complete: slot s is live from the next decode chunk. The
+        slot samples with the REQUEST's generator, never a previous
+        occupant's state."""
+        req.activated = True
+        self.tok[s] = tok0
+        self.lengths[s] = req.length
+        self.finished[s] = False
+        self.temp[s] = req.temp
+        self.top_p[s] = req.topp
+        self.top_k[s] = req.topk
+        self.recent[s] = -2
+        self.gens[s] = req.generator
+        if not req.ttft_done:
+            req.ttft_done = True
+            req.handle.debug["ttft_s"] = time.monotonic() - req.submit_time
+            req.handle.debug["admit_chunk"] = self.chunks_run
+        self.metrics["admitted"] += 1
+        # tok0 is the first generated token: process it now (a
+        # max_tokens=1 request never occupies a chunk). The decode step
+        # re-emits it as its first output (a step emits the token it was
+        # FED), so one more replay skip keeps the stream exactly-once.
+        self._advance(s, [int(self.tok[s])])
+        if self.slots[s] is not None:
+            req.replay += 1
+
+    def _ensure_capacity(self) -> None:
+        """Every live slot must own pages for lengths + one dispatch window
+        before the next dispatch; under page pressure, preempt YOUNGER
+        slots only, and a slot with no younger victim preempts itself, so
+        the oldest request always progresses."""
+        win = self._win
+        order = sorted(
+            (s for s, r in enumerate(self.slots) if r is not None),
+            key=lambda s: self.slots[s].admit_seq,
+        )
+        for s in order:
+            if self.slots[s] is None or self.finished[s]:
+                continue  # freed or evicted by an earlier iteration
+            while not self._grow_slot(s, int(self.lengths[s]) + win):
+                me = self.slots[s].admit_seq
+                younger = [
+                    v for v in order
+                    if self.slots[v] is not None
+                    and self.slots[v].admit_seq > me
+                ]
+                if younger:
+                    self._evict(
+                        max(younger, key=lambda v: self.slots[v].admit_seq)
+                    )
+                elif any(
+                    self.slots[v] is not None for v in order if v != s
+                ):
+                    self._evict(s)  # wait for the older slots' pages
+                    break
+                else:
+                    self._finish_error(
+                        s, "page pool exhausted for a single request"
+                    )
+                    break
+
+    def _evict(self, s: int) -> None:
+        """Free slot s and requeue its request at the FRONT; its replay
+        re-derives the same stream and skips the `processed` tokens."""
+        req = self.slots[s]
+        req.replay = req.processed
+        req.activated = False
+        req.prefill_pos = 0
+        self._clear_slot(s)
+        with self._cond:
+            self._queue.appendleft(req)
+        self.metrics["evicted"] += 1
+
+    def _device_state(self) -> tuple:
+        """The slot arrays as device tensors for one dispatch."""
+        dev = self.device
+        return (
+            torch.tensor(self.bt, device=dev),
+            torch.tensor(self.tok, device=dev),
+            torch.tensor(self.lengths, device=dev),
+            torch.tensor(self.finished, device=dev),
+            torch.tensor(self.recent, device=dev),
+            self.gens,
+            torch.tensor(self.temp, device=dev),
+            torch.tensor(self.top_p, device=dev),
+            torch.tensor(self.top_k, device=dev),
+            self.stop_sequences,
+        )
+
+    def _step_chunk(self) -> None:
+        """One split-engine decode dispatch over every slot."""
+        live = [
+            s for s, r in enumerate(self.slots)
+            if r is not None and r.activated
+        ]
+        out = generate_lib.paged_decode_chunk(
+            self.pipe.params.llm, self.cfg.llm, self.kv_pages,
+            *self._device_state(),
+            chunk=self.chunk, eos=self.cfg.generation.eos_token_id,
+            attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
+        )
+        self.kv_pages = out[0]
+        toks, _ = self._harvest_chunk(*out[1:6])
+        self._finish_dispatch("decode", live, toks)
+
+    def _harvest_chunk(self, tok, lengths, finished, recent, toks,
+                       pf_tok0=None):
+        """Host copies of a dispatch's outputs, packed into one int64 vector
+        on the device and copied in one piece: the engine's one deliberate
+        sync with the device per dispatch (the per-step finished flags are
+        not needed: the host re-derives finishing from the tokens).
+        Returns (toks [S, chunk], pf_tok0 as an int or None)."""
+        parts = [tok, lengths, finished, recent, toks]
+        if pf_tok0 is not None:
+            parts.append(pf_tok0)
+        flat = torch.cat([x.reshape(-1).long() for x in parts]).cpu().numpy()
+        host = np.split(flat, np.cumsum([x.numel() for x in parts])[:-1])
+        self.tok = host[0].astype(np.int32)
+        self.lengths = host[1].astype(np.int32)
+        self.finished = host[2].astype(bool)
+        self.recent = host[3].astype(np.int32).reshape(recent.shape)
+        toks_h = host[4].reshape(toks.shape)
+        return toks_h, int(host[5][0]) if pf_tok0 is not None else None
+
+    def _finish_dispatch(self, kind: str, live: list[int], toks) -> None:
+        """Post-dispatch accounting shared by the split and ragged steps:
+        dispatch counters, the per-slot harvest, and the decode-step
+        utilization counters (skipped when no slot decoded)."""
+        self.chunks_run += 1
+        self.metrics["chunks"] += 1
+        self.metrics["dispatches_total"][kind] += 1
+        useful = 0
+        for s, tokens in generate_lib.unpack_ragged_rows(toks, live).items():
+            if self.slots[s] is not None:
+                useful += self._advance(s, tokens)
+        if live:
+            total = self.num_slots * self.chunk
+            self.metrics["decode_steps_total"] += total
+            self.metrics["decode_steps_useful"] += useful
+            self.metrics["decode_steps_wasted"] += total - useful
+
+    def _ragged_step(self) -> None:
+        """The fused engine step (ragged mode): ONE dispatch advances the
+        in-flight admission by up to chunk * pf_width prompt tokens AND
+        decodes `chunk` tokens for every resident stream. A slot whose
+        prefill completes activates after the harvest and joins the next
+        dispatch."""
+        for s, req in enumerate(self.slots):
+            if req is not None and not req.activated and req.handle.cancelled:
+                self._cancel_slot(s, req, "mid-prefill")
+        if any(r is not None and r.activated for r in self.slots):
+            self._ensure_capacity()  # may evict: recompute below
+        live = [
+            s for s, r in enumerate(self.slots)
+            if r is not None and r.activated
+        ]
+        pf_s, pf_req = next(
+            ((s, r) for s, r in enumerate(self.slots)
+             if r is not None and not r.activated),
+            (None, None),
+        )
+        if pf_req is None and not live:
+            return
+        win_tokens = self.chunk * self.pf_width
+        pf_kw: dict[str, Any] = {}
+        if pf_req is not None:
+            pf_off, pf_len = pf_req.prefill_pos, pf_req.length
+            pf_kw = dict(
+                pf_embeds=generate_lib.pack_prefill_window(
+                    pf_req.embeds, pf_off, win_tokens
+                ),
+                pf_slot=pf_s, pf_off=pf_off, pf_len=pf_len,
+                pf_generator=pf_req.generator,
+                pf_temp=pf_req.knobs[0], pf_top_p=pf_req.knobs[1],
+                pf_top_k=pf_req.knobs[2],
+            )
+        out = generate_lib.paged_ragged_step(
+            self.pipe.params.llm, self.cfg.llm, self.kv_pages,
+            *self._device_state(), **pf_kw,
+            chunk=self.chunk, pf_width=self.pf_width if pf_kw else 0,
+            eos=self.cfg.generation.eos_token_id,
+            attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
+        )
+        self.kv_pages = out[0]
+        toks, pf_tok0 = self._harvest_chunk(*out[1:6], pf_tok0=out[7])
+        # Decode billing covers only slots live DURING the dispatch.
+        self._finish_dispatch("ragged", live, toks)
+        if pf_req is not None:
+            advanced = min(win_tokens, pf_len - pf_off)
+            pf_req.prefill_pos = pf_off + advanced
+            self.metrics["prefill_tokens_total"] += advanced
+            if pf_req.prefill_pos >= pf_len:
+                self._activate(pf_s, pf_req, pf_tok0)
+
+    # ---- harvest / text emission -----------------------------------------
+
+    def _advance(self, s: int, tokens: list[int]) -> int:
+        """Feed slot s's newly decoded tokens through the host text
+        machine; returns the USEFUL steps consumed (replayed steps are
+        eviction overhead). Token checks (EOS, max_new) run per token, the
+        tokenizer decode and stop trim once per chunk."""
+        req = self.slots[s]
+        eos = self.cfg.generation.eos_token_id
+        tokenizer = self.pipe.tokenizer
+        useful = 0
+        if req.handle.cancelled:
+            self._cancel_slot(s, req, "mid-decode")
+            return useful
+        chunk_start = len(req.emitted)
+        finish = None  # (reason, completion_count)
+        for t in tokens:
+            if req.replay > 0:
+                req.replay -= 1
+                continue
+            req.processed += 1
+            useful += 1
+            if t == eos:
+                finish = ("stop", len(req.emitted) + 1)
+                break
+            req.emitted.append(t)
+            if len(req.emitted) >= req.max_new:
+                finish = ("length", len(req.emitted))
+                break
+        if len(req.emitted) == chunk_start and finish is None:
+            return useful  # pure replay skip: nothing new to decode
+        text = tokenizer.decode(req.emitted, skip_special_tokens=True)
+        text, hit = pipeline_lib.stop_cut(text, req.stops)
+        if hit:
+            # The stop completed in THIS chunk; it precedes any EOS/length
+            # finish seen later in the same chunk.
+            n = pipeline_lib.stop_token_count(
+                tokenizer, req.emitted, req.stops, chunk_start
+            )
+            if finish is None or n <= finish[1]:
+                finish = ("stop", n)
+        if finish is not None:
+            # Tokens past the one completing the finish did nothing for
+            # the client.
+            useful = min(useful, finish[1] - chunk_start)
+            self._emit_text(req, text.strip())
+            self._finish(s, finish[0], completion=finish[1])
+        else:
+            self._emit_text(
+                req, pipeline_lib.stable_text_prefix(text, req.stops)
+            )
+        return useful
+
+    def _emit_text(self, req: _Request, safe: str) -> None:
+        if len(safe) > len(req.text_done):
+            if req.handle.streaming:
+                req.handle.events.put(("delta", safe[len(req.text_done):]))
+            req.text_done = safe
+
+    def _finish(self, s: int, reason: str, completion: int) -> None:
+        req = self.slots[s]
+        self._clear_slot(s)
+        h = req.handle
+        h.reply = req.text_done
+        h.finish_reason = reason
+        h.usage = (req.length, completion)
+        h.debug["finish_chunk"] = self.chunks_run
+        h.events.put(("end", reason, h.usage))
+        h.done.set()
+        self.metrics["completed"] += 1
+
+    def _finish_error(
+        self, s: int, msg: str, *, kind: str = "server_error"
+    ) -> None:
+        req = self.slots[s]
+        self._clear_slot(s)
+        self._reject_queued(req, msg, kind=kind)

@@ -116,6 +116,64 @@ def test_mm_generate_without_device_raises_without_card(no_card):
         oryx.mm_generate(params, cfg, packed=None, batch=None)
 
 
+def test_generate_paged_without_device_raises_without_card(no_card):
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import generate, qwen2
+
+    cfg = config.oryx_tiny()
+    params = qwen2.init_params(cfg.llm, torch.Generator().manual_seed(0),
+                               device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        generate.generate_paged(
+            params, cfg.llm, cfg.generation,
+            inputs_embeds=torch.zeros((1, 4, cfg.llm.hidden_size)),
+            lengths=[4], max_new_tokens=2,
+        )
+    with pytest.raises(RuntimeError, match="cuda"):
+        qwen2.init_paged_kv_cache(cfg.llm, 4, 16)
+
+
+def test_scheduler_serves_on_its_pipelines_device():
+    """The engine's pool and dispatches live on the pipeline's device; a
+    pipeline is on the card unless built with device="cpu"."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = config.oryx_tiny()
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+
+    class Tok:
+        def encode(self, text, add_special_tokens=False):
+            return [1]
+
+    sched = ContinuousScheduler(
+        Pipeline(Tok(), params, cfg, device="cpu"), autostart=False,
+        page_size=16, max_ctx=64,
+    )
+    assert sched.kv_pages["k"].device.type == "cpu"
+    sched.close()
+
+
+def test_paged_kernel_launch_needs_cuda_tensors():
+    """The kernel entry raises on CPU tensors; only the public wrappers
+    take the plain twin, and only for tensors that lie on the CPU."""
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    k = paged_kv.init_paged_pool(1, 2, 4, 1, 8, dtype=torch.float32,
+                                 device="cpu")[0]
+    bt = torch.zeros((1, 1), dtype=torch.int32)
+    n = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa._launch("paged_decode", torch.zeros((1, 1, 8)), k, k, bt, (n,),
+                   1.0)
+    out = pa.ragged_decode_attention(torch.ones((1, 1, 8)), k, k, bt, n)
+    assert out.device.type == "cpu" and pa.LAUNCHES == {}
+
+
 def test_ring_config_serves_with_the_device_kernel_path():
     """A ring-trained config decodes with the dense path: the kernel on a
     CUDA device, the plain attention on the CPU - keyed on the device."""
