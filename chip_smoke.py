@@ -55,6 +55,30 @@ Phases (any failure exits non-zero):
      yardstick, and the least time the card could take.
   8. The tiny fp32 config through both engines on the card (kernel path)
      and on the CPU (plain twins): replies, finish reasons and usage equal.
+  9. The training kernels at three call shapes of phase 10's steps (the
+     ViT's segments over the packed patches and the decoder's B x T with
+     slot positions on the image batch, the compressor's 4 x 4-patch
+     regions on the video batch): K1 with its logsumexp, K5a (dq) and K5b
+     (dk/dv) on random bf16 q/k/v and a cotangent zero on fully masked
+     rows, against their plain twins. K1: atol = rtol = 1e-2 on the
+     output, the lse to 1e-3; K5: the relative L2 error of each of dq,
+     dk, dv against an fp32 witness (the twins on the same inputs upcast)
+     at most NOISE_RATIO times the bf16 twin's. Times as phase 2; the
+     yardstick is SDPA forward (K1) and forward + backward (K5) with an
+     explicit boolean mask.
+ 10. `Trainer.fit` under scripts/configs/oryx_7b_pretrain.json (stage-1
+     projector pretraining, remat "attn", bf16) at full oryx_7b width and
+     depth on phase 2's bf16 weights (frozen; the compressor gets fp32
+     masters): `grouped_batch_iterator` over 8 synthetic records (4 images
+     of 616x616, 4 videos of 8 frames of 224x224, 8,192-patch ViT
+     buffers), the byte tokenizer, the plain template, batch 4, 4 steps
+     (global batch 256 -> 4, steps 2000 -> 4). Losses finite, frozen leaves
+     bitwise unchanged, compressor changed, K1-lse/K5a/K5b launched at
+     every phase-9 shape, and a second fit from the same init gives the
+     same losses. Per step: wall, tokens/s, fwd+bwd vs optimizer device
+     time, peak memory; then one step under torch.profiler.
+ 11. The tiny fp32 config, tune full, 3 steps of Trainer.fit on the card
+     (kernels) and on the CPU (plain twins): losses and params agree.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -66,6 +90,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -320,6 +345,8 @@ def kernel_family(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_fwd (hand-written attention)"
+    if "flash_bwd" in n:
+        return "flash_bwd K5a/K5b (hand-written attention backward)"
     if "paged_bf16" in n or "paged_f32" in n:
         return "paged attention K3/K4 (hand-written)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
@@ -706,6 +733,433 @@ def tiny_engines_on_card() -> None:
                              f"the CPU: {out[1]} vs {out[0]}")
 
 
+# ---- training (phases 9-11) ------------------------------------------------
+
+TRAIN_STEPS = 4
+TRAIN_BATCH = 4
+TRAIN_CONFIG = "scripts/configs/oryx_7b_pretrain.json"
+TRAIN_CKPT = "checkpoints/chip_smoke"
+
+
+def train_records():
+    """8 pretraining records: 4 single images of 616x616 (44 x 44 = 1,936
+    patches, 1x compression) and 4 videos of 8 frames of 224x224 (256
+    patches a frame, 16x compression); each caption is supervised."""
+    recs = []
+    for i in range(4):
+        recs.append({"id": f"img{i}", "image": f"img{i}.jpg", "conversations": [
+            {"from": "human", "value": "<image>"},
+            {"from": "gpt", "value": f"A photo of {i + 2} boats on a calm "
+                                     "grey sea under a low sky."},
+        ]})
+        recs.append({"id": f"vid{i}", "video": f"vid{i}.mp4", "conversations": [
+            {"from": "human", "value": "<image>"},
+            {"from": "gpt", "value": f"A clip of {i + 2} gulls circling a "
+                                     "harbour at dusk."},
+        ]})
+    return recs
+
+
+def train_media(rec):
+    """Random uint8 pixels seeded by the record id."""
+    rng = np.random.default_rng(sum(map(ord, rec["id"])))
+    if rec.get("video"):
+        return [rng.integers(0, 256, (224, 224, 3), np.uint8)
+                for _ in range(8)]
+    return [rng.integers(0, 256, (616, 616, 3), np.uint8)]
+
+
+def train_config():
+    """oryx_7b_pretrain.json with its checkpoints inside the checkout
+    (listed in .gitignore, removed after the phase)."""
+    from oryx_tpu_torch import config
+
+    with open(TRAIN_CONFIG) as f:
+        cfg = config.OryxConfig.from_json(f.read())
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=TRAIN_CKPT,
+    ))
+
+
+def train_batches(cfg, records=None, media=train_media, batch=TRAIN_BATCH,
+                  **collate):
+    """grouped_batch_iterator over the records (endless epochs)."""
+    from oryx_tpu_torch.train import data
+
+    ds = data.SupervisedDataset(
+        records or train_records(), ByteTokenizer(), template="plain",
+        max_patches_per_image=cfg.vision.max_patches_per_image,
+        media_loader=media,
+    )
+    kw = dict(patch_size=cfg.vision.patch_size,
+              base_grid=cfg.vision.base_grid, max_len=cfg.train.max_seq_len)
+    kw.update(collate)
+    return data.grouped_batch_iterator(ds, batch, seed=cfg.train.seed, **kw)
+
+
+def training_attention_cases(cfg, host, host_vid, gen):
+    """Three flash-attention call shapes of the training steps, with the
+    packing metadata of the collated batches and random bf16 q/k/v: the
+    ViT and the decoder of the image batch `host`, the compressor of the
+    video batch `host_vid` (4 x 4-patch regions; on the image batch each
+    region is one patch and the call has the ViT's launch key). Returns
+    (name, flash_attention kwargs with q, k, v)."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    seg = t(host["segment_ids"])[None]
+    reg, qreg = (t(host_vid[k])[None] for k in ("region_ids", "q_region_ids"))
+    P, Q, Pc = seg.shape[1], qreg.shape[1], reg.shape[1]
+    B, T = host["token_ids"].shape
+    pos, amask = t(host["positions"]), t(host["attn_mask"])
+    hv, dv = cfg.vision.num_heads, cfg.vision.head_dim
+    hc = cfg.compressor.num_heads
+    dc = cfg.vision.hidden_size // hc
+    hq, hk, d = cfg.llm.num_heads, cfg.llm.num_kv_heads, cfg.llm.head_dim
+    print(f"  training shapes: ViT {P} patches ({int((seg > 0).sum())} "
+          f"real), compressor {Q} queries ({int((qreg > 0).sum())} real) "
+          f"vs {Pc} patches, decoder {B} x {T} (rows "
+          f"{amask.sum(1).tolist()})")
+    return [
+        ("vit", dict(q=rnd(1, P, hv, dv), k=rnd(1, P, hv, dv),
+                     v=rnd(1, P, hv, dv), causal=False, q_segment_ids=seg,
+                     kv_segment_ids=seg)),
+        ("compressor", dict(q=rnd(1, Q, hc, dc), k=rnd(1, Pc, hc, dc),
+                            v=rnd(1, Pc, hc, dc), causal=False,
+                            q_segment_ids=qreg, kv_segment_ids=reg)),
+        ("decoder", dict(q=rnd(B, T, hq, d), k=rnd(B, T, hk, d),
+                         v=rnd(B, T, hk, d), causal=True, q_positions=pos,
+                         kv_positions=pos, kv_mask=amask,
+                         slot_positions=True)),
+    ]
+
+
+def _visibility(args, flags):
+    """[B, Tq, Tk] bool: which keys each query sees."""
+    _, _, _, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    vis = (kv_valid[:, None, :] > 0).expand(-1, q_pos.shape[1], -1)
+    if flags["causal"]:
+        vis = vis & (q_pos[:, :, None] >= kv_pos[:, None, :])
+    if flags["has_segments"]:
+        vis = vis & (q_seg[:, :, None] == kv_seg[:, None, :])
+    return vis
+
+
+def _rel(a, w):
+    return float((a.float() - w).norm() / w.norm())
+
+
+def check_backward_case(name, kw, gen):
+    """K1 with lse, K5a and K5b vs their plain twins at one call shape;
+    returns (launch key, [three table rows])."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, k, v = kw["q"], kw["k"], kw["v"]
+    rest = {x: y for x, y in kw.items() if x not in ("q", "k", "v")}
+    args, flags = fa._prepare(
+        q, k, v, rest.get("q_positions"), rest.get("kv_positions"),
+        rest.get("q_segment_ids"), rest.get("kv_segment_ids"),
+        rest.get("kv_mask"), rest["causal"], None,
+        rest.get("slot_positions", False),
+    )
+    mask = _visibility(args, flags)
+    keep = mask.any(-1)  # [B, Tq]
+    do = (torch.randn(q.shape, generator=gen, device=q.device)
+          * keep[:, :, None, None]).to(torch.bfloat16)
+    dot = do.transpose(1, 2)
+    qkv, ints = args[:3], args[3:]
+
+    def delta_of(o, g):
+        return torch.einsum("bhqd,bhqd->bhq", g.float(), o.float()).contiguous()
+
+    # The kernels, the bf16 twins, and the fp32 witness on the same inputs.
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    delta = delta_of(o, dot)
+    dq = fa._mha_backward_dq(*qkv, dot, lse, delta, *ints, **flags)
+    dk, dv = fa._mha_backward_dkv(*qkv, dot, lse, delta, *ints, **flags)
+    ro, rlse = fa._mha_forward_reference(*args, **flags, with_lse=True)
+    plain = fa._mha_backward_reference(*qkv, dot, rlse, delta_of(ro, dot),
+                                       *ints, **flags)
+    f32 = [x.float() for x in qkv]
+    fo, flse = fa._mha_forward_reference(*f32, *ints, **flags, with_lse=True)
+    witness = fa._mha_backward_reference(*f32, dot.float(), flse,
+                                         delta_of(fo, dot), *ints, **flags)
+    torch.cuda.synchronize()
+    g, r = o.transpose(1, 2)[keep].float(), ro.transpose(1, 2)[keep].float()
+    err = (g - r).abs()
+    kl = keep[:, None, :].expand(lse.shape)
+    lse_err = float((lse[kl] - rlse[kl]).abs().max())
+    ok = (bool((err <= TOL + TOL * r.abs()).all())
+          and bool(torch.isfinite(g).all()) and lse_err <= 1e-3)
+    print(f"  {name}: q {tuple(q.shape)} k {tuple(k.shape)}, rows with a "
+          f"visible key {int(keep.sum())}/{keep.numel()}")
+    print(f"    K1+lse: out max_abs_err={float(err.max()):.3e}, lse "
+          f"max_abs_err={lse_err:.3e} ok={ok}")
+    if not ok:
+        raise SystemExit(f"K1 with lse disagrees with its twin on {name}")
+    errs = {}
+    for gname, a, p_, w in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                               witness):
+        ek, ep = _rel(a, w), _rel(p_, w)
+        mabs = float((a.float() - p_.float()).abs().max())
+        errs[gname] = mabs
+        good = (ek <= NOISE_RATIO * ep and bool(torch.isfinite(a).all())
+                and a.dtype == q.dtype)
+        print(f"    {gname}: rel L2 vs fp32 witness kernel {ek:.3e}, plain "
+              f"{ep:.3e} (limit {NOISE_RATIO}x); max abs err vs plain "
+              f"{mabs:.3e} ok={good}")
+        if not good:
+            raise SystemExit(f"K5 {gname} on {name} is further from the fp32 "
+                             "witness than bf16 noise allows")
+
+    ms_fwd = cuda_time_ms(
+        lambda: fa._mha_forward(*args, **flags, with_lse=True), iters=10)
+    ms_dq = cuda_time_ms(lambda: fa._mha_backward_dq(
+        *qkv, dot, lse, delta, *ints, **flags), iters=10)
+    ms_dkv = cuda_time_ms(lambda: fa._mha_backward_dkv(
+        *qkv, dot, lse, delta, *ints, **flags), iters=10)
+    plain_fwd = cuda_time_ms(lambda: fa._mha_forward_reference(
+        *args, **flags, with_lse=True), iters=3, warmup=1)
+    plain_bwd = cuda_time_ms(lambda: fa._mha_backward_reference(
+        *qkv, dot, rlse, delta, *ints, **flags), iters=3, warmup=1)
+    # Yardsticks: SDPA with an explicit boolean mask, k/v repeated to the q
+    # heads outside the timed calls; forward, and forward + backward.
+    qp, kp, vp = qkv
+    B, Hq, Tq, D = qp.shape
+    Hk, Tk = kp.shape[1], kp.shape[2]
+    G = Hq // Hk
+    m4 = mask[:, None]
+    kr = kp.repeat_interleave(G, dim=1)
+    vr = vp.repeat_interleave(G, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = cuda_time_ms(lambda: sdpa(qp, kr, vr, attn_mask=m4,
+                                        scale=flags["scale"]), iters=10)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qp, kr, vr))
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qg, kg, vg, attn_mask=m4, scale=flags["scale"])
+        return torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    lib_bwd = cuda_time_ms(sdpa_fwd_bwd, iters=5)
+    # Least time, from this run's data: per visible (q head, kv) pair 4 D
+    # flops forward, 6 D for dq (s, dp, dq), 8 D for dk/dv (s, dp, dv, dk);
+    # bytes: the q-side tensors once, k/v rows some query sees once, the
+    # int operands once, dk/dv written whole.
+    pairs = int(mask.sum())
+    kv_rows = int(mask.any(1).sum())
+    ints_b = sum(x.numel() * 4 for x in ints)
+    qside = qp.numel() * 2
+    rows_b = B * Hq * Tq * 4  # one fp32 per q row and head (lse or delta)
+    kv_b = kv_rows * Hk * D * 2
+    work = {
+        "fwd": (4.0 * D * Hq * pairs, 2 * qside + 2 * kv_b + rows_b + ints_b),
+        "dq": (6.0 * D * Hq * pairs,
+               3 * qside + 2 * rows_b + 2 * kv_b + ints_b),
+        "dkv": (8.0 * D * Hq * pairs,
+                2 * qside + 2 * rows_b + 2 * kv_b + 2 * B * Tk * Hk * D * 2
+                + ints_b),
+    }
+    key = (flags["causal"], flags["has_segments"], B, Hq, Hk, Tq, Tk, D)
+    rows = []
+    for kind, label, ms, plain_ms, lib_ms, mabs, replaces, src in (
+        ("fwd", "flash_fwd_lse", ms_fwd, plain_fwd, lib_fwd,
+         float(err.max()), "oryx_tpu/ops/pallas/flash_attention.py:206",
+         "flash_attention.cu"),
+        ("dq", "flash_bwd_dq", ms_dq, plain_bwd, lib_bwd, errs["dq"],
+         "oryx_tpu/ops/pallas/flash_attention.py:508",
+         "flash_attention_bwd.cu"),
+        ("dkv", "flash_bwd_dkv", ms_dkv, plain_bwd, lib_bwd,
+         max(errs["dk"], errs["dv"]),
+         "oryx_tpu/ops/pallas/flash_attention.py:553",
+         "flash_attention_bwd.cu"),
+    ):
+        flops, nbytes = work[kind]
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        print(f"    {label}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+              f"sdpa {'fwd' if kind == 'fwd' else 'fwd+bwd'} {lib_ms:.4f} ms"
+              f" | bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} "
+              f"GFLOP, {nbytes / 1e6:.2f} MB)")
+        rows.append({
+            "name": f"{label}[{name}]",
+            "route": "cuda",
+            "source": f"oryx_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": 0,
+            "max_abs_err": mabs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+        })
+    return key, rows
+
+
+def _flash_counters():
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    return {"fwd": fa.LAUNCHES, "flash_fwd_lse": fa.LAUNCHES_LSE,
+            "flash_bwd_dq": fa.LAUNCHES_DQ, "flash_bwd_dkv": fa.LAUNCHES_DKV}
+
+
+def fit_once(cfg_t, params):
+    """One Trainer.fit of TRAIN_STEPS steps; launch counts zeroed just
+    before and read just after. Returns (trainer, launches, wall)."""
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg_t, params=params, device="cuda")
+    counters = _flash_counters()
+    for c in counters.values():
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(train_batches(cfg_t), num_steps=TRAIN_STEPS, resume=False,
+                prefetch=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: dict(c) for k, c in counters.items()}
+    for i, h in enumerate(trainer.history):
+        print(f"    step {i + 1}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} | wall {h['wall_s']:.3f} s, "
+              f"{h['tokens'] / h['wall_s']:.0f} tokens/s "
+              f"({h['tokens']} tokens), {h['num_tokens'] / h['wall_s']:.0f} "
+              f"supervised/s ({int(h['num_tokens'])}) | device fwd+bwd "
+              f"{h['fwd_bwd_ms']:.1f} ms, optimizer {h['optimizer_ms']:.2f}"
+              f" ms | data {h['data_s']:.3f} s, h2d {h['h2d_s']:.3f} s | "
+              f"peak {h['peak_bytes'] / 1e9:.2f} GB")
+    return trainer, launches, wall
+
+
+def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
+    """Phase 10 (see the module docstring); fills the launches of
+    train_rows from the first fit."""
+    import shutil
+
+    from oryx_tpu_torch.train import step as step_lib
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    names = [n for n, _ in params.named_parameters()]
+    comp = [n for n in names if n.startswith("compressor.")]
+    frozen = [n for n in names if not n.startswith("compressor.")]
+    t0 = time.perf_counter()
+    snap = {n: p.detach().cpu() for n, p in params.named_parameters()
+            if n in frozen}
+    init = {n: p.detach().float().clone() for n, p in
+            params.named_parameters() if n in comp}
+    print(f"  host snapshot of {len(frozen)} frozen leaves "
+          f"({sum(x.numel() for x in snap.values()) / 1e9:.2f} B params) in "
+          f"{time.perf_counter() - t0:.1f} s; {len(comp)} compressor leaves "
+          f"train ({sum(x.numel() for x in init.values()) / 1e6:.1f} M)")
+    fits = []
+    for run in range(2):
+        if run:
+            with torch.no_grad():
+                for n, p in params.named_parameters():
+                    if n in init:
+                        p.copy_(init[n])
+        print(f"  fit {run + 1}:")
+        trainer, launches, wall = fit_once(cfg_t, params)
+        losses = [h["loss"] for h in trainer.history]
+        print(f"  fit {run + 1}: wall {wall:.2f} s, losses {losses}, "
+              f"grad norms {[h['grad_norm'] for h in trainer.history]}")
+        if not all(np.isfinite(losses)):
+            raise SystemExit("non-finite training loss")
+        fits.append((trainer, launches, losses))
+    trainer, launches, _ = fits[0]
+    if fits[1][2] != fits[0][2]:
+        raise SystemExit(f"a second fit from the same init gave other "
+                         f"losses: {fits[1][2]} vs {fits[0][2]}")
+    print("  the second fit from the same init gave identical losses")
+    cur = dict(params.named_parameters())
+    changed = [n for n in comp if not torch.equal(cur[n].float(), init[n])]
+    if not changed:
+        raise SystemExit("the compressor did not change")
+    for n in frozen:
+        if not torch.equal(cur[n].detach().cpu(), snap[n]):
+            raise SystemExit(f"frozen leaf {n} changed")
+    print(f"  frozen leaves bitwise unchanged; {len(changed)}/{len(comp)} "
+          f"compressor leaves changed (lr(0) = 0: step 1 moves nothing)")
+    for key, case_rows in train_rows:
+        for row in case_rows:
+            kind = row["name"].split("[")[0]
+            row["launches"] = launches[kind].get(key, 0)
+            print(f"  launches {row['name']}: {row['launches']}")
+            if row["launches"] == 0:
+                raise SystemExit(f"{row['name']} was never launched by the "
+                                 "training step")
+    print("  launches in the fit, all shapes: " + ", ".join(
+        f"{k} {sum(v.values())}" for k, v in launches.items()))
+    print("  one more step (the image batch) under torch.profiler:")
+    t2 = fits[1][0]
+    batch = t2._device_batch(host_img)
+    profile_call(lambda: step_lib.train_step(t2.state, batch, cfg_t, t2.tx))
+    del fits, trainer, t2, batch
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+
+def tiny_training_on_card() -> None:
+    """Phase 11: the tiny fp32 config, tune full, 3 steps of Trainer.fit on
+    the card and on the CPU from the same init and batches: losses within
+    rtol 1e-4, params within atol 2e-4 / rtol 2e-3 (lr 1e-5, so Adam's
+    1/sqrt(v) on near-zero gradient entries moves no param by more than
+    2e-5)."""
+    import shutil
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    base = config.oryx_tiny()
+    cfg = dataclasses.replace(base, attn_impl="pallas", train=dataclasses.replace(
+        base.train, tune="full", learning_rate=1e-5, num_train_steps=10,
+        warmup_ratio=0.1, remat_policy="attn",
+        checkpoint_dir=TRAIN_CKPT + "_tiny",
+    ))
+    recs = [dict(r, conversations=[
+        {"from": "human", "value": "<image>"},
+        {"from": "gpt", "value": f"caption {i}"},
+    ]) for i, r in enumerate(train_records())]
+
+    def small(rec):
+        return [x[:42, :56] for x in train_media(rec)][:4]
+
+    out = {}
+    counters = _flash_counters()
+    for dev in ("cpu", "cuda"):
+        shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+        for c in counters.values():
+            c.clear()
+        model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu").to(dev)
+        t = Trainer(cfg, params=model, device=dev)
+        t.fit(train_batches(cfg, recs, small, batch=2,
+                            buckets=(64, 128, 256)),
+              num_steps=3, resume=False, prefetch=0)
+        out[dev] = ([h["loss"] for h in t.history],
+                    {n: p.detach().cpu() for n, p in
+                     model.named_parameters()})
+        if dev == "cuda":
+            bwd = {k: sum(c.values()) for k, c in counters.items()}
+    shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+    print(f"  losses card {out['cuda'][0]} cpu {out['cpu'][0]}; kernel "
+          f"launches on the card {bwd}")
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    worst = 0.0
+    for n, p in out["cpu"][1].items():
+        q = out["cuda"][1][n]
+        torch.testing.assert_close(q, p, atol=2e-4, rtol=2e-3)
+        worst = max(worst, float((q - p).abs().max()))
+    if not (bwd["flash_bwd_dq"] and bwd["flash_bwd_dkv"]
+            and bwd["flash_fwd_lse"]):
+        raise SystemExit("the tiny training run launched no K5")
+    print(f"  card == cpu within tolerance; params max abs diff {worst:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -727,7 +1181,7 @@ def main() -> int:
         build.build(name)
         return time.perf_counter() - t
 
-    sources = ("flash_attention", "paged_attention")
+    sources = ("flash_attention", "flash_attention_bwd", "paged_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
         secs = dict(zip(sources, ex.map(timed_build, sources)))
     for name in sources:
@@ -915,6 +1369,35 @@ def main() -> int:
     # ---- 8. tiny fp32 engines on the card ---------------------------------
     print(f"phase 8: tiny fp32 engines, card vs CPU ({card})")
     tiny_engines_on_card()
+
+    # ---- 9. training kernels at the training step's shapes ----------------
+    cfg_t = train_config()
+    # The image batch has 4 x 1,936 visual tokens, the video batch 512.
+    first_two = list(itertools.islice(train_batches(cfg_t), 2))
+    host_img, host_vid = sorted(first_two, key=lambda b: -b["is_visual"].sum())
+    if host_vid["is_visual"].sum() > 4096:
+        raise SystemExit("the first two training batches are not one image "
+                         "and one video batch")
+    print(f"phase 9: K1 with lse, K5a, K5b vs plain twins at the training "
+          f"step's shapes, bf16 ({card})")
+    gen = torch.Generator("cuda").manual_seed(3)
+    train_rows = []
+    for name, kw in training_attention_cases(cfg_t, host_img, host_vid, gen):
+        key, case_rows = check_backward_case(name, kw, gen)
+        train_rows.append((key, case_rows))
+
+    # ---- 10. Trainer.fit at full width and depth --------------------------
+    print(f"phase 10: Trainer.fit, oryx_7b_pretrain.json at full width and "
+          f"depth, {TRAIN_STEPS} steps of {TRAIN_BATCH} records ({card})")
+    train_full_size(cfg_t, params, host_img, train_rows, card)
+    for _, case_rows in train_rows:
+        rows.extend(case_rows)
+    del params, pipe, pipe_x, pipe_f, spipe
+    torch.cuda.empty_cache()
+
+    # ---- 11. tiny fp32 training on the card --------------------------------
+    print(f"phase 11: tiny fp32 Trainer.fit, tune full, card vs CPU ({card})")
+    tiny_training_on_card()
 
     print(card)
     print(json.dumps({"kernels": rows}))

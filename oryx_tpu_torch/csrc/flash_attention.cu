@@ -10,6 +10,13 @@
 // Masked logits are set to NEG = -0.7 * FLT_MAX (not -inf), the online state
 // (m, l) is fp32, p is rounded to the value dtype before P.V, P.V accumulates
 // in fp32, and the output is acc / (l == 0 ? 1 : l) cast to q's dtype.
+// Given an `lse` buffer (the training forward, Pallas `with_lse=True`), each
+// row's logsumexp m + log(l) is written too, FLT_MAX where l == 0 (Pallas
+// `_finalize`). A row none of whose visited tiles holds a visible key keeps
+// m = NEG; a row all of whose tiles were skipped has l == 0 and gets FLT_MAX,
+// where Pallas, which skips no tile of a non-causal call, gets NEG + log n.
+// The backward's p is then 0 there where Pallas has 1/n; no gradient of the
+// models differs, since every such row's cotangent is zero.
 //
 // What bounds it on an H100: at the path's shapes the work is two matrix
 // products per kv tile (4 * D flops per live (q, kv) pair), far above the
@@ -44,6 +51,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, Hq, Tq] contiguous, or null
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
@@ -382,6 +390,9 @@ __global__ void __launch_bounds__(NW * 32)
   for (int i = 0; i < 2; ++i) {
     const int row = wr + g + 8 * i;
     if (row >= p.Tq) continue;
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Tq + row] =
+          l[i] == 0.f ? FLT_MAX : m[i] + logf(l[i]);
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
     for (int dn = 0; dn < DP / 8; ++dn)
@@ -504,6 +515,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(const Params p) {
   for (int r = 0; r < RW; ++r) {
     const int row = q0 + warp * RW + r;
     if (row >= p.Tq) continue;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Tq + row] =
+          l[r] == 0.f ? FLT_MAX : m[r] + logf(l[r]);
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
 #pragma unroll
     for (int c = 0; c < DP / 32; ++c) {
@@ -546,7 +560,7 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
-                   const long long* strides, const void* q_pos,
+                   void* lse, const long long* strides, const void* q_pos,
                    const void* kv_pos, const void* q_seg, const void* kv_seg,
                    const void* kv_valid, int B, int Hq, int Hk, int Tq,
                    int Tk, int D, float scale, int causal, int has_segments,
@@ -556,6 +570,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.q_sb = strides[0], p.q_sh = strides[1], p.q_st = strides[2];
   p.k_sb = strides[3], p.k_sh = strides[4], p.k_st = strides[5];
   p.v_sb = strides[6], p.v_sh = strides[7], p.v_st = strides[8];
@@ -580,16 +595,17 @@ bool valid_shape(int B, int Hq, int Hk, int Tq, int Tk, int D) {
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `strides` holds 12 element
-// strides: (batch, head, token) for q, k, v and o. Each returns the
-// cudaError_t of the launch (0 on success); nothing is synchronised.
+// strides: (batch, head, token) for q, k, v and o; `lse` is a contiguous fp32
+// [B, Hq, Tq] buffer or null. Each returns the cudaError_t of the launch (0
+// on success); nothing is synchronised.
 extern "C" int oryx_flash_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     const long long* strides, const void* q_pos, const void* kv_pos,
     const void* q_seg, const void* kv_seg, const void* kv_valid, int B,
     int Hq, int Hk, int Tq, int Tk, int D, float scale, int causal,
     int has_segments, int kv_arange, int vec, void* stream) {
   if (!valid_shape(B, Hq, Hk, Tq, Tk, D)) return cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, strides, q_pos, kv_pos, q_seg,
+  const Params p = make_params(q, k, v, o, lse, strides, q_pos, kv_pos, q_seg,
                                kv_seg, kv_valid, B, Hq, Hk, Tq, Tk, D, scale,
                                causal, has_segments, kv_arange, vec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -597,13 +613,13 @@ extern "C" int oryx_flash_fwd_bf16(
 }
 
 extern "C" int oryx_flash_fwd_f32(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     const long long* strides, const void* q_pos, const void* kv_pos,
     const void* q_seg, const void* kv_seg, const void* kv_valid, int B,
     int Hq, int Hk, int Tq, int Tk, int D, float scale, int causal,
     int has_segments, int kv_arange, int vec, void* stream) {
   if (!valid_shape(B, Hq, Hk, Tq, Tk, D)) return cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, strides, q_pos, kv_pos, q_seg,
+  const Params p = make_params(q, k, v, o, lse, strides, q_pos, kv_pos, q_seg,
                                kv_seg, kv_valid, B, Hq, Hk, Tq, Tk, D, scale,
                                causal, has_segments, kv_arange, vec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

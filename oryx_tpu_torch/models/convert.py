@@ -1,16 +1,18 @@
-"""Convert the JAX package's parameter tree into the port's modules.
+"""Convert between the JAX package's parameter tree and the port's modules.
 
 `from_jax_params` takes the tree `oryx_tpu.models.oryx.init_params` builds
 (`{"llm", "vit", "compressor"}`, decoder and encoder leaves layer-stacked
 `[L, ...]`, linear kernels `[in, out]`) as numpy arrays, and returns an
-`OryxModel` on the CPU that computes the same function. numpy only: it never
-imports jax.
+`OryxModel` on the CPU that computes the same function. `to_jax_layout` is
+the way back, for the model's parameters or any tensors named like them
+(gradients, Adam moments). numpy only: it never imports jax.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from oryx_tpu_torch.config import OryxConfig
 from oryx_tpu_torch.models import compressor as compressor_lib
@@ -68,3 +70,53 @@ def from_jax_params(tree: dict, cfg: OryxConfig) -> OryxModel:
     model = materialize(model, torch.device("cpu"), None)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def to_jax_layout(model: nn.Module,
+                  values: dict[str, torch.Tensor] | None = None) -> dict:
+    """The JAX tree layout of `values` ({parameter name: tensor}, default
+    the model's parameters) as float32 numpy: linear weights transposed to
+    `kernel` [in, out], norms and tables as `weight`, and the leaves under
+    each "layers" list stacked on a leading layer axis."""
+    if values is None:
+        values = dict(model.named_parameters())
+    tree: dict = {}
+    for mod_name, mod in model.named_modules():
+        leaves = {}
+        for pname, _ in mod.named_parameters(recurse=False):
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            if full not in values:
+                continue
+            a = values[full].detach().float().cpu().numpy()
+            if isinstance(mod, nn.Linear) and pname == "weight":
+                leaves["kernel"] = a.T
+            else:
+                leaves[pname] = a
+        if not leaves:
+            continue
+        node = tree
+        parts = mod_name.split(".")
+        for i, part in enumerate(parts):
+            if part.isdigit():
+                continue
+            if i + 1 < len(parts) and parts[i + 1].isdigit():
+                # A layer of a stack: collect per layer, stacked below.
+                layers = node.setdefault(part, {})
+                for leaf_name, a in leaves.items():
+                    sub = layers
+                    for r in parts[i + 2:]:
+                        sub = sub.setdefault(r, {})
+                    sub.setdefault(leaf_name, []).append(a)
+                break
+            node = node.setdefault(part, {})
+        else:
+            node.update(leaves)
+    return _stack(tree)
+
+
+def _stack(node):
+    if isinstance(node, dict):
+        return {k: _stack(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return np.stack(node)
+    return node

@@ -4,7 +4,8 @@
 `OryxModel` holds the three parameter modules under the JAX tree's names
 (`llm`, `vit`, `compressor`); the visual encode, splice, prefill and decode
 are plain functions over them, on the packed buffers from ops/packing.py and
-models/splice.py.
+models/splice.py. `forward` is the training forward (visual encode, splice,
+decoder; differentiable in every parameter).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def init_params(
     dtype: torch.dtype = torch.float32,
 ) -> OryxModel:
     """Random init of all three parts from one generator (seed 0 when none
-    is given), built directly on `device` in `dtype`."""
+    is given), built directly on `device` in `dtype`, frozen (inference);
+    `train.trainer.prepare_params` makes the leaves trainable."""
     dev = resolve_device(device)
     g = generator or default_generator(dev)
     return OryxModel(
@@ -56,7 +58,6 @@ def compute_dtype(cfg: OryxConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-@torch.inference_mode()
 def encode_visual(
     params: OryxModel,
     cfg: OryxConfig,
@@ -66,18 +67,57 @@ def encode_visual(
     region_ids: torch.Tensor,
     q_region_ids: torch.Tensor,
     *,
+    remat: bool | str = False,
     compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Packed patches -> packed LLM-space visual embeddings [Q, H_llm]: one
     ViT pass over all images/frames of the batch, then the compressor."""
     feats = oryx_vit.forward(
         params.vit, cfg.vision, patches, segment_ids, pos_coords,
-        attn_impl=cfg.attn_impl, compute_dtype=compute_dtype,
+        remat=remat, attn_impl=cfg.attn_impl, compute_dtype=compute_dtype,
     )
     return compressor_lib.forward(
         params.compressor, cfg.compressor, cfg.vision,
         feats, region_ids, q_region_ids, attn_impl=cfg.attn_impl,
     )
+
+
+def forward(
+    params: OryxModel,
+    cfg: OryxConfig,
+    *,
+    patches: torch.Tensor,
+    segment_ids: torch.Tensor,
+    pos_coords: torch.Tensor,
+    region_ids: torch.Tensor,
+    q_region_ids: torch.Tensor,
+    token_ids: torch.Tensor,
+    visual_idx: torch.Tensor,
+    is_visual: torch.Tensor,
+    attn_mask: torch.Tensor,
+    positions: torch.Tensor,
+    remat: bool | str = False,
+    compute_dtype: torch.dtype | None = None,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Training forward: visual encode -> splice -> decoder fp32 logits
+    [B, T, V] (or the final hidden states [B, T, H] with return_hidden, for the
+    chunked loss). The arrays are the collated batch fields
+    (train/data.collate) on the device."""
+    vis = encode_visual(
+        params, cfg, patches, segment_ids, pos_coords, region_ids,
+        q_region_ids, remat=remat, compute_dtype=compute_dtype,
+    )
+    embeds = splice.embed_spliced(
+        params.llm.embed.weight, vis, token_ids, visual_idx, is_visual
+    )
+    out, _ = qwen2.forward(
+        params.llm, cfg.llm,
+        inputs_embeds=embeds, positions=positions, kv_mask=attn_mask,
+        remat=remat, attn_impl=cfg.attn_impl, compute_dtype=compute_dtype,
+        return_hidden=return_hidden,
+    )
+    return out
 
 
 def stage_mm_arrays(packed: PackedVisual, batch: splice.MMBatch,

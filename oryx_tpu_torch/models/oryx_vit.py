@@ -23,6 +23,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
+from oryx_tpu_torch.utils.remat import checkpointed
 
 
 class VisionLayer(nn.Module):
@@ -101,12 +102,15 @@ def forward(
     segment_ids: torch.Tensor,
     pos_coords: torch.Tensor,
     *,
+    remat: bool | str = False,
     attn_impl: str = "xla",
     compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Encode a packed patch buffer.
 
     patches: [P, patch_dim]; segment_ids: [P] (0 = pad); pos_coords: [P, 2].
+    remat: the per-layer remat policy (utils/remat.py) of the training
+    forward.
     Returns features [P, hidden] in the compute dtype (pad rows are garbage;
     consumers mask on segment_ids).
     """
@@ -131,17 +135,19 @@ def forward(
             f"attn_impl {attn_impl!r}: the port has 'xla' and 'pallas'"
         )
 
-    B, P, _ = h.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
-    for lp in params.layers:
+    def layer(h, lp):
+        B, P, _ = h.shape
         x = lp.norm1(h)
-        q = _linear(x, lp.q_proj).view(B, P, nh, hd)
-        k = _linear(x, lp.k_proj).view(B, P, nh, hd)
-        v = _linear(x, lp.v_proj).view(B, P, nh, hd)
+        q = _linear(x, lp.q_proj).view(B, P, cfg.num_heads, cfg.head_dim)
+        k = _linear(x, lp.k_proj).view(B, P, cfg.num_heads, cfg.head_dim)
+        v = _linear(x, lp.v_proj).view(B, P, cfg.num_heads, cfg.head_dim)
         o = attn_fn(q, k, v).reshape(B, P, -1)
         h = h + _linear(o, lp.o_proj)
         x = lp.norm2(h)
         x = F.gelu(_linear(x, lp.fc1), approximate="tanh")
-        h = h + _linear(x, lp.fc2)
+        return h + _linear(x, lp.fc2)
+
+    for lp in params.layers:
+        h = checkpointed(remat, layer, h, lp)
 
     return params.post_norm(h)[0]

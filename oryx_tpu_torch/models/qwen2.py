@@ -6,7 +6,9 @@ over them with the JAX function's arguments. Attention paths ported: no
 cache (right-padded prefill), the dense KV cache ([L, B, S, Hk, D]), and the
 paged pool ([L, P, page_size, Hk, D] addressed through block tables, in
 per-row and packed ragged form). Caches are updated IN PLACE where the JAX
-package returns a new cache. Quantized pools, ring attention, LoRA and
+package returns a new cache. Without a cache the forward is the training
+forward too: differentiable in every parameter, each layer under the remat
+policy of utils/remat.py. Quantized pools, ring attention, LoRA and
 packed-training segment ids belong to later slices.
 """
 
@@ -28,6 +30,7 @@ from oryx_tpu_torch.ops.cuda import paged_attention
 from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
 from oryx_tpu_torch.ops.norms import RMSNorm
 from oryx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from oryx_tpu_torch.utils.remat import checkpointed
 
 
 class DecoderLayer(nn.Module):
@@ -251,6 +254,7 @@ def forward(
     write_mask: torch.Tensor | None = None,
     kv_lengths: torch.Tensor | None = None,
     q_segments: torch.Tensor | None = None,
+    remat: bool | str = False,
     attn_impl: str = "xla",
     compute_dtype: torch.dtype | None = None,
     logits_dtype: torch.dtype = torch.float32,
@@ -280,6 +284,8 @@ def forward(
         [num_slots, max_pages] and write_mask is per row [1, T]. Each row
         writes through its slot's table and attends its slot's pages
         causally at its own position (kv_mask/kv_lengths unused).
+      remat: the per-layer remat policy (utils/remat.py) of the training
+        forward; only without a cache.
       return_hidden: return the final-norm hidden states instead of logits
         (callers project only the rows they need, `logits_from_hidden`).
 
@@ -310,6 +316,8 @@ def forward(
             raise ValueError(
                 f"q_segments packs many sequences into ONE row; got B={B}"
             )
+    if kv_cache is not None and remat not in (False, None, "none"):
+        raise ValueError("remat is for the training forward, without a cache")
     attn_fn = _attn_fn(attn_impl)
     index = None
     if kv_cache is not None and block_tables is not None:
@@ -325,8 +333,8 @@ def forward(
             )
 
     for i, lp in enumerate(params.layers):
-        h = _block(
-            cfg, h, lp, cos, sin,
+        h = checkpointed(
+            remat, _block, cfg, h, lp, cos, sin,
             positions=positions,
             cache_k=None if kv_cache is None else kv_cache["k"][i],
             cache_v=None if kv_cache is None else kv_cache["v"][i],

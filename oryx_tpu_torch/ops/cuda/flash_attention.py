@@ -1,17 +1,27 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain twin.
+"""Flash attention: the hand-written Hopper kernels and their plain twins.
 
-Port of the Pallas TPU kernel `oryx_tpu.ops.pallas.flash_attention`
-(forward only). The CUDA source is `oryx_tpu_torch/csrc/flash_attention.cu`;
-see its header for what bounds it and how it is laid out.
+Port of the Pallas TPU kernels of `oryx_tpu.ops.pallas.flash_attention`:
+the forward K1 (`csrc/flash_attention.cu`, with or without the per-row
+logsumexp the backward needs) and the backward K5a/K5b
+(`csrc/flash_attention_bwd.cu`: dq, and dk/dv). See the sources' headers for
+what bounds them and how they are laid out.
 
 `flash_attention` has the JAX wrapper's signature and masking model. Its
 layout step (`_prepare`: [B, T, H, D] -> [B, H, T, D] views, the int32
 [B, T] position/segment/validity arrays) is shared by both devices; only
 the innermost call differs:
-  * CUDA tensors -> `_mha_forward`, which launches the kernel (bf16 or
-    fp32) or raises;
-  * CPU tensors  -> `_mha_forward_reference`, a plain PyTorch function with
-    the kernel's argument list and arithmetic.
+  * CUDA tensors -> `_mha_forward` / `_mha_backward`, which launch the
+    kernels (bf16 or fp32) or raise;
+  * CPU tensors  -> `_mha_forward_reference` / `_mha_backward_reference`,
+    plain PyTorch functions with the kernels' argument lists and
+    arithmetic.
+
+When q, k or v require grad, the forward runs as the custom op
+`oryx_torch::flash_fwd_lse` (K1 with the logsumexp), whose autograd formula
+is the counterpart of the JAX `_flash_vjp`: Delta = rowsum(dO * O) in fp32
+from the rounded output, then K5a and K5b. Being one dispatcher op, the
+forward is what the "attn" remat policy (utils/remat.py) keeps instead of
+recomputing it.
 
 Rows past the sequence ends need no padding in memory: the kernel treats kv
 rows past Tk as invalid (the Pallas pad convention: kv segment -2, invalid)
@@ -27,32 +37,39 @@ import torch
 
 from oryx_tpu_torch.ops.cuda import build
 
-NEG = -0.7 * torch.finfo(torch.float32).max
+FLT_MAX = torch.finfo(torch.float32).max
+NEG = -0.7 * FLT_MAX
 
 # Kernel launches, keyed by call shape (causal, has_segments, B, Hq, Hk, Tq,
-# Tk, D). Only `_mha_forward` adds to it, once per launch.
+# Tk, D), one counter per kernel: K1 (inference), K1 writing the logsumexp,
+# K5a (dq) and K5b (dk/dv). Only the launchers add to them, once per launch.
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_LSE: collections.Counter = collections.Counter()
+LAUNCHES_DQ: collections.Counter = collections.Counter()
+LAUNCHES_DKV: collections.Counter = collections.Counter()
 
-_ENTRY = {
-    torch.bfloat16: "oryx_flash_fwd_bf16",
-    torch.float32: "oryx_flash_fwd_f32",
-}
-_fns: dict[torch.dtype, object] = {}
+_DT = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_fns: dict[str, object] = {}
 
 
-def _kernel_fn(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+def _kernel_fn(entry: str):
+    """The ctypes function `entry` ("oryx_flash_fwd_bf16", ...) of the
+    library that defines it, built on first use."""
+    fn = _fns.get(entry)
     if fn is None:
-        fn = getattr(build.load("flash_attention"), _ENTRY[dtype])
+        fwd = entry.startswith("oryx_flash_fwd")
+        lib = build.load("flash_attention" if fwd else "flash_attention_bwd")
+        fn = getattr(lib, entry)
+        nptr = 11 if fwd else 15
         fn.argtypes = (
-            [ctypes.c_void_p] * 10
+            [ctypes.c_void_p] * nptr
             + [ctypes.c_int] * 6
             + [ctypes.c_float]
             + [ctypes.c_int] * 4
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[entry] = fn
     return fn
 
 
@@ -67,37 +84,32 @@ def _check_ints(name: str, x: torch.Tensor, B: int, T: int, device) -> None:
         )
 
 
-def _mha_forward(
-    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
-    *,
-    causal: bool,
-    has_segments: bool,
-    kv_arange: bool,
-    scale: float,
-) -> torch.Tensor:
-    """Launch the kernel. q [B, Hq, Tq, D]; k/v [B, Hk, Tk, D] (any strides
-    with a contiguous feature dim); int arrays contiguous int32 [B, T*].
-    Returns o [B, Hq, Tq, D] in q's dtype (a view of a [B, Tq, Hq, D]
-    buffer). Raises on anything the kernel does not take."""
+def _check_operands(q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
+                    extra=()) -> None:
+    """Raise on anything the kernels do not take: CUDA tensors, q/k/v (and
+    `extra`, (name, tensor) pairs shaped like q) all bf16 or all fp32 with a
+    contiguous feature dim, Hq % Hk == 0, D <= 128, contiguous int32 ints."""
     B, Hq, Tq, D = q.shape
     _, Hk, Tk, _ = k.shape
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"_mha_forward needs CUDA tensors, got {dev}")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the flash kernels need CUDA tensors, got {dev}")
+    named = (("q", q), ("k", k), ("v", v), *extra)
+    if q.dtype not in _DT or any(x.dtype != q.dtype for _, x in named):
         raise ValueError(
-            f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need all bf16 or "
-            "all fp32"
+            "dtypes " + "/".join(f"{n} {x.dtype}" for n, x in named)
+            + ": need all bf16 or all fp32"
         )
     if (
         tuple(k.shape) != (B, Hk, Tk, D) or tuple(v.shape) != (B, Hk, Tk, D)
+        or any(tuple(x.shape) != tuple(q.shape) for _, x in extra)
         or Hq % Hk or D > 128
     ):
         raise ValueError(
             f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
             f"{tuple(v.shape)}: need Hq % Hk == 0 and D <= 128"
         )
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in named:
         if x.device != dev:
             raise ValueError(f"{name} on {x.device}, q on {dev}")
         if x.stride(-1) != 1:
@@ -108,8 +120,13 @@ def _mha_forward(
                     ("kv_valid", kv_valid)):
         _check_ints(name, x, B, Tk, dev)
 
-    o = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=dev).transpose(1, 2)
-    views = (q, k, v, o)
+
+def _launch(entry: str, views, ptrs, ints, q, k, flags) -> None:
+    """Call one kernel entry: `views` are the [B, H, T, D] operands whose
+    (batch, head, token) strides it takes, `ptrs` the other pointers before
+    the strides, `ints` the five int32 arrays."""
+    B, Hq, Tq, D = q.shape
+    _, Hk, Tk, _ = k.shape
     strides = [s for x in views for s in x.stride()[:3]]
     # 16-byte vector loads need 16-byte aligned rows.
     per16 = 16 // q.element_size()
@@ -118,24 +135,129 @@ def _mha_forward(
         and all(s % per16 == 0 for s in strides)
         and all(x.data_ptr() % 16 == 0 for x in views)
     )
-    stride_arr = (ctypes.c_longlong * 12)(*strides)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn(q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            ctypes.addressof(stride_arr),
-            q_pos.data_ptr(), kv_pos.data_ptr(), q_seg.data_ptr(),
-            kv_seg.data_ptr(), kv_valid.data_ptr(),
-            B, Hq, Hk, Tq, Tk, D, float(scale),
-            int(causal), int(has_segments), int(kv_arange), vec, stream,
+    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel_fn(entry)(
+            *ptrs, ctypes.addressof(stride_arr),
+            *(x.data_ptr() for x in ints),
+            B, Hq, Hk, Tq, Tk, D, float(flags["scale"]),
+            int(flags["causal"]), int(flags["has_segments"]),
+            int(flags["kv_arange"]), vec, stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err} "
+            f"{entry} launch failed: CUDA error {err} "
             f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})"
         )
-    LAUNCHES[(causal, has_segments, B, Hq, Hk, Tq, Tk, D)] += 1
+
+
+def _mha_forward(
+    q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
+    *,
+    causal: bool,
+    has_segments: bool,
+    kv_arange: bool,
+    scale: float,
+    with_lse: bool = False,
+):
+    """Launch the kernel. q [B, Hq, Tq, D]; k/v [B, Hk, Tk, D] (any strides
+    with a contiguous feature dim); int arrays contiguous int32 [B, T*].
+    Returns o [B, Hq, Tq, D] in q's dtype (a view of a [B, Tq, Hq, D]
+    buffer), and with `with_lse` also the fp32 logsumexp [B, Hq, Tq]: m +
+    log l, FLT_MAX where l == 0. Raises on anything the kernel does not
+    take."""
+    ints = (q_pos, kv_pos, q_seg, kv_seg, kv_valid)
+    _check_operands(q, k, v, *ints)
+    B, Hq, Tq, D = q.shape
+    _, Hk, Tk, _ = k.shape
+    dev = q.device
+    o = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    lse = (
+        torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
+        if with_lse else None
+    )
+    flags = dict(causal=causal, has_segments=has_segments,
+                 kv_arange=kv_arange, scale=scale)
+    _launch(
+        f"oryx_flash_fwd_{_DT[q.dtype]}", (q, k, v, o),
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+         None if lse is None else lse.data_ptr()),
+        ints, q, k, flags,
+    )
+    key = (causal, has_segments, B, Hq, Hk, Tq, Tk, D)
+    if with_lse:
+        LAUNCHES_LSE[key] += 1
+        return o, lse
+    LAUNCHES[key] += 1
     return o
+
+
+def _mha_backward(q, k, v, do, lse, delta, *ints, **flags):
+    """K5a then K5b: dq [B, Hq, Tq, D] and dk, dv [B, Hk, Tk, D]."""
+    dq = _mha_backward_dq(q, k, v, do, lse, delta, *ints, **flags)
+    return (dq,) + _mha_backward_dkv(q, k, v, do, lse, delta, *ints, **flags)
+
+
+def _mha_backward_dq(q, k, v, do, lse, delta, *ints, **flags):
+    """Launch K5a: dq [B, Hq, Tq, D] in q's dtype (a view of a
+    [B, Tq, Hq, D] buffer). Arguments as `_bwd_launch`."""
+    return _bwd_launch("dq", q, k, v, do, lse, delta, *ints, **flags)[0]
+
+
+def _mha_backward_dkv(q, k, v, do, lse, delta, *ints, **flags):
+    """Launch K5b: (dk, dv), each [B, Hk, Tk, D] in q's dtype (views of
+    [B, Tk, Hk, D] buffers). Arguments as `_bwd_launch`."""
+    return _bwd_launch("dkv", q, k, v, do, lse, delta, *ints, **flags)[1:]
+
+
+def _bwd_launch(
+    which, q, k, v, do, lse, delta, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
+    *,
+    causal: bool,
+    has_segments: bool,
+    kv_arange: bool,
+    scale: float,
+):
+    """Launch K5a (which="dq") or K5b ("dkv"). Layouts as `_mha_forward`,
+    plus do [B, Hq, Tq, D] (any strides with a contiguous feature dim) and
+    the fp32 lse / delta [B, Hq, Tq]; returns (dq, dk, dv) with None for
+    what this kernel does not write. Raises on anything the kernels do not
+    take."""
+    ints = (q_pos, kv_pos, q_seg, kv_seg, kv_valid)
+    _check_operands(q, k, v, *ints, extra=(("do", do),))
+    B, Hq, Tq, D = q.shape
+    _, Hk, Tk, _ = k.shape
+    dev = q.device
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (
+            x.dtype != torch.float32 or tuple(x.shape) != (B, Hq, Tq)
+            or not x.is_contiguous() or x.device != dev
+        ):
+            raise ValueError(
+                f"{name}: need contiguous fp32 [{B}, {Hq}, {Tq}] on {dev}, "
+                f"got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+
+    def out(T, H):
+        return torch.empty((B, T, H, D), dtype=q.dtype,
+                           device=dev).transpose(1, 2)
+
+    if which == "dq":
+        dq, dk, dv = out(Tq, Hq), None, None
+        outs = (dq, q, q)  # the unused pointers are never written
+    else:
+        dq, dk, dv = None, out(Tk, Hk), out(Tk, Hk)
+        outs = (do, dk, dv)
+    views = (q, k, v, do, *outs)
+    ptrs = tuple(x.data_ptr() for x in (q, k, v, do, lse, delta, *outs))
+    flags = dict(causal=causal, has_segments=has_segments,
+                 kv_arange=kv_arange, scale=scale)
+    _launch(f"oryx_flash_bwd_{which}_{_DT[q.dtype]}", views, ptrs, ints, q,
+            k, flags)
+    counts = LAUNCHES_DQ if which == "dq" else LAUNCHES_DKV
+    counts[(causal, has_segments, B, Hq, Hk, Tq, Tk, D)] += 1
+    return dq, dk, dv
 
 
 def _mha_forward_reference(
@@ -145,36 +267,151 @@ def _mha_forward_reference(
     has_segments: bool,
     kv_arange: bool,
     scale: float,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Plain PyTorch twin of `_mha_forward` (same arguments, same result):
     fp32 logits from the input operands, masked entries set to NEG,
     unnormalized p = exp(s - rowmax) rounded to v's dtype for p.V with an
-    fp32 sum, then divided by l (1 where l == 0). Rows are processed one
-    (batch, kv head) group at a time to bound memory. `kv_arange` only
-    selects tile skipping in the kernel, which changes no valid row."""
+    fp32 sum, then divided by l (1 where l == 0); with `with_lse` also
+    m + log l (FLT_MAX where l == 0). Rows are processed one (batch, kv
+    head) group at a time to bound memory. `kv_arange` only selects tile
+    skipping in the kernel, which changes no valid row."""
     del kv_arange
     B, Hq, Tq, D = q.shape
     _, Hk, Tk, _ = k.shape
     G = Hq // Hk
     out = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     for b in range(B):
-        mask = kv_valid[b][None, :] > 0  # [1, Tk]
-        if causal:
-            mask = mask & (q_pos[b][:, None] >= kv_pos[b][None, :])
-        if has_segments:
-            mask = mask & (q_seg[b][:, None] == kv_seg[b][None, :])
+        mask = _mask(b, q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
+                     has_segments)
         for hk in range(Hk):
             qh = q[b, hk * G : (hk + 1) * G].float()  # [G, Tq, D]
             kh = k[b, hk].float()  # [Tk, D]
             s = torch.matmul(qh, kh.T) * scale  # [G, Tq, Tk]
             s = torch.where(mask, s, NEG)
-            p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+            m = torch.amax(s, dim=-1, keepdim=True)
+            p = torch.exp(s - m)
             l = torch.sum(p, dim=-1, keepdim=True)
             acc = torch.matmul(p.to(v.dtype).float(), v[b, hk].float())
             out[b, hk * G : (hk + 1) * G] = (
                 acc / torch.where(l == 0.0, 1.0, l)
             ).to(q.dtype)
-    return out
+            lse[b, hk * G : (hk + 1) * G] = torch.where(
+                l == 0.0, FLT_MAX, m + torch.log(torch.where(l == 0.0, 1.0, l))
+            )[..., 0]
+    return (out, lse) if with_lse else out
+
+
+def _mask(b, q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal, has_segments):
+    """[Tq, Tk] (or [1, Tk]) visibility of batch row b: kv validity AND
+    causal on positions AND segment equality."""
+    mask = kv_valid[b][None, :] > 0
+    if causal:
+        mask = mask & (q_pos[b][:, None] >= kv_pos[b][None, :])
+    if has_segments:
+        mask = mask & (q_seg[b][:, None] == kv_seg[b][None, :])
+    return mask
+
+
+def _mha_backward_reference(
+    q, k, v, do, lse, delta, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
+    *,
+    causal: bool,
+    has_segments: bool,
+    kv_arange: bool,
+    scale: float,
+):
+    """Plain PyTorch twin of `_mha_backward` (same arguments, same result),
+    in the Pallas kernels' arithmetic: p = exp(masked s - lse); dv = sum of
+    p (rounded to do's dtype)^T . do; dp = do . v^T; ds = p (dp - delta)
+    scale; dq = ds (rounded to k's dtype) . k; dk = sum of ds (rounded to
+    q's dtype)^T . q, the sums over the G q heads of a kv head in fp32. One
+    (batch, kv head) group at a time."""
+    del kv_arange
+    B, Hq, Tq, D = q.shape
+    _, Hk, Tk, _ = k.shape
+    G = Hq // Hk
+    dq = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hk, Tk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    for b in range(B):
+        mask = _mask(b, q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
+                     has_segments)
+        for hk in range(Hk):
+            hs = slice(hk * G, (hk + 1) * G)
+            qh, doh = q[b, hs].float(), do[b, hs].float()  # [G, Tq, D]
+            kh, vh = k[b, hk].float(), v[b, hk].float()  # [Tk, D]
+            s = torch.where(mask, torch.matmul(qh, kh.T) * scale, NEG)
+            p = torch.exp(s - lse[b, hs][..., None])  # [G, Tq, Tk]
+            dv[b, hk] = torch.matmul(
+                p.to(do.dtype).float().transpose(1, 2), doh
+            ).sum(0).to(dv.dtype)
+            dp = torch.matmul(doh, vh.T)
+            ds = p * (dp - delta[b, hs][..., None]) * scale
+            dq[b, hs] = torch.matmul(ds.to(k.dtype).float(), kh).to(dq.dtype)
+            dk[b, hk] = torch.matmul(
+                ds.to(q.dtype).float().transpose(1, 2), qh
+            ).sum(0).to(dk.dtype)
+    return dq, dk, dv
+
+
+@torch.library.custom_op("oryx_torch::flash_fwd_lse", mutates_args=())
+def flash_fwd_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, kv_pos: torch.Tensor, q_seg: torch.Tensor,
+    kv_seg: torch.Tensor, kv_valid: torch.Tensor,
+    causal: bool, has_segments: bool, kv_arange: bool, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: K1 with the logsumexp on CUDA tensors, its
+    plain twin on CPU ones. Kernel layouts as `_mha_forward`; returns o
+    [B, Tq, Hq, D] (the caller's layout) and the fp32 lse [B, Hq, Tq]."""
+    flags = dict(causal=causal, has_segments=has_segments,
+                 kv_arange=kv_arange, scale=scale)
+    args = (q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid)
+    if q.device.type == "cuda":
+        o, lse = _mha_forward(*args, **flags, with_lse=True)
+    elif q.device.type == "cpu":
+        o, lse = _mha_forward_reference(*args, **flags, with_lse=True)
+    else:
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return o.transpose(1, 2).contiguous(), lse
+
+
+@flash_fwd_lse.register_fake
+def _(q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
+      has_segments, kv_arange, scale):
+    B, Hq, Tq, D = q.shape
+    return (q.new_empty((B, Tq, Hq, D)),
+            q.new_empty((B, Hq, Tq), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, *ints = inputs[:8]
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse, *ints)
+    ctx.flags = dict(zip(("causal", "has_segments", "kv_arange", "scale"),
+                         inputs[8:]))
+
+
+def _flash_backward(ctx, do, _dlse):
+    """Counterpart of the JAX `_bwd`: Delta = rowsum(dO * O) in fp32 from
+    the rounded output, then K5a/K5b (CUDA) or their twins (CPU)."""
+    q, k, v, o, lse, *ints = ctx.saved_tensors
+    delta = torch.einsum(
+        "bqhd,bqhd->bhq", do.float(), o.float()
+    ).contiguous()
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    do = do.transpose(1, 2)  # [B, Hq, Tq, D]
+    backward = (
+        _mha_backward if q.device.type == "cuda" else _mha_backward_reference
+    )
+    dq, dk, dv = backward(q, k, v, do, lse, delta, *ints, **ctx.flags)
+    return (dq, dk, dv) + (None,) * 9
+
+
+flash_fwd_lse.register_autograd(_flash_backward, setup_context=_setup_context)
 
 
 def _prepare(q, k, v, q_positions, kv_positions, q_segment_ids,
@@ -244,6 +481,10 @@ def flash_attention(
         q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids,
         kv_mask, causal, scale, slot_positions,
     )
+    if torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return flash_fwd_lse(*args, **flags)[0]
     if q.device.type == "cuda":
         out = _mha_forward(*args, **flags)
     elif q.device.type == "cpu":

@@ -1,7 +1,9 @@
-"""The hand-written CUDA flash-attention kernel against its plain twin, on
-an NVIDIA GPU (skipped without one). Small and odd shapes the path test in
-chip_smoke.py does not reach: D of 12, 16, 72 and 128, Tq = 1, ragged
-tiles, GQA groups of 7, strided views, both dtypes.
+"""The hand-written CUDA flash-attention kernels against their plain twins,
+on an NVIDIA GPU (skipped without one). Small and odd shapes the path test
+in chip_smoke.py does not reach: D of 12, 16, 72 and 128, Tq = 1, ragged
+tiles, GQA groups of 7, strided views, both dtypes; the forward K1 with and
+without its logsumexp, the backward K5a (dq) and K5b (dk/dv), and autograd
+through `flash_attention`.
 
 Run on a machine with a card (the repository's conftest needs jax, which
 that machine may lack):
@@ -9,7 +11,9 @@ that machine may lack):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: bf16 outputs atol = rtol = 1e-2; fp32 outputs 1e-4 (fp32 FMA
-sums in another order than the twin's matmul).
+sums in another order than the twin's matmul). bf16 gradients 2e-2: they
+are sums over many more terms than an output row, in another order, each
+rounded once to bf16.
 """
 
 import pytest
@@ -318,3 +322,176 @@ def test_tiny_scheduler_on_card_matches_cpu(card, ragged):
     assert out[1] == out[0]
     kind = "ragged_paged" if ragged else "paged_decode"
     assert {key[0] for key in pa.LAUNCHES} == {kind}
+
+
+# ---- backward: K1 with lse, K5a, K5b ----------------------------------------
+
+BWD_TOLS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _visible(args, flags):
+    _, _, _, q_pos, kv_pos, q_seg, kv_seg, kv_valid = args
+    vis = kv_valid[:, None, :] > 0
+    if flags["causal"]:
+        vis = vis & (q_pos[:, :, None] >= kv_pos[:, None, :])
+    if flags["has_segments"]:
+        vis = vis & (q_seg[:, :, None] == kv_seg[:, None, :])
+    return vis.any(-1)  # [B, Tq]: the row sees a key
+
+
+def _check_bwd(q, k, v, kw, seed=0):
+    """K1 with lse, then K5a/K5b on a cotangent zero on fully masked rows,
+    against the twins; then the same through autograd."""
+    slot = kw.pop("slot_positions", False)
+    args, flags = fa._prepare(
+        q, k, v, kw.get("q_positions"), kw.get("kv_positions"),
+        kw.get("q_segment_ids"), kw.get("kv_segment_ids"),
+        kw.get("kv_mask"), kw["causal"], None, slot,
+    )
+    keep = _visible(args, flags)
+    g = torch.Generator(device=q.device).manual_seed(seed + 7)
+    do = (torch.randn(q.shape, generator=g, device=q.device)
+          * keep[:, :, None, None]).to(q.dtype)
+    tol = BWD_TOLS[q.dtype]
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    ro, rlse = fa._mha_forward_reference(*args, **flags, with_lse=True)
+    kt = keep[:, None, :].expand(lse.shape)
+    torch.testing.assert_close(lse[kt], rlse[kt], atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(o.transpose(1, 2)[keep].float(),
+                               ro.transpose(1, 2)[keep].float(), atol=tol,
+                               rtol=tol)
+    dot = do.transpose(1, 2)
+    delta = torch.einsum("bhqd,bhqd->bhq", dot.float(),
+                         o.float()).contiguous()
+    before = (sum(fa.LAUNCHES_DQ.values()), sum(fa.LAUNCHES_DKV.values()))
+    got = fa._mha_backward(*args[:3], dot, lse, delta, *args[3:], **flags)
+    torch.cuda.synchronize()
+    assert (sum(fa.LAUNCHES_DQ.values()),
+            sum(fa.LAUNCHES_DKV.values())) == (before[0] + 1, before[1] + 1)
+    want = fa._mha_backward_reference(*args[:3], dot, lse, delta, *args[3:],
+                                      **flags)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == q.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+    # Autograd: one launch of each kernel, the launchers' gradients.
+    tq, tk, tv = (x.detach().requires_grad_() for x in (q, k, v))
+    n = (sum(fa.LAUNCHES_LSE.values()), sum(fa.LAUNCHES_DQ.values()),
+         sum(fa.LAUNCHES_DKV.values()))
+    out = fa.flash_attention(tq, tk, tv, slot_positions=slot, **kw)
+    grads = torch.autograd.grad(out, (tq, tk, tv), do)
+    torch.cuda.synchronize()
+    assert (sum(fa.LAUNCHES_LSE.values()), sum(fa.LAUNCHES_DQ.values()),
+            sum(fa.LAUNCHES_DKV.values())) == tuple(x + 1 for x in n)
+    for a, b in zip(grads, got):
+        assert torch.equal(a, b.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [12, 16, 72, 128])
+@pytest.mark.parametrize("G", [1, 7])
+def test_backward_causal_gqa_mask(card, dtype, D, G):
+    _check_bwd(*_case(card, dtype, 2, 37, 130, 2 * G, 2, D, causal=True,
+                      segments=False, mask=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_padded_prefill_slot_positions(card, dtype):
+    """The decoder's training layout: arange on real slots, 0 on pads,
+    slot_positions, a kv mask; several 64-row tiles."""
+    B, T = 2, 200
+    lens = torch.tensor([[200], [77]], device=card)
+    live = torch.arange(T, device=card)[None] < lens
+    pos = torch.where(live, torch.arange(T, device=card)[None], 0)
+    q, k, v, _ = _case(card, dtype, B, T, T, 8, 2, 128, causal=False,
+                       segments=False, mask=False)
+    _check_bwd(q, k, v, dict(causal=True, q_positions=pos, kv_positions=pos,
+                             kv_mask=live.int(), slot_positions=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [12, 72])
+def test_backward_segments(card, dtype, D):
+    """Random segments (fully masked rows included), self and cross."""
+    _check_bwd(*_case(card, dtype, 1, 200, 200, 4, 4, D, causal=False,
+                      segments=True, mask=False))
+    _check_bwd(*_case(card, dtype, 1, 70, 333, 4, 4, D, causal=False,
+                      segments=True, mask=True, seed=1), seed=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_decode_rows(card, dtype):
+    """Tq = 1 and Tq = 5 at late positions into a longer kv stream."""
+    _check_bwd(*_case(card, dtype, 3, 1, 300, 28, 4, 128, causal=True,
+                      segments=False, mask=True))
+    _check_bwd(*_case(card, dtype, 2, 5, 150, 4, 2, 16, causal=True,
+                      segments=False, mask=True, seed=2), seed=2)
+
+
+def test_backward_is_deterministic(card):
+    """No atomics: two runs give the same bits."""
+    q, k, v, kw = _case(card, torch.bfloat16, 2, 130, 130, 14, 2, 128,
+                        causal=True, segments=False, mask=True)
+    args, flags = fa._prepare(q, k, v, kw["q_positions"], None, None, None,
+                              kw["kv_mask"], True, None)
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    do = torch.randn_like(o)
+    delta = torch.einsum("bhqd,bhqd->bhq", do.float(), o.float()).contiguous()
+    a = fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
+    b = fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """The tiny fp32 config, tune full, 3 steps of train_step: card
+    (kernels) against CPU (plain twins)."""
+    import dataclasses
+
+    import numpy as np
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.ops import packing
+    from oryx_tpu_torch.models import splice
+    from oryx_tpu_torch.train import step, trainer
+    from oryx_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = config.oryx_tiny()
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", train=dataclasses.replace(
+        cfg.train, tune="full", learning_rate=1e-5, num_train_steps=10,
+        warmup_ratio=0.1, remat_policy="attn"))
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (h, w, 3), np.uint8)
+            for h, w in ((40, 56), (28, 42))]
+    packed = packing.pack_raw_images(imgs, patch_size=14, base_grid=8,
+                                     buckets=(64, 128))
+    ids = [np.array([5, -200, 7, 8, 9, 10]), np.array([3, -200, 11, 12])]
+    labels = [np.where(x < 0, -100, x) for x in ids]
+    mm = splice.build_mm_batch(ids, splice.query_slots(packed),
+                               labels=labels, buckets=(64, 128))
+    host = {"patches": packed.patches, "segment_ids": packed.segment_ids,
+            "pos_coords": packed.pos_coords, "region_ids": packed.region_ids,
+            "q_region_ids": packed.q_region_ids, "token_ids": mm.token_ids,
+            "visual_idx": mm.visual_idx, "is_visual": mm.is_visual,
+            "attn_mask": mm.attn_mask, "positions": mm.positions,
+            "labels": mm.labels}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu").to(dev)
+        tx = make_optimizer(cfg.train, model)
+        trainer.prepare_params(model, tx.mask, torch.float32)
+        state = step.init_state(model, tx)
+        batch = {k: torch.from_numpy(v[None]).to(dev)
+                 for k, v in host.items()}
+        losses = []
+        for _ in range(3):
+            state, m = step.train_step(state, batch, cfg, tx)
+            losses.append(m["loss"].item())
+        runs[dev] = (losses, {n: p.detach().cpu()
+                              for n, p in model.named_parameters()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for n, p in runs["cpu"][1].items():
+        torch.testing.assert_close(runs["cuda"][1][n], p, atol=2e-4,
+                                   rtol=2e-3)

@@ -192,3 +192,30 @@ def test_ring_config_serves_with_the_device_kernel_path():
             return [1]
 
     assert Pipeline(Tok(), params, cfg, device="cpu").cfg.attn_impl == "xla"
+
+
+def test_trainer_without_device_raises_without_card(no_card):
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(config.oryx_tiny())
+
+
+def test_flash_kernel_launches_need_cuda_tensors():
+    """K1-lse, K5a and K5b raise on CPU tensors; autograd through
+    flash_attention takes the plain twins only for tensors on the CPU."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    args, flags = fa._prepare(q, q, q, None, None, None, None, None, True,
+                              None)
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._mha_forward(*args, **flags, with_lse=True)
+    for launch in (fa._mha_backward_dq, fa._mha_backward_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(*args[:3], args[0], lse, lse, *args[3:], **flags)
+    fa.flash_attention(q, q, q).sum().backward()
+    assert q.grad is not None and q.grad.device.type == "cpu"
+    assert not (fa.LAUNCHES_LSE or fa.LAUNCHES_DQ or fa.LAUNCHES_DKV)
