@@ -32,7 +32,9 @@ Phases (any failure exits non-zero):
      kernel intervals / the call's wall).
   7. The serving engine, `ContinuousScheduler`, at full width on the
      phase-1 weights: 4 slots, 64-token pages, 8-step chunks, max_ctx
-     4096, the default 256-page pool, greedy; the four requests above at
+     4096, the default 256-page pool, greedy, the prefix cache on (the
+     engine's default; each request's cached tokens are printed); the
+     four requests above at
      32 new tokens plus four text requests at 8/16/24/48 (8 requests on
      4 slots). The split engine (paged prefill through the flash kernel,
      decode through the paged-decode kernel K3) and the ragged engine
@@ -54,7 +56,8 @@ Phases (any failure exits non-zero):
      twin times, gather_pages + SDPA with an explicit mask as a two-call
      yardstick, and the least time the card could take.
   8. The tiny fp32 config through both engines on the card (kernel path)
-     and on the CPU (plain twins): replies, finish reasons and usage equal.
+     and on the CPU (plain twins), over a bf16 and an int8 pool with the
+     prefix cache on: replies, finish reasons and usage equal.
   9. The training kernels at three call shapes of phase 10's steps (the
      ViT's segments over the packed patches and the decoder's B x T with
      slot positions on the image batch, the compressor's 4 x 4-patch
@@ -80,6 +83,26 @@ Phases (any failure exits non-zero):
  11. The tiny fp32 config, tune full, 3 steps of Trainer.fit on the card
      (kernels) and on the CPU (plain twins): losses and params agree.
 
+ 12. (Runs after 8.) The serving engine over an int8 pool (kv_dtype="int8") with a 256 MiB
+     host tier, split and ragged, twice each, on the phase-2 weights:
+     phase 7's eight requests; round A, five text requests sharing a
+     1,536-byte context (24 pages), the last page-aligned; round B, the
+     same five again (each splices its own cached prompt pages; the
+     page-aligned one copies its last page on write); then every cached
+     page is evicted, spilling to host RAM; round C, the first four again
+     (reloaded from host). Every request finishes with its usage, the two
+     runs give identical tokens, K3q (split) or K4q (ragged) launched, the
+     cache hit, copied on write, spilled and reloaded, round C's replies
+     equal round B's (the same cached bytes, the same suffix prefill) and
+     the pool invariant holds. Cold-vs-cached and int8-vs-bf16 agreement
+     are printed. Then generate_paged(kv_dtype="fp8_e4m3") on round A's
+     prompts, split and ragged (the engine takes no fp8 pool).
+ 13. (Runs after 12.) K3q at phase 12's largest split decode step, K4q at
+     its largest ragged step with prefill lanes and its largest pure decode
+     step, each on random int8 and fp8 pools through the public wrappers,
+     against the plain twins (dequantizing gather, atol = rtol = 1e-2), timed
+     as in phase 6 (the yardstick: dequantizing gather_pages + SDPA).
+
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -92,6 +115,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -429,6 +453,11 @@ def serve_requests():
     ]
 
 
+def _plane_ptr(plane) -> int:
+    """Address of a pool plane's values or codes (dense or QuantPages)."""
+    return getattr(plane, "q", plane).data_ptr()
+
+
 class PagedCallRecorder:
     """While active, keeps q's layout (shape and strides) and the int
     operands, as given, of every paged-kernel call made on layer 0 of
@@ -436,7 +465,7 @@ class PagedCallRecorder:
     sync, for phase 6 to replay through the same wrappers."""
 
     def __init__(self, sched):
-        self.layer0 = sched.kv_pages["k"][0].data_ptr()
+        self.layer0 = _plane_ptr(sched.kv_pages["k"][0])
         self.calls: dict[str, list] = {"paged_decode": [], "ragged_paged": []}
 
     def __enter__(self):
@@ -446,14 +475,14 @@ class PagedCallRecorder:
         dec, rag = self._orig
 
         def rec_dec(q, k, v, bt, lens, **kw):
-            if k.data_ptr() == self.layer0:
+            if _plane_ptr(k) == self.layer0:
                 self.calls["paged_decode"].append(
                     ((tuple(q.shape), q.stride()), bt.clone(), lens.clone())
                 )
             return dec(q, k, v, bt, lens, **kw)
 
         def rec_rag(q, k, v, bt, seg, pos, **kw):
-            if k.data_ptr() == self.layer0:
+            if _plane_ptr(k) == self.layer0:
                 self.calls["ragged_paged"].append(
                     ((tuple(q.shape), q.stride()), bt.clone(), seg.clone(),
                      pos.clone())
@@ -504,15 +533,17 @@ def run_scheduler(pipe, ragged: bool, record: bool):
     return {
         "results": results, "caps": [n for _, n in reqs], "wall": wall,
         "ttft": [h.debug["ttft_s"] for h in handles],
+        "cached": [h.debug["cached_tokens"] for h in handles],
         "metrics": sched.metrics, "peak": torch.cuda.max_memory_allocated(),
         "flash": dict(fa.LAUNCHES), "paged": dict(paged),
         "paged_keys": dict(pa.LAUNCHES), "recorder": recorder,
     }
 
 
-def check_serving_run(mode: str, i: int, run: dict) -> None:
-    """Print one phase-7 run and fail on a request without its usage or a
-    missing kernel launch."""
+def check_serving_run(mode: str, i: int, run: dict, code: str = "") -> None:
+    """Print one phase-7 (or phase-12) run and fail on a request without its
+    usage or a missing kernel launch; `code` is the kernel name suffix of a
+    quantized pool ("_int8")."""
     m = run["metrics"]
     gen = sum(u[1] for _, _, u in run["results"])
     print(f"  {mode} run {i}: wall {run['wall']:.3f} s | {gen} tokens, "
@@ -521,6 +552,9 @@ def check_serving_run(mode: str, i: int, run: dict) -> None:
           f"{run['peak'] / 1e9:.2f} GB | paged launches {run['paged']} | "
           f"flash launches {sum(run['flash'].values())}")
     print(f"    TTFT s: {[round(t, 4) for t in run['ttft']]}")
+    print(f"    cached tokens: {run['cached']} (prefix cache hits "
+          f"{m['prefix_cache_hit_tokens_total']}, misses "
+          f"{m['prefix_cache_miss_tokens_total']})")
     for r, ((reply, reason, (pt, gt)), cap) in enumerate(
         zip(run["results"], run["caps"])
     ):
@@ -530,8 +564,8 @@ def check_serving_run(mode: str, i: int, run: dict) -> None:
             gt == cap if reason == "length" else 1 <= gt <= cap
         ):
             raise SystemExit(f"{mode}: request {r} has usage {(pt, gt)}")
-    want = "ragged_paged" if mode == "ragged" else "paged_decode"
-    other = "paged_decode" if mode == "ragged" else "ragged_paged"
+    want = ("ragged_paged" if mode == "ragged" else "paged_decode") + code
+    other = ("paged_decode" if mode == "ragged" else "ragged_paged") + code
     if not run["paged"].get(want) or run["paged"].get(other):
         raise SystemExit(f"{mode}: paged kernel launches {run['paged']}")
     if not run["flash"]:
@@ -545,10 +579,31 @@ def _pick(calls, work):
     return max(calls, key=work)
 
 
-def paged_kernel_case(name, kind, call, pool_shape, gen):
+def random_pool_layer(pool_shape, gen, fmt=None):
+    """One random bf16 pool layer, or (fmt "int8" / "fp8_e4m3") a QuantPages
+    layer holding random values quantized on write, dequantized to bf16."""
+    from oryx_tpu_torch.ops import paged_kv
+
+    P, ps, Hk, D = pool_shape
+    dev = torch.device("cuda")
+    rows = torch.randn((P * ps, Hk, D), generator=gen, device=dev)
+    if fmt is None:
+        layer = paged_kv.init_paged_pool(1, P, ps, Hk, D,
+                                         dtype=torch.bfloat16, device=dev)[0]
+        layer.copy_(rows.view(P, ps, Hk, D))
+        return layer
+    layer = paged_kv.init_quant_pages(1, P, ps, Hk, D, fmt=fmt,
+                                      dequant_dtype=torch.bfloat16,
+                                      device=dev)[0]
+    paged_kv.scatter_rows(layer, torch.arange(P * ps, device=dev), rows)
+    return layer
+
+
+def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     """Kernel vs plain twin at one recorded call, both through the public
     functions the model calls, on q in the recorded layout and the int
-    operands as the model passed them; returns the table row."""
+    operands as the model passed them, over a bf16 pool or (fmt) an int8 /
+    fp8 one; returns the table row."""
     from oryx_tpu_torch.ops import paged_kv
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
 
@@ -556,12 +611,8 @@ def paged_kernel_case(name, kind, call, pool_shape, gen):
     (q_shape, q_stride), bt = call[0], call[1]
     R, Hq = q_shape[0], q_shape[-2]
     dev = bt.device
-    kp = paged_kv.init_paged_pool(1, P, ps, Hk, D, dtype=torch.bfloat16,
-                                  device=dev)[0]
-    vp = paged_kv.init_paged_pool(1, P, ps, Hk, D, dtype=torch.bfloat16,
-                                  device=dev)[0]
-    kp.copy_(torch.randn(kp.shape, generator=gen, device=dev))
-    vp.copy_(torch.randn(vp.shape, generator=gen, device=dev))
+    kp = random_pool_layer(pool_shape, gen, fmt)
+    vp = random_pool_layer(pool_shape, gen, fmt)
     q = torch.empty_strided(q_shape, q_stride, dtype=torch.bfloat16,
                             device=dev)
     q.copy_(torch.randn(q_shape, generator=gen, device=dev))
@@ -597,7 +648,8 @@ def paged_kernel_case(name, kind, call, pool_shape, gen):
         torch.isfinite(g).all()
     )
     print(f"  {name}: q {tuple(q.shape)} stride {q_stride} pool "
-          f"{tuple(kp.shape)} table {tuple(bt.shape)} {bt.dtype}, ints "
+          f"{tuple(kp.shape)} {fmt or 'bf16'} table {tuple(bt.shape)} "
+          f"{bt.dtype}, ints "
           f"{(call[2].dtype)}, visible slots per row "
           f"{visible.min().item()}..{visible.max().item()} "
           f"max_abs_err={max_err:.3e} ok={ok}")
@@ -622,17 +674,19 @@ def paged_kernel_case(name, kind, call, pool_shape, gen):
 
     library_ms = cuda_time_ms(library, iters=10)
     # Least time: q and o once, the int operands once, and the k/v rows some
-    # query sees once (a segment's visible prefix is the longest row's),
-    # vs 4 * D flops per visible (query head, slot) pair.
+    # query sees once (a segment's visible prefix is the longest row's): 2
+    # bytes a value, or 1 a code plus one 4-byte scale a row (shared by the
+    # Hk heads), vs 4 * D flops per visible (query head, slot) pair.
     seg_host, vis_host = segl.tolist(), visible.tolist()
     longest: dict[int, int] = {}
     for s_, n in zip(seg_host, vis_host):
         longest[s_] = max(longest.get(s_, 0), n)
     kv_rows = sum(longest.values())
+    row_bytes = Hk * D * 2 if fmt is None else Hk * D + 4
     nbytes = (
         2 * q.numel() * 2 + bt.numel() * 4
         + R * 4 * (1 if kind == "paged_decode" else 2)
-        + 2 * kv_rows * Hk * D * 2
+        + 2 * kv_rows * row_bytes
     )
     flops = 4.0 * D * Hq * sum(vis_host)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -640,15 +694,15 @@ def paged_kernel_case(name, kind, call, pool_shape, gen):
           f"{library_ms:.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
           f"({kv_rows} kv rows read, {flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)")
+    if fmt is None:
+        line = 144 if kind == "paged_decode" else 528
+    else:  # the dequantizing branch of the page walk
+        line = 106 if kind == "paged_decode" else 480
     return {
         "name": name,
         "route": "cuda",
         "source": "oryx_tpu_torch/csrc/paged_attention.cu",
-        "replaces": (
-            "oryx_tpu/ops/pallas/paged_attention.py:144"
-            if kind == "paged_decode"
-            else "oryx_tpu/ops/pallas/paged_attention.py:528"
-        ),
+        "replaces": f"oryx_tpu/ops/pallas/paged_attention.py:{line}",
         "launches": 0,
         "max_abs_err": max_err,
         "ms": ms,
@@ -710,27 +764,211 @@ def tiny_engines_on_card() -> None:
         ({"question": "what happens?", "images": [img(42, 42)] * 4,
           "is_video": True}, 5),
     ]
+    # Two look-alike text prompts: the second splices the first's pages.
+    reqs += [({"question": "hi there, and what else?"}, 6)]
     geom = dict(num_slots=2, page_size=16, chunk=4, max_ctx=512)
-    for ragged in (False, True):
+    for kv_dtype, ragged in itertools.product(("bf16", "int8"), (False, True)):
         out = []
         pa.LAUNCHES.clear()
         for device in ("cpu", "cuda"):
             sched = ContinuousScheduler(
                 Pipeline(ByteTokenizer(), params, cfg, device=device),
                 autostart=False, ragged=ragged,
-                prefill_chunk=32 if ragged else None, **geom,
+                prefill_chunk=32 if ragged else None, kv_dtype=kv_dtype,
+                **geom,
             )
             hs = [sched.submit(r, n) for r, n in reqs]
             sched.start()
             out.append([h.result(timeout=600) for h in hs])
+            cached = [h.debug["cached_tokens"] for h in hs]
             sched.close()
-        mode = "ragged" if ragged else "split"
+            sched.check_pool_invariant()
+        mode = f"{'ragged' if ragged else 'split'} {kv_dtype}"
         print(f"  {mode}: card == cpu: {out[0] == out[1]}; paged launches "
-              f"on the card {sum(pa.LAUNCHES.values())}; replies "
-              f"{[r[0][:12] for r in out[1]]}")
+              f"on the card {dict(collections.Counter(k[0] for k in pa.LAUNCHES.elements()))}; "
+              f"cached tokens {cached}; replies {[r[0][:12] for r in out[1]]}")
         if out[0] != out[1] or not pa.LAUNCHES:
             raise SystemExit(f"tiny {mode} engine on the card differs from "
                              f"the CPU: {out[1]} vs {out[0]}")
+
+
+# ---- the int8 engine and the prefix cache (phases 12-13) -------------------
+
+HOST_CACHE = 256 << 20  # host tier of phase 12's engines
+
+
+def shared_context() -> str:
+    """1,536 bytes of a harbour log: the context phase 12's text requests
+    share (24 pages of 64 byte-tokens with the template's head)."""
+    lines, i = [], 0
+    while sum(map(len, lines)) < 1536:
+        lines.append(f"Harbour log {i:03d}: wind west at {i % 7 + 3} "
+                     f"knots, {i % 5 + 1} boats out, calm grey water. ")
+        i += 1
+    return "".join(lines)[:1536]
+
+
+def shared_requests(pipe) -> list[str]:
+    """Five questions over the shared context. The first four are padded
+    until their prompt ends 1..31 tokens into a page, so a reply of up to
+    32 tokens donates no page past the prompt's last partial one: served
+    again from the device cache or reloaded from host, each prefills the
+    same suffix over the same cached bytes. The fifth ends on a page
+    boundary: served again, its whole prompt is cached and the splice
+    copies its last page on write."""
+    ctx = shared_context()
+    asks = ["How strong was the wind?", "How many boats went out?",
+            "What colour was the water?", "Summarise the log.",
+            "Which entry is the last?"]
+    out = []
+    for i, ask in enumerate(asks):
+        q = ctx + ask
+        while True:
+            n = len(pipe._prepare_request({"question": q})[0]) % 64
+            if (n == 0) if i == 4 else (1 <= n <= 31):
+                break
+            q += "?"
+        out.append(q)
+    return out
+
+
+def quiesce(sched, timeout=60.0) -> None:
+    """Wait until the engine holds no slot and no queued request."""
+    deadline = time.monotonic() + timeout
+    while any(r is not None for r in sched.slots) or sched.queue_len():
+        if time.monotonic() > deadline:
+            raise SystemExit("the engine did not go idle")
+        time.sleep(0.01)
+
+
+def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str]):
+    """One phase-12 run (see the module docstring); counts zeroed just
+    before, read just after. Returns a dict of what it served and cost."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    sched = ContinuousScheduler(
+        pipe, autostart=False, ragged=ragged,
+        prefill_chunk=PREFILL_CHUNK if ragged else None, kv_dtype="int8",
+        host_cache_bytes=HOST_CACHE, **SERVE,
+    )
+    recorder = PagedCallRecorder(sched) if record else None
+    rounds: dict[str, list] = {}
+    walls: dict[str, float] = {}
+
+    def serve(label, reqs):
+        t = time.perf_counter()
+        hs = [sched.submit(r, n) for r, n in reqs]
+        sched.start()
+        res = [h.result(timeout=600) for h in hs]
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t
+        quiesce(sched)
+        rounds[label] = list(zip(hs, res, [n for _, n in reqs]))
+
+    texts = [({"question": q}, MAX_NEW) for q in shared]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()
+    pa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with recorder or contextlib.nullcontext():
+        serve("phase 7 mix", serve_requests())
+        serve("round A", texts)
+        serve("round B", texts)
+        cache = sched.prefix_cache
+        t = time.perf_counter()
+        spilled = cache.evict(cache.evictable_pages())
+        spill_s = time.perf_counter() - t
+        host_bytes = cache.host_bytes
+        serve("round C", texts[:4])
+    wall = time.perf_counter() - t0
+    sched.close()
+    sched.check_pool_invariant()
+    paged = collections.Counter()
+    for key, n in pa.LAUNCHES.items():
+        paged[key[0]] += n
+    flat = [x for label in rounds for x in rounds[label]]
+    return {
+        "rounds": rounds, "walls": walls, "wall": wall,
+        "results": [res for _, res, _ in flat],
+        "caps": [n for _, _, n in flat],
+        "ttft": [h.debug["ttft_s"] for h, _, _ in flat],
+        "cached": [h.debug["cached_tokens"] for h, _, _ in flat],
+        "metrics": sched.metrics, "peak": torch.cuda.max_memory_allocated(),
+        "flash": dict(fa.LAUNCHES), "paged": dict(paged),
+        "paged_keys": dict(pa.LAUNCHES), "recorder": recorder,
+        "spilled": spilled, "spill_s": spill_s, "host_bytes": host_bytes,
+        "pool_bytes": sum(
+            t.numel() * t.element_size() for plane in sched.kv_pages.values()
+            for t in (plane.q, plane.scale)
+        ),
+    }
+
+
+def check_int8_run(mode: str, i: int, run: dict) -> None:
+    """Print one phase-12 run; fail unless the cache hit, copied on write,
+    spilled and reloaded, and round C's replies equal round B's."""
+    check_serving_run(mode, i, run, code="_int8")
+    m = run["metrics"]
+    replies = {k: [res[0] for _, res, _ in v]
+               for k, v in run["rounds"].items()}
+    print(f"    walls s: { {k: round(v, 3) for k, v in run['walls'].items()} }"
+          f"; evict of {run['spilled']} pages to host "
+          f"{run['spill_s'] * 1e3:.1f} ms ({run['host_bytes'] / 1e6:.1f} MB)")
+    print(f"    cache: hits {m['prefix_cache_hit_tokens_total']} tokens, "
+          f"copy-on-write {m['prefix_cache_cow_pages_total']}, evicted "
+          f"{m['prefix_cache_evicted_pages_total']} pages, reloads "
+          f"{m['oryx_cache_reload_hit_total']} ({m['oryx_cache_reload_upload_total']}"
+          f" pages uploaded); int8 pool {run['pool_bytes'] / 1e9:.3f} GB")
+    same = sum(a == b for a, b in zip(replies["round A"], replies["round B"]))
+    print(f"    cold/first-splice (round A) vs cached (round B) replies "
+          f"equal (not asserted): {same}/5")
+    if not (m["prefix_cache_hit_tokens_total"] > 0
+            and m["prefix_cache_cow_pages_total"] >= 1 and run["spilled"] > 0
+            and m["oryx_cache_reload_upload_total"] > 0):
+        raise SystemExit(f"{mode}: the prefix cache did not hit, copy on "
+                         f"write, spill and reload: {m}")
+    if replies["round C"] != replies["round B"][:4]:
+        raise SystemExit(f"{mode}: reloaded replies differ from the "
+                         f"device-cached ones: {replies['round C']} vs "
+                         f"{replies['round B'][:4]}")
+    print("    reloaded (round C) replies equal the device-cached ones "
+          "(round B)")
+
+
+def generate_fp8(pipe, shared: list[str], ragged: bool):
+    """generate_paged(kv_dtype="fp8_e4m3") over the first four shared
+    prompts at full width; launch counts zeroed just before, read just
+    after. Returns (tokens, launches by kernel name, wall)."""
+    from oryx_tpu_torch.models import generate
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    ids = [pipe._prepare_request({"question": q})[0] for q in shared[:4]]
+    T = max(map(len, ids))
+    emb = pipe.params.llm.embed.weight
+    dev = pipe.device
+    x = torch.zeros((len(ids), T, emb.shape[1]), dtype=emb.dtype, device=dev)
+    for b, row in enumerate(ids):
+        x[b, :len(row)] = emb[torch.tensor(row, device=dev)]
+    cfg = pipe.cfg
+    torch.cuda.synchronize()
+    pa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    toks, num, _ = generate.generate_paged(
+        pipe.params.llm, cfg.llm, cfg.generation, inputs_embeds=x,
+        lengths=[len(r) for r in ids], max_new_tokens=MAX_NEW,
+        page_size=SERVE["page_size"], chunk=SERVE["chunk"],
+        attn_impl="pallas", compute_dtype=emb.dtype,
+        kv_dtype="fp8_e4m3", ragged=ragged, device=dev,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = collections.Counter()
+    for key, n in pa.LAUNCHES.items():
+        launches[key[0]] += n
+    return toks, dict(launches), wall
 
 
 # ---- training (phases 9-11) ------------------------------------------------
@@ -1161,10 +1399,22 @@ def tiny_training_on_card() -> None:
 
 
 def main() -> int:
+    # Line-buffered: a pipe would otherwise hold back whole blocks of
+    # output, so a run that dies (or is killed) would not show the phase it
+    # died in.
+    sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "oryx_tpu_torch", "csrc")):
+        print(f"chip_smoke: no oryx_tpu_torch package (with its kernel "
+              f"sources) beside this script in {here}; run it from the root "
+              "of a checkout", file=sys.stderr)
+        return 2
+    if here not in sys.path:
+        sys.path.insert(0, here)
     from oryx_tpu_torch import config
     from oryx_tpu_torch.models import oryx
     from oryx_tpu_torch.ops.cuda import build
@@ -1205,7 +1455,7 @@ def main() -> int:
     pipe = Pipeline(tok, params, cfg, device="cuda")
     reqs = requests()
     print(f"phase 2: kernel vs plain twin, bf16, atol=rtol={TOL} "
-          f"({card})")
+          f"({card})", flush=True)
     rows, keys = [], []
     gen = torch.Generator("cuda").manual_seed(1)
     for name, kw, keep in attention_cases(pipe, reqs, gen):
@@ -1215,7 +1465,7 @@ def main() -> int:
 
     # ---- 3. the main path at full width -----------------------------------
     print(f"phase 3: Pipeline.chat_batch, oryx_7b bf16, greedy, "
-          f"max_new_tokens={MAX_NEW} ({card})")
+          f"max_new_tokens={MAX_NEW} ({card})", flush=True)
     results = [run_main_path(pipe, reqs, tok) for _ in range(3)]
     for i, (replies, counts, tim, toks, launches, wall, peak) in enumerate(
         results
@@ -1249,7 +1499,7 @@ def main() -> int:
     cfg_x = dataclasses.replace(cfg, attn_impl="xla")
     pipe_x = Pipeline(tok, params, cfg_x, device="cuda")
     res_x = run_main_path(pipe_x, reqs, tok)
-    print(f"phase 4: attn_impl='xla' run: wall {res_x[5]:.3f} s")
+    print(f"phase 4: attn_impl='xla' run: wall {res_x[5]:.3f} s", flush=True)
     agree = total = 0
     for a, b in zip(toks0, res_x[3]):
         n = min(len(a), len(b))
@@ -1291,12 +1541,13 @@ def main() -> int:
     # ---- 5. where the device time goes ------------------------------------
     walls = [f"{r[5]:.3f}" for r in results]
     print(f"phase 5: chat_batch under torch.profiler ({card}); unprofiled "
-          f"walls of phase 3: {walls} s")
+          f"walls of phase 3: {walls} s", flush=True)
     profile_call(lambda: pipe.chat_batch(reqs, max_new_tokens=MAX_NEW))
 
     # ---- 7. the serving engine at full width ------------------------------
     print(f"phase 7: ContinuousScheduler, oryx_7b bf16, greedy, {SERVE}, "
-          f"{len(serve_requests())} requests ({card})")
+          f"{len(serve_requests())} requests, prefix cache on ({card})",
+          flush=True)
     spipe = Pipeline(ByteTokenizer(), params, cfg, device="cuda")
     serving = {}
     for mode in ("split", "ragged"):
@@ -1320,7 +1571,7 @@ def main() -> int:
 
     # ---- 6. paged kernels at the serving shapes ---------------------------
     print(f"phase 6: paged kernels vs plain twins at phase 7's call shapes, "
-          f"bf16, atol=rtol={TOL} ({card})")
+          f"bf16, atol=rtol={TOL} ({card})", flush=True)
     llm = cfg.llm
     # The default pool: num_slots * max_ctx / page_size pages.
     pool_shape = (SERVE["num_slots"] * SERVE["max_ctx"] // SERVE["page_size"],
@@ -1367,8 +1618,90 @@ def main() -> int:
     rows.append(row)
 
     # ---- 8. tiny fp32 engines on the card ---------------------------------
-    print(f"phase 8: tiny fp32 engines, card vs CPU ({card})")
+    print(f"phase 8: tiny fp32 engines (bf16 and int8 pools), card vs CPU "
+          f"({card})", flush=True)
     tiny_engines_on_card()
+
+    # ---- 12. the int8 engine, prefix cache and host tier -------------------
+    shared = shared_requests(spipe)
+    print(f"phase 12: ContinuousScheduler kv_dtype='int8', oryx_7b bf16, "
+          f"{SERVE}, host tier {HOST_CACHE >> 20} MiB; shared-context "
+          f"prompts of {[len(spipe._prepare_request({'question': q})[0]) for q in shared]}"
+          f" tokens ({card})", flush=True)
+    int8_runs = {}
+    for mode in ("split", "ragged"):
+        runs = [run_int8_engine(spipe, mode == "ragged", i == 0, shared)
+                for i in range(2)]
+        for i, run in enumerate(runs):
+            check_int8_run(mode, i, run)
+        if runs[1]["results"] != runs[0]["results"]:
+            raise SystemExit(f"int8 {mode}: the two runs produced different "
+                             "tokens")
+        print(f"  int8 {mode}: tokens identical across the two runs")
+        int8_runs[mode] = runs[0]
+        n = len(serve_requests())
+        same = sum(a[0] == b[0] for a, b in zip(
+            runs[0]["results"][:n], serving[mode]["results"]))
+        print(f"  int8 {mode} vs phase 7's bf16 pool, replies of the phase-7 "
+              f"mix equal (not asserted): {same}/{n}")
+    rows_bf16 = 2 * llm.num_layers * pool_shape[0] * pool_shape[1] * (
+        llm.num_kv_heads * llm.head_dim * 2)
+    print(f"  pool bytes at {pool_shape[0]} pages: int8 "
+          f"{int8_runs['split']['pool_bytes'] / 1e9:.4f} GB, bf16 "
+          f"{rows_bf16 / 1e9:.4f} GB (ratio "
+          f"{int8_runs['split']['pool_bytes'] / rows_bf16:.4f})")
+    fp8_launches = {}
+    for ragged in (False, True):
+        toks, launches, wall = generate_fp8(spipe, shared, ragged)
+        print(f"  generate_paged fp8_e4m3 {'ragged' if ragged else 'split'}: "
+              f"wall {wall:.3f} s, paged launches {launches}, first row "
+              f"{toks[0, :8].tolist()}")
+        want = "ragged_paged_fp8_e4m3" if ragged else "paged_decode_fp8_e4m3"
+        if not launches.get(want) or toks.shape[1] != MAX_NEW:
+            raise SystemExit(f"generate_paged fp8: {launches}")
+        fp8_launches.update(launches)
+
+    # ---- 13. the dequantizing paged kernels at phase 12's shapes ----------
+    print(f"phase 13: K3q/K4q vs plain twins at phase 12's call shapes, int8 "
+          f"and fp8 pools, bf16, atol=rtol={TOL} ({card})", flush=True)
+    dec_calls = int8_runs["split"]["recorder"].calls["paged_decode"]
+    rag_calls = int8_runs["ragged"]["recorder"].calls["ragged_paged"]
+    qcases = [
+        ("paged_decode", "decode",
+         _pick(dec_calls, lambda c: int(c[2].sum()))),
+        ("ragged_paged", "prefill",
+         _pick([c for c in rag_calls if c[0][0][0] > S],
+               lambda c: int((c[3] + 1).sum()))),
+        ("ragged_paged", "decode",
+         _pick([c for c in rag_calls if c[0][0][0] == S],
+               lambda c: int((c[3] + 1).sum()))),
+    ]
+    gen = torch.Generator("cuda").manual_seed(4)
+    for fmt in ("int8", "fp8_e4m3"):
+        for kind, shape, call in qcases:
+            kernel = f"{kind}_{fmt}"
+            name = f"{kernel}[{shape}]"
+            row = paged_kernel_case(name, kind, call, pool_shape, gen, fmt)
+            if fmt == "int8":
+                mode = "split" if kind == "paged_decode" else "ragged"
+                row["launches"] = sum(
+                    n for key, n in int8_runs[mode]["paged_keys"].items()
+                    if key[0] == kernel and (
+                        kind == "paged_decode"
+                        or (key[1] > S) == (shape == "prefill")
+                    )
+                )
+            else:  # generate_paged's fp8 runs: decode steps only
+                row["launches"] = (
+                    0 if shape == "prefill" else fp8_launches.get(kernel, 0)
+                )
+            print(f"  launches {name}: {row['launches']}")
+            if row["launches"] == 0:
+                # No entry point runs fp8 prefill lanes (the engine takes
+                # no fp8 pool): checked and timed above, not a path kernel.
+                print(f"  {name} is on no path's run; left out of the table")
+                continue
+            rows.append(row)
 
     # ---- 9. training kernels at the training step's shapes ----------------
     cfg_t = train_config()
@@ -1379,7 +1712,7 @@ def main() -> int:
         raise SystemExit("the first two training batches are not one image "
                          "and one video batch")
     print(f"phase 9: K1 with lse, K5a, K5b vs plain twins at the training "
-          f"step's shapes, bf16 ({card})")
+          f"step's shapes, bf16 ({card})", flush=True)
     gen = torch.Generator("cuda").manual_seed(3)
     train_rows = []
     for name, kw in training_attention_cases(cfg_t, host_img, host_vid, gen):
@@ -1388,7 +1721,8 @@ def main() -> int:
 
     # ---- 10. Trainer.fit at full width and depth --------------------------
     print(f"phase 10: Trainer.fit, oryx_7b_pretrain.json at full width and "
-          f"depth, {TRAIN_STEPS} steps of {TRAIN_BATCH} records ({card})")
+          f"depth, {TRAIN_STEPS} steps of {TRAIN_BATCH} records ({card})",
+          flush=True)
     train_full_size(cfg_t, params, host_img, train_rows, card)
     for _, case_rows in train_rows:
         rows.extend(case_rows)
@@ -1396,7 +1730,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11. tiny fp32 training on the card --------------------------------
-    print(f"phase 11: tiny fp32 Trainer.fit, tune full, card vs CPU ({card})")
+    print(f"phase 11: tiny fp32 Trainer.fit, tune full, card vs CPU ({card})",
+          flush=True)
     tiny_training_on_card()
 
     print(card)

@@ -17,6 +17,18 @@
 // table entry at or past P (the sentinel) is clamped to page P - 1. A row
 // with no visible slot writes zeros.
 //
+// Quantized pools (the Pallas kernels' `dequant_dtype` branch,
+// `_decode_kernel` and `_ragged_kernel` with their scale BlockSpecs): the
+// pages hold int8 or fp8-e4m3 codes plus one fp32 scale per token row
+// ([P, page_size], shared by the Hk heads, read through the same clamped
+// block-table entry as the codes). Each K/V row is dequantized on its way
+// into shared memory with the Pallas body's rounding points,
+// k = k.astype(dq) * scale.astype(dq): in bf16 the scale is rounded to bf16
+// first and the product rounded once more to bf16 (one fp32 product
+// code * scale rounded once gives other bits); in fp32 one fp32 product.
+// Every int8 and e4m3 code is exact in bf16, so the code converts by value
+// (e4m3 by its bits). Everything after the staging is the dense kernel's.
+//
 // Layout: one block per (packed row, kv head). The G = Hq / Hk query heads
 // of the group (head h = hk * G + g) are the rows of one 16-row
 // `mma.sync.m16n8k16` tile, so each kv head's pages are streamed once, not G
@@ -30,16 +42,18 @@
 // What bounds it on an H100: per row and kv head it moves 2 * len * D value
 // bytes and does 4 * G * D flops per visible slot, about 2 * G = 14 flops a
 // byte at oryx_7b, far below the ~295 flop/byte ridge: it is bound by the
-// bytes it reads. This first version reads each page row once into shared
-// memory with 16-byte loads (the bf16 pools are 16-byte aligned and D is a
-// multiple of 8; the wrapper checks both) and stops at the row's length;
+// bytes it reads (on a quantized pool len * D code bytes and len * 4 scale
+// bytes a plane, about half). This first version reads each page row once
+// into shared memory with 16-byte loads (8 bf16 values or 16 codes; the
+// pools are 16-byte aligned and D is a multiple of 8, of 16 for codes; the
+// wrapper checks both) and stops at the row's length;
 // with one block per (row, kv head) a decode step of few slots fills few
 // SMs, which split-KV across blocks, TMA and wgmma address in a later
 // version.
 //
 // Inputs: q [R, Hq, D] (row stride given, heads and features contiguous);
-// k_pages/v_pages [P, page_size, Hk, D] contiguous; block_tables [S, maxp]
-// int32; ints [R] int32 (kv_lengths for K3, q_segments and q_positions for
+// k_pages/v_pages [P, page_size, Hk, D] contiguous (codes when quantized,
+// with k_scale/v_scale [P, page_size] fp32); block_tables [S, maxp] int32; ints [R] int32 (kv_lengths for K3, q_segments and q_positions for
 // K4); o [R, Hq, D] contiguous.
 
 #include <cuda_bf16.h>
@@ -53,10 +67,15 @@ constexpr float NEG = -0.7f * FLT_MAX;
 constexpr int NW = 4;     // warps a block
 constexpr int GMAX = 16;  // q heads per kv head the tile holds
 
+// Page formats: dense pages in the compute dtype, or codes.
+enum Code { DENSE = 0, INT8 = 1, FP8 = 2 };
+
 struct Params {
   const void* q;
   const void* k;
   const void* v;
+  const float* ks;  // per-row scales [P, ps] (quantized pools)
+  const float* vs;
   void* o;
   long long q_sr;  // q row stride (elements)
   const int* bt;
@@ -81,13 +100,37 @@ __device__ __forceinline__ void row_extent(const Params& p, int r, int* seg,
   *len = max(0, min(*len, p.maxp * p.ps));
 }
 
-// Element offset of logical slot `slot` of table row `seg`, kv head hk, in
-// the pool; the sentinel (and anything outside the pool) clamps into it.
-__device__ __forceinline__ long long slot_offset(const Params& p, int seg,
-                                                 int slot, int hk) {
+// Pool row (page * ps + offset) of logical slot `slot` of table row `seg`:
+// the index of its scale, and of its codes or values with `row_offset`. The
+// sentinel (and anything outside the pool) clamps into it.
+__device__ __forceinline__ long long slot_row(const Params& p, int seg,
+                                              int slot) {
   int page = p.bt[(long long)seg * p.maxp + slot / p.ps];
   page = min(max(page, 0), p.P - 1);
-  return (((long long)page * p.ps + slot % p.ps) * p.Hk + hk) * p.D;
+  return (long long)page * p.ps + slot % p.ps;
+}
+
+__device__ __forceinline__ long long row_offset(const Params& p,
+                                                long long row, int hk) {
+  return (row * p.Hk + hk) * p.D;
+}
+
+// A code's value: int8 as itself, e4m3 (sign, 4 exponent bits of bias 7, 3
+// mantissa bits, no infinities) by its bits. Codes are clipped to +-448 on
+// write, so the NaN pattern never occurs.
+template <int CODE>
+__device__ __forceinline__ float code_value(uint8_t b) {
+  if constexpr (CODE == INT8) {
+    return static_cast<float>(static_cast<int8_t>(b));
+  } else {
+    const uint32_t sign = static_cast<uint32_t>(b & 0x80u) << 24;
+    const uint32_t e = (b >> 3) & 15u, m = b & 7u;
+    if (e == 0) {  // subnormal: m * 2^-9
+      const float v = static_cast<float>(m) * 0.001953125f;
+      return sign ? -v : v;
+    }
+    return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -151,7 +194,7 @@ __host__ __device__ constexpr int smem_bf16() {
   return GMAX * (DP + PAD16) * 2 + (tiles > merge ? tiles : merge);
 }
 
-template <int DP>
+template <int DP, int CODE>
 __global__ void __launch_bounds__(NW * 32) paged_bf16(const Params p) {
   constexpr int SQ = DP + PAD16;   // row stride of sQ and sK
   constexpr int SV = BK16 + PAD16;  // row stride of sVt ([DP][BK])
@@ -194,10 +237,9 @@ __global__ void __launch_bounds__(NW * 32) paged_bf16(const Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
 
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v);
   const int ntiles = (len + BK16 - 1) / BK16;
-  constexpr int E = 8;  // bf16 elements per 16-byte chunk
+  // Elements per 16-byte chunk: 8 bf16 values or 16 codes.
+  constexpr int E = CODE == DENSE ? 8 : 16;
   constexpr int CH = DP / E;
   for (int it = warp; it < ntiles; it += NW) {
     const int s0 = it * BK16;
@@ -206,12 +248,33 @@ __global__ void __launch_bounds__(NW * 32) paged_bf16(const Params p) {
       const int j = i / CH, c = (i % CH) * E, slot = s0 + j;
       __align__(16) __nv_bfloat16 kv[E];
       __align__(16) __nv_bfloat16 vv[E];
-      if (slot < len && c < p.D) {  // D % 8 == 0: the chunk is in the row
-        const long long off = slot_offset(p, seg, slot, hk) + c;
-        *reinterpret_cast<uint4*>(kv) =
-            *reinterpret_cast<const uint4*>(kp + off);
-        *reinterpret_cast<uint4*>(vv) =
-            *reinterpret_cast<const uint4*>(vp + off);
+      if (slot < len && c < p.D) {  // D % E == 0: the chunk is in the row
+        const long long row = slot_row(p, seg, slot);
+        const long long off = row_offset(p, row, hk) + c;
+        if constexpr (CODE == DENSE) {
+          *reinterpret_cast<uint4*>(kv) =
+              *reinterpret_cast<const uint4*>(
+                  static_cast<const __nv_bfloat16*>(p.k) + off);
+          *reinterpret_cast<uint4*>(vv) =
+              *reinterpret_cast<const uint4*>(
+                  static_cast<const __nv_bfloat16*>(p.v) + off);
+        } else {
+          __align__(16) uint8_t kc[16];
+          __align__(16) uint8_t vc[16];
+          *reinterpret_cast<uint4*>(kc) = *reinterpret_cast<const uint4*>(
+              static_cast<const uint8_t*>(p.k) + off);
+          *reinterpret_cast<uint4*>(vc) = *reinterpret_cast<const uint4*>(
+              static_cast<const uint8_t*>(p.v) + off);
+          // The scale rounds to bf16, then each product rounds to bf16
+          // (the product of two bf16 values is exact in fp32).
+          const float ksc = __bfloat162float(__float2bfloat16(p.ks[row]));
+          const float vsc = __bfloat162float(__float2bfloat16(p.vs[row]));
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kv[e] = __float2bfloat16(code_value<CODE>(kc[e]) * ksc);
+            vv[e] = __float2bfloat16(code_value<CODE>(vc[e]) * vsc);
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) {
@@ -219,8 +282,10 @@ __global__ void __launch_bounds__(NW * 32) paged_bf16(const Params p) {
           vv[e] = __float2bfloat16(0.f);
         }
       }
-      *reinterpret_cast<uint4*>(sK + j * SQ + c) =
-          *reinterpret_cast<const uint4*>(kv);
+#pragma unroll
+      for (int e = 0; e < E; e += 8)
+        *reinterpret_cast<uint4*>(sK + j * SQ + c + e) =
+            *reinterpret_cast<const uint4*>(kv + e);
 #pragma unroll
       for (int e = 0; e < E; ++e) sVt[(c + e) * SV + j] = vv[e];
     }
@@ -332,7 +397,7 @@ __host__ __device__ constexpr int smem_f32() {
   return GMAX * DP * 4 + (tiles > merge ? tiles : merge);
 }
 
-template <int DP>
+template <int DP, int CODE>
 __global__ void __launch_bounds__(NW * 32) paged_f32(const Params p) {
   constexpr int SK = DP + 1;  // sK row stride: lane j reads row j
   extern __shared__ __align__(16) unsigned char smem[];
@@ -363,8 +428,6 @@ __global__ void __launch_bounds__(NW * 32) paged_f32(const Params p) {
     for (int c = 0; c < DP / 32; ++c) acc[i][c] = 0.f;
   }
 
-  const float* kp = static_cast<const float*>(p.k);
-  const float* vp = static_cast<const float*>(p.v);
   const int ntiles = (len + BK32 - 1) / BK32;
   for (int it = warp; it < ntiles; it += NW) {
     const int s0 = it * BK32;
@@ -373,9 +436,17 @@ __global__ void __launch_bounds__(NW * 32) paged_f32(const Params p) {
       const int j = i / DP, c = i % DP, slot = s0 + j;
       float kv = 0.f, vv = 0.f;
       if (slot < len && c < p.D) {
-        const long long off = slot_offset(p, seg, slot, hk) + c;
-        kv = kp[off];
-        vv = vp[off];
+        const long long row = slot_row(p, seg, slot);
+        const long long off = row_offset(p, row, hk) + c;
+        if constexpr (CODE == DENSE) {
+          kv = static_cast<const float*>(p.k)[off];
+          vv = static_cast<const float*>(p.v)[off];
+        } else {  // one fp32 product, as k.astype(f32) * scale
+          kv = code_value<CODE>(static_cast<const uint8_t*>(p.k)[off]) *
+               p.ks[row];
+          vv = code_value<CODE>(static_cast<const uint8_t*>(p.v)[off]) *
+               p.vs[row];
+        }
       }
       sK[j * SK + c] = kv;
       sV[j * DP + c] = vv;
@@ -446,28 +517,40 @@ cudaError_t launch(Kernel kernel, int smem, const Params& p,
   return cudaGetLastError();
 }
 
-// Padded widths: bf16 16 (test heads) and 128 (the decoder); fp32 32 and
-// 128. Any other D takes the next of them.
-cudaError_t dispatch(const Params& p, int bf16, cudaStream_t s) {
+template <int CODE>
+cudaError_t dispatch_code(const Params& p, int bf16, cudaStream_t s) {
   if (bf16) {
-    if (p.D <= 16) return launch(paged_bf16<16>, smem_bf16<16>(), p, s);
-    return launch(paged_bf16<128>, smem_bf16<128>(), p, s);
+    if (p.D <= 16)
+      return launch(paged_bf16<16, CODE>, smem_bf16<16>(), p, s);
+    return launch(paged_bf16<128, CODE>, smem_bf16<128>(), p, s);
   }
-  if (p.D <= 32) return launch(paged_f32<32>, smem_f32<32>(), p, s);
-  return launch(paged_f32<128>, smem_f32<128>(), p, s);
+  if (p.D <= 32) return launch(paged_f32<32, CODE>, smem_f32<32>(), p, s);
+  return launch(paged_f32<128, CODE>, smem_f32<128>(), p, s);
 }
 
-int run(const void* q, const void* k, const void* v, void* o,
-        long long q_sr, const void* bt, const void* seg, const void* ints,
-        int R, int Hk, int G, int D, int P, int ps, int S, int maxp,
-        float scale, int decode, int bf16, void* stream) {
+// Padded widths: bf16 16 (test heads) and 128 (the decoder); fp32 32 and
+// 128. Any other D takes the next of them.
+cudaError_t dispatch(const Params& p, int bf16, int code, cudaStream_t s) {
+  if (code == INT8) return dispatch_code<INT8>(p, bf16, s);
+  if (code == FP8) return dispatch_code<FP8>(p, bf16, s);
+  return dispatch_code<DENSE>(p, bf16, s);
+}
+
+int run(const void* q, const void* k, const void* v, const void* ks,
+        const void* vs, void* o, long long q_sr, const void* bt,
+        const void* seg, const void* ints, int R, int Hk, int G, int D,
+        int P, int ps, int S, int maxp, float scale, int decode, int bf16,
+        int code, void* stream) {
   if (R <= 0 || Hk <= 0 || Hk > 65535 || G <= 0 || G > GMAX || D <= 0 ||
-      D > 128 || P <= 0 || ps <= 0 || S <= 0 || maxp <= 0)
+      D > 128 || P <= 0 || ps <= 0 || S <= 0 || maxp <= 0 || code < DENSE ||
+      code > FP8 || (code != DENSE && (ks == nullptr || vs == nullptr)))
     return cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
+  p.ks = static_cast<const float*>(ks);
+  p.vs = static_cast<const float*>(vs);
   p.o = o;
   p.q_sr = q_sr;
   p.bt = static_cast<const int*>(bt);
@@ -477,36 +560,42 @@ int run(const void* q, const void* k, const void* v, void* o,
   p.maxp = maxp;
   p.scale = scale;
   p.decode = decode;
-  return dispatch(p, bf16, static_cast<cudaStream_t>(stream));
+  return dispatch(p, bf16, code, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns the cudaError_t of
 // the launch (0 on success); nothing is synchronised. `bf16` selects the
-// dtype of q, the pages and o (1: bfloat16, 0: float32).
+// dtype of q and o, and of dense pages (1: bfloat16, 0: float32); `code`
+// the page format (0 dense, 1 int8 codes, 2 fp8-e4m3 codes), with the
+// per-row scale planes k_scale/v_scale [P, ps] fp32 for codes (else null).
 //
 // K3: one query row per table row; kv_lengths [R] int32 counts the visible
 // slots (the current token included).
 extern "C" int oryx_paged_decode(const void* q, const void* k_pages,
-                                 const void* v_pages, void* o, long long q_sr,
+                                 const void* v_pages, const void* k_scale,
+                                 const void* v_scale, void* o, long long q_sr,
                                  const void* block_tables,
                                  const void* kv_lengths, int R, int Hk, int G,
                                  int D, int P, int ps, int maxp, float scale,
-                                 int bf16, void* stream) {
-  return run(q, k_pages, v_pages, o, q_sr, block_tables, nullptr, kv_lengths,
-             R, Hk, G, D, P, ps, R, maxp, scale, 1, bf16, stream);
+                                 int bf16, int code, void* stream) {
+  return run(q, k_pages, v_pages, k_scale, v_scale, o, q_sr, block_tables,
+             nullptr, kv_lengths, R, Hk, G, D, P, ps, R, maxp, scale, 1, bf16,
+             code, stream);
 }
 
 // K4: R packed rows over S table rows; q_segments/q_positions [R] int32.
 extern "C" int oryx_ragged_paged(const void* q, const void* k_pages,
-                                 const void* v_pages, void* o, long long q_sr,
+                                 const void* v_pages, const void* k_scale,
+                                 const void* v_scale, void* o, long long q_sr,
                                  const void* block_tables,
                                  const void* q_segments,
                                  const void* q_positions, int R, int Hk,
                                  int G, int D, int P, int ps, int S, int maxp,
-                                 float scale, int bf16, void* stream) {
-  return run(q, k_pages, v_pages, o, q_sr, block_tables, q_segments,
-             q_positions, R, Hk, G, D, P, ps, S, maxp, scale, 0, bf16,
-             stream);
+                                 float scale, int bf16, int code,
+                                 void* stream) {
+  return run(q, k_pages, v_pages, k_scale, v_scale, o, q_sr, block_tables,
+             q_segments, q_positions, R, Hk, G, D, P, ps, S, maxp, scale, 0,
+             bf16, code, stream);
 }

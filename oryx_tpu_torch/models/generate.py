@@ -730,6 +730,7 @@ def generate_paged(
     return_state: bool = False,
     prefill_chunk: int | None = None,
     ragged: bool = False,
+    kv_dtype: str | None = None,
     device="cuda",
 ):
     """`generate`, but over a paged KV cache in `chunk`-step dispatches: the
@@ -745,7 +746,9 @@ def generate_paged(
     prefill only the suffix). prefill_chunk: prefill in bounded windows
     (needs one shared `start`). ragged: decode through
     `paged_ragged_step` (packed rows) instead of `paged_decode_chunk`.
-    Sampling rows draw from per-row generators seeded from `seed`.
+    kv_dtype: None / "bf16" dense pages in the compute dtype; "int8" /
+    "fp8_e4m3" a quantized pool (qwen2.init_paged_kv_cache), which the
+    paged programs take unchanged. Sampling rows draw from per-row generators seeded from `seed`.
 
     Returns host tensors (tokens [B, max_new_tokens] int32, num_generated
     [B] int32, finished [B] bool)[, state]."""
@@ -772,6 +775,7 @@ def generate_paged(
             kv_pages=qwen2.init_paged_kv_cache(
                 cfg, num_pages, page_size,
                 dtype=compute_dtype or torch.float32, device=dev,
+                kv_dtype=kv_dtype,
             ),
             block_tables=np.full((B, max_pages), allocator.sentinel,
                                  np.int32),

@@ -94,18 +94,30 @@ def init_kv_cache(
 def init_paged_kv_cache(
     cfg: LLMConfig, num_pages: int, page_size: int,
     dtype: torch.dtype = torch.bfloat16, device="cuda",
-) -> dict[str, torch.Tensor]:
-    """Page-pool cache {"k", "v"}: [L, P, page_size, Hk, D] zeros, dense in
-    `dtype` (ops/paged_kv.init_paged_pool: each layer has a sink page
-    behind it for dropped writes). Rows address it through the block
-    tables passed to `forward`."""
-    device = resolve_device(device)
+    kv_dtype: str | None = None,
+) -> dict:
+    """Page-pool cache {"k", "v"}: [L, P, page_size, Hk, D] zeros (each
+    layer has a sink page behind it for dropped writes). Rows address it
+    through the block tables passed to `forward`.
 
-    def pool():
-        return paged_kv.init_paged_pool(
-            cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-            cfg.head_dim, dtype=dtype, device=device,
-        )
+    kv_dtype: None / "bf16" / "fp" store pages densely in `dtype`;
+    "int8" / "fp8_e4m3" store quantized planes (ops/paged_kv.QuantPages:
+    codes plus one fp32 scale per token row, quantized on write,
+    dequantized into `dtype` by the readers); any other name raises."""
+    device = resolve_device(device)
+    if kv_dtype in (None, "bf16", "fp"):
+        def pool():
+            return paged_kv.init_paged_pool(
+                cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                cfg.head_dim, dtype=dtype, device=device,
+            )
+    else:
+        def pool():
+            return paged_kv.init_quant_pages(
+                cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                cfg.head_dim, fmt=kv_dtype, dequant_dtype=dtype,
+                device=device,
+            )
 
     return {"k": pool(), "v": pool()}
 
@@ -147,8 +159,8 @@ def _block(
     sin: torch.Tensor,
     *,
     positions: torch.Tensor,
-    cache_k: torch.Tensor | None,
-    cache_v: torch.Tensor | None,
+    cache_k,  # dense layer [.., Hk, D] or a QuantPages plane (paged)
+    cache_v,
     write_slots: torch.Tensor | None,
     kv_mask: torch.Tensor | None,
     attn_fn,
@@ -160,7 +172,9 @@ def _block(
 ) -> torch.Tensor:
     """One decoder block. h: [B, T, H]; writes k/v into the cache layer
     views in place when given (a paged layer at `write_index`, the pool
-    rows `forward` computed once for every layer)."""
+    rows `forward` computed once for every layer; a quantized page plane
+    quantizes them on write, and a T > 1 prefill reads it through the
+    dequantizing `gather_pages`)."""
     B, T, _ = h.shape
     x = lp.input_norm(h)
     q = _linear(x, lp.q_proj).view(B, T, cfg.num_heads, cfg.head_dim)

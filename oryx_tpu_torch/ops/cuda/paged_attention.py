@@ -8,9 +8,12 @@ Port of the Pallas TPU kernels `oryx_tpu.ops.pallas.paged_attention`
 what bounds it. K3 is a front end over K4's kernel (segment = row, length =
 kv_lengths).
 
-The wrappers have the Pallas wrappers' signatures. Only the innermost call
-depends on the device:
-  * CUDA tensors -> the kernel (bf16 or fp32), or a raise;
+The wrappers have the Pallas wrappers' signatures. Like them, they take a
+quantized pool (`paged_kv.QuantPages` planes, both K and V: int8 or
+fp8-e4m3 codes plus per-row fp32 scales), which the kernel dequantizes in
+its page walk. Only the innermost call depends on the device:
+  * CUDA tensors -> the kernel (bf16 or fp32 compute, dense or coded
+    pages), or a raise;
   * CPU tensors  -> the plain twins in `ops/paged_kv.py` (gather the pages,
     plain attention).
 The TPU grid table (`heads_per_block` and its autotuner) is VMEM tuning
@@ -27,21 +30,25 @@ import torch
 from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.cuda import build
 
-# Kernel launches, keyed by (kernel, R, Hk, G, D, P, page_size, max_pages).
-# Only `_launch` adds to it, once per launch.
+# Kernel launches, keyed by (kernel, R, Hk, G, D, P, page_size, max_pages);
+# the kernel name carries the code dtype of a quantized pool
+# ("paged_decode_int8", "ragged_paged_fp8_e4m3"). Only `_launch` adds to it,
+# once per launch.
 LAUNCHES: collections.Counter = collections.Counter()
 
 GMAX = 16  # q heads per kv head one kernel tile holds
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C argument lists: q, k, v, o, q row stride, block tables, the int [R]
-# operands, the shape ints, scale, bf16, stream.
+# C argument lists: q, k, v, k scales, v scales, o, q row stride, block
+# tables, the int [R] operands, the shape ints, scale, bf16, code, stream.
 _ARGTYPES = {
-    "paged_decode": [_P] * 4 + [ctypes.c_longlong] + [_P] * 2 + [_I] * 7
-    + [ctypes.c_float, _I, _P],
-    "ragged_paged": [_P] * 4 + [ctypes.c_longlong] + [_P] * 3 + [_I] * 8
-    + [ctypes.c_float, _I, _P],
+    "paged_decode": [_P] * 6 + [ctypes.c_longlong] + [_P] * 2 + [_I] * 7
+    + [ctypes.c_float, _I, _I, _P],
+    "ragged_paged": [_P] * 6 + [ctypes.c_longlong] + [_P] * 3 + [_I] * 8
+    + [ctypes.c_float, _I, _I, _P],
 }
+# Code dtypes of a quantized pool -> the kernel's `code` argument.
+_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _fns: dict[str, object] = {}
 
 
@@ -66,10 +73,33 @@ def _check_ints(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
         )
 
 
+def _split_quant(k_pages, v_pages):
+    """(k codes, k scales, v codes, v scales, format name) of a quantized
+    pool pair, or None for a dense pair. Both planes must be quantized
+    together: a mixed pool would misread one side's bytes."""
+    kq, vq = (isinstance(x, paged_kv.QuantPages) for x in (k_pages, v_pages))
+    if kq != vq:
+        raise ValueError(
+            "quantized and dense pages mixed: the pool must quantize both "
+            "planes (qwen2.init_paged_kv_cache kv_dtype=)"
+        )
+    if not kq:
+        return None
+    if k_pages.storage_dtype != v_pages.storage_dtype:
+        raise ValueError(
+            f"K codes {k_pages.storage_dtype} and V codes "
+            f"{v_pages.storage_dtype}: both planes need one code dtype"
+        )
+    return (k_pages.q, k_pages.scale, v_pages.q, v_pages.scale,
+            paged_kv.kv_pool_dtype(k_pages))
+
+
 def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
     """Launch `name` ("paged_decode" or "ragged_paged") on q [R, Hq, D].
     `ints` are the kernel's int32 [R] operands: (kv_lengths,) or
-    (q_segments, q_positions). Returns o [R, Hq, D] in q's dtype."""
+    (q_segments, q_positions). The pages are dense tensors or QuantPages
+    planes. Returns o [R, Hq, D] in q's dtype."""
+    quant = _split_quant(k_pages, v_pages)
     R, Hq, D = q.shape
     P, ps, Hk, _ = k_pages.shape
     S, maxp = block_tables.shape
@@ -81,7 +111,7 @@ def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
     ):
         raise ValueError(
             f"q/k/v dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype}: need "
-            "all bf16 or all fp32"
+            "all bf16 or all fp32 (the dequant dtype of a quantized pool)"
         )
     if tuple(v_pages.shape) != (P, ps, Hk, D) or k_pages.shape[3] != D:
         raise ValueError(
@@ -94,13 +124,35 @@ def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
             "and D <= 128"
         )
     bf16 = q.dtype == torch.bfloat16
+    code, scales, kernel = 0, (None, None), name
+    if quant is not None:
+        k_codes, k_scale, v_codes, v_scale, fmt = quant
+        code = _CODES.get(k_codes.dtype, 0)
+        if not code:
+            raise ValueError(
+                f"code dtype {k_codes.dtype}: the kernel reads int8 or "
+                "float8_e4m3fn codes"
+            )
+        for nm, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (x.dtype != torch.float32 or tuple(x.shape) != (P, ps)
+                    or not x.is_contiguous() or x.device != dev):
+                raise ValueError(
+                    f"{nm}: need contiguous fp32 [{P}, {ps}] on {dev}, got "
+                    f"{x.dtype} {tuple(x.shape)} on {x.device}"
+                )
+        k_pages, v_pages = k_codes, v_codes
+        scales = (k_scale.data_ptr(), v_scale.data_ptr())
+        kernel = f"{name}_{fmt}"
+    # The bf16 kernel reads pages in 16-byte chunks (8 values or 16 codes).
     for nm, x in (("k_pages", k_pages), ("v_pages", v_pages)):
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"{nm}: need a contiguous tensor on {dev}")
         if bf16 and x.data_ptr() % 16:
             raise ValueError(f"{nm}: the bf16 kernel needs 16-byte alignment")
-    if bf16 and D % 8:
-        raise ValueError(f"D={D}: the bf16 kernel needs D % 8 == 0")
+    if bf16 and D % (16 if code else 8):
+        raise ValueError(
+            f"D={D}: the bf16 kernel needs D % 8 == 0 (D % 16 for codes)"
+        )
     if q.stride(2) != 1 or q.stride(1) != D:
         raise ValueError("q: heads and features must be contiguous")
     _check_ints("block_tables", block_tables, (S, maxp), dev)
@@ -115,18 +167,19 @@ def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn(name)(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             o.data_ptr(), q.stride(0), block_tables.data_ptr(),
             *(x.data_ptr() for x in ints),
-            R, Hk, G, D, P, ps, *extra, maxp, float(scale), int(bf16),
+            R, Hk, G, D, P, ps, *extra, maxp, float(scale), int(bf16), code,
             stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {err} (q "
-            f"{tuple(q.shape)} {q.dtype}, pages {tuple(k_pages.shape)})"
+            f"{kernel} kernel launch failed: CUDA error {err} (q "
+            f"{tuple(q.shape)} {q.dtype}, pages {tuple(k_pages.shape)} "
+            f"{k_pages.dtype})"
         )
-    LAUNCHES[(name, R, Hk, G, D, P, ps, maxp)] += 1
+    LAUNCHES[(kernel, R, Hk, G, D, P, ps, maxp)] += 1
     return o
 
 
@@ -143,9 +196,10 @@ def ragged_decode_attention(
     *,
     scale: float | None = None,
 ):
-    """K3: drop-in for ops.paged_kv.ragged_decode_attention; pages are read
-    in place through the block table."""
+    """K3: drop-in for ops.paged_kv.ragged_decode_attention; pages (dense
+    or QuantPages planes) are read in place through the block table."""
     squeezed = q.dim() == 3
+    _split_quant(k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_kv.ragged_decode_attention(
             q, k_pages, v_pages, block_tables, kv_lengths, scale=scale
@@ -174,8 +228,9 @@ def ragged_paged_attention(
     scale: float | None = None,
 ):
     """K4: drop-in for ops.paged_kv.ragged_paged_attention: R packed rows
-    with mixed query lengths, each reading its own sequence's pages in
-    place through the block table."""
+    with mixed query lengths, each reading its own sequence's pages (dense
+    or QuantPages planes) in place through the block table."""
+    _split_quant(k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_kv.ragged_paged_attention(
             q, k_pages, v_pages, block_tables, q_segments, q_positions,

@@ -1,5 +1,5 @@
 """Paged KV cache: fixed-size pages, block tables, ragged attention (port of
-`oryx_tpu.ops.paged_kv`, dense pools).
+`oryx_tpu.ops.paged_kv`).
 
 K/V of every sequence live in one pool of fixed-size pages per layer
 ([num_pages, page_size, Hk, D]); a sequence owns an ordered list of page
@@ -24,6 +24,13 @@ on the CPU and device-asserts on CUDA where XLA drops or clips):
 
 Pieces:
   * `PageAllocator`: the host-side free list with refcounts and owner tags.
+  * `QuantPages` / `init_quant_pages`: an int8 or fp8-e4m3 pool plane, codes
+    plus one fp32 scale per token row; the writers quantize on write
+    (utils/quant.quantize_kv_rows) and `gather_pages` dequantizes.
+  * `copy_pages` / `fetch_page` / `upload_page`: byte-verbatim page moves
+    across every layer (copy-on-write, host spill and reload), codes and
+    scales together on a quantized pool. They work IN PLACE where the JAX
+    functions donate the pool.
   * `write_pages` / `write_pages_packed` / `gather_pages`: page I/O (the
     writers' pool-row index, `write_index` / `write_index_packed`, is the
     same for every layer; the model computes it once per forward and
@@ -42,6 +49,7 @@ from collections import Counter
 import torch
 
 from oryx_tpu_torch.ops.attention import attention
+from oryx_tpu_torch.utils import quant as quant_lib
 
 
 class OutOfPagesError(RuntimeError):
@@ -92,6 +100,11 @@ class PageAllocator:
     def _check_page(self, page: int) -> None:
         if not 0 <= page < self.num_pages:
             raise ValueError(f"page {page} outside pool of {self.num_pages}")
+
+    def refcount(self, page: int) -> int:
+        """Current holder count of `page` (0 = free)."""
+        self._check_page(page)
+        return self._refs[page]
 
     def alloc(self, n: int, *, owner: str | None = None) -> list[int]:
         if n > len(self._free):
@@ -148,6 +161,10 @@ class PageAllocator:
                 released.append(p)
         self._free.extend(reversed(released))
 
+    # `release` is `free` under its sharing-aware name: both drop one
+    # reference; the page leaves the live set only at refcount 0.
+    release = free
+
     def check_invariant(self, holders=None) -> None:
         """Pool accounting invariant; raises RuntimeError on violation.
 
@@ -197,24 +214,166 @@ def init_paged_pool(
     return buf[:, :num_pages]
 
 
-def _rows_with_sink(cache_layer: torch.Tensor) -> torch.Tensor:
-    """[P * ps + 1, Hk, D] row view of a layer from `init_paged_pool`: row
-    P * ps is the first row of the layer's sink page. Raises for a tensor
-    that has no sink behind it."""
-    P, ps, Hk, D = cache_layer.shape
-    row = Hk * D
-    if cache_layer.stride() != (ps * row, row, D, 1):
-        raise ValueError(
-            "cache_layer must be a contiguous [P, page_size, Hk, D] layer "
-            "of a pool made by init_paged_pool"
+class QuantPages:
+    """One quantized pool plane (K or V): storage-dtype codes plus one fp32
+    scale per token row, stored page-major.
+
+      q:     [..., P, page_size, Hk, D] int8 or float8_e4m3fn codes
+      scale: [..., P, page_size] fp32
+
+    The scale is per token row, not per page, so a token's bytes do not
+    depend on how its page was filled (across prefill chunks and decode
+    steps); every page carries its own scale block, so copy-on-write,
+    spill and reload move codes and scales together, verbatim.
+    `dequant_dtype` is the logical dtype consumers see (`dtype`); `shape`
+    is the codes' shape, so callers read pool geometry off a plane of
+    either kind. Indexing by layer gives that layer's plane, a view."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor,
+                 dequant_dtype: torch.dtype = torch.float32):
+        self.q = q
+        self.scale = scale
+        self.dequant_dtype = dequant_dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def dtype(self) -> torch.dtype:  # the logical dtype after dequant
+        return self.dequant_dtype
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return self.q.dtype
+
+    def __getitem__(self, i) -> "QuantPages":
+        return QuantPages(self.q[i], self.scale[i], self.dequant_dtype)
+
+    def __repr__(self) -> str:
+        return (
+            f"QuantPages(q={tuple(self.q.shape)}:{self.q.dtype}, "
+            f"scale={tuple(self.scale.shape)}, dequant={self.dequant_dtype})"
         )
+
+
+def init_quant_pages(
+    num_layers: int, num_pages: int, page_size: int, num_kv_heads: int,
+    head_dim: int, *, fmt: str = "int8",
+    dequant_dtype: torch.dtype = torch.float32, device="cpu",
+) -> QuantPages:
+    """A zeroed quantized pool plane; codes and scales each get the sink
+    page of `init_paged_pool`, so a dropped write drops both."""
+    storage, _ = quant_lib.kv_storage_dtype(fmt)
+    q = torch.zeros(
+        (num_layers, num_pages + 1, page_size, num_kv_heads, head_dim),
+        dtype=storage, device=device,
+    )
+    scale = torch.zeros((num_layers, num_pages + 1, page_size),
+                        dtype=torch.float32, device=device)
+    return QuantPages(q[:, :num_pages], scale[:, :num_pages],
+                      dequant_dtype=dequant_dtype)
+
+
+def kv_pool_dtype(kv_pages) -> str:
+    """The pool's wire format: "int8" / "fp8_e4m3" for a quantized pool,
+    else the dense plane dtype's name (e.g. "float32")."""
+    leaf = kv_pages["k"] if isinstance(kv_pages, dict) else kv_pages
+    if isinstance(leaf, QuantPages):
+        try:
+            return _quant_fmt(leaf)
+        except ValueError:
+            return str(leaf.storage_dtype).removeprefix("torch.")
+    return str(leaf.dtype).removeprefix("torch.")
+
+
+def _quant_fmt(pages: QuantPages) -> str:
+    """The quant format name of a QuantPages plane."""
+    for name, (dt, _) in quant_lib.KV_STORAGE_DTYPES.items():
+        if pages.storage_dtype == dt:
+            return name
+    raise ValueError(
+        f"QuantPages carries unknown storage dtype {pages.storage_dtype}"
+    )
+
+
+def _byte_leaves(plane) -> list[torch.Tensor]:
+    """The tensors that hold a plane's bytes, the layer axis first and the
+    page axis second: the values of a dense plane, or the codes (viewed as
+    bytes: not every PyTorch op takes float8) and the scales of a quantized
+    one."""
+    if isinstance(plane, QuantPages):
+        return [plane.q.view(torch.uint8), plane.scale]
+    return [plane]
+
+
+def copy_pages(kv_pages: dict, src: int, dst: int) -> dict:
+    """Copy page `src` onto page `dst` across every layer of a paged KV
+    pool ({"k", "v"} of [L, P, page_size, Hk, D] planes), IN PLACE (the
+    JAX function donates the pool): the device half of copy-on-write. On a
+    quantized pool the codes and the page's scale block move verbatim.
+    Returns the pool."""
+    for plane in kv_pages.values():
+        for leaf in _byte_leaves(plane):
+            leaf[:, dst] = leaf[:, src]
+    return kv_pages
+
+
+def fetch_page(kv_pages: dict, page: int) -> dict:
+    """Host copy of ONE page across the whole pool (every layer, K and V,
+    and the scale blocks of a quantized pool): the spill half of the host
+    tier. The copy runs on the current stream, after every write queued to
+    the page, and is a copy on a CPU pool too (`.cpu()` alone would alias
+    the page, which the pool recycles). Returns {"k": [tensors], "v": [...]}
+    of [L, page_size, ...] CPU tensors; `upload_page` is its exact
+    inverse."""
+    return {
+        name: [leaf[:, page].to("cpu", copy=True)
+               for leaf in _byte_leaves(plane)]
+        for name, plane in kv_pages.items()
+    }
+
+
+def host_blob_bytes(blob: dict) -> int:
+    """Total host bytes of a `fetch_page` blob (the host_cache_bytes
+    accounting unit)."""
+    return int(sum(t.numel() * t.element_size()
+                   for leaves in blob.values() for t in leaves))
+
+
+def upload_page(kv_pages: dict, dst: int, blob: dict) -> dict:
+    """Write a `fetch_page` blob back into page `dst` of the pool, IN PLACE
+    (the JAX function donates the pool): byte-verbatim, same dtype both
+    ways. Returns the pool."""
+    for name, plane in kv_pages.items():
+        for leaf, host in zip(_byte_leaves(plane), blob[name]):
+            leaf[:, dst].copy_(host)
+    return kv_pages
+
+
+def _rows_with_sink(cache_layer: torch.Tensor) -> torch.Tensor:
+    """[P * ps + 1, *row] row view of a layer from `init_paged_pool` (or a
+    scale plane [P, ps] of `init_quant_pages`): row P * ps is the first row
+    of the layer's sink page. Raises for a tensor that has no sink behind
+    it."""
+    shape = tuple(cache_layer.shape)
+    want, acc = [], 1
+    for n in reversed(shape):
+        want.insert(0, acc)
+        acc *= n
+    if cache_layer.stride() != tuple(want):
+        raise ValueError(
+            "cache_layer must be a contiguous [P, page_size, ...] layer "
+            "of a pool made by init_paged_pool or init_quant_pages"
+        )
+    P, ps, row = shape[0], shape[1], want[1]
     end = cache_layer.storage_offset() + (P * ps + 1) * row
     if cache_layer.untyped_storage().nbytes() < end * cache_layer.element_size():
         raise ValueError(
             "cache_layer has no sink page behind it: make the pool with "
             "init_paged_pool (dropped writes need somewhere to land)"
         )
-    return cache_layer.as_strided((P * ps + 1, Hk, D), (row, D, 1))
+    return cache_layer.as_strided((P * ps + 1, *shape[2:]), tuple(want[1:]))
 
 
 def write_index(
@@ -266,16 +425,26 @@ def write_index_packed(
     return torch.where(ok, page * ps + pos % ps, P * ps)
 
 
-def scatter_rows(cache_layer: torch.Tensor, index: torch.Tensor,
+def scatter_rows(cache_layer, index: torch.Tensor,
                  new: torch.Tensor) -> None:
     """pool_rows[index[i]] = new[i] ([N, Hk, D] rows), IN PLACE, with an
-    index from `write_index` / `write_index_packed`."""
+    index from `write_index` / `write_index_packed`. A quantized plane
+    quantizes the rows on write and scatters codes and scales through the
+    same index, so a dropped row drops both."""
+    if isinstance(cache_layer, QuantPages):
+        codes, scale = quant_lib.quantize_kv_rows(
+            new, _quant_fmt(cache_layer)
+        )
+        rows = _rows_with_sink(cache_layer.q).view(torch.uint8)
+        rows.index_put_((index,), codes.view(torch.uint8))
+        _rows_with_sink(cache_layer.scale).index_put_((index,), scale)
+        return
     rows = _rows_with_sink(cache_layer)
     rows.index_put_((index,), new.to(rows.dtype))
 
 
 def write_pages(
-    cache_layer: torch.Tensor,  # [P, page_size, Hk, D] (init_paged_pool)
+    cache_layer,  # [P, page_size, Hk, D] (init_paged_pool) or QuantPages
     new: torch.Tensor,  # [B, T, Hk, D]
     block_tables: torch.Tensor,  # [B, max_pages] int (sentinel = P)
     start: torch.Tensor,  # [B] first logical slot per row
@@ -293,7 +462,7 @@ def write_pages(
 
 
 def write_pages_packed(
-    cache_layer: torch.Tensor,  # [P, page_size, Hk, D] (init_paged_pool)
+    cache_layer,  # [P, page_size, Hk, D] (init_paged_pool) or QuantPages
     new: torch.Tensor,  # [R, Hk, D] packed new K or V rows
     block_tables: torch.Tensor,  # [S, max_pages] int (sentinel = P)
     q_segments: torch.Tensor,  # [R] owning slot per packed row
@@ -312,15 +481,24 @@ def write_pages_packed(
 
 
 def gather_pages(
-    cache_layer: torch.Tensor,  # [P, page_size, Hk, D]
+    cache_layer,  # [P, page_size, Hk, D] (or a QuantPages plane)
     block_tables: torch.Tensor,  # [B, max_pages]
 ) -> torch.Tensor:
     """Each row's logical KV stream [B, max_pages * page_size, Hk, D].
     Sentinel entries clip to the last real page; what they read is past
-    every row's valid length and masked out of attention."""
+    every row's valid length and masked out of attention. A quantized
+    plane is dequantized here, codes.to(dt) * scale.to(dt) with dt its
+    dequant_dtype (the scale rounds to dt first), as the kernels do in
+    their page walk."""
     P, ps, Hk, D = cache_layer.shape
     B, maxp = block_tables.shape
     idx = torch.clamp(block_tables.long(), 0, P - 1)
+    if isinstance(cache_layer, QuantPages):
+        dt = cache_layer.dequant_dtype
+        codes = cache_layer.q.view(torch.uint8)[idx].view(cache_layer.q.dtype)
+        scale = cache_layer.scale[idx]  # [B, maxp, ps]
+        out = codes.to(dt) * scale[..., None, None].to(dt)
+        return out.reshape(B, maxp * ps, Hk, D)
     return cache_layer[idx].reshape(B, maxp * ps, Hk, D)
 
 

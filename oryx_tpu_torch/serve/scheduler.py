@@ -25,6 +25,19 @@ finished rows); request stop strings and max_tokens are enforced on the
 host at harvest, with the trim / stable-prefix text rules of the
 pipeline.
 
+Prefix cache (serve/prefix_cache.py, on by default as in the JAX engine):
+admission looks up the longest page-aligned cached prefix of a text
+prompt's token ids, shares its full pages into the slot's block table,
+copies a partly consumed last page (copy-on-write) and prefills only the
+suffix; a slot donates its prompt's full pages at activation and prompt +
+reply at finish. Cache-only pages are evicted (LRU) before any slot is;
+with `host_cache_bytes` they spill to host RAM and reload on a later hit.
+
+KV pool format (`kv_dtype`): "bf16" stores pages densely in the compute
+dtype, "int8" stores codes plus one fp32 scale per token row (quantized on
+write, dequantized in the paged kernels' page walk); the cache moves codes
+and scales verbatim.
+
 Ragged mode (`ragged=True`): `_prefill_step` + `_step_chunk` fuse into
 `_ragged_step`, ONE dispatch per engine step (`paged_ragged_step`) whose
 packed rows carry every live slot's decode token plus `pf_width` prompt
@@ -34,8 +47,7 @@ Threads: `submit` runs on any thread; the engine loop (`_run`) runs on its
 own. They share only the queue and the shutdown flag, under `_cond`. The
 loop syncs with the device once per dispatch, at the harvest.
 
-Not ported yet: the prefix cache (splice, copy-on-write, host spill),
-int8 pools, speculation and the fused megastep, the metrics registry,
+Not ported yet: speculation and the fused megastep, the metrics registry,
 traces, journal, audit, numerics probes, profiling, deadlines, degraded
 modes, watchdog and forensics, meshes, and supervised restart/drain.
 """
@@ -55,7 +67,9 @@ import torch
 from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2
 from oryx_tpu_torch.ops import paged_kv
+from oryx_tpu_torch.ops.packing import round_up_bucket
 from oryx_tpu_torch.serve import pipeline as pipeline_lib
+from oryx_tpu_torch.serve.prefix_cache import PagedPrefixCache
 
 
 class AdmissionRejected(RuntimeError):
@@ -115,6 +129,9 @@ class _Request:
     # pool's device, the real length, the sampling knobs.
     embeds: Any = None
     embeds_p: Any = None  # chunk-padded embeds (pad_embeds_for_chunks)
+    # Token ids of a text prompt (the prefix cache's key); None for a
+    # multimodal one, which bypasses the cache.
+    cache_tokens: Any = None
     length: int = 0
     seed: int = 0
     temp: float = 0.0
@@ -128,6 +145,8 @@ class _Request:
     # Admission prefill state: logical KV tokens already in place, and
     # whether the slot has started decoding.
     prefill_pos: int = 0
+    spliced: int = 0  # prompt tokens this placement took from the cache
+    cached_tokens: int = 0  # spliced tokens over every placement
     activated: bool = False
     ttft_done: bool = False
     # Host text state (survives eviction: replay re-derives the same tokens
@@ -145,7 +164,10 @@ class ContinuousScheduler:
     unless the pipeline was built with device="cpu").
 
     seed: the sampling seed of requests that carry none ("seed" in their
-    sampling dict).
+    sampling dict). prefix_cache: share cached prompt prefixes across
+    requests. kv_dtype: "bf16" (dense pages in the compute dtype) or
+    "int8" (a quantized pool). host_cache_bytes: host RAM the prefix
+    cache may spill evicted pages into (0 = no host tier).
     """
 
     def __init__(
@@ -162,6 +184,9 @@ class ContinuousScheduler:
         prefill_chunk: int | None = None,
         max_queue: int | None = None,
         ragged: bool = False,
+        prefix_cache: bool = True,
+        kv_dtype: str = "bf16",
+        host_cache_bytes: int = 0,
     ):
         for name, v in (
             ("num_slots", num_slots), ("page_size", page_size),
@@ -192,6 +217,17 @@ class ContinuousScheduler:
                 "dispatch; set prefill_chunk (the per-step prompt budget "
                 "that sizes the packed buffer's prefill lanes)"
             )
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}"
+            )
+        if not isinstance(host_cache_bytes, int) or host_cache_bytes < 0:
+            raise ValueError(
+                "host_cache_bytes must be a non-negative integer "
+                f"(0 = host spill tier off), got {host_cache_bytes!r}"
+            )
+        self.kv_dtype = kv_dtype
+        self.host_cache_bytes = host_cache_bytes
         self.pipe = pipe
         self.cfg = pipe.cfg
         self.device = pipe.device
@@ -219,13 +255,20 @@ class ContinuousScheduler:
             "dispatches_total": collections.Counter(),
             "decode_steps_total": 0, "decode_steps_useful": 0,
             "decode_steps_wasted": 0,
+            "prefix_cache_hit_tokens_total": 0,
+            "prefix_cache_miss_tokens_total": 0,
+            "prefix_cache_evicted_pages_total": 0,
+            # Port-only: copy-on-write splices (the JAX engine journals them).
+            "prefix_cache_cow_pages_total": 0,
+            "oryx_cache_reload_hit_total": 0,
+            "oryx_cache_reload_upload_total": 0,
         }
         S = num_slots
         self.allocator = paged_kv.PageAllocator(self.num_pages, page_size)
         self._sentinel = self.allocator.sentinel
-        self.kv_pages = qwen2.init_paged_kv_cache(
-            self.cfg.llm, self.num_pages, page_size, dtype=self._dtype,
-            device=self.device,
+        self.kv_pages = self._new_pool()
+        self.prefix_cache = (
+            self._build_prefix_cache() if prefix_cache else None
         )
         # Engine-thread state: one row per slot.
         self.slots: list[_Request | None] = [None] * S
@@ -330,13 +373,49 @@ class ContinuousScheduler:
             self._thread.join(timeout=30)
 
     def check_pool_invariant(self) -> None:
-        """Every page is free or held by exactly the slot whose block table
-        names it; raises RuntimeError otherwise. Call on a quiesced
-        engine (tests between bursts)."""
-        self.allocator.check_invariant([
+        """Every page is free or exactly accounted to its holders (the
+        slots' block tables and the prefix cache); raises RuntimeError
+        otherwise. Call on a quiesced engine (tests between bursts)."""
+        holders = [
             [int(p) for p in self.bt[s] if p != self._sentinel]
             for s in range(self.num_slots)
-        ])
+        ]
+        if self.prefix_cache is not None:
+            holders.append(self.prefix_cache.held_pages())
+        self.allocator.check_invariant(holders)
+
+    # ---- pool and prefix cache --------------------------------------------
+
+    def _pool_kv_dtype(self) -> str | None:
+        """init_paged_kv_cache's kv_dtype for the flag value (None = dense
+        pages in the compute dtype)."""
+        return None if self.kv_dtype == "bf16" else self.kv_dtype
+
+    def _new_pool(self) -> dict:
+        return qwen2.init_paged_kv_cache(
+            self.cfg.llm, self.num_pages, self.page_size, dtype=self._dtype,
+            device=self.device, kv_dtype=self._pool_kv_dtype(),
+        )
+
+    def _build_prefix_cache(self) -> PagedPrefixCache:
+        """The prefix cache over the CURRENT allocator, its host tier
+        wired when host_cache_bytes asks for one."""
+        return PagedPrefixCache(
+            self.allocator, metrics=self.metrics,
+            host_cache_bytes=self.host_cache_bytes,
+            spill_fetch=self._spill_fetch,
+            spill_upload=self._spill_upload,
+        )
+
+    def _spill_fetch(self, page: int):
+        """Device -> host byte copy of one pool page (engine thread)."""
+        blob = paged_kv.fetch_page(self.kv_pages, int(page))
+        return blob, paged_kv.host_blob_bytes(blob)
+
+    def _spill_upload(self, blob, page: int) -> None:
+        """Host -> device byte copy into a freshly allocated pool page
+        (engine thread), in place."""
+        self.kv_pages = paged_kv.upload_page(self.kv_pages, int(page), blob)
 
     # ---- queue access (the engine thread is the queue's only consumer) ----
 
@@ -395,6 +474,13 @@ class ContinuousScheduler:
         need = self.allocator.pages_for(tokens) - held
         if need <= 0:
             return True
+        if need > self.allocator.num_free and self.prefix_cache is not None:
+            # Cached pages go before live requests, but only when evicting
+            # them covers the shortfall (draining the cache for a grow that
+            # fails anyway costs later requests their splices).
+            shortfall = need - self.allocator.num_free
+            if self.prefix_cache.evictable_pages() >= shortfall:
+                self.prefix_cache.evict(shortfall)
         if need > self.allocator.num_free:
             return False
         pages = self.allocator.alloc(
@@ -404,16 +490,16 @@ class ContinuousScheduler:
         return True
 
     def _reset_pool(self) -> None:
-        """Fresh page pool + allocator + empty slot state, after a failed
-        dispatch left the pool in an unknown state (callers have errored
-        out every in-flight request)."""
+        """Fresh page pool + allocator + prefix cache + empty slot state,
+        after a failed dispatch left the pool in an unknown state (callers
+        have errored out every in-flight request). The host tier restarts
+        empty with the cache."""
         self.allocator = paged_kv.PageAllocator(
             self.num_pages, self.page_size
         )
-        self.kv_pages = qwen2.init_paged_kv_cache(
-            self.cfg.llm, self.num_pages, self.page_size, dtype=self._dtype,
-            device=self.device,
-        )
+        if self.prefix_cache is not None:
+            self.prefix_cache = self._build_prefix_cache()
+        self.kv_pages = self._new_pool()
         self.bt[:] = self._sentinel
         self.slots = [None] * self.num_slots
         self.gens = [None] * self.num_slots
@@ -494,6 +580,9 @@ class ContinuousScheduler:
         req.embeds, req.length = self.pipe._prompt_embeds(
             self.cfg, ids, imgs, factors, caps
         )
+        # Text-only prompts key the prefix cache by token ids (ids == the
+        # logical KV stream); multimodal ones bypass it.
+        req.cache_tokens = None if imgs else np.asarray(ids, np.int64)
         s_ = req.sampling
         req.temp = float(s_.get("temperature", gen.temperature) or 0.0)
         req.topp = float(s_.get("top_p", gen.top_p) or 1.0)
@@ -552,21 +641,103 @@ class ContinuousScheduler:
                 self._advance_prefill(s, req)
 
     def _splice_and_grow(self, s: int, req: _Request) -> bool:
-        """Take pages for the prompt plus one decode chunk into slot s's
-        block table; False, with nothing held, when the pool cannot. (The
-        prefix-cache splice of the JAX engine is not ported.)"""
+        """Splice the longest cached prefix of `req`'s prompt into slot s's
+        block table (full pages shared, a partly consumed last page copied
+        on write), then grow the table to cover prompt + one decode chunk.
+        False, with nothing held, when the pool cannot (the FIFO head then
+        waits). At least one suffix token always remains to prefill: the
+        admission needs the next-token logit."""
+        ps = self.page_size
+        spliced = 0
+        matched, pages, host_nodes = 0, [], []
+        cache_on = (
+            self.prefix_cache is not None and req.cache_tokens is not None
+        )
+        if cache_on:
+            matched, pages, host_nodes = (
+                self.prefix_cache.lookup_tiered(req.cache_tokens)
+            )
+        limit = max(req.length - 1, 0)
+        use = min(matched, limit)
+        full = use // ps
+        # Feasibility screen before any share or copy: the fresh pages
+        # beyond the spliced prefix must be coverable by the free list plus
+        # the evictable cache pages, or a head that cannot fit would pay a
+        # page copy every engine step while it waits.
+        total_need = self.allocator.pages_for(
+            min(req.length + self._win, self.max_ctx)
+        )
+        avail = self.allocator.num_free
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.evictable_pages(
+                exclude=[int(p) for p in pages[:full]]
+            )
+        if total_need - full > avail:
+            return False
+        if cache_on and host_nodes and full == len(pages):
+            # Host-tier hit: the cached prefix continues past the device
+            # blocks into spilled ones; reload them onto fresh pages ahead
+            # of the suffix prefill (one free page each, evicting colder
+            # entries for them, never the matched device prefix, which is
+            # still refcount 1). Any failure just shortens the match.
+            n_host = min(len(host_nodes), limit // ps - full)
+            if n_host > 0:
+                short = n_host - self.allocator.num_free
+                keep = [int(p) for p in pages[:full]]
+                if short > 0 and self.prefix_cache.evictable_pages(
+                    exclude=keep
+                ) >= short:
+                    self.prefix_cache.evict(short, exclude=keep)
+                reloaded = self.prefix_cache.reload(
+                    req.cache_tokens, host_nodes[:n_host]
+                )
+                if reloaded:
+                    pages = pages + reloaded
+                    matched = len(pages) * ps
+                    use = min(matched, limit)
+                    full = use // ps
+        if cache_on:
+            if full:
+                share = [int(p) for p in pages[:full]]
+                self.allocator.share(share, owner=self._owner_tag(req))
+                self.bt[s, :full] = share
+            if use - full * ps > 0:
+                # The suffix prefill starts mid-page: the cache (and maybe
+                # other slots) still read this page, so the writer gets its
+                # own copy, or recomputes the partial page when none is
+                # free.
+                try:
+                    cow = self.allocator.alloc(
+                        1, owner=self._owner_tag(req)
+                    )[0]
+                except paged_kv.OutOfPagesError:
+                    use = full * ps
+                else:
+                    self.kv_pages = paged_kv.copy_pages(
+                        self.kv_pages, int(pages[full]), cow
+                    )
+                    self.bt[s, full] = cow
+                    self.metrics["prefix_cache_cow_pages_total"] += 1
+            spliced = use
+        req.spliced = spliced
+        req.prefill_pos = spliced
         if not self._grow_slot(s, req.length + self._win, req=req):
             self._free_slot_pages(s, owner=self._owner_tag(req))
+            req.spliced = 0
+            req.prefill_pos = 0
             return False
+        self.metrics["prefix_cache_hit_tokens_total"] += spliced
+        self.metrics["prefix_cache_miss_tokens_total"] += req.length - spliced
+        req.cached_tokens += spliced
         return True
 
     def _place(self, s: int, req: _Request) -> None:
-        """Claim slot s for `req` (pages already held) and start its
-        prefill. The slot stays finished on the device, so decode steps
-        skip it, until `_activate`."""
+        """Claim slot s for `req` (pages already spliced and grown; the
+        prefill starts after the spliced prefix) and start its prefill.
+        The slot stays finished on the device, so decode steps skip it,
+        until `_activate`."""
         self.slots[s] = req
         req.activated = False
-        req.prefill_pos = 0
         self.finished[s] = True
         self.lengths[s] = 0
         self.tok[s] = 0
@@ -596,8 +767,16 @@ class ContinuousScheduler:
 
     def _advance_prefill(self, s: int, req: _Request) -> None:
         off, L = req.prefill_pos, req.length
-        if self.prefill_chunk is None:
+        if self.prefill_chunk is None and off == 0:
             emb, end = req.embeds, L
+        elif self.prefill_chunk is None:
+            # A cached suffix in one dispatch, bucketed as a cold prompt.
+            width = round_up_bucket(L - off)
+            emb = generate_lib.slice_embeds(
+                generate_lib.pad_embeds_for_chunks(req.embeds, width), off,
+                width=width,
+            )
+            end = L
         else:
             width = self.prefill_chunk
             if req.embeds_p is None:
@@ -643,6 +822,7 @@ class ContinuousScheduler:
             req.handle.debug["ttft_s"] = time.monotonic() - req.submit_time
             req.handle.debug["admit_chunk"] = self.chunks_run
         self.metrics["admitted"] += 1
+        self._donate_prefix(s, req, req.length)
         # tok0 is the first generated token: process it now (a
         # max_tokens=1 request never occupies a chunk). The decode step
         # re-emits it as its first output (a step emits the token it was
@@ -650,6 +830,27 @@ class ContinuousScheduler:
         self._advance(s, [int(self.tok[s])])
         if self.slots[s] is not None:
             req.replay += 1
+
+    def _donate_prefix(self, s: int, req: _Request, tokens: int) -> None:
+        """Index the full-page prefix of slot s's first `tokens` logical
+        slots into the prefix cache (the cache takes its own references, so
+        the entry outlives the slot): at activation with the prompt, at
+        finish with prompt + reply."""
+        if self.prefix_cache is None or req.cache_tokens is None:
+            return
+        stream = req.cache_tokens
+        if tokens > req.length:
+            stream = np.concatenate([
+                stream, np.asarray(req.emitted, np.int64),
+            ])
+        full = min(
+            min(tokens, len(stream)) // self.page_size, self._held(s)
+        )
+        if full:
+            self.prefix_cache.insert(
+                stream[:full * self.page_size],
+                [int(p) for p in self.bt[s, :full]],
+            )
 
     def _ensure_capacity(self) -> None:
         """Every live slot must own pages for lengths + one dispatch window
@@ -692,6 +893,7 @@ class ContinuousScheduler:
         req = self.slots[s]
         req.replay = req.processed
         req.activated = False
+        req.spliced = 0
         req.prefill_pos = 0
         self._clear_slot(s)
         with self._cond:
@@ -880,8 +1082,15 @@ class ContinuousScheduler:
 
     def _finish(self, s: int, reason: str, completion: int) -> None:
         req = self.slots[s]
+        # Donate prompt + reply before the slot's references go, capped at
+        # the device-confirmed KV length: a token the host emitted but the
+        # device never fed back (tok0 of a max_tokens=1 request) has no KV.
+        self._donate_prefix(
+            s, req, min(req.length + len(req.emitted), int(self.lengths[s]))
+        )
         self._clear_slot(s)
         h = req.handle
+        h.debug["cached_tokens"] = req.cached_tokens
         h.reply = req.text_done
         h.finish_reason = reason
         h.usage = (req.length, completion)

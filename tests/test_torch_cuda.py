@@ -234,6 +234,120 @@ def test_paged_kernels_reject_what_they_do_not_take(card):
         pa.ragged_decode_attention(q12, k12, k12, bt, n)
 
 
+def _quant_pools(dev, dtype, fmt, *, ps, D, G, lengths, Hk=2, seed=0):
+    """`_pool_case` with QuantPages planes: every pool row written through
+    the quantizing writer from random values (realistic codes and per-row
+    scales), dequantized into `dtype`."""
+    from oryx_tpu_torch.ops import paged_kv
+
+    q, k, v, bt = _pool_case(dev, torch.float32, ps=ps, D=D, G=G,
+                             lengths=lengths, Hk=Hk, seed=seed)
+    P = k.shape[0]
+    planes = []
+    for dense in (k, v):
+        plane = paged_kv.init_quant_pages(1, P, ps, Hk, D, fmt=fmt,
+                                          dequant_dtype=dtype, device=dev)[0]
+        paged_kv.scatter_rows(plane, torch.arange(P * ps, device=dev),
+                              dense.reshape(P * ps, Hk, D))
+        planes.append(plane)
+    return q.to(dtype), planes[0], planes[1], bt
+
+
+QUANT_GRID = [
+    (fmt, dtype, ps, D, G)
+    for fmt in ("int8", "fp8_e4m3")
+    for dtype in (torch.bfloat16, torch.float32)
+    for ps in (16, 64)
+    for D in (64, 128)
+    for G in (1, 7)
+]
+
+
+@pytest.mark.parametrize("fmt,dtype,ps,D,G", QUANT_GRID)
+def test_quant_paged_decode_kernel(card, fmt, dtype, ps, D, G):
+    """K3 on an int8 / fp8 pool (the dequantizing branch) against its plain
+    twin, which dequantizes in `gather_pages`: lengths of 1, on and one past
+    page boundaries, and long rows with sentinel tails."""
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    lengths = [1, ps, ps + 1, 2 * ps, 3 * ps - 5, 200]
+    q, k, v, bt = _quant_pools(card, dtype, fmt, ps=ps, D=D, G=G,
+                               lengths=lengths)
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=card)
+    name = f"paged_decode_{fmt}"
+    before = sum(n for key, n in pa.LAUNCHES.items() if key[0] == name)
+    got = pa.ragged_decode_attention(q, k, v, bt, kv_len)
+    torch.cuda.synchronize()
+    assert sum(n for key, n in pa.LAUNCHES.items()
+               if key[0] == name) == before + 1
+    ref = paged_kv.ragged_decode_attention(q, k, v, bt, kv_len)
+    tol = QUANT_TOLS[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert got.shape == q.shape and got.dtype == dtype
+
+
+@pytest.mark.parametrize("fmt,dtype,ps,D,G", QUANT_GRID)
+def test_quant_ragged_paged_kernel(card, fmt, dtype, ps, D, G):
+    """K4 on an int8 / fp8 pool against its plain twin on a mixed dispatch
+    (decode rows, prefill rows of one slot, a clamped segment, a row with
+    no visible key)."""
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    lengths = [1, ps, 2 * ps + 3, 150]
+    q, k, v, bt = _quant_pools(card, dtype, fmt, ps=ps, D=D, G=G,
+                               lengths=lengths, seed=1)
+    Hq = q.shape[1]
+    seg = list(range(4)) + [2] * (2 * ps + 3) + [9, 0]
+    pos = [n - 1 for n in lengths] + list(range(2 * ps + 3)) + [40, -1]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    qr = torch.randn((len(seg), Hq, D), generator=g).to(dtype).to(card)
+    seg_t = torch.tensor(seg, dtype=torch.int32, device=card)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
+    got = pa.ragged_paged_attention(qr, k, v, bt, seg_t, pos_t)
+    torch.cuda.synchronize()
+    assert (f"ragged_paged_{fmt}", len(seg), 2, G, D, k.shape[0], ps,
+            bt.shape[1]) in pa.LAUNCHES
+    ref = paged_kv.ragged_paged_attention(qr, k, v, bt, seg_t, pos_t)
+    keep = pos_t >= 0
+    torch.testing.assert_close(got[keep].float(), ref[keep].float(),
+                               **QUANT_TOLS[dtype])
+    assert bool((got[~keep] == 0).all())
+
+
+# Quantized pools: bf16 as the dense kernel; fp32 at the CPU tests' bar.
+QUANT_TOLS = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2),
+              torch.float32: dict(atol=2e-4, rtol=2e-3)}
+
+
+def test_quant_paged_kernels_reject_what_they_do_not_take(card):
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    q, k, v, bt = _quant_pools(card, torch.bfloat16, "int8", ps=16, D=64,
+                               G=2, lengths=[5, 9])
+    n = torch.tensor([5, 9], device=card)
+    dense = torch.zeros(k.shape, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="both planes"):
+        pa.ragged_decode_attention(q, k, dense, bt, n)
+    u8 = paged_kv.QuantPages(k.q.view(torch.uint8), k.scale, torch.bfloat16)
+    with pytest.raises(ValueError, match="code dtype"):
+        pa.ragged_decode_attention(q, u8, u8, bt, n)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.ragged_decode_attention(q.half(), k, v, bt, n)
+    # The bf16 kernel reads codes in 16-byte chunks: aligned planes only.
+    buf = torch.zeros(k.q.numel() + 1, dtype=torch.int8, device=card)
+    off = paged_kv.QuantPages(buf[1:].view(k.q.shape), k.scale,
+                              torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        pa.ragged_decode_attention(q, off, off, bt, n)
+    bad_scale = paged_kv.QuantPages(k.q, k.scale.t().contiguous().t(),
+                                    torch.bfloat16)
+    with pytest.raises(ValueError, match="k_scale"):
+        pa.ragged_decode_attention(q, bad_scale, v, bt, n)
+
+
 def test_tiny_pipeline_on_card_matches_cpu(card):
     """The whole slice on the card (kernel path, fp32) gives the CPU
     twin's greedy replies on the same weights."""
@@ -321,6 +435,57 @@ def test_tiny_scheduler_on_card_matches_cpu(card, ragged):
         sched.close()
     assert out[1] == out[0]
     kind = "ragged_paged" if ragged else "paged_decode"
+    assert {key[0] for key in pa.LAUNCHES} == {kind}
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["split", "ragged"])
+def test_tiny_int8_scheduler_on_card_matches_cpu(card, ragged):
+    """The engine over an int8 pool with the prefix cache on (look-alike
+    prompts splice): the card (K3/K4 on codes, fp32 compute) gives the CPU
+    engine's replies."""
+    import dataclasses
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    class Tok:
+        def encode(self, text, add_special_tokens=False):
+            return [min(ord(c), 500) for c in text]
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join(chr(i) for i in ids if 0 < i < 500)
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() >= 2:
+                p.mul_(20)
+    sys_ = "You are a careful assistant. Answer briefly. "
+    reqs = [(sys_ + "hi there", 9), (sys_ + "what now?", 4),
+            (sys_ + "hi there", 7)]
+    out, cached = [], []
+    for device in ("cpu", card):
+        sched = ContinuousScheduler(
+            Pipeline(Tok(), params, cfg, device=device), autostart=False,
+            num_slots=2, page_size=16, chunk=4, max_ctx=256, ragged=ragged,
+            prefill_chunk=32 if ragged else None, kv_dtype="int8",
+            host_cache_bytes=1 << 20,
+        )
+        handles = [sched.submit({"question": q}, n) for q, n in reqs]
+        pa.LAUNCHES.clear()
+        sched.start()
+        out.append([h.result(timeout=300) for h in handles])
+        cached.append([h.debug["cached_tokens"] for h in handles])
+        sched.close()
+        sched.check_pool_invariant()
+    assert out[1] == out[0] and cached[1] == cached[0]
+    assert sum(cached[1]) > 0
+    kind = "ragged_paged_int8" if ragged else "paged_decode_int8"
     assert {key[0] for key in pa.LAUNCHES} == {kind}
 
 

@@ -2,8 +2,10 @@
 
 Both engines serve the same request lists on the same tiny weights (the
 JAX init made input-sensitive, converted with `from_jax_params`; fp32, JAX
-matmuls at "highest" precision), the JAX one with its prefix cache off:
-replies, finish reasons and usage must be equal. The cases mirror
+matmuls at "highest" precision), with the prefix cache named on both sides:
+off in the cases below, on in `test_engines_equal_with_prefix_cache` (and
+in tests/test_torch_prefix_cache.py). Replies, finish reasons and usage
+must be equal. The cases mirror
 tests/test_scheduler.py (a short row frees its slot, FIFO admission, mixed
 sampling, eviction replay, a too-large request) and add image requests and
 the ragged engine. Seeded sampling draws other numbers in the two
@@ -93,16 +95,19 @@ def _chunks(handles):
     ]
 
 
-def _both(pipes, reqs, **kw):
+def _both(pipes, reqs, prefix_cache=False, **kw):
     """(port scheduler, port handles, port results, JAX results) on one
-    request list. The two engines also admit and finish every request at
-    the same chunk."""
+    request list, both engines with the prefix cache on or off. The two
+    engines also admit and finish every request at the same chunk."""
     jp, tp = pipes
     with jax.default_matmul_precision("highest"):
         jhandles, want = _serve(
-            JaxScheduler(jp, autostart=False, prefix_cache=False, **kw), reqs
+            JaxScheduler(jp, autostart=False, prefix_cache=prefix_cache,
+                         **kw),
+            reqs,
         )
-    sched = ContinuousScheduler(tp, autostart=False, **kw)
+    sched = ContinuousScheduler(tp, autostart=False,
+                                prefix_cache=prefix_cache, **kw)
     handles, got = _serve(sched, reqs)
     sched.check_pool_invariant()
     assert _chunks(handles) == _chunks(jhandles)
@@ -256,6 +261,35 @@ def test_request_filling_max_ctx_leaves_neighbours_intact(pipes, monkeypatch):
     alone = _serve(ContinuousScheduler(tp, autostart=False, **kw), [first])[1]
     assert together[0] == alone[0]
     assert together[1][2] == (n_long, max_ctx - n_long)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["split", "ragged"])
+@pytest.mark.parametrize("case", ["short", "fifo", "images"])
+def test_engines_equal_with_prefix_cache(pipes, case, ragged):
+    """The cases above with the prefix cache on in both engines: every text
+    prompt shares the template's system prompt, so later admissions splice
+    its pages; replies, usage, admit/finish chunks and the cached tokens
+    of each request are equal."""
+    reqs = {
+        "short": [_q("hello there", 3), _q("what now?", 12),
+                  _q("tell me more", 5)],
+        "fifo": [_q(f"question number {i}", 4 + (i % 3)) for i in range(6)],
+        "images": _images() + [_q("hello there again", 4)],
+    }[case]
+    kw = dict(GEOM, ragged=ragged, prefill_chunk=32 if ragged else None)
+    jp, _ = pipes
+    with jax.default_matmul_precision("highest"):
+        jsched = JaxScheduler(jp, autostart=False, **kw)
+        jhandles, want = _serve(jsched, reqs)
+    sched = ContinuousScheduler(pipes[1], autostart=False, **kw)
+    handles, got = _serve(sched, reqs)
+    sched.check_pool_invariant()
+    assert got == want
+    assert _chunks(handles) == _chunks(jhandles)
+    cached = [h.debug["cached_tokens"] for h in handles]
+    assert cached == [h.debug["cost"]["cached_tokens"] for h in jhandles]
+    assert sum(cached) > 0
+    assert sched.metrics["prefix_cache_hit_tokens_total"] == sum(cached)
 
 
 def test_request_too_large_errors_cleanly(pipes):
