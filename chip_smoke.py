@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero):
   1. The card (nvidia-smi name and power limit, torch/CUDA versions) and the
      build of every kernel from `oryx_tpu_torch/csrc` (one nvcc per source,
-     in parallel).
+     in parallel), with each kernel's registers and spills from ptxas.
   2. The main path's host side at full width (`config.oryx_7b()`, a
      four-request image/multi-image/video/text mix), then each kernel call
      shape of that path (ViT segments, compressor regions, decoder prefill,
@@ -79,7 +79,8 @@ Phases (any failure exits non-zero):
      bitwise unchanged, compressor changed, K1-lse/K5a/K5b launched at
      every phase-9 shape, and a second fit from the same init gives the
      same losses. Per step: wall, tokens/s, fwd+bwd vs optimizer device
-     time, peak memory; then one step under torch.profiler.
+     time, peak memory; then one step under torch.profiler and K5a +
+     K5b's share of it.
  11. The tiny fp32 config, tune full, 3 steps of Trainer.fit on the card
      (kernels) and on the CPU (plain twins): losses and params agree.
 
@@ -175,6 +176,21 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def print_ptxas(log: str) -> None:
+    """Each kernel's registers and spills from nvcc's -Xptxas -v lines (the
+    entry's name, then its usage), and any wgmma serialization warning."""
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "wgmma" in line:
+            print(f"  ptxas: {line.strip()}")
+        elif "spill" in line and entry:
+            print(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
+        elif "registers" in line and entry:
+            print(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -385,10 +401,11 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_call(fn) -> None:
+def profile_call(fn):
     """fn() under torch.profiler, CUDA activity only: device time by kernel
     family, the top kernels, and the device's idle share inside the trace.
-    Raises when the trace holds no device time."""
+    Raises when the trace holds no device time. Returns (device us by
+    family, the call's wall us)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -433,6 +450,7 @@ def profile_call(fn) -> None:
     print("  top kernels by device time:")
     for name, us in by_name.most_common(12):
         print(f"    {us / 1e3:10.2f} ms  x{count[name]:<6d} {name[:90]}")
+    return by_family, wall_us
 
 
 # ---- serving engine (phases 6-8) -------------------------------------------
@@ -1140,17 +1158,22 @@ def check_backward_case(name, kw, gen):
           f"max_abs_err={lse_err:.3e} ok={ok}")
     if not ok:
         raise SystemExit(f"K1 with lse disagrees with its twin on {name}")
-    errs = {}
+    errs, ulps = {}, {}
     for gname, a, p_, w in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
                                witness):
         ek, ep = _rel(a, w), _rel(p_, w)
         mabs = float((a.float() - p_.float()).abs().max())
-        errs[gname] = mabs
+        # In bf16 ulps of the reference's largest magnitude (8 mantissa
+        # bits: one ulp at magnitude m is 2^(floor(log2 m) - 7)).
+        mag = float(p_.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7) if mag > 0 else 1.0
+        errs[gname], ulps[gname] = mabs, mabs / ulp
         good = (ek <= NOISE_RATIO * ep and bool(torch.isfinite(a).all())
                 and a.dtype == q.dtype)
         print(f"    {gname}: rel L2 vs fp32 witness kernel {ek:.3e}, plain "
               f"{ep:.3e} (limit {NOISE_RATIO}x); max abs err vs plain "
-              f"{mabs:.3e} ok={good}")
+              f"{mabs:.3e} = {mabs / ulp:.2f} bf16 ulps of max |plain| "
+              f"{mag:.3e}; ok={good}")
         if not good:
             raise SystemExit(f"K5 {gname} on {name} is further from the fp32 "
                              "witness than bf16 noise allows")
@@ -1218,10 +1241,18 @@ def check_backward_case(name, kw, gen):
     ):
         flops, nbytes = work[kind]
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
         print(f"    {label}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
               f"sdpa {'fwd' if kind == 'fwd' else 'fwd+bwd'} {lib_ms:.4f} ms"
-              f" | bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} "
+              f" | bound {bound:.4f} ms ({flops / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.2f} MB)")
+        if kind != "fwd":
+            worst = max(("dk", "dv") if kind == "dkv" else ("dq",),
+                        key=lambda x: errs[x])
+            print(f"      {flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of "
+                  f"its bound; sdpa backward alone (fwd+bwd - fwd) "
+                  f"{lib_bwd - lib_fwd:.4f} ms; max abs err "
+                  f"{ulps[worst]:.2f} bf16 ulps ({worst})")
         rows.append({
             "name": f"{label}[{name}]",
             "route": "cuda",
@@ -1235,6 +1266,8 @@ def check_backward_case(name, kw, gen):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms,
         })
+    print(f"    K5a + K5b {ms_dq + ms_dkv:.4f} ms vs sdpa backward alone "
+          f"{lib_bwd - lib_fwd:.4f} ms")
     return key, rows
 
 
@@ -1335,7 +1368,12 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
     print("  one more step (the image batch) under torch.profiler:")
     t2 = fits[1][0]
     batch = t2._device_batch(host_img)
-    profile_call(lambda: step_lib.train_step(t2.state, batch, cfg_t, t2.tx))
+    fams, wall_us = profile_call(
+        lambda: step_lib.train_step(t2.state, batch, cfg_t, t2.tx))
+    k5 = fams[kernel_family("flash_bwd")]
+    print(f"  K5a + K5b in the traced image step: {k5 / 1e3:.1f} ms, "
+          f"{k5 / sum(fams.values()):.1%} of its device time, "
+          f"{k5 / wall_us:.1%} of its wall")
     del fits, trainer, t2, batch
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
 
@@ -1437,9 +1475,7 @@ def main() -> int:
     for name in sources:
         build.load(name)
         print(f"built {name} in {secs[name]:.1f} s")
-        for line in build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        print_ptxas(build.build_logs.get(name, ""))
 
     # ---- 2. kernel vs plain twin at the main path's shapes ----------------
     cfg = dataclasses.replace(config.oryx_7b(), attn_impl="pallas")

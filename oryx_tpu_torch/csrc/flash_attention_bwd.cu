@@ -14,38 +14,70 @@
 // The Pallas rounding points are kept: p is rounded to dO's dtype before
 // p^T.dO, ds to k's (q's) dtype before ds.k (ds^T.q); every product
 // accumulates in fp32. The outputs are written in the input dtype, which is
-// the value of JAX's fp32 result cast once.
+// the value of JAX's fp32 result cast once. A masked p is exactly 0, as
+// exp(NEG - lse) is for every finite or FLT_MAX lse.
 //
-// What bounds it on an H100: five matrix products per live (q, kv) tile
-// pair (s and dp recomputed in each kernel, then dq, or dv and dk), ~2.5x
-// the forward's work, far above the ~295 flop/byte ridge: tensor-core
-// operations. The design is the simple one, right before fast:
-//   * K5a: one block per (64-row q tile, q head, batch), 4 warps of 16 q
-//     rows; a loop over kv tiles of 64 rows with the forward's skips (the
-//     causal end with arange kv positions, tiles with no visible key); K, V
-//     and K^T staged in shared memory; bf16 `mma.sync.m16n8k16`, dq in fp32
-//     registers.
-//   * K5b: one block per (64-row kv tile, kv head, batch), 4 warps of 16 kv
-//     rows; loops over the G q heads of the kv head and over q tiles of 32
-//     rows (the Pallas grid (B, Hk, nk, G, nq)), skipping q tiles none of
-//     whose rows sees a key of the kv tile; dk and dv in fp32 registers. No
-//     atomics: every dk/dv element is summed by one thread in a fixed order,
-//     so gradients are identical from run to run.
-//   * fp32: the same loops with plain FMA (lane j owns column j of a
-//     32-wide tile), for the small test heads.
-// No wgmma, TMA or split over kv for dq yet.
+// What bounds it on an H100: five matrix products per live (q, kv) pair of
+// rows (s and dp recomputed in each kernel, then dq, or dv and dk), 6 D and
+// 8 D flops, ~2.5x the forward's work and far above the ~295 flop/byte
+// ridge: tensor-core operations. The bf16 kernels are built for that:
+//   * every product is a `wgmma` (m64n64k16, or m64n16k16 for a 16-column
+//     tail), fp32 accumulators in registers. s and dp (s^T and dp^T in K5b)
+//     read both operands from shared memory; p and ds are rounded to bf16 in
+//     registers and feed dq += ds.k, dv += p^T.dO and dk += ds^T.q as the
+//     register A operand (the m64n64 accumulator of 16 columns is the m64k16
+//     A fragment), with no trip through shared memory;
+//   * no transposed copies: the second use of a tile (k in dq, dO and q in
+//     dv/dk) reads the same swizzled tile MN-major;
+//   * warp specialisation: one producer warp streams tiles with TMA
+//     (`cp.async.bulk.tensor`, 128-byte swizzle; 32-byte swizzle for a
+//     16-column tail) through a three-stage ring of `mbarrier`s, and stages
+//     the streamed rows' positions, segments, validity (and lse, Delta in
+//     K5b) beside them; two consumer warpgroups share every streamed tile.
+//     K5a's dq += ds.k of a tile runs while the next tile's s and dp are
+//     issued, its stage released after the next wait;
+//   * skipping without per-tile syncs: two small kernels compute, once per
+//     call, which 64 x 64 (q, kv) cells are dead, partial or fully visible
+//     (the rules of `_tile_flags` in ops/cuda/flash_attention.py), and each
+//     block copies its cells into shared memory. Dead tiles are never
+//     loaded (with arange or slot positions this is the causal clamp), and
+//     a fully visible cell skips the per-element mask;
+//   * K5a: one block per (128 q rows, q head, batch row), streaming 64-row
+//     K and V tiles; the causally heaviest (last) q tiles launch first.
+//   * K5b: one block per (64 kv rows, kv head, batch row), streaming
+//     64-row q and dO tiles of the G q heads; the heaviest (first) kv
+//     tiles launch first. dk and dv with s and dp (2 x 64 x 128 fp32 each
+//     at D = 128) do not fit one warpgroup in the 168 registers a 9-warp
+//     block allows (registers are split per SM quarter; `setmaxnreg` did
+//     not move ptxas's allocation past the launch bound), so the two
+//     warpgroups split the outputs over the same rows: one sums dv, the
+//     other dk, and both recompute s^T (2 D more of 8 D flops a pair).
+//   * No atomics and no split over blocks: every dq, dk, dv element is
+//     summed by one thread in a fixed order, so gradients are identical
+//     from run to run.
+//   * D: a tile is 64-column sub-tiles plus at most one 16-column tail, so
+//     the widths are 16 (D <= 16), 80 (64 + 16: the ViT's 72) and 128. D = 72
+//     loads two TMA boxes, 64 columns and 16 (the last 8 past D read as
+//     zero), into two swizzled sub-tiles.
+//   * fp32: the FMA kernels of the first port (lane j owns column j of a
+//     32-wide tile) for the small test heads; a TF32 path would change their
+//     numbers.
 //
 // Layouts: q/dO/dq are [B, Hq, Tq, D] and k/v/dk/dv [B, Hk, Tk, D] given by
 // element strides (batch, head, token) with the feature dim contiguous; kv
-// head of q head h is h / (Hq / Hk). Rows past Tq/Tk are handled in the
-// kernel: kv rows past Tk are invalid, q rows past Tq add nothing and are
-// never stored.
+// head of q head h is h / (Hq / Hk). bf16 operands must have 16-byte
+// aligned bases and strides (TMA); the wrapper checks. Rows past Tq/Tk are
+// handled in the kernel: kv rows past Tk are invalid, q rows past Tq add
+// nothing and are never stored.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -73,67 +105,19 @@ struct Params {
   const int* q_seg;
   const int* kv_seg;
   const int* kv_valid;
+  // [B, nqt, nkt] int8 over 64 x 64 (q, kv) cells: 0 dead, 1 partial,
+  // 2 every pair visible (bf16 kernels).
+  const signed char* tiles;
+  int nqt, nkt;
   int B, Hq, Hk, Tq, Tk, D;
   float scale;
-  int causal, has_segments, kv_arange, vec;
+  int causal, has_segments, kv_arange;
 };
 
 // Position max and segment range over the live rows of a tile.
 struct Stats {
   int any, pos_min, pos_max, seg_min, seg_max;
 };
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-  return __float2bfloat16(x);
-}
-
-// Copy rows [row0, row0 + nrows) of a [T, D] slab (row stride `rs`) into
-// shared memory as [nrows][DP] with row stride `ds`, zero-filling rows past
-// T and columns past D. `vec` says 16-byte loads are aligned.
-template <typename T, int DP>
-__device__ void load_rows(T* dst, int ds, const T* src, long long rs,
-                          int row0, int nrows, int nT, int D, int vec) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int CH = DP / E;
-  for (int i = threadIdx.x; i < nrows * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * E, row = row0 + r;
-    T* d = dst + r * ds + c;
-    const T* s = src + row * rs + c;
-    if (vec && row < nT && c + E <= D) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-    } else {
-#pragma unroll
-      for (int j = 0; j < E; ++j)
-        d[j] = (row < nT && c + j < D) ? s[j] : from_float<T>(0.f);
-    }
-  }
-}
-
-// Same as load_rows, but stores the slab transposed: dst[col][row].
-template <typename T, int DP>
-__device__ void load_rows_t(T* dst, int ds, const T* src, long long rs,
-                            int row0, int nrows, int nT, int D, int vec) {
-  constexpr int E = 16 / sizeof(T);
-  constexpr int CH = DP / E;
-  for (int i = threadIdx.x; i < nrows * CH; i += blockDim.x) {
-    const int r = i % nrows, c = (i / nrows) * E, row = row0 + r;
-    const T* s = src + row * rs + c;
-    T vals[E];
-    if (vec && row < nT && c + E <= D) {
-      *reinterpret_cast<uint4*>(vals) = *reinterpret_cast<const uint4*>(s);
-    } else {
-#pragma unroll
-      for (int j = 0; j < E; ++j)
-        vals[j] = (row < nT && c + j < D) ? s[j] : from_float<T>(0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < E; ++j) dst[(c + j) * ds + r] = vals[j];
-  }
-}
 
 // Scalar fill of a [nrows][DP] slab with row stride `ds` (an odd stride
 // rules out vector stores).
@@ -224,324 +208,539 @@ __device__ __forceinline__ int kv_tiles(const Params& p, Stats qs, int BK) {
   return nk;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, one producer warp and two consumer warpgroups.
+// ---------------------------------------------------------------------------
+
+constexpr int WGS = 2;                    // consumer warpgroups of 64 rows
+// + the producer warp. Registers are split per SM quarter: 9 warps put 3
+// on one quarter and cap a thread at 168 registers.
+constexpr int NTHREADS = WGS * 128 + 32;
+constexpr int PRODUCER = WGS * 4;  // the producer's warp index
+constexpr int NST = 3;                    // ring stages
+constexpr int SROWS = 64;                 // rows of a streamed tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Tensor maps of the four bf16 operands: 64-column boxes (128-byte swizzle)
+// and 16-column tail boxes (32-byte swizzle), each with the box rows of
+// that operand's tile in this kernel.
+struct Maps {
+  CUtensorMap q, q_tail, k, k_tail, v, v_tail, dout, dout_tail;
+};
+
+struct BwdArgs {
+  Maps m;
+  Params p;
+};
+
+// Bytes of a [ROWS][64 NS + 16 TL] tile: NS sub-tiles of 64 columns, then
+// TL tails of 16.
+template <int NS, int TL, int ROWS>
+struct Tile {
+  static constexpr int MAIN = ROWS * 128;
+  static constexpr int BYTES = NS * MAIN + TL * ROWS * 32;
+};
+
+template <int NS, int TL, int ROWS>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* main,
+                                          const CUtensorMap* tail,
+                                          uint64_t* bar, int row0, int h,
+                                          int b) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    hopper::tma_load_4d(dst + j * Tile<NS, TL, ROWS>::MAIN, main, bar,
+                        64 * j, row0, h, b);
+  if (TL)
+    hopper::tma_load_4d(dst + NS * Tile<NS, TL, ROWS>::MAIN, tail, bar,
+                        64 * NS, row0, h, b);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d[64 x 64] = A . B^T over the full width, A = rows a0.. of a tile of
+// `arows` rows at shared address `a`, B = rows b0.. of a tile of `brows`
+// rows at `b`: both K-major. Issues the wgmmas; the caller fences, commits
+// and waits.
+template <int NS, int TL>
+__device__ __forceinline__ void mma_rows(float (&d)[32], uint32_t a,
+                                         int arows, int a0, uint32_t b,
+                                         int brows, int b0) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss_n64(
+          d,
+          hopper::desc(a + j * arows * 128 + a0 * 128 + 32 * kk, 1024,
+                       hopper::SW128),
+          hopper::desc(b + j * brows * 128 + b0 * 128 + 32 * kk, 1024,
+                       hopper::SW128),
+          j | kk);
+  if (TL)
+    hopper::wgmma_ss_n64(
+        d, hopper::desc(a + NS * arows * 128 + a0 * 32, 256, hopper::SW32),
+        hopper::desc(b + NS * brows * 128 + b0 * 32, 256, hopper::SW32), NS);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 x 16, row-major) of rows r0.. of a [rows][stride] slab at
-// column k0: the m16n8k16 layout.
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s,
-                                       int stride, int r0, int k0, int g,
-                                       int t) {
-  const __nv_bfloat16* base = s + r0 * stride + k0 + 2 * t;
-  a[0] = ld32(base + g * stride);
-  a[1] = ld32(base + (g + 8) * stride);
-  a[2] = ld32(base + g * stride + 8);
-  a[3] = ld32(base + (g + 8) * stride + 8);
-}
-
-// C[16 x 8n] += A(rows of slab `a`) . B^T where B's rows are the n index:
-// for each of N n-tiles of 8, B operand column n = row (n0 + g) of slab `b`.
-template <int N, int KD>
-__device__ __forceinline__ void mma_rows(float (*c)[4],
-                                         const __nv_bfloat16* a, int sa,
-                                         int ar0, const __nv_bfloat16* b,
-                                         int sb, int g, int t) {
+// acc[64 x width] += X . Y, X [64 x 64] given as four m64k16 A fragments,
+// Y = rows y0 .. y0 + 63 of a tile of `yrows` rows at `y`, read MN-major.
+template <int NS, int TL>
+__device__ __forceinline__ void mma_acc(float (&am)[NS > 0 ? NS : 1][32],
+                                        float (&at)[8],
+                                        const uint32_t (&x)[4][4], uint32_t y,
+                                        int yrows, int y0) {
 #pragma unroll
-  for (int n = 0; n < N; ++n)
+  for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KD / 16; ++kk) {
-    uint32_t af[4];
-    load_a(af, a, sa, ar0, kk * 16, g, t);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const __nv_bfloat16* bp = b + (n * 8 + g) * sb + kk * 16 + 2 * t;
-      mma_bf16(c[n], af, ld32(bp), ld32(bp + 8));
-    }
+    for (int j = 0; j < NS; ++j)
+      hopper::wgmma_rs_n64(
+          am[j], x[kk],
+          hopper::desc(y + j * yrows * 128 + (y0 + 16 * kk) * 128, 1024,
+                       hopper::SW128));
+    if (TL)
+      hopper::wgmma_rs_n16(
+          at, x[kk],
+          hopper::desc(y + NS * yrows * 128 + (y0 + 16 * kk) * 32, 256,
+                       hopper::SW32));
   }
 }
 
-// acc[DP/8] += X . Y where X [16 x 8N] is held in accumulator layout (rounded
-// to bf16 here) and Y^T is a [DP][stride] slab in shared memory (the B
-// operand: column d = row d of the slab).
-template <int N, int DP>
-__device__ __forceinline__ void mma_acc_a(float (*acc)[4], float (*x)[4],
-                                          const __nv_bfloat16* yt, int sy,
-                                          int g, int t) {
+template <int NS, int TL>
+__device__ __forceinline__ void fence_acc(float (&am)[NS > 0 ? NS : 1][32],
+                                          float (&at)[8]) {
 #pragma unroll
-  for (int kk = 0; kk < N / 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dn = 0; dn < DP / 8; ++dn) {
-      const __nv_bfloat16* bp = yt + (dn * 8 + g) * sy + kk * 16 + 2 * t;
-      mma_bf16(acc[dn], a, ld32(bp), ld32(bp + 8));
-    }
+  for (int j = 0; j < NS; ++j) hopper::fence_regs(am[j]);
+  if (TL) hopper::fence_regs(at);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* row, int c, float x,
+                                       float y, int D) {
+  if (c + 1 < D && (D & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (c < D) row[c] = __float2bfloat16(x);
+    if (c + 1 < D) row[c + 1] = __float2bfloat16(y);
   }
 }
 
-// Store a warp's 16-row accumulator tile to rows r0.. of a [T, D] slab.
-template <int DP>
+// Store a warpgroup's [64 x width] accumulator: this thread's rows r0 and
+// r0 + 8 (when < T) of a [T, D] slab with row stride `rs`.
+template <int NS, int TL>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* out, long long rs,
-                                          float (*acc)[4], int r0, int nT,
-                                          int D, int g, int t) {
+                                          float (&am)[NS > 0 ? NS : 1][32],
+                                          float (&at)[8], int r0, int T,
+                                          int D, int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g + 8 * i;
-    if (row >= nT) continue;
+    const int row = r0 + 8 * i;
+    if (row >= T) continue;
+    __nv_bfloat16* o = out + row * rs;
 #pragma unroll
-    for (int dn = 0; dn < DP / 8; ++dn)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = dn * 8 + 2 * t + j;
-        if (c < D) out[row * rs + c] = __float2bfloat16(acc[dn][2 * i + j]);
-      }
+      for (int n = 0; n < 8; ++n)
+        store2(o, 64 * j + 8 * n + 2 * t, am[j][4 * n + 2 * i],
+               am[j][4 * n + 2 * i + 1], D);
+    if (TL)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        store2(o, 64 * NS + 8 * n + 2 * t, at[4 * n + 2 * i],
+               at[4 * n + 2 * i + 1], D);
   }
 }
 
-constexpr int PAD = 8;  // row padding (elements): conflict-free fragments
-
-// ---------------------------------------------------------------------------
-// K5a bf16: dq. 4 warps x 16 q rows, 64 kv rows per tile.
-// ---------------------------------------------------------------------------
-
-constexpr int DQ_BQ = 64;
-constexpr int DQ_BK = 64;
-
-template <int DP>
-constexpr int smem_dq_bf16() {
-  return (2 * DQ_BQ * (DP + PAD) + 2 * DQ_BK * (DP + PAD) +
-          DP * (DQ_BK + PAD)) * 2 + 3 * DQ_BK * 4;
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
-  constexpr int SQ = DP + PAD;     // row stride of sQ, sdO, sK, sV
-  constexpr int SKT = DQ_BK + PAD;  // row stride of sKt ([DP][BK])
-  constexpr int NK = DQ_BK / 8;     // n-tiles of 8 kv columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = sQ + DQ_BQ * SQ;
-  __nv_bfloat16* sK = sdO + DQ_BQ * SQ;
-  __nv_bfloat16* sV = sK + DQ_BK * SQ;
-  __nv_bfloat16* sKt = sV + DQ_BK * SQ;
-  int* sKpos = reinterpret_cast<int*>(sKt + DP * SKT);
-  int* sKseg = sKpos + DQ_BK;
-  int* sKlive = sKseg + DQ_BK;
-  __shared__ int sQpos[DQ_BQ], sQseg[DQ_BQ], sQlive[DQ_BQ], red[5];
+// ---- K5a bf16: dq. 128 q rows a block, 64-row K/V tiles streamed. ---------
+
+template <int NS, int TL>
+constexpr int smem_dq_bf16() {
+  return 1024 + 2 * Tile<NS, TL, WGS * 64>::BYTES +
+         NST * (2 * Tile<NS, TL, SROWS>::BYTES + 1024) + 64;
+}
+
+template <int NS, int TL>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ BwdArgs args) {
+  using QT = Tile<NS, TL, WGS * 64>;
+  using KT = Tile<NS, TL, SROWS>;
+  constexpr int STAGE = 2 * KT::BYTES + 1024;  // K, V, then 3 x 64 ints
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sdO = sQ + QT::BYTES;
+  unsigned char* ring = sdO + QT::BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NST * STAGE);
+  uint64_t* empty = full + NST;
+  uint64_t* fixed = empty + NST;
+
+  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
+  const int hk = h / (p.Hq / p.Hk);
+  const int qb = gridDim.y - 1 - blockIdx.y;  // causally heaviest first
+  const int q0 = qb * WGS * 64;
+  // This block's cells of the map, [kv tile][warpgroup], in shared memory:
+  // the walk over kv tiles reads no device memory.
+  signed char* sflag = reinterpret_cast<signed char*>(fixed + 1);
+  const signed char* tf = p.tiles + (long long)b * p.nqt * p.nkt;
+  for (int i = threadIdx.x; i < p.nkt * WGS; i += blockDim.x) {
+    const int qt = WGS * qb + i % WGS;
+    sflag[i] = qt < p.nqt ? tf[qt * p.nkt + i / WGS] : 0;
+  }
+  auto flag = [&](int w, int kt) -> int { return sflag[kt * WGS + w]; };
+  auto live = [&](int kt) {
+    int any = 0;
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) any |= flag(w, kt);
+    return any != 0;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], WGS * 4);
+    }
+    hopper::mbar_init(fixed, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hk);
-  using bf = __nv_bfloat16;
-  const bf* qb = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf* dob = static_cast<const bf*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const bf* kb = static_cast<const bf*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf* vb = static_cast<const bf*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  if (warp == PRODUCER) {
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(fixed, 2 * QT::BYTES);
+      load_tile<NS, TL, WGS * 64>(sQ, &args.m.q, &args.m.q_tail, fixed, q0,
+                                  h, b);
+      load_tile<NS, TL, WGS * 64>(sdO, &args.m.dout, &args.m.dout_tail,
+                                  fixed, q0, h, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < p.nkt; ++kt) {
+      if (!live(kt)) continue;
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      unsigned char* st = ring + stage * STAGE;
+      int* ints = reinterpret_cast<int*>(st + 2 * KT::BYTES);
+      for (int r = lane; r < SROWS; r += 32) {
+        const int row = kt * SROWS + r;
+        const bool in = row < p.Tk;
+        const long long at = (long long)b * p.Tk + row;
+        ints[r] = in ? p.kv_pos[at] : 0;
+        ints[SROWS + r] = in ? p.kv_seg[at] : -2;
+        ints[2 * SROWS + r] = in && p.kv_valid[at] > 0;
+      }
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * KT::BYTES);
+        load_tile<NS, TL, SROWS>(st, &args.m.k, &args.m.k_tail, &full[stage],
+                                 kt * SROWS, hk, b);
+        load_tile<NS, TL, SROWS>(st + KT::BYTES, &args.m.v, &args.m.v_tail,
+                                 &full[stage], kt * SROWS, hk, b);
+      } else {
+        hopper::mbar_arrive(&full[stage]);
+      }
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread
+  // rows r0 and r0 + 8 of them (the accumulator layout).
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int qt = WGS * qb + wg;
+  const int r0 = q0 + 64 * wg + 16 * (warp & 3) + g;
   const long long rowbase = ((long long)b * p.Hq + h) * p.Tq;
-
-  const Stats qs = stage_ints(p.q_pos, p.q_seg, nullptr, b, p.Tq, q0, DQ_BQ,
-                              sQpos, sQseg, sQlive, red);
-  load_rows<bf, DP>(sQ, SQ, qb, p.q_st, q0, DQ_BQ, p.Tq, p.D, p.vec);
-  load_rows<bf, DP>(sdO, SQ, dob, p.do_st, q0, DQ_BQ, p.Tq, p.D, p.vec);
-
-  // This thread's two q rows within the warp's 16: g and g + 8.
-  const int wr = warp * 16;
+  const float sl2 = p.scale * LOG2E;
   int qpos[2], qseg[2];
-  float lse[2], dlt[2];
+  float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = wr + g + 8 * i, row = q0 + r;
+    const int row = r0 + 8 * i;
     const bool in = row < p.Tq;
-    qpos[i] = sQpos[r];
-    qseg[i] = sQseg[r];
-    lse[i] = in ? p.lse[rowbase + row] : FLT_MAX;
+    qpos[i] = in ? p.q_pos[(long long)b * p.Tq + row] : 0;
+    qseg[i] = in ? p.q_seg[(long long)b * p.Tq + row] : -1;
+    lse2[i] = in ? p.lse[rowbase + row] * LOG2E : FLT_MAX;
     dlt[i] = in ? p.delta[rowbase + row] : 0.f;
   }
-  const bool warp_live = q0 + wr < p.Tq;
+  float am[NS > 0 ? NS : 1][32], at[8];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) am[j][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) at[e] = 0.f;
 
-  float acc[DP / 8][4];
+  hopper::mbar_wait(fixed, 0);
+  const uint32_t aQ = hopper::smem_addr(sQ), adO = hopper::smem_addr(sdO);
+  // dq += ds.k of a tile runs while the next tile's s and dp are issued:
+  // its stage (K) is released only after the next wait.
+  int held = -1;
+  uint32_t ds[4][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < p.nkt; ++kt) {
+    if (!live(kt)) continue;
+    hopper::mbar_wait(&full[stage], phase);
+    const int f = flag(wg, kt);  // uniform over the warpgroup
+    unsigned char* st = ring + stage * STAGE;
+    const uint32_t aK = hopper::smem_addr(st), aV = aK + KT::BYTES;
+    float s[32], dp[32];  // written by wgmma (scale-d 0) before use
+    if (f) {
+      hopper::wg_fence();
+      mma_rows<NS, TL>(s, aQ, WGS * 64, 64 * wg, aK, SROWS, 0);
+      mma_rows<NS, TL>(dp, adO, WGS * 64, 64 * wg, aV, SROWS, 0);
+      hopper::wg_commit();
+    }
+    hopper::wg_wait0();  // s, dp and the previous tile's dq
+    if (held >= 0) {
+      fence_acc<NS, TL>(am, at);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[held]);
+      held = -1;
+    }
+    if (f) {
+      const int* kpos = reinterpret_cast<const int*>(st + 2 * KT::BYTES);
+      const int* kseg = kpos + SROWS;
+      const int* klive = kseg + SROWS;
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      // p = exp(masked s - lse); ds = p (dp - Delta) scale, into dp.
 #pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  const int nk = kv_tiles(p, qs, DQ_BK);
-  for (int it = 0; it < nk; ++it) {
-    const int kv0 = it * DQ_BK;
-    __syncthreads();  // every warp is done with the previous tile
-    const Stats ks = stage_ints(p.kv_pos, p.kv_seg, p.kv_valid, b, p.Tk, kv0,
-                                DQ_BK, sKpos, sKseg, sKlive, red);
-    if (!tiles_meet(p, qs, ks)) continue;
-    load_rows<bf, DP>(sK, SQ, kb, p.k_st, kv0, DQ_BK, p.Tk, p.D, p.vec);
-    load_rows<bf, DP>(sV, SQ, vb, p.v_st, kv0, DQ_BK, p.Tk, p.D, p.vec);
-    load_rows_t<bf, DP>(sKt, SKT, kb, p.k_st, kv0, DQ_BK, p.Tk, p.D, p.vec);
-    __syncthreads();
-    if (!warp_live) continue;
-
-    // s = q k^T (16 x 64), dp = dO v^T (16 x 64).
-    float s[NK][4], dp[NK][4];
-    mma_rows<NK, DP>(s, sQ, SQ, wr, sK, SQ, g, t);
-    mma_rows<NK, DP>(dp, sdO, SQ, wr, sV, SQ, g, t);
-    // p = exp(masked s - lse); ds = p (dp - Delta) scale, into s.
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), i = e >> 1;
-        const float sv =
-            unmasked(p, qpos[i], qseg[i], sKpos[c], sKseg[c], sKlive[c])
-                ? s[n][e] * p.scale
-                : NEG;
-        const float pr = expf(sv - lse[i]);
-        s[n][e] = pr * (dp[n][e] - dlt[i]) * p.scale;
+      for (int e = 0; e < 32; ++e) {
+        const int c = 8 * (e >> 2) + 2 * t + (e & 1), i = (e >> 1) & 1;
+        const bool vis =
+            f == 2 ||
+            (klive[c] && (!p.causal || qpos[i] >= kpos[c]) &&
+             (!p.has_segments || qseg[i] == kseg[c]));
+        const float pr = vis ? exp2f(s[e] * sl2 - lse2[i]) : 0.f;
+        dp[e] = pr * (dp[e] - dlt[i]) * p.scale;
       }
-    // dq += ds (rounded to bf16) . k
-    mma_acc_a<NK, DP>(acc, s, sKt, SKT, g, t);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(ds[kk], dp, kk);
+      // dq += ds (bf16) . k, waited on at the next tile
+      fence_acc<NS, TL>(am, at);
+      hopper::wg_fence();
+      mma_acc<NS, TL>(am, at, ds, aK, SROWS, 0);
+      hopper::wg_commit();
+      held = stage;
+    } else {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    }
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
+  hopper::wg_wait0();
+  fence_acc<NS, TL>(am, at);
 
-  bf* dqb = static_cast<bf*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  if (warp_live) store_acc<DP>(dqb, p.dq_st, acc, q0 + wr, p.Tq, p.D, g, t);
+  __nv_bfloat16* dqb =
+      static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_acc<NS, TL>(dqb, p.dq_st, am, at, r0, p.Tq, p.D, t);
 }
 
-// ---------------------------------------------------------------------------
-// K5b bf16: dk, dv. 4 warps x 16 kv rows, q tiles of 32 rows.
-// ---------------------------------------------------------------------------
+// ---- K5b bf16: dk, dv. 64 kv rows a block, 64-row q/dO tiles streamed. ----
+// The two consumer warpgroups share the block's 64 kv rows and split the
+// outputs: warpgroup 0 holds dv (s^T, then dv += p^T.dO), warpgroup 1 dk
+// (s^T and dp^T, then dk += ds^T.q). Recomputing s^T in both costs 2 D of
+// the 8 D flops a pair, and keeps each warpgroup within the 168 registers
+// of a 9-warp block (one accumulator of 64 x D, not two).
 
-constexpr int DKV_BK = 64;
-constexpr int DKV_BQ = 32;
-
-template <int DP>
+template <int NS, int TL>
 constexpr int smem_dkv_bf16() {
-  return (2 * DKV_BK * (DP + PAD) + 2 * DKV_BQ * (DP + PAD) +
-          2 * DP * (DKV_BQ + PAD)) * 2 + 3 * DKV_BK * 4;
+  return 1024 + 2 * Tile<NS, TL, SROWS>::BYTES +
+         NST * (2 * Tile<NS, TL, SROWS>::BYTES + 1024) + 64;
 }
 
-template <int DP>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(const Params p) {
-  constexpr int SQ = DP + PAD;      // row stride of sK, sV, sQ, sdO
-  constexpr int SQT = DKV_BQ + PAD;  // row stride of sQt, sdOt ([DP][BQ])
-  constexpr int NQ = DKV_BQ / 8;     // n-tiles of 8 q columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  using bf = __nv_bfloat16;
-  bf* sK = reinterpret_cast<bf*>(smem);
-  bf* sV = sK + DKV_BK * SQ;
-  bf* sQ = sV + DKV_BK * SQ;
-  bf* sdO = sQ + DKV_BQ * SQ;
-  bf* sQt = sdO + DKV_BQ * SQ;
-  bf* sdOt = sQt + DP * SQT;
-  int* sKpos = reinterpret_cast<int*>(sdOt + DP * SQT);
-  int* sKseg = sKpos + DKV_BK;
-  int* sKlive = sKseg + DKV_BK;
-  __shared__ int sQpos[DKV_BQ], sQseg[DKV_BQ], sQlive[DKV_BQ], red[5];
-  __shared__ float sLse[DKV_BQ], sDlt[DKV_BQ];
+template <int NS, int TL>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ BwdArgs args) {
+  using T = Tile<NS, TL, SROWS>;
+  // q, dO, then q positions, segments, lse * log2(e), Delta (4 x 64 x 4 B).
+  constexpr int STAGE = 2 * T::BYTES + 1024;
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);
+  unsigned char* sV = sK + T::BYTES;
+  unsigned char* ring = sV + T::BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NST * STAGE);
+  uint64_t* empty = full + NST;
+  uint64_t* fixed = empty + NST;
+
+  const int b = blockIdx.x / p.Hk, hk = blockIdx.x % p.Hk;
+  const int G = p.Hq / p.Hk;
+  const int kt = blockIdx.y;  // causally heaviest (first) tiles first
+  const int kv0 = kt * SROWS;
+  const int nq = (p.Tq + SROWS - 1) / SROWS;
+  // This block's column of the map, one cell per q tile, in shared memory.
+  signed char* sflag = reinterpret_cast<signed char*>(fixed + 1);
+  const signed char* tf = p.tiles + (long long)b * p.nqt * p.nkt;
+  for (int i = threadIdx.x; i < p.nqt; i += blockDim.x)
+    sflag[i] = tf[i * p.nkt + kt];
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], WGS * 4);
+    }
+    hopper::mbar_init(fixed, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == PRODUCER) {
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(fixed, 2 * T::BYTES);
+      load_tile<NS, TL, SROWS>(sK, &args.m.k, &args.m.k_tail, fixed, kv0, hk,
+                               b);
+      load_tile<NS, TL, SROWS>(sV, &args.m.v, &args.m.v_tail, fixed, kv0, hk,
+                               b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int gi = 0; gi < G; ++gi) {
+      const int h = hk * G + gi;
+      const long long rowbase = ((long long)b * p.Hq + h) * p.Tq;
+      for (int qt = 0; qt < nq; ++qt) {
+        if (!sflag[qt]) continue;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * STAGE;
+        int* ints = reinterpret_cast<int*>(st + 2 * T::BYTES);
+        float* rows = reinterpret_cast<float*>(ints + 2 * SROWS);
+        for (int r = lane; r < SROWS; r += 32) {
+          const int row = qt * SROWS + r;
+          const bool in = row < p.Tq;
+          const long long at = (long long)b * p.Tq + row;
+          ints[r] = in ? p.q_pos[at] : 0;
+          ints[SROWS + r] = in ? p.q_seg[at] : -1;
+          rows[r] = in ? p.lse[rowbase + row] * LOG2E : FLT_MAX;
+          rows[SROWS + r] = in ? p.delta[rowbase + row] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&full[stage], 2 * T::BYTES);
+          load_tile<NS, TL, SROWS>(st, &args.m.q, &args.m.q_tail,
+                                   &full[stage], qt * SROWS, h, b);
+          load_tile<NS, TL, SROWS>(st + T::BYTES, &args.m.dout,
+                                   &args.m.dout_tail, &full[stage],
+                                   qt * SROWS, h, b);
+        } else {
+          hopper::mbar_arrive(&full[stage]);
+        }
+        if (++stage == NST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: both warpgroups own kv rows kv0 .. kv0 + 63; this thread
+  // rows r0 and r0 + 8 of them. Warpgroup 0 sums dv, warpgroup 1 dk.
+  const bool is_dk = warp >= 4;
   const int g = lane >> 2, t = lane & 3;
-  const int kv0 = blockIdx.x * DKV_BK, hk = blockIdx.y, b = blockIdx.z;
-  const int G = p.Hq / p.Hk;
-  const bf* kb = static_cast<const bf*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf* vb = static_cast<const bf*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  const Stats ks = stage_ints(p.kv_pos, p.kv_seg, p.kv_valid, b, p.Tk, kv0,
-                              DKV_BK, sKpos, sKseg, sKlive, red);
-  load_rows<bf, DP>(sK, SQ, kb, p.k_st, kv0, DKV_BK, p.Tk, p.D, p.vec);
-  load_rows<bf, DP>(sV, SQ, vb, p.v_st, kv0, DKV_BK, p.Tk, p.D, p.vec);
-
-  // This thread's two kv rows within the warp's 16: g and g + 8.
-  const int wr = warp * 16;
+  const int r0 = kv0 + 16 * (warp & 3) + g;
+  const float sl2 = p.scale * LOG2E;
   int kpos[2], kseg[2], klive[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = wr + g + 8 * i;
-    kpos[i] = sKpos[r];
-    kseg[i] = sKseg[r];
-    klive[i] = sKlive[r];
+    const int row = r0 + 8 * i;
+    const bool in = row < p.Tk;
+    const long long at = (long long)b * p.Tk + row;
+    kpos[i] = in ? p.kv_pos[at] : 0;
+    kseg[i] = in ? p.kv_seg[at] : -2;
+    klive[i] = in && p.kv_valid[at] > 0;
   }
-
-  float dk[DP / 8][4], dv[DP / 8][4];
+  float am[NS > 0 ? NS : 1][32], at[8];
 #pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn)
+  for (int j = 0; j < NS; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+    for (int e = 0; e < 32; ++e) am[j][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) at[e] = 0.f;
 
-  const int nq = (p.Tq + DKV_BQ - 1) / DKV_BQ;
+  hopper::mbar_wait(fixed, 0);
+  const uint32_t aK = hopper::smem_addr(sK), aV = hopper::smem_addr(sV);
+  int stage = 0;
+  uint32_t phase = 0;
   for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const bf* qb = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf* dob =
-        static_cast<const bf*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const long long rowbase = ((long long)b * p.Hq + h) * p.Tq;
-    for (int iq = 0; iq < nq; ++iq) {
-      const int q0 = iq * DKV_BQ;
-      __syncthreads();  // every warp is done with the previous q tile
-      const Stats qs = stage_ints(p.q_pos, p.q_seg, nullptr, b, p.Tq, q0,
-                                  DKV_BQ, sQpos, sQseg, sQlive, red);
-      if (!tiles_meet(p, qs, ks)) continue;
-      for (int i = threadIdx.x; i < DKV_BQ; i += blockDim.x) {
-        const int row = q0 + i;
-        const bool in = row < p.Tq;
-        sLse[i] = in ? p.lse[rowbase + row] : FLT_MAX;
-        sDlt[i] = in ? p.delta[rowbase + row] : 0.f;
-      }
-      load_rows<bf, DP>(sQ, SQ, qb, p.q_st, q0, DKV_BQ, p.Tq, p.D, p.vec);
-      load_rows<bf, DP>(sdO, SQ, dob, p.do_st, q0, DKV_BQ, p.Tq, p.D,
-                        p.vec);
-      load_rows_t<bf, DP>(sQt, SQT, qb, p.q_st, q0, DKV_BQ, p.Tq, p.D,
-                          p.vec);
-      load_rows_t<bf, DP>(sdOt, SQT, dob, p.do_st, q0, DKV_BQ, p.Tq, p.D,
-                          p.vec);
-      __syncthreads();
-
-      // s^T = k q^T (16 kv x 32 q), dp^T = v dO^T.
-      float st[NQ][4], dpt[NQ][4];
-      mma_rows<NQ, DP>(st, sK, SQ, wr, sQ, SQ, g, t);
-      mma_rows<NQ, DP>(dpt, sV, SQ, wr, sdO, SQ, g, t);
-      // p^T into st, ds^T into dpt.
+    for (int qt = 0; qt < nq; ++qt) {
+      const int f = sflag[qt];  // uniform over the block
+      if (!f) continue;
+      hopper::mbar_wait(&full[stage], phase);
+      unsigned char* st = ring + stage * STAGE;
+      const uint32_t aQ = hopper::smem_addr(st), adO = aQ + T::BYTES;
+      const int* qpos = reinterpret_cast<const int*>(st + 2 * T::BYTES);
+      const int* qseg = qpos + SROWS;
+      const float* lse2 = reinterpret_cast<const float*>(qseg + SROWS);
+      const float* dlt = lse2 + SROWS;
+      // p^T = exp(masked s^T - lse) in place: rows are kv, columns q.
+      auto probs = [&](float (&x)[32]) {
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * t + (e & 1), i = e >> 1;
-          const float sv =
-              sQlive[c] && unmasked(p, sQpos[c], sQseg[c], kpos[i], kseg[i],
-                                    klive[i])
-                  ? st[n][e] * p.scale
-                  : NEG;
-          const float pr = expf(sv - sLse[c]);
-          st[n][e] = pr;
-          dpt[n][e] = pr * (dpt[n][e] - sDlt[c]) * p.scale;
+        for (int e = 0; e < 32; ++e) {
+          const int c = 8 * (e >> 2) + 2 * t + (e & 1), i = (e >> 1) & 1;
+          const bool vis =
+              f == 2 ||
+              (klive[i] && (!p.causal || qpos[c] >= kpos[i]) &&
+               (!p.has_segments || qseg[c] == kseg[i]));
+          x[e] = vis ? exp2f(x[e] * sl2 - lse2[c]) : 0.f;
         }
-      // dv += p^T (bf16) . dO ; dk += ds^T (bf16) . q
-      mma_acc_a<NQ, DP>(dv, st, sdOt, SQT, g, t);
-      mma_acc_a<NQ, DP>(dk, dpt, sQt, SQT, g, t);
+      };
+      uint32_t x[4][4];  // p^T (dv) or ds^T (dk) in bf16, the A operand
+      float s[32];       // written by wgmma (scale-d 0) before use
+      if (!is_dk) {
+        hopper::wg_fence();
+        mma_rows<NS, TL>(s, aK, SROWS, 0, aQ, SROWS, 0);
+        hopper::wg_commit();
+        hopper::wg_wait0();
+        hopper::fence_regs(s);
+        probs(s);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(x[kk], s, kk);
+      } else {
+        float dp[32];
+        hopper::wg_fence();
+        mma_rows<NS, TL>(s, aK, SROWS, 0, aQ, SROWS, 0);
+        mma_rows<NS, TL>(dp, aV, SROWS, 0, adO, SROWS, 0);
+        hopper::wg_commit();
+        hopper::wg_wait0();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        probs(s);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+          dp[e] = s[e] * (dp[e] - dlt[c]) * p.scale;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(x[kk], dp, kk);
+      }
+      // dv += p^T (bf16) . dO, or dk += ds^T (bf16) . q
+      fence_acc<NS, TL>(am, at);
+      hopper::wg_fence();
+      mma_acc<NS, TL>(am, at, x, is_dk ? aQ : adO, SROWS, 0);
+      hopper::wg_commit();
+      hopper::wg_wait0();
+      fence_acc<NS, TL>(am, at);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
 
-  bf* dkb = static_cast<bf*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  bf* dvb = static_cast<bf*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
-  store_acc<DP>(dkb, p.dk_st, dk, kv0 + wr, p.Tk, p.D, g, t);
-  store_acc<DP>(dvb, p.dv_st, dv, kv0 + wr, p.Tk, p.D, g, t);
+  using bf = __nv_bfloat16;
+  bf* out = is_dk ? static_cast<bf*>(p.dk) + b * p.dk_sb + hk * p.dk_sh
+                  : static_cast<bf*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+  store_acc<NS, TL>(out, is_dk ? p.dk_st : p.dv_st, am, at, r0, p.Tk, p.D,
+                    t);
 }
 
 // ---------------------------------------------------------------------------
@@ -760,52 +959,198 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(const Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, 128, smem, stream>>>(p);
+// ---------------------------------------------------------------------------
+// The bf16 kernels' cell map, on the card: the rules of `_tile_flags` in
+// ops/cuda/flash_attention.py (which the CPU tests hold against the dense
+// mask). One warp per 64-row tile writes its stats (any live, all live,
+// position min/max, segment min, the smallest segment above it, segment
+// max over the live rows), then one thread per (q, kv) cell reads two.
+// ---------------------------------------------------------------------------
+
+constexpr int NSTAT = 7;
+
+__global__ void tile_stats(const Params p, int* stats) {
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, per = p.nqt + p.nkt;
+  if (w >= p.B * per) return;
+  const int b = w / per, tile = w % per;
+  const bool kv = tile >= p.nqt;
+  const int T = kv ? p.Tk : p.Tq, row0 = (kv ? tile - p.nqt : tile) * 64;
+  const int* pos = kv ? p.kv_pos : p.q_pos;
+  const int* seg = kv ? p.kv_seg : p.q_seg;
+  int any = 0, all = 1, pmin = INT_MAX, pmax = INT_MIN, smin = INT_MAX,
+      smax = INT_MIN;
+  for (int r = lane; r < 64; r += 32) {
+    const int row = row0 + r;
+    const long long at = (long long)b * T + row;
+    if (row < T && (!kv || p.kv_valid[at] > 0)) {
+      any = 1;
+      pmin = min(pmin, pos[at]);
+      pmax = max(pmax, pos[at]);
+      smin = min(smin, seg[at]);
+      smax = max(smax, seg[at]);
+    } else {
+      all = 0;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    any |= __shfl_xor_sync(0xffffffffu, any, off);
+    all &= __shfl_xor_sync(0xffffffffu, all, off);
+    pmin = min(pmin, __shfl_xor_sync(0xffffffffu, pmin, off));
+    pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, off));
+    smin = min(smin, __shfl_xor_sync(0xffffffffu, smin, off));
+    smax = max(smax, __shfl_xor_sync(0xffffffffu, smax, off));
+  }
+  // The smallest segment above the minimum, over the same rows.
+  int smin2 = INT_MAX;
+  for (int r = lane; r < 64; r += 32) {
+    const int row = row0 + r;
+    const long long at = (long long)b * T + row;
+    if (row < T && (!kv || p.kv_valid[at] > 0) && seg[at] > smin)
+      smin2 = min(smin2, seg[at]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    smin2 = min(smin2, __shfl_xor_sync(0xffffffffu, smin2, off));
+  if (lane == 0) {
+    int* o = stats + (long long)w * NSTAT;
+    o[0] = any, o[1] = all, o[2] = pmin, o[3] = pmax, o[4] = smin,
+    o[5] = smin2, o[6] = smax;
+  }
+}
+
+__global__ void tile_flags(const Params p, const int* stats,
+                           signed char* flags) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long cells = (long long)p.nqt * p.nkt;
+  if (i >= p.B * cells) return;
+  const int b = i / cells, qt = (i % cells) / p.nkt, kt = i % p.nkt;
+  const int* qs = stats + ((long long)b * (p.nqt + p.nkt) + qt) * NSTAT;
+  const int* ks =
+      stats + ((long long)b * (p.nqt + p.nkt) + p.nqt + kt) * NSTAT;
+  bool meet = qs[0] && ks[0], full = qs[1] && ks[1];
+  if (p.causal) {
+    meet = meet && ks[2] <= qs[3];
+    full = full && ks[3] <= qs[2];
+  }
+  if (p.has_segments) {
+    // {a} + [a2, A] meets {b} + [b2, B] (an empty interval when a2 > A).
+    const int a = qs[4], a2 = qs[5], A = qs[6], b = ks[4], b2 = ks[5],
+              B = ks[6];
+    meet = meet && (a == b || (a >= b2 && a <= B) || (b >= a2 && b <= A) ||
+                    (a2 <= B && b2 <= A && a2 <= A && b2 <= B));
+    full = full && a == A && b == B && a == b;
+  }
+  flags[i] = meet ? (full ? 2 : 1) : 0;
+}
+
+// `scratch` holds the stats ([B, nqt + nkt, 7] int32) and then the cell map
+// ([B, nqt, nkt] int8) that p.tiles points to.
+cudaError_t launch_tiles(const Params& p, int* scratch, cudaStream_t s) {
+  const long long tiles_n = (long long)p.B * (p.nqt + p.nkt);
+  const long long cells = (long long)p.B * p.nqt * p.nkt;
+  tile_stats<<<(tiles_n + 7) / 8, 256, 0, s>>>(p, scratch);
+  tile_flags<<<(cells + 255) / 256, 256, 0, s>>>(
+      p, scratch, const_cast<signed char*>(p.tiles));
   return cudaGetLastError();
 }
 
-// Padded widths: 16 for the small test heads, 80 for the ViT's 72, 128 for
-// the decoder's 128 (bf16); 32/96/128 (fp32). Any other D takes the next.
+template <typename Kernel, typename Arg>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   const Arg& arg, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(arg);
+  return cudaGetLastError();
+}
+
+// The tensor maps of one bf16 kernel: `qrows` / `kvrows` are the box rows
+// of the q-side (q, dO) and kv-side (k, v) tiles. False when TMA cannot
+// take a layout.
+bool make_maps(Maps* m, const Params& p, int qrows, int kvrows, bool main,
+               bool tail) {
+  struct Op {
+    CUtensorMap *mm, *mt;
+    const void* base;
+    long long sb, sh, st;
+    int H, T, rows;
+  } ops[4] = {
+      {&m->q, &m->q_tail, p.q, p.q_sb, p.q_sh, p.q_st, p.Hq, p.Tq, qrows},
+      {&m->dout, &m->dout_tail, p.dout, p.do_sb, p.do_sh, p.do_st, p.Hq,
+       p.Tq, qrows},
+      {&m->k, &m->k_tail, p.k, p.k_sb, p.k_sh, p.k_st, p.Hk, p.Tk, kvrows},
+      {&m->v, &m->v_tail, p.v, p.v_sb, p.v_sh, p.v_st, p.Hk, p.Tk, kvrows},
+  };
+  for (const Op& o : ops) {
+    if (main && !hopper::make_map(o.mm, o.base, o.sb, o.sh, o.st, p.B, o.H,
+                                  o.T, p.D, 64, o.rows))
+      return false;
+    if (tail && !hopper::make_map(o.mt, o.base, o.sb, o.sh, o.st, p.B, o.H,
+                                  o.T, p.D, 16, o.rows))
+      return false;
+  }
+  return true;
+}
+
+// Shared bytes of a block's cells of the map: one per warpgroup and
+// streamed tile.
+int flag_bytes(int n, int wgs) { return (wgs * n + 15) / 16 * 16; }
+
+// Widths: 16 (D <= 16: one 16-column tail), 80 (64 + 16, the ViT's 72), 128
+// (two 64-column sub-tiles).
+template <int NS, int TL>
+cudaError_t dq_bf16_w(const Params& p, cudaStream_t s) {
+  BwdArgs a;
+  a.p = p;
+  if (!make_maps(&a.m, p, WGS * 64, SROWS, NS > 0, TL > 0))
+    return cudaErrorInvalidValue;
+  dim3 grid(p.B * p.Hq, (p.Tq + WGS * 64 - 1) / (WGS * 64));
+  return launch(flash_bwd_dq_bf16<NS, TL>, grid, NTHREADS,
+                smem_dq_bf16<NS, TL>() + flag_bytes(p.nkt, WGS), a, s);
+}
+
+template <int NS, int TL>
+cudaError_t dkv_bf16_w(const Params& p, cudaStream_t s) {
+  BwdArgs a;
+  a.p = p;
+  if (!make_maps(&a.m, p, SROWS, SROWS, NS > 0, TL > 0))
+    return cudaErrorInvalidValue;
+  dim3 grid(p.B * p.Hk, (p.Tk + SROWS - 1) / SROWS);
+  return launch(flash_bwd_dkv_bf16<NS, TL>, grid, NTHREADS,
+                smem_dkv_bf16<NS, TL>() + flag_bytes(p.nqt, 1), a, s);
+}
+
 cudaError_t dq_bf16(const Params& p, cudaStream_t s) {
-  dim3 grid((p.Tq + DQ_BQ - 1) / DQ_BQ, p.Hq, p.B);
-  if (p.D <= 16)
-    return launch(flash_bwd_dq_bf16<16>, grid, smem_dq_bf16<16>(), p, s);
-  if (p.D <= 80)
-    return launch(flash_bwd_dq_bf16<80>, grid, smem_dq_bf16<80>(), p, s);
-  return launch(flash_bwd_dq_bf16<128>, grid, smem_dq_bf16<128>(), p, s);
+  if (p.D <= 16) return dq_bf16_w<0, 1>(p, s);
+  if (p.D <= 80) return dq_bf16_w<1, 1>(p, s);
+  return dq_bf16_w<2, 0>(p, s);
 }
 
 cudaError_t dkv_bf16(const Params& p, cudaStream_t s) {
-  dim3 grid((p.Tk + DKV_BK - 1) / DKV_BK, p.Hk, p.B);
-  if (p.D <= 16)
-    return launch(flash_bwd_dkv_bf16<16>, grid, smem_dkv_bf16<16>(), p, s);
-  if (p.D <= 80)
-    return launch(flash_bwd_dkv_bf16<80>, grid, smem_dkv_bf16<80>(), p, s);
-  return launch(flash_bwd_dkv_bf16<128>, grid, smem_dkv_bf16<128>(), p, s);
+  if (p.D <= 16) return dkv_bf16_w<0, 1>(p, s);
+  if (p.D <= 80) return dkv_bf16_w<1, 1>(p, s);
+  return dkv_bf16_w<2, 0>(p, s);
 }
 
 cudaError_t dq_f32(const Params& p, cudaStream_t s) {
   dim3 grid((p.Tq + F_BQ - 1) / F_BQ, p.Hq, p.B);
   if (p.D <= 32)
-    return launch(flash_bwd_dq_f32<32>, grid, smem_dq_f32<32>(), p, s);
+    return launch(flash_bwd_dq_f32<32>, grid, 128, smem_dq_f32<32>(), p, s);
   if (p.D <= 96)
-    return launch(flash_bwd_dq_f32<96>, grid, smem_dq_f32<96>(), p, s);
-  return launch(flash_bwd_dq_f32<128>, grid, smem_dq_f32<128>(), p, s);
+    return launch(flash_bwd_dq_f32<96>, grid, 128, smem_dq_f32<96>(), p, s);
+  return launch(flash_bwd_dq_f32<128>, grid, 128, smem_dq_f32<128>(), p, s);
 }
 
 cudaError_t dkv_f32(const Params& p, cudaStream_t s) {
   dim3 grid((p.Tk + F_BK - 1) / F_BK, p.Hk, p.B);
   if (p.D <= 32)
-    return launch(flash_bwd_dkv_f32<32>, grid, smem_dkv_f32<32>(), p, s);
+    return launch(flash_bwd_dkv_f32<32>, grid, 128, smem_dkv_f32<32>(), p, s);
   if (p.D <= 96)
-    return launch(flash_bwd_dkv_f32<96>, grid, smem_dkv_f32<96>(), p, s);
-  return launch(flash_bwd_dkv_f32<128>, grid, smem_dkv_f32<128>(), p, s);
+    return launch(flash_bwd_dkv_f32<96>, grid, 128, smem_dkv_f32<96>(), p, s);
+  return launch(flash_bwd_dkv_f32<128>, grid, 128, smem_dkv_f32<128>(), p,
+                s);
 }
 
 bool valid_shape(int B, int Hq, int Hk, int Tq, int Tk, int D) {
@@ -819,7 +1164,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* q_pos, const void* kv_pos, const void* q_seg,
                    const void* kv_seg, const void* kv_valid, int B, int Hq,
                    int Hk, int Tq, int Tk, int D, float scale, int causal,
-                   int has_segments, int kv_arange, int vec) {
+                   int has_segments, int kv_arange, const void* tiles,
+                   int nqt, int nkt) {
   Params p;
   p.q = q;
   p.k = k;
@@ -842,10 +1188,11 @@ Params make_params(const void* q, const void* k, const void* v,
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.kv_valid = static_cast<const int*>(kv_valid);
+  p.tiles = static_cast<const signed char*>(tiles);
+  p.nqt = nqt, p.nkt = nkt;
   p.B = B, p.Hq = Hq, p.Hk = Hk, p.Tq = Tq, p.Tk = Tk, p.D = D;
   p.scale = scale;
   p.causal = causal, p.has_segments = has_segments, p.kv_arange = kv_arange;
-  p.vec = vec;
   return p;
 }
 
@@ -853,24 +1200,48 @@ Params make_params(const void* q, const void* k, const void* v,
 
 // Plain C entry points (bound with ctypes), one per kernel and dtype.
 // `strides` holds 21 element strides: (batch, head, token) for q, k, v, dO,
-// dq, dk and dv; lse and delta are contiguous fp32 [B, Hq, Tq]. `dq`
-// (resp. `dk`, `dv`) is written in q's dtype. Each returns the cudaError_t
-// of the launch (0 on success); nothing is synchronised.
+// dq, dk and dv; lse and delta are contiguous fp32 [B, Hq, Tq]. `tiles` is
+// the int8 [B, nqt, nkt] cell map of the bf16 kernels (64 x 64 cells; the
+// fp32 kernels ignore it). `dq` (resp. `dk`, `dv`) is written in q's dtype.
+// Each returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for a shape, or a bf16 layout TMA cannot take);
+// nothing is synchronised.
 #define ORYX_BWD_ENTRY(NAME, FN)                                             \
   extern "C" int NAME(                                                       \
       const void* q, const void* k, const void* v, const void* dout,         \
       const void* lse, const void* delta, void* dq, void* dk, void* dv,      \
       const long long* strides, const void* q_pos, const void* kv_pos,       \
-      const void* q_seg, const void* kv_seg, const void* kv_valid, int B,    \
-      int Hq, int Hk, int Tq, int Tk, int D, float scale, int causal,        \
-      int has_segments, int kv_arange, int vec, void* stream) {              \
+      const void* q_seg, const void* kv_seg, const void* kv_valid,           \
+      const void* tiles, int B, int Hq, int Hk, int Tq, int Tk, int D,       \
+      float scale, int causal, int has_segments, int kv_arange, int nqt,     \
+      int nkt, void* stream) {                                               \
     if (!valid_shape(B, Hq, Hk, Tq, Tk, D)) return cudaErrorInvalidValue;    \
     const Params p = make_params(q, k, v, dout, lse, delta, dq, dk, dv,      \
                                  strides, q_pos, kv_pos, q_seg, kv_seg,      \
                                  kv_valid, B, Hq, Hk, Tq, Tk, D, scale,      \
-                                 causal, has_segments, kv_arange, vec);      \
+                                 causal, has_segments, kv_arange, tiles,     \
+                                 nqt, nkt);                                  \
     return FN(p, static_cast<cudaStream_t>(stream));                         \
   }
+
+// The cell map of the bf16 kernels into `scratch` (int32 stats of
+// B * (nqt + nkt) 64-row tiles, 7 each, then the int8 [B, nqt, nkt] map).
+extern "C" int oryx_flash_bwd_tiles(const void* q_pos, const void* kv_pos,
+                                    const void* q_seg, const void* kv_seg,
+                                    const void* kv_valid, void* scratch,
+                                    int B, int Tq, int Tk, int causal,
+                                    int has_segments, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
+  const int nqt = (Tq + 63) / 64, nkt = (Tk + 63) / 64;
+  const long long nstat = (long long)B * (nqt + nkt) * NSTAT;
+  int* st = static_cast<int*>(scratch);
+  static const long long no_strides[21] = {};
+  const Params p = make_params(
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, no_strides, q_pos, kv_pos, q_seg, kv_seg, kv_valid, B, 1, 1, Tq,
+      Tk, 1, 1.f, causal, has_segments, 0, st + nstat, nqt, nkt);
+  return launch_tiles(p, st, static_cast<cudaStream_t>(stream));
+}
 
 ORYX_BWD_ENTRY(oryx_flash_bwd_dq_bf16, dq_bf16)
 ORYX_BWD_ENTRY(oryx_flash_bwd_dkv_bf16, dkv_bf16)

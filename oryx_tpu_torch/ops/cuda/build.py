@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled with nvcc into a shared library with a
-plain C interface, at first use, into `oryx_tpu_torch/_build/` (listed in
-.gitignore), and loaded with ctypes. The library file is named after a hash
-of its source and flags, so an edited kernel is rebuilt and a stale one is
-never loaded. An exclusive file lock per source serializes concurrent
-builds of it across processes (different sources build in parallel). A
-failed compile or load raises: there is no fallback.
+Each `csrc/<name>.cu` (with the shared headers `csrc/*.cuh`) is compiled
+with nvcc into a shared library with a plain C interface, at first use,
+into `oryx_tpu_torch/_build/` (listed in .gitignore), and loaded with
+ctypes. No driver library is linked: kernels that need a driver call
+(the TMA tensor-map encoder) reach it through the runtime's
+`cudaGetDriverEntryPoint`. The library file is named after a hash of its
+source, the headers and the flags, so an edited kernel is rebuilt and a
+stale one is never loaded. An exclusive file lock per source serializes
+concurrent builds of it across processes (different sources build in
+parallel). A failed compile or load raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -52,8 +55,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
+    # The shared headers are hashed too: an edited header rebuilds every
+    # library.
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -60,14 +60,17 @@ def _kernel_fn(entry: str):
         fwd = entry.startswith("oryx_flash_fwd")
         lib = build.load("flash_attention" if fwd else "flash_attention_bwd")
         fn = getattr(lib, entry)
-        nptr = 11 if fwd else 15
-        fn.argtypes = (
-            [ctypes.c_void_p] * nptr
-            + [ctypes.c_int] * 6
-            + [ctypes.c_float]
-            + [ctypes.c_int] * 4
-            + [ctypes.c_void_p]
-        )
+        if entry == "oryx_flash_bwd_tiles":
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+        else:
+            fn.argtypes = (
+                [ctypes.c_void_p] * (11 if fwd else 16)
+                + [ctypes.c_int] * 6
+                + [ctypes.c_float]
+                + [ctypes.c_int] * (4 if fwd else 5)
+                + [ctypes.c_void_p]
+            )
         fn.restype = ctypes.c_int
         _fns[entry] = fn
     return fn
@@ -122,9 +125,9 @@ def _check_operands(q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
 
 
 def _launch(entry: str, views, ptrs, ints, q, k, flags) -> None:
-    """Call one kernel entry: `views` are the [B, H, T, D] operands whose
-    (batch, head, token) strides it takes, `ptrs` the other pointers before
-    the strides, `ints` the five int32 arrays."""
+    """Call one forward kernel entry: `views` are the [B, H, T, D] operands
+    whose (batch, head, token) strides it takes, `ptrs` the other pointers
+    before the strides, `ints` the five int32 arrays."""
     B, Hq, Tq, D = q.shape
     _, Hk, Tk, _ = k.shape
     strides = [s for x in views for s in x.stride()[:3]]
@@ -211,6 +214,130 @@ def _mha_backward_dkv(q, k, v, do, lse, delta, *ints, **flags):
     return _bwd_launch("dkv", q, k, v, do, lse, delta, *ints, **flags)[1:]
 
 
+# Rows of a cell of the backward kernels' tile map: each bf16 kernel's
+# warpgroup owns 64 rows and every streamed tile has 64.
+TILE = 64
+_IMAX = torch.iinfo(torch.int32).max
+_IMIN = torch.iinfo(torch.int32).min
+
+
+def _tile_stats(pos, seg, live):
+    """Per 64-row tile of [B, T] int32 positions/segments and a bool live
+    mask: (any live, all live, position min, max, segment min, the smallest
+    segment above that min, segment max over the live rows), each
+    [B, ceil(T / 64)]; rows past T are not live. A tile's segments lie in
+    {min} and [second, max], so pads (one id, 0) beside real segments do not
+    widen the range to every segment between."""
+    B, T = pos.shape
+    pad = -T % TILE
+
+    def tiles(x, fill):
+        return torch.nn.functional.pad(x, (0, pad), value=fill).view(
+            B, -1, TILE)
+
+    live = tiles(live, False)
+    pos, seg = tiles(pos, 0), tiles(seg, 0)
+
+    def lo(x):
+        return torch.where(live, x, _IMAX).amin(-1)
+
+    def hi(x):
+        return torch.where(live, x, _IMIN).amax(-1)
+
+    smin = lo(seg)
+    smin2 = torch.where(live & (seg > smin[..., None]), seg, _IMAX).amin(-1)
+    return (live.any(-1), live.all(-1), lo(pos), hi(pos), smin, smin2,
+            hi(seg))
+
+
+def _tile_flags(q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
+                has_segments):
+    """The backward kernels' skip rules: int8 [B, nq, nk] over 64 x 64
+    (q, kv) cells, 0 where no pair of the cell is visible (the kernels never
+    load or visit it), 2 where every pair is (they skip the per-element
+    mask), 1 otherwise. A cell meets when both tiles have a live row, the
+    causal ranges overlap (the smallest kv position is at most the largest
+    q position) and the segment sets can meet (each tile's segments lie in
+    {min} and [second smallest, max]); it is full when every row of both
+    tiles is live, every kv position is at most every q position and both
+    tiles hold one and the same segment. With arange or slot
+    positions the causal rule is the index clamp: a kv tile whose first
+    valid slot lies past a q tile's last row is dead for it. The CUDA
+    wrapper computes the same map on the card once per call
+    (`_tile_flags_cuda`), so the kernels need no per-tile sync."""
+    qa, qall, qpmin, qpmax, qsmin, qsmin2, qsmax = _tile_stats(
+        q_pos, q_seg, torch.ones_like(q_pos, dtype=torch.bool))
+    ka, kall, kpmin, kpmax, ksmin, ksmin2, ksmax = _tile_stats(
+        kv_pos, kv_seg, kv_valid > 0)
+
+    def qc(x):
+        return x[:, :, None]
+
+    def kc(x):
+        return x[:, None, :]
+
+    meet = qc(qa) & kc(ka)
+    full = qc(qall) & kc(kall)
+    if causal:
+        meet = meet & (kc(kpmin) <= qc(qpmax))
+        full = full & (kc(kpmax) <= qc(qpmin))
+    if has_segments:
+        # {a} + [a2, A] meets {b} + [b2, B] (an empty interval when a2 > A).
+        def within(x, lo, hi):
+            return (x >= lo) & (x <= hi)
+
+        a, a2, A = qc(qsmin), qc(qsmin2), qc(qsmax)
+        b, b2, B = kc(ksmin), kc(ksmin2), kc(ksmax)
+        meet = meet & (
+            (a == b) | within(a, b2, B) | within(b, a2, A)
+            | ((a2 <= B) & (b2 <= A) & (a2 <= A) & (b2 <= B))
+        )
+        full = full & (a == A) & (b == B) & (a == b)
+    return (meet.to(torch.int8) + (meet & full).to(torch.int8)).contiguous()
+
+
+def _tile_flags_cuda(q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
+                     has_segments):
+    """`_tile_flags` computed on the card (two small launches, one call):
+    the same int8 [B, nq, nk] map, a view into a scratch buffer that also
+    holds the per-tile stats."""
+    B, Tq = q_pos.shape
+    Tk = kv_pos.shape[1]
+    nq, nk = -(-Tq // TILE), -(-Tk // TILE)
+    nstat = B * (nq + nk) * 7 * 4
+    dev = q_pos.device
+    buf = torch.empty(nstat + B * nq * nk, dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernel_fn("oryx_flash_bwd_tiles")(
+            q_pos.data_ptr(), kv_pos.data_ptr(), q_seg.data_ptr(),
+            kv_seg.data_ptr(), kv_valid.data_ptr(), buf.data_ptr(), B, Tq,
+            Tk, int(causal), int(has_segments),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"oryx_flash_bwd_tiles failed: CUDA error {err}")
+    return buf[nstat:].view(B, nq, nk)
+
+
+def _check_tma(named) -> None:
+    """Raise unless TMA can read each bf16 operand: a 16-byte aligned base
+    and (batch, head, token) strides that are multiples of 16 bytes (dims of
+    extent 1 excepted)."""
+    for name, x in named:
+        bad = [
+            d for d, (n, st) in enumerate(zip(x.shape[:3], x.stride()[:3]))
+            if n > 1 and (st * x.element_size()) % 16
+        ]
+        if x.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{name}: the bf16 backward kernels read with TMA and need a "
+                f"16-byte aligned base and (batch, head, token) strides of "
+                f"a multiple of 16 bytes; got strides {x.stride()} "
+                f"(elements) at base offset {x.data_ptr() % 16} mod 16. "
+                "Pad the feature dim to a multiple of 8 in storage."
+            )
+
+
 def _bwd_launch(
     which, q, k, v, do, lse, delta, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
     *,
@@ -220,10 +347,10 @@ def _bwd_launch(
     scale: float,
 ):
     """Launch K5a (which="dq") or K5b ("dkv"). Layouts as `_mha_forward`,
-    plus do [B, Hq, Tq, D] (any strides with a contiguous feature dim) and
-    the fp32 lse / delta [B, Hq, Tq]; returns (dq, dk, dv) with None for
-    what this kernel does not write. Raises on anything the kernels do not
-    take."""
+    plus do [B, Hq, Tq, D] (any strides with a contiguous feature dim; bf16
+    operands as `_check_tma` says) and the fp32 lse / delta [B, Hq, Tq];
+    returns (dq, dk, dv) with None for what this kernel does not write.
+    Raises on anything the kernels do not take."""
     ints = (q_pos, kv_pos, q_seg, kv_seg, kv_valid)
     _check_operands(q, k, v, *ints, extra=(("do", do),))
     B, Hq, Tq, D = q.shape
@@ -238,6 +365,12 @@ def _bwd_launch(
                 f"{name}: need contiguous fp32 [{B}, {Hq}, {Tq}] on {dev}, "
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}"
             )
+    if q.dtype == torch.bfloat16:
+        _check_tma((("q", q), ("k", k), ("v", v), ("do", do)))
+        tiles = _tile_flags_cuda(*ints, causal, has_segments)
+        tiles_ptr, nqt, nkt = tiles.data_ptr(), *tiles.shape[1:]
+    else:  # the fp32 kernels skip by their own per-tile stats
+        tiles_ptr, nqt, nkt = None, 0, 0
 
     def out(T, H):
         return torch.empty((B, T, H, D), dtype=q.dtype,
@@ -250,11 +383,23 @@ def _bwd_launch(
         dq, dk, dv = None, out(Tk, Hk), out(Tk, Hk)
         outs = (do, dk, dv)
     views = (q, k, v, do, *outs)
-    ptrs = tuple(x.data_ptr() for x in (q, k, v, do, lse, delta, *outs))
-    flags = dict(causal=causal, has_segments=has_segments,
-                 kv_arange=kv_arange, scale=scale)
-    _launch(f"oryx_flash_bwd_{which}_{_DT[q.dtype]}", views, ptrs, ints, q,
-            k, flags)
+    strides = [s for x in views for s in x.stride()[:3]]
+    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
+    entry = f"oryx_flash_bwd_{which}_{_DT[q.dtype]}"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn(entry)(
+            *(x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)),
+            ctypes.addressof(stride_arr),
+            *(x.data_ptr() for x in ints), tiles_ptr,
+            B, Hq, Hk, Tq, Tk, D, float(scale), int(causal),
+            int(has_segments), int(kv_arange), nqt, nkt, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{entry} launch failed: CUDA error {err} "
+            f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})"
+        )
     counts = LAUNCHES_DQ if which == "dq" else LAUNCHES_DKV
     counts[(causal, has_segments, B, Hq, Hk, Tq, Tk, D)] += 1
     return dq, dk, dv

@@ -504,9 +504,23 @@ def _visible(args, flags):
     return vis.any(-1)  # [B, Tq]: the row sees a key
 
 
+def _padded(x):
+    """x in storage whose rows are padded to 8 elements: the same values, a
+    layout the bf16 backward's TMA takes for any D (16-byte row strides)."""
+    D = x.shape[-1]
+    if x.dtype != torch.bfloat16 or D % 8 == 0:
+        return x
+    store = torch.zeros(x.shape[:-1] + (D + (-D % 8),), dtype=x.dtype,
+                        device=x.device)
+    store[..., :D] = x
+    return store[..., :D]
+
+
 def _check_bwd(q, k, v, kw, seed=0):
     """K1 with lse, then K5a/K5b on a cotangent zero on fully masked rows,
-    against the twins; then the same through autograd."""
+    against the twins; then the same through autograd. bf16 operands of a D
+    that is no multiple of 8 go in padded storage (`_padded`)."""
+    q, k, v = (_padded(x) for x in (q, k, v))
     slot = kw.pop("slot_positions", False)
     args, flags = fa._prepare(
         q, k, v, kw.get("q_positions"), kw.get("kv_positions"),
@@ -515,8 +529,8 @@ def _check_bwd(q, k, v, kw, seed=0):
     )
     keep = _visible(args, flags)
     g = torch.Generator(device=q.device).manual_seed(seed + 7)
-    do = (torch.randn(q.shape, generator=g, device=q.device)
-          * keep[:, :, None, None]).to(q.dtype)
+    do = _padded((torch.randn(q.shape, generator=g, device=q.device)
+                  * keep[:, :, None, None]).to(q.dtype))
     tol = BWD_TOLS[q.dtype]
     o, lse = fa._mha_forward(*args, **flags, with_lse=True)
     ro, rlse = fa._mha_forward_reference(*args, **flags, with_lse=True)
@@ -606,6 +620,149 @@ def test_backward_is_deterministic(card):
     b = fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _slot_case(dev, B, T, lens, Hq, Hk, D, seed=0):
+    """The decoder's training layout: arange on real slots, 0 on pads,
+    slot_positions, a kv mask."""
+    live = torch.arange(T, device=dev)[None] < torch.tensor(
+        lens, device=dev)[:, None]
+    pos = torch.where(live, torch.arange(T, device=dev)[None], 0)
+    q, k, v, _ = _case(dev, torch.bfloat16, B, T, T, Hq, Hk, D, causal=False,
+                       segments=False, mask=False, seed=seed)
+    return q, k, v, dict(causal=True, q_positions=pos, kv_positions=pos,
+                         kv_mask=live.int(), slot_positions=True)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(1, 1), (63, 63), (65, 65), (200, 200),
+                                   (2048, 2048), (63, 200), (200, 65)])
+def test_backward_tile_edges(card, Tq, Tk):
+    """bf16 at the edges of the 64-row cells and 128-row blocks: causal on
+    random q positions with a kv mask, D = 128, G = 7."""
+    _check_bwd(*_case(card, torch.bfloat16, 1, Tq, Tk, 7, 1, 128,
+                      causal=True, segments=False, mask=True))
+
+
+@pytest.mark.parametrize("D", [72, 128])
+@pytest.mark.parametrize("G", [1, 7])
+def test_backward_widths_and_groups(card, D, G):
+    """Both bf16 widths the models use, with and without GQA, under every
+    mask at once."""
+    _check_bwd(*_case(card, torch.bfloat16, 2, 200, 333, 2 * G, 2, D,
+                      causal=True, segments=True, mask=True))
+
+
+def test_backward_slot_positions_padded_rows(card):
+    """Padded decoder rows at the training layout, rows ending inside and at
+    the edge of a 64-row cell."""
+    _check_bwd(*_slot_case(card, 3, 640, [640, 333, 128], 14, 2, 128))
+
+
+def test_backward_segments_straddle_tiles(card):
+    """ViT-like packed images whose boundaries fall inside cells, pads
+    attending pads."""
+    sizes = [50, 100, 37, 129, 64]
+    seg = torch.cat([torch.full((n,), i + 1) for i, n in enumerate(sizes)]
+                    + [torch.zeros(20, dtype=torch.long)]).to(card)[None]
+    q, k, v, _ = _case(card, torch.bfloat16, 1, seg.shape[1], seg.shape[1],
+                       4, 4, 72, causal=False, segments=False, mask=False)
+    _check_bwd(q, k, v, dict(causal=False, q_segment_ids=seg,
+                             kv_segment_ids=seg))
+
+
+def test_backward_compressor_regions(card):
+    """Pooled queries against their 4 x 4-patch regions (a region's patches
+    are not contiguous), pads at the end of both sides."""
+    h, w = 28, 44
+    reg = ((torch.arange(h)[:, None] // 4) * (w // 4)
+           + torch.arange(w)[None] // 4).reshape(-1) + 1
+    kv_seg = torch.cat([reg, torch.zeros(40, dtype=torch.long)])[None]
+    q_seg = torch.cat([torch.arange(1, int(reg.max()) + 1),
+                       torch.zeros(11, dtype=torch.long)])[None]
+    q, k, v, _ = _case(card, torch.bfloat16, 1, q_seg.shape[1],
+                       kv_seg.shape[1], 4, 4, 72, causal=False,
+                       segments=False, mask=False)
+    _check_bwd(q, k, v, dict(causal=False, q_segment_ids=q_seg.to(card),
+                             kv_segment_ids=kv_seg.to(card)))
+
+
+def test_backward_head_major_views(card):
+    """q, k, v as strided views of head-major [B, H, T, D] storage."""
+    q, k, v, kw = _case(card, torch.bfloat16, 2, 130, 200, 8, 2, 128,
+                        causal=True, segments=False, mask=True)
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in (q, k, v))
+    _check_bwd(q, k, v, kw)
+
+
+def test_backward_rejects_layouts_tma_cannot_take(card):
+    """bf16: a row stride that is no multiple of 16 bytes (D = 12 packed)
+    and a base that is not 16-byte aligned are refused with a message."""
+    q, k, v, kw = _case(card, torch.bfloat16, 1, 64, 64, 2, 2, 12,
+                        causal=True, segments=False, mask=False)
+    args, flags = fa._prepare(q, k, v, kw["q_positions"], None, None, None,
+                              None, True, None)
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    do = torch.zeros_like(o)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
+    store = torch.zeros(2 * 64 * 16 + 1, dtype=torch.bfloat16, device=card)
+    shifted = store[1:].view(1, 2, 64, 16)
+    q16, k16, v16, _ = _case(card, torch.bfloat16, 1, 64, 64, 2, 2, 16,
+                             causal=True, segments=False, mask=False)
+    a16, f16 = fa._prepare(q16, k16, v16, kw["q_positions"], None, None,
+                           None, None, True, None)
+    o16, lse16 = fa._mha_forward(*a16, **f16, with_lse=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fa._mha_backward(shifted, *a16[1:3], o16, lse16,
+                         torch.zeros_like(lse16), *a16[3:], **f16)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tile_flags_on_card_match_the_rules(card, seed):
+    """The bf16 kernels' cell map as the card computes it equals
+    `_tile_flags` (held against the dense mask by the CPU tests), for random
+    positions, segments, kv masks and ragged lengths, causal or not."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    B = 2
+    Tq, Tk = (int(x) for x in torch.randint(1, 700, (2,), generator=g,
+                                            device=card))
+    ints = (
+        torch.randint(0, Tk, (B, Tq), generator=g, device=card),
+        torch.randint(0, Tk, (B, Tk), generator=g, device=card),
+        torch.randint(0, 3, (B, Tq), generator=g, device=card),
+        torch.randint(0, 3, (B, Tk), generator=g, device=card),
+        (torch.rand((B, Tk), generator=g, device=card) < 0.9),
+    )
+    ints = tuple(x.int().contiguous() for x in ints)
+    if seed % 2:  # slot positions over right-padded rows
+        live = torch.arange(Tk, device=card)[None] < torch.tensor(
+            [[Tk], [Tk // 2 + 1]], device=card)
+        pos = torch.where(live, torch.arange(Tk, device=card)[None], 0).int()
+        ints = (pos, pos, ints[3], ints[3], live.int())
+    for causal in (False, True):
+        for segs in (False, True):
+            got = fa._tile_flags_cuda(*ints, causal, segs)
+            assert torch.equal(got.cpu(), fa._tile_flags(
+                *(x.cpu() for x in ints), causal, segs))
+
+
+def test_backward_is_deterministic_at_decoder_shape(card):
+    """The training decoder's call (B 4, T 2048, 28 / 4 heads, D 128, slot
+    positions): two launches of each kernel give the same bits."""
+    q, k, v, kw = _slot_case(card, 4, 2048, [2048, 1800, 1500, 1153], 28, 4,
+                             128)
+    args, flags = fa._prepare(q, k, v, kw["q_positions"],
+                              kw["kv_positions"], None, None, kw["kv_mask"],
+                              True, None, True)
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    do = torch.randn_like(o)
+    delta = torch.einsum("bhqd,bhqd->bhq", do.float(), o.float()).contiguous()
+    a = fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
+    b = fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
+    for x, y in zip(a, b):
+        assert torch.isfinite(x).all() and torch.equal(x, y)
 
 
 def test_train_step_on_card_matches_cpu(card):
