@@ -9,16 +9,25 @@ Phases (any failure exits non-zero):
      in parallel), with each kernel's registers and spills from ptxas.
   2. The main path's host side at full width (`config.oryx_7b()`, a
      four-request image/multi-image/video/text mix), then each kernel call
-     shape of that path (ViT segments, compressor regions, decoder prefill,
-     decode) run through the kernel and through its plain PyTorch twin on
-     the same bf16 inputs, held to atol = rtol = 1e-2 on the rows callers
-     keep. Median kernel time from CUDA events beside the twin's time, SDPA
+     shape of that path (ViT segments, compressor regions, decoder prefill:
+     K1's wgmma/TMA body over the cell map; decode: its split-KV route) run
+     through the kernel and through its plain PyTorch twin on the same bf16
+     inputs, held to atol = rtol = 1e-2 on the rows callers keep, and
+     against an fp32 witness (the twin on the same inputs upcast): the
+     kernel's relative L2 error at most NOISE_RATIO times the bf16 twin's.
+     Median wrapper time from CUDA events ("ms") beside the kernels'
+     device time per call from torch.profiler ("device_ms": the summed
+     kernel durations, the cell map's or the decode merge's launches
+     included, copies left out: `measure.device_ms`, the median of up to
+     three passes that kept a record of every kernel they launched, with
+     their spread; null when fewer than two did), the twin's time, SDPA
      with a boolean mask as a yardstick, and the least time the card could
      take (bytes / 3.35 TB/s vs flops / 989 TFLOP/s).
   3. `Pipeline.chat_batch` on the mix, greedy, 32 new tokens, random bf16
      weights from torch.Generator("cuda") seeded 0, three times: the tokens
-     must be identical, and the kernel must have launched for every call
-     shape in the first run.
+     must be identical, the kernel must have launched for every call
+     shape in the first run, and every decode call must have taken K1's
+     split-KV decode route.
   4. The same mix with attn_impl="xla" (plain attention); greedy token
      agreement with the kernel path is printed, not asserted. Prefill
      last-token logits of both bf16 paths are held against an fp32 witness
@@ -28,8 +37,8 @@ Phases (any failure exits non-zero):
      rounding noise.
   5. One more chat_batch under torch.profiler (CUDA activity only, so the
      host is barely slowed): device time by kernel family, the top
-     kernels, and the device's idle share inside the trace (1 - union of
-     kernel intervals / the call's wall).
+     kernels, K1's share of the device time, and the device's idle share
+     inside the trace (1 - union of kernel intervals / the call's wall).
   7. The serving engine, `ContinuousScheduler`, at full width on the
      phase-1 weights: 4 slots, 64-token pages, 8-step chunks, max_ctx
      4096, the default 256-page pool, greedy, the prefix cache on (the
@@ -66,9 +75,9 @@ Phases (any failure exits non-zero):
      rows, against their plain twins. K1: atol = rtol = 1e-2 on the
      output, the lse to 1e-3; K5: the relative L2 error of each of dq,
      dk, dv against an fp32 witness (the twins on the same inputs upcast)
-     at most NOISE_RATIO times the bf16 twin's. Times as phase 2; the
-     yardstick is SDPA forward (K1) and forward + backward (K5) with an
-     explicit boolean mask.
+     at most NOISE_RATIO times the bf16 twin's. Times (event and device)
+     as phase 2; the yardstick is SDPA forward (K1) and forward + backward
+     (K5) with an explicit boolean mask.
  10. `Trainer.fit` under scripts/configs/oryx_7b_pretrain.json (stage-1
      projector pretraining, remat "attn", bf16) at full oryx_7b width and
      depth on phase 2's bf16 weights (frozen; the compressor gets fp32
@@ -117,7 +126,6 @@ import dataclasses
 import itertools
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -127,8 +135,6 @@ import torch
 TOL = 1e-2  # kernel vs plain twin, bf16 outputs (atol = rtol)
 NOISE_RATIO = 1.5  # kernel path vs plain path, error against the fp32 witness
 MAX_NEW = 32
-PEAK_FLOPS = 989e12  # H100 SXM dense bf16
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 EOS = 151645
 
 
@@ -169,15 +175,6 @@ def requests():
     ]
 
 
-def gpu_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
 def print_ptxas(log: str) -> None:
     """Each kernel's registers and spills from nvcc's -Xptxas -v lines (the
     entry's name, then its usage), and any wgmma serialization warning."""
@@ -191,22 +188,6 @@ def print_ptxas(log: str) -> None:
             print(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
         elif "registers" in line and entry:
             print(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
-
-
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `iters` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def attention_cases(pipe, reqs, gen):
@@ -260,6 +241,9 @@ def attention_cases(pipe, reqs, gen):
 
 def check_kernel_case(name, kw, keep):
     """Kernel vs plain twin on one call shape; returns the table row."""
+    from oryx_tpu_torch.ops.cuda.measure import (
+        PEAK_BYTES, PEAK_FLOPS, cuda_time_ms, device_ms,
+    )
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
 
     q, k, v = kw["q"], kw["k"], kw["v"]
@@ -269,21 +253,33 @@ def check_kernel_case(name, kw, keep):
         rest.get("kv_segment_ids"), rest.get("kv_mask"), rest["causal"],
         None,
     )
+    decode = sum(fa.LAUNCHES_DECODE.values())
     got = fa.flash_attention(q, k, v, **rest)
+    route = ("split-KV decode" if sum(fa.LAUNCHES_DECODE.values()) > decode
+             else "wgmma/TMA body over the cell map")
     ref = fa._mha_forward_reference(*args, **flags).transpose(1, 2)
+    wit = fa._mha_forward_reference(*(x.float() for x in args[:3]),
+                                    *args[3:], **flags).transpose(1, 2)
     torch.cuda.synchronize()
-    g, r = got[keep].float(), ref[keep].float()
+    g, r, w = got[keep].float(), ref[keep].float(), wit[keep]
     err = (g - r).abs()
     max_err = float(err.max())
+    ek, ep = _rel(g, w), _rel(r, w)
     ok = bool((err <= TOL + TOL * r.abs()).all()) and bool(
         torch.isfinite(g).all()
     )
-    print(f"  {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
-          f"max_abs_err={max_err:.3e} ok={ok}")
+    print(f"  {name} [{route}]: q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"max_abs_err={max_err:.3e} ok={ok}; rel L2 vs fp32 witness "
+          f"kernel {ek:.3e} plain {ep:.3e} (ratio {ek / ep:.3f}, limit "
+          f"{NOISE_RATIO})")
     if not ok:
         raise SystemExit(f"kernel disagrees with its plain twin on {name}")
+    if ek > NOISE_RATIO * ep:
+        raise SystemExit(f"K1 on {name} is further from the fp32 witness "
+                         "than bf16 noise allows")
 
     ms = cuda_time_ms(lambda: fa._mha_forward(*args, **flags), iters=20)
+    dev_t = device_ms(lambda: fa._mha_forward(*args, **flags))
     plain_ms = cuda_time_ms(
         lambda: fa._mha_forward_reference(*args, **flags), iters=3, warmup=1
     )
@@ -318,10 +314,10 @@ def check_kernel_case(name, kw, keep):
         + sum(x.numel() * 4 for x in (q_pos, kv_pos, q_seg, kv_seg, kv_valid))
     )
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"    kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | sdpa "
-          f"{library_ms:.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
-          f"(unmasked pairs {pairs}, {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB)")
+    print(f"    kernel {ms:.4f} ms (device {dev_t}) | plain "
+          f"{plain_ms:.4f} ms | sdpa {library_ms:.4f} ms | bound "
+          f"{max(t_ops, t_bytes):.4f} ms (unmasked pairs {pairs}, "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
     key = (flags["causal"], flags["has_segments"], B, Hq, kp.shape[1], Tq,
            kp.shape[2], D)
     return key, {
@@ -332,6 +328,7 @@ def check_kernel_case(name, kw, keep):
         "launches": 0,
         "max_abs_err": max_err,
         "ms": ms,
+        "device_ms": dev_t.ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -341,7 +338,7 @@ def check_kernel_case(name, kw, keep):
 
 def run_main_path(pipe, reqs, tok):
     """One chat_batch on the mix; returns (replies, counts, timings,
-    tokens, launches, seconds, peak bytes)."""
+    tokens, launches, seconds, peak bytes, decode-route launches)."""
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
 
     torch.cuda.synchronize()
@@ -349,6 +346,7 @@ def run_main_path(pipe, reqs, tok):
     timings: dict = {}
     tok.decoded.clear()
     fa.LAUNCHES.clear()
+    fa.LAUNCHES_DECODE.clear()
     t0 = time.perf_counter()
     replies, counts = pipe.chat_batch(
         reqs, max_new_tokens=MAX_NEW, return_token_counts=True,
@@ -358,7 +356,8 @@ def run_main_path(pipe, reqs, tok):
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
     return (replies, counts, timings, [list(t) for t in tok.decoded],
-            launches, wall, torch.cuda.max_memory_allocated())
+            launches, wall, torch.cuda.max_memory_allocated(),
+            dict(fa.LAUNCHES_DECODE))
 
 
 def prefill_logits(pipe, reqs):
@@ -383,8 +382,10 @@ def prefill_logits(pipe, reqs):
 
 def kernel_family(name: str) -> str:
     n = name.lower()
-    if "flash_fwd" in n:
-        return "flash_fwd (hand-written attention)"
+    if "flash_fwd" in n or "flash_decode" in n:
+        return "flash_fwd K1 (hand-written attention forward)"
+    if "tile_map" in n:
+        return "tile_map (K1/K5 cell map)"
     if "flash_bwd" in n:
         return "flash_bwd K5a/K5b (hand-written attention backward)"
     if "paged_bf16" in n or "paged_f32" in n:
@@ -622,6 +623,9 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     functions the model calls, on q in the recorded layout and the int
     operands as the model passed them, over a bf16 pool or (fmt) an int8 /
     fp8 one; returns the table row."""
+    from oryx_tpu_torch.ops.cuda.measure import (
+        PEAK_BYTES, PEAK_FLOPS, cuda_time_ms, device_ms,
+    )
     from oryx_tpu_torch.ops import paged_kv
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
 
@@ -674,6 +678,7 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain twin")
     ms = cuda_time_ms(kernel, iters=50)
+    dev_t = device_ms(kernel)
     plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
     # Yardstick, two PyTorch calls: gather the rows' pages, then SDPA with
     # an explicit boolean mask (GQA without repeating k/v).
@@ -708,7 +713,8 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     )
     flops = 4.0 * D * Hq * sum(vis_host)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"    kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | gather+sdpa "
+    print(f"    kernel {ms:.4f} ms (device {dev_t}) | plain "
+          f"{plain_ms:.4f} ms | gather+sdpa "
           f"{library_ms:.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
           f"({kv_rows} kv rows read, {flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)")
@@ -724,6 +730,7 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
         "launches": 0,
         "max_abs_err": max_err,
         "ms": ms,
+        "device_ms": dev_t.ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1113,6 +1120,9 @@ def _rel(a, w):
 def check_backward_case(name, kw, gen):
     """K1 with lse, K5a and K5b vs their plain twins at one call shape;
     returns (launch key, [three table rows])."""
+    from oryx_tpu_torch.ops.cuda.measure import (
+        PEAK_BYTES, PEAK_FLOPS, cuda_time_ms, device_ms,
+    )
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
 
     q, k, v = kw["q"], kw["k"], kw["v"]
@@ -1178,12 +1188,18 @@ def check_backward_case(name, kw, gen):
             raise SystemExit(f"K5 {gname} on {name} is further from the fp32 "
                              "witness than bf16 noise allows")
 
-    ms_fwd = cuda_time_ms(
-        lambda: fa._mha_forward(*args, **flags, with_lse=True), iters=10)
-    ms_dq = cuda_time_ms(lambda: fa._mha_backward_dq(
-        *qkv, dot, lse, delta, *ints, **flags), iters=10)
-    ms_dkv = cuda_time_ms(lambda: fa._mha_backward_dkv(
-        *qkv, dot, lse, delta, *ints, **flags), iters=10)
+    def k1():
+        return fa._mha_forward(*args, **flags, with_lse=True)
+
+    def k5a():
+        return fa._mha_backward_dq(*qkv, dot, lse, delta, *ints, **flags)
+
+    def k5b():
+        return fa._mha_backward_dkv(*qkv, dot, lse, delta, *ints, **flags)
+
+    ms_fwd, ms_dq, ms_dkv = (cuda_time_ms(f, iters=10) for f in (k1, k5a, k5b))
+    dev = {kind: device_ms(f) for kind, f in
+           (("fwd", k1), ("dq", k5a), ("dkv", k5b))}
     plain_fwd = cuda_time_ms(lambda: fa._mha_forward_reference(
         *args, **flags, with_lse=True), iters=3, warmup=1)
     plain_bwd = cuda_time_ms(lambda: fa._mha_backward_reference(
@@ -1242,7 +1258,8 @@ def check_backward_case(name, kw, gen):
         flops, nbytes = work[kind]
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        print(f"    {label}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+        print(f"    {label}: kernel {ms:.4f} ms (device {dev[kind]}) "
+              f"| plain {plain_ms:.4f} ms | "
               f"sdpa {'fwd' if kind == 'fwd' else 'fwd+bwd'} {lib_ms:.4f} ms"
               f" | bound {bound:.4f} ms ({flops / 1e9:.2f} "
               f"GFLOP, {nbytes / 1e6:.2f} MB)")
@@ -1261,6 +1278,7 @@ def check_backward_case(name, kw, gen):
             "launches": 0,
             "max_abs_err": mabs,
             "ms": ms,
+            "device_ms": dev[kind].ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1371,9 +1389,12 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
     fams, wall_us = profile_call(
         lambda: step_lib.train_step(t2.state, batch, cfg_t, t2.tx))
     k5 = fams[kernel_family("flash_bwd")]
+    k1 = fams[kernel_family("flash_fwd")]
     print(f"  K5a + K5b in the traced image step: {k5 / 1e3:.1f} ms, "
           f"{k5 / sum(fams.values()):.1%} of its device time, "
-          f"{k5 / wall_us:.1%} of its wall")
+          f"{k5 / wall_us:.1%} of its wall; K1 {k1 / 1e3:.1f} ms, "
+          f"{k1 / sum(fams.values()):.1%}; the cell maps "
+          f"{fams[kernel_family('tile_map')] / 1e3:.1f} ms")
     del fits, trainer, t2, batch
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
 
@@ -1456,6 +1477,7 @@ def main() -> int:
     from oryx_tpu_torch import config
     from oryx_tpu_torch.models import oryx
     from oryx_tpu_torch.ops.cuda import build
+    from oryx_tpu_torch.ops.cuda.measure import gpu_line
     from oryx_tpu_torch.serve.pipeline import Pipeline
 
     # ---- 1. card and build ------------------------------------------------
@@ -1503,7 +1525,7 @@ def main() -> int:
     print(f"phase 3: Pipeline.chat_batch, oryx_7b bf16, greedy, "
           f"max_new_tokens={MAX_NEW} ({card})", flush=True)
     results = [run_main_path(pipe, reqs, tok) for _ in range(3)]
-    for i, (replies, counts, tim, toks, launches, wall, peak) in enumerate(
+    for i, (replies, counts, tim, toks, launches, wall, peak, _) in enumerate(
         results
     ):
         steps = tim["decode_steps"]
@@ -1530,6 +1552,15 @@ def main() -> int:
                              "main path")
     if sum(launches.values()) != sum(launches.get(k, 0) for k in set(keys)):
         raise SystemExit(f"launches outside the checked shapes: {launches}")
+    # Every Tq = 1 call (the decode steps) took the split-KV decode route,
+    # and no other call did.
+    decode_keys = {k for k in launches if k[5] == 1}
+    routed = results[0][7]
+    if not decode_keys or routed != {k: launches[k] for k in decode_keys}:
+        raise SystemExit(f"decode calls {launches} vs decode-route launches "
+                         f"{routed}")
+    print(f"  decode route: {sum(routed.values())} of the "
+          f"{sum(launches[k] for k in decode_keys)} Tq = 1 calls")
 
     # ---- 4. the plain attention path --------------------------------------
     cfg_x = dataclasses.replace(cfg, attn_impl="xla")
@@ -1578,7 +1609,12 @@ def main() -> int:
     walls = [f"{r[5]:.3f}" for r in results]
     print(f"phase 5: chat_batch under torch.profiler ({card}); unprofiled "
           f"walls of phase 3: {walls} s", flush=True)
-    profile_call(lambda: pipe.chat_batch(reqs, max_new_tokens=MAX_NEW))
+    fams, wall_us = profile_call(
+        lambda: pipe.chat_batch(reqs, max_new_tokens=MAX_NEW))
+    k1 = fams[kernel_family("flash_fwd")] + fams[kernel_family("tile_map")]
+    print(f"  K1 (with its cell map) in the traced call: {k1 / 1e3:.1f} ms, "
+          f"{k1 / sum(fams.values()):.1%} of its device time, "
+          f"{k1 / wall_us:.1%} of its wall")
 
     # ---- 7. the serving engine at full width ------------------------------
     print(f"phase 7: ContinuousScheduler, oryx_7b bf16, greedy, {SERVE}, "

@@ -36,9 +36,10 @@
 //     K5b) beside them; two consumer warpgroups share every streamed tile.
 //     K5a's dq += ds.k of a tile runs while the next tile's s and dp are
 //     issued, its stage released after the next wait;
-//   * skipping without per-tile syncs: two small kernels compute, once per
-//     call, which 64 x 64 (q, kv) cells are dead, partial or fully visible
-//     (the rules of `_tile_flags` in ops/cuda/flash_attention.py), and each
+//   * skipping without per-tile syncs: two small kernels (csrc/tile_map.cuh,
+//     shared with the forward) compute, once per call, which 64 x 64 (q, kv)
+//     cells are dead, partial or fully visible (the rules of `_tile_flags`
+//     in ops/cuda/flash_attention.py), and each
 //     block copies its cells into shared memory. Dead tiles are never
 //     loaded (with arange or slot positions this is the causal clamp), and
 //     a fully visible cell skips the per-element mask;
@@ -66,7 +67,8 @@
 // Layouts: q/dO/dq are [B, Hq, Tq, D] and k/v/dk/dv [B, Hk, Tk, D] given by
 // element strides (batch, head, token) with the feature dim contiguous; kv
 // head of q head h is h / (Hq / Hk). bf16 operands must have 16-byte
-// aligned bases and strides (TMA); the wrapper checks. Rows past Tq/Tk are
+// aligned bases and strides (TMA): the wrapper copies any other operand into
+// storage whose rows are padded to 8 elements. Rows past Tq/Tk are
 // handled in the kernel: kv rows past Tk are invalid, q rows past Tq add
 // nothing and are never stored.
 
@@ -78,6 +80,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tile_map.cuh"
 
 namespace {
 
@@ -233,125 +236,14 @@ struct BwdArgs {
   Params p;
 };
 
-// Bytes of a [ROWS][64 NS + 16 TL] tile: NS sub-tiles of 64 columns, then
-// TL tails of 16.
-template <int NS, int TL, int ROWS>
-struct Tile {
-  static constexpr int MAIN = ROWS * 128;
-  static constexpr int BYTES = NS * MAIN + TL * ROWS * 32;
-};
-
-template <int NS, int TL, int ROWS>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const CUtensorMap* main,
-                                          const CUtensorMap* tail,
-                                          uint64_t* bar, int row0, int h,
-                                          int b) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-    hopper::tma_load_4d(dst + j * Tile<NS, TL, ROWS>::MAIN, main, bar,
-                        64 * j, row0, h, b);
-  if (TL)
-    hopper::tma_load_4d(dst + NS * Tile<NS, TL, ROWS>::MAIN, tail, bar,
-                        64 * NS, row0, h, b);
-}
-
-// d[64 x 64] = A . B^T over the full width, A = rows a0.. of a tile of
-// `arows` rows at shared address `a`, B = rows b0.. of a tile of `brows`
-// rows at `b`: both K-major. Issues the wgmmas; the caller fences, commits
-// and waits.
-template <int NS, int TL>
-__device__ __forceinline__ void mma_rows(float (&d)[32], uint32_t a,
-                                         int arows, int a0, uint32_t b,
-                                         int brows, int b0) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_ss_n64(
-          d,
-          hopper::desc(a + j * arows * 128 + a0 * 128 + 32 * kk, 1024,
-                       hopper::SW128),
-          hopper::desc(b + j * brows * 128 + b0 * 128 + 32 * kk, 1024,
-                       hopper::SW128),
-          j | kk);
-  if (TL)
-    hopper::wgmma_ss_n64(
-        d, hopper::desc(a + NS * arows * 128 + a0 * 32, 256, hopper::SW32),
-        hopper::desc(b + NS * brows * 128 + b0 * 32, 256, hopper::SW32), NS);
-}
-
-// acc[64 x width] += X . Y, X [64 x 64] given as four m64k16 A fragments,
-// Y = rows y0 .. y0 + 63 of a tile of `yrows` rows at `y`, read MN-major.
-template <int NS, int TL>
-__device__ __forceinline__ void mma_acc(float (&am)[NS > 0 ? NS : 1][32],
-                                        float (&at)[8],
-                                        const uint32_t (&x)[4][4], uint32_t y,
-                                        int yrows, int y0) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-      hopper::wgmma_rs_n64(
-          am[j], x[kk],
-          hopper::desc(y + j * yrows * 128 + (y0 + 16 * kk) * 128, 1024,
-                       hopper::SW128));
-    if (TL)
-      hopper::wgmma_rs_n16(
-          at, x[kk],
-          hopper::desc(y + NS * yrows * 128 + (y0 + 16 * kk) * 32, 256,
-                       hopper::SW32));
-  }
-}
-
-template <int NS, int TL>
-__device__ __forceinline__ void fence_acc(float (&am)[NS > 0 ? NS : 1][32],
-                                          float (&at)[8]) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j) hopper::fence_regs(am[j]);
-  if (TL) hopper::fence_regs(at);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* row, int c, float x,
-                                       float y, int D) {
-  if (c + 1 < D && (D & 1) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x, y);
-  } else {
-    if (c < D) row[c] = __float2bfloat16(x);
-    if (c + 1 < D) row[c + 1] = __float2bfloat16(y);
-  }
-}
-
-// Store a warpgroup's [64 x width] accumulator: this thread's rows r0 and
-// r0 + 8 (when < T) of a [T, D] slab with row stride `rs`.
-template <int NS, int TL>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* out, long long rs,
-                                          float (&am)[NS > 0 ? NS : 1][32],
-                                          float (&at)[8], int r0, int T,
-                                          int D, int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 8 * i;
-    if (row >= T) continue;
-    __nv_bfloat16* o = out + row * rs;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        store2(o, 64 * j + 8 * n + 2 * t, am[j][4 * n + 2 * i],
-               am[j][4 * n + 2 * i + 1], D);
-    if (TL)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-        store2(o, 64 * NS + 8 * n + 2 * t, at[4 * n + 2 * i],
-               at[4 * n + 2 * i + 1], D);
-  }
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
+// The tile helpers of csrc/hopper.cuh, shared with the forward.
+using hopper::align1024;
+using hopper::fence_acc;
+using hopper::load_tile;
+using hopper::mma_acc;
+using hopper::mma_rows;
+using hopper::store_acc;
+using hopper::Tile;
 
 // ---- K5a bf16: dq. 128 q rows a block, 64-row K/V tiles streamed. ---------
 
@@ -959,103 +851,6 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(const Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 kernels' cell map, on the card: the rules of `_tile_flags` in
-// ops/cuda/flash_attention.py (which the CPU tests hold against the dense
-// mask). One warp per 64-row tile writes its stats (any live, all live,
-// position min/max, segment min, the smallest segment above it, segment
-// max over the live rows), then one thread per (q, kv) cell reads two.
-// ---------------------------------------------------------------------------
-
-constexpr int NSTAT = 7;
-
-__global__ void tile_stats(const Params p, int* stats) {
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31, per = p.nqt + p.nkt;
-  if (w >= p.B * per) return;
-  const int b = w / per, tile = w % per;
-  const bool kv = tile >= p.nqt;
-  const int T = kv ? p.Tk : p.Tq, row0 = (kv ? tile - p.nqt : tile) * 64;
-  const int* pos = kv ? p.kv_pos : p.q_pos;
-  const int* seg = kv ? p.kv_seg : p.q_seg;
-  int any = 0, all = 1, pmin = INT_MAX, pmax = INT_MIN, smin = INT_MAX,
-      smax = INT_MIN;
-  for (int r = lane; r < 64; r += 32) {
-    const int row = row0 + r;
-    const long long at = (long long)b * T + row;
-    if (row < T && (!kv || p.kv_valid[at] > 0)) {
-      any = 1;
-      pmin = min(pmin, pos[at]);
-      pmax = max(pmax, pos[at]);
-      smin = min(smin, seg[at]);
-      smax = max(smax, seg[at]);
-    } else {
-      all = 0;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    any |= __shfl_xor_sync(0xffffffffu, any, off);
-    all &= __shfl_xor_sync(0xffffffffu, all, off);
-    pmin = min(pmin, __shfl_xor_sync(0xffffffffu, pmin, off));
-    pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, off));
-    smin = min(smin, __shfl_xor_sync(0xffffffffu, smin, off));
-    smax = max(smax, __shfl_xor_sync(0xffffffffu, smax, off));
-  }
-  // The smallest segment above the minimum, over the same rows.
-  int smin2 = INT_MAX;
-  for (int r = lane; r < 64; r += 32) {
-    const int row = row0 + r;
-    const long long at = (long long)b * T + row;
-    if (row < T && (!kv || p.kv_valid[at] > 0) && seg[at] > smin)
-      smin2 = min(smin2, seg[at]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    smin2 = min(smin2, __shfl_xor_sync(0xffffffffu, smin2, off));
-  if (lane == 0) {
-    int* o = stats + (long long)w * NSTAT;
-    o[0] = any, o[1] = all, o[2] = pmin, o[3] = pmax, o[4] = smin,
-    o[5] = smin2, o[6] = smax;
-  }
-}
-
-__global__ void tile_flags(const Params p, const int* stats,
-                           signed char* flags) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long cells = (long long)p.nqt * p.nkt;
-  if (i >= p.B * cells) return;
-  const int b = i / cells, qt = (i % cells) / p.nkt, kt = i % p.nkt;
-  const int* qs = stats + ((long long)b * (p.nqt + p.nkt) + qt) * NSTAT;
-  const int* ks =
-      stats + ((long long)b * (p.nqt + p.nkt) + p.nqt + kt) * NSTAT;
-  bool meet = qs[0] && ks[0], full = qs[1] && ks[1];
-  if (p.causal) {
-    meet = meet && ks[2] <= qs[3];
-    full = full && ks[3] <= qs[2];
-  }
-  if (p.has_segments) {
-    // {a} + [a2, A] meets {b} + [b2, B] (an empty interval when a2 > A).
-    const int a = qs[4], a2 = qs[5], A = qs[6], b = ks[4], b2 = ks[5],
-              B = ks[6];
-    meet = meet && (a == b || (a >= b2 && a <= B) || (b >= a2 && b <= A) ||
-                    (a2 <= B && b2 <= A && a2 <= A && b2 <= B));
-    full = full && a == A && b == B && a == b;
-  }
-  flags[i] = meet ? (full ? 2 : 1) : 0;
-}
-
-// `scratch` holds the stats ([B, nqt + nkt, 7] int32) and then the cell map
-// ([B, nqt, nkt] int8) that p.tiles points to.
-cudaError_t launch_tiles(const Params& p, int* scratch, cudaStream_t s) {
-  const long long tiles_n = (long long)p.B * (p.nqt + p.nkt);
-  const long long cells = (long long)p.B * p.nqt * p.nkt;
-  tile_stats<<<(tiles_n + 7) / 8, 256, 0, s>>>(p, scratch);
-  tile_flags<<<(cells + 255) / 256, 256, 0, s>>>(
-      p, scratch, const_cast<signed char*>(p.tiles));
-  return cudaGetLastError();
-}
-
 template <typename Kernel, typename Arg>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
                    const Arg& arg, cudaStream_t stream) {
@@ -1224,23 +1019,15 @@ Params make_params(const void* q, const void* k, const void* v,
     return FN(p, static_cast<cudaStream_t>(stream));                         \
   }
 
-// The cell map of the bf16 kernels into `scratch` (int32 stats of
-// B * (nqt + nkt) 64-row tiles, 7 each, then the int8 [B, nqt, nkt] map).
+// The cell map of the bf16 kernels (csrc/tile_map.cuh).
 extern "C" int oryx_flash_bwd_tiles(const void* q_pos, const void* kv_pos,
                                     const void* q_seg, const void* kv_seg,
                                     const void* kv_valid, void* scratch,
                                     int B, int Tq, int Tk, int causal,
                                     int has_segments, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
-  const int nqt = (Tq + 63) / 64, nkt = (Tk + 63) / 64;
-  const long long nstat = (long long)B * (nqt + nkt) * NSTAT;
-  int* st = static_cast<int*>(scratch);
-  static const long long no_strides[21] = {};
-  const Params p = make_params(
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, no_strides, q_pos, kv_pos, q_seg, kv_seg, kv_valid, B, 1, 1, Tq,
-      Tk, 1, 1.f, causal, has_segments, 0, st + nstat, nqt, nkt);
-  return launch_tiles(p, st, static_cast<cudaStream_t>(stream));
+  return tile_map::build(q_pos, kv_pos, q_seg, kv_seg, kv_valid, scratch, B,
+                         Tq, Tk, causal, has_segments,
+                         static_cast<cudaStream_t>(stream));
 }
 
 ORYX_BWD_ENTRY(oryx_flash_bwd_dq_bf16, dq_bf16)

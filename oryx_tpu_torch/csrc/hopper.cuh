@@ -120,6 +120,10 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// All but the most recently committed group complete.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
 // Keep the compiler from moving accesses of accumulator registers across
 // the asynchronous wgmma boundaries.
@@ -200,6 +204,132 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
+
+// ---- tiles -----------------------------------------------------------------
+// A [ROWS][width] bf16 tile in the layout above, loaded by TMA boxes and
+// multiplied by wgmma a warpgroup at a time (the flash forward and the
+// backward kernels share these).
+
+// Bytes of a [ROWS][64 NS + 16 TL] tile: NS sub-tiles of 64 columns, then
+// TL tails of 16.
+template <int NS, int TL, int ROWS>
+struct Tile {
+  static constexpr int MAIN = ROWS * 128;
+  static constexpr int BYTES = NS * MAIN + TL * ROWS * 32;
+};
+
+template <int NS, int TL, int ROWS>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* main,
+                                          const CUtensorMap* tail,
+                                          uint64_t* bar, int row0, int h,
+                                          int b) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    tma_load_4d(dst + j * Tile<NS, TL, ROWS>::MAIN, main, bar,
+                        64 * j, row0, h, b);
+  if (TL)
+    tma_load_4d(dst + NS * Tile<NS, TL, ROWS>::MAIN, tail, bar,
+                        64 * NS, row0, h, b);
+}
+
+// d[64 x 64] = A . B^T over the full width, A = rows a0.. of a tile of
+// `arows` rows at shared address `a`, B = rows b0.. of a tile of `brows`
+// rows at `b`: both K-major. Issues the wgmmas; the caller fences, commits
+// and waits.
+template <int NS, int TL>
+__device__ __forceinline__ void mma_rows(float (&d)[32], uint32_t a,
+                                         int arows, int a0, uint32_t b,
+                                         int brows, int b0) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(
+          d,
+          desc(a + j * arows * 128 + a0 * 128 + 32 * kk, 1024,
+                       SW128),
+          desc(b + j * brows * 128 + b0 * 128 + 32 * kk, 1024,
+                       SW128),
+          j | kk);
+  if (TL)
+    wgmma_ss_n64(
+        d, desc(a + NS * arows * 128 + a0 * 32, 256, SW32),
+        desc(b + NS * brows * 128 + b0 * 32, 256, SW32), NS);
+}
+
+// acc[64 x width] += X . Y, X [64 x 64] given as four m64k16 A fragments,
+// Y = rows y0 .. y0 + 63 of a tile of `yrows` rows at `y`, read MN-major.
+template <int NS, int TL>
+__device__ __forceinline__ void mma_acc(float (&am)[NS > 0 ? NS : 1][32],
+                                        float (&at)[8],
+                                        const uint32_t (&x)[4][4], uint32_t y,
+                                        int yrows, int y0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      wgmma_rs_n64(
+          am[j], x[kk],
+          desc(y + j * yrows * 128 + (y0 + 16 * kk) * 128, 1024,
+                       SW128));
+    if (TL)
+      wgmma_rs_n16(
+          at, x[kk],
+          desc(y + NS * yrows * 128 + (y0 + 16 * kk) * 32, 256,
+                       SW32));
+  }
+}
+
+template <int NS, int TL>
+__device__ __forceinline__ void fence_acc(float (&am)[NS > 0 ? NS : 1][32],
+                                          float (&at)[8]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) fence_regs(am[j]);
+  if (TL) fence_regs(at);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* row, int c, float x,
+                                       float y, int D) {
+  if (c + 1 < D && (D & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (c < D) row[c] = __float2bfloat16(x);
+    if (c + 1 < D) row[c + 1] = __float2bfloat16(y);
+  }
+}
+
+// Store a warpgroup's [64 x width] accumulator: this thread's rows r0 and
+// r0 + 8 (when < T) of a [T, D] slab with row stride `rs`.
+template <int NS, int TL>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, long long rs,
+                                          float (&am)[NS > 0 ? NS : 1][32],
+                                          float (&at)[8], int r0, int T,
+                                          int D, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= T) continue;
+    __nv_bfloat16* o = out + row * rs;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        store2(o, 64 * j + 8 * n + 2 * t, am[j][4 * n + 2 * i],
+               am[j][4 * n + 2 * i + 1], D);
+    if (TL)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        store2(o, 64 * NS + 8 * n + 2 * t, at[4 * n + 2 * i],
+               at[4 * n + 2 * i + 1], D);
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
 
 // ---- host: tensor maps -----------------------------------------------------
 

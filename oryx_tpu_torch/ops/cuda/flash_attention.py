@@ -4,7 +4,11 @@ Port of the Pallas TPU kernels of `oryx_tpu.ops.pallas.flash_attention`:
 the forward K1 (`csrc/flash_attention.cu`, with or without the per-row
 logsumexp the backward needs) and the backward K5a/K5b
 (`csrc/flash_attention_bwd.cu`: dq, and dk/dv). See the sources' headers for
-what bounds them and how they are laid out.
+what bounds them and how they are laid out. K1 has three routes: a bf16
+call with one query row (the dense-cache decode step) runs the split-KV
+decode kernel and its merge (`_decode_splits` picks the splits); any other
+bf16 call the wgmma/TMA body over the per-call cell map (`_tile_flags`,
+built on the card by `_tile_flags_cuda`); fp32 the FMA kernel.
 
 `flash_attention` has the JAX wrapper's signature and masking model. Its
 layout step (`_prepare`: [B, T, H, D] -> [B, H, T, D] views, the int32
@@ -25,7 +29,12 @@ recomputing it.
 
 Rows past the sequence ends need no padding in memory: the kernel treats kv
 rows past Tk as invalid (the Pallas pad convention: kv segment -2, invalid)
-and never stores q rows past Tq.
+and never stores q rows past Tq. The bf16 kernels read with TMA or
+16-byte `cp.async`, which need 16-byte aligned bases and strides; an
+operand that has neither (a head dim of 12 packed in one projection, a
+shifted base) is copied first into storage whose rows are padded to a
+multiple of 8 elements (`_tma_operand`), so every head dim the JAX
+reference takes runs.
 """
 
 from __future__ import annotations
@@ -42,14 +51,39 @@ NEG = -0.7 * FLT_MAX
 
 # Kernel launches, keyed by call shape (causal, has_segments, B, Hq, Hk, Tq,
 # Tk, D), one counter per kernel: K1 (inference), K1 writing the logsumexp,
-# K5a (dq) and K5b (dk/dv). Only the launchers add to them, once per launch.
+# K5a (dq) and K5b (dk/dv). Only the launchers add to them, once per wrapper
+# call (K1's decode route is two CUDA launches, its other bf16 route three
+# with the cell map: one count). LAUNCHES_DECODE counts the K1 calls, with
+# or without the logsumexp, that took the split-KV decode route.
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_DECODE: collections.Counter = collections.Counter()
 LAUNCHES_LSE: collections.Counter = collections.Counter()
 LAUNCHES_DQ: collections.Counter = collections.Counter()
 LAUNCHES_DKV: collections.Counter = collections.Counter()
 
 _DT = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _fns: dict[str, object] = {}
+
+
+_I, _P = ctypes.c_int, ctypes.c_void_p
+# Argument types of each entry point after its leading pointers.
+_ARGTYPES = {
+    # q k v o lse strides, 5 ints, scratch; B Hq Hk Tq Tk D; scale;
+    # causal has_segments kv_arange splits tps wgs; stream
+    "oryx_flash_fwd_bf16": [_P] * 12 + [_I] * 6 + [ctypes.c_float]
+    + [_I] * 6 + [_P],
+    # q k v o lse strides, 5 ints; B Hq Hk Tq Tk D; scale; causal
+    # has_segments kv_arange vec; stream
+    "oryx_flash_fwd_f32": [_P] * 11 + [_I] * 6 + [ctypes.c_float]
+    + [_I] * 4 + [_P],
+    "oryx_flash_bwd_tiles": [_P] * 6 + [_I] * 5 + [_P],
+}
+for _k in ("dq", "dkv"):
+    for _d in ("bf16", "f32"):
+        # q k v do lse delta dq dk dv strides, 5 ints, tiles; B Hq Hk Tq Tk
+        # D; scale; causal has_segments kv_arange nqt nkt; stream
+        _ARGTYPES[f"oryx_flash_bwd_{_k}_{_d}"] = (
+            [_P] * 16 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P])
 
 
 def _kernel_fn(entry: str):
@@ -60,17 +94,7 @@ def _kernel_fn(entry: str):
         fwd = entry.startswith("oryx_flash_fwd")
         lib = build.load("flash_attention" if fwd else "flash_attention_bwd")
         fn = getattr(lib, entry)
-        if entry == "oryx_flash_bwd_tiles":
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p])
-        else:
-            fn.argtypes = (
-                [ctypes.c_void_p] * (11 if fwd else 16)
-                + [ctypes.c_int] * 6
-                + [ctypes.c_float]
-                + [ctypes.c_int] * (4 if fwd else 5)
-                + [ctypes.c_void_p]
-            )
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
         _fns[entry] = fn
     return fn
@@ -124,35 +148,107 @@ def _check_operands(q, k, v, q_pos, kv_pos, q_seg, kv_seg, kv_valid,
         _check_ints(name, x, B, Tk, dev)
 
 
-def _launch(entry: str, views, ptrs, ints, q, k, flags) -> None:
-    """Call one forward kernel entry: `views` are the [B, H, T, D] operands
-    whose (batch, head, token) strides it takes, `ptrs` the other pointers
-    before the strides, `ints` the five int32 arrays."""
-    B, Hq, Tq, D = q.shape
-    _, Hk, Tk, _ = k.shape
-    strides = [s for x in views for s in x.stride()[:3]]
-    # 16-byte vector loads need 16-byte aligned rows.
-    per16 = 16 // q.element_size()
-    vec = int(
-        D % per16 == 0
-        and all(s % per16 == 0 for s in strides)
-        and all(x.data_ptr() % 16 == 0 for x in views)
-    )
-    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_fn(entry)(
-            *ptrs, ctypes.addressof(stride_arr),
-            *(x.data_ptr() for x in ints),
-            B, Hq, Hk, Tq, Tk, D, float(flags["scale"]),
-            int(flags["causal"]), int(flags["has_segments"]),
-            int(flags["kv_arange"]), vec, stream,
-        )
+def _raise_on(err: int, entry: str, q, k) -> None:
     if err != 0:
         raise RuntimeError(
             f"{entry} launch failed: CUDA error {err} "
             f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})"
         )
+
+
+def _call(fn, dev, *args):
+    """fn(*args, stream) on `dev`'s current stream, making `dev` the current
+    device only when it is not (entering torch.cuda.device costs several
+    microseconds a call, and the decode step calls K1 once a layer)."""
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    # The raw handle, without building a torch.cuda.Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == cur:
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)
+
+
+def _strides(views):
+    strides = [s for x in views for s in x.stride()[:3]]
+    return strides, (ctypes.c_longlong * len(strides))(*strides)
+
+
+# Rows of a K1/K5 cell: a 64-row q or kv tile.
+TILE = 64
+# Blocks per SM the decode route's splits aim for (a few waves of live
+# blocks at a decode step's lengths).
+DECODE_BLOCKS_PER_SM = 4
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _decode_splits(B: int, groups: int, Tk: int, sm_count: int):
+    """(splits, tiles per split) of the split-KV decode: the ceil(Tk / 64)
+    kv tiles of a row are cut into `splits` contiguous ranges of `tiles per
+    split` tiles (the last one shorter), split s taking tiles
+    [s * tps, min((s + 1) * tps, ceil(Tk / 64))). `groups` is the number of
+    (kv head, 16-head chunk) blocks of a row. The count aims at
+    DECODE_BLOCKS_PER_SM blocks per SM over the B * groups (row, group)
+    pairs, at least one tile a split. The kernel clips each range at the
+    causal end of its row, so splits past a short row exit at once."""
+    nk = -(-Tk // TILE)
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count // max(1, B * groups))
+    splits = max(1, min(nk, want, 65535))
+    tps = -(-nk // splits)
+    return -(-nk // tps), tps
+
+
+def _fwd_warpgroups(B: int, Hq: int, Tq: int, sm_count: int) -> int:
+    """Consumer warpgroups of a block of K1's wgmma body (64 q rows each):
+    two, unless a grid of 128-row blocks would not fill the card four times
+    over (the compressor's few hundred queries); then one, at two blocks an
+    SM and twice the blocks."""
+    return 2 if B * Hq * -(-Tq // 128) >= 4 * sm_count else 1
+
+
+def _tma_ok(x: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' TMA (and 16-byte `cp.async`) can read the
+    [B, H, T, D] view x: a 16-byte aligned base and (batch, head, token)
+    strides of a multiple of 8 elements, 16 bytes of bf16 (dims of extent 1
+    excepted)."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st % 8 == 0 for n, st in zip(x.shape[:3], x.stride()[:3])
+    )
+
+
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """x, or, when TMA cannot read it (`_tma_ok`), its values in fresh
+    [B, T, H, Dp] storage, Dp = D rounded up to a multiple of 8, the
+    columns past D zero; returned as the [B, H, T, D] view of that storage.
+    The kernels read the columns past D of a row as zero in any case (TMA's
+    fill, zero chunks of `cp.async`), and zero columns change neither q.k
+    nor the kept columns of any output; the softmax scale stays D^-0.5 of
+    the caller's D (`_prepare` computes it and passes it on)."""
+    if _tma_ok(x):
+        return x
+    B, H, T, D = x.shape
+    store = x.new_zeros((B, T, H, D + (-D % 8)))
+    store[..., :D].copy_(x.transpose(1, 2))
+    return store.transpose(1, 2)[..., :D]
+
+
+def _check_tma(named) -> None:
+    """Internal check after `_tma_operand`: every bf16 operand is one TMA
+    can read."""
+    for name, x in named:
+        if not _tma_ok(x):
+            raise RuntimeError(
+                f"{name}: strides {x.stride()} at base offset "
+                f"{x.data_ptr() % 16} mod 16 reached a TMA kernel unpadded"
+            )
 
 
 def _mha_forward(
@@ -180,15 +276,51 @@ def _mha_forward(
         torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
         if with_lse else None
     )
-    flags = dict(causal=causal, has_segments=has_segments,
-                 kv_arange=kv_arange, scale=scale)
-    _launch(
-        f"oryx_flash_fwd_{_DT[q.dtype]}", (q, k, v, o),
-        (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-         None if lse is None else lse.data_ptr()),
-        ints, q, k, flags,
-    )
     key = (causal, has_segments, B, Hq, Hk, Tq, Tk, D)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    ints_ptrs = tuple(x.data_ptr() for x in ints)
+    flag_ints = (int(causal), int(has_segments), int(kv_arange))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_operand(x) for x in (q, k, v))
+        _check_tma((("q", q), ("k", k), ("v", v)))
+        splits = tps = wgs = 0
+        if Tq == 1:  # the split-KV decode route: fp32 partials
+            G = Hq // Hk
+            ng = -(-G // 16)
+            splits, tps = _decode_splits(B, Hk * ng, Tk, _sm_count(dev))
+            nbytes = 4 * B * Hk * ng * splits * min(G, 16) * (2 + D)
+        else:  # the wgmma body: the cell map, built by the same call
+            nq, nk = -(-Tq // TILE), -(-Tk // TILE)
+            nbytes = B * (nq + nk) * 7 * 4 + B * nq * nk
+            wgs = _fwd_warpgroups(B, Hq, Tq, _sm_count(dev))
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        _, stride_arr = _strides((q, k, v, o))
+        entry = "oryx_flash_fwd_bf16"
+        err = _call(
+            _kernel_fn(entry), dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
+            ctypes.addressof(stride_arr), *ints_ptrs, scratch.data_ptr(),
+            B, Hq, Hk, Tq, Tk, D, float(scale), *flag_ints, splits, tps, wgs,
+        )
+        if Tq == 1 and err == 0:
+            LAUNCHES_DECODE[key] += 1
+    else:
+        strides, stride_arr = _strides((q, k, v, o))
+        # 16-byte vector loads need 16-byte aligned rows.
+        per16 = 16 // q.element_size()
+        vec = int(
+            D % per16 == 0
+            and all(s % per16 == 0 for s in strides)
+            and all(x.data_ptr() % 16 == 0 for x in (q, k, v, o))
+        )
+        entry = "oryx_flash_fwd_f32"
+        err = _call(
+            _kernel_fn(entry), dev,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
+            ctypes.addressof(stride_arr), *ints_ptrs,
+            B, Hq, Hk, Tq, Tk, D, float(scale), *flag_ints, vec,
+        )
+    _raise_on(err, entry, q, k)
     if with_lse:
         LAUNCHES_LSE[key] += 1
         return o, lse
@@ -214,9 +346,6 @@ def _mha_backward_dkv(q, k, v, do, lse, delta, *ints, **flags):
     return _bwd_launch("dkv", q, k, v, do, lse, delta, *ints, **flags)[1:]
 
 
-# Rows of a cell of the backward kernels' tile map: each bf16 kernel's
-# warpgroup owns 64 rows and every streamed tile has 64.
-TILE = 64
 _IMAX = torch.iinfo(torch.int32).max
 _IMIN = torch.iinfo(torch.int32).min
 
@@ -252,10 +381,10 @@ def _tile_stats(pos, seg, live):
 
 def _tile_flags(q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
                 has_segments):
-    """The backward kernels' skip rules: int8 [B, nq, nk] over 64 x 64
-    (q, kv) cells, 0 where no pair of the cell is visible (the kernels never
-    load or visit it), 2 where every pair is (they skip the per-element
-    mask), 1 otherwise. A cell meets when both tiles have a live row, the
+    """The bf16 kernels' skip rules (K1 with Tq > 1, K5a, K5b): int8
+    [B, nq, nk] over 64 x 64 (q, kv) cells, 0 where no pair of the cell is
+    visible (the kernels never load or visit it), 2 where every pair is
+    (they skip the per-element mask), 1 otherwise. A cell meets when both tiles have a live row, the
     causal ranges overlap (the smallest kv position is at most the largest
     q position) and the segment sets can meet (each tile's segments lie in
     {min} and [second smallest, max]); it is full when every row of both
@@ -298,44 +427,27 @@ def _tile_flags(q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
 
 def _tile_flags_cuda(q_pos, kv_pos, q_seg, kv_seg, kv_valid, causal,
                      has_segments):
-    """`_tile_flags` computed on the card (two small launches, one call):
-    the same int8 [B, nq, nk] map, a view into a scratch buffer that also
-    holds the per-tile stats."""
+    """`_tile_flags` computed on the card for K5a/K5b (two small launches,
+    one call into the backward's library): the same int8 [B, nq, nk] map,
+    a view into a scratch buffer that also holds the per-tile stats. K1's
+    entry point builds the same map (csrc/tile_map.cuh) itself, in the call
+    that launches it."""
     B, Tq = q_pos.shape
     Tk = kv_pos.shape[1]
     nq, nk = -(-Tq // TILE), -(-Tk // TILE)
     nstat = B * (nq + nk) * 7 * 4
     dev = q_pos.device
     buf = torch.empty(nstat + B * nq * nk, dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernel_fn("oryx_flash_bwd_tiles")(
-            q_pos.data_ptr(), kv_pos.data_ptr(), q_seg.data_ptr(),
-            kv_seg.data_ptr(), kv_valid.data_ptr(), buf.data_ptr(), B, Tq,
-            Tk, int(causal), int(has_segments),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    entry = "oryx_flash_bwd_tiles"
+    err = _call(
+        _kernel_fn(entry), dev,
+        q_pos.data_ptr(), kv_pos.data_ptr(), q_seg.data_ptr(),
+        kv_seg.data_ptr(), kv_valid.data_ptr(), buf.data_ptr(), B, Tq, Tk,
+        int(causal), int(has_segments),
+    )
     if err != 0:
-        raise RuntimeError(f"oryx_flash_bwd_tiles failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return buf[nstat:].view(B, nq, nk)
-
-
-def _check_tma(named) -> None:
-    """Raise unless TMA can read each bf16 operand: a 16-byte aligned base
-    and (batch, head, token) strides that are multiples of 16 bytes (dims of
-    extent 1 excepted)."""
-    for name, x in named:
-        bad = [
-            d for d, (n, st) in enumerate(zip(x.shape[:3], x.stride()[:3]))
-            if n > 1 and (st * x.element_size()) % 16
-        ]
-        if x.data_ptr() % 16 or bad:
-            raise ValueError(
-                f"{name}: the bf16 backward kernels read with TMA and need a "
-                f"16-byte aligned base and (batch, head, token) strides of "
-                f"a multiple of 16 bytes; got strides {x.stride()} "
-                f"(elements) at base offset {x.data_ptr() % 16} mod 16. "
-                "Pad the feature dim to a multiple of 8 in storage."
-            )
 
 
 def _bwd_launch(
@@ -347,9 +459,10 @@ def _bwd_launch(
     scale: float,
 ):
     """Launch K5a (which="dq") or K5b ("dkv"). Layouts as `_mha_forward`,
-    plus do [B, Hq, Tq, D] (any strides with a contiguous feature dim; bf16
-    operands as `_check_tma` says) and the fp32 lse / delta [B, Hq, Tq];
-    returns (dq, dk, dv) with None for what this kernel does not write.
+    plus do [B, Hq, Tq, D] (any strides with a contiguous feature dim; a
+    bf16 operand TMA cannot read is copied by `_tma_operand`) and the fp32
+    lse / delta [B, Hq, Tq]; returns (dq, dk, dv) with None for what this
+    kernel does not write.
     Raises on anything the kernels do not take."""
     ints = (q_pos, kv_pos, q_seg, kv_seg, kv_valid)
     _check_operands(q, k, v, *ints, extra=(("do", do),))
@@ -366,6 +479,7 @@ def _bwd_launch(
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}"
             )
     if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_operand(x) for x in (q, k, v, do))
         _check_tma((("q", q), ("k", k), ("v", v), ("do", do)))
         tiles = _tile_flags_cuda(*ints, causal, has_segments)
         tiles_ptr, nqt, nkt = tiles.data_ptr(), *tiles.shape[1:]
@@ -382,24 +496,17 @@ def _bwd_launch(
     else:
         dq, dk, dv = None, out(Tk, Hk), out(Tk, Hk)
         outs = (do, dk, dv)
-    views = (q, k, v, do, *outs)
-    strides = [s for x in views for s in x.stride()[:3]]
-    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
+    _, stride_arr = _strides((q, k, v, do, *outs))
     entry = f"oryx_flash_bwd_{which}_{_DT[q.dtype]}"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn(entry)(
-            *(x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)),
-            ctypes.addressof(stride_arr),
-            *(x.data_ptr() for x in ints), tiles_ptr,
-            B, Hq, Hk, Tq, Tk, D, float(scale), int(causal),
-            int(has_segments), int(kv_arange), nqt, nkt, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"{entry} launch failed: CUDA error {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})"
-        )
+    err = _call(
+        _kernel_fn(entry), dev,
+        *(x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)),
+        ctypes.addressof(stride_arr),
+        *(x.data_ptr() for x in ints), tiles_ptr,
+        B, Hq, Hk, Tq, Tk, D, float(scale), int(causal),
+        int(has_segments), int(kv_arange), nqt, nkt,
+    )
+    _raise_on(err, entry, q, k)
     counts = LAUNCHES_DQ if which == "dq" else LAUNCHES_DKV
     counts[(causal, has_segments, B, Hq, Hk, Tq, Tk, D)] += 1
     return dq, dk, dv

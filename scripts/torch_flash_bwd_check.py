@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Check (and optionally time) the port's flash-attention backward kernels
 K5a (dq) and K5b (dk/dv) on one NVIDIA GPU, at the training step's three
-call shapes with synthetic packing metadata:
+call shapes with synthetic packing metadata
+(`oryx_tpu_torch.ops.cuda.measure.flash_case`):
 
   decoder     B=4, T=2048, 28 q / 4 kv heads, D=128, causal on slot
               positions, rows of 2048/1800/1500/1153 real tokens;
   vit         8,192 patch slots, 16 heads, D=72, four 44 x 44-patch images
               (7,744 real patches, pads attending pads);
   compressor  512 pooled queries against 8,192 patches, 16 heads, D=72,
-              4 x 4-patch regions of the same four images.
+              4 x 4-patch regions of the same four images
+              (`train_compressor` there).
 
     python3 scripts/torch_flash_bwd_check.py [--shapes decoder,vit]
         [--time] [--iters 10]
@@ -26,92 +28,14 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 
-import numpy as np
 import torch
 
 NOISE_RATIO = 1.5
-PEAK_FLOPS = 989e12  # H100 SXM dense bf16
-
-
-def gpu_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `iters` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def _images_regions(P: int, grids=((44, 44),) * 4):
-    """ViT segment ids over P slots and the compressor's region ids (4 x 4
-    patches, row-major patches inside each image) plus one query per
-    region."""
-    seg, reg = np.zeros(P, np.int32), np.zeros(P, np.int32)
-    at, base = 0, 0
-    for i, (h, w) in enumerate(grids):
-        n = h * w
-        seg[at:at + n] = i + 1
-        r = ((np.arange(h)[:, None] // 4) * (-(-w // 4))
-             + np.arange(w)[None] // 4).reshape(-1) + 1 + base
-        reg[at:at + n] = r
-        base = int(r.max())
-        at += n
-    return seg, reg, np.arange(1, base + 1, dtype=np.int32)
-
-
-def cases(names, gen):
-    dev = torch.device("cuda")
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    out = []
-    if "decoder" in names:
-        B, T = 4, 2048
-        lens = np.array([2048, 1800, 1500, 1153])
-        live = np.arange(T)[None] < lens[:, None]
-        pos = np.where(live, np.arange(T)[None], 0).astype(np.int32)
-        out.append(("decoder", dict(
-            q=rnd(B, T, 28, 128), k=rnd(B, T, 4, 128), v=rnd(B, T, 4, 128),
-            causal=True, q_positions=t(pos), kv_positions=t(pos),
-            kv_mask=t(live.astype(np.int32)), slot_positions=True)))
-    seg, reg, qreg = _images_regions(8192)
-    if "vit" in names:
-        s = t(seg)[None]
-        out.append(("vit", dict(
-            q=rnd(1, 8192, 16, 72), k=rnd(1, 8192, 16, 72),
-            v=rnd(1, 8192, 16, 72), causal=False, q_segment_ids=s,
-            kv_segment_ids=s)))
-    if "compressor" in names:
-        qr = np.zeros(512, np.int32)
-        qr[:len(qreg)] = qreg
-        out.append(("compressor", dict(
-            q=rnd(1, 512, 16, 72), k=rnd(1, 8192, 16, 72),
-            v=rnd(1, 8192, 16, 72), causal=False,
-            q_segment_ids=t(qr)[None], kv_segment_ids=t(reg)[None])))
-    return out
+# Shape name -> measure.flash_case shape.
+SHAPES = {"decoder": "decoder", "vit": "vit",
+          "compressor": "train_compressor"}
 
 
 def _rel(a, w):
@@ -120,6 +44,7 @@ def _rel(a, w):
 
 def check(name, kw, gen, timing: bool, iters: int) -> bool:
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda.measure import PEAK_FLOPS, cuda_time_ms
 
     q, k, v = kw["q"], kw["k"], kw["v"]
     args, flags = fa._prepare(
@@ -190,7 +115,7 @@ def check(name, kw, gen, timing: bool, iters: int) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shapes", default="decoder,vit,compressor")
+    ap.add_argument("--shapes", default=",".join(SHAPES))
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     a = ap.parse_args()
@@ -200,6 +125,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from oryx_tpu_torch.ops.cuda import build
+    from oryx_tpu_torch.ops.cuda.measure import flash_case, gpu_line
 
     print(f"card: {gpu_line()}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
@@ -213,8 +139,10 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
     gen = torch.Generator("cuda").manual_seed(3)
     ok = True
-    for name, kw in cases(a.shapes.split(","), gen):
-        ok &= check(name, kw, gen, a.time, a.iters)
+    for name in SHAPES:  # the order the random draws were made in
+        if name in a.shapes.split(","):
+            ok &= check(name, flash_case(SHAPES[name], gen), gen, a.time,
+                        a.iters)
     print("all agree" if ok else "DISAGREEMENT")
     return 0 if ok else 1
 

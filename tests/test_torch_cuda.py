@@ -1,9 +1,11 @@
 """The hand-written CUDA flash-attention kernels against their plain twins,
 on an NVIDIA GPU (skipped without one). Small and odd shapes the path test
-in chip_smoke.py does not reach: D of 12, 16, 72 and 128, Tq = 1, ragged
-tiles, GQA groups of 7, strided views, both dtypes; the forward K1 with and
-without its logsumexp, the backward K5a (dq) and K5b (dk/dv), and autograd
-through `flash_attention`.
+in chip_smoke.py does not reach: D from 12 to 128, Tq = 1, ragged
+tiles, GQA groups of 1 to 20, strided views, both dtypes; the forward K1
+with and without its logsumexp on each of its routes (the split-KV decode
+at Tq = 1, the wgmma/TMA body over the cell map), the backward K5a (dq) and
+K5b (dk/dv), autograd through `flash_attention`, and a bf16 training run of
+the tiny config, whose 12-wide ViT heads TMA cannot read unpadded.
 
 Run on a machine with a card (the repository's conftest needs jax, which
 that machine may lack):
@@ -66,9 +68,12 @@ def _check(q, k, v, kw):
         kw.get("kv_segment_ids"), kw.get("kv_mask"), kw["causal"], None,
     )
     before = sum(fa.LAUNCHES.values())
+    decode = sum(fa.LAUNCHES_DECODE.values())
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert sum(fa.LAUNCHES.values()) == before + 1
+    route = q.dtype == torch.bfloat16 and q.shape[1] == 1
+    assert sum(fa.LAUNCHES_DECODE.values()) == decode + route
     ref = fa._mha_forward_reference(*args, **flags).transpose(1, 2)
     # Rows with at least one visible key (fully masked rows are discarded
     # by every caller and differ with the kernel's tile skipping).
@@ -116,6 +121,155 @@ def test_strided_cache_view(card):
     pos = torch.tensor([[40, 41, 42, 43, 44], [7, 8, 9, 10, 11]],
                        device=card)
     _check(q, cache[1], cache[2], dict(causal=True, q_positions=pos))
+
+
+# ---- K1's routes: the split-KV decode and the wgmma/TMA body ---------------
+
+
+def _decode_case(dev, B, S, Hk, G, D, pos, seed=0):
+    """One decode step over a dense cache: q [B, 1, Hk G, D] at positions
+    `pos`, k/v [B, S, Hk, D], the kv mask slots <= pos."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    pos = torch.tensor(pos, device=dev)[:, None]
+    mask = (torch.arange(S, device=dev)[None] <= pos).int()
+    return (rnd(B, 1, Hk * G, D), rnd(B, S, Hk, D), rnd(B, S, Hk, D),
+            dict(causal=True, q_positions=pos, kv_mask=mask))
+
+
+@pytest.mark.parametrize("G", [1, 2, 7, 8, 16, 20])
+def test_decode_route_groups(card, G):
+    """Tq = 1, bf16: the split-KV route at every group size (20: two chunks
+    of q heads per kv head), rows whose visible keys end inside, at and just
+    past a split boundary."""
+    _check(*_decode_case(card, 4, 1000, 2, G, 128, [999, 63, 64, 700]))
+
+
+@pytest.mark.parametrize("D", [12, 16, 40, 72])
+def test_decode_route_widths(card, D):
+    _check(*_decode_case(card, 2, 300, 2, 7, D, [299, 130]))
+
+
+def test_decode_route_empty_split_and_row(card):
+    """A split whose range holds no visible key (a hole in the kv mask of
+    row 1), a row that sees no key at all (row 2: zeros and lse FLT_MAX),
+    and the logsumexp at Tq = 1 against the twin's."""
+    q, k, v, kw = _decode_case(card, 3, 700, 4, 7, 128, [650, 300, 500])
+    kw["kv_mask"][1, 64:256] = 0
+    kw["kv_mask"][2] = 0
+    _check(q, k, v, kw)
+    args, flags = fa._prepare(q, k, v, kw["q_positions"], None, None, None,
+                              kw["kv_mask"], True, None)
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    ro, rlse = fa._mha_forward_reference(*args, **flags, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse[:2], rlse[:2], atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(o[:2].float(), ro[:2].float(), atol=1e-2,
+                               rtol=1e-2)
+    assert (o[2] == 0).all() and (lse[2] == fa.FLT_MAX).all()
+
+
+def test_decode_route_is_deterministic_at_chat_batch_shape(card):
+    """The chat_batch decode step (B 4, 28 / 4 heads, D 128, a 4,096-slot
+    cache, rows of 1,153-141 tokens plus 16): two calls give the same bits,
+    and both match the twin."""
+    q, k, v, kw = _decode_case(card, 4, 4096, 4, 7, 128,
+                               [1169, 674, 440, 157])
+    _check(q, k, v, kw)
+    a = fa.flash_attention(q, k, v, **kw)
+    b = fa.flash_attention(q, k, v, **kw)
+    assert torch.equal(a, b)
+
+
+def _compressor_segments(grids, pads, dev):
+    """Pooled queries (one per 4 x 4-patch region) against their patches,
+    images one after another, `pads` (q, kv) pad rows (id 0) at the end:
+    the layouts of tests/test_torch_flash_bwd_schedule.py."""
+    kv, q, base = [], [], 0
+    for h, w in grids:
+        r = ((torch.arange(h)[:, None] // 4) * (-(-w // 4))
+             + torch.arange(w)[None] // 4).reshape(-1) + 1 + base
+        kv.append(r)
+        q.append(torch.unique(r))
+        base = int(r.max())
+    q_seg = torch.cat(q + [torch.zeros(pads[0], dtype=torch.long)])
+    kv_seg = torch.cat(kv + [torch.zeros(pads[1], dtype=torch.long)])
+    return q_seg[None].to(dev), kv_seg[None].to(dev)
+
+
+@pytest.mark.parametrize("grids,pads", [
+    ([(16, 16)], (11, 40)),
+    ([(28, 44), (8, 12)], (0, 63)),
+    ([(44, 44)] * 4, (37, 5)),
+])
+def test_forward_compressor_regions_with_pads(card, grids, pads):
+    """The map forward on the compressor's layout: the pad id 0 beside real
+    regions in one tile must not make every tile meet."""
+    q_seg, kv_seg = _compressor_segments(grids, pads, card)
+    q, k, v, _ = _case(card, torch.bfloat16, 1, q_seg.shape[1],
+                       kv_seg.shape[1], 4, 4, 72, causal=False,
+                       segments=False, mask=False)
+    _check(q, k, v, dict(causal=False, q_segment_ids=q_seg,
+                         kv_segment_ids=kv_seg))
+
+
+def test_forward_segments_straddle_tiles(card):
+    """ViT-like packed images whose boundaries fall inside cells, pads
+    attending pads."""
+    sizes = [50, 100, 37, 129, 64]
+    seg = torch.cat([torch.full((n,), i + 1) for i, n in enumerate(sizes)]
+                    + [torch.zeros(20, dtype=torch.long)]).to(card)[None]
+    q, k, v, _ = _case(card, torch.bfloat16, 1, seg.shape[1], seg.shape[1],
+                       4, 4, 72, causal=False, segments=False, mask=False)
+    _check(q, k, v, dict(causal=False, q_segment_ids=seg,
+                         kv_segment_ids=seg))
+
+
+@pytest.mark.parametrize("D", [12, 16, 40, 64, 72, 128])
+@pytest.mark.parametrize("G", [1, 7])
+def test_tma_body_widths_and_groups(card, D, G):
+    """Every width the body takes (12: the wrapper pads it; 40 and 64: one
+    64-column box; 72: a 64- and a 16-column box) under every mask at
+    once."""
+    _check(*_case(card, torch.bfloat16, 2, 200, 333, 2 * G, 2, D,
+                  causal=True, segments=True, mask=True))
+
+
+@pytest.mark.parametrize("Tq,Tk", [(2, 1), (63, 63), (65, 65), (129, 200),
+                                   (200, 65), (1000, 1000)])
+def test_tma_body_tile_edges(card, Tq, Tk):
+    _check(*_case(card, torch.bfloat16, 1, Tq, Tk, 7, 1, 128, causal=True,
+                  segments=False, mask=True))
+
+
+def test_tma_body_head_major_views(card):
+    """q, k, v as strided views of head-major [B, H, T, D] storage."""
+    q, k, v, kw = _case(card, torch.bfloat16, 2, 130, 200, 8, 2, 128,
+                        causal=True, segments=False, mask=True)
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in (q, k, v))
+    _check(q, k, v, kw)
+
+
+def test_tma_body_lse_at_decoder_layout(card):
+    """The training decoder's layout (slot positions over right-padded rows)
+    through the body with its logsumexp, against the twin's."""
+    B, T = 3, 640
+    live = torch.arange(T, device=card)[None] < torch.tensor(
+        [[640], [333], [128]], device=card)
+    pos = torch.where(live, torch.arange(T, device=card)[None], 0)
+    q, k, v, _ = _case(card, torch.bfloat16, B, T, T, 14, 2, 128,
+                       causal=False, segments=False, mask=False)
+    args, flags = fa._prepare(q, k, v, pos, pos, None, None, live.int(),
+                              True, None, True)
+    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
+    ro, rlse = fa._mha_forward_reference(*args, **flags, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-2, rtol=1e-2)
 
 
 def test_rejects_what_the_kernel_does_not_take(card):
@@ -504,23 +658,11 @@ def _visible(args, flags):
     return vis.any(-1)  # [B, Tq]: the row sees a key
 
 
-def _padded(x):
-    """x in storage whose rows are padded to 8 elements: the same values, a
-    layout the bf16 backward's TMA takes for any D (16-byte row strides)."""
-    D = x.shape[-1]
-    if x.dtype != torch.bfloat16 or D % 8 == 0:
-        return x
-    store = torch.zeros(x.shape[:-1] + (D + (-D % 8),), dtype=x.dtype,
-                        device=x.device)
-    store[..., :D] = x
-    return store[..., :D]
-
-
 def _check_bwd(q, k, v, kw, seed=0):
     """K1 with lse, then K5a/K5b on a cotangent zero on fully masked rows,
-    against the twins; then the same through autograd. bf16 operands of a D
-    that is no multiple of 8 go in padded storage (`_padded`)."""
-    q, k, v = (_padded(x) for x in (q, k, v))
+    against the twins; then the same through autograd. bf16 operands TMA
+    cannot read as they are (a D that is no multiple of 8) go in as they
+    are: the wrapper pads them."""
     slot = kw.pop("slot_positions", False)
     args, flags = fa._prepare(
         q, k, v, kw.get("q_positions"), kw.get("kv_positions"),
@@ -529,8 +671,8 @@ def _check_bwd(q, k, v, kw, seed=0):
     )
     keep = _visible(args, flags)
     g = torch.Generator(device=q.device).manual_seed(seed + 7)
-    do = _padded((torch.randn(q.shape, generator=g, device=q.device)
-                  * keep[:, :, None, None]).to(q.dtype))
+    do = (torch.randn(q.shape, generator=g, device=q.device)
+          * keep[:, :, None, None]).to(q.dtype)
     tol = BWD_TOLS[q.dtype]
     o, lse = fa._mha_forward(*args, **flags, with_lse=True)
     ro, rlse = fa._mha_forward_reference(*args, **flags, with_lse=True)
@@ -695,28 +837,63 @@ def test_backward_head_major_views(card):
     _check_bwd(q, k, v, kw)
 
 
+def _witness_check(q, k, v, kw, seed=0):
+    """K1-lse, K5a and K5b on bf16 q/k/v against the fp32 witness (the twins
+    on the same values upcast): the relative L2 error of the output and of
+    each gradient at most 1.5x the bf16 twins' (chip_smoke's NOISE_RATIO)."""
+    args, flags = fa._prepare(
+        q, k, v, kw.get("q_positions"), None, kw.get("q_segment_ids"),
+        kw.get("kv_segment_ids"), kw.get("kv_mask"), kw["causal"], None)
+    keep = _visible(args, flags)
+    g = torch.Generator(device=q.device).manual_seed(seed + 11)
+    do = (torch.randn(q.shape, generator=g, device=q.device)
+          * keep[:, :, None, None]).to(q.dtype).transpose(1, 2)
+    ints = args[3:]
+
+    def run(fwd, bwd, qkv, d):
+        o, lse = fwd(*qkv, *ints, **flags, with_lse=True)
+        delta = torch.einsum("bhqd,bhqd->bhq", d.float(),
+                             o.float()).contiguous()
+        return (o,) + tuple(bwd(*qkv, d, lse, delta, *ints, **flags))
+
+    got = run(fa._mha_forward, fa._mha_backward, args[:3], do)
+    twin = run(fa._mha_forward_reference, fa._mha_backward_reference,
+               args[:3], do)
+    wit = run(fa._mha_forward_reference, fa._mha_backward_reference,
+              [x.float() for x in args[:3]], do.float())
+    torch.cuda.synchronize()
+    rows = keep[:, None, :, None]  # the output's rows with a visible key
+    for name, a, b, w in zip(("o", "dq", "dk", "dv"), got, twin, wit):
+        assert a.shape == w.shape and a.dtype == q.dtype, name
+        if name == "o":
+            a, b, w = (x * rows for x in (a.float(), b.float(), w))
+        ek = float((a.float() - w).norm() / w.norm())
+        ep = float((b.float() - w).norm() / w.norm())
+        assert torch.isfinite(a).all() and ek <= 1.5 * ep, (name, ek, ep)
+
+
 def test_backward_rejects_layouts_tma_cannot_take(card):
-    """bf16: a row stride that is no multiple of 16 bytes (D = 12 packed)
-    and a base that is not 16-byte aligned are refused with a message."""
-    q, k, v, kw = _case(card, torch.bfloat16, 1, 64, 64, 2, 2, 12,
-                        causal=True, segments=False, mask=False)
-    args, flags = fa._prepare(q, k, v, kw["q_positions"], None, None, None,
-                              None, True, None)
-    o, lse = fa._mha_forward(*args, **flags, with_lse=True)
-    do = torch.zeros_like(o)
-    delta = torch.zeros_like(lse)
-    with pytest.raises(ValueError, match="16 bytes"):
-        fa._mha_backward(*args[:3], do, lse, delta, *args[3:], **flags)
-    store = torch.zeros(2 * 64 * 16 + 1, dtype=torch.bfloat16, device=card)
-    shifted = store[1:].view(1, 2, 64, 16)
-    q16, k16, v16, _ = _case(card, torch.bfloat16, 1, 64, 64, 2, 2, 16,
+    """bf16 layouts TMA cannot read as they are now run (the wrapper copies
+    them into padded storage; this test asserted a ValueError before): q, k,
+    v of D = 12 packed in one projection, as the tiny ViT's are, and a q
+    whose base is not 16-byte aligned, each within bf16 noise of the fp32
+    witness."""
+    B, T, H, D = 1, 130, 2, 12
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(B, T, 3 * H * D, generator=g, device=card).to(
+        torch.bfloat16)
+    q, k, v = (x[..., i * H * D:(i + 1) * H * D].view(B, T, H, D)
+               for i in range(3))
+    pos = torch.arange(T, device=card)[None]
+    _witness_check(q, k, v, dict(causal=True, q_positions=pos))
+    store = torch.zeros(1 + B * T * H * 16, dtype=torch.bfloat16,
+                        device=card)
+    shifted = store[1:].view(B, T, H, 16)
+    q16, k16, v16, _ = _case(card, torch.bfloat16, B, T, T, H, H, 16,
                              causal=True, segments=False, mask=False)
-    a16, f16 = fa._prepare(q16, k16, v16, kw["q_positions"], None, None,
-                           None, None, True, None)
-    o16, lse16 = fa._mha_forward(*a16, **f16, with_lse=True)
-    with pytest.raises(ValueError, match="aligned"):
-        fa._mha_backward(shifted, *a16[1:3], o16, lse16,
-                         torch.zeros_like(lse16), *a16[3:], **f16)
+    shifted.copy_(q16)
+    assert shifted.data_ptr() % 16
+    _witness_check(shifted, k16, v16, dict(causal=True, q_positions=pos))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -765,24 +942,13 @@ def test_backward_is_deterministic_at_decoder_shape(card):
         assert torch.isfinite(x).all() and torch.equal(x, y)
 
 
-def test_train_step_on_card_matches_cpu(card):
-    """The tiny fp32 config, tune full, 3 steps of train_step: card
-    (kernels) against CPU (plain twins)."""
-    import dataclasses
-
+def _tiny_host_batch():
+    """One collated batch of the tiny config: two images, two text rows."""
     import numpy as np
 
-    from oryx_tpu_torch import config
-    from oryx_tpu_torch.models import oryx
-    from oryx_tpu_torch.ops import packing
     from oryx_tpu_torch.models import splice
-    from oryx_tpu_torch.train import step, trainer
-    from oryx_tpu_torch.train.optimizer import make_optimizer
+    from oryx_tpu_torch.ops import packing
 
-    cfg = config.oryx_tiny()
-    cfg = dataclasses.replace(cfg, attn_impl="pallas", train=dataclasses.replace(
-        cfg.train, tune="full", learning_rate=1e-5, num_train_steps=10,
-        warmup_ratio=0.1, remat_policy="attn"))
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (h, w, 3), np.uint8)
             for h, w in ((40, 56), (28, 42))]
@@ -798,6 +964,26 @@ def test_train_step_on_card_matches_cpu(card):
             "visual_idx": mm.visual_idx, "is_visual": mm.is_visual,
             "attn_mask": mm.attn_mask, "positions": mm.positions,
             "labels": mm.labels}
+    return host
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """The tiny fp32 config, tune full, 3 steps of train_step: card
+    (kernels) against CPU (plain twins)."""
+    import dataclasses
+
+    import numpy as np
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.train import step, trainer
+    from oryx_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = config.oryx_tiny()
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", train=dataclasses.replace(
+        cfg.train, tune="full", learning_rate=1e-5, num_train_steps=10,
+        warmup_ratio=0.1, remat_policy="attn"))
+    host = _tiny_host_batch()
     runs = {}
     for dev in ("cpu", "cuda"):
         model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
@@ -817,3 +1003,43 @@ def test_train_step_on_card_matches_cpu(card):
     for n, p in runs["cpu"][1].items():
         torch.testing.assert_close(runs["cuda"][1][n], p, atol=2e-4,
                                    rtol=2e-3)
+
+
+def test_tiny_bf16_fit_with_head_dim_12_on_card(card, tmp_path):
+    """bf16 Trainer.fit with attn_impl="pallas" on the tiny config: the ViT
+    and compressor heads are 12 wide, q/k/v views of one projection, a
+    layout TMA cannot read as it is. Two steps run on the card through
+    K1-lse, K5a and K5b at D = 12, with the CPU twins' losses (bf16 GEMMs
+    round differently on the two devices: rtol 2e-2)."""
+    import dataclasses
+
+    import numpy as np
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    base = config.oryx_tiny()
+    assert base.vision.head_dim == 12
+    cfg = dataclasses.replace(
+        base, dtype="bfloat16", attn_impl="pallas",
+        train=dataclasses.replace(
+            base.train, tune="full", learning_rate=1e-5, num_train_steps=4,
+            warmup_ratio=0.1, remat_policy="attn",
+            checkpoint_dir=str(tmp_path / "ckpt")))
+    host = _tiny_host_batch()
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        counters = (fa.LAUNCHES_LSE, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV)
+        for c in counters:
+            c.clear()
+        model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu").to(dev)
+        t = Trainer(cfg, params=model, device=dev)
+        t.fit(iter([host, host]), num_steps=2, resume=False, prefetch=0)
+        losses[dev] = [h["loss"] for h in t.history]
+        if dev == "cuda":
+            for c in counters:
+                assert sum(n for key, n in c.items() if key[-1] == 12) > 0
+    assert len(losses["cuda"]) == 2 and np.isfinite(losses["cuda"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-2)
