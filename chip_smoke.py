@@ -61,7 +61,11 @@ Phases (any failure exits non-zero):
      against its plain twin (atol = rtol = 1e-2, every row sees a key).
      The paged kernels are called through the public wrappers the model
      calls (`ragged_decode_attention`, `ragged_paged_attention`), on q in
-     the recorded layout and the int operands as recorded. Wrapper and
+     the recorded layout and the int operands as recorded. Each call's
+     split plan and row tile are printed (more than one split; where
+     prefill lanes ride behind the decode rows, row tiles of 64 / G rows
+     behind one-row tiles of the decode rows), and two calls must give
+     the same bits. Wrapper and
      twin times, gather_pages + SDPA with an explicit mask as a two-call
      yardstick, and the least time the card could take.
   8. The tiny fp32 config through both engines on the card (kernel path)
@@ -388,7 +392,7 @@ def kernel_family(name: str) -> str:
         return "tile_map (K1/K5 cell map)"
     if "flash_bwd" in n:
         return "flash_bwd K5a/K5b (hand-written attention backward)"
-    if "paged_bf16" in n or "paged_f32" in n:
+    if any(s in n for s in ("paged_split", "paged_merge", "paged_f32")):
         return "paged attention K3/K4 (hand-written)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                             "sm90_", "sm80_")):
@@ -598,33 +602,13 @@ def _pick(calls, work):
     return max(calls, key=work)
 
 
-def random_pool_layer(pool_shape, gen, fmt=None):
-    """One random bf16 pool layer, or (fmt "int8" / "fp8_e4m3") a QuantPages
-    layer holding random values quantized on write, dequantized to bf16."""
-    from oryx_tpu_torch.ops import paged_kv
-
-    P, ps, Hk, D = pool_shape
-    dev = torch.device("cuda")
-    rows = torch.randn((P * ps, Hk, D), generator=gen, device=dev)
-    if fmt is None:
-        layer = paged_kv.init_paged_pool(1, P, ps, Hk, D,
-                                         dtype=torch.bfloat16, device=dev)[0]
-        layer.copy_(rows.view(P, ps, Hk, D))
-        return layer
-    layer = paged_kv.init_quant_pages(1, P, ps, Hk, D, fmt=fmt,
-                                      dequant_dtype=torch.bfloat16,
-                                      device=dev)[0]
-    paged_kv.scatter_rows(layer, torch.arange(P * ps, device=dev), rows)
-    return layer
-
-
 def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     """Kernel vs plain twin at one recorded call, both through the public
     functions the model calls, on q in the recorded layout and the int
     operands as the model passed them, over a bf16 pool or (fmt) an int8 /
     fp8 one; returns the table row."""
     from oryx_tpu_torch.ops.cuda.measure import (
-        PEAK_BYTES, PEAK_FLOPS, cuda_time_ms, device_ms,
+        cuda_time_ms, device_ms, paged_bound, paged_pool_layer,
     )
     from oryx_tpu_torch.ops import paged_kv
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
@@ -633,8 +617,8 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     (q_shape, q_stride), bt = call[0], call[1]
     R, Hq = q_shape[0], q_shape[-2]
     dev = bt.device
-    kp = random_pool_layer(pool_shape, gen, fmt)
-    vp = random_pool_layer(pool_shape, gen, fmt)
+    kp = paged_pool_layer(pool_shape, gen, fmt)
+    vp = paged_pool_layer(pool_shape, gen, fmt)
     q = torch.empty_strided(q_shape, q_stride, dtype=torch.bfloat16,
                             device=dev)
     q.copy_(torch.randn(q_shape, generator=gen, device=dev))
@@ -656,9 +640,21 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
             q, kp, vp, bt, seg, pos)
     before = sum(pa.LAUNCHES.values())
     got, ref = kernel(), plain()
+    again = kernel()
     torch.cuda.synchronize()
-    if sum(pa.LAUNCHES.values()) != before + 1:
+    if sum(pa.LAUNCHES.values()) != before + 2:
         raise SystemExit(f"{name}: the wrapper did not launch the kernel")
+    if not torch.equal(got, again):
+        raise SystemExit(f"{name}: two calls gave different bits")
+    # The split plan: more than one split, and row tiles of 64 / G rows
+    # where prefill lanes are packed behind the decode rows.
+    G = Hq // Hk
+    plan = pa.plan_of(kind, R, S, Hk, G, maxp, ps,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+    want_rt = 1 if kind == "paged_decode" or R <= S else pa.A_ROWS // G
+    if plan["row_tile"] != want_rt or plan["splits"] < 2:
+        raise SystemExit(f"{name}: plan {plan}, want row tile {want_rt} "
+                         "and more than one split")
     if got.shape != q.shape or got.dtype != q.dtype:
         raise SystemExit(f"{name}: output {tuple(got.shape)} {got.dtype}")
     got, ref = got.reshape(R, Hq, D), ref.reshape(R, Hq, D)
@@ -674,7 +670,10 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
           f"{bt.dtype}, ints "
           f"{(call[2].dtype)}, visible slots per row "
           f"{visible.min().item()}..{visible.max().item()} "
-          f"max_abs_err={max_err:.3e} ok={ok}")
+          f"max_abs_err={max_err:.3e} ok={ok}; plan: {plan['splits']} "
+          f"splits of {plan['tps']} 64-slot tiles, row tile "
+          f"{plan['row_tile']} rows after {plan['lead']} one-row tiles; two "
+          "calls bitwise equal")
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain twin")
     ms = cuda_time_ms(kernel, iters=50)
@@ -696,26 +695,12 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
         )
 
     library_ms = cuda_time_ms(library, iters=10)
-    # Least time: q and o once, the int operands once, and the k/v rows some
-    # query sees once (a segment's visible prefix is the longest row's): 2
-    # bytes a value, or 1 a code plus one 4-byte scale a row (shared by the
-    # Hk heads), vs 4 * D flops per visible (query head, slot) pair.
-    seg_host, vis_host = segl.tolist(), visible.tolist()
-    longest: dict[int, int] = {}
-    for s_, n in zip(seg_host, vis_host):
-        longest[s_] = max(longest.get(s_, 0), n)
-    kv_rows = sum(longest.values())
-    row_bytes = Hk * D * 2 if fmt is None else Hk * D + 4
-    nbytes = (
-        2 * q.numel() * 2 + bt.numel() * 4
-        + R * 4 * (1 if kind == "paged_decode" else 2)
-        + 2 * kv_rows * row_bytes
-    )
-    flops = 4.0 * D * Hq * sum(vis_host)
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound, bound_by, kv_rows, flops, nbytes = paged_bound(
+        q.numel(), Hq, D, Hk, bt.numel(), segl.tolist(), visible.tolist(),
+        1 if kind == "paged_decode" else 2, fmt)
     print(f"    kernel {ms:.4f} ms (device {dev_t}) | plain "
           f"{plain_ms:.4f} ms | gather+sdpa "
-          f"{library_ms:.4f} ms | bound {max(t_ops, t_bytes):.4f} ms "
+          f"{library_ms:.4f} ms | bound {bound:.4f} ms "
           f"({kv_rows} kv rows read, {flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB)")
     if fmt is None:
@@ -732,8 +717,8 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
         "ms": ms,
         "device_ms": dev_t.ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
 

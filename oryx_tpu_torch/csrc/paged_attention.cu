@@ -21,51 +21,83 @@
 // `_decode_kernel` and `_ragged_kernel` with their scale BlockSpecs): the
 // pages hold int8 or fp8-e4m3 codes plus one fp32 scale per token row
 // ([P, page_size], shared by the Hk heads, read through the same clamped
-// block-table entry as the codes). Each K/V row is dequantized on its way
-// into shared memory with the Pallas body's rounding points,
-// k = k.astype(dq) * scale.astype(dq): in bf16 the scale is rounded to bf16
-// first and the product rounded once more to bf16 (one fp32 product
-// code * scale rounded once gives other bits); in fp32 one fp32 product.
-// Every int8 and e4m3 code is exact in bf16, so the code converts by value
-// (e4m3 by its bits). Everything after the staging is the dense kernel's.
+// block-table entry as the codes). Each K/V row is dequantized with the
+// Pallas body's rounding points, k = k.astype(dq) * scale.astype(dq): in
+// bf16 the scale is rounded to bf16 first and the product rounded once more
+// to bf16 (one fp32 product code * scale rounded once gives other bits); in
+// fp32 one fp32 product. Every int8 and e4m3 code is exact in bf16, so the
+// code converts by value (e4m3 by its bits).
 //
-// Layout: one block per (packed row, kv head). The G = Hq / Hk query heads
-// of the group (head h = hk * G + g) are the rows of one 16-row
-// `mma.sync.m16n8k16` tile, so each kv head's pages are streamed once, not G
-// times. Four warps split the row's kv slots: warp w takes slot tiles
-// w, w + 4, ... (64 slots a tile for bf16, 32 for fp32; at page_size 64 a
-// bf16 tile is one page), each slot read from its page through the block
-// table, tiles past the row's last visible slot never visited. Each warp
-// keeps its own online-softmax state; the four are merged at the end in
-// shared memory.
+// What bounds it on an H100: per (row, kv head) the walk reads 2 * len * D
+// value bytes and does 4 * G * D flops per visible slot, about 2 * G = 14
+// flops a byte at oryx_7b, far below the ~295 flop/byte ridge: it is bound
+// by the bytes it reads (on a quantized pool len * D code bytes and len * 4
+// scale bytes a plane, about half), and at a decode step's few rows by
+// latency: only many blocks in flight, each with loads in flight, reach the
+// card's memory rate.
 //
-// What bounds it on an H100: per row and kv head it moves 2 * len * D value
-// bytes and does 4 * G * D flops per visible slot, about 2 * G = 14 flops a
-// byte at oryx_7b, far below the ~295 flop/byte ridge: it is bound by the
-// bytes it reads (on a quantized pool len * D code bytes and len * 4 scale
-// bytes a plane, about half). This first version reads each page row once
-// into shared memory with 16-byte loads (8 bf16 values or 16 codes; the
-// pools are 16-byte aligned and D is a multiple of 8, of 16 for codes; the
-// wrapper checks both) and stops at the row's length;
-// with one block per (row, kv head) a decode step of few slots fills few
-// SMs, which split-KV across blocks, TMA and wgmma address in a later
-// version.
+// bf16 layout (split-KV, then a merge):
+//   * A block takes (row tile, split, kv head). A row tile is consecutive
+//     packed rows: one for K3 and for a K4 dispatch of decode rows only;
+//     when prefill lanes are packed behind the S decode rows, one for each
+//     of those rows (each its own segment) and floor(64 / G) for the lanes
+//     behind them. Its
+//     rt * G (row, q head) pairs are the A rows of the mma.sync tiles (A row
+//     i: packed row r0 + i / G, head hk * G + i % G), so a kv head's pages
+//     are streamed once for the G heads and, for the 64 lanes of one
+//     prefilling slot, once for the whole tile instead of once a lane.
+//   * Split s owns the 64-slot kv tiles [s * tps, (s + 1) * tps) of the
+//     table (the plan is host numbers of the table only: its width and
+//     rows, Hk, the SM count). The block walks each distinct segment of its
+//     row tile once over that range, clipped at the largest visible end
+//     among the tile's rows of the segment; every A row keeps its own
+//     (m, l, acc), and a slot another segment's row, or a slot past a row's
+//     position, contributes p = 0 exactly (not exp(NEG - NEG) = 1 while the
+//     row's max is still NEG).
+//   * The walk's tiles stream through a three-stage `cp.async` ring, each
+//     16-byte chunk fetched from the page the block table names (a 64-slot
+//     tile is 4 pages at page_size 16, one at 64; a thread reads all its
+//     chunks' table entries before it issues their copies). Dense pages
+//     land as bf16 K and V tiles; codes land raw with their per-row scales
+//     and are dequantized into one bf16 K/V tile in shared memory. V is
+//     read with `ldmatrix.trans` (no transposed copy).
+//   * Every warp runs the online softmax of its 16 A rows over all 64 slots
+//     of a tile. A row tile's four m16 tiles are the four warps'; one row's
+//     m16 tile is shared by the four warps, which split the D columns of
+//     P V. A row's arithmetic is the same either way and the plan does not
+//     depend on R, so a row's output bits do not depend on the dispatch it
+//     is packed in.
+//   * Each block writes fp32 partials (m, l, acc) for its split, an empty
+//     one (m = NEG, l = 0) where nothing was visible; a second small kernel
+//     merges them in split order, o = sum acc_s e^(m_s - m) / sum l_s
+//     e^(m_s - m), so the output is the same bits run to run (no atomics).
+// fp32 (the tiny test engines): one block per (packed row, kv head), plain
+// FMA over 32-slot tiles.
 //
 // Inputs: q [R, Hq, D] (row stride given, heads and features contiguous);
 // k_pages/v_pages [P, page_size, Hk, D] contiguous (codes when quantized,
-// with k_scale/v_scale [P, page_size] fp32); block_tables [S, maxp] int32; ints [R] int32 (kv_lengths for K3, q_segments and q_positions for
-// K4); o [R, Hq, D] contiguous.
+// with k_scale/v_scale [P, page_size] fp32); block_tables [S, maxp] int32;
+// ints [R] int32 (kv_lengths for K3, q_segments and q_positions for K4);
+// o [R, Hq, D] contiguous; bf16: fp32 scratch for the partials. The bf16
+// route reads q and pages in 16-byte chunks: q's base and row stride, and
+// the pools, are 16-byte aligned and D is a multiple of 8 (16 for codes);
+// the wrapper checks the pools and D and copies a q that is not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float NEG = -0.7f * FLT_MAX;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NW = 4;     // warps a block
-constexpr int GMAX = 16;  // q heads per kv head the tile holds
+constexpr int GMAX = 16;  // q heads per kv head
+constexpr int AMAX = 64;  // A rows of a row tile: four m16 tiles
+constexpr int MAX_SPLITS = 256;  // splits of the table the merge takes
 
 // Page formats: dense pages in the compute dtype, or codes.
 enum Code { DENSE = 0, INT8 = 1, FP8 = 2 };
@@ -84,7 +116,25 @@ struct Params {
   int R, Hk, G, D, P, ps, S, maxp;
   float scale;
   int decode;
+  // bf16: fp32 partials, (m, l) [Hk, nrt, splits, ar, 2] then acc
+  // [Hk, nrt, splits, ar, D]; `tps` kv tiles a split; `nrt` row tiles:
+  // the first `lead` rows one a tile, the rest `rt` a tile; `ar` = rt * G
+  // A rows a tile.
+  float* part;
+  int splits, tps, rt, lead, nrt, ar;
 };
+
+// Row tile `tile`: its first packed row and its number of rows.
+__device__ __forceinline__ void tile_rows(const Params& p, int tile, int* r0,
+                                          int* n) {
+  if (tile < p.lead) {
+    *r0 = tile;
+    *n = 1;
+  } else {
+    *r0 = p.lead + (tile - p.lead) * p.rt;
+    *n = min(p.rt, p.R - *r0);
+  }
+}
 
 // The row's table row and the number of visible logical slots, capped at the
 // table's width.
@@ -115,6 +165,35 @@ __device__ __forceinline__ long long row_offset(const Params& p,
   return (row * p.Hk + hk) * p.D;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: split-KV over fixed slot ranges, row tiles sharing one page stream,
+// then the merge of the splits.
+// ---------------------------------------------------------------------------
+
+constexpr int BK = 64;   // kv slots of a tile
+constexpr int NST = 3;   // cp.async ring stages
+constexpr int PAD = 8;   // bf16 row padding (elements): conflict-free reads
+
+// Shared memory of the split kernel: the ring of NST stages (dense: the bf16
+// K and V tiles; codes: the K and V code tiles and their per-row scales),
+// then for codes the dequantized bf16 K and V tile. The q tile is staged in
+// the last ring stage (dense) or the dequantized tile (codes), both first
+// written after every thread has read its q fragments.
+template <int DP, int CODE>
+struct SplitSmem {
+  static constexpr int SR = DP + PAD;     // bf16 row stride of q, K, V
+  static constexpr int TILE = BK * SR * 2;  // bytes of a bf16 K or V tile
+  static constexpr int CODES = BK * DP;     // bytes of a code tile
+  static constexpr int STAGE =
+      CODE == DENSE ? 2 * TILE : 2 * CODES + 2 * BK * 4;
+  static constexpr int RING = NST * STAGE;
+  static constexpr int BYTES = RING + (CODE == DENSE ? 0 : 2 * TILE);
+  static constexpr int Q_AT = CODE == DENSE ? (NST - 1) * STAGE : RING;
+  static_assert(AMAX * SR * 2 <= (CODE == DENSE ? STAGE : 2 * TILE),
+                "the q tile fits where it is staged");
+  static_assert(STAGE % 16 == 0 && TILE % 16 == 0, "16-byte aligned tiles");
+};
+
 // A code's value: int8 as itself, e4m3 (sign, 4 exponent bits of bias 7, 3
 // mantissa bits, no infinities) by its bits. Codes are clipped to +-448 on
 // write, so the NaN pattern never occurs.
@@ -133,27 +212,415 @@ __device__ __forceinline__ float code_value(uint8_t b) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// One ring stage of codes -> the bf16 K and V tiles: each value is
+// code * bf16(scale), rounded to bf16 (the product of two bf16 values is
+// exact in fp32, so it rounds once).
+template <int DP, int CODE>
+__device__ __forceinline__ void dequant(const unsigned char* stage,
+                                        __nv_bfloat16* kv) {
+  using L = SplitSmem<DP, CODE>;
+  constexpr int CH = DP / 16;  // 16-code chunks a row
+  const float* scales = reinterpret_cast<const float*>(stage + 2 * L::CODES);
+  for (int i = threadIdx.x; i < 2 * BK * CH; i += NW * 32) {
+    const int plane = i / (BK * CH), j = (i / CH) % BK, c = (i % CH) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        stage + plane * L::CODES + j * DP + c);
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+    const float sc = __bfloat162float(__float2bfloat16(scales[plane * BK + j]));
+    uint32_t w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e] = hopper::pack_bf16(code_value<CODE>(b[2 * e]) * sc,
+                               code_value<CODE>(b[2 * e + 1]) * sc);
+    uint4* dst = reinterpret_cast<uint4*>(kv + (plane * BK + j) * L::SR + c);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// WM m16 tiles of A rows: WM = 1 (one row, G <= 16 heads) or 4 (a row tile
+// of up to 64 A rows). Every warp runs the softmax of its 16 A rows over all
+// 64 slots of a tile: with WM = 4 each warp owns one m16 tile and all D
+// columns of P V; with WM = 1 the 4 warps share the m16 tile (S and the
+// softmax computed alike in each) and split the D columns of P V. A row's
+// arithmetic is therefore the same in both layouts, so its output bits do
+// not depend on the dispatch it is packed in (the plan does not either).
+template <int DP, int CODE, int WM>
+__global__ void __launch_bounds__(NW * 32) paged_split(const Params p) {
+  using bf = __nv_bfloat16;
+  using L = SplitSmem<DP, CODE>;
+  constexpr int SR = L::SR;
+  // Column groups of P V: 4 with one m16 tile (at DP = 16 one, every warp
+  // computing the same and warp 0 storing it).
+  constexpr int WN = WM == 1 && DP >= 64 ? NW : 1;
+  constexpr int DC = DP / WN;  // P V columns a warp owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sSeg[AMAX], sLen[AMAX], sEnd[AMAX];
+  __shared__ int pSeg[AMAX], pT0[AMAX], pEnd[AMAX], pCum[AMAX + 1];
+  unsigned char* ring = smem;
+  bf* sKV = reinterpret_cast<bf*>(smem + L::RING);  // codes: dequantized
+  bf* sQ = reinterpret_cast<bf*>(smem + L::Q_AT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rt = blockIdx.x, split = blockIdx.y, hk = blockIdx.z;
+  int r0, nrows;
+  tile_rows(p, rt, &r0, &nrows);
+  const long long blk = ((long long)hk * p.nrt + rt) * p.splits + split;
+  float* pml = p.part + blk * p.ar * 2;
+  float* pacc = p.part + (long long)p.Hk * p.nrt * p.splits * p.ar * 2 +
+                blk * p.ar * p.D;
+
+  // The tile's rows: segment and visible length (none past R).
+  if (tid < p.rt) {
+    int seg = -1, len = 0;
+    if (tid < nrows) row_extent(p, r0 + tid, &seg, &len);
+    sSeg[tid] = seg;
+    sLen[tid] = len;
+  }
+  __syncthreads();
+  // A segment's first row with a visible slot opens its pass, which walks
+  // to the largest visible end among the segment's rows of the tile.
+  if (tid < p.rt) {
+    const int seg = sSeg[tid];
+    int end = sLen[tid];
+    bool first = end > 0;
+    for (int j = 0; j < p.rt; ++j) {
+      if (sSeg[j] == seg && sLen[j] > 0) {
+        first = first && j >= tid;
+        end = max(end, sLen[j]);
+      }
+    }
+    sEnd[tid] = first ? end : 0;
+  }
+  __syncthreads();
+  // The passes clipped to this split's tiles [split * tps, + tps), in row
+  // order; pCum[i] is the first step of pass i.
+  if (tid == 0) {
+    int n = 0, cum = 0;
+    const int a = split * p.tps;
+    for (int i = 0; i < p.rt; ++i) {
+      const int end = sEnd[i];
+      const int b = min(a + p.tps, (end + BK - 1) / BK);
+      if (end == 0 || a >= b) continue;
+      pSeg[n] = sSeg[i];
+      pT0[n] = a;
+      pEnd[n] = end;
+      pCum[n] = cum;
+      cum += b - a;
+      ++n;
+    }
+    for (int i = n; i <= AMAX; ++i) pCum[i] = cum;
+  }
+  __syncthreads();
+  const int nsteps = pCum[AMAX];
+  if (nsteps == 0) {  // nothing visible in this split's range
+    for (int i = tid; i < p.ar; i += blockDim.x) {
+      pml[2 * i] = NEG;
+      pml[2 * i + 1] = 0.f;
+    }
+    return;
+  }
+
+  // Step st of the walk -> ring stage: its pass's segment, clipped at the
+  // pass's end (later slots are zero chunks, never read from the pool).
+  // Each thread looks up all its chunks' pages first, so the table reads
+  // are in flight together, then issues the copies.
+  auto load = [&](int st, int stage) {
+    int ps = 0;
+    while (st >= pCum[ps + 1]) ++ps;
+    const int end = pEnd[ps];
+    const int s0 = (pT0[ps] + st - pCum[ps]) * BK;
+    const int* btr = p.bt + (long long)pSeg[ps] * p.maxp;
+    constexpr int E = CODE == DENSE ? 8 : 16;  // elements of a chunk
+    constexpr int CH = DP / E;
+    constexpr int PER = (BK * CH + NW * 32 - 1) / (NW * 32);
+    constexpr int JS = NW * 32 / CH;  // slots between a thread's chunks
+    static_assert(NW * 32 % CH == 0, "a thread keeps one column");
+    const int c = (tid % CH) * E;
+    // Logical page and offset of the thread's first slot, then stepped.
+    int pg = (s0 + tid / CH) / p.ps, at = (s0 + tid / CH) % p.ps;
+    long long off[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * NW * 32, slot = s0 + i / CH;
+      off[u] = -1;
+      if (i < BK * CH && slot < end && c < p.D) {
+        const int page = min(max(__ldg(btr + pg), 0), p.P - 1);
+        off[u] = ((long long)page * p.ps + at) * p.Hk * p.D +
+                 (long long)hk * p.D + c;
+      }
+      for (at += JS; at >= p.ps; at -= p.ps) ++pg;
+    }
+    long long srow = -1;  // codes: this thread's scale row
+    if constexpr (CODE != DENSE) {
+      const int slot = s0 + tid % BK;
+      if (slot < end) {
+        const int page = min(max(__ldg(btr + slot / p.ps), 0), p.P - 1);
+        srow = (long long)page * p.ps + slot % p.ps;
+      }
+    }
+    unsigned char* base = ring + stage * L::STAGE;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * NW * 32;
+      if (i >= BK * CH) break;
+      const int j = i / CH;
+      const bool in = off[u] >= 0;
+      const long long o = in ? off[u] : 0;
+      if constexpr (CODE == DENSE) {
+        bf* sK = reinterpret_cast<bf*>(base);
+        hopper::cp_async16(sK + j * SR + c, static_cast<const bf*>(p.k) + o,
+                           in ? 16 : 0);
+        hopper::cp_async16(sK + BK * SR + j * SR + c,
+                           static_cast<const bf*>(p.v) + o, in ? 16 : 0);
+      } else {
+        hopper::cp_async16(base + j * DP + c,
+                           static_cast<const uint8_t*>(p.k) + o, in ? 16 : 0);
+        hopper::cp_async16(base + L::CODES + j * DP + c,
+                           static_cast<const uint8_t*>(p.v) + o, in ? 16 : 0);
+      }
+    }
+    if constexpr (CODE != DENSE) {  // thread i: K (i < 64) or V scale row
+      float* scales = reinterpret_cast<float*>(base + 2 * L::CODES);
+      hopper::cp_async4(scales + tid, (tid < BK ? p.ks : p.vs) + max(srow, 0LL),
+                        srow >= 0 ? 4 : 0);
+    }
+  };
+  // The q tile, its own cp.async group ahead of the ring's first stages: A
+  // row a is head hk G + a % G of packed row r0 + a / G; rows past the
+  // tile's (row, head) pairs are zero (q's rows are 16-byte aligned: the
+  // wrapper copies any other q).
+  constexpr int QR = 16 * WM;
+  const bf* qb = static_cast<const bf*>(p.q);
+  for (int i = tid; i < QR * DP / 8; i += NW * 32) {
+    const int a = i / (DP / 8), c = (i % (DP / 8)) * 8, r = r0 + a / p.G;
+    const bool in = a < p.ar && a / p.G < nrows && c < p.D;
+    hopper::cp_async16(
+        sQ + a * SR + c,
+        qb + (in ? r * p.q_sr + (long long)(hk * p.G + a % p.G) * p.D + c : 0),
+        in ? 16 : 0);
+  }
+  hopper::cp_async_commit();
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < nsteps) load(i, i);
+    hopper::cp_async_commit();
+  }
+  hopper::cp_async_wait<NST - 1>();  // the q tile landed
+  __syncthreads();
+  const int mt = WM == 1 ? 0 : warp;       // the warp's m16 tile
+  const int c0 = WN == 1 ? 0 : warp * DC;  // its first P V column
+  uint32_t qf[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const bf* q0 = sQ + (16 * mt + g) * SR + kk * 16 + 2 * t;
+    qf[kk][0] = *reinterpret_cast<const uint32_t*>(q0);
+    qf[kk][1] = *reinterpret_cast<const uint32_t*>(q0 + 8 * SR);
+    qf[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + 8);
+    qf[kk][3] = *reinterpret_cast<const uint32_t*>(q0 + 8 * SR + 8);
+  }
+  // This thread's two A rows (g and g + 8 of the m16 tile): segment and
+  // visible length of their packed row.
+  int rseg[2], rlen[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int a = 16 * mt + g + 8 * h;
+    const bool live = a < p.ar;
+    rseg[h] = live ? sSeg[a / p.G] : -1;
+    rlen[h] = live ? sLen[a / p.G] : 0;
+  }
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DC / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  // ldmatrix.trans row of this lane: matrices (kv 0-7 | 8-15) x (d 0-7 |
+  // 8-15) of a 16 x 16 block are the B fragments of two n8 column blocks.
+  const int mi = lane >> 3;
+  const int vrow = (lane & 7) + 8 * (mi & 1), vcol = c0 + 8 * (mi >> 1);
+
+  int pass = 0;
+  for (int st = 0; st < nsteps; ++st) {
+    while (st >= pCum[pass + 1]) ++pass;
+    const int pseg = pSeg[pass];
+    const int s0 = (pT0[pass] + st - pCum[pass]) * BK;
+    hopper::cp_async_wait<NST - 2>();
+    __syncthreads();  // step st landed; every warp is done with st - 1
+    if (st + NST - 1 < nsteps) load(st + NST - 1, (st + NST - 1) % NST);
+    hopper::cp_async_commit();
+    const bf* sK;
+    if constexpr (CODE == DENSE) {
+      sK = reinterpret_cast<const bf*>(ring + (st % NST) * L::STAGE);
+    } else {
+      dequant<DP, CODE>(ring + (st % NST) * L::STAGE, sKV);
+      __syncthreads();
+      sK = sKV;
+    }
+    const bf* sV = sK + BK * SR;
+
+    // S = Q K^T: the warp's 16 A rows x the tile's 64 slots.
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const bf* kp = sK + (nb * 8 + g) * SR + kk * 16 + 2 * t;
+        hopper::mma_bf16(s[nb], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
+                         *reinterpret_cast<const uint32_t*>(kp + 8));
+      }
+    }
+    // A slot is visible to an A row of the pass's segment below the row's
+    // length; every other (row, slot) pair has p = 0.
+    uint32_t vis = 0;
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, slot = s0 + nb * 8 + 2 * t + (e & 1);
+        const bool v = rseg[h] == pseg && slot < rlen[h];
+        vis |= static_cast<uint32_t>(v) << (nb * 4 + e);
+        s[nb][e] = v ? s[nb][e] * p.scale : NEG;
+        mx[h] = fmaxf(mx[h], s[nb][e]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f((m[h] - m_new) * LOG2E);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] = (vis >> (nb * 4 + e)) & 1u
+                       ? exp2f((s[nb][e] - m[e >> 1]) * LOG2E)
+                       : 0.f;
+        sum[e >> 1] += s[nb][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e >> 1];
+
+    // acc += P V over the warp's columns: p (rounded to bf16) is the A
+    // operand straight from the S accumulators; V's B fragments come
+    // transposed by ldmatrix.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             hopper::pack_bf16(s[2 * kk + 1][0],
+                                               s[2 * kk + 1][1]),
+                             hopper::pack_bf16(s[2 * kk + 1][2],
+                                               s[2 * kk + 1][3])};
+#pragma unroll
+      for (int jj = 0; jj < DC / 16; ++jj) {
+        uint32_t bv[4];
+        hopper::ldsm_x4_t(bv, sV + (vrow + 16 * kk) * SR + 16 * jj + vcol);
+        hopper::mma_bf16(acc[2 * jj], a, bv[0], bv[1]);
+        hopper::mma_bf16(acc[2 * jj + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+
+  // The partials of the warp's rows and columns (at WN = 1 and WM = 1 the
+  // warps hold the same values: warp 0 stores them).
+  if (WN == 1 && WM == 1 && warp != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int a = 16 * mt + g + 8 * h;
+    if (a >= p.ar) continue;
+    if (t == 0 && c0 == 0) {
+      pml[2 * a] = m[h];
+      pml[2 * a + 1] = l[h];
+    }
+    if (l[h] == 0.f) continue;  // the merge never reads an empty acc
+#pragma unroll
+    for (int dn = 0; dn < DC / 8; ++dn)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const int c = c0 + dn * 8 + 2 * t + (e & 1);
+        if (c < p.D) pacc[(long long)a * p.D + c] = acc[dn][e];
+      }
+  }
 }
 
-// Merge the NW warps' online-softmax states of the tile's first G rows and
-// store o = acc / l. sM/sL: [NW][GMAX]; sAcc: [NW][GMAX][DP] (fp32).
-template <typename T, int DP>
+// One block per (packed row, q head): the splits' partials merged in split
+// order, o = sum acc_s e^(m_s - m) / l, l = sum l_s e^(m_s - m), m = max m_s
+// over the non-empty partials; zeros where every partial is empty. The
+// block gathers the (m, l) pairs, one thread lists the non-empty splits
+// with their weights, and every thread sums its columns over that list.
+__global__ void __launch_bounds__(128) paged_merge(const Params p) {
+  __shared__ float sM[MAX_SPLITS], sL[MAX_SPLITS], sW[MAX_SPLITS];
+  __shared__ int sIdx[MAX_SPLITS], sN;
+  __shared__ float sLsum;
+  const int r = blockIdx.x, h = blockIdx.y;
+  const int tile = r < p.lead ? r : p.lead + (r - p.lead) / p.rt;
+  const int hk = h / p.G;
+  const int a = (r < p.lead ? 0 : (r - p.lead) % p.rt) * p.G + h % p.G;
+  const long long base = ((long long)hk * p.nrt + tile) * p.splits;
+  const float* ml = p.part + base * p.ar * 2 + 2 * a;
+  const float* accp = p.part +
+                      (long long)p.Hk * p.nrt * p.splits * p.ar * 2 +
+                      base * p.ar * p.D + (long long)a * p.D;
+  const long long sml = 2LL * p.ar, sacc = (long long)p.ar * p.D;
+  for (int s = threadIdx.x; s < p.splits; s += blockDim.x) {
+    sM[s] = ml[s * sml];
+    sL[s] = ml[s * sml + 1];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float M = NEG;
+    for (int s = 0; s < p.splits; ++s)
+      if (sL[s] > 0.f) M = fmaxf(M, sM[s]);
+    float Lsum = 0.f;
+    int n = 0;
+    for (int s = 0; s < p.splits; ++s) {
+      if (sL[s] > 0.f) {
+        const float w = expf(sM[s] - M);
+        Lsum += sL[s] * w;
+        sIdx[n] = s;
+        sW[n] = w;
+        ++n;
+      }
+    }
+    sN = n;
+    sLsum = Lsum;
+  }
+  __syncthreads();
+  const int n = sN;
+  const float Ld = sLsum == 0.f ? 1.f : sLsum;
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) +
+                      ((long long)r * p.Hk * p.G + h) * p.D;
+  for (int c = threadIdx.x; c < p.D; c += blockDim.x) {
+    float A = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) A += accp[sIdx[i] * sacc + c] * sW[i];
+    ob[c] = __float2bfloat16(A / Ld);
+  }
+}
+
+// fp32: merge the NW warps' online-softmax states of the tile's first G rows
+// and store o = acc / l. sM/sL: [NW][GMAX]; sAcc: [NW][GMAX][DP].
+template <int DP>
 __device__ void merge_and_store(const Params& p, int r, int hk,
                                 const float* sM, const float* sL,
                                 const float* sAcc) {
-  T* ob = static_cast<T*>(p.o) + ((long long)r * p.Hk + hk) * p.G * p.D;
+  float* ob = static_cast<float*>(p.o) + ((long long)r * p.Hk + hk) * p.G * p.D;
   for (int i = threadIdx.x; i < p.G * p.D; i += blockDim.x) {
     const int g = i / p.D, c = i % p.D;
     float M = NEG;
@@ -166,216 +633,8 @@ __device__ void merge_and_store(const Params& p, int r, int hk,
       L += sL[w * GMAX + g] * f;
       A += sAcc[(w * GMAX + g) * DP + c] * f;
     }
-    const float out = A / (L == 0.f ? 1.f : L);
-    if constexpr (sizeof(T) == 2) {
-      ob[g * p.D + c] = __float2bfloat16(out);
-    } else {
-      ob[g * p.D + c] = out;
-    }
+    ob[g * p.D + c] = A / (L == 0.f ? 1.f : L);
   }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync, 64-slot tiles, K and V^T staged per warp.
-// ---------------------------------------------------------------------------
-
-constexpr int BK16 = 64;
-constexpr int PAD16 = 8;  // row padding (elements): conflict-free fragments
-
-template <int DP>
-__host__ __device__ constexpr int tile_bytes_bf16() {
-  return (BK16 * (DP + PAD16) + DP * (BK16 + PAD16)) * 2;
-}
-
-template <int DP>
-__host__ __device__ constexpr int smem_bf16() {
-  constexpr int tiles = NW * tile_bytes_bf16<DP>();
-  constexpr int merge = NW * GMAX * (DP + 2) * 4;
-  return GMAX * (DP + PAD16) * 2 + (tiles > merge ? tiles : merge);
-}
-
-template <int DP, int CODE>
-__global__ void __launch_bounds__(NW * 32) paged_bf16(const Params p) {
-  constexpr int SQ = DP + PAD16;   // row stride of sQ and sK
-  constexpr int SV = BK16 + PAD16;  // row stride of sVt ([DP][BK])
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* work = smem + GMAX * SQ * 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r = blockIdx.x, hk = blockIdx.y;
-  __nv_bfloat16* sK =
-      reinterpret_cast<__nv_bfloat16*>(work + warp * tile_bytes_bf16<DP>());
-  __nv_bfloat16* sVt = sK + BK16 * SQ;
-
-  int seg, len;
-  row_extent(p, r, &seg, &len);
-
-  // The group's G q heads -> rows 0..G-1 of the tile; the rest are zero.
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
-                            r * p.q_sr + (long long)hk * p.G * p.D;
-  for (int i = threadIdx.x; i < GMAX * DP; i += blockDim.x) {
-    const int row = i / DP, c = i % DP;
-    sQ[row * SQ + c] = (row < p.G && c < p.D) ? qb[row * p.D + c]
-                                              : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* base = sQ + kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base + g * SQ);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * SQ);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + g * SQ + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * SQ + 8);
-  }
-
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  const int ntiles = (len + BK16 - 1) / BK16;
-  // Elements per 16-byte chunk: 8 bf16 values or 16 codes.
-  constexpr int E = CODE == DENSE ? 8 : 16;
-  constexpr int CH = DP / E;
-  for (int it = warp; it < ntiles; it += NW) {
-    const int s0 = it * BK16;
-    __syncwarp();  // the warp is done with its previous tile
-    for (int i = lane; i < BK16 * CH; i += 32) {
-      const int j = i / CH, c = (i % CH) * E, slot = s0 + j;
-      __align__(16) __nv_bfloat16 kv[E];
-      __align__(16) __nv_bfloat16 vv[E];
-      if (slot < len && c < p.D) {  // D % E == 0: the chunk is in the row
-        const long long row = slot_row(p, seg, slot);
-        const long long off = row_offset(p, row, hk) + c;
-        if constexpr (CODE == DENSE) {
-          *reinterpret_cast<uint4*>(kv) =
-              *reinterpret_cast<const uint4*>(
-                  static_cast<const __nv_bfloat16*>(p.k) + off);
-          *reinterpret_cast<uint4*>(vv) =
-              *reinterpret_cast<const uint4*>(
-                  static_cast<const __nv_bfloat16*>(p.v) + off);
-        } else {
-          __align__(16) uint8_t kc[16];
-          __align__(16) uint8_t vc[16];
-          *reinterpret_cast<uint4*>(kc) = *reinterpret_cast<const uint4*>(
-              static_cast<const uint8_t*>(p.k) + off);
-          *reinterpret_cast<uint4*>(vc) = *reinterpret_cast<const uint4*>(
-              static_cast<const uint8_t*>(p.v) + off);
-          // The scale rounds to bf16, then each product rounds to bf16
-          // (the product of two bf16 values is exact in fp32).
-          const float ksc = __bfloat162float(__float2bfloat16(p.ks[row]));
-          const float vsc = __bfloat162float(__float2bfloat16(p.vs[row]));
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            kv[e] = __float2bfloat16(code_value<CODE>(kc[e]) * ksc);
-            vv[e] = __float2bfloat16(code_value<CODE>(vc[e]) * vsc);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          kv[e] = __float2bfloat16(0.f);
-          vv[e] = __float2bfloat16(0.f);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < E; e += 8)
-        *reinterpret_cast<uint4*>(sK + j * SQ + c + e) =
-            *reinterpret_cast<const uint4*>(kv + e);
-#pragma unroll
-      for (int e = 0; e < E; ++e) sVt[(c + e) * SV + j] = vv[e];
-    }
-    __syncwarp();
-
-    // S = Q K^T: 16 rows (the group's heads) x 64 slots.
-    float s[BK16 / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK16 / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const __nv_bfloat16* kr = sK + (n * 8 + g) * SQ + kk * 16 + 2 * t;
-        mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int n = 0; n < BK16 / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = s0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = c < len ? s[n][e] * p.scale : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < BK16 / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
-#pragma unroll
-    for (int dn = 0; dn < DP / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e >> 1];
-    // acc += P V, p rounded to bf16 straight from the S accumulators.
-#pragma unroll
-    for (int kk = 0; kk < BK16 / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < DP / 8; ++dn) {
-        const __nv_bfloat16* vr = sVt + (dn * 8 + g) * SV + kk * 16 + 2 * t;
-        mma_bf16(acc[dn], a, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
-    }
-  }
-
-  // Merge the warps' states (the tile area is reused).
-  __syncthreads();
-  float* sM = reinterpret_cast<float*>(work);
-  float* sL = sM + NW * GMAX;
-  float* sAcc = sL + NW * GMAX;
-  if (t == 0) {
-    sM[warp * GMAX + g] = m[0];
-    sM[warp * GMAX + g + 8] = m[1];
-    sL[warp * GMAX + g] = l[0];
-    sL[warp * GMAX + g + 8] = l[1];
-  }
-#pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e >> 1), c = dn * 8 + 2 * t + (e & 1);
-      sAcc[(warp * GMAX + row) * DP + c] = acc[dn][e];
-    }
-  __syncthreads();
-  merge_and_store<__nv_bfloat16, DP>(p, r, hk, sM, sL, sAcc);
 }
 
 // ---------------------------------------------------------------------------
@@ -504,28 +763,42 @@ __global__ void __launch_bounds__(NW * 32) paged_f32(const Params p) {
       sAcc[(warp * GMAX + i) * DP + lane + 32 * c] = acc[i][c];
   }
   __syncthreads();
-  merge_and_store<float, DP>(p, r, hk, sM, sL, sAcc);
+  merge_and_store<DP>(p, r, hk, sM, sL, sAcc);
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const Params& p,
+cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.R, p.Hk), NW * 32, smem, stream>>>(p);
+  kernel<<<grid, NW * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// bf16: the split kernel over (row tiles, splits, kv heads), then the merge
+// over (packed rows, q heads).
+template <int DP, int CODE>
+cudaError_t launch_split(const Params& p, cudaStream_t s) {
+  const dim3 grid(p.nrt, p.splits, p.Hk);
+  constexpr int smem = SplitSmem<DP, CODE>::BYTES;
+  cudaError_t err = p.rt == 1
+                        ? launch(paged_split<DP, CODE, 1>, grid, smem, p, s)
+                        : launch(paged_split<DP, CODE, 4>, grid, smem, p, s);
+  if (err != cudaSuccess) return err;
+  paged_merge<<<dim3(p.R, p.Hk * p.G), 128, 0, s>>>(p);
   return cudaGetLastError();
 }
 
 template <int CODE>
 cudaError_t dispatch_code(const Params& p, int bf16, cudaStream_t s) {
   if (bf16) {
-    if (p.D <= 16)
-      return launch(paged_bf16<16, CODE>, smem_bf16<16>(), p, s);
-    return launch(paged_bf16<128, CODE>, smem_bf16<128>(), p, s);
+    if (p.D <= 16) return launch_split<16, CODE>(p, s);
+    return launch_split<128, CODE>(p, s);
   }
-  if (p.D <= 32) return launch(paged_f32<32, CODE>, smem_f32<32>(), p, s);
-  return launch(paged_f32<128, CODE>, smem_f32<128>(), p, s);
+  const dim3 grid(p.R, p.Hk);
+  if (p.D <= 32) return launch(paged_f32<32, CODE>, grid, smem_f32<32>(), p, s);
+  return launch(paged_f32<128, CODE>, grid, smem_f32<128>(), p, s);
 }
 
 // Padded widths: bf16 16 (test heads) and 128 (the decoder); fp32 32 and
@@ -540,7 +813,8 @@ int run(const void* q, const void* k, const void* v, const void* ks,
         const void* vs, void* o, long long q_sr, const void* bt,
         const void* seg, const void* ints, int R, int Hk, int G, int D,
         int P, int ps, int S, int maxp, float scale, int decode, int bf16,
-        int code, void* stream) {
+        int code, void* part, int splits, int tps, int rt, int lead,
+        void* stream) {
   if (R <= 0 || Hk <= 0 || Hk > 65535 || G <= 0 || G > GMAX || D <= 0 ||
       D > 128 || P <= 0 || ps <= 0 || S <= 0 || maxp <= 0 || code < DENSE ||
       code > FP8 || (code != DENSE && (ks == nullptr || vs == nullptr)))
@@ -560,6 +834,19 @@ int run(const void* q, const void* k, const void* v, const void* ks,
   p.maxp = maxp;
   p.scale = scale;
   p.decode = decode;
+  p.part = static_cast<float*>(part);
+  p.splits = splits, p.tps = tps, p.rt = rt, p.lead = lead;
+  p.nrt = rt > 0 && lead >= 0 && lead <= R ? lead + (R - lead + rt - 1) / rt
+                                            : 0;
+  p.ar = rt * G;
+  // The bf16 plan must cover every 64-slot tile of the table, a row tile
+  // at most 64 A rows (one row for the one-row layout), within the grid.
+  const long long tiles = ((long long)maxp * ps + BK - 1) / BK;
+  if (bf16 && (part == nullptr || splits <= 0 || splits > MAX_SPLITS ||
+               tps <= 0 || (long long)splits * tps < tiles || rt <= 0 ||
+               lead < 0 || lead > R || (rt == 1 && lead != 0) ||
+               p.ar > AMAX || Hk * G > 65535))
+    return cudaErrorInvalidValue;
   return dispatch(p, bf16, code, static_cast<cudaStream_t>(stream));
 }
 
@@ -570,6 +857,11 @@ int run(const void* q, const void* k, const void* v, const void* ks,
 // dtype of q and o, and of dense pages (1: bfloat16, 0: float32); `code`
 // the page format (0 dense, 1 int8 codes, 2 fp8-e4m3 codes), with the
 // per-row scale planes k_scale/v_scale [P, ps] fp32 for codes (else null).
+// bf16 takes the split plan: `splits` ranges of `tps` 64-slot tiles, row
+// tiles of one row for the first `lead` rows and of `rt` rows after them
+// (rt 1, or up to 64 / G with lead >= 0; nrt = lead + ceil((R - lead) /
+// rt) tiles), and fp32 scratch `part` of 4 * Hk * nrt * splits * rt * G *
+// (2 + D) bytes; fp32 ignores them.
 //
 // K3: one query row per table row; kv_lengths [R] int32 counts the visible
 // slots (the current token included).
@@ -579,10 +871,11 @@ extern "C" int oryx_paged_decode(const void* q, const void* k_pages,
                                  const void* block_tables,
                                  const void* kv_lengths, int R, int Hk, int G,
                                  int D, int P, int ps, int maxp, float scale,
-                                 int bf16, int code, void* stream) {
+                                 int bf16, int code, void* part, int splits,
+                                 int tps, int rt, int lead, void* stream) {
   return run(q, k_pages, v_pages, k_scale, v_scale, o, q_sr, block_tables,
              nullptr, kv_lengths, R, Hk, G, D, P, ps, R, maxp, scale, 1, bf16,
-             code, stream);
+             code, part, splits, tps, rt, lead, stream);
 }
 
 // K4: R packed rows over S table rows; q_segments/q_positions [R] int32.
@@ -593,9 +886,10 @@ extern "C" int oryx_ragged_paged(const void* q, const void* k_pages,
                                  const void* q_segments,
                                  const void* q_positions, int R, int Hk,
                                  int G, int D, int P, int ps, int S, int maxp,
-                                 float scale, int bf16, int code,
+                                 float scale, int bf16, int code, void* part,
+                                 int splits, int tps, int rt, int lead,
                                  void* stream) {
   return run(q, k_pages, v_pages, k_scale, v_scale, o, q_sr, block_tables,
              q_segments, q_positions, R, Hk, G, D, P, ps, S, maxp, scale, 0,
-             bf16, code, stream);
+             bf16, code, part, splits, tps, rt, lead, stream);
 }

@@ -1,5 +1,5 @@
-"""Timing on the card and synthetic K1/K5 call shapes, shared by
-`chip_smoke.py` and the kernel check scripts (`scripts/torch_flash_*_check.py`).
+"""Timing on the card and synthetic K1/K3/K4/K5 call shapes, shared by
+`chip_smoke.py` and the kernel check scripts (`scripts/torch_*_check.py`).
 Nothing on a model's path imports this module; every function here needs an
 NVIDIA GPU."""
 
@@ -175,3 +175,101 @@ def flash_case(name: str, gen: torch.Generator) -> dict:
                     v=rnd(1, 8192, 16, 72), causal=False,
                     q_segment_ids=t(qr)[None], kv_segment_ids=t(reg)[None])
     raise ValueError(f"unknown shape {name}")
+
+
+# The serving engine's page pool (num_slots 4 x max_ctx 4,096 / page_size
+# 64) at oryx_7b's widths: 4 kv heads of 28 q heads (G = 7), D = 128.
+PAGED_POOL = (256, 64, 4, 128)
+PAGED_SLOTS = 4
+PAGED_LENGTHS = (1169, 1100, 1145, 1200)  # kv slots each slot holds
+PAGED_LANES = 64  # prefill lanes of a ragged dispatch (512 / 8-step chunk)
+
+
+def paged_pool_layer(pool_shape, gen, fmt=None):
+    """One random bf16 pool layer, or (fmt "int8" / "fp8_e4m3") a QuantPages
+    layer holding random values quantized on write, dequantized to bf16."""
+    from oryx_tpu_torch.ops import paged_kv
+
+    P, ps, Hk, D = pool_shape
+    dev = torch.device("cuda")
+    rows = torch.randn((P * ps, Hk, D), generator=gen, device=dev)
+    if fmt is None:
+        layer = paged_kv.init_paged_pool(1, P, ps, Hk, D,
+                                         dtype=torch.bfloat16, device=dev)[0]
+        layer.copy_(rows.view(P, ps, Hk, D))
+        return layer
+    layer = paged_kv.init_quant_pages(1, P, ps, Hk, D, fmt=fmt,
+                                      dequant_dtype=torch.bfloat16,
+                                      device=dev)[0]
+    paged_kv.scatter_rows(layer, torch.arange(P * ps, device=dev), rows)
+    return layer
+
+
+def paged_case(name: str, gen: torch.Generator, fmt=None) -> dict:
+    """A paged-kernel call at the serving engine's shapes (PAGED_POOL), with
+    random q and pages (bf16, or an int8 / fp8_e4m3 pool) and synthetic
+    block tables: each slot holds distinct random pages for its
+    PAGED_LENGTHS slots and the sentinel P past them.
+
+      decode          K3, R = 4, kv_lengths PAGED_LENGTHS;
+      ragged_decode   K4, the 4 decode rows (segment = slot);
+      ragged_prefill  K4, R = 68: the 4 decode rows, then 64 prefill lanes
+                      of slot 3 at consecutive positions p0 .. p0 + 63
+                      (`models/generate.py::paged_ragged_step`), p0 = 1,136,
+                      the slot's decode row at p0 - 1.
+
+    Returns dict(kind ("paged_decode" / "ragged_paged"), q, k, v, bt, ints
+    (the int32 [R] operands), segments and visible counts per row)."""
+    P, ps, Hk, D = PAGED_POOL
+    dev = torch.device("cuda")
+    maxp = 4096 // ps
+    S = PAGED_SLOTS
+    lens = list(PAGED_LENGTHS)
+    p0 = 1136
+    if name == "ragged_prefill":
+        lens[3] = p0 + PAGED_LANES
+    perm = torch.randperm(P, generator=gen, device=dev).tolist()
+    bt = torch.full((S, maxp), P, dtype=torch.int32)
+    for s_, n in enumerate(lens):
+        for j in range(-(-n // ps)):
+            bt[s_, j] = perm.pop()
+    bt = bt.to(dev)
+    k = paged_pool_layer(PAGED_POOL, gen, fmt)
+    v = paged_pool_layer(PAGED_POOL, gen, fmt)
+    if name in ("decode", "ragged_decode"):
+        seg, vis = list(range(S)), lens
+    elif name == "ragged_prefill":
+        seg = list(range(S)) + [3] * PAGED_LANES
+        vis = lens[:3] + [p0] + [p0 + 1 + i for i in range(PAGED_LANES)]
+    else:
+        raise ValueError(f"unknown paged shape {name}")
+    R = len(seg)
+    q = torch.randn((R, Hk * 7, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    ints = ((i32(vis),) if name == "decode"
+            else (i32(seg), i32([n - 1 for n in vis])))
+    return dict(kind="paged_decode" if name == "decode" else "ragged_paged",
+                q=q, k=k, v=v, bt=bt, ints=ints, segments=seg, visible=vis)
+
+
+def paged_bound(q_numel: int, Hq: int, D: int, Hk: int, bt_numel: int,
+                segments, visible, n_ints: int, fmt=None):
+    """The least time (ms) the card could take for one paged-attention call,
+    what bounds it ("bytes" or "operations"), and the kv rows, flops and
+    bytes it counts: q and o once (bf16), the table and the n_ints int32
+    [R] operands once, and each kv row some query sees once (a segment's
+    visible prefix is its longest row's): 2 bytes a value, or 1 a code plus
+    one 4-byte scale a row (shared by the Hk heads); against 4 * D flops
+    per visible (q head, slot) pair, at the H100's bf16 peak."""
+    longest: dict[int, int] = {}
+    for s_, n in zip(segments, visible):
+        longest[s_] = max(longest.get(s_, 0), max(0, n))
+    kv_rows = sum(longest.values())
+    row_bytes = Hk * D * 2 if fmt is None else Hk * D + 4
+    nbytes = (2 * q_numel * 2 + bt_numel * 4 + n_ints * len(visible) * 4
+              + 2 * kv_rows * row_bytes)
+    flops = 4.0 * D * Hq * sum(max(0, n) for n in visible)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", kv_rows, flops, nbytes)

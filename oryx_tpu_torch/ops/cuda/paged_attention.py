@@ -6,7 +6,11 @@ Port of the Pallas TPU kernels `oryx_tpu.ops.pallas.paged_attention`
 -> `_ragged_paged`, K4). The CUDA source is
 `oryx_tpu_torch/csrc/paged_attention.cu`; see its header for the layout and
 what bounds it. K3 is a front end over K4's kernel (segment = row, length =
-kv_lengths).
+kv_lengths). A bf16 call is split-KV: `_row_tile` and `_paged_plan` pick,
+from host numbers only (never a row length, so a call needs no device sync),
+the packed rows a block takes and the fixed 64-slot ranges of the table its
+splits own; the wrapper allocates the fp32 partials and the kernel's second
+launch merges them in split order.
 
 The wrappers have the Pallas wrappers' signatures. Like them, they take a
 quantized pool (`paged_kv.QuantPages` planes, both K and V: int8 or
@@ -29,23 +33,32 @@ import torch
 
 from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.cuda import build
+from oryx_tpu_torch.ops.cuda.flash_attention import _call, _sm_count
 
 # Kernel launches, keyed by (kernel, R, Hk, G, D, P, page_size, max_pages);
 # the kernel name carries the code dtype of a quantized pool
 # ("paged_decode_int8", "ragged_paged_fp8_e4m3"). Only `_launch` adds to it,
-# once per launch.
+# once per wrapper call (a bf16 call is the split kernel and its merge).
 LAUNCHES: collections.Counter = collections.Counter()
 
 GMAX = 16  # q heads per kv head one kernel tile holds
+TILE = 64  # kv slots of a tile of the bf16 kernel
+A_ROWS = 64  # (row, q head) pairs of a row tile: four m16 tiles
+# Blocks per SM the splits aim for (a few waves of blocks at a decode step),
+# and the most splits the kernel's merge takes.
+BLOCKS_PER_SM = 4
+MAX_SPLITS = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C argument lists: q, k, v, k scales, v scales, o, q row stride, block
-# tables, the int [R] operands, the shape ints, scale, bf16, code, stream.
+# tables, the int [R] operands, the shape ints, scale, bf16, code, the
+# partials' scratch, splits, tiles per split, row tile, leading one-row
+# tiles, stream.
 _ARGTYPES = {
     "paged_decode": [_P] * 6 + [ctypes.c_longlong] + [_P] * 2 + [_I] * 7
-    + [ctypes.c_float, _I, _I, _P],
+    + [ctypes.c_float, _I, _I, _P] + [_I] * 4 + [_P],
     "ragged_paged": [_P] * 6 + [ctypes.c_longlong] + [_P] * 3 + [_I] * 8
-    + [ctypes.c_float, _I, _I, _P],
+    + [ctypes.c_float, _I, _I, _P] + [_I] * 4 + [_P],
 }
 # Code dtypes of a quantized pool -> the kernel's `code` argument.
 _CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
@@ -60,6 +73,48 @@ def _kernel_fn(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def _row_tile(R: int, S: int, G: int, decode: bool) -> int:
+    """Packed rows a block of the bf16 kernel takes: one for K3 and for a K4
+    dispatch of at most S rows (decode rows only, each its own segment),
+    else floor(64 / G), so the prefill lanes of one slot packed behind the
+    decode rows share one walk of their pages per tile. With row tiles the
+    first S rows (the engine's decode rows) still take one a tile
+    (`plan_of`'s "lead"): a tile of S segments would walk S times."""
+    return 1 if decode or R <= S else A_ROWS // G
+
+
+def _paged_plan(S: int, Hk: int, maxp: int, ps: int, sm_count: int):
+    """(splits, tiles per split) of the bf16 kernel: the ceil(maxp * ps /
+    64) slot tiles of the table are cut into `splits` fixed ranges of `tps`
+    tiles (the last one shorter), split s owning tiles [s * tps, min((s + 1)
+    * tps, ceil(maxp * ps / 64))). The count aims at BLOCKS_PER_SM blocks
+    per SM over the Hk * S (table row, kv head) pairs, at least one tile a
+    split. Host numbers of the table only: the kernel clips each range at
+    its rows' visible ends, so splits past every row's end exit at once
+    with an empty partial; and not the dispatch's R or row tile, so every
+    dispatch over one table cuts it alike and a row's output bits do not
+    depend on the rows it is packed with (the ragged engine's replies stay
+    the same whichever dispatch a token rides in)."""
+    nk = -(-maxp * ps // TILE)
+    want = -(-BLOCKS_PER_SM * sm_count // (Hk * S))
+    splits = max(1, min(nk, want, MAX_SPLITS))
+    tps = -(-nk // splits)
+    return -(-nk // tps), tps
+
+
+def plan_of(name: str, R: int, S: int, Hk: int, G: int, maxp: int, ps: int,
+            sm_count: int) -> dict:
+    """The bf16 kernel's plan of a call of `name` ("paged_decode" or
+    "ragged_paged") over R packed rows and an [S, maxp] table: splits,
+    tiles per split, row tile, the leading rows that take one a tile, and
+    the number of row tiles."""
+    rt = _row_tile(R, S, G, name == "paged_decode")
+    lead = S if rt > 1 else 0
+    splits, tps = _paged_plan(S, Hk, maxp, ps, sm_count)
+    return {"splits": splits, "tps": tps, "row_tile": rt, "lead": lead,
+            "row_tiles": lead + -(-(R - lead) // rt)}
 
 
 def _check_ints(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
@@ -155,6 +210,9 @@ def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
         )
     if q.stride(2) != 1 or q.stride(1) != D:
         raise ValueError("q: heads and features must be contiguous")
+    if bf16 and (q.data_ptr() % 16 or q.stride(0) % 8):
+        # The bf16 kernel reads q rows in 16-byte chunks.
+        q = q.clone(memory_format=torch.contiguous_format)
     _check_ints("block_tables", block_tables, (S, maxp), dev)
     for i, x in enumerate(ints):
         _check_ints(f"int operand {i}", x, (R,), dev)
@@ -164,15 +222,21 @@ def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
     o = torch.empty((R, Hq, D), dtype=q.dtype, device=dev)
     G = Hq // Hk
     extra = (S,) if name == "ragged_paged" else ()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn(name)(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-            o.data_ptr(), q.stride(0), block_tables.data_ptr(),
-            *(x.data_ptr() for x in ints),
-            R, Hk, G, D, P, ps, *extra, maxp, float(scale), int(bf16), code,
-            stream,
-        )
+    part, plan = None, (0, 0, 0, 0)
+    if bf16:  # the split plan and its fp32 partials: (m, l) and acc[D]
+        pl = plan_of(name, R, S, Hk, G, maxp, ps, _sm_count(dev))
+        part = torch.empty(
+            Hk * pl["row_tiles"] * pl["splits"] * pl["row_tile"] * G
+            * (2 + D), dtype=torch.float32, device=dev)
+        plan = (pl["splits"], pl["tps"], pl["row_tile"], pl["lead"])
+    err = _call(
+        _kernel_fn(name), dev,
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+        o.data_ptr(), q.stride(0), block_tables.data_ptr(),
+        *(x.data_ptr() for x in ints),
+        R, Hk, G, D, P, ps, *extra, maxp, float(scale), int(bf16), code,
+        None if part is None else part.data_ptr(), *plan,
+    )
     if err != 0:
         raise RuntimeError(
             f"{kernel} kernel launch failed: CUDA error {err} (q "

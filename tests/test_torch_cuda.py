@@ -502,6 +502,117 @@ def test_quant_paged_kernels_reject_what_they_do_not_take(card):
         pa.ragged_decode_attention(q, bad_scale, v, bt, n)
 
 
+# ---- K3/K4's split-KV route: layouts of the plan and the row tiles ---------
+
+PAGED_FMTS = ["bf16", "int8", "fp8_e4m3"]
+
+
+def _pools_of(fmt, dev, **kw):
+    """`_pool_case` (bf16) or `_quant_pools` (int8 / fp8), bf16 compute."""
+    if fmt == "bf16":
+        return _pool_case(dev, torch.bfloat16, **kw)
+    return _quant_pools(dev, torch.bfloat16, fmt, **kw)
+
+
+def _check_paged(name, q, k, v, bt, ints, visible):
+    """The kernel through its public wrapper against the plain twin
+    (bf16: atol = rtol = 1e-2) on the rows that see a slot, zeros on the
+    others, one LAUNCHES count a call, and two calls bitwise equal."""
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    kern = (pa.ragged_decode_attention if name == "paged_decode"
+            else pa.ragged_paged_attention)
+    plain = (paged_kv.ragged_decode_attention if name == "paged_decode"
+             else paged_kv.ragged_paged_attention)
+    before = sum(pa.LAUNCHES.values())
+    got, again = kern(q, k, v, bt, *ints), kern(q, k, v, bt, *ints)
+    torch.cuda.synchronize()
+    assert sum(pa.LAUNCHES.values()) == before + 2
+    assert torch.equal(got, again)
+    ref = plain(q, k, v, bt, *ints)
+    keep = torch.as_tensor(visible, device=q.device) > 0
+    torch.testing.assert_close(got[keep].float(), ref[keep].float(),
+                               atol=1e-2, rtol=1e-2)
+    assert bool((got[~keep] == 0).all())
+
+
+@pytest.mark.parametrize("fmt", PAGED_FMTS)
+def test_paged_split_serving_layout(card, fmt):
+    """K4 at the ragged engine's R = 68 dispatch (4 decode rows, 64 lanes of
+    one slot at consecutive positions) and K3 / K4 decode at its R = 4, on
+    the serving pool: row tiles of 64 // G = 9 rows at R = 68, one row
+    otherwise, more than one split, the same split plan for both."""
+    from oryx_tpu_torch.ops.cuda import measure
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    code = None if fmt == "bf16" else fmt
+    for shape in ("decode", "ragged_decode", "ragged_prefill"):
+        c = measure.paged_case(shape, gen, code)
+        R, Hq, _ = c["q"].shape
+        S, maxp = c["bt"].shape
+        plan = pa.plan_of(c["kind"], R, S, 4, Hq // 4, maxp, 64,
+                          pa._sm_count(card))
+        assert plan["splits"] > 1
+        assert plan["row_tile"] == (9 if shape == "ragged_prefill" else 1)
+        _check_paged(c["kind"], c["q"], c["k"], c["v"], c["bt"], c["ints"],
+                     c["visible"])
+    # A row's bits do not depend on the dispatch it is packed in: the
+    # decode rows of the R = 68 dispatch (row tiles of 9, beside lanes)
+    # equal the same rows dispatched alone (one row a block).
+    q, k, v, bt, (seg, pos) = (c[n] for n in ("q", "k", "v", "bt", "ints"))
+    both = pa.ragged_paged_attention(q, k, v, bt, seg, pos)[:4]
+    alone = pa.ragged_paged_attention(q[:4].contiguous(), k, v, bt, seg[:4],
+                                      pos[:4])
+    assert torch.equal(both, alone)
+
+
+@pytest.mark.parametrize("fmt", PAGED_FMTS)
+@pytest.mark.parametrize("G", [1, 7])
+def test_paged_split_ranges_cross_rows(card, fmt, G):
+    """K3 rows whose visible slots end on, just before and just past the
+    64-slot split boundaries, a kv length 0 row (zeros), and a row that
+    fills the table."""
+    lengths = [0, 63, 64, 65, 127, 129, 700, 1024]
+    q, k, v, bt = _pools_of(fmt, card, ps=64, D=128, G=G, lengths=lengths)
+    bt = bt[:, :16].contiguous()  # exactly 1,024 slots: 16 tiles
+    n = torch.tensor(lengths, dtype=torch.int32, device=card)
+    _check_paged("paged_decode", q, k, v, bt, (n,), lengths)
+
+
+@pytest.mark.parametrize("fmt", PAGED_FMTS)
+@pytest.mark.parametrize("G,ps", [(4, 16), (7, 64)])
+def test_paged_split_mixed_row_tiles(card, fmt, G, ps):
+    """K4 with 30 prefill lanes of slot 1 behind 4 decode rows: row tiles of
+    64 // G rows that mix decode rows and lanes, lanes straddling tile and
+    split boundaries (positions 50..79), a segment past S (clamps), a row
+    at position -1 (zeros) and R a multiple of no row tile."""
+    lengths = [1, 80, 150, 300]
+    q, k, v, bt = _pools_of(fmt, card, ps=ps, D=128, G=G, lengths=lengths,
+                            seed=3)
+    seg = [0, 1, 2, 3] + [1] * 30 + [7, 2]
+    pos = [0, 49, 149, 299] + list(range(50, 80)) + [120, -1]
+    g = torch.Generator(device="cpu").manual_seed(4)
+    qr = torch.randn((len(seg), q.shape[1], 128), generator=g).to(
+        q.dtype).to(card)
+    ints = tuple(torch.tensor(x, dtype=torch.int32, device=card)
+                 for x in (seg, pos))
+    _check_paged("ragged_paged", qr, k, v, bt, ints, [p + 1 for p in pos])
+    # q rows 4 elements apart from 16-byte multiples (the wrapper copies
+    # them for the kernel's 16-byte reads): the same bits.
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    R, Hq, D = qr.shape
+    wide = torch.zeros((R, Hq * D + 4), dtype=qr.dtype, device=card)
+    wide[:, :Hq * D] = qr.reshape(R, -1)
+    odd = wide[:, :Hq * D].view(R, Hq, D)
+    assert odd.stride(0) % 8
+    torch.testing.assert_close(pa.ragged_paged_attention(odd, k, v, bt, *ints),
+                               pa.ragged_paged_attention(qr, k, v, bt, *ints),
+                               atol=0, rtol=0)
+
+
 def test_tiny_pipeline_on_card_matches_cpu(card):
     """The whole slice on the card (kernel path, fp32) gives the CPU
     twin's greedy replies on the same weights."""
