@@ -23,11 +23,17 @@ Phases (any failure exits non-zero):
      their spread; null when fewer than two did), the twin's time, SDPA
      with a boolean mask as a yardstick, and the least time the card could
      take (bytes / 3.35 TB/s vs flops / 989 TFLOP/s).
+     The decode call is also timed replayed inside a CUDA graph
+     ("graph_ms"), the route the decode loop takes.
   3. `Pipeline.chat_batch` on the mix, greedy, 32 new tokens, random bf16
      weights from torch.Generator("cuda") seeded 0, three times: the tokens
      must be identical, the kernel must have launched for every call
-     shape in the first run, and every decode call must have taken K1's
-     split-KV decode route.
+     shape in the first run (replays of the decode graphs count their
+     launches), and every decode call must have taken K1's split-KV decode
+     route. The decode runs as replays of CUDA graphs of 8 steps (captured
+     in run 0); in the same call the eager loop (`_decode_while` with no
+     graph, on the same prefill) is the witness: its tokens must be
+     byte-equal. Both decode walls and the capture time are printed.
   4. The same mix with attn_impl="xla" (plain attention); greedy token
      agreement with the kernel path is printed, not asserted. Prefill
      last-token logits of both bf16 paths are held against an fp32 witness
@@ -39,6 +45,29 @@ Phases (any failure exits non-zero):
      host is barely slowed): device time by kernel family, the top
      kernels, K1's share of the device time, and the device's idle share
      inside the trace (1 - union of kernel intervals / the call's wall).
+     Then `generate` on the mix's embeds (prefill + 32 steps) traced on
+     the graph route and on the eager witness: idle share and the
+     runtime's launch calls a step for each.
+ 14. (Runs after 5.) The rest of the dense path at full width and depth:
+     `chat_stream` of the 448x448 image request joins to `chat()`'s reply;
+     seeded sampling at temperature 0.7 (seed 3) through the graphs gives
+     the same tokens twice, the eager witness's tokens, and
+     `generate_stream`'s blocks, which differ from one another (a
+     generator not registered with the graphs would repeat one stream);
+     three turns of a `ChatSession` over the image, cached and uncached,
+     in bf16 (equality printed) and with fp32 compute (equality asserted;
+     bf16 rounds prefill-computed and decode-computed K/V differently),
+     the cached turns 2-3 prefilling only their 256-row text suffix (no
+     ViT call), TTFTs (the ask's wall less its decode and any graph
+     capture) printed; three sessions over a 1,536-byte shared context
+     through one `SessionPrefixCache`, the second and third seeding from
+     the first (each prefill one 256-row bucket; prefill walls beside a
+     cold chat of the same prompt);
+     `score_options` over four options against a teacher-forced full
+     forward: the same argmax, each score within 0.1 a token. Then K1 at
+     the two new call shapes (the suffix prefill from a start that is not
+     a multiple of 64, and an option's rows after the prompt) against its
+     plain twin, timed as in phase 2.
   7. The serving engine, `ContinuousScheduler`, at full width on the
      phase-1 weights: 4 slots, 64-token pages, 8-step chunks, max_ctx
      4096, the default 256-page pool, greedy, the prefix cache on (the
@@ -384,6 +413,327 @@ def prefill_logits(pipe, reqs):
     return logits.float()
 
 
+# ---- the decode graphs, streaming and sessions (phases 3, 5, 14) -----------
+
+SESSION_QS = ("Describe this image.", "What colour dominates it?",
+              "Is anything in it moving?")
+SCORE_OPTIONS = (" a cat", " a dog", " an owl", " a fox")
+LL_TOL = 0.1  # score vs full forward, bf16: absolute, per option token
+
+
+def eager_generate(pipe, embeds, lengths, cache_len, gen_cfg=None,
+                   generator=None):
+    """The eager witness of the graph route: generate's prefill, then
+    `_decode_while` with no graph (every step's kernels launched one by
+    one), MAX_NEW steps with the pipe's stop sequences. Returns (tokens
+    [B, MAX_NEW], finished flags [B, MAX_NEW], decode seconds, steps, K1
+    decode launches)."""
+    from oryx_tpu_torch.models import generate, oryx, qwen2
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    cfg = pipe.cfg
+    gen_cfg = gen_cfg or cfg.generation
+    dt = oryx.compute_dtype(cfg)
+    llm = pipe.params.llm
+    stop = pipe.stop_sequences.to(pipe.device)
+    with torch.inference_mode():
+        cache = qwen2.init_kv_cache(cfg.llm, embeds.shape[0], cache_len,
+                                    dtype=dt, device=pipe.device)
+        carry = generate._prefill_carry(
+            llm, cfg.llm, gen_cfg, embeds, lengths, generator, cache=cache,
+            start=None, attn_impl=cfg.attn_impl, compute_dtype=dt,
+            stop_L=stop.shape[1])
+        step = generate._make_decode_step(
+            llm, cfg.llm, gen_cfg, stop, cache_len=cache_len,
+            attn_impl=cfg.attn_impl, compute_dtype=dt, generator=generator)
+        torch.cuda.synchronize()
+        fa.LAUNCHES_DECODE.clear()
+        t0 = time.perf_counter()
+        _, toks, fin, steps = generate._decode_while(
+            step, carry, MAX_NEW, gen_cfg.eos_token_id)
+        torch.cuda.synchronize()
+    return (toks, fin, time.perf_counter() - t0, steps,
+            sum(fa.LAUNCHES_DECODE.values()))
+
+
+def mix_embeds(pipe, reqs):
+    """The mix's decoder inputs as chat_batch builds them: (embeds, lengths,
+    cache_len)."""
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.ops.packing import round_up_bucket
+
+    _, packed, batch = pipe.pack_requests(reqs)
+    arrays = oryx.stage_mm_arrays(packed, batch, pipe.device)
+    embeds = oryx.mm_embeds(pipe.params, pipe.cfg, arrays)
+    return (embeds, arrays["lengths"],
+            round_up_bucket(batch.token_ids.shape[1] + MAX_NEW))
+
+
+def row_tokens(toks, fin):
+    """Per row: the tokens up to and including the finishing one, trailing
+    EOS dropped (what chat_batch decodes)."""
+    out = []
+    for t, f in zip(toks.tolist(), fin.tolist()):
+        n = f.index(True) + 1 if True in f else len(t)
+        t = t[:n]
+        while t and t[-1] == EOS:
+            t.pop()
+        out.append(t)
+    return out
+
+
+def graph_decode_ms(kw) -> float:
+    """Event ms of one K1 decode call replayed inside a CUDA graph of 20
+    calls (the route the decode loop takes), per call."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import graphs
+    from oryx_tpu_torch.ops.cuda.measure import cuda_time_ms
+
+    q, k, v = kw["q"], kw["k"], kw["v"]
+    rest = {x: y for x, y in kw.items() if x not in ("q", "k", "v")}
+    fa.flash_attention(q, k, v, **rest)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = graphs.CountedGraph()
+    launches = [collections.Counter(c) for c in graphs.counters()]
+    with graph.capture(stream):
+        for _ in range(20):
+            fa.flash_attention(q, k, v, **rest)
+    ms = cuda_time_ms(graph.graph.replay, iters=10) / 20
+    for c, before in zip(graphs.counters(), launches):  # timing, not a path
+        c.clear()
+        c.update(before)
+    return ms
+
+
+def k1_window():
+    """Zero K1's counters; returns a function giving the launches since."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    fa.LAUNCHES.clear()
+    return lambda: dict(fa.LAUNCHES)
+
+
+def prefix_case(name, start, total, tq, cache_len, keep_rows, gen):
+    """Random bf16 q/k/v at one of K1's prefix-reuse call shapes: a
+    `tq`-row bucket with q positions from `start` over a `cache_len`-slot
+    cache whose first `total` slots are valid. Returns (name, kwargs,
+    [1, tq] rows kept)."""
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    slots = torch.arange(cache_len, device=dev)[None]
+    return (name, dict(
+        q=rnd(1, tq, 28, 128), k=rnd(1, cache_len, 4, 128),
+        v=rnd(1, cache_len, 4, 128), causal=True,
+        q_positions=(start + torch.arange(tq, device=dev))[None],
+        kv_mask=(slots < total).int()),
+        torch.arange(tq, device=dev)[None] < keep_rows)
+
+
+def shared_prefix(ids, flat) -> int:
+    """The prefix of a prompt's flat stream a cached state's ids serve, as
+    `Pipeline._prefix_plan` finds it (at least one token left over)."""
+    m = min(len(ids), len(flat) - 1)
+    neq = flat[:m] != ids[:m]
+    return int(np.argmax(neq)) if neq.any() else m
+
+
+def session_turns(pipe, img, cache: bool):
+    """SESSION_QS through one ChatSession over the image, MAX_NEW tokens a
+    turn. Returns (replies, TTFTs in s: the ask's wall less its decode and
+    any graph capture, K1 launches of turns 2-3, the state after each
+    turn)."""
+    from oryx_tpu_torch.serve.pipeline import ChatSession
+
+    s = ChatSession(pipe, images=[img], cache=cache)
+    replies, ttft, later, states = [], [], {}, []
+    for i, q in enumerate(SESSION_QS):
+        window = k1_window()
+        t: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replies.append(s.ask(q, max_new_tokens=MAX_NEW, timings=t))
+        ttft.append(time.perf_counter() - t0 - t["decode_s"]
+                    - t["capture_s"])
+        if i:
+            for key, n in window().items():
+                later[key] = later.get(key, 0) + n
+        states.append(s._cache_state)
+    return replies, ttft, later, states
+
+
+def stream_and_sessions(pipe, pipe_f32, card) -> list[dict]:
+    """Phase 14 (see the module docstring). Returns the kernel rows of K1's
+    two prefix-reuse call shapes."""
+    from oryx_tpu_torch.models import generate, oryx, qwen2
+    from oryx_tpu_torch.ops.packing import round_up_bucket
+    from oryx_tpu_torch.serve.pipeline import ChatSession
+    from oryx_tpu_torch.serve.prefix_cache import SessionPrefixCache
+
+    req = requests()[0]
+    q0, img = req["question"], req["images"][0]
+    cfg = pipe.cfg
+
+    # a. chat_stream == chat.
+    ref = pipe.chat(q0, images=[img], max_new_tokens=MAX_NEW)
+    t0 = time.perf_counter()
+    deltas, first = [], None
+    for d in pipe.chat_stream(q0, images=[img], max_new_tokens=MAX_NEW,
+                              chunk=8):
+        first = first or time.perf_counter() - t0
+        deltas.append(d)
+    print(f"  chat_stream: {len(deltas)} deltas, first after {first:.3f} s, "
+          f"all after {time.perf_counter() - t0:.3f} s; joined == chat(): "
+          f"{''.join(deltas) == ref} ({ref[:40]!r})")
+    if "".join(deltas) != ref:
+        raise SystemExit("chat_stream's deltas do not join to chat()")
+
+    # b. Seeded sampling through the graphs.
+    ids, imgs, fac, caps = pipe._prepare_request(req)
+    embeds, L = pipe._prompt_embeds(cfg, ids, imgs, fac, caps)
+    cache_len = round_up_bucket(embeds.shape[1] + MAX_NEW)
+    hot = dataclasses.replace(cfg.generation, temperature=0.7)
+    kw = dict(inputs_embeds=embeds,
+              lengths=torch.tensor([L], dtype=torch.int32, device="cuda"),
+              max_new_tokens=MAX_NEW, cache_len=cache_len,
+              attn_impl=cfg.attn_impl, compute_dtype=oryx.compute_dtype(cfg),
+              stop_sequences=pipe.stop_sequences)
+
+    def gen():
+        return torch.Generator("cuda").manual_seed(3)
+
+    llm = pipe.params.llm
+    runs = [generate.generate(llm, cfg.llm, hot, generator=gen(), **kw)[0]
+            for _ in range(2)]
+    blocks = list(generate.generate_stream(llm, cfg.llm, hot,
+                                           generator=gen(), chunk=8, **kw))
+    streamed = np.concatenate(blocks, axis=1)
+    eager, *_ = eager_generate(pipe, embeds, kw["lengths"], cache_len, hot,
+                               gen())
+    sampled = runs[0].cpu().numpy()
+    ok = (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], eager)
+          and np.array_equal(streamed, sampled[:, :streamed.shape[1]])
+          and len({b.tobytes() for b in blocks}) == len(blocks))
+    print(f"  sampled (temperature 0.7, seed 3): two generate runs equal "
+          f"{torch.equal(runs[0], runs[1])}, == eager witness "
+          f"{torch.equal(runs[0], eager)}, generate_stream "
+          f"{len(blocks)} blocks == generate "
+          f"{np.array_equal(streamed, sampled[:, :streamed.shape[1]])}, "
+          f"blocks all differ {len({b.tobytes() for b in blocks}) == len(blocks)}"
+          f"; first tokens {sampled[0, :8].tolist()}")
+    if not ok:
+        raise SystemExit("seeded sampling through the decode graphs is off")
+
+    # c. Three turns of a ChatSession over the image, cached and not.
+    rows = []
+    for label, p in (("bf16", pipe), ("fp32 compute", pipe_f32)):
+        cached, tc, later, states = session_turns(p, img, True)
+        state = states[-1]
+        plain, tp, _, _ = session_turns(p, img, False)
+        same = [a == b for a, b in zip(cached, plain)]
+        print(f"  ChatSession {label}: replies cached == uncached {same}; "
+              f"TTFT cached {[f'{x:.4f}' for x in tc]} s vs uncached "
+              f"{[f'{x:.4f}' for x in tp]} s; cache {state.cache_len} "
+              f"slots, {len(state.ids)} ids")
+        # Turns 2-3 prefilled their text suffix only: no ViT call
+        # (D = 72), and every multi-row K1 call is the bucket of a turn's
+        # suffix (the earlier reply re-tokenized and the new question).
+        plans = [(shared_prefix(a.ids, b.prompt_flat), len(b.prompt_flat))
+                 for a, b in zip(states, states[1:])]
+        buckets = {round_up_bucket(n - c) for c, n in plans}
+        full = [k for k in later
+                if k[7] == 72 or (k[5] > 1 and k[5] not in buckets)]
+        print(f"    turns 2-3 prefilled rows {plans} (suffix buckets "
+              f"{sorted(buckets)}); K1 calls {later}")
+        if full or not later:
+            raise SystemExit(f"a cached turn re-ran a full prefill: {full}")
+        if label == "bf16":
+            common, L3 = plans[-1]
+            suffix = max((k for k in later
+                          if k[5] == round_up_bucket(L3 - common)),
+                         key=lambda k: later[k])
+            suffix_launches = later[suffix]
+        elif not all(same):
+            raise SystemExit("cached and uncached sessions disagree (fp32)")
+
+    # d. Sessions over one shared context through one SessionPrefixCache:
+    # the first cold, the next two seeded from it.
+    shared = SessionPrefixCache()
+    ctx = shared_context()
+    ChatSession(pipe, shared=shared).ask(ctx + "How strong was the wind?",
+                                         max_new_tokens=MAX_NEW)
+    for q in ("How many boats went out?", "What colour was the water?"):
+        ids = pipe._prepare_request({"question": ctx + q})[0]
+        hit = shared.lookup(np.asarray(ids, np.int64))
+        window = k1_window()
+        warm: dict = {}
+        ChatSession(pipe, shared=shared).ask(
+            ctx + q, max_new_tokens=MAX_NEW, timings=warm)
+        tq = sorted({k[5] for k in window() if k[5] > 1})
+        cold: dict = {}
+        pipe.chat(ctx + q, max_new_tokens=MAX_NEW, timings=cold)
+        print(f"  SessionPrefixCache: a new session over the shared context "
+              f"hit {hit is not None} ({shared.entries} entries); its "
+              f"prefill Tq {tq} over a {len(ids)}-token prompt; prefill "
+              f"{warm['prefill_s']:.4f} s vs cold {cold['prefill_s']:.4f} s")
+        if hit is None or tq != [256]:
+            raise SystemExit("a session did not reuse the shared context")
+
+    # e. score_options vs a teacher-forced full forward.
+    window = k1_window()
+    scores = pipe.score_options(q0, list(SCORE_OPTIONS), images=[img])
+    score_launches = window()
+    full = []
+    with torch.inference_mode():
+        for o in SCORE_OPTIONS:
+            o_ids = torch.tensor(pipe.tokenizer.encode(o), device="cuda")
+            x = torch.cat([embeds[:, :L], llm.embed.weight[o_ids][None]], 1)
+            T = x.shape[1]
+            logits, _ = qwen2.forward(
+                llm, cfg.llm, inputs_embeds=x,
+                kv_mask=torch.ones((1, T), dtype=torch.int32, device="cuda"),
+                attn_impl=cfg.attn_impl,
+                compute_dtype=oryx.compute_dtype(cfg))
+            lp = torch.log_softmax(logits[0, L - 1:T - 1], -1)
+            full.append(float(lp[torch.arange(len(o_ids)), o_ids].sum()))
+    diff = [abs(a - b) for a, b in zip(scores, full)]
+    ok = (int(np.argmax(scores)) == int(np.argmax(full))
+          and all(d <= LL_TOL * len(o) for d, o in zip(diff, SCORE_OPTIONS)))
+    print(f"  score_options {list(SCORE_OPTIONS)}: {np.round(scores, 4)} vs "
+          f"full forward {np.round(full, 4)}; |diff| "
+          f"{[f'{d:.4f}' for d in diff]} (limit {LL_TOL} a token), argmax "
+          f"{int(np.argmax(scores))} vs {int(np.argmax(full))}")
+    if not ok:
+        raise SystemExit("score_options disagrees with the full forward")
+
+    # f. K1 at the two new call shapes, against its plain twin.
+    gen_k = torch.Generator("cuda").manual_seed(5)
+    score_key = max((k for k in score_launches if k[5] == 256),
+                    key=lambda k: score_launches[k])
+    k0 = len(pipe.tokenizer.encode(SCORE_OPTIONS[0]))
+    print(f"  K1 call shapes: suffix prefill rows [{common}, {L3}) in a "
+          f"{suffix[5]}-row bucket over a {suffix[6]}-slot cache; score "
+          f"rows [{L}, {L + k0}) in a 256-row bucket over a "
+          f"{score_key[6]}-slot cache")
+    out = []
+    for (name, kwk, keep), n in (
+        (prefix_case("suffix_prefill", common, L3, suffix[5], suffix[6],
+                     L3 - common, gen_k), suffix_launches),
+        (prefix_case("score", L, L + k0, 256, score_key[6], k0, gen_k),
+         score_launches[score_key]),
+    ):
+        key, row = check_kernel_case(name, kwk, keep)
+        row["launches"] = n
+        print(f"  launches {row['name']}: {n}")
+        if n == 0:
+            raise SystemExit(f"{row['name']} was never launched")
+        out.append(row)
+    return out
+
+
 def kernel_family(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n or "flash_decode" in n:
@@ -406,11 +756,15 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
 def profile_call(fn):
     """fn() under torch.profiler, CUDA activity only: device time by kernel
     family, the top kernels, and the device's idle share inside the trace.
     Raises when the trace holds no device time. Returns (device us by
-    family, the call's wall us)."""
+    family, the call's wall us, the runtime's launch calls by name)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -445,6 +799,11 @@ def profile_call(fn):
             busy += t - end
             end = t
     dev_us = sum(by_family.values())
+    # The runtime's launch calls (CUPTI records them beside the kernels): a
+    # CUDA graph's replay is one call for all its kernels.
+    calls = collections.Counter(
+        e.name for e in prof.events() if e.name in HOST_LAUNCHES)
+    print(f"  host launch calls: {dict(calls) or 'not recorded'}")
     print(f"  profiled wall {wall_us / 1e3:.1f} ms; {len(kernels)} kernel "
           f"launches, kernel time {dev_us / 1e3:.1f} ms, busy (union) "
           f"{busy / 1e3:.1f} ms = {busy / wall_us:.1%} of the wall: idle "
@@ -455,7 +814,7 @@ def profile_call(fn):
     print("  top kernels by device time:")
     for name, us in by_name.most_common(12):
         print(f"    {us / 1e3:10.2f} ms  x{count[name]:<6d} {name[:90]}")
-    return by_family, wall_us
+    return by_family, wall_us, calls
 
 
 # ---- serving engine (phases 6-8) -------------------------------------------
@@ -1371,7 +1730,7 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
     print("  one more step (the image batch) under torch.profiler:")
     t2 = fits[1][0]
     batch = t2._device_batch(host_img)
-    fams, wall_us = profile_call(
+    fams, wall_us, _ = profile_call(
         lambda: step_lib.train_step(t2.state, batch, cfg_t, t2.tx))
     k5 = fams[kernel_family("flash_bwd")]
     k1 = fams[kernel_family("flash_fwd")]
@@ -1460,6 +1819,7 @@ def main() -> int:
     if here not in sys.path:
         sys.path.insert(0, here)
     from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import generate as generate_lib
     from oryx_tpu_torch.models import oryx
     from oryx_tpu_torch.ops.cuda import build
     from oryx_tpu_torch.ops.cuda.measure import gpu_line
@@ -1503,6 +1863,9 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(1)
     for name, kw, keep in attention_cases(pipe, reqs, gen):
         key, row = check_kernel_case(name, kw, keep)
+        if name == "decode":
+            row["graph_ms"] = graph_decode_ms(kw)
+            print(f"    inside a CUDA graph: {row['graph_ms']:.4f} ms a call")
         keys.append(key)
         rows.append(row)
 
@@ -1528,6 +1891,20 @@ def main() -> int:
     if any(r[3] != toks0 for r in results[1:]):
         raise SystemExit("the runs produced different tokens")
     print(f"  tokens identical across the {len(results)} runs")
+    # The eager witness: the same prefill, the decode loop without graphs.
+    embeds, lengths, cache_len = mix_embeds(pipe, reqs)
+    etoks, efin, edec, esteps, elaunch = eager_generate(
+        pipe, embeds, lengths, cache_len)
+    graph_dec = [f"{r[2]['decode_s']:.4f}" for r in results]
+    print(f"  decode graph route {graph_dec} s ({results[0][2]['decode_steps']}"
+          f" steps; capture {results[0][2]['capture_s']:.3f} s in run 0, "
+          f"{[r[2]['capture_s'] for r in results[1:]]} after) vs eager "
+          f"witness {edec:.4f} s ({esteps} steps); K1 decode launches: "
+          f"graph run 1 {sum(results[1][7].values())}, eager {elaunch}")
+    if row_tokens(etoks, efin) != toks0:
+        raise SystemExit("the decode graphs' tokens differ from the eager "
+                         "loop's")
+    print("  graph route tokens == eager witness tokens (byte-equal)")
     launches = results[0][4]
     for key, row in zip(keys, rows):
         row["launches"] = launches.get(key, 0)
@@ -1594,12 +1971,45 @@ def main() -> int:
     walls = [f"{r[5]:.3f}" for r in results]
     print(f"phase 5: chat_batch under torch.profiler ({card}); unprofiled "
           f"walls of phase 3: {walls} s", flush=True)
-    fams, wall_us = profile_call(
+    fams, wall_us, _ = profile_call(
         lambda: pipe.chat_batch(reqs, max_new_tokens=MAX_NEW))
     k1 = fams[kernel_family("flash_fwd")] + fams[kernel_family("tile_map")]
     print(f"  K1 (with its cell map) in the traced call: {k1 / 1e3:.1f} ms, "
           f"{k1 / sum(fams.values()):.1%} of its device time, "
           f"{k1 / wall_us:.1%} of its wall")
+    # Prefill + MAX_NEW decode steps on the mix's embeds, graph route then
+    # eager witness, each traced.
+    gen_kw = dict(inputs_embeds=embeds, lengths=lengths,
+                  max_new_tokens=MAX_NEW, cache_len=cache_len,
+                  attn_impl=cfg.attn_impl,
+                  compute_dtype=oryx.compute_dtype(cfg),
+                  stop_sequences=pipe.stop_sequences)
+    print("  the prefill alone, traced:")
+    with torch.inference_mode():
+        _, _, pre = profile_call(lambda: generate_lib.prefill(
+            pipe.params.llm, cfg.llm, embeds, lengths, cache_len=cache_len,
+            attn_impl=cfg.attn_impl,
+            compute_dtype=oryx.compute_dtype(cfg)))
+    for label, fn in (
+        ("graph route", lambda: generate_lib.generate(
+            pipe.params.llm, cfg.llm, cfg.generation, **gen_kw)),
+        ("eager witness",
+         lambda: eager_generate(pipe, embeds, lengths, cache_len)),
+    ):
+        print(f"  generate on the mix's embeds, {label}, traced:")
+        _, _, calls = profile_call(fn)
+        print(f"    host launch calls a decode step (the prefill's "
+              f"{sum(pre.values())} taken off): "
+              f"{(sum(calls.values()) - sum(pre.values())) / MAX_NEW:.1f}")
+
+    # ---- 14. streaming, sessions and scoring at full width --------------
+    print(f"phase 14: chat_stream, seeded sampling, ChatSession, "
+          f"SessionPrefixCache, score_options; oryx_7b bf16 (sessions also "
+          f"with fp32 compute) ({card})", flush=True)
+    pipe_f32 = Pipeline(tok, params, dataclasses.replace(cfg, dtype="float32"),
+                        device="cuda")
+    rows.extend(stream_and_sessions(pipe, pipe_f32, card))
+    del pipe_f32
 
     # ---- 7. the serving engine at full width ------------------------------
     print(f"phase 7: ContinuousScheduler, oryx_7b bf16, greedy, {SERVE}, "

@@ -97,3 +97,12 @@ def _bilinear_resize(img: np.ndarray, Ht: int, Wt: int) -> np.ndarray:
     top = img[y0][:, x0] * (1 - lx) + img[y0][:, x1] * lx
     bot = img[y1][:, x0] * (1 - lx) + img[y1][:, x1] * lx
     return (top * (1 - ly) + bot * ly).astype(np.float32)
+
+
+def sample_frames(num_frames_available: int, num_frames: int) -> np.ndarray:
+    """Uniform frame-index sampling for video (the decode itself stays a
+    host-side dependency of the caller)."""
+    if num_frames_available <= num_frames:
+        return np.arange(num_frames_available)
+    idx = np.linspace(0, num_frames_available - 1, num_frames)
+    return np.round(idx).astype(np.int64)

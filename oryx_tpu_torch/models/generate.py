@@ -3,9 +3,13 @@ dense-KV prefill + decode loop, and the paged programs of the
 continuous-batching engine (paged prefill, chunked decode, the packed
 ragged step, `generate_paged`).
 
-The JAX package runs the decode as one compiled `lax.while_loop`; here it is
-a Python loop over the step, which exits as soon as every row has finished
-(one host read of the finished flags per step). Right-padded batches
+The JAX package runs the decode as one compiled `lax.while_loop`; here it
+runs in chunks of steps and exits between chunks once every row has
+finished (one host read of the finished flags per chunk). On the card a
+chunk is one replay of a CUDA graph of its steps (`_DecodeGraph`), which
+`generate_stream` replays once per yielded block; on the CPU the same
+chunks run eagerly. Prefix reuse prefills only a suffix into an existing
+cache at absolute positions (`kv_cache=`, `start=`). Right-padded batches
 advance with per-row positions, so mixed-length multimodal prefills need no
 left-padding shuffle. The paged programs' `lax.scan` over `chunk` steps is
 a Python loop with no host read inside: the caller syncs once per dispatch,
@@ -19,7 +23,10 @@ match JAX, seeded sampling is held by replaying the port against itself.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -28,6 +35,7 @@ import torch
 from oryx_tpu_torch.config import GenerationConfig, LLMConfig
 from oryx_tpu_torch.models import qwen2
 from oryx_tpu_torch.ops import paged_kv as paged_kv_lib
+from oryx_tpu_torch.ops.cuda import graphs
 
 
 def sample_token(
@@ -56,9 +64,12 @@ def sample_token(
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = torch.where(logits < cutoff, -torch.inf, logits)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32
-    )
+    # torch.multinomial's one-sample draw, spelled out: argmax of p / q with
+    # q ~ Exp(1) gives the same numbers from the same generator state, and
+    # runs under CUDA graph capture (multinomial checks its input on the
+    # host).
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def truncate_logits_rows(
@@ -150,6 +161,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# Decode steps a CUDA graph holds: `generate` reads the finished flags once
+# a chunk, and `generate_stream` takes its own chunk.
+DECODE_CHUNK = 8
+# Idle decode graphs kept per model (each holds a dense cache of its
+# cache_len); the least recently used beyond this are freed.
+MAX_IDLE_GRAPHS = 8
+
+
 @torch.inference_mode()
 def generate(
     params: qwen2.Qwen2,
@@ -157,69 +176,109 @@ def generate(
     gen_cfg: GenerationConfig,
     *,
     inputs_embeds: torch.Tensor,  # [B, T, H] (pre-spliced; right-padded)
-    lengths: torch.Tensor,  # [B] real lengths
+    lengths: torch.Tensor,  # [B] real TOTAL lengths (incl. cached prefix)
     max_new_tokens: int,
     cache_len: int,
     generator: torch.Generator | None = None,
     attn_impl: str = "xla",
     compute_dtype: torch.dtype | None = None,
     stop_sequences: torch.Tensor | None = None,  # [S, L], left-pad -1
+    kv_cache: dict | None = None,
+    start=None,  # int or [] / [B] tensor: first slot to write
+    return_cache: bool = False,
     timings: dict | None = None,
 ):
     """Returns (tokens [B, max_new_tokens] int32, num_generated [B] int32,
-    finished [B] bool) as tensors on the embeds' device.
+    finished [B] bool) as tensors on the embeds' device, plus the KV cache
+    when return_cache.
 
     Slots after a row finishes hold eos_token_id. A row finishes on EOS or
     when its trailing tokens match a stop sequence (num_generated then
     includes the stop tokens). finished=False marks a row cut off by
     max_new_tokens. cache_len must be >= T + max_new_tokens.
+
+    kv_cache/start (prefix reuse, `Pipeline.chat_cached`): a cache of
+    cache_len slots whose slots [0, start) already hold an earlier turn's
+    K/V. Only the suffix embeds are prefilled, written at slot `start` at
+    absolute positions, and `lengths` counts prefix + suffix; the caller
+    guarantees cache_len >= lengths + max_new_tokens. kv_cache itself is
+    left as it was; return_cache gives the cache after this call.
+
+    The decode runs DECODE_CHUNK steps at a time and reads the finished
+    flags once a chunk (`_decode_while`). On the card each whole chunk is
+    one replay of a CUDA graph (`_DecodeGraph`, captured at its key's first
+    call and reused after), and the last max_new_tokens % DECODE_CHUNK
+    steps run eagerly, so no step writes past slot T + max_new_tokens.
     timings: when given, receives prefill_s, decode_s (wall seconds, the
-    device synchronised at each boundary) and decode_steps.
+    device synchronised at each boundary), decode_steps and capture_s (the
+    graph capture this call made, 0 when it reused one).
     """
     B, T, _ = inputs_embeds.shape
-    if cache_len < T + max_new_tokens:
+    if kv_cache is None and cache_len < T + max_new_tokens:
         raise ValueError(f"{cache_len=} < {T=} + {max_new_tokens=}")
     dev = inputs_embeds.device
-    if timings is not None:
-        _sync(dev)
-        t0 = time.perf_counter()
-    carry = _prefill_carry(
-        params, cfg, gen_cfg, inputs_embeds, lengths.to(dev), generator,
-        cache_len=cache_len, attn_impl=attn_impl,
-        compute_dtype=compute_dtype,
-        stop_L=0 if stop_sequences is None else stop_sequences.shape[1],
-    )
-    if timings is not None:
-        _sync(dev)
-        t1 = time.perf_counter()
-    step = _make_decode_step(
-        params, cfg, gen_cfg,
-        None if stop_sequences is None else stop_sequences.to(dev),
-        cache_len=cache_len, attn_impl=attn_impl,
-        compute_dtype=compute_dtype, generator=generator,
-    )
-    carry, toks, fin, steps = _decode_while(
-        step, carry, max_new_tokens, gen_cfg.eos_token_id
-    )
-    if timings is not None:
-        _sync(dev)
-        timings.update(
-            prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
-            decode_steps=steps,
+    stop = None if stop_sequences is None else stop_sequences.to(dev)
+    with _dense_route(
+        params, cfg, gen_cfg, batch=B, cache_len=cache_len, stop=stop,
+        chunk=DECODE_CHUNK, attn_impl=attn_impl,
+        compute_dtype=compute_dtype, generator=generator, kv_cache=kv_cache,
+        device=dev,
+    ) as (cache, gen, step, graph, capture_s):
+        if timings is not None:
+            _sync(dev)
+            t0 = time.perf_counter()
+        carry = _prefill_carry(
+            params, cfg, gen_cfg, inputs_embeds, lengths.to(dev), gen,
+            cache=cache, start=start, attn_impl=attn_impl,
+            compute_dtype=compute_dtype,
+            stop_L=0 if stop is None else stop.shape[1],
         )
+        if timings is not None:
+            _sync(dev)
+            t1 = time.perf_counter()
+        carry, toks, fin, steps = _decode_while(
+            step, carry, max_new_tokens, gen_cfg.eos_token_id,
+            chunk=DECODE_CHUNK, graph=graph,
+        )
+        if timings is not None:
+            _sync(dev)
+            timings.update(
+                prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                decode_steps=steps, capture_s=capture_s,
+            )
+        if return_cache:
+            cache = _cache_out(carry[0], graph)
     # num generated = tokens up to and including the finishing token.
     any_fin = torch.any(fin, dim=1)
     num = torch.where(
         any_fin, torch.argmax(fin.to(torch.int32), dim=1) + 1, max_new_tokens
     )
-    return toks, num.to(torch.int32), any_fin
+    out = (toks, num.to(torch.int32), any_fin)
+    return out + (cache,) if return_cache else out
 
 
-def _decode_while(step, carry, max_new_tokens: int, eos: int):
+def _steps(step, carry, n: int):
+    """n decode steps -> (carry, toks [B, n], fin [B, n])."""
+    toks, fins = [], []
+    for _ in range(n):
+        carry, (tok, f) = step(carry)
+        toks.append(tok)
+        fins.append(f)
+    return carry, torch.stack(toks, 1), torch.stack(fins, 1)
+
+
+def _decode_while(step, carry, max_new_tokens: int, eos: int, *,
+                  chunk: int = DECODE_CHUNK, graph=None):
     """Run the decode step until max_new_tokens OR until every row has
-    finished. Unexecuted slots keep what a full run would have produced
-    (tokens: EOS; finished: True). Returns (carry, toks [B, max_new],
-    fin [B, max_new], steps run)."""
+    finished, `chunk` steps at a time: the finished flags are read on the
+    host once a chunk. A whole chunk is one replay of `graph` (a
+    `_DecodeGraph` of this chunk) when given; the steps run eagerly without
+    one (the CPU, and the eager witness the card checks the graphs
+    against) and for a last chunk shorter than `chunk`, so the loop runs at
+    most max_new_tokens steps. Steps after every row finished leave what
+    the unexecuted slots hold (tokens: EOS; finished: True), so chunking
+    changes no output. Returns (carry, toks [B, max_new], fin [B, max_new],
+    steps run)."""
     tok0 = carry[1]
     nB = tok0.shape[0]
     toks = torch.full((nB, max_new_tokens), eos, dtype=torch.int32,
@@ -228,53 +287,245 @@ def _decode_while(step, carry, max_new_tokens: int, eos: int):
                      device=tok0.device)
     i = 0
     while i < max_new_tokens and not bool(torch.all(carry[3])):
-        carry, (tok, f) = step(carry)
-        toks[:, i] = tok
-        fin[:, i] = f
-        i += 1
+        n = min(chunk, max_new_tokens - i)
+        if graph is not None and n == graph.chunk:
+            carry, t, f = graph.run(carry)
+        else:
+            carry, t, f = _steps(step, carry, n)
+        toks[:, i:i + n] = t
+        fin[:, i:i + n] = f
+        i += n
     return carry, toks, fin, i
+
+
+class _DecodeGraph:
+    """`chunk` decode steps of one model captured as one CUDA graph over
+    state the graph owns: the dense cache, the rest of the decode carry,
+    the stop matrix and (when sampling) a generator registered with the
+    graph. A call copies its state in (`_dense_route`), replays, and copies
+    out what outlives it, so a graph never replays against a cache it was
+    not captured on. Capture runs one eager warm-up step first (it builds
+    the kernels and their libraries' state outside the capture) and raises
+    if it fails; nothing falls back to the eager loop."""
+
+    def __init__(self, params, cfg: LLMConfig, gen_cfg: GenerationConfig,
+                 key, *, batch: int, cache_len: int, dtype: torch.dtype,
+                 stop_shape, attn_impl: str, compute_dtype, chunk: int,
+                 device: torch.device):
+        self.key, self.chunk = key, chunk
+        self.cache = qwen2.init_kv_cache(cfg, batch, cache_len, dtype=dtype,
+                                         device=device)
+
+        def ints(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=device)
+
+        self.carry = (
+            self.cache, ints(batch), ints(batch),
+            torch.zeros(batch, dtype=torch.bool, device=device),
+            ints(batch, 0 if stop_shape is None else stop_shape[1], fill=-2),
+        )
+        # Filler rows of -3 never fire (make_stop_sequences).
+        self.stop = None if stop_shape is None else ints(*stop_shape, fill=-3)
+        self.generator = (
+            None if gen_cfg.temperature == 0.0
+            else torch.Generator(device=device)
+        )
+        self.step = _make_decode_step(
+            params, cfg, gen_cfg, self.stop, cache_len=cache_len,
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+            generator=self.generator,
+        )
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            _steps(self.step, self.carry, 1)
+        self.graph = graphs.CountedGraph()
+        with self.graph.capture(
+            stream, [g for g in (self.generator,) if g is not None]
+        ):
+            carry, self.toks, self.fin = _steps(self.step, self.carry, chunk)
+            for static, new in zip(self.carry[1:], carry[1:]):
+                static.copy_(new)
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, carry):
+        """One replay from `carry` (whose cache must be this graph's) ->
+        (the graph's carry, toks [B, chunk], fin [B, chunk]); the outputs
+        are the graph's buffers, valid until its next replay."""
+        if carry[0] is not self.cache:
+            raise RuntimeError("a decode graph replays only on its own cache")
+        for static, x in zip(self.carry[1:], carry[1:]):
+            if x is not static:
+                static.copy_(x)
+        self.graph.replay()
+        return self.carry, self.toks, self.fin
+
+
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _acquire_graph(params, cfg, gen_cfg, **kw) -> tuple[_DecodeGraph, float]:
+    """An idle decode graph of this key (every argument that fixes its
+    launches), or a new capture. Returns (graph, capture seconds of this
+    call). The idle graphs live on the model itself, so they go with it."""
+    key = (cfg, gen_cfg.temperature, gen_cfg.top_p, gen_cfg.top_k,
+           gen_cfg.eos_token_id, *sorted(kw.items(), key=lambda x: x[0]))
+    with _GRAPHS_LOCK:
+        idle = params.__dict__.setdefault("_decode_graphs",
+                                          collections.OrderedDict())
+        pool = idle.get(key)
+        if pool:
+            graph = pool.pop()
+            if not pool:
+                del idle[key]
+            return graph, 0.0
+    graph = _DecodeGraph(params, cfg, gen_cfg, key, **kw)
+    return graph, graph.capture_s
+
+
+def _release_graph(params, graph: _DecodeGraph) -> None:
+    with _GRAPHS_LOCK:
+        idle = params.__dict__["_decode_graphs"]
+        idle.setdefault(graph.key, []).append(graph)
+        idle.move_to_end(graph.key)
+        while sum(len(v) for v in idle.values()) > MAX_IDLE_GRAPHS:
+            oldest = next(iter(idle))
+            idle[oldest].pop(0)
+            if not idle[oldest]:
+                del idle[oldest]
+
+
+@contextlib.contextmanager
+def _dense_route(params, cfg: LLMConfig, gen_cfg: GenerationConfig, *,
+                 batch: int, cache_len: int, stop, chunk: int, attn_impl: str,
+                 compute_dtype, generator, kv_cache, device: torch.device):
+    """Where one dense decode runs. Yields (cache, generator, step, graph,
+    capture seconds). On the card: a `_DecodeGraph` of this call's key,
+    held by this call alone, whose cache starts as a copy of `kv_cache`
+    (zeros without one), whose stop matrix is `stop`, and whose generator
+    continues `generator`'s state (the default generator's without one);
+    the prefill writes that cache and draws from that generator, and on
+    leaving, the caller's generator continues from where the graph's
+    stopped. On the CPU: a copy of `kv_cache` (a fresh cache without one),
+    the caller's generator, its own step and no graph. Either way
+    `kv_cache` itself is never written."""
+    dtype = compute_dtype or torch.float32
+    if kv_cache is not None and kv_cache["k"].shape[2] != cache_len:
+        raise ValueError(
+            f"kv_cache has {kv_cache['k'].shape[2]} slots, {cache_len=}"
+        )
+    if device.type != "cuda":
+        cache = (
+            qwen2.init_kv_cache(cfg, batch, cache_len, dtype=dtype,
+                                device=device)
+            if kv_cache is None
+            else {name: x.clone() for name, x in kv_cache.items()}
+        )
+        yield cache, generator, _make_decode_step(
+            params, cfg, gen_cfg, stop, cache_len=cache_len,
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+            generator=generator,
+        ), None, 0.0
+        return
+    graph, capture_s = _acquire_graph(
+        params, cfg, gen_cfg, batch=batch, cache_len=cache_len, dtype=dtype,
+        stop_shape=None if stop is None else tuple(stop.shape),
+        attn_impl=attn_impl, compute_dtype=compute_dtype, chunk=chunk,
+        device=device,
+    )
+    try:
+        for name, x in graph.cache.items():
+            if kv_cache is None:
+                x.zero_()
+            else:
+                x.copy_(kv_cache[name])
+        if stop is not None:
+            graph.stop.copy_(stop)
+        src = generator
+        if graph.generator is not None:
+            if src is None:
+                src = torch.cuda.default_generators[
+                    device.index if device.index is not None
+                    else torch.cuda.current_device()
+                ]
+            graph.generator.set_state(src.get_state())
+        yield graph.cache, graph.generator, graph.step, graph, capture_s
+        if graph.generator is not None:
+            src.set_state(graph.generator.get_state())
+    finally:
+        _release_graph(params, graph)
+
+
+def _cache_out(cache, graph, out=None):
+    """The cache a caller keeps after a decode over `cache`: `cache` itself
+    without a graph; with one, a copy of the graph's cache (into `out` when
+    given), since that cache serves the graph's next call."""
+    if graph is None:
+        return cache
+    if out is None:
+        return {name: x.clone() for name, x in cache.items()}
+    for name, x in cache.items():
+        out[name].copy_(x)
+    return out
 
 
 def prefill(
     params, cfg: LLMConfig, inputs_embeds, lengths, *, cache_len: int,
-    attn_impl: str, compute_dtype,
+    attn_impl: str, compute_dtype, kv_cache: dict | None = None, start=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Dense-cache prefill of right-padded embeds [B, T, H] -> (logits
-    [B, V] fp32 at each row's last real position, the filled KV cache)."""
+    [B, V] fp32 at each row's last real position, the filled KV cache).
+    With kv_cache/start the embeds are a suffix, written into kv_cache from
+    slot `start` (int, [] or [B]) at absolute positions, and `lengths`
+    counts prefix + suffix."""
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
-    positions = torch.arange(T, device=dev).expand(B, T)
+    start = torch.as_tensor(0 if start is None else start).to(
+        device=dev, dtype=torch.long
+    ).expand(B)
+    positions = start[:, None] + torch.arange(T, device=dev)[None, :]
     slot_ar = torch.arange(cache_len, device=dev)[None, :]
     kv_mask = (slot_ar < lengths[:, None]).to(torch.int32)
-    cache = qwen2.init_kv_cache(
+    cache = kv_cache if kv_cache is not None else qwen2.init_kv_cache(
         cfg, B, cache_len, dtype=compute_dtype or torch.float32, device=dev
     )
     h, cache = qwen2.forward(
         params, cfg,
         inputs_embeds=inputs_embeds, positions=positions,
-        kv_cache=cache,
-        write_slots=torch.zeros(B, dtype=torch.long, device=dev),
+        kv_cache=cache, write_slots=start,
         kv_mask=kv_mask, attn_impl=attn_impl, compute_dtype=compute_dtype,
         return_hidden=True,
     )
     # Project only each row's last real position (the same numbers as the
-    # full [B, T, V] logits, without materializing them).
-    last_h = h[torch.arange(B, device=dev), lengths.long() - 1]
+    # full [B, T, V] logits, without materializing them): suffix-local
+    # index lengths - 1 - start.
+    last_h = h[torch.arange(B, device=dev), lengths.long() - 1 - start]
     return qwen2.logits_from_hidden(params, cfg, last_h), cache
 
 
 def _prefill_carry(
     params, cfg: LLMConfig, gen_cfg: GenerationConfig, inputs_embeds,
-    lengths, generator, *, cache_len: int, attn_impl: str, compute_dtype,
+    lengths, generator, *, cache, start, attn_impl: str, compute_dtype,
     stop_L: int,
 ):
-    """Prefill + first sampled token -> the decode carry (cache, next token,
-    per-row lengths, finished flags, rolling stop-match window)."""
+    """Prefill (into `cache`, from slot `start`) + first sampled token ->
+    the decode carry (cache, next token, per-row lengths, finished flags,
+    rolling stop-match window)."""
     B = inputs_embeds.shape[0]
     dev = inputs_embeds.device
+    if start is not None and (
+        int(torch.as_tensor(start).max()) + inputs_embeds.shape[1]
+        > cache["k"].shape[2]
+    ):
+        raise ValueError(
+            f"a suffix of {inputs_embeds.shape[1]} slots from {start=} "
+            f"overruns the {cache['k'].shape[2]}-slot cache"
+        )
     last, cache = prefill(
-        params, cfg, inputs_embeds, lengths, cache_len=cache_len,
-        attn_impl=attn_impl, compute_dtype=compute_dtype,
+        params, cfg, inputs_embeds, lengths, cache_len=cache["k"].shape[2],
+        attn_impl=attn_impl, compute_dtype=compute_dtype, kv_cache=cache,
+        start=start,
     )
     tok0 = sample_token(
         last, generator, temperature=gen_cfg.temperature,
@@ -331,6 +582,85 @@ def _make_decode_step(
         return (cache, nxt, cur_len + 1, finished, recent), (tok, finished)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Streaming
+# ---------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def generate_stream(
+    params: qwen2.Qwen2,
+    cfg: LLMConfig,
+    gen_cfg: GenerationConfig,
+    *,
+    inputs_embeds: torch.Tensor,
+    lengths: torch.Tensor,
+    max_new_tokens: int,
+    cache_len: int,
+    generator: torch.Generator | None = None,
+    attn_impl: str = "xla",
+    compute_dtype: torch.dtype | None = None,
+    stop_sequences: torch.Tensor | None = None,
+    chunk: int = 8,
+    kv_cache: dict | None = None,
+    start=None,
+    yield_cache: bool = False,
+):
+    """Streaming twin of `generate` (HF TextIteratorStreamer parity):
+    yields np int32 token blocks [B, <=chunk] as they decode, with the same
+    semantics (EOS fill after finish, stop sequences end rows) and the same
+    draws from the same generator, so sampled outputs match `generate`
+    token for token at any temperature.
+    The decode runs WHOLE `chunk`-step chunks (on the card, one replay of
+    the chunk's CUDA graph each); overshoot tokens past max_new_tokens are
+    computed and dropped, so cache_len must cover
+    T + ceil(max_new/chunk)*chunk. Larger chunks amortize host round-trips,
+    smaller ones lower first-token latency.
+
+    kv_cache/start: prefix reuse as in `generate` (kv_cache is left as it
+    was). With yield_cache the generator yields (block, cache) pairs: one
+    cache of this stream's own holding every slot decoded so far, so a
+    consumer breaking out of the loop may keep the last one.
+    """
+    padded_new = -(-max_new_tokens // chunk) * chunk
+    B, T, _ = inputs_embeds.shape
+    if kv_cache is None and cache_len < T + padded_new:
+        raise ValueError(f"{cache_len=} < {T=} + {padded_new=}")
+    dev = inputs_embeds.device
+    stop = None if stop_sequences is None else stop_sequences.to(dev)
+    with _dense_route(
+        params, cfg, gen_cfg, batch=B, cache_len=cache_len, stop=stop,
+        chunk=chunk, attn_impl=attn_impl, compute_dtype=compute_dtype,
+        generator=generator, kv_cache=kv_cache, device=dev,
+    ) as (cache, gen, step, graph, _):
+        carry = _prefill_carry(
+            params, cfg, gen_cfg, inputs_embeds, lengths.to(dev), gen,
+            cache=cache, start=start, attn_impl=attn_impl,
+            compute_dtype=compute_dtype,
+            stop_L=0 if stop is None else stop.shape[1],
+        )
+        out = None
+        done = 0
+        while done < max_new_tokens:
+            if graph is not None:
+                carry, toks, fin = graph.run(carry)
+            else:
+                carry, toks, fin = _steps(step, carry, chunk)
+            n = min(chunk, max_new_tokens - done)
+            # The per-chunk harvest is the yield surface (and the early
+            # exit below needs host booleans): the one deliberate sync.
+            toks = toks[:, :n].cpu().numpy()
+            fin = fin[:, :n].cpu().numpy()
+            if yield_cache:
+                out = _cache_out(carry[0], graph, out)
+                yield toks, out
+            else:
+                yield toks
+            done += n
+            if fin[:, -1].all():
+                break
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,19 @@
 Host side: build the conversation prompt with `<image>` placeholders,
 tokenize with sentinels, pack the raw images (resize, normalize, patchify)
 and build the spliced index map. Device side: ViT -> compressor -> splice ->
-dense-KV prefill -> greedy/sampled decode. Streaming, multi-turn prefix reuse,
-option scoring and multi-device meshes come in later slices.
+dense-KV prefill -> greedy/sampled decode (CUDA graphs of the decode chunk
+on the card). Also streaming (`chat_stream`), multi-turn KV prefix reuse
+(`chat_cached`, `ChatSession`, the cross-session `SessionPrefixCache`),
+option scoring (`score_options`) and video QA (`chat_video`). Multi-device
+meshes come in a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
+import zlib
 from typing import Any, Sequence
 
 import numpy as np
@@ -20,6 +26,7 @@ from oryx_tpu_torch.config import OryxConfig
 from oryx_tpu_torch.constants import (
     COMPRESSOR_RATIO,
     DEFAULT_IMAGE_TOKEN,
+    IMAGE_TOKEN_INDEX,
     MODALITY_IMAGE,
     MODALITY_MULTI_IMAGE,
     MODALITY_VIDEO,
@@ -27,7 +34,7 @@ from oryx_tpu_torch.constants import (
 from oryx_tpu_torch.conversation import conv_templates
 from oryx_tpu_torch.data import mm_utils
 from oryx_tpu_torch.models import generate as generate_lib
-from oryx_tpu_torch.models import oryx, splice
+from oryx_tpu_torch.models import oryx, qwen2, splice
 from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.ops import packing
 
@@ -106,6 +113,7 @@ class Pipeline:
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self._frame_sep_cache = None
+        self._session_cache = None
         # Ring attention is a training/prefill configuration; decode needs
         # the cached path, so ring-trained configs serve with the dense
         # kernel (the plain path on the CPU).
@@ -120,6 +128,19 @@ class Pipeline:
         self.stop_sequences = generate_lib.make_stop_sequences(
             [self.conv.stop_str] if self.conv.stop_str else [], tokenizer
         )
+
+    def session_prefix_cache(self, capacity: int = 4):
+        """Pipe-level cross-SESSION prefix cache (created at first use):
+        pass it as `ChatSession(pipe, shared=pipe.session_prefix_cache())`,
+        or just `shared=True`, and fresh sessions over the same media +
+        system prompt seed their KV from a finished session's state instead
+        of cold-prefilling it. Block-aligned token-id matching rooted at the
+        media fingerprint, LRU (serve/prefix_cache.py)."""
+        if self._session_cache is None:
+            from oryx_tpu_torch.serve.prefix_cache import SessionPrefixCache
+
+            self._session_cache = SessionPrefixCache(capacity=capacity)
+        return self._session_cache
 
     # ---- host-side prompt/media prep ------------------------------------
 
@@ -157,8 +178,11 @@ class Pipeline:
         temperature: float | None = None,
         top_p: float | None = None,
         stop: Sequence[str] | None = None,
+        timings: dict | None = None,
     ) -> str:
-        """QA over optional images / video frames."""
+        """QA over optional images / video frames. history: prior
+        (user, assistant) turns of the same conversation (media stay
+        attached to the first turn). timings: as in `chat_batch`."""
         return self.chat_batch(
             [{
                 "question": question,
@@ -171,6 +195,7 @@ class Pipeline:
             temperature=temperature,
             top_p=top_p,
             stop=stop,
+            timings=timings,
         )[0]
 
     def _sampling_cfg(
@@ -319,7 +344,8 @@ class Pipeline:
         temperature/top_p override the config for this call; stop adds
         request stop strings; per_row_max caps each row's output length.
         timings: when given, receives the device phases' wall seconds
-        (visual_s, prefill_s, decode_s) and decode_steps.
+        (visual_s, prefill_s, decode_s, and capture_s: the decode graph
+        capture this call made, 0 when it reused one) and decode_steps.
         Return shape grows in flag order: replies[, reasons][, counts].
         """
         cfg = self._sampling_cfg(temperature, top_p)
@@ -399,6 +425,418 @@ class Pipeline:
                 stop_sequences=stop_seqs, timings=timings,
             )
 
+    def chat_stream(
+        self,
+        question: str,
+        *,
+        images: Sequence[np.ndarray] | None = None,
+        is_video: bool = False,
+        history: Sequence[tuple[str, str]] | None = None,
+        max_new_tokens: int | None = None,
+        seed: int = 0,
+        chunk: int = 8,
+        temperature: float | None = None,
+        top_p: float | None = None,
+        stop: Sequence[str] | None = None,
+        cache_state: "PrefixCacheState | None" = None,
+        usage_out: dict | None = None,
+        shared: "Any | None" = None,
+    ):
+        """Streaming `chat` (HF TextIteratorStreamer parity): yields text
+        DELTAS as tokens decode; ''.join(deltas) equals chat()'s reply
+        exactly (incomplete UTF-8 tails, stop-string prefixes and
+        leading/trailing whitespace are held back until resolvable).
+        Single request; the decode runs `chunk` tokens a block (one CUDA
+        graph replay on the card). The generator's RETURN value
+        (StopIteration.value) is the finish reason: "stop" (EOS/stop
+        string) or "length" (max_new_tokens). temperature/top_p/stop
+        override per request as in `chat_batch`.
+
+        With cache_state (ChatSession.ask_stream), the shared token prefix
+        is served from the session's KV cache (`_prefix_plan`) and the
+        RETURN value becomes (reason, new PrefixCacheState): the new
+        state's ids cover the PROMPT only (streamed reply tokens are
+        re-prefilled next turn; the visual prefill is still one-time).
+
+        usage_out: a dict the generator fills with prompt_tokens (the real
+        spliced prompt length, visual tokens and any cached prefix
+        included) and completion_tokens before returning. The finishing
+        token is counted (EOS, or the token that completes a stop string),
+        as chat_batch counts; tokens decoded past a host-side stop cut are
+        not.
+
+        shared: cross-session SessionPrefixCache, as in `chat_cached`: a
+        COLD cache_state seeds from the index's longest stored prefix and
+        the post-turn state is donated back.
+
+        The JAX pipeline's trace spans (prefill, decode_chunk, emission)
+        are not here: they belong to the observability plane, which the
+        port does not have yet.
+        """
+        cfg = self._sampling_cfg(temperature, top_p)
+        stop_seqs = self._stop_for(stop)
+        max_new = max_new_tokens or cfg.generation.max_new_tokens
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        ids, images, factors, caps = self._prepare_request({
+            "question": question, "images": list(images or []),
+            "is_video": is_video, "history": list(history or []),
+        })
+        if (
+            shared is not None and cache_state is not None
+            and cache_state.cache is None and not images
+        ):
+            cand = shared.lookup(
+                np.asarray(ids, np.int64), _media_fingerprint(images)
+            )
+            if cand is not None:
+                cache_state = cand
+
+        # The decode runs whole chunks; overshoot tokens are dropped and
+        # the cache is sized for the padded length.
+        padded_new = -(-max_new // chunk) * chunk
+        kv_cache = start = flat = None
+        media_key = ()
+        if cache_state is not None:
+            flat, L, common, embeds, kv_cache, cache_len, media_key = (
+                self._prefix_plan(
+                    cache_state, cfg, ids, images, factors, caps, padded_new
+                )
+            )
+            start = common
+        else:
+            embeds, L = self._prompt_embeds(cfg, ids, images, factors, caps)
+            cache_len = packing.round_up_bucket(embeds.shape[1] + padded_new)
+        lengths = torch.tensor([L], dtype=torch.int32, device=self.device)
+        eos = cfg.generation.eos_token_id
+        stops = ([self.conv.stop_str] if self.conv.stop_str else []) + [
+            s for s in (stop or []) if s  # "" would truncate everything
+        ]
+        emitted: list[int] = []
+        text_done = ""
+        finished = eos_hit = False
+        stop_tok_count: int | None = None
+        final_cache = None
+
+        def result(reason):
+            """Return value: bare reason, or (reason, new state) when the
+            caller passed a cache_state."""
+            if usage_out is not None:
+                usage_out["prompt_tokens"] = L
+                # A stop-string finish counts through the token that
+                # completed the stop, not the whole in-flight chunk; an
+                # EOS finish counts the EOS (`emitted` stops before it).
+                if stop_tok_count is not None:
+                    usage_out["completion_tokens"] = stop_tok_count
+                elif eos_hit:
+                    usage_out["completion_tokens"] = len(emitted) + 1
+                else:
+                    usage_out["completion_tokens"] = len(emitted)
+            if cache_state is None:
+                return reason
+            new_state = PrefixCacheState(
+                ids=flat, cache=final_cache, cache_len=cache_len,
+                prompt_ids=np.asarray(ids, np.int64), prompt_flat=flat,
+                media_key=media_key,
+            )
+            if shared is not None and final_cache is not None:
+                shared.insert(new_state)
+            return reason, new_state
+
+        blocks = generate_lib.generate_stream(
+            self.params.llm, cfg.llm, cfg.generation,
+            inputs_embeds=embeds, lengths=lengths,
+            max_new_tokens=max_new, cache_len=cache_len,
+            generator=generator, attn_impl=cfg.attn_impl,
+            compute_dtype=oryx.compute_dtype(cfg),
+            stop_sequences=stop_seqs, chunk=chunk,
+            kv_cache=kv_cache, start=start,
+            yield_cache=cache_state is not None,
+        )
+        with contextlib.closing(blocks):
+            for block in blocks:
+                if cache_state is not None:
+                    block, final_cache = block
+                chunk_start = len(emitted)
+                for t in block[0]:
+                    if int(t) == eos:
+                        finished = eos_hit = True
+                        break
+                    emitted.append(int(t))
+                text = self.tokenizer.decode(
+                    emitted, skip_special_tokens=True
+                )
+                text, hit = stop_cut(text, stops)
+                if usage_out is not None and hit and stop_tok_count is None:
+                    # The stop string completed somewhere in THIS chunk
+                    # (earlier chunks were trimmed and did not hit).
+                    stop_tok_count = stop_token_count(
+                        self.tokenizer, emitted, stops, chunk_start
+                    )
+                finished = finished or hit
+                safe = (
+                    text.strip() if finished
+                    else stable_text_prefix(text, stops)
+                )
+                if len(safe) > len(text_done):
+                    yield safe[len(text_done):]
+                    text_done = safe
+                if finished:
+                    return result("stop")
+        # Decode window exhausted without EOS/stop: flush the held-back
+        # tail (chat() would return it) and report the truncation.
+        tail = text.strip() if emitted else ""
+        if len(tail) > len(text_done):
+            yield tail[len(text_done):]
+        return result("length")
+
+    def _prefix_plan(
+        self, state: "PrefixCacheState", cfg, ids, imgs, factors, caps,
+        new_budget: int,
+    ):
+        """Host-side half of prefix-cached generation: match the new
+        prompt's post-splice token stream against the cache, build the
+        suffix embeds and a (possibly grown) cache. `new_budget` is the
+        number of decode slots to reserve past the prompt (max_new, or the
+        chunk-padded window for streaming).
+
+        Returns (flat, L, common, embeds, cache, cache_len, media_key)."""
+        cfgv = cfg.vision
+        ids = np.asarray(ids, np.int64)
+
+        # Visual slots match positionally, not by content: a cache built
+        # over DIFFERENT media must not be matched against at all.
+        media_key = _media_fingerprint(imgs)
+        reusable = state.cache is not None and state.media_key == media_key
+
+        # A turn that merely EXTENDS the previous prompt (same media,
+        # appended history) reuses the stored post-splice stream: no
+        # host-side image re-packing.
+        packed = batch = None
+        np_prev = state.prompt_ids
+        extend = (
+            reusable
+            and 0 < len(np_prev) < len(ids)
+            and np.array_equal(ids[: len(np_prev)], np_prev)
+            and not np.any(ids[len(np_prev):] == IMAGE_TOKEN_INDEX)
+        )
+        if extend:
+            flat = np.concatenate([state.prompt_flat, ids[len(np_prev):]])
+            L = len(flat)
+        elif imgs:
+            packed = packing.pack_raw_images(
+                imgs, patch_size=cfgv.patch_size, base_grid=cfgv.base_grid,
+                side_factors=factors, max_patches=caps,
+            )
+            batch = splice.build_mm_batch([ids], splice.query_slots(packed))
+            L = int(batch.lengths[0])
+            row = np.asarray(batch.token_ids[0][:L], np.int64)
+            isv = np.asarray(batch.is_visual[0][:L])
+            flat = np.where(isv, -7, row)
+        else:
+            L = len(ids)
+            flat = ids
+
+        # Longest shared prefix with the cache's token stream. Keep at
+        # least one token in the suffix (the prefill must produce the
+        # next-token logit), and never split a visual region (-7 marks
+        # visual slots in the flat stream).
+        common = 0
+        if reusable and len(state.ids):
+            m = min(len(state.ids), L - 1)
+            neq = flat[:m] != state.ids[:m]
+            common = int(np.argmax(neq)) if neq.any() else m
+        if np.any(flat[common:] == -7):
+            if extend:  # visuals live in the prefix
+                raise RuntimeError("visual slot escaped the shared prefix")
+            common = 0  # visual tokens in the suffix -> full mm prefill
+
+        suffix = flat[common:]
+        s_buck = packing.round_up_bucket(len(suffix))
+        # Never shrink below the live cache's capacity: generate's masks
+        # are built at cache_len and must span every slot the reused cache
+        # has.
+        cache_len = max(
+            packing.round_up_bucket(max(L + new_budget, common + s_buck)),
+            state.cache_len,
+        )
+        if common == 0 and packed is not None:
+            arrays = oryx.stage_mm_arrays(packed, batch, self.device)
+            embeds = oryx.mm_embeds(self.params, cfg, arrays)
+            s_buck = embeds.shape[1]
+            cache_len = max(
+                packing.round_up_bucket(max(L + new_budget, s_buck)),
+                state.cache_len,
+            )
+        else:
+            rows = np.zeros((1, s_buck), np.int64)
+            # (-7 never reaches here: common == 0 has no cache hits.)
+            rows[0, : len(suffix)] = np.where(suffix == -7, 0, suffix)
+            with torch.inference_mode():
+                embeds = self.params.llm.embed.weight[
+                    torch.from_numpy(rows).to(self.device)
+                ]
+        cache = state.cache
+        if cache is None or state.cache_len < cache_len:
+            fresh = qwen2.init_kv_cache(
+                cfg.llm, 1, cache_len,
+                dtype=oryx.compute_dtype(cfg), device=self.device,
+            )
+            if cache is not None:
+                # Grow: carry the existing slots into the new buffer.
+                for name, x in cache.items():
+                    fresh[name][:, :, : x.shape[2]].copy_(x)
+            cache = fresh
+        return flat, L, common, embeds, cache, cache_len, media_key
+
+    def chat_cached(
+        self,
+        state: "PrefixCacheState",
+        question: str,
+        *,
+        images: Sequence[np.ndarray] | None = None,
+        is_video: bool = False,
+        history: Sequence[tuple[str, str]] | None = None,
+        max_new_tokens: int | None = None,
+        seed: int = 0,
+        temperature: float | None = None,
+        top_p: float | None = None,
+        stop: Sequence[str] | None = None,
+        shared: "Any | None" = None,
+        timings: dict | None = None,
+    ) -> tuple[str, "PrefixCacheState"]:
+        """`chat` for one conversation with cross-turn KV prefix reuse: the
+        longest token-id prefix shared with `state.ids` is NOT
+        re-prefilled; only the new suffix runs through the model, at
+        absolute positions, into a copy of the session's cache. Matching is
+        on ids, so a tokenizer boundary merge or a template quirk just
+        shortens the reuse, never changes the reply; a visual token inside
+        the unshared suffix falls back to a full multimodal prefill.
+        Returns (reply, new state); `state` stays valid.
+
+        shared: a SessionPrefixCache. A COLD `state` first seeds itself
+        from the cache's longest stored prefix of this prompt (cross-
+        session reuse of e.g. a shared system prompt), and the new state is
+        donated back after the turn. Text-only lookup (pre-splice ids ==
+        the flat stream); multimodal turns still donate and reuse within a
+        session. timings: when given, receives visual_s (the prefix plan,
+        with any visual encode) and generate's timings."""
+        cfg = self._sampling_cfg(temperature, top_p)
+        stop_seqs = self._stop_for(stop)
+        max_new = max_new_tokens or cfg.generation.max_new_tokens
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        ids, imgs, factors, caps = self._prepare_request({
+            "question": question, "images": list(images or []),
+            "is_video": is_video, "history": list(history or []),
+        })
+        if shared is not None and state.cache is None and not imgs:
+            cand = shared.lookup(
+                np.asarray(ids, np.int64), _media_fingerprint(imgs)
+            )
+            if cand is not None:
+                state = cand
+        if timings is not None:
+            generate_lib._sync(self.device)
+            t0 = time.perf_counter()
+        flat, L, common, embeds, cache, cache_len, media_key = (
+            self._prefix_plan(state, cfg, ids, imgs, factors, caps, max_new)
+        )
+        if timings is not None:
+            generate_lib._sync(self.device)
+            timings["visual_s"] = time.perf_counter() - t0
+        toks, num, _, cache = generate_lib.generate(
+            self.params.llm, cfg.llm, cfg.generation,
+            inputs_embeds=embeds,
+            lengths=torch.tensor([L], dtype=torch.int32, device=self.device),
+            max_new_tokens=max_new, cache_len=cache_len,
+            generator=generator, attn_impl=cfg.attn_impl,
+            compute_dtype=oryx.compute_dtype(cfg),
+            stop_sequences=stop_seqs, kv_cache=cache, start=common,
+            return_cache=True, timings=timings,
+        )
+        toks, num = toks.cpu().numpy(), num.cpu().numpy()
+        reply = self._decode(toks[0], int(num[0]), extra_stops=stop)
+        new_ids = np.concatenate(
+            [flat, toks[0][: int(num[0])].astype(np.int64)]
+        )
+        new_state = PrefixCacheState(
+            ids=new_ids, cache=cache, cache_len=cache_len,
+            prompt_ids=np.asarray(ids, np.int64), prompt_flat=flat,
+            media_key=media_key,
+        )
+        if shared is not None:
+            shared.insert(new_state)
+        return reply, new_state
+
+    @torch.inference_mode()
+    def score_options(
+        self,
+        question: str,
+        options: Sequence[str],
+        *,
+        images: Sequence[np.ndarray] | None = None,
+        is_video: bool = False,
+        history: Sequence[tuple[str, str]] | None = None,
+    ) -> np.ndarray:
+        """Log-likelihood of each candidate continuation given the prompt
+        (lmms-eval's `loglikelihood` model API): the prompt, visual prefill
+        included, runs ONCE into a KV cache, then each option's tokens are
+        teacher-forced against it, summing next-token log-probs. Returns
+        [len(options)] float64 sums.
+
+        Options are tokenized STANDALONE, so a BPE tokenizer that would
+        merge across the prompt/option boundary scores a token split the
+        model may never emit there; include any leading space or
+        punctuation in the option string itself."""
+        ids, imgs, factors, caps = self._prepare_request({
+            "question": question, "images": list(images or []),
+            "is_video": is_video, "history": list(history or []),
+        })
+        cfg = self.cfg
+        opt_ids = [
+            np.asarray(
+                self.tokenizer.encode(o, add_special_tokens=False), np.int64
+            )
+            for o in options
+        ]
+        if any(len(o) == 0 for o in opt_ids):
+            raise ValueError("every option must encode to >= 1 token")
+        kb = packing.round_up_bucket(max(len(o) for o in opt_ids))
+        embeds, L = self._prompt_embeds(cfg, ids, imgs, factors, caps)
+        cache_len = packing.round_up_bucket(L + kb)
+        first_lp, cache = _ll_prefill(self.params, cfg, embeds, L, cache_len)
+        first_lp = first_lp.cpu().numpy().astype(np.float64)
+        scores = np.zeros(len(options), np.float64)
+        for i, o in enumerate(opt_ids):
+            scores[i] = first_lp[int(o[0])]
+            if len(o) > 1:
+                row = np.zeros((1, kb), np.int64)
+                row[0, : len(o)] = o
+                vec = _ll_suffix(
+                    self.params, cfg, cache,
+                    torch.from_numpy(row).to(self.device), L, len(o),
+                    cache_len,
+                )
+                # vec[j] = log P(token j+1 | ... token j).
+                scores[i] += float(
+                    vec.cpu().numpy().astype(np.float64)[: len(o) - 1].sum()
+                )
+        return scores
+
+    def chat_video(
+        self,
+        frames: Sequence[np.ndarray],
+        question: str,
+        *,
+        num_frames: int | None = None,
+        **kw,
+    ) -> str:
+        """Video QA: uniform frame sampling then 16x-compressed chat."""
+        frames = list(frames)
+        if num_frames is not None and len(frames) > num_frames:
+            idx = mm_utils.sample_frames(len(frames), num_frames)
+            frames = [frames[i] for i in idx]
+        return self.chat(question, images=frames, is_video=True, **kw)
+
     def _decode(
         self, tokens: np.ndarray, num: int,
         extra_stops: Sequence[str] | None = None,
@@ -412,3 +850,153 @@ class Pipeline:
             s for s in (extra_stops or []) if s  # "" would match at 0
         ]
         return stop_cut(text, stops)[0].strip()
+
+
+def _ll_prefill(params: oryx.OryxModel, cfg: OryxConfig, embeds, length: int,
+                cache_len: int):
+    """Prompt prefill for log-likelihood scoring -> (log-softmax [V] fp32 of
+    the next-token logits at the prompt's last real position, KV cache)."""
+    lengths = torch.tensor([length], dtype=torch.int32, device=embeds.device)
+    logits, cache = generate_lib.prefill(
+        params.llm, cfg.llm, embeds, lengths, cache_len=cache_len,
+        attn_impl=cfg.attn_impl, compute_dtype=oryx.compute_dtype(cfg),
+    )
+    return torch.log_softmax(logits[0].float(), dim=-1), cache
+
+
+def _ll_suffix(params: oryx.OryxModel, cfg: OryxConfig, cache, cont_ids,
+               length: int, k: int, cache_len: int) -> torch.Tensor:
+    """Teacher-force one option's tokens cont_ids [1, Kb] against the prompt
+    cache (written in place from slot `length`; an option's slots are
+    overwritten by the next) -> [Kb] fp32: position j's log-prob of
+    continuation token j + 1, gathered on the device (the full [Kb, V]
+    log-softmax never leaves it)."""
+    B, Kb = cont_ids.shape
+    dev = cont_ids.device
+    positions = length + torch.arange(Kb, device=dev).expand(B, Kb)
+    kv_mask = (
+        torch.arange(cache_len, device=dev)[None, :] < length + k
+    ).to(torch.int32)
+    logits, _ = qwen2.forward(
+        params.llm, cfg.llm,
+        inputs_embeds=params.llm.embed.weight[cont_ids], positions=positions,
+        kv_cache=cache,
+        write_slots=torch.full((B,), length, dtype=torch.long, device=dev),
+        kv_mask=kv_mask, attn_impl=cfg.attn_impl,
+        compute_dtype=oryx.compute_dtype(cfg),
+    )
+    lp = torch.log_softmax(logits[0].float(), dim=-1)
+    nxt = torch.cat([cont_ids[0, 1:], cont_ids.new_zeros(1)])
+    return torch.gather(lp, 1, nxt[:, None])[:, 0]
+
+
+@dataclasses.dataclass
+class PrefixCacheState:
+    """Cross-turn KV prefix cache for a single conversation: `ids` is the
+    token stream whose K/V occupy cache slots [0, len) (visual slots marked
+    -7: they match positionally, never by id), `cache` the device K/V,
+    `cache_len` its slot capacity. `prompt_ids`/`prompt_flat` record the
+    previous turn's pre-splice and post-splice prompt streams so a turn that
+    merely EXTENDS the prompt skips the host-side image packing."""
+
+    ids: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0,), np.int64)
+    )
+    cache: dict | None = None
+    cache_len: int = 0
+    prompt_ids: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0,), np.int64)
+    )
+    prompt_flat: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0,), np.int64)
+    )
+    # Content fingerprint of the session's media: visual slots match
+    # POSITIONALLY in the id stream, so swapped same-shape images would
+    # otherwise silently reuse the old images' K/V.
+    media_key: tuple = ()
+
+
+def _media_fingerprint(imgs) -> tuple:
+    """Cheap content key for the media list (crc32 per image + shape)."""
+    return tuple(
+        (im.shape, zlib.crc32(np.ascontiguousarray(im).tobytes()))
+        for im in imgs
+    )
+
+
+class ChatSession:
+    """Stateful multi-turn conversation over one media context (media
+    attach to the first turn).
+
+    With cache=True (default) the session keeps the KV cache across turns
+    and each `ask` / `ask_stream` prefills only the token suffix the cache
+    has not seen (longest-common-prefix matching over token ids; the
+    image/video prefill happens once per session; a media-content
+    fingerprint guards against positional false matches). Replies and
+    streamed deltas are identical either way.
+
+    shared routes the session through the pipe-level CROSS-session prefix
+    index: True uses `pipe.session_prefix_cache()`, or pass a
+    SessionPrefixCache. A fresh session then inherits the KV of the longest
+    stored prefix (shared system prompt, repeated opener) instead of
+    cold-prefilling it, and donates its state back after each turn."""
+
+    def __init__(
+        self,
+        pipe: Pipeline,
+        *,
+        images: Sequence[np.ndarray] | None = None,
+        is_video: bool = False,
+        cache: bool = True,
+        shared=None,
+    ) -> None:
+        self.pipe = pipe
+        self.images = list(images or [])
+        self.is_video = is_video and bool(self.images)
+        self.history: list[tuple[str, str]] = []
+        self._cache_state = PrefixCacheState() if cache else None
+        if shared is True:
+            shared = pipe.session_prefix_cache()
+        self.shared = shared if cache else None
+
+    def ask(self, question: str, **kw) -> str:
+        if self._cache_state is not None:
+            reply, self._cache_state = self.pipe.chat_cached(
+                self._cache_state, question, images=self.images,
+                is_video=self.is_video, history=self.history,
+                shared=self.shared, **kw,
+            )
+        else:
+            reply = self.pipe.chat(
+                question, images=self.images, is_video=self.is_video,
+                history=self.history, **kw,
+            )
+        self.history.append((question, reply))
+        return reply
+
+    def ask_stream(self, question: str, **kw):
+        """Streamed `ask`: yields text deltas; records the turn in history
+        once the stream is consumed. With the session cache on, the prompt
+        prefix (the visual prefill included) is served from the KV cache
+        like `ask`."""
+        parts: list[str] = []
+        gen = self.pipe.chat_stream(
+            question, images=self.images, is_video=self.is_video,
+            history=self.history, cache_state=self._cache_state,
+            shared=self.shared, **kw,
+        )
+        while True:
+            try:
+                delta = next(gen)
+            except StopIteration as s:
+                if self._cache_state is not None and s.value is not None:
+                    _, self._cache_state = s.value
+                break
+            parts.append(delta)
+            yield delta
+        self.history.append((question, "".join(parts).strip()))
+
+    def reset(self) -> None:
+        self.history.clear()
+        if self._cache_state is not None:
+            self._cache_state = PrefixCacheState()

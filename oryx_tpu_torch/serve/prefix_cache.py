@@ -22,8 +22,10 @@ Matching is on token ids: a tokenizer boundary merge shortens the reuse,
 never changes a reply. Only text prompts key the cache (the scheduler
 passes None for multimodal ones), so every root key here is `()`.
 
-The dense-cache `SessionPrefixCache` waits for sessions / `chat_cached` in
-the pipeline.
+`SessionPrefixCache` is the dense-cache plane: the same index over
+`PrefixCacheState` snapshots of `Pipeline.chat_cached` / `ChatSession`, so a
+fresh session over the same media + system prompt inherits a finished
+session's KV. Its root keys are media fingerprints.
 """
 
 from __future__ import annotations
@@ -461,3 +463,89 @@ class PagedPrefixCache:
         self._host = TokenTrie(self.page_size)
         self._host_bytes = 0
         self._spilled = 0
+
+
+class SessionPrefixCache:
+    """Dense-cache plane: longest-prefix lookup over `PrefixCacheState`
+    snapshots (serve/pipeline.py), so a fresh ChatSession over the same
+    media + system prompt inherits a finished session's KV instead of
+    cold-prefilling it.
+
+    A state is reachable from EVERY node along its id stream's path - a new
+    prompt diverges from a stored stream at its own question, so the useful
+    hit is the deepest COMMON node, not the stored stream's end. `lookup`
+    returns the state at that node; the pipeline's `_prefix_plan` then
+    computes the exact longest common token prefix against it and
+    re-prefills only the rest (an over-long candidate only ever shortens
+    the reuse, never corrupts it). Dense caches cost device memory:
+    capacity bounds the number of live states, LRU.
+    """
+
+    def __init__(self, block_size: int = 16, capacity: int = 4):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.trie = TokenTrie(block_size)
+        self.capacity = capacity
+        self._states: dict[int, Any] = {}  # id(state) -> state, LRU order
+
+    @property
+    def entries(self) -> int:
+        return len(self._states)
+
+    def lookup(self, flat_ids, media_key: tuple = ()):
+        """The state stored at the deepest node along `flat_ids`' block
+        path (LRU-refreshed), or None."""
+        path = self.trie.walk(flat_ids, root_key=tuple(media_key))
+        for node in reversed(path):
+            if node.payload is not None:
+                state = node.payload
+                self._states.pop(id(state), None)
+                self._states[id(state)] = state
+                return state
+        return None
+
+    def insert(self, state) -> None:
+        """Store `state` along its full block path (streams shorter than one
+        block are not worth caching), evicting the least-recently-used
+        stored state beyond capacity. States the overwrite leaves with no
+        reachable node (the normal multi-turn case: each turn's stream
+        extends the last, shadowing its whole path) are dropped at once: an
+        unreachable state would pin a dense cache against capacity for no
+        hit."""
+        path = self.trie.extend(
+            np.asarray(state.ids), root_key=tuple(state.media_key)
+        )
+        if not path:
+            return
+        displaced = {
+            id(n.payload): n.payload for n in path
+            if n.payload is not None and n.payload is not state
+        }
+        for node in path:
+            node.payload = state
+        self._states.pop(id(state), None)
+        self._states[id(state)] = state
+        if displaced:
+            reachable = {
+                id(n.payload) for n in self.trie.nodes()
+                if n.payload is not None
+            }
+            for sid in displaced.keys() - reachable:
+                self._states.pop(sid, None)
+        while len(self._states) > self.capacity:
+            _, victim = next(iter(self._states.items()))
+            self._drop(victim)
+
+    def _drop(self, state) -> None:
+        self._states.pop(id(state), None)
+        for node in list(self.trie.nodes()):
+            if node.payload is state:
+                node.payload = None
+        # Prune now-useless branches (childless, payload-less).
+        changed = True
+        while changed:
+            changed = False
+            for leaf in self.trie.leaves():
+                if leaf.payload is None:
+                    self.trie.remove(leaf)
+                    changed = True

@@ -1154,3 +1154,279 @@ def test_tiny_bf16_fit_with_head_dim_12_on_card(card, tmp_path):
                 assert sum(n for key, n in c.items() if key[-1] == 12) > 0
     assert len(losses["cuda"]) == 2 and np.isfinite(losses["cuda"]).all()
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-2)
+
+
+# ---- the dense decode loop as CUDA graphs; K1 at the prefix-reuse shapes ---
+
+
+def _tiny_model(dev, dtype):
+    """The tiny config (pallas, `dtype` compute) with input-sensitive x20
+    weights on `dev`: (OryxModel, OryxConfig)."""
+    import dataclasses
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+
+    cfg = dataclasses.replace(
+        config.oryx_tiny(), attn_impl="pallas",
+        dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() >= 2:
+                p.mul_(20)
+    return params.to(device=dev, dtype=dtype), cfg
+
+
+def _eager_generate(llm, cfg, gen_cfg, embeds, lengths, max_new, cache_len,
+                    seed, kv_cache=None, start=None):
+    """The eager witness: generate's prefill, then `_decode_while` with no
+    graph (each chunk's steps launched one by one)."""
+    from oryx_tpu_torch.models import generate as gen_lib
+    from oryx_tpu_torch.models import qwen2
+
+    dt = embeds.dtype
+    gen = torch.Generator(device=embeds.device).manual_seed(seed)
+    with torch.inference_mode():
+        cache = (qwen2.init_kv_cache(cfg, embeds.shape[0], cache_len,
+                                     dtype=dt, device=embeds.device)
+                 if kv_cache is None
+                 else {n: x.clone() for n, x in kv_cache.items()})
+        carry = gen_lib._prefill_carry(
+            llm, cfg, gen_cfg, embeds, lengths, gen, cache=cache,
+            start=start, attn_impl="pallas", compute_dtype=dt, stop_L=0)
+        step = gen_lib._make_decode_step(
+            llm, cfg, gen_cfg, None, cache_len=cache_len,
+            attn_impl="pallas", compute_dtype=dt, generator=gen)
+        carry, toks, fin, _ = gen_lib._decode_while(
+            step, carry, max_new, gen_cfg.eos_token_id)
+    return toks, carry[0]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_decode_graphs_match_the_eager_loop(card, temperature):
+    """bf16 tiny decode: generate's graph replays (21 steps: two replays of
+    8 and a last chunk of 5 run eagerly) give the eager loop's tokens,
+    greedy and sampled from the same seed; the graph is reused by the next
+    call, whose launches are counted per replay (layers x steps decode
+    launches, none for the capture)."""
+    import dataclasses
+
+    from oryx_tpu_torch.models import generate as gen_lib
+
+    model, cfg = _tiny_model(card, torch.bfloat16)
+    llm = model.llm
+    gen_cfg = dataclasses.replace(cfg.generation, temperature=temperature)
+    g = torch.Generator(device=card).manual_seed(1)
+    embeds = torch.randn(3, 20, cfg.llm.hidden_size, generator=g,
+                         device=card).to(torch.bfloat16)
+    lengths = torch.tensor([20, 13, 6], dtype=torch.int32, device=card)
+    kw = dict(max_new_tokens=21, cache_len=256, attn_impl="pallas",
+              compute_dtype=torch.bfloat16)
+
+    def run(seed, timings=None):
+        return gen_lib.generate(
+            llm, cfg.llm, gen_cfg, inputs_embeds=embeds, lengths=lengths,
+            generator=torch.Generator(device=card).manual_seed(seed),
+            timings=timings, **kw)[0]
+
+    first = run(5)
+    fa.LAUNCHES_DECODE.clear()
+    timings = {}
+    again = run(5, timings)
+    assert timings["capture_s"] == 0.0 and timings["decode_steps"] == 21
+    assert sum(fa.LAUNCHES_DECODE.values()) == cfg.llm.num_layers * 21
+    want, _ = _eager_generate(llm, cfg.llm, gen_cfg, embeds, lengths, 21,
+                              256, 5)
+    assert torch.equal(first, again) and torch.equal(first, want)
+    if temperature:
+        assert not torch.equal(run(6), first)
+
+
+def test_stream_equals_generate_and_prefix_reuse_on_card(card):
+    """Sampled at 0.7: generate_stream's blocks (one replay each) joined
+    are generate's tokens, and a suffix prefilled at start = 45 into a
+    returned cache decodes as the eager witness does."""
+    import dataclasses
+
+    import numpy as np
+
+    from oryx_tpu_torch.models import generate as gen_lib
+
+    model, cfg = _tiny_model(card, torch.bfloat16)
+    llm = model.llm
+    gen_cfg = dataclasses.replace(cfg.generation, temperature=0.7)
+    g = torch.Generator(device=card).manual_seed(2)
+    embeds = torch.randn(1, 70, cfg.llm.hidden_size, generator=g,
+                         device=card).to(torch.bfloat16)
+    common = dict(attn_impl="pallas", compute_dtype=torch.bfloat16)
+
+    def gen(seed):
+        return torch.Generator(device=card).manual_seed(seed)
+
+    lengths = torch.tensor([45], dtype=torch.int32, device=card)
+    toks, _, _, cache = gen_lib.generate(
+        llm, cfg.llm, gen_cfg, inputs_embeds=embeds[:, :45],
+        lengths=lengths, max_new_tokens=24, cache_len=256, generator=gen(3),
+        return_cache=True, **common)
+    blocks = list(gen_lib.generate_stream(
+        llm, cfg.llm, gen_cfg, inputs_embeds=embeds[:, :45],
+        lengths=lengths, max_new_tokens=24, cache_len=256, generator=gen(3),
+        chunk=8, **common))
+    assert [b.shape for b in blocks] == [(1, 8)] * 3
+    np.testing.assert_array_equal(np.concatenate(blocks, 1),
+                                  toks.cpu().numpy())
+    assert len({tuple(b[0]) for b in blocks}) == 3
+
+    suffix = torch.zeros(1, 32, cfg.llm.hidden_size, dtype=torch.bfloat16,
+                         device=card)
+    suffix[:, :25] = embeds[:, 45:]
+    full = torch.tensor([70], dtype=torch.int32, device=card)
+    got = gen_lib.generate(
+        llm, cfg.llm, gen_cfg, inputs_embeds=suffix, lengths=full,
+        max_new_tokens=13, cache_len=256, generator=gen(4), kv_cache=cache,
+        start=45, **common)[0]
+    want, _ = _eager_generate(llm, cfg.llm, gen_cfg, suffix, full, 13, 256,
+                              4, kv_cache=cache, start=45)
+    assert torch.equal(got, want)
+
+
+def test_interleaved_streams_hold_graphs_of_their_own(card):
+    """Two generate_stream generators of one key alive at once each hold a
+    decode graph of their own: interleaved block by block, each gives the
+    tokens it gives alone."""
+    import numpy as np
+
+    from oryx_tpu_torch.models import generate as gen_lib
+
+    model, cfg = _tiny_model(card, torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(4)
+    prompts = [torch.randn(1, 16, cfg.llm.hidden_size, generator=g,
+                           device=card).to(torch.bfloat16) for _ in range(2)]
+    lengths = torch.tensor([16], dtype=torch.int32, device=card)
+
+    def stream(e):
+        return gen_lib.generate_stream(
+            model.llm, cfg.llm, cfg.generation, inputs_embeds=e,
+            lengths=lengths, max_new_tokens=16, cache_len=256, chunk=4,
+            attn_impl="pallas", compute_dtype=torch.bfloat16)
+
+    alone = [np.concatenate(list(stream(e)), 1) for e in prompts]
+    assert not np.array_equal(alone[0], alone[1])
+    a, b = (stream(e) for e in prompts)
+    got = [[], []]
+    for _ in range(4):
+        got[0].append(next(a))
+        got[1].append(next(b))
+    for blocks, want in zip(got, alone):
+        np.testing.assert_array_equal(np.concatenate(blocks, 1), want)
+
+
+def test_counted_graph_counts_each_replay(card):
+    """K1 decode calls captured in a CountedGraph count nothing at capture
+    and one launch per call per replay, and the replays give the eager
+    call's bits."""
+    from oryx_tpu_torch.ops.cuda import graphs
+
+    q, k, v, kw = _decode_case(card, 2, 300, 2, 7, 128, [299, 130])
+    want = fa.flash_attention(q, k, v, **kw)  # builds the kernel
+    before = sum(fa.LAUNCHES.values()), sum(fa.LAUNCHES_DECODE.values())
+    graph = graphs.CountedGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with graph.capture(stream):
+        out = [fa.flash_attention(q, k, v, **kw) for _ in range(3)]
+    assert (sum(fa.LAUNCHES.values()),
+            sum(fa.LAUNCHES_DECODE.values())) == before
+    for n in (1, 2):
+        graph.replay()
+        assert sum(fa.LAUNCHES.values()) == before[0] + 3 * n
+        assert sum(fa.LAUNCHES_DECODE.values()) == before[1] + 3 * n
+    torch.cuda.synchronize()
+    for o in out:
+        assert torch.equal(o, want)
+
+
+def test_graph_replays_draw_a_new_stream_each(card):
+    """sample_token captured with a registered generator: two replays draw
+    different tokens from near-uniform logits, and together they are the
+    eager draws of 16 steps from the same seed (an unregistered generator
+    would replay one Philox offset)."""
+    from oryx_tpu_torch.models.generate import sample_token
+    from oryx_tpu_torch.ops.cuda import graphs
+
+    logits = torch.randn(4, 1000, device=card) * 0.01
+    kw = dict(temperature=0.7, top_p=1.0, top_k=0)
+    eager_gen = torch.Generator(device=card).manual_seed(9)
+    want = torch.stack([sample_token(logits, eager_gen, **kw)
+                        for _ in range(16)])
+    gen = torch.Generator(device=card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        sample_token(logits, gen, **kw)
+    graph = graphs.CountedGraph()
+    with graph.capture(stream, [gen]):
+        out = torch.stack([sample_token(logits, gen, **kw)
+                           for _ in range(8)])
+    gen.set_state(torch.Generator(device=card).manual_seed(9).get_state())
+    draws = []
+    for _ in range(2):
+        graph.replay()
+        draws.append(out.clone())
+    assert not torch.equal(draws[0], draws[1])
+    assert torch.equal(torch.cat(draws), want)
+
+
+@pytest.mark.parametrize("start,n,k", [(1153, 30, 0), (1200, 0, 4)],
+                         ids=["suffix_prefill", "score"])
+def test_k1_at_prefix_reuse_shapes(card, start, n, k):
+    """K1's wgmma body at the two new call shapes: a 256-row suffix bucket
+    with q positions from `start` (not a multiple of 64) over a
+    2,048-slot cache masked at start + n (suffix prefill), or at
+    start + k (an option of k tokens teacher-forced after the prompt)."""
+    g = torch.Generator(device=card).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card).to(
+            torch.bfloat16)
+
+    S, Tq = 2048, 256
+    pos = (start + torch.arange(Tq, device=card))[None]
+    mask = (torch.arange(S, device=card)[None] < start + n + k).int()
+    decode = sum(fa.LAUNCHES_DECODE.values())
+    _check(rnd(1, Tq, 28, 128), rnd(1, S, 4, 128), rnd(1, S, 4, 128),
+           dict(causal=True, q_positions=pos, kv_mask=mask))
+    assert sum(fa.LAUNCHES_DECODE.values()) == decode
+
+
+def test_tiny_sessions_on_card_match_cpu(card):
+    """fp32 tiny sessions on the card (graph route) and on the CPU: a
+    three-turn cached ChatSession over an image, a streamed turn and
+    score_options give the same replies, deltas and scores."""
+    import numpy as np
+
+    from oryx_tpu_torch.serve.pipeline import ChatSession, Pipeline
+
+    class Tok:
+        def encode(self, text, add_special_tokens=False):
+            return [min(ord(c), 500) for c in text]
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join(chr(i) for i in ids if 0 < i < 500)
+
+    img = np.random.default_rng(7).integers(0, 255, size=(30, 44, 3),
+                                            dtype=np.uint8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, cfg = _tiny_model("cpu", torch.float32)
+        pipe = Pipeline(Tok(), model, cfg, device=dev)
+        s = ChatSession(pipe, images=[img])
+        replies = [s.ask(q, max_new_tokens=6)
+                   for q in ("what is this?", "why?")]
+        replies.append("".join(s.ask_stream("sure?", max_new_tokens=6)))
+        out[dev] = (replies, pipe.score_options("pick", ["cat", "dog"]))
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-3)
