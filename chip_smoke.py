@@ -79,7 +79,11 @@ Phases (any failure exits non-zero):
      (prefill_chunk 512: every step one packed dispatch through the
      ragged-paged kernel K4), twice each: every request finishes with its
      usage, the two runs of an engine give identical tokens, and K3 (split)
-     or K4 (ragged) launched. Walls, TTFTs, tokens/s, dispatches by kind,
+     or K4 (ragged) launched. The ragged engine's run 0 is the private eager
+     witness, its run 1 the graph route (every pure-decode dispatch a replay
+     of the captured engine step): their replies are byte-equal, and both
+     walls, the tails after the last admission and the capture time are
+     printed. Walls, TTFTs, tokens/s, dispatches by kind,
      peak memory. The first run of each engine records the paged kernels'
      call operands (one call per forward, on layer 0's pool). A fifth,
      split-engine run under torch.profiler, as in phase 5.
@@ -97,6 +101,23 @@ Phases (any failure exits non-zero):
      the same bits. Wrapper and
      twin times, gather_pages + SDPA with an explicit mask as a two-call
      yardstick, and the least time the card could take.
+ 15. (Runs after 6.) Speculation and megasteps in the ragged engine at
+     full width and depth, on phase 7's mix and weights: fuse_steps=4 and
+     "auto" give phase 7's replies byte for byte; one solo request of 128
+     new tokens under "auto" reaches rung 16, traced (host launch calls a
+     logical step and the kernels' idle share after its eager dispatch);
+     speculate=4 with an oracle drafter proposing phase 7's replies (run
+     twice: equal) and with NgramDrafter (graph route and eager witness:
+     equal), tokens per verify step and accept rates printed, agreement
+     with phase 7 printed (bf16 rounds a 20-row verify GEMM otherwise than
+     a 4-row decode one); a NeuralDrafter fit on phase 7's replies,
+     speculate=4 on the graph route equal to its eager witness and to
+     fuse_steps=4, over a bf16 and an int8 pool; the tiny fp32 engines
+     speculating, fused and both, card == CPU == the plain engine, over
+     bf16 and int8 pools; then K4 and K4q at the speculative call shapes
+     (R = 4 x 5 verify rows, alone and with 512 prefill lanes behind
+     them), each recorded on its pool's eager witness, against their plain
+     twins, timed as in phase 6.
   8. The tiny fp32 config through both engines on the card (kernel path)
      and on the CPU (plain twins), over a bf16 and an int8 pool with the
      prefix cache on: replies, finish reasons and usage equal.
@@ -127,7 +148,8 @@ Phases (any failure exits non-zero):
      (kernels) and on the CPU (plain twins): losses and params agree.
 
  12. (Runs after 8.) The serving engine over an int8 pool (kv_dtype="int8") with a 256 MiB
-     host tier, split and ragged, twice each, on the phase-2 weights:
+     host tier, split and ragged, twice each (the ragged engine's run 0
+     the eager witness), on the phase-2 weights:
      phase 7's eight requests; round A, five text requests sharing a
      1,536-byte context (24 pages), the last page-aligned; round B, the
      same five again (each splices its own cached prompt pages; the
@@ -186,10 +208,27 @@ class ByteTokenizer:
     def decode(self, ids, skip_special_tokens=True):
         ids = [int(i) for i in ids]
         self.decoded.append(ids)
+        return self.text(ids, skip_special_tokens)
+
+    @staticmethod
+    def text(ids, skip_special_tokens=True) -> str:
+        """decode() without keeping the ids."""
         return "".join(
             chr(i) if i < 128 else f"<{i}>" for i in ids
             if not (skip_special_tokens and i == EOS)
         )
+
+    def reply_ids(self, reply: str) -> list[int]:
+        """The ids of a finished reply: the longest kept decode call whose
+        text, stripped as the engine strips a finished reply, is `reply`."""
+        best = None
+        for ids in self.decoded:
+            if (best is None or len(ids) > len(best)) and \
+                    self.text(ids).strip() == reply:
+                best = ids
+        if best is None:
+            raise SystemExit(f"no decode call gives the reply {reply[:40]!r}")
+        return best
 
 
 def requests():
@@ -882,19 +921,24 @@ class PagedCallRecorder:
         return False
 
 
-def run_scheduler(pipe, ragged: bool, record: bool):
-    """One scheduler run over serve_requests(); returns a dict of what it
-    served, what it cost and which kernels it launched (counts zeroed just
-    before the run and read just after)."""
+def run_scheduler(pipe, ragged: bool, record: bool, *, eager: bool = False,
+                  reqs=None, **kw):
+    """One scheduler run over `reqs` (serve_requests() by default), `kw`
+    passed to the engine; eager: the private eager witness (a ragged
+    engine's pure-decode dispatches launched one by one instead of replayed
+    as graphs). Returns a dict of what it served, what it cost and which
+    kernels it launched (counts zeroed just before the run and read just
+    after), with the tail wall after the last admission."""
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
 
     sched = ContinuousScheduler(
         pipe, autostart=False, ragged=ragged,
-        prefill_chunk=PREFILL_CHUNK if ragged else None, **SERVE,
+        prefill_chunk=PREFILL_CHUNK if ragged else None, **SERVE, **kw,
     )
-    reqs = serve_requests()
+    sched._eager_witness = eager
+    reqs = reqs or serve_requests()
     recorder = PagedCallRecorder(sched) if record else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -919,6 +963,11 @@ def run_scheduler(pipe, ragged: bool, record: bool):
         "metrics": sched.metrics, "peak": torch.cuda.max_memory_allocated(),
         "flash": dict(fa.LAUNCHES), "paged": dict(paged),
         "paged_keys": dict(pa.LAUNCHES), "recorder": recorder,
+        # After the last activation every dispatch is pure decode.
+        "tail": max(h.debug["e2e_s"] for h in handles)
+        - max(h.debug["ttft_s"] for h in handles),
+        "tail_steps": max(h.debug["finish_chunk"] for h in handles)
+        - max(h.debug["admit_chunk"] for h in handles),
     }
 
 
@@ -932,7 +981,9 @@ def check_serving_run(mode: str, i: int, run: dict, code: str = "") -> None:
           f"{gen / run['wall']:.1f} tok/s | dispatches "
           f"{dict(m['dispatches_total'])} | evicted {m['evicted']} | peak "
           f"{run['peak'] / 1e9:.2f} GB | paged launches {run['paged']} | "
-          f"flash launches {sum(run['flash'].values())}")
+          f"flash launches {sum(run['flash'].values())} | engine-step "
+          f"graphs captured {m['graph_captures_total']} in "
+          f"{m['graph_capture_s']:.3f} s")
     print(f"    TTFT s: {[round(t, 4) for t in run['ttft']]}")
     print(f"    cached tokens: {run['cached']} (prefix cache hits "
           f"{m['prefix_cache_hit_tokens_total']}, misses "
@@ -957,7 +1008,7 @@ def check_serving_run(mode: str, i: int, run: dict, code: str = "") -> None:
 def _pick(calls, work):
     """The recorded call with the most work (host reads after the run)."""
     if not calls:
-        raise SystemExit("phase 7 recorded no call of this kind")
+        raise SystemExit("the recorded run made no call of this kind")
     return max(calls, key=work)
 
 
@@ -1161,6 +1212,298 @@ def tiny_engines_on_card() -> None:
                              f"the CPU: {out[1]} vs {out[0]}")
 
 
+# ---- speculation and megasteps (phase 15) ----------------------------------
+
+SPEC_K = 4  # drafts a slot verifies per step
+
+
+class OracleDrafter:
+    """Proposes the continuation of whichever recorded stream the context
+    is a prefix of: a text request's prompt ids + its reply, or (the
+    engine drafts a multimodal request from its reply alone) a reply. On a
+    stream the engine reproduces, every draft is accepted."""
+
+    window = None
+    device_apply = None
+
+    def __init__(self, streams: list[list[int]]):
+        self.streams = [np.asarray(x, np.int64) for x in streams]
+
+    def propose(self, context, k):
+        ctx = np.asarray(context, np.int64)
+        for seq in self.streams:
+            n = len(ctx)
+            if len(seq) > n and np.array_equal(seq[:n], ctx):
+                return [int(t) for t in seq[n:n + k]]
+        return []
+
+    def device_params(self, device=None):
+        return None
+
+
+def spec_streams(pipe, reqs, results) -> list[list[int]]:
+    """The drafting streams of served requests: prompt ids + reply ids of a
+    text request, the reply ids of a multimodal one."""
+    out = []
+    for (req, _), (reply, _, _) in zip(reqs, results):
+        ids = pipe.tokenizer.reply_ids(reply)
+        if not req.get("images"):
+            ids = list(pipe._prepare_request(req)[0]) + ids
+        out.append(ids)
+    return out
+
+
+def tail_profile(fn):
+    """fn() (an engine serving one request) traced; returns (host launch
+    calls from the first graph launch on, the kernels' idle share over that
+    window): the graph route's share of the run after its one eager
+    dispatch with prefill lanes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    graph = [e.time_range.start for e in events
+             if e.name in ("cudaGraphLaunch", "cuGraphLaunch")]
+    if not graph:
+        raise SystemExit("the traced run launched no graph")
+    t0 = min(graph)
+    calls = sum(1 for e in events
+                if e.name in HOST_LAUNCHES and e.time_range.start >= t0)
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.time_range.start >= t0)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = max(b for _, b in spans) - t0
+    return calls, 1 - busy / window
+
+
+def spec_line(label, run) -> str:
+    m = run["metrics"]
+    per = (m["accepted_tokens_per_step_sum"]
+           / max(1, m["accepted_tokens_per_step_count"]))
+    rate = m["draft_accepted_total"] / max(1, m["draft_proposed_total"])
+    return (f"  {label}: wall {run['wall']:.3f} s, tail {run['tail']:.3f} s"
+            f" ({run['tail_steps']} logical steps) | tokens per verify step "
+            f"{per:.3f}, accept rate {rate:.3f} ({m['draft_accepted_total']}"
+            f"/{m['draft_proposed_total']}) | dispatches "
+            f"{dict(m['dispatches_total'])} | megasteps "
+            f"{dict(m['megasteps_total'])} | graphs "
+            f"{m['graph_captures_total']} in {m['graph_capture_s']:.3f} s")
+
+
+def replies(run) -> list[str]:
+    return [r[0] for r in run["results"]]
+
+
+def speculation_and_megasteps(spipe, step1, pool_shape, card) -> list[dict]:
+    """Phase 15 (see the module docstring); returns the kernel table's rows
+    of K4 and K4q at the speculative call shapes."""
+    from oryx_tpu_torch.models import generate as generate_lib
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    S = SERVE["num_slots"]
+    reqs = serve_requests()
+    want = replies(step1)
+    ragged = dict(ragged=True)
+
+    def same(label, run, ref=want, must=True) -> None:
+        n = sum(a == b for a, b in zip(replies(run), ref))
+        print(f"    {label}: {n}/{len(ref)} replies equal"
+              + ("" if must else " (bf16, not asserted)"))
+        if must and n != len(ref):
+            raise SystemExit(f"phase 15: {label}: {replies(run)} vs {ref}")
+
+    # Megasteps over the mix, after its last admission.
+    for fuse in (4, "auto"):
+        run = run_scheduler(spipe, **ragged, record=False, fuse_steps=fuse)
+        print(spec_line(f"fuse_steps={fuse!r}", run))
+        same(f"fuse_steps={fuse!r} vs phase 7's ragged engine", run)
+        if not run["metrics"]["megasteps_total"]:
+            raise SystemExit(f"fuse_steps={fuse!r}: no megastep ran")
+    solo = [({"question": "Tell me a long story about a lighthouse."}, 128)]
+    holder = {}
+
+    def solo_run():
+        holder["run"] = run_scheduler(spipe, **ragged, record=False,
+                                      fuse_steps="auto", reqs=solo)
+
+    calls, idle = tail_profile(solo_run)
+    run = holder["run"]
+    print(spec_line("solo request, 128 new tokens, fuse_steps='auto', "
+                    "traced", run))
+    steps = run["tail_steps"]
+    # The tail holds the engine-step graph's capture (its first pure-decode
+    # dispatch comes after the admission).
+    tail = run["tail"] - run["metrics"]["graph_capture_s"]
+    print(f"    after its one eager dispatch: {calls} host launch calls for "
+          f"{steps} logical steps ({calls / max(1, steps):.2f} a logical "
+          f"step), kernels' idle share {idle:.1%}; tail less the capture "
+          f"{tail:.3f} s, {tail / max(1, steps * SERVE['chunk']) * 1e3:.2f} "
+          "ms a decode iteration")
+    if 16 not in run["metrics"]["megasteps_total"]:
+        raise SystemExit("the solo request never reached rung 16")
+
+    # Speculation, k = SPEC_K. The solo request without drafts (every
+    # dispatch after its admission a 20-row verify forward), then with an
+    # oracle of that reply: the same forwards, so every draft is accepted.
+    solo = [({"question": "Tell me a long story about a lighthouse."}, 96)]
+    bare = run_scheduler(spipe, **ragged, record=False, speculate=SPEC_K,
+                         reqs=solo, drafter=OracleDrafter([]))
+    full = run_scheduler(spipe, **ragged, record=False, speculate=SPEC_K,
+                         reqs=solo, drafter=OracleDrafter(
+                             spec_streams(spipe, solo, bare["results"])))
+    print(spec_line(f"solo request, 96 new tokens, speculate={SPEC_K}, no "
+                    "drafts", bare))
+    print(spec_line("    the same, with an oracle of that reply", full))
+    same("oracle self-replay (solo)", full, replies(bare))
+    # An oracle of phase 7's replies on the mix, then n-grams.
+    streams = spec_streams(spipe, reqs, step1["results"])
+    oracle = [run_scheduler(spipe, **ragged, record=False, speculate=SPEC_K,
+                            drafter=OracleDrafter(streams))
+              for _ in range(2)]
+    print(spec_line(f"speculate={SPEC_K}, oracle drafter", oracle[0]))
+    same("oracle vs phase 7's ragged engine", oracle[0], must=False)
+    same("oracle self-replay", oracle[1], replies(oracle[0]))
+    ngram = [run_scheduler(spipe, **ragged, record=False, eager=eager,
+                           speculate=SPEC_K) for eager in (False, True)]
+    print(spec_line(f"speculate={SPEC_K}, NgramDrafter", ngram[0]))
+    print(spec_line("  the same on the eager witness", ngram[1]))
+    same("NgramDrafter vs phase 7's ragged engine", ngram[0], must=False)
+    same("NgramDrafter graph route vs eager witness (run to run)", ngram[1],
+         replies(ngram[0]))
+
+    # A drafter fit on phase 7's replies, in the fused loop and without.
+    t = time.perf_counter()
+    drafter, losses = generate_lib.fit_neural_drafter(
+        [spipe.tokenizer.reply_ids(r) for r in want],
+        spipe.cfg.llm.vocab_size, dim=16, window=16, epochs=20, lr=40.0,
+        seed=0)
+    print(f"  fit_neural_drafter on phase 7's replies: {len(losses)} epochs "
+          f"in {time.perf_counter() - t:.1f} s, loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}")
+    spec_runs = {}
+    for kv in ("bf16", "int8"):
+        kw = dict(speculate=SPEC_K, drafter=drafter, kv_dtype=kv)
+        k1 = run_scheduler(spipe, **ragged, record=False, **kw)
+        witness = run_scheduler(spipe, **ragged, record=True, eager=True,
+                                **kw)
+        fused = run_scheduler(spipe, **ragged, record=False, fuse_steps=4,
+                              **kw)
+        print(spec_line(f"{kv} pool, NeuralDrafter, fuse_steps=1", k1))
+        print(spec_line("  the same on the eager witness", witness))
+        print(spec_line(f"{kv} pool, NeuralDrafter, fuse_steps=4", fused))
+        same(f"{kv} graph route vs eager witness", witness, replies(k1))
+        same(f"{kv} fused speculative vs speculative", fused, replies(k1))
+        if not fused["metrics"]["megasteps_total"]:
+            raise SystemExit(f"{kv}: no fused speculative megastep ran")
+        spec_runs[kv] = (k1, witness)
+
+    print("  tiny fp32 engines, card vs CPU:")
+    tiny_spec_engines_on_card()
+
+    # K4 and K4q at the speculative call shapes: R = S * (1 + k) verify
+    # lanes (slot-major), alone and with the admitting slot's
+    # prefill_chunk prefill lanes behind them. Each call is recorded on its
+    # pool's eager witness; its launches are those of the graph-route run
+    # of the same engine (counts zeroed just before it).
+    R = S * (1 + SPEC_K)
+    gen = torch.Generator("cuda").manual_seed(5)
+    rows = []
+    for kv, (graph, witness) in spec_runs.items():
+        fmt = None if kv == "bf16" else kv
+        kernel = "ragged_paged" + (f"_{fmt}" if fmt else "")
+        for shape, width in (("spec_verify", R),
+                             ("spec_verify_prefill", R + PREFILL_CHUNK)):
+            calls = [c for c in witness["recorder"].calls["ragged_paged"]
+                     if c[0][0][0] == width]
+            row = paged_kernel_case(
+                f"{kernel}[{shape}]", "ragged_paged",
+                _pick(calls, lambda c: int((c[3] + 1).sum())), pool_shape,
+                gen, fmt)
+            row["launches"] = sum(
+                n for key, n in graph["paged_keys"].items()
+                if key[0] == kernel and key[1] == width)
+            print(f"  launches {row['name']}: {row['launches']} (the {kv} "
+                  "NeuralDrafter run on the graph route)")
+            if row["launches"] == 0:
+                raise SystemExit(f"{kernel} never ran at R = {width}")
+            rows.append(row)
+    return rows
+
+
+def tiny_spec_engines_on_card() -> None:
+    """Phase 15's tiny engines: the tiny fp32 config speculating (n-grams),
+    fused (K = 4) and both (a random neural drafter), over a bf16 and an
+    int8 pool, on the card and on the CPU: equal replies, equal to the
+    CPU's plain ragged engine."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import generate as generate_lib
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() >= 2:
+                p.mul_(20)
+    rng = np.random.default_rng(0)
+    reqs = [
+        ({"question": "hi there"}, 24),
+        ({"question": "what is this?",
+          "images": [rng.integers(0, 255, size=(40, 56, 3), dtype=np.uint8)]},
+         20),
+        ({"question": "what is going on with all of this"}, 28),
+    ]
+    geom = dict(num_slots=2, page_size=16, chunk=4, max_ctx=512,
+                ragged=True, prefill_chunk=16)
+    V = cfg.llm.vocab_size
+    modes = {
+        "speculate=3": dict(speculate=3),
+        "fuse_steps=4": dict(fuse_steps=4),
+        "speculate=3, fuse_steps=4": dict(
+            speculate=3, fuse_steps=4,
+            drafter=generate_lib.NeuralDrafter.init(V, 8, window=8)),
+    }
+
+    def serve(device, **kw):
+        sched = ContinuousScheduler(
+            Pipeline(ByteTokenizer(), params, cfg, device=device),
+            autostart=False, **geom, **kw)
+        hs = [sched.submit(r, n) for r, n in reqs]
+        sched.start()
+        out = [h.result(timeout=600) for h in hs]
+        sched.close()
+        sched.check_pool_invariant()
+        return out, sched.metrics
+
+    for kv in ("bf16", "int8"):
+        plain, _ = serve("cpu", kv_dtype=kv)
+        for name, kw in modes.items():
+            cpu, _ = serve("cpu", kv_dtype=kv, **kw)
+            gpu, m = serve("cuda", kv_dtype=kv, **kw)
+            print(f"    {kv} pool, {name}: card == cpu {gpu == cpu}, == the "
+                  f"plain engine {gpu == plain}; dispatches "
+                  f"{dict(m['dispatches_total'])}, graphs "
+                  f"{m['graph_captures_total']}")
+            if not gpu == cpu == plain or not m["graph_captures_total"]:
+                raise SystemExit(f"tiny {kv} {name}: card {gpu} vs cpu {cpu}"
+                                 f" vs plain {plain}")
+
+
 # ---- the int8 engine and the prefix cache (phases 12-13) -------------------
 
 HOST_CACHE = 256 << 20  # host tier of phase 12's engines
@@ -1210,9 +1553,11 @@ def quiesce(sched, timeout=60.0) -> None:
         time.sleep(0.01)
 
 
-def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str]):
+def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str],
+                    eager: bool = False):
     """One phase-12 run (see the module docstring); counts zeroed just
-    before, read just after. Returns a dict of what it served and cost."""
+    before, read just after; eager as in run_scheduler. Returns a dict of
+    what it served and cost."""
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
@@ -1222,6 +1567,7 @@ def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str]):
         prefill_chunk=PREFILL_CHUNK if ragged else None, kv_dtype="int8",
         host_cache_bytes=HOST_CACHE, **SERVE,
     )
+    sched._eager_witness = eager
     recorder = PagedCallRecorder(sched) if record else None
     rounds: dict[str, list] = {}
     walls: dict[str, float] = {}
@@ -2018,7 +2364,10 @@ def main() -> int:
     spipe = Pipeline(ByteTokenizer(), params, cfg, device="cuda")
     serving = {}
     for mode in ("split", "ragged"):
-        runs = [run_scheduler(spipe, mode == "ragged", record=i == 0)
+        # The ragged engine's run 0 is the eager witness (its calls are
+        # recorded for phase 6), run 1 the graph route.
+        runs = [run_scheduler(spipe, mode == "ragged", record=i == 0,
+                              eager=mode == "ragged" and i == 0)
                 for i in range(2)]
         for i, run in enumerate(runs):
             check_serving_run(mode, i, run)
@@ -2026,7 +2375,20 @@ def main() -> int:
             raise SystemExit(f"{mode}: the two runs produced different "
                              "tokens")
         print(f"  {mode}: tokens identical across the two runs")
+        if mode == "ragged":
+            m = runs[1]["metrics"]
+            print(f"  ragged graph route == eager witness (byte-equal): "
+                  f"walls {runs[1]['wall']:.3f} vs {runs[0]['wall']:.3f} s, "
+                  f"tails after the last admission {runs[1]['tail']:.3f} vs "
+                  f"{runs[0]['tail']:.3f} s ({runs[1]['tail_steps']} logical "
+                  f"steps); capture {m['graph_capture_s']:.3f} s "
+                  f"({m['graph_captures_total']} graph)")
+            if not m["graph_captures_total"] or runs[0]["metrics"][
+                    "graph_captures_total"]:
+                raise SystemExit("ragged: the graph route did not replay "
+                                 "graphs, or the witness did")
         serving[mode] = runs[0]
+        serving[mode + "_graph"] = runs[1]
     same = sum(
         a[0] == b[0] for a, b in zip(serving["split"]["results"],
                                      serving["ragged"]["results"])
@@ -2060,10 +2422,11 @@ def main() -> int:
     for name, kind, call in cases:
         row = paged_kernel_case(name, kind, call, pool_shape, gen)
         mode = "split" if kind == "paged_decode" else "ragged"
-        # Launches of the run the call was recorded in, split by whether
-        # the dispatch carried prefill lanes (R > S).
+        # Launches of the engine's graph-route run (its pure-decode
+        # dispatches replayed), split by whether the dispatch carried
+        # prefill lanes (R > S).
         row["launches"] = sum(
-            n for key, n in serving[mode]["paged_keys"].items()
+            n for key, n in serving[mode + "_graph"]["paged_keys"].items()
             if key[0] == kind and (
                 kind == "paged_decode"
                 or (key[1] > S) == name.endswith("[prefill]")
@@ -2084,6 +2447,13 @@ def main() -> int:
                          "path")
     rows.append(row)
 
+    # ---- 15. speculation and megasteps ------------------------------------
+    print(f"phase 15: speculation and megasteps in the ragged engine, "
+          f"oryx_7b bf16, {SERVE}, prefill_chunk {PREFILL_CHUNK}, "
+          f"k = {SPEC_K} ({card})", flush=True)
+    rows.extend(speculation_and_megasteps(
+        spipe, serving["ragged_graph"], pool_shape, card))
+
     # ---- 8. tiny fp32 engines on the card ---------------------------------
     print(f"phase 8: tiny fp32 engines (bf16 and int8 pools), card vs CPU "
           f"({card})", flush=True)
@@ -2097,15 +2467,19 @@ def main() -> int:
           f" tokens ({card})", flush=True)
     int8_runs = {}
     for mode in ("split", "ragged"):
-        runs = [run_int8_engine(spipe, mode == "ragged", i == 0, shared)
+        runs = [run_int8_engine(spipe, mode == "ragged", i == 0, shared,
+                                eager=mode == "ragged" and i == 0)
                 for i in range(2)]
         for i, run in enumerate(runs):
             check_int8_run(mode, i, run)
         if runs[1]["results"] != runs[0]["results"]:
             raise SystemExit(f"int8 {mode}: the two runs produced different "
                              "tokens")
-        print(f"  int8 {mode}: tokens identical across the two runs")
+        print(f"  int8 {mode}: tokens identical across the two runs"
+              + (" (graph route == eager witness)" if mode == "ragged"
+                 else ""))
         int8_runs[mode] = runs[0]
+        int8_runs[mode + "_graph"] = runs[1]
         n = len(serve_requests())
         same = sum(a[0] == b[0] for a, b in zip(
             runs[0]["results"][:n], serving[mode]["results"]))
@@ -2152,7 +2526,8 @@ def main() -> int:
             if fmt == "int8":
                 mode = "split" if kind == "paged_decode" else "ragged"
                 row["launches"] = sum(
-                    n for key, n in int8_runs[mode]["paged_keys"].items()
+                    n for key, n in int8_runs[mode + "_graph"][
+                        "paged_keys"].items()
                     if key[0] == kernel and (
                         kind == "paged_decode"
                         or (key[1] > S) == (shape == "prefill")

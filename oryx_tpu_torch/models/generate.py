@@ -1,7 +1,9 @@
 """Autoregressive generation (port of `oryx_tpu.models.generate`): the
 dense-KV prefill + decode loop, and the paged programs of the
 continuous-batching engine (paged prefill, chunked decode, the packed
-ragged step, `generate_paged`).
+ragged step, the decode megastep, the speculative verify step with its
+drafters, `generate_paged`), and the engine's pure-decode step as a CUDA
+graph (`_EngineStepGraph`).
 
 The JAX package runs the decode as one compiled `lax.while_loop`; here it
 runs in chunks of steps and exits between chunks once every row has
@@ -109,12 +111,16 @@ def sample_token_rows(
     temperature: torch.Tensor,  # [S]
     top_p: torch.Tensor,  # [S]
     top_k: torch.Tensor,  # [S]
+    draws: torch.Tensor | None = None,  # [S] bool: the rows that sample
 ) -> torch.Tensor:
     """Per-row sampling for continuous batching: every row carries its own
     (temperature, top_p, top_k) and generator, so a row's draw is a
     function of that row alone. Rows with no generator, or temperature 0,
     take the argmax (first maximum on ties); sampling rows draw one
-    Gumbel-max sample over the truncated logits. Returns [S] int32."""
+    Gumbel-max sample over the truncated logits. `draws` (a device mask)
+    is for a caller whose every row holds a generator (an engine-step CUDA
+    graph's per-slot generators, which all draw): only the masked rows'
+    draws count. Returns [S] int32."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     rows = [i for i, g in enumerate(generators) if g is not None]
     if not rows:
@@ -126,12 +132,25 @@ def sample_token_rows(
     u = torch.full((S, V), 0.5, dtype=torch.float32, device=logits.device)
     for i in rows:
         u[i] = torch.rand(V, generator=generators[i], device=logits.device)
-    tiny = torch.finfo(torch.float32).tiny
-    g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    g = _gumbel(u)
     sampled = torch.argmax(l + g, dim=-1).to(torch.int32)
-    drew = torch.zeros(S, dtype=torch.bool, device=logits.device)
-    drew[rows] = True
+    drew = _drew(draws, rows, S, logits.device)
     return torch.where(drew & ~is_greedy, sampled, greedy)
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+
+def _drew(draws, rows: list[int], S: int, device) -> torch.Tensor:
+    """[S] bool: `draws` when given (a graph's device mask), else the rows
+    holding a generator."""
+    if draws is not None:
+        return draws
+    drew = torch.zeros(S, dtype=torch.bool, device=device)
+    drew[rows] = True
+    return drew
 
 
 def make_stop_sequences(stop_strs: list[str], tokenizer) -> torch.Tensor | None:
@@ -905,6 +924,7 @@ def paged_ragged_step(
     eos: int,
     attn_impl: str = "xla",
     compute_dtype=None,
+    draws: torch.Tensor | None = None,
 ):
     """ONE dispatch for a mixed prefill+decode engine step. Each of the
     `chunk` iterations runs one packed forward over R = S + pf_width rows:
@@ -916,7 +936,7 @@ def paged_ragged_step(
     prompt writes garbage that is overwritten before it is read). The
     prompt's first token is sampled, one draw from `pf_generator`, in the
     iteration whose window holds the prompt's last token. pf_width = 0 is
-    a pure packed decode step.
+    a pure packed decode step. `draws`: as in `sample_token_rows`.
 
     Returns (kv_pages, tok, lengths, finished, recent, toks [S, chunk],
     fin [S, chunk], pf_tok0 ([] int32, or None when no window held the
@@ -952,7 +972,7 @@ def paged_ragged_step(
         )
         nxt = sample_token_rows(
             qwen2.logits_from_hidden(params, cfg, h[0, :S]), generators,
-            temperature=temperature, top_p=top_p, top_k=top_k,
+            temperature=temperature, top_p=top_p, top_k=top_k, draws=draws,
         )
         if recent.shape[1]:
             recent = torch.cat([recent[:, 1:], tok[:, None]], dim=1)
@@ -974,6 +994,766 @@ def paged_ragged_step(
         tok = nxt
     return (kv_pages, tok, cur_len, finished, recent,
             torch.stack(toks, dim=1), torch.stack(fins, dim=1), pf_tok0)
+
+
+def paged_fused_steps(
+    params,
+    cfg: LLMConfig,
+    kv_pages: dict,  # written in place
+    block_tables: torch.Tensor,  # [S, max_pages] int32
+    tok: torch.Tensor,  # [S]
+    lengths: torch.Tensor,  # [S]
+    finished: torch.Tensor,  # [S] bool
+    recent: torch.Tensor,  # [S, stop_L]
+    generators,  # [S] per-slot generators (None = greedy or empty)
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    stop_sequences: torch.Tensor | None,  # [Sq, L]
+    *,
+    chunk: int,
+    k_steps: int,
+    eos: int,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+    draws: torch.Tensor | None = None,
+):
+    """K = `k_steps` pure-decode engine steps with one harvest, the decode
+    megastep: `paged_ragged_step`'s pure-decode iteration (pf_width = 0)
+    run k_steps * chunk times, so K calls of the K = 1 step and one call of
+    this give the same carries and tokens. Columns [j * chunk, (j + 1) *
+    chunk) of the returned toks are logical step j's; the host processes
+    them as K harvests. Rows the host would have finished between steps
+    (max_new, stop strings) decode on; the host discards those columns,
+    and their KV stays in the row's own pages. On the card the engine runs
+    this as K replays of one captured logical step (`_EngineStepGraph`).
+
+    Returns (kv_pages, tok, lengths, finished, recent,
+    toks [S, k_steps * chunk], fin [S, k_steps * chunk])."""
+    return paged_ragged_step(
+        params, cfg, kv_pages, block_tables, tok, lengths, finished, recent,
+        generators, temperature, top_p, top_k, stop_sequences,
+        chunk=chunk * k_steps, pf_width=0, eos=eos, attn_impl=attn_impl,
+        compute_dtype=compute_dtype, draws=draws,
+    )[:7]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: drafted multi-token steps verified in one packed
+# forward
+# ---------------------------------------------------------------------------
+
+
+class Drafter:
+    """Pluggable draft-token proposer for speculative decoding.
+
+    `propose(context, k)` returns UP TO `k` token ids predicted to continue
+    `context` (the request's confirmed stream: prompt ids + device-confirmed
+    reply tokens + the pending fed token). Fewer, or none, are always legal:
+    unproposed lanes ride the verify dispatch masked. Implementations must
+    be deterministic functions of `context` (an eviction replay re-proposes
+    from the same context and must re-derive the same accept pattern).
+
+    `window` (None = unbounded) is how much context tail the drafter reads;
+    the scheduler materializes only that suffix per step.
+
+    Device contract (opt-in): a drafter that runs on the accelerator, inside
+    the fused speculative megastep, returns its parameters from
+    `device_params(device)` and names a module-level
+    `device_apply(params, ctx, ctx_len, fed, k) -> (drafts, draft_len)`.
+    device_params() returning None means host-only: such a drafter serves
+    the per-step path, and the scheduler refuses fuse_steps > 1 with it."""
+
+    window: int | None = None
+    device_apply = None
+
+    def propose(self, context, k: int) -> list[int]:
+        raise NotImplementedError
+
+    def device_params(self, device=None):
+        return None
+
+
+class NgramDrafter(Drafter):
+    """Prompt-lookup / n-gram self-drafting: find the most recent earlier
+    occurrence of the longest suffix n-gram of the context and propose the
+    tokens that followed it. A host lookup in the request's own tokens; the
+    verify dispatch prices each proposal at one more lane."""
+
+    def __init__(self, max_ngram: int = 3, min_ngram: int = 1,
+                 window: int | None = 2048):
+        if not 1 <= min_ngram <= max_ngram:
+            raise ValueError(
+                f"need 1 <= min_ngram <= max_ngram, got "
+                f"{min_ngram=} {max_ngram=}"
+            )
+        if window is not None and window < max_ngram + 1:
+            raise ValueError(
+                f"window must cover at least one n-gram + continuation "
+                f"(>= max_ngram + 1), got {window=} {max_ngram=}"
+            )
+        self.max_ngram = max_ngram
+        self.min_ngram = min_ngram
+        self.window = window
+
+    def propose(self, context, k: int) -> list[int]:
+        a = np.asarray(context, np.int64).reshape(-1)
+        if self.window is not None and a.shape[0] > self.window:
+            a = a[-self.window:]
+        n_ctx = int(a.shape[0])
+        if k <= 0 or n_ctx < self.min_ngram + 1:
+            return []
+        for n in range(min(self.max_ngram, n_ctx - 1), self.min_ngram - 1,
+                       -1):
+            suf = a[-n:]
+            w = n_ctx - n  # candidate starts 0..w-1
+            m = np.ones(w, bool)
+            for j in range(n):
+                m &= a[j: j + w] == suf[j]
+            idx = np.nonzero(m)[0]
+            if idx.size:
+                i = int(idx[-1])  # the most recent earlier occurrence
+                cont = a[i + n: i + n + k]
+                if cont.size:
+                    return [int(x) for x in cont]
+        return []
+
+
+def spec_verify_rows(
+    lg: torch.Tensor,  # [S, k + 1, V] verify-lane logits
+    tok: torch.Tensor,  # [S] fed token per slot (lane 0's input)
+    drafts: torch.Tensor,  # [S, k] proposals (garbage past draft_len)
+    draft_len: torch.Tensor,  # [S] real proposals per slot (0..k)
+    generators,  # [S] per-slot generators (None = greedy or empty)
+    *,
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    eos: int,
+    draws: torch.Tensor | None = None,  # [S] bool, as in sample_token_rows
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Accept / resample core of speculative decoding over verify-lane
+    logits. Returns (acc [S], cand [S]) int32.
+
+    Lane j's logits are the model's distribution for the token after
+    [tok, d_0..d_{j-1}]; drafts[s, j] is the proposal for that position.
+    Acceptance is the longest matching prefix: a greedy row (temperature
+    <= 0) accepts d_j iff it equals the raw argmax, so accepted tokens are
+    the ones sequential greedy decode would emit; a sampling row accepts
+    d_j with probability p'(d_j) of the truncated target p'
+    (`truncate_logits_rows`, as `sample_token_rows` shapes it), and on a
+    rejection draws the bonus token from p' with d_j masked out, so each
+    emitted token is distributed exactly as p' (point-mass rejection
+    sampling). `acc` counts accepted drafts, truncated at the first
+    accepted EOS (inclusive) and 0 when the fed token is EOS; `cand` is the
+    bonus token at lane acc, the next step's fed token.
+
+    RNG: a sampling row draws a fixed count per step whatever its accept
+    pattern, k accept uniforms then one V-wide row of uniforms (the bonus's
+    Gumbel noise), from its own generator; greedy rows draw nothing. The
+    eager step, the fused loop and an engine-step graph draw the same
+    numbers."""
+    S, k = drafts.shape
+    lanes = k + 1
+    V = lg.shape[-1]
+    dev = lg.device
+    drafts = drafts.to(torch.int32)
+    tgt = torch.argmax(lg, dim=-1).to(torch.int32)  # [S, lanes]
+    rows = [i for i, g in enumerate(generators) if g is not None]
+    is_greedy = temperature <= 0.0
+    if rows:
+        l_t, _ = truncate_logits_rows(
+            lg.reshape(S * lanes, V),
+            temperature=_rep(temperature, lanes), top_p=_rep(top_p, lanes),
+            top_k=_rep(top_k, lanes),
+        )
+        l_t = l_t.reshape(S, lanes, V)
+        u_acc = torch.ones((S, k), dtype=torch.float32, device=dev)
+        u_res = torch.full((S, V), 0.5, dtype=torch.float32, device=dev)
+        for i in rows:
+            if k:
+                u_acc[i] = torch.rand(k, generator=generators[i], device=dev)
+            u_res[i] = torch.rand(V, generator=generators[i], device=dev)
+        drew = _drew(draws, rows, S, dev)
+    if k:
+        ok = drafts == tgt[:, :k]
+        if rows:
+            p = torch.softmax(l_t[:, :k], dim=-1)
+            p_d = torch.gather(p, 2, drafts[..., None].long())[..., 0]
+            ok = torch.where(is_greedy[:, None], ok, u_acc < p_d)
+        jr = torch.arange(k, dtype=torch.int32, device=dev)[None, :]
+        ok = ok & (jr < draft_len.to(torch.int32)[:, None])
+        cum = torch.cumprod(ok.to(torch.int32), dim=1)  # leading accepts
+        # Truncate at the first accepted EOS (inclusive).
+        hit_eos = cum * (drafts == eos).to(torch.int32)
+        eos_before = torch.cumsum(hit_eos, dim=1) - hit_eos
+        acc = torch.sum(cum * (eos_before == 0), dim=1).to(torch.int32)
+    else:
+        acc = torch.zeros_like(tok, dtype=torch.int32)
+    acc = torch.where(tok == eos, 0, acc)
+    b = acc.long()  # the bonus lane
+    cand = torch.gather(tgt, 1, b[:, None])[:, 0]
+    if rows:
+        l_sel = torch.gather(
+            l_t, 1, b[:, None, None].expand(S, 1, V))[:, 0]
+        d_pad = torch.cat(
+            [drafts, torch.full((S, 1), -1, dtype=torch.int32, device=dev)],
+            dim=1)
+        d_b = torch.gather(d_pad, 1, b[:, None])[:, 0]
+        rejected = acc < draft_len.to(torch.int32)
+        vocab = torch.arange(V, dtype=torch.int32, device=dev)[None]
+        l_res = torch.where(
+            rejected[:, None] & (vocab == d_b[:, None]), -torch.inf, l_sel)
+        sampled = torch.argmax(l_res + _gumbel(u_res), dim=-1)
+        cand = torch.where(drew & ~is_greedy, sampled.to(torch.int32), cand)
+    return acc, cand
+
+
+def _rep(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Each element of [S] repeated n times, slot-major ([S * n])."""
+    return x[:, None].expand(x.shape[0], n).reshape(-1)
+
+
+def paged_spec_step(
+    params,
+    cfg: LLMConfig,
+    kv_pages: dict,  # written in place
+    block_tables: torch.Tensor,  # [S, max_pages] int32
+    tok: torch.Tensor,  # [S] next token to feed per slot
+    lengths: torch.Tensor,  # [S] kv tokens held per slot
+    finished: torch.Tensor,  # [S] bool (True for finished AND empty slots)
+    generators,  # [S] per-slot generators (None = greedy or empty)
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    drafts: torch.Tensor,  # [S, k] proposed tokens
+    draft_len: torch.Tensor,  # [S] real proposals per slot
+    pf_embeds: torch.Tensor | None = None,  # [1, pf_width, H]
+    pf_slot: int = 0,
+    pf_off: int = 0,
+    pf_len: int = 0,
+    pf_generator=None,
+    pf_temp: torch.Tensor | None = None,  # [1]
+    pf_top_p: torch.Tensor | None = None,  # [1]
+    pf_top_k: torch.Tensor | None = None,  # [1]
+    *,
+    k: int,
+    pf_width: int,
+    eos: int,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+    draws: torch.Tensor | None = None,
+):
+    """ONE dispatch for a speculative engine step: a single packed forward
+    in which every slot rides 1 + k verify lanes (its fed token and k
+    drafts at consecutive positions, `spec_lane_metadata`) and the one
+    admitting slot rides `pf_width` prefill lanes, through K4 like any
+    packed row. A slot advances 1..k+1 tokens a step.
+
+    KV discipline: lanes write at positions len..len+k of the slot's own
+    pages (shared prefix pages end below the prompt; the partial boundary
+    page is copied on write at admission), and only a live slot's lanes up
+    to its draft_len write. Accepted drafts splice by advancing lengths
+    over KV already written; rejected ones leave dead bytes past lengths
+    that masking never reads and the next real token overwrites. Rollback
+    frees and copies nothing.
+
+    The prefill lanes' first token is drawn as in `paged_ragged_step`: one
+    draw from `pf_generator` when the window holds the prompt's last token.
+
+    Returns (kv_pages, nxt, lengths, finished, toks [S, k+1], n_new [S],
+    acc [S], pf_tok0 ([] int32 or None)): toks[s, :n_new[s]] are the
+    tokens slot s emitted this step (the fed token and its accepted
+    drafts, EOS past n_new); nxt is the bonus token each slot feeds next.
+    Greedy rows equal n_new steps of `paged_ragged_step`."""
+    S = tok.shape[0]
+    lanes = k + 1
+    W = pf_width
+    dev = tok.device
+    drafts = drafts.to(torch.int32)
+    ids = torch.cat([tok.to(torch.int32)[:, None], drafts], dim=1)
+    emb = params.embed.weight[_feed_ids(cfg, ids.reshape(-1))]
+    if compute_dtype is not None:
+        emb = emb.to(compute_dtype)
+    seg, pos = paged_kv_lib.spec_lane_metadata(lengths, k)
+    lane_j = torch.arange(lanes, dtype=torch.int32, device=dev).repeat(S)
+    wm = _rep(~finished, lanes) & (
+        lane_j <= _rep(draft_len.to(torch.int32), lanes))
+    if W:
+        emb = torch.cat([emb, pf_embeds[0].to(emb.dtype)], dim=0)
+        pos = torch.cat(
+            [pos, pf_off + torch.arange(W, dtype=torch.int32, device=dev)])
+        seg = torch.cat(
+            [seg, torch.full((W,), pf_slot, dtype=torch.int32, device=dev)])
+        wm = torch.cat([wm, torch.ones((W,), dtype=torch.bool, device=dev)])
+    h, kv_pages = qwen2.forward(
+        params, cfg,
+        inputs_embeds=emb[None], positions=pos[None],
+        kv_cache=kv_pages, block_tables=block_tables,
+        q_segments=seg[None], write_mask=wm[None],
+        attn_impl=attn_impl, compute_dtype=compute_dtype,
+        return_hidden=True,
+    )
+    lg = qwen2.logits_from_hidden(params, cfg, h[0, :S * lanes])
+    acc, cand = spec_verify_rows(
+        lg.reshape(S, lanes, -1), tok, drafts, draft_len, generators,
+        temperature=temperature, top_p=top_p, top_k=top_k, eos=eos,
+        draws=draws,
+    )
+    jr = torch.arange(k, dtype=torch.int32, device=dev)[None, :]
+    accepted = jr < acc[:, None]
+    out_toks = torch.cat(
+        [tok.to(torch.int32)[:, None], torch.where(accepted, drafts, eos)],
+        dim=1)
+    acc_eos = torch.any(accepted & (drafts == eos), dim=1)
+    fed_eos = tok == eos
+    new_finished = finished | fed_eos | acc_eos
+    n_new = torch.where(finished, 0, 1 + acc)
+    # lengths counts confirmed non-EOS KV tokens, as the sequential step's
+    # `lengths + ~finished` does.
+    inc = torch.where(finished | fed_eos, 0,
+                      1 + acc - acc_eos.to(torch.int32))
+    nxt = torch.where(new_finished, eos, cand)
+    pf_tok0 = None
+    j = pf_len - 1 - pf_off  # the prompt's last token, if in this window
+    if W and 0 <= j < W:
+        pf_tok0 = sample_token_rows(
+            qwen2.logits_from_hidden(params, cfg, h[0, S * lanes + j][None]),
+            [pf_generator], temperature=pf_temp, top_p=pf_top_p,
+            top_k=pf_top_k,
+        )[0]
+    return (kv_pages, nxt.to(torch.int32), (lengths + inc).to(torch.int32),
+            new_finished, out_toks, n_new.to(torch.int32), acc, pf_tok0)
+
+
+def _shift_draft_ctx(ctx: torch.Tensor, ctx_len: torch.Tensor,
+                    toks: torch.Tensor, n_new: torch.Tensor):
+    """The right-aligned draft context [S, CW] after a verify step: the
+    first n_new[s] of toks[s] (the confirmed tokens) shifted in. A row
+    with n_new 0 keeps its window. Returns (ctx, ctx_len)."""
+    S, CW = ctx.shape
+    ext = torch.cat([ctx, toks.to(ctx.dtype)], dim=1)
+    idx = n_new.long()[:, None] + torch.arange(CW, device=ctx.device)[None]
+    return (torch.gather(ext, 1, idx),
+            torch.minimum(ctx_len + n_new, torch.full_like(ctx_len, CW)))
+
+
+def paged_fused_spec_steps(
+    params,
+    cfg: LLMConfig,
+    kv_pages: dict,  # written in place
+    block_tables: torch.Tensor,  # [S, max_pages] int32
+    tok: torch.Tensor,  # [S]
+    lengths: torch.Tensor,  # [S]
+    finished: torch.Tensor,  # [S] bool
+    generators,  # [S] per-slot generators (None = greedy or empty)
+    temperature: torch.Tensor,  # [S]
+    top_p: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S]
+    draft_params,  # drafter.device_params(device)
+    draft_ctx: torch.Tensor,  # [S, CW] right-aligned confirmed tail (no fed)
+    draft_ctx_len: torch.Tensor,  # [S] valid entries in draft_ctx
+    *,
+    k: int,
+    k_steps: int,
+    eos: int,
+    attn_impl: str = "xla",
+    compute_dtype=None,
+    draft_apply,
+    draws: torch.Tensor | None = None,
+):
+    """K = `k_steps` speculative pure-decode engine steps with one harvest:
+    each iteration drafts k tokens on the device (`draft_apply`, the same
+    math as the drafter's host `propose`), verifies them as
+    `paged_spec_step` with no prefill lanes, and shifts the confirmed
+    tokens into the draft context, as the host would have assembled it
+    between dispatches. So K fused steps emit the bytes of K sequential
+    speculative steps with the same drafter.
+
+    Returns (kv_pages, tok, lengths, finished,
+    toks [S, k_steps * (k+1)], n_new [S, k_steps], acc [S, k_steps],
+    ctx, ctx_len) — logical step j owns toks[:, j * (k+1):(j+1) * (k+1)],
+    of which the first n_new[:, j] are real; the shifted context is the
+    graph's carry (the eager engine rebuilds it on the host)."""
+    ctx, clen = draft_ctx, draft_ctx_len.to(torch.int32)
+    toks, n_news, accs = [], [], []
+    for _ in range(k_steps):
+        drafts, dlen = draft_apply(draft_params, ctx, clen, tok, k)
+        kv_pages, tok, lengths, finished, out, n_new, acc, _ = (
+            paged_spec_step(
+                params, cfg, kv_pages, block_tables, tok, lengths,
+                finished, generators, temperature, top_p, top_k, drafts,
+                dlen, k=k, pf_width=0, eos=eos, attn_impl=attn_impl,
+                compute_dtype=compute_dtype, draws=draws,
+            ))
+        ctx, clen = _shift_draft_ctx(ctx, clen, out, n_new)
+        toks.append(out)
+        n_news.append(n_new)
+        accs.append(acc)
+    return (kv_pages, tok, lengths, finished, torch.cat(toks, dim=1),
+            torch.stack(n_news, dim=1), torch.stack(accs, dim=1), ctx, clen)
+
+
+# ---------------------------------------------------------------------------
+# A trained draft model: a tiny proposer behind the Drafter seam whose chain
+# runs on the device inside the fused speculative megastep
+# ---------------------------------------------------------------------------
+
+# Positional decay of the context-mixing weights: the token at distance d
+# from the window's right edge weighs DRAFT_DECAY ** d. Part of the
+# checkpoint contract (the JAX package's value).
+DRAFT_DECAY = 0.9
+
+
+def _draft_logits(params, buf: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Next-token logits [S, V] of the decayed-bag draft model over a
+    right-aligned token window `buf` [S, W] whose last n[s] entries are
+    valid: the decayed mean of the window's embeddings, projected to the
+    vocabulary."""
+    W = buf.shape[1]
+    idx = torch.arange(W, device=buf.device)[None, :]
+    valid = idx >= (W - n.long()[:, None])
+    w = torch.pow(DRAFT_DECAY, (W - 1 - idx).to(torch.float32)) * valid.to(
+        torch.float32)  # [S, W]
+    # Out-of-range ids (EOS past a small vocabulary) clamp, as XLA's
+    # gather does.
+    emb = params["embed"][buf.long().clamp(0, params["embed"].shape[0] - 1)]
+    h = torch.sum(w[..., None] * emb, dim=1) / torch.clamp(
+        torch.sum(w, dim=1, keepdim=True), min=1e-6)
+    return h @ params["proj"]
+
+
+def _draft_chain(params, buf: torch.Tensor, n: torch.Tensor, *, k: int
+                 ) -> torch.Tensor:
+    """Greedy k-token draft chain (argmax, shift in, repeat): a
+    deterministic proposer, as the Drafter contract asks. Returns [S, k]
+    int32."""
+    out = []
+    n = n.to(torch.int32)
+    for _ in range(k):
+        nxt = torch.argmax(_draft_logits(params, buf, n), dim=-1).to(
+            torch.int32)
+        buf = torch.cat([buf[:, 1:], nxt[:, None]], dim=1)
+        n = torch.clamp(n + 1, max=buf.shape[1])
+        out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
+def neural_draft_propose(draft_params, ctx: torch.Tensor,
+                         ctx_len: torch.Tensor, fed: torch.Tensor, k: int):
+    """`NeuralDrafter.device_apply`: shift the fed token into the
+    right-aligned window ctx [S, W] (the host contract hands `propose` the
+    stream including the fed token) and run the chain. Returns
+    (drafts [S, k] int32, draft_len [S] int32, always k)."""
+    buf = torch.cat([ctx[:, 1:].to(torch.int32),
+                     fed.to(torch.int32)[:, None]], dim=1)
+    n = torch.clamp(ctx_len.to(torch.int32) + 1, max=ctx.shape[1])
+    drafts = _draft_chain(draft_params, buf, n, k=k)
+    return drafts, torch.full(fed.shape, k, dtype=torch.int32,
+                              device=fed.device)
+
+
+class NeuralDrafter(Drafter):
+    """A tiny trained draft model (decayed bag of embeddings -> vocabulary
+    projection) with both halves of the Drafter seam: `propose` on the host
+    and the device contract (`device_params(device)`, `device_apply`) that
+    runs the same chain inside the fused speculative megastep. Both call
+    `_draft_chain` on the same right-aligned window, so on one device they
+    propose the same bits.
+
+    Checkpoints are .npz files (embed [V, D] f32, proj [D, V] f32, window),
+    the JAX package's format: an npz written by either loads in both.
+    `from_spec` takes a path or "init:V:D:W:SEED" (random weights drawn
+    from a torch.Generator, so they are the port's own; a random drafter
+    accepts almost nothing, which is slow but correct)."""
+
+    def __init__(self, params: dict, window: int = 16,
+                 source: str | None = None):
+        embed = np.asarray(params["embed"], np.float32)
+        proj = np.asarray(params["proj"], np.float32)
+        if embed.ndim != 2 or proj.ndim != 2 or embed.shape[1] != \
+                proj.shape[0] or embed.shape[0] != proj.shape[1]:
+            raise ValueError(
+                f"drafter params must be embed [V, D] / proj [D, V], got "
+                f"{embed.shape} / {proj.shape}"
+            )
+        if window < 1:
+            raise ValueError(f"drafter window must be >= 1, got {window}")
+        self.params = {"embed": embed, "proj": proj}
+        self.window = int(window)
+        self.source = source
+        self._on: dict = {}
+
+    @classmethod
+    def init(cls, vocab_size: int, dim: int = 16, *, window: int = 16,
+             seed: int = 0) -> "NeuralDrafter":
+        g = torch.Generator().manual_seed(int(seed))
+        return cls(
+            {
+                "embed": 0.02 * torch.randn((vocab_size, dim), generator=g),
+                "proj": 0.02 * torch.randn((dim, vocab_size), generator=g),
+            },
+            window=window,
+            source=f"init:{vocab_size}:{dim}:{window}:{seed}",
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "NeuralDrafter":
+        with np.load(path) as z:
+            return cls(
+                {"embed": z["embed"], "proj": z["proj"]},
+                window=int(z["window"]), source=str(path),
+            )
+
+    def save(self, path: str) -> None:
+        np.savez(
+            path, embed=self.params["embed"], proj=self.params["proj"],
+            window=np.int64(self.window),
+        )
+
+    @classmethod
+    def from_spec(cls, spec: str) -> "NeuralDrafter":
+        """"init:V:D:W:SEED" -> random init; anything else -> npz path."""
+        if spec.startswith("init:"):
+            parts = spec.split(":")
+            if len(parts) != 5:
+                raise ValueError(
+                    f"drafter init spec must be init:V:D:W:SEED, got "
+                    f"{spec!r}"
+                )
+            v, d, w, s = (int(p) for p in parts[1:])
+            return cls.init(v, d, window=w, seed=s)
+        return cls.load(spec)
+
+    def device_params(self, device=None) -> dict:
+        """The weights as fp32 tensors on `device` (the CPU by default),
+        made once per device."""
+        dev = torch.device("cpu" if device is None else device)
+        key = str(dev)
+        if key not in self._on:
+            self._on[key] = {name: torch.from_numpy(x).to(dev)
+                             for name, x in self.params.items()}
+        return self._on[key]
+
+    device_apply = staticmethod(neural_draft_propose)
+
+    def propose(self, context, k: int) -> list[int]:
+        a = np.asarray(context, np.int64).reshape(-1)[-self.window:]
+        if k <= 0 or a.size == 0:
+            return []
+        buf = np.zeros((1, self.window), np.int32)
+        buf[0, self.window - a.size:] = a
+        drafts = _draft_chain(
+            self.device_params(), torch.from_numpy(buf),
+            torch.tensor([a.size], dtype=torch.int32), k=k,
+        )
+        return [int(x) for x in drafts[0].tolist()]
+
+
+def fit_neural_drafter(
+    streams,
+    vocab_size: int,
+    *,
+    dim: int = 16,
+    window: int = 16,
+    epochs: int = 30,
+    lr: float = 0.5,
+    seed: int = 0,
+    init: NeuralDrafter | None = None,
+) -> tuple[NeuralDrafter, list[float]]:
+    """Train a NeuralDrafter on token streams: next-token cross-entropy,
+    full-batch gradient descent through torch autograd, fp32 on the CPU.
+    `init` starts from a given drafter's weights (its window wins) instead
+    of `NeuralDrafter.init(vocab_size, dim, window=window, seed=seed)`.
+    Returns (drafter, per-epoch losses)."""
+    if init is not None:
+        window = init.window
+    bufs, ns, tgts = [], [], []
+    for stream in streams:
+        a = np.asarray(stream, np.int64).reshape(-1)
+        for t in range(1, a.size):
+            ctx = a[max(0, t - window): t]
+            row = np.zeros((window,), np.int32)
+            row[window - ctx.size:] = ctx
+            bufs.append(row)
+            ns.append(ctx.size)
+            tgts.append(a[t])
+    if not bufs:
+        raise ValueError("fit_neural_drafter needs at least one 2-token "
+                         "stream")
+    buf = torch.from_numpy(np.stack(bufs))
+    n = torch.from_numpy(np.asarray(ns, np.int32))
+    tgt = torch.from_numpy(np.asarray(tgts, np.int64))
+    start = init or NeuralDrafter.init(vocab_size, dim, window=window,
+                                       seed=seed)
+    params = {name: torch.from_numpy(x.copy())
+              for name, x in start.params.items()}
+    losses = []
+    with torch.enable_grad(), torch.inference_mode(False):
+        for _ in range(epochs):
+            for p in params.values():
+                p.requires_grad_(True)
+            loss = torch.nn.functional.cross_entropy(
+                _draft_logits(params, buf, n), tgt)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            params = {name: (p - lr * g).detach()
+                      for (name, p), g in zip(params.items(), grads)}
+            losses.append(loss.item())
+    out = NeuralDrafter(
+        {name: p.numpy() for name, p in params.items()}, window=window,
+        source=f"fit:{vocab_size}:{dim}:{window}:{seed}",
+    )
+    return out, losses
+
+
+# ---------------------------------------------------------------------------
+# The paged engine's pure-decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class _EngineStepGraph:
+    """One logical pure-decode step of the paged engine captured as one
+    CUDA graph: `chunk` packed decode iterations (`paged_fused_steps`, one
+    step) or, with k drafts a slot, one verify iteration
+    (`paged_fused_spec_steps`, one step, the drafter's chain in the graph)
+    or `paged_spec_step` on drafts the host proposed.
+
+    The pool is the engine's own and is captured in place: the graph
+    writes it through the block tables, and a rebuilt pool needs new
+    graphs. The rest of the state lives in buffers the graph owns (`state`:
+    block tables, the slots' carry, their sampling knobs, `draws`, and the
+    draft context or the host's drafts): the engine copies its host arrays
+    in before a dispatch, replays the graph once per logical step (each
+    replay leaves its carry where the next one reads it), and reads the
+    carry and the outputs after. Replay j writes its tokens (and n_new and
+    acc) into column block `step` of output buffers of `max_steps` blocks
+    and moves `step` on, so K replays leave K logical steps for one harvest.
+
+    A sampling graph owns one generator per slot, registered with it; the
+    engine copies each sampling slot's generator state in before the
+    replays and back after, and `draws` marks the slots whose draws count.
+    Capture runs one eager step first, over all-finished state that writes
+    nothing to the pool, and raises if it fails."""
+
+    def __init__(self, params, cfg: LLMConfig, kv_pages: dict, key, *,
+                 num_slots: int, max_pages: int, chunk: int, k: int,
+                 stop, eos: int, attn_impl: str, compute_dtype,
+                 sampling: bool, draft, max_steps: int,
+                 device: torch.device):
+        S, dev = num_slots, device
+        self.key, self.k, self.max_steps = key, k, max_steps
+        self.width = k + 1 if k else chunk
+        self.draft = draft  # None, or (params on dev, device_apply, window)
+
+        def ints(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=dev)
+
+        stop_L = 0 if stop is None else stop.shape[1]
+        st = {
+            "bt": ints(S, max_pages, fill=kv_pages["k"].shape[1]),
+            "tok": ints(S), "lengths": ints(S),
+            "finished": torch.ones(S, dtype=torch.bool, device=dev),
+            "recent": ints(S, stop_L, fill=-2),
+            "temp": torch.zeros(S, device=dev),
+            "top_p": torch.ones(S, device=dev), "top_k": ints(S),
+            "draws": torch.zeros(S, dtype=torch.bool, device=dev),
+        }
+        if k and draft is None:
+            st.update(drafts=ints(S, k), dlen=ints(S))
+        elif k:
+            st.update(ctx=ints(S, draft[2]), clen=ints(S))
+        self.state = st
+        self.step = torch.zeros(1, dtype=torch.long, device=dev)
+        self.toks = ints(S, max_steps, self.width)
+        if k:
+            self.n_new = ints(S, max_steps)
+            self.acc = ints(S, max_steps)
+        self.gens = [torch.Generator(device=dev) if sampling else None
+                     for _ in range(S)]
+        common = dict(eos=eos, attn_impl=attn_impl,
+                      compute_dtype=compute_dtype,
+                      draws=st["draws"] if sampling else None)
+
+        def body():
+            if not k:
+                out = paged_fused_steps(
+                    params, cfg, kv_pages, st["bt"], st["tok"],
+                    st["lengths"], st["finished"], st["recent"], self.gens,
+                    st["temp"], st["top_p"], st["top_k"], stop, chunk=chunk,
+                    k_steps=1, **common)
+                carry = dict(tok=out[1], lengths=out[2], finished=out[3],
+                             recent=out[4])
+                toks = out[5]
+            elif draft is None:
+                out = paged_spec_step(
+                    params, cfg, kv_pages, st["bt"], st["tok"],
+                    st["lengths"], st["finished"], self.gens, st["temp"],
+                    st["top_p"], st["top_k"], st["drafts"], st["dlen"], k=k,
+                    pf_width=0, **common)
+                carry = dict(tok=out[1], lengths=out[2], finished=out[3])
+                toks, n_new, acc = out[4:7]
+            else:
+                out = paged_fused_spec_steps(
+                    params, cfg, kv_pages, st["bt"], st["tok"],
+                    st["lengths"], st["finished"], self.gens, st["temp"],
+                    st["top_p"], st["top_k"], draft[0], st["ctx"],
+                    st["clen"], k=k, k_steps=1, draft_apply=draft[1],
+                    **common)
+                carry = dict(tok=out[1], lengths=out[2], finished=out[3],
+                             ctx=out[7], clen=out[8])
+                toks, n_new, acc = out[4], out[5][:, 0], out[6][:, 0]
+            for name, x in carry.items():
+                st[name].copy_(x)
+            self.toks.index_copy_(1, self.step, toks[:, None])
+            if k:
+                self.n_new.index_copy_(1, self.step, n_new[:, None])
+                self.acc.index_copy_(1, self.step, acc[:, None])
+            self.step.add_(1)
+
+        self.body = body
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            body()  # builds the kernels and the libraries' state
+            self.step.zero_()
+        self.graph = graphs.CountedGraph()
+        with self.graph.capture(
+            stream, [g for g in self.gens if g is not None]
+        ):
+            body()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, host: dict, gens, k_steps: int) -> dict:
+        """Copy the host arrays `host` (name -> numpy) into the state, the
+        sampling slots' generator states in, replay k_steps times, and copy
+        the generator states back. Returns the device outputs: the carry
+        (tok, lengths, finished, recent) and toks [S, k_steps * width]
+        (speculating: n_new and acc [S, k_steps]), valid until the next
+        run."""
+        if k_steps > self.max_steps:
+            raise ValueError(f"{k_steps=} > the graph's {self.max_steps}")
+        st = self.state
+        for name, x in host.items():
+            st[name].copy_(torch.from_numpy(np.ascontiguousarray(x)))
+        self.step.zero_()
+        sampling = [(s, g) for s, g in enumerate(gens)
+                    if g is not None and self.gens[s] is not None]
+        for s, g in sampling:
+            self.gens[s].set_state(g.get_state())
+        for _ in range(k_steps):
+            self.graph.replay()
+        for s, g in sampling:
+            g.set_state(self.gens[s].get_state())
+        S = self.toks.shape[0]
+        out = {name: st[name] for name in ("tok", "lengths", "finished",
+                                           "recent")}
+        out["toks"] = self.toks[:, :k_steps].reshape(S, -1)
+        if self.k:
+            out["n_new"] = self.n_new[:, :k_steps]
+            out["acc"] = self.acc[:, :k_steps]
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -531,6 +531,26 @@ def ragged_decode_attention(
     return out[:, 0] if squeezed else out
 
 
+def spec_lane_metadata(
+    lengths: torch.Tensor,  # [S] int confirmed kv tokens per slot
+    k: int,  # drafts per slot
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q_segments, q_positions) of S slots x (1 + k) speculative verify
+    lanes, slot-major: lane j of slot s sits at position lengths[s] + j
+    (lane 0 the slot's fed token, lanes 1..k its drafts). The packed writer
+    and K4 take them unchanged: a draft lane is a prefill-suffix lane whose
+    token was proposed, so causal masking at its own position lets lane j
+    see lanes < j of its own slot and nothing of another slot's. Returns
+    ([S * (1 + k)], [S * (1 + k)]) int32."""
+    S = lengths.shape[0]
+    dev = lengths.device
+    seg = torch.arange(S, dtype=torch.int32, device=dev)[:, None].expand(
+        S, k + 1)
+    pos = (lengths.to(torch.int32)[:, None]
+           + torch.arange(k + 1, dtype=torch.int32, device=dev)[None, :])
+    return seg.reshape(-1), pos.reshape(-1)
+
+
 def stop_window_hit(
     recent: torch.Tensor,  # [S, stop_L] rolling recent-token window
     stop_sequences: torch.Tensor | None,  # [Sq, stop_L] (-1 = wildcard)

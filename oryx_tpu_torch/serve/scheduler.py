@@ -43,13 +43,33 @@ Ragged mode (`ragged=True`): `_prefill_step` + `_step_chunk` fuse into
 packed rows carry every live slot's decode token plus `pf_width` prompt
 tokens of the one admitting request.
 
+Speculative decoding (`speculate=k`, ragged only): the step becomes ONE
+packed verify forward (`paged_spec_step`) in which every live slot rides
+1 + k lanes, its fed token and k drafts from `drafter` (`NgramDrafter` by
+default), and advances 1..k+1 tokens. Stop strings are found on the host at
+each harvest; rejected drafts leave dead bytes past the slot's length in
+its own pages, so rollback frees nothing.
+
+Fused megastep (`fuse_steps=K` or "auto" over FUSE_AUTO_LADDER, ragged
+only): when nothing is admitting and the queue is empty, K logical steps
+run before one harvest (`paged_fused_steps`, or `paged_fused_spec_steps`
+with a drafter that runs on the device); the host then processes them as K
+harvests, so finishes, stop strings and counters stay per logical step.
+
+On the card every pure-decode ragged dispatch (K = 1 or a megastep)
+replays a CUDA graph of one logical step (`_EngineStepGraph`, one per key,
+kept on the scheduler and dropped with its pool), K times back to back;
+dispatches with prefill lanes run eagerly.
+
 Threads: `submit` runs on any thread; the engine loop (`_run`) runs on its
 own. They share only the queue and the shutdown flag, under `_cond`. The
 loop syncs with the device once per dispatch, at the harvest.
 
-Not ported yet: speculation and the fused megastep, the metrics registry,
-traces, journal, audit, numerics probes, profiling, deadlines, degraded
-modes, watchdog and forensics, meshes, and supervised restart/drain.
+Not ported yet: the metrics registry (the JAX engine's gauges, such as
+fused_k, and its histograms), traces, the journal and its replay (and with
+it the journaled fuse plan), audit, the cost ledger, numerics probes,
+profiling, deadlines, degraded modes, watchdog and forensics, meshes (tp),
+the CLI and server flags, and supervised restart/drain.
 """
 
 from __future__ import annotations
@@ -70,6 +90,11 @@ from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.packing import round_up_bucket
 from oryx_tpu_torch.serve import pipeline as pipeline_lib
 from oryx_tpu_torch.serve.prefix_cache import PagedPrefixCache
+
+# The ladder of `fuse_steps="auto"`: K for a pure-decode step is the largest
+# rung that fits every live row's remaining budget (the large rung for a
+# solo resident, the small one for shared steps); K = 1 is always below it.
+FUSE_AUTO_LADDER: tuple[int, ...] = (4, 16)
 
 
 class AdmissionRejected(RuntimeError):
@@ -168,6 +193,11 @@ class ContinuousScheduler:
     requests. kv_dtype: "bf16" (dense pages in the compute dtype) or
     "int8" (a quantized pool). host_cache_bytes: host RAM the prefix
     cache may spill evicted pages into (0 = no host tier).
+    speculate: draft tokens a slot verifies per step (0 = off; needs
+    ragged=True). drafter: their proposer (`generate.NgramDrafter()` by
+    default). fuse_steps: logical steps per pure-decode dispatch, an int or
+    "auto" (needs ragged=True; with speculate, a drafter that runs on the
+    device, such as `generate.NeuralDrafter`).
     """
 
     def __init__(
@@ -187,6 +217,9 @@ class ContinuousScheduler:
         prefix_cache: bool = True,
         kv_dtype: str = "bf16",
         host_cache_bytes: int = 0,
+        speculate: int = 0,
+        drafter: generate_lib.Drafter | None = None,
+        fuse_steps: int | str = 1,
     ):
         for name, v in (
             ("num_slots", num_slots), ("page_size", page_size),
@@ -217,6 +250,50 @@ class ContinuousScheduler:
                 "dispatch; set prefill_chunk (the per-step prompt budget "
                 "that sizes the packed buffer's prefill lanes)"
             )
+        if not isinstance(speculate, int) or speculate < 0:
+            raise ValueError(
+                f"speculate must be a non-negative integer (draft "
+                f"tokens per slot per step), got {speculate!r}"
+            )
+        if speculate and not ragged:
+            raise ValueError(
+                "speculate requires ragged=True: drafts are extra "
+                "packed lanes of the fused ragged dispatch (the split "
+                "engine has no packed buffer to extend)"
+            )
+        if fuse_steps != "auto" and (
+            isinstance(fuse_steps, bool) or not isinstance(fuse_steps, int)
+            or fuse_steps < 1
+        ):
+            raise ValueError(
+                "fuse_steps must be a positive integer (engine steps "
+                f"per decode dispatch) or 'auto', got {fuse_steps!r}"
+            )
+        if fuse_steps != 1 and not ragged:
+            raise ValueError(
+                "fuse_steps > 1 requires ragged=True: the megastep runs "
+                "the fused ragged step K times (the split engine has no "
+                "single program to repeat)"
+            )
+        self.speculate = int(speculate)
+        self.drafter = None
+        if self.speculate:
+            self.drafter = (
+                drafter if drafter is not None
+                else generate_lib.NgramDrafter()
+            )
+        device_drafter = self.speculate and (
+            self.drafter.device_apply is not None
+            and self.drafter.device_params() is not None
+        )
+        if fuse_steps != 1 and self.speculate and not device_drafter:
+            raise ValueError(
+                "fuse_steps > 1 with speculate>0 needs a drafter "
+                "implementing the device contract (device_params()/"
+                "device_apply) so propose->verify can run inside the "
+                "fused loop: pass a generate.NeuralDrafter, or drop "
+                "fuse_steps"
+            )
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}"
@@ -245,8 +322,27 @@ class ContinuousScheduler:
         # chunk * pf_width >= prefill_chunk tokens.
         self.ragged = bool(ragged)
         self.pf_width = -(-prefill_chunk // chunk) if ragged else 0
-        self._win = chunk  # decode tokens a dispatch may write per slot
+        # Decode tokens a dispatch may write per slot.
+        self._win = 1 + self.speculate if self.speculate else chunk
+        self.fuse_steps = fuse_steps
+        self._fuse_ladder: tuple[int, ...] = (
+            FUSE_AUTO_LADDER if fuse_steps == "auto"
+            else ((fuse_steps,) if fuse_steps > 1 else ())
+        )
         self._dtype = oryx.compute_dtype(self.cfg)
+        # A drafter with the device contract drafts on the pool's device in
+        # every speculative dispatch (K = 1, megasteps, graphs alike), so
+        # its proposals never depend on the route: (params, apply, window).
+        self._draft = (
+            (self.drafter.device_params(self.device),
+             self.drafter.device_apply, self.drafter.window)
+            if device_drafter else None
+        )
+        # Engine-step CUDA graphs by key (the card only), and the private
+        # eager witness chip_smoke.py holds them against (True: every
+        # dispatch runs eagerly).
+        self._graphs: dict[tuple, generate_lib._EngineStepGraph] = {}
+        self._eager_witness = False
         # Counters under the JAX engine's metric names (engine thread only;
         # read them once the loop has stopped).
         self.metrics: dict[str, Any] = {
@@ -262,6 +358,15 @@ class ContinuousScheduler:
             "prefix_cache_cow_pages_total": 0,
             "oryx_cache_reload_hit_total": 0,
             "oryx_cache_reload_upload_total": 0,
+            "harvest_total": 0,
+            "draft_proposed_total": 0, "draft_accepted_total": 0,
+            # The accepted_tokens_per_step histogram's sum and count.
+            "accepted_tokens_per_step_sum": 0,
+            "accepted_tokens_per_step_count": 0,
+            # Port-only: megastep dispatches by K, and the engine-step
+            # graphs captured and the seconds their captures took.
+            "megasteps_total": collections.Counter(),
+            "graph_captures_total": 0, "graph_capture_s": 0.0,
         }
         S = num_slots
         self.allocator = paged_kv.PageAllocator(self.num_pages, page_size)
@@ -371,6 +476,8 @@ class ContinuousScheduler:
             self._cond.notify()
         if self._thread.is_alive():
             self._thread.join(timeout=30)
+        if not self._thread.is_alive():
+            self._graphs.clear()
 
     def check_pool_invariant(self) -> None:
         """Every page is free or exactly accounted to its holders (the
@@ -500,6 +607,7 @@ class ContinuousScheduler:
         if self.prefix_cache is not None:
             self.prefix_cache = self._build_prefix_cache()
         self.kv_pages = self._new_pool()
+        self._graphs.clear()  # captured on the old pool
         self.bt[:] = self._sentinel
         self.slots = [None] * self.num_slots
         self.gens = [None] * self.num_slots
@@ -852,12 +960,14 @@ class ContinuousScheduler:
                 [int(p) for p in self.bt[s, :full]],
             )
 
-    def _ensure_capacity(self) -> None:
-        """Every live slot must own pages for lengths + one dispatch window
-        before the next dispatch; under page pressure, preempt YOUNGER
-        slots only, and a slot with no younger victim preempts itself, so
-        the oldest request always progresses."""
-        win = self._win
+    def _ensure_capacity(self, horizon: int | None = None) -> None:
+        """Every live slot must own pages for lengths + `horizon` (default
+        one dispatch window, `_win`) before the next dispatch; under page
+        pressure, preempt YOUNGER slots only, and a slot with no younger
+        victim preempts itself, so the oldest request always progresses. A
+        megastep passes horizon = _win * K: the device writes K windows
+        before the host sees any of them."""
+        win = self._win if horizon is None else horizon
         order = sorted(
             (s for s, r in enumerate(self.slots) if r is not None),
             key=lambda s: self.slots[s].admit_seq,
@@ -934,55 +1044,86 @@ class ContinuousScheduler:
 
     def _harvest_chunk(self, tok, lengths, finished, recent, toks,
                        pf_tok0=None):
-        """Host copies of a dispatch's outputs, packed into one int64 vector
-        on the device and copied in one piece: the engine's one deliberate
-        sync with the device per dispatch (the per-step finished flags are
-        not needed: the host re-derives finishing from the tokens).
-        Returns (toks [S, chunk], pf_tok0 as an int or None)."""
-        parts = [tok, lengths, finished, recent, toks]
-        if pf_tok0 is not None:
-            parts.append(pf_tok0)
-        flat = torch.cat([x.reshape(-1).long() for x in parts]).cpu().numpy()
-        host = np.split(flat, np.cumsum([x.numel() for x in parts])[:-1])
+        """Host copies of a dispatch's outputs (`_fetch`; the per-step
+        finished flags are not needed: the host re-derives finishing from
+        the tokens). Returns (toks [S, chunk], pf_tok0 as an int or
+        None)."""
+        host = self._fetch(tok, lengths, finished, recent, toks, pf_tok0)
         self.tok = host[0].astype(np.int32)
         self.lengths = host[1].astype(np.int32)
         self.finished = host[2].astype(bool)
-        self.recent = host[3].astype(np.int32).reshape(recent.shape)
-        toks_h = host[4].reshape(toks.shape)
-        return toks_h, int(host[5][0]) if pf_tok0 is not None else None
+        self.recent = host[3].astype(np.int32)
+        return host[4], None if pf_tok0 is None else int(host[5])
 
-    def _finish_dispatch(self, kind: str, live: list[int], toks) -> None:
-        """Post-dispatch accounting shared by the split and ragged steps:
-        dispatch counters, the per-slot harvest, and the decode-step
-        utilization counters (skipped when no slot decoded)."""
+    def _fetch(self, *parts) -> list[np.ndarray]:
+        """Host copies of device tensors (None skipped), packed into one
+        int64 vector on the device and copied in one piece: the engine's
+        one sync with the device a dispatch. Each comes back in its
+        shape."""
+        parts = [x for x in parts if x is not None]
+        flat = torch.cat([x.reshape(-1).long() for x in parts]).cpu().numpy()
+        host = np.split(flat, np.cumsum([x.numel() for x in parts])[:-1])
+        self.metrics["harvest_total"] += 1
+        return [h.reshape(x.shape) for h, x in zip(host, parts)]
+
+    def _finish_dispatch(self, kind: str, live: list[int], toks,
+                         n_new=None) -> None:
+        """Post-dispatch accounting shared by the split, ragged and
+        speculative steps: dispatch counters, the per-slot harvest, and the
+        decode-step utilization counters (skipped when no slot decoded).
+        n_new (speculative): the valid tokens of each slot's row of `toks`
+        (the fed token and its accepted drafts); a slot's device work is
+        then its 1 + k lanes, rejected drafts billed as wasted steps."""
         self.chunks_run += 1
         self.metrics["chunks"] += 1
         self.metrics["dispatches_total"][kind] += 1
+        self._bill_step(live, toks, n_new)
+
+    def _bill_step(self, live: list[int], toks, n_new) -> None:
+        """One logical step's harvest: feed each slot live during it its
+        tokens, then the decode-step counters."""
+        lane_steps = 1 + self.speculate if n_new is not None else self.chunk
         useful = 0
         for s, tokens in generate_lib.unpack_ragged_rows(toks, live).items():
-            if self.slots[s] is not None:
-                useful += self._advance(s, tokens)
+            if self.slots[s] is None:
+                continue
+            if n_new is not None:
+                tokens = tokens[:int(n_new[s])]
+                self.metrics["accepted_tokens_per_step_sum"] += len(tokens)
+                self.metrics["accepted_tokens_per_step_count"] += 1
+            useful += self._advance(s, tokens)
         if live:
-            total = self.num_slots * self.chunk
+            total = self.num_slots * lane_steps
             self.metrics["decode_steps_total"] += total
             self.metrics["decode_steps_useful"] += useful
             self.metrics["decode_steps_wasted"] += total - useful
+
+    def _live(self) -> list[int]:
+        return [
+            s for s, r in enumerate(self.slots)
+            if r is not None and r.activated
+        ]
 
     def _ragged_step(self) -> None:
         """The fused engine step (ragged mode): ONE dispatch advances the
         in-flight admission by up to chunk * pf_width prompt tokens AND
         decodes `chunk` tokens for every resident stream. A slot whose
         prefill completes activates after the harvest and joins the next
-        dispatch."""
+        dispatch.
+
+        Speculative (`speculate=k`): the dispatch is `paged_spec_step`, one
+        packed verify forward of 1 + k lanes a live slot and
+        `prefill_chunk` prefill lanes; a slot advances 1..k+1 tokens.
+
+        With fuse_steps, a pure-decode step with an empty queue becomes a
+        megastep of K logical steps (`_select_fuse_k`). On the card a
+        pure-decode dispatch replays the engine-step graph."""
         for s, req in enumerate(self.slots):
             if req is not None and not req.activated and req.handle.cancelled:
                 self._cancel_slot(s, req, "mid-prefill")
         if any(r is not None and r.activated for r in self.slots):
             self._ensure_capacity()  # may evict: recompute below
-        live = [
-            s for s, r in enumerate(self.slots)
-            if r is not None and r.activated
-        ]
+        live = self._live()
         pf_s, pf_req = next(
             ((s, r) for s, r in enumerate(self.slots)
              if r is not None and not r.activated),
@@ -990,7 +1131,20 @@ class ContinuousScheduler:
         )
         if pf_req is None and not live:
             return
-        win_tokens = self.chunk * self.pf_width
+        fuse_k = self._select_fuse_k(live, pf_req)
+        if fuse_k > 1:
+            self._fused_megastep(fuse_k)
+            return
+        if pf_req is None and self._graph_route():
+            self._replay_steps(live, 1)
+            return
+        # Per-dispatch prefill budget in tokens: the spec step is one
+        # forward of prefill_chunk lanes, the ragged step `chunk` forwards
+        # of pf_width lanes.
+        win_tokens = (
+            self.prefill_chunk if self.speculate
+            else self.chunk * self.pf_width
+        )
         pf_kw: dict[str, Any] = {}
         if pf_req is not None:
             pf_off, pf_len = pf_req.prefill_pos, pf_req.length
@@ -1003,23 +1157,295 @@ class ContinuousScheduler:
                 pf_temp=pf_req.knobs[0], pf_top_p=pf_req.knobs[1],
                 pf_top_k=pf_req.knobs[2],
             )
-        out = generate_lib.paged_ragged_step(
-            self.pipe.params.llm, self.cfg.llm, self.kv_pages,
-            *self._device_state(), **pf_kw,
-            chunk=self.chunk, pf_width=self.pf_width if pf_kw else 0,
-            eos=self.cfg.generation.eos_token_id,
-            attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
-        )
-        self.kv_pages = out[0]
-        toks, pf_tok0 = self._harvest_chunk(*out[1:6], pf_tok0=out[7])
-        # Decode billing covers only slots live DURING the dispatch.
-        self._finish_dispatch("ragged", live, toks)
+        common = dict(eos=self.cfg.generation.eos_token_id,
+                      attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype)
+        if self.speculate:
+            drafts, dlen, proposed = self._drafts(live)
+            bt, tok, lengths, finished, _, gens, temp, top_p, top_k, _ = (
+                self._device_state())
+            out = generate_lib.paged_spec_step(
+                self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
+                lengths, finished, gens, temp, top_p, top_k, drafts, dlen,
+                **pf_kw, k=self.speculate,
+                pf_width=win_tokens if pf_kw else 0, **common,
+            )
+            self.kv_pages = out[0]
+            toks, n_new, acc, pf_tok0 = self._harvest_spec(
+                *out[1:7], pf_tok0=out[7])
+            self._count_drafts(live, proposed, acc, n_new)
+            self._finish_dispatch("spec", live, toks, n_new=n_new)
+        else:
+            out = generate_lib.paged_ragged_step(
+                self.pipe.params.llm, self.cfg.llm, self.kv_pages,
+                *self._device_state(), **pf_kw,
+                chunk=self.chunk, pf_width=self.pf_width if pf_kw else 0,
+                **common,
+            )
+            self.kv_pages = out[0]
+            toks, pf_tok0 = self._harvest_chunk(*out[1:6], pf_tok0=out[7])
+            # Decode billing covers only slots live DURING the dispatch.
+            self._finish_dispatch("ragged", live, toks)
         if pf_req is not None:
             advanced = min(win_tokens, pf_len - pf_off)
             pf_req.prefill_pos = pf_off + advanced
             self.metrics["prefill_tokens_total"] += advanced
             if pf_req.prefill_pos >= pf_len:
                 self._activate(pf_s, pf_req, pf_tok0)
+
+    # ---- speculation and the fused megastep -------------------------------
+
+    def _select_fuse_k(self, live: list[int], pf_req) -> int:
+        """K, the logical steps of the next pure-decode dispatch: 1 while
+        an admission is in flight, nothing is live or the queue holds a
+        request (it must not wait K steps for its slot); else the largest
+        rung of the ladder within every live row's remaining budget in
+        dispatch windows (a row the host finishes overruns at most one
+        window, as at K = 1), aiming at the large rung for a solo resident
+        and the small one for shared steps."""
+        if not self._fuse_ladder or pf_req is not None or not live:
+            return 1
+        with self._cond:
+            if self._queue:
+                return 1
+        cap = (
+            self._fuse_ladder[-1] if len(live) == 1
+            else self._fuse_ladder[0]
+        )
+        for s in live:
+            req = self.slots[s]
+            rem = max(1, req.replay + req.max_new - len(req.emitted))
+            cap = min(cap, -(-rem // self._win))
+        return max([1] + [r for r in self._fuse_ladder if r <= cap])
+
+    def _fused_megastep(self, k_steps: int) -> None:
+        """ONE dispatch of K logical pure-decode steps and one harvest: the
+        pages of K windows exist before it (the device cannot grow a table
+        mid-flight; evicting here is decided on host state alone, so a
+        replay re-derives it), then `_finish_megastep` processes the
+        harvest as K logical steps."""
+        self._ensure_capacity(self._win * k_steps)
+        live = self._live()
+        if not live:
+            return
+        if self._graph_route():
+            self._replay_steps(live, k_steps)
+            return
+        common = dict(k_steps=k_steps, eos=self.cfg.generation.eos_token_id,
+                      attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype)
+        bt, tok, lengths, finished, recent, gens, temp, top_p, top_k, stop = (
+            self._device_state())
+        if self.speculate:
+            ctx, clen = (torch.from_numpy(x).to(self.device)
+                         for x in self._build_draft_ctx(live))
+            out = generate_lib.paged_fused_spec_steps(
+                self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
+                lengths, finished, gens, temp, top_p, top_k, self._draft[0],
+                ctx, clen, k=self.speculate, draft_apply=self._draft[1],
+                **common,
+            )
+            self.kv_pages = out[0]
+            toks, n_new, acc, _ = self._harvest_spec(*out[1:7])
+            self._count_drafts(live, None, acc, n_new)
+            self._finish_megastep("fused_spec", live, toks, k_steps, n_new)
+        else:
+            out = generate_lib.paged_fused_steps(
+                self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
+                lengths, finished, recent, gens, temp, top_p, top_k, stop,
+                chunk=self.chunk, **common,
+            )
+            self.kv_pages = out[0]
+            toks, _ = self._harvest_chunk(*out[1:6])
+            self._finish_megastep("fused", live, toks, k_steps)
+
+    def _finish_megastep(self, kind: str, live: list[int], toks,
+                         k_steps: int, n_new=None) -> None:
+        """Post-megastep accounting: one dispatch, then the harvest as K
+        logical steps, step j owning columns [j * width, (j + 1) * width)
+        of `toks` (and column j of n_new), so finishes, stop strings and
+        the per-step counters keep their K = 1 meaning. A row the host
+        finishes at step j drops out of steps j+1..: its later columns are
+        filler the sequential engine would never have run."""
+        self.metrics["dispatches_total"][kind] += 1
+        self.metrics["megasteps_total"][k_steps] += 1
+        width = 1 + self.speculate if n_new is not None else self.chunk
+        for j in range(k_steps):
+            self.chunks_run += 1
+            self.metrics["chunks"] += 1
+            self._bill_step(
+                [s for s in live if self.slots[s] is not None],
+                toks[:, j * width:(j + 1) * width],
+                None if n_new is None else n_new[:, j],
+            )
+
+    def _graph_route(self) -> bool:
+        """Pure-decode dispatches replay engine-step graphs: on the card,
+        unless the private eager witness is set."""
+        return self.device.type == "cuda" and not self._eager_witness
+
+    def _engine_graph(self, sampling: bool) -> generate_lib._EngineStepGraph:
+        """The engine-step graph of this scheduler's key and `sampling`
+        (whether it draws), captured at its first use. Keyed by everything
+        that fixes its launches."""
+        stop = self.stop_sequences
+        key = (
+            self.num_slots, self.chunk, self.speculate, self.max_pages,
+            self.kv_dtype, self._dtype,
+            None if stop is None else tuple(stop.shape),
+            None if self._draft is None else (
+                self._draft[2], tuple(self._draft[0]["embed"].shape)),
+            sampling,
+        )
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = generate_lib._EngineStepGraph(
+                self.pipe.params.llm, self.cfg.llm, self.kv_pages, key,
+                num_slots=self.num_slots, max_pages=self.max_pages,
+                chunk=self.chunk, k=self.speculate, stop=stop,
+                eos=self.cfg.generation.eos_token_id,
+                attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
+                sampling=sampling, draft=self._draft,
+                max_steps=max(self._fuse_ladder, default=1),
+                device=self.device,
+            )
+            self._graphs[key] = graph
+            self.metrics["graph_captures_total"] += 1
+            self.metrics["graph_capture_s"] += graph.capture_s
+        return graph
+
+    def _replay_steps(self, live: list[int], k_steps: int) -> None:
+        """A pure-decode dispatch of k_steps logical steps on the graph
+        route: the host state copied into the graph, k_steps replays, one
+        harvest."""
+        graph = self._engine_graph(any(g is not None for g in self.gens))
+        host = dict(
+            bt=self.bt, tok=self.tok, lengths=self.lengths,
+            finished=self.finished, recent=self.recent, temp=self.temp,
+            top_p=self.top_p, top_k=self.top_k,
+            draws=np.asarray([g is not None for g in self.gens]),
+        )
+        proposed = None
+        if self.speculate and self._draft is None:
+            host["drafts"], host["dlen"] = self._propose_drafts(live)
+            proposed = int(host["dlen"][live].sum())
+        elif self.speculate:
+            host["ctx"], host["clen"] = self._build_draft_ctx(live)
+        out = graph.run(host, self.gens, k_steps)
+        if self.speculate:
+            toks, n_new, acc, _ = self._harvest_spec(
+                out["tok"], out["lengths"], out["finished"], out["toks"],
+                out["n_new"], out["acc"])
+            self._count_drafts(live, proposed, acc, n_new)
+            if k_steps == 1:
+                self._finish_dispatch("spec", live, toks, n_new[:, 0])
+            else:
+                self._finish_megastep("fused_spec", live, toks, k_steps,
+                                      n_new)
+            return
+        toks, _ = self._harvest_chunk(
+            out["tok"], out["lengths"], out["finished"], out["recent"],
+            out["toks"])
+        if k_steps == 1:
+            self._finish_dispatch("ragged", live, toks)
+        else:
+            self._finish_megastep("fused", live, toks, k_steps)
+
+    def _drafts(self, live: list[int]):
+        """(drafts [S, k], draft_len [S]) on the device for one
+        speculative dispatch, and the proposals to count (None: the
+        device chain's, `_count_drafts` counts them): the device chain
+        over the confirmed context for a drafter with the device contract,
+        else the host drafter's proposals."""
+        dev = self.device
+        if self._draft is None:
+            drafts, dlen = self._propose_drafts(live)
+            return (torch.from_numpy(drafts).to(dev),
+                    torch.from_numpy(dlen).to(dev), int(dlen[live].sum()))
+        ctx, clen = self._build_draft_ctx(live)
+        drafts, dlen = self._draft[1](
+            self._draft[0], torch.from_numpy(ctx).to(dev),
+            torch.from_numpy(clen).to(dev),
+            torch.from_numpy(self.tok).to(dev), self.speculate,
+        )
+        return drafts, dlen, None
+
+    def _count_drafts(self, live: list[int], proposed, acc,
+                      n_new=None) -> None:
+        """Draft counters of a dispatch: `proposed` drafts (None: the
+        device chain's k for every live row still decoding at each logical
+        step, n_new > 0), and the accepted ones of `acc`."""
+        if live:
+            if proposed is None:
+                proposed = self.speculate * int((n_new[live] > 0).sum())
+            self.metrics["draft_proposed_total"] += proposed
+            self.metrics["draft_accepted_total"] += int(acc[live].sum())
+
+    def _confirmed_tail(self, s: int, keep: int) -> np.ndarray:
+        """The last `keep` tokens of slot s's device-confirmed stream:
+        prompt ids (none for a multimodal prompt) + the reply tokens the
+        device has fed back. Never the host's whole `emitted`, which runs
+        ahead of the device during an eviction replay."""
+        req = self.slots[s]
+        confirmed = max(0, int(self.lengths[s]) - req.length)
+        prompt = (
+            req.cache_tokens if req.cache_tokens is not None
+            else np.zeros((0,), np.int64)
+        )
+        reply = np.asarray(req.emitted[:confirmed], np.int64)
+        if keep <= 0:
+            return np.zeros((0,), np.int64)
+        reply = reply[max(0, len(reply) - keep):]
+        prompt = np.asarray(prompt, np.int64)
+        rest = keep - len(reply)
+        prompt = prompt[max(0, len(prompt) - rest):] if rest else prompt[:0]
+        return np.concatenate([prompt, reply])
+
+    def _build_draft_ctx(self, live: list[int]):
+        """Right-aligned confirmed-stream windows for the device chain:
+        `_propose_drafts`' context without the fed token (the chain shifts
+        it in). Returns (ctx [S, window] int32, ctx_len [S] int32)."""
+        CW = self.drafter.window
+        ctx = np.zeros((self.num_slots, CW), np.int32)
+        clen = np.zeros((self.num_slots,), np.int32)
+        for s in live:
+            tail = self._confirmed_tail(s, CW).astype(np.int32)
+            if len(tail):
+                ctx[s, CW - len(tail):] = tail
+            clen[s] = len(tail)
+        return ctx, clen
+
+    def _propose_drafts(self, live: list[int]):
+        """Host-side proposals for every live slot from its confirmed
+        stream plus the pending fed token (only the drafter's `window`
+        tail is built). Returns (drafts [S, k] int32, draft_len [S] int32);
+        unproposed lanes ride the dispatch masked."""
+        k = self.speculate
+        win = getattr(self.drafter, "window", None)
+        drafts = np.zeros((self.num_slots, k), np.int32)
+        dlen = np.zeros((self.num_slots,), np.int32)
+        for s in live:
+            req = self.slots[s]
+            keep = (win - 1 if win is not None else
+                    len(req.emitted) + (0 if req.cache_tokens is None
+                                        else len(req.cache_tokens)))
+            ctx = np.concatenate([
+                self._confirmed_tail(s, keep),
+                np.asarray([int(self.tok[s])], np.int64),
+            ])
+            prop = self.drafter.propose(ctx, k)[:k]
+            drafts[s, :len(prop)] = prop
+            dlen[s] = len(prop)
+        return drafts, dlen
+
+    def _harvest_spec(self, tok, lengths, finished, toks, n_new, acc,
+                      pf_tok0=None):
+        """The speculative twin of `_harvest_chunk`, one copy to the host
+        (stop strings are found on the host in this mode, so no stop
+        window). Returns (toks, n_new, acc, pf_tok0 as an int or None)."""
+        host = self._fetch(tok, lengths, finished, toks, n_new, acc, pf_tok0)
+        self.tok = host[0].astype(np.int32)
+        self.lengths = host[1].astype(np.int32)
+        self.finished = host[2].astype(bool)
+        return (*host[3:6], None if pf_tok0 is None else int(host[6]))
 
     # ---- harvest / text emission -----------------------------------------
 
@@ -1095,6 +1521,7 @@ class ContinuousScheduler:
         h.finish_reason = reason
         h.usage = (req.length, completion)
         h.debug["finish_chunk"] = self.chunks_run
+        h.debug["e2e_s"] = time.monotonic() - req.submit_time
         h.events.put(("end", reason, h.usage))
         h.done.set()
         self.metrics["completed"] += 1

@@ -1430,3 +1430,138 @@ def test_tiny_sessions_on_card_match_cpu(card):
     assert out["cuda"][0] == out["cpu"][0]
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-3)
+
+
+# ---- the paged engine's pure-decode step as CUDA graphs ---------------------
+
+
+class _CharTok:
+    def encode(self, text, add_special_tokens=False):
+        return [min(ord(c), 500) for c in text]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(i) for i in ids if 0 < i < 500)
+
+
+_ENGINE_REQS = [("hi there", 40), ("what is going on with all of this", 48),
+                ("tell me more", 32)]
+
+
+def _engine_run(card, *, eager, kv_dtype="bf16", sampling=None,
+                reqs=_ENGINE_REQS, sched_out=None, **kw):
+    """The tiny bf16 ragged engine on the card, on the graph route or the
+    eager witness: (results, metrics, K4 launches)."""
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    model, cfg = _tiny_model(card, torch.bfloat16)
+    sched = ContinuousScheduler(
+        Pipeline(_CharTok(), model, cfg, device=card), autostart=False,
+        num_slots=2, page_size=16, chunk=4, max_ctx=256, ragged=True,
+        prefill_chunk=16, kv_dtype=kv_dtype, **kw)
+    sched._eager_witness = eager
+    handles = [sched.submit({"question": q}, n, sampling) for q, n in reqs]
+    pa.LAUNCHES.clear()
+    sched.start()
+    try:
+        out = [h.result(timeout=300) for h in handles]
+    finally:
+        if sched_out is None:
+            sched.close()
+    if sched_out is not None:
+        sched_out.append(sched)
+    sched.check_pool_invariant()
+    return out, sched.metrics, sum(pa.LAUNCHES.values())
+
+
+def _neural(cfg_vocab=512):
+    from oryx_tpu_torch.models.generate import NeuralDrafter
+
+    return NeuralDrafter.init(cfg_vocab, 8, window=8, seed=0)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("kind", ["k1", "fused4", "fused_spec"])
+def test_engine_graphs_match_the_eager_witness(card, kind, kv_dtype):
+    """Pure-decode ragged dispatches replay one captured logical step (K
+    times for a megastep): the replies equal the eager witness's in the
+    same bf16 run, and the K4 launches replayed are the eager route's plus
+    the one eager warm-up step of each capture (layers x its iterations)."""
+    from oryx_tpu_torch.config import oryx_tiny
+
+    kw = {"k1": {}, "fused4": dict(fuse_steps=4),
+          "fused_spec": dict(speculate=3, fuse_steps=4)}[kind]
+    if kind == "fused_spec":
+        kw["drafter"] = _neural(oryx_tiny().llm.vocab_size)
+    got, m, launches = _engine_run(card, eager=False, kv_dtype=kv_dtype, **kw)
+    want, me, eager = _engine_run(card, eager=True, kv_dtype=kv_dtype, **kw)
+    assert got == want
+    assert me["graph_captures_total"] == 0
+    assert m["graph_captures_total"] >= 1
+    iters = 1 if kind == "fused_spec" else 4
+    layers = oryx_tiny().llm.num_layers
+    assert launches == eager + m["graph_captures_total"] * layers * iters
+    if kind != "k1":
+        assert sum(m["megasteps_total"].values()) > 0
+        assert m["megasteps_total"] == me["megasteps_total"]
+    assert m["dispatches_total"] == me["dispatches_total"]
+
+
+def test_engine_graph_sampled_stream(card):
+    """A sampled slot on the graph route draws the eager witness's numbers
+    (its generator is copied into the graph's registered one and back), so
+    its tokens equal the witness's; consecutive replays draw new numbers,
+    so the chunks of its stream differ."""
+    sampling = {"temperature": 1.5, "seed": 5}
+    reqs = [("hi there", 24)]
+    kw = dict(fuse_steps=4, reqs=reqs, sampling=sampling)
+    got, m, _ = _engine_run(card, eager=False, **kw)
+    want, _, _ = _engine_run(card, eager=True, **kw)
+    assert got == want
+    assert sum(m["megasteps_total"].values()) > 0
+    toks = [ord(c) for c in got[0][0]]
+    assert len(toks) >= 12 and toks[:4] != toks[4:8] != toks[8:12]
+    other, _, _ = _engine_run(card, eager=False, reqs=reqs,
+                              sampling={"temperature": 1.5, "seed": 6})
+    assert other != got
+
+
+def test_engine_reset_pool_drops_the_graphs(card):
+    """The graphs are captured on the pool in place: `_reset_pool` drops
+    them, and the next pure-decode dispatch captures anew on the new pool
+    and serves what the eager witness serves."""
+    held = []
+    _engine_run(card, eager=False, sched_out=held, reqs=_ENGINE_REQS[:1])
+    sched = held[0]
+    assert len(sched._graphs) == 1
+    sched._reset_pool()
+    assert not sched._graphs
+    h = sched.submit({"question": "tell me more"}, 12)
+    got = h.result(timeout=300)
+    assert len(sched._graphs) == 1
+    assert sched.metrics["graph_captures_total"] == 2
+    sched.close()
+    want, _, _ = _engine_run(card, eager=True, reqs=[("tell me more", 12)])
+    assert [got] == want
+
+
+def test_engine_failed_capture_raises(card, monkeypatch):
+    """A capture that fails (a host sync inside the captured step) errors
+    the dispatch's requests out; nothing falls back to the eager route."""
+    from oryx_tpu_torch.models import generate as gen_lib
+
+    real = gen_lib.paged_fused_steps
+
+    def syncing(*args, **kw):
+        args[4].sum().item()  # tok: a host read, refused under capture
+        return real(*args, **kw)
+
+    monkeypatch.setattr(gen_lib, "paged_fused_steps", syncing)
+    with pytest.raises(RuntimeError):
+        _engine_run(card, eager=False, reqs=[("hi there", 12)])
+    torch.cuda.synchronize()
+    monkeypatch.setattr(gen_lib, "paged_fused_steps", real)
+    got, _, _ = _engine_run(card, eager=False, reqs=[("hi there", 12)])
+    want, _, _ = _engine_run(card, eager=True, reqs=[("hi there", 12)])
+    assert got == want
