@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero):
   1. The card (nvidia-smi name and power limit, torch/CUDA versions) and the
      build of every kernel from `oryx_tpu_torch/csrc` (one nvcc per source,
-     in parallel), with each kernel's registers and spills from ptxas.
+     in parallel: flash attention, its backward, paged attention, the int8
+     product), with each kernel's registers and spills from ptxas.
   2. The main path's host side at full width (`config.oryx_7b()`, a
      four-request image/multi-image/video/text mix), then each kernel call
      shape of that path (ViT segments, compressor regions, decoder prefill:
@@ -118,6 +119,30 @@ Phases (any failure exits non-zero):
      (R = 4 x 5 verify rows, alone and with 512 prefill lanes behind
      them), each recorded on its pool's eager witness, against their plain
      twins, timed as in phase 6.
+ 16. (Runs after 15.) Checkpoints and int8 weights. (a) `save_pretrained`
+     and `export_hf` of phase 2's full oryx_7b into a temporary directory
+     (cut to 2 LLM and 2 ViT layers of full width, random bf16, seed 5,
+     only when the disk cannot hold both checkpoints), loaded back by
+     `load_pretrained_model` and `load_from_hf(projector_path=)`: every
+     tensor byte-equal; `load_pretrained_model(quantize="int8")` byte-equal
+     to `quantize_params` of the same floats, its peak card memory printed
+     beside `quantized_bytes`; depth, bytes written and walls printed.
+     (b) Phase 2's weights through `quantize_params` (bytes and peak
+     memory printed), `chat_batch` on the mix three times: identical
+     tokens, the graph route byte-equal to the eager witness, decode ms a
+     step beside phase 3's bf16, the q8 kernel launched for every decoder
+     product on every decode step, agreement with bf16 printed. (c) The
+     ragged engine on the int8 model over phase 7's mix: the eager witness
+     and the graph route byte-equal; one more run with speculate=4
+     (NgramDrafter) for the 20-row verify shape. (d) The q8 kernel
+     (`csrc/q8_linear.cu`) against its plain twin at every distinct (K, N)
+     of the decoder, M = 4 and 20: atol = rtol = 1e-2, the relative L2
+     error against an fp32 witness at most NOISE_RATIO times the twin's,
+     the same bits twice and a row's bits equal at M = 1, 4 and 20; event
+     and device ms, the twin's, F.linear on a bf16 weight (what the bf16
+     model pays) and the bound; the same check, with event ms, for a tied
+     head's per-column scales at lm_head's shape. The int8 model is freed
+     before phase 8.
   8. The tiny fp32 config through both engines on the card (kernel path)
      and on the CPU (plain twins), over a bf16 and an int8 pool with the
      prefix cache on: replies, finish reasons and usage equal.
@@ -1686,6 +1711,308 @@ def generate_fp8(pipe, shared: list[str], ragged: bool):
     return toks, dict(launches), wall
 
 
+# ---- int8 weights and the checkpoint round trip (phase 16) -----------------
+
+Q8_ROWS = (4, 20)  # decode (B = 4) and verify (S(1 + k) = 20) rows
+DISK_LAYERS = 2  # LLM and ViT depth of the round trip when the disk is short
+DISK_MARGIN = 1.25  # free disk over what the full-depth round trip writes
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _states_equal(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def disk_round_trip(cfg, params) -> None:
+    """Phase 16a: save_pretrained and export_hf of phase 2's model (full
+    oryx_7b), loaded back with load_pretrained_model and
+    load_from_hf(projector_path=), each reload compared (every tensor
+    byte-equal) and freed before the next; then
+    load_pretrained_model(quantize="int8"), its peak card memory beside
+    quantized_bytes, byte-equal to quantize_params of the same floats. When
+    the disk cannot hold both checkpoints with DISK_MARGIN to spare, a model
+    cut to DISK_LAYERS LLM and ViT layers of full width (random bf16, seed
+    5) takes its place, and the line says so."""
+    import shutil
+    import tempfile
+
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.serve import builder
+    from oryx_tpu_torch.utils.quant import quantize_params, quantized_bytes
+
+    tok = ByteTokenizer()
+    with tempfile.TemporaryDirectory() as d:
+        # save_pretrained writes the bf16 tensors, export_hf them in fp32.
+        need = 3 * quantized_bytes(params)
+        free = shutil.disk_usage(d).free
+        if free >= DISK_MARGIN * need:
+            run_cfg, model = cfg, params
+            print(f"  full depth ({cfg.llm.num_layers} LLM + "
+                  f"{cfg.vision.num_layers} ViT layers), phase 2's weights, "
+                  f"in {d} ({free / 1e9:.1f} GB free, {need / 1e9:.1f} GB "
+                  "to write)")
+        else:
+            run_cfg = dataclasses.replace(
+                cfg,
+                llm=dataclasses.replace(cfg.llm, num_layers=DISK_LAYERS),
+                vision=dataclasses.replace(cfg.vision,
+                                           num_layers=DISK_LAYERS))
+            model = oryx.init_params(
+                run_cfg, torch.Generator("cuda").manual_seed(5),
+                device="cuda", dtype=torch.bfloat16)
+            print(f"  depth cut to {DISK_LAYERS} LLM + {DISK_LAYERS} ViT "
+                  f"layers at full width: {free / 1e9:.1f} GB free in {d}, "
+                  f"under {DISK_MARGIN} x the {need / 1e9:.1f} GB full depth "
+                  "writes")
+        native, hf = os.path.join(d, "native"), os.path.join(d, "hf")
+        walls, checks = {}, {}
+
+        def timed(label, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            return out
+
+        timed("save_pretrained", lambda: builder.save_pretrained(
+            native, run_cfg, model))
+        timed("export_hf", lambda: builder.export_hf(hf, run_cfg, model))
+        print(f"  written: save_pretrained {_dir_bytes(native) / 1e9:.3f} GB"
+              f", export_hf {_dir_bytes(hf) / 1e9:.3f} GB", flush=True)
+        _, back, _ = timed("load_pretrained_model", lambda: (
+            builder.load_pretrained_model(native, tokenizer=tok,
+                                          dtype=torch.bfloat16)))
+        checks["load_pretrained_model"] = _states_equal(back, model)
+        del back
+        _, back, _ = timed("load_from_hf", lambda: builder.load_from_hf(
+            hf, hf, run_cfg, projector_path=os.path.join(hf, "mm_projector"),
+            dtype=torch.bfloat16, tokenizer=tok))
+        checks["load_from_hf"] = _states_equal(back, model)
+        del back
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, q8, _ = timed("load_pretrained_model(int8)", lambda: (
+            builder.load_pretrained_model(native, tokenizer=tok,
+                                          dtype=torch.bfloat16,
+                                          quantize="int8")))
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"  int8 load: peak {peak / 1e9:.3f} GB of card memory above "
+              f"what was there, quantized_bytes {quantized_bytes(q8) / 1e9:.3f}"
+              f" GB (the bf16 model {quantized_bytes(model) / 1e9:.3f} GB)")
+        want = quantize_params(model)
+        checks["int8 on load == quantize_params"] = _states_equal(q8, want)
+        del q8, want
+        print(f"  walls s: { {k: round(v, 3) for k, v in walls.items()} }")
+        print(f"  byte-equal: {checks}")
+        if not all(checks.values()):
+            raise SystemExit("phase 16: the checkpoint round trip changed "
+                             "bytes")
+    del model
+    torch.cuda.empty_cache()
+
+
+def q8_window():
+    """Zero the q8 kernel's counter; returns a function giving the launches
+    since."""
+    from oryx_tpu_torch.ops.cuda import q8_linear
+
+    q8_linear.LAUNCHES.clear()
+    return lambda: dict(q8_linear.LAUNCHES)
+
+
+def q8_kernel_rows(cfg, launches, gen) -> list[dict]:
+    """Phase 16d: the q8 kernel against its plain twin at every distinct
+    decoder (K, N), M = 4 and 20 (see the module docstring); returns the
+    kernel table's rows, with the launches of `launches` (M, N, K) keys."""
+    from oryx_tpu_torch.ops.cuda import measure
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    rows = []
+    for proj, (K, N, bias) in measure.q8_shapes(cfg.llm).items():
+        for M in Q8_ROWS:
+            kw = measure.q8_case(K, N, M, bias, gen)
+            r = measure.q8_compare(kw, TOL, TOL)
+            x, qq, s, b = kw["x"], kw["q"], kw["scale"], kw["bias"]
+            name = f"q8_linear[{proj},{M}]"
+            ms = measure.cuda_time_ms(lambda: q8.q8_linear(x, qq, s, b), 20)
+            dev_t = measure.device_ms(lambda: q8.q8_linear(x, qq, s, b))
+            plain = measure.cuda_time_ms(
+                lambda: q8.q8_linear_reference(x, qq, s, b), 10)
+            w = q8.dequantize_weight(qq, s, x.dtype)
+            lib = measure.cuda_time_ms(
+                lambda: torch.nn.functional.linear(x, w, b), 20)
+            bound, by = measure.q8_bound(M, N, K)
+            n = launches.get((M, N, K, "bf16"), 0)
+            print(f"  {name}: K={K} N={N} max_abs_err="
+                  f"{r['max_abs_err']:.3e} ok={r['within']}; rel L2 vs fp32 "
+                  f"witness kernel {r['rel_kernel']:.3e} twin "
+                  f"{r['rel_twin']:.3e}; same bits twice {r['same_bits']}, "
+                  f"rows at M = 1, 4 == at M = {M} {r['rows_independent']}")
+            print(f"    kernel {ms:.4f} ms (device {dev_t}) | plain "
+                  f"{plain:.4f} ms | F.linear bf16 {lib:.4f} ms | bound "
+                  f"{bound:.4f} ms ({by}) | launches {n}")
+            if not (r["within"] and r["finite"]):
+                raise SystemExit(f"{name} disagrees with its plain twin")
+            if r["rel_kernel"] > NOISE_RATIO * r["rel_twin"]:
+                raise SystemExit(f"{name} is further from the fp32 witness "
+                                 "than bf16 noise allows")
+            if not (r["same_bits"] and r["rows_independent"]):
+                raise SystemExit(f"{name}: a row's bits changed between "
+                                 "launches or with M")
+            if n == 0:
+                raise SystemExit(f"{name} was never launched on the int8 "
+                                 "path")
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "oryx_tpu_torch/csrc/q8_linear.cu",
+                # No Pallas kernel: XLA fuses Q8Weight.astype into the dot.
+                "replaces": "oryx_tpu/models/qwen2.py:147",
+                "launches": n, "max_abs_err": r["max_abs_err"], "ms": ms,
+                "device_ms": dev_t.ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "library_ms": lib,
+            })
+    # The tied head (no oryx_7b preset ties it, so not on this path): the
+    # int8 table's codes with one scale per column, at lm_head's shape.
+    K, N, _ = measure.q8_shapes(cfg.llm)["lm_head"]
+    for M in Q8_ROWS:
+        kw = measure.q8_case(K, N, M, False, gen, column_scale=True)
+        r = measure.q8_compare(kw, TOL, TOL)
+        x, qq, s = kw["x"], kw["q"], kw["scale"]
+        ms = measure.cuda_time_ms(
+            lambda: q8.q8_linear(x, qq, s, column_scale=True), 20)
+        plain = measure.cuda_time_ms(
+            lambda: q8.q8_linear_reference(x, qq, s, column_scale=True), 10)
+        print(f"  q8_linear[tied_head,{M}] (scales per column): "
+              f"max_abs_err={r['max_abs_err']:.3e} ok={r['within']}; rel L2 "
+              f"kernel {r['rel_kernel']:.3e} twin {r['rel_twin']:.3e}; same "
+              f"bits {r['same_bits']}, rows independent "
+              f"{r['rows_independent']} | kernel {ms:.4f} ms | plain "
+              f"{plain:.4f} ms")
+        if not (r["within"] and r["finite"] and r["same_bits"]
+                and r["rows_independent"]
+                and r["rel_kernel"] <= NOISE_RATIO * r["rel_twin"]):
+            raise SystemExit(f"q8_linear[tied_head,{M}] disagrees with its "
+                             "plain twin")
+    return rows
+
+
+def int8_weights(params, cfg, reqs, bf16_runs, card) -> list[dict]:
+    """Phase 16b-d (see the module docstring): phase 2's weights quantized
+    with quantize_params through chat_batch and the ragged engine; returns
+    the q8 kernel's table rows."""
+    from oryx_tpu_torch.ops.cuda import measure
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.utils.quant import quantize_params, quantized_bytes
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    print(f"  quantize_params: {time.perf_counter() - t0:.3f} s, "
+          f"quantized_bytes {quantized_bytes(qparams)} (bf16 "
+          f"{quantized_bytes(params)}), peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB beside the bf16 model ({card})")
+    tok = ByteTokenizer()
+    qpipe = Pipeline(tok, qparams, cfg, device="cuda")
+    launches = collections.Counter()
+    runs = []
+    for _ in range(3):
+        since = q8_window()
+        runs.append(run_main_path(qpipe, reqs, tok))
+        runs[-1] = runs[-1] + (since(),)
+    for i, (replies, counts, tim, _, _, wall, peak, _, q8n) in enumerate(runs):
+        steps = tim["decode_steps"]
+        print(f"  int8 run {i}: wall {wall:.3f} s | decode "
+              f"{tim['decode_s']:.4f} s ({steps} steps, "
+              f"{1e3 * tim['decode_s'] / steps:.3f} ms a step; bf16 phase 3 "
+              f"run {i}: {1e3 * bf16_runs[i][2]['decode_s'] / bf16_runs[i][2]['decode_steps']:.3f}"
+              f" ms) | capture {tim['capture_s']:.3f} s | peak "
+              f"{peak / 1e9:.2f} GB | q8 launches {sum(q8n.values())}")
+        if any(gt < 1 for _, gt in counts):
+            raise SystemExit("phase 16: an int8 request produced no tokens")
+    toks0 = runs[0][3]
+    if any(r[3] != toks0 for r in runs[1:]):
+        raise SystemExit("phase 16: the int8 runs produced different tokens")
+    print("  int8 tokens identical across the 3 runs")
+    embeds, lengths, cache_len = mix_embeds(qpipe, reqs)
+    etoks, efin, edec, esteps, _ = eager_generate(qpipe, embeds, lengths,
+                                                  cache_len)
+    if row_tokens(etoks, efin) != toks0:
+        raise SystemExit("phase 16: the int8 decode graphs' tokens differ "
+                         "from the eager loop's")
+    print(f"  int8 graph route == eager witness (byte-equal); eager decode "
+          f"{edec:.4f} s ({esteps} steps)")
+    agree = total = 0
+    for a, b in zip(toks0, bf16_runs[0][3]):
+        agree += sum(int(x == y) for x, y in zip(a, b))
+        total += max(len(a), len(b))
+    print(f"  greedy token agreement int8 vs bf16 (not asserted): "
+          f"{agree}/{total}")
+    # Every decode step ran each decoder product through the kernel.
+    steps = runs[0][2]["decode_steps"]
+    per_step = collections.Counter()
+    for proj, (K, N, _) in measure.q8_shapes(cfg.llm).items():
+        n = 1 if proj == "lm_head" else cfg.llm.num_layers
+        per_step[(len(reqs), N, K)] += n * (
+            2 if proj in ("kv", "gate_up") else 1)
+    q8n = runs[0][8]
+    got = collections.Counter()
+    for key, n in q8n.items():
+        got[key[:3]] += n
+    short = {k: (got[k], n * steps) for k, n in per_step.items()
+             if got[k] < n * steps}
+    if short:
+        raise SystemExit(f"phase 16: q8 launches short of one a product a "
+                         f"decode step (got, want): {short}")
+    print(f"  q8 launches on run 0 by (M, N, K): {q8n} (each decoder "
+          f"product at M = {len(reqs)} on all {steps} decode steps)")
+    launches.update(q8n)
+
+    # ---- 16c: the ragged engine on the int8 model -------------------------
+    spipe = Pipeline(ByteTokenizer(), qparams, cfg, device="cuda")
+    eng = []
+    for eager in (True, False):
+        since = q8_window()
+        eng.append(run_scheduler(spipe, True, record=False, eager=eager))
+        eng[-1]["q8"] = since()
+        check_serving_run("ragged", len(eng) - 1, eng[-1])
+    if eng[1]["results"] != eng[0]["results"]:
+        raise SystemExit("phase 16: the int8 ragged engine's graph route "
+                         "differs from its eager witness")
+    print(f"  int8 ragged graph route == eager witness (byte-equal): walls "
+          f"{eng[1]['wall']:.3f} vs {eng[0]['wall']:.3f} s, tails "
+          f"{eng[1]['tail']:.3f} vs {eng[0]['tail']:.3f} s; q8 launches "
+          f"{sum(eng[1]['q8'].values())}")
+    # The verify shape: speculate=k (NgramDrafter), S(1 + k) rows.
+    since = q8_window()
+    spec = run_scheduler(spipe, True, record=False, speculate=SPEC_K)
+    spec["q8"] = since()
+    print(spec_line(f"int8 ragged engine, speculate={SPEC_K}, NgramDrafter",
+                    spec))
+    # The table's launches: chat_batch run 0 (M = 4), the speculative run
+    # (the verify rows).
+    launches.update({k: n for k, n in spec["q8"].items()
+                     if k[0] == Q8_ROWS[1]})
+    if len(launches) == len(q8n):
+        raise SystemExit(f"phase 16: no q8 launch at the {Q8_ROWS[1]}-row "
+                         f"verify shape: {spec['q8']}")
+    del qpipe, spipe, qparams
+    torch.cuda.empty_cache()
+
+    # ---- 16d: the q8 kernel at the decoder's shapes -----------------------
+    print(f"  q8_linear vs plain twin, bf16, atol=rtol={TOL}, at M = "
+          f"{Q8_ROWS} ({card})")
+    return q8_kernel_rows(cfg, launches, torch.Generator("cuda").manual_seed(6))
+
+
 # ---- training (phases 9-11) ------------------------------------------------
 
 TRAIN_STEPS = 4
@@ -2182,7 +2509,8 @@ def main() -> int:
         build.build(name)
         return time.perf_counter() - t
 
-    sources = ("flash_attention", "flash_attention_bwd", "paged_attention")
+    sources = ("flash_attention", "flash_attention_bwd", "paged_attention",
+               "q8_linear")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
         secs = dict(zip(sources, ex.map(timed_build, sources)))
     for name in sources:
@@ -2453,6 +2781,13 @@ def main() -> int:
           f"k = {SPEC_K} ({card})", flush=True)
     rows.extend(speculation_and_megasteps(
         spipe, serving["ragged_graph"], pool_shape, card))
+
+    # ---- 16. checkpoints on disk and int8 weights --------------------------
+    print(f"phase 16: checkpoints on disk, then phase 2's weights as int8 "
+          f"(quantize_params) through chat_batch and the ragged engine, and "
+          f"the q8 kernel ({card})", flush=True)
+    disk_round_trip(cfg, params)
+    rows.extend(int8_weights(params, cfg, reqs, results, card))
 
     # ---- 8. tiny fp32 engines on the card ---------------------------------
     print(f"phase 8: tiny fp32 engines (bf16 and int8 pools), card vs CPU "

@@ -25,6 +25,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
+from oryx_tpu_torch.utils.quant import linear
 
 EPS = 1e-6
 
@@ -63,10 +64,6 @@ def init_params(
     dev = resolve_device(device)
     model = Compressor(vision_cfg, llm_cfg, device="meta", dtype=dtype)
     return materialize(model, dev, generator or default_generator(dev))
-
-
-def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
 def forward(
@@ -111,9 +108,9 @@ def forward(
     nq = params.norm_q(pooled)
     nkv = params.norm_kv(features)
     nh, hd = cfg.num_heads, Hv // cfg.num_heads
-    q = _linear(nq, params.q_proj).view(1, Q, nh, hd)
-    k = _linear(nkv, params.k_proj).view(1, P, nh, hd)
-    v = _linear(nkv, params.v_proj).view(1, P, nh, hd)
+    q = linear(nq, params.q_proj).view(1, Q, nh, hd)
+    k = linear(nkv, params.k_proj).view(1, P, nh, hd)
+    v = linear(nkv, params.v_proj).view(1, P, nh, hd)
     if attn_impl == "pallas":
         o = segment_attention(q, k, v, q_region_ids[None], region_ids[None])
     elif attn_impl == "xla":
@@ -126,11 +123,11 @@ def forward(
         raise ValueError(
             f"attn_impl {attn_impl!r}: the port has 'xla' and 'pallas'"
         )
-    x = pooled + _linear(o.reshape(Q, Hv), params.o_proj)
+    x = pooled + linear(o.reshape(Q, Hv), params.o_proj)
 
     # MLP projector into LLM embedding space (mlp2x_gelu-equivalent).
-    x = F.gelu(_linear(x, params.projector.fc1), approximate="tanh")
-    x = _linear(x, params.projector.fc2)
+    x = F.gelu(linear(x, params.projector.fc1), approximate="tanh")
+    x = linear(x, params.projector.fc2)
 
     valid_q = (q_region_ids > 0)[:, None]
     return torch.where(valid_q, x, 0.0).to(features.dtype)

@@ -3,7 +3,11 @@
 `from_jax_params` takes the tree `oryx_tpu.models.oryx.init_params` builds
 (`{"llm", "vit", "compressor"}`, decoder and encoder leaves layer-stacked
 `[L, ...]`, linear kernels `[in, out]`) as numpy arrays, and returns an
-`OryxModel` on the CPU that computes the same function. `to_jax_layout` is
+`OryxModel` on the CPU that computes the same function. A quantized tree
+(`oryx_tpu.utils.quant.quantize_params`) carries its int8 leaves as objects
+with `.q` and `.scale`; each becomes a `Q8Linear` or `Q8Embedding` holding
+the same codes (stacked [L, in, out] codes split per layer and transposed
+to [out, in], the scale row [.., 1, out] to [out]). `to_jax_layout` is
 the way back, for the model's parameters or any tensors named like them
 (gradients, Adam moments). numpy only: it never imports jax.
 """
@@ -15,10 +19,9 @@ import torch
 from torch import nn
 
 from oryx_tpu_torch.config import OryxConfig
-from oryx_tpu_torch.models import compressor as compressor_lib
-from oryx_tpu_torch.models import oryx_vit, qwen2
-from oryx_tpu_torch.models.oryx import OryxModel
+from oryx_tpu_torch.models.oryx import OryxModel, empty_model
 from oryx_tpu_torch.models.params import materialize
+from oryx_tpu_torch.utils.quant import q8_shells
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -28,16 +31,27 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable, contiguous copy
 
 
+def _is_q8(leaf) -> bool:
+    return hasattr(leaf, "q") and hasattr(leaf, "scale")
+
+
 def _flatten(node: dict, prefix: str, index: int | None,
              out: dict[str, torch.Tensor]) -> None:
     """Tree node -> state-dict entries. A node with a "kernel" is a linear
     layer (transposed to [out, in]); one with a "weight" is a norm or table;
-    "layers" holds leaves stacked on a leading layer axis."""
+    "layers" holds leaves stacked on a leading layer axis. An int8 leaf
+    gives `.q` and `.scale` entries."""
     def take(a):
-        return a if index is None else np.asarray(a)[index]
+        return np.asarray(a) if index is None else np.asarray(a)[index]
 
-    if "kernel" in node:
-        out[f"{prefix}.weight"] = _tensor(np.asarray(take(node["kernel"])).T)
+    if "kernel" in node and _is_q8(node["kernel"]):
+        out[f"{prefix}.q"] = _tensor(take(node["kernel"].q).T)
+        out[f"{prefix}.scale"] = _tensor(take(node["kernel"].scale)[0])
+    elif "kernel" in node:
+        out[f"{prefix}.weight"] = _tensor(take(node["kernel"]).T)
+    elif "weight" in node and _is_q8(node["weight"]):
+        out[f"{prefix}.q"] = _tensor(take(node["weight"].q))
+        out[f"{prefix}.scale"] = _tensor(take(node["weight"].scale)[0])
     elif "weight" in node:
         out[f"{prefix}.weight"] = _tensor(take(node["weight"]))
     if "bias" in node:
@@ -50,6 +64,8 @@ def _flatten(node: dict, prefix: str, index: int | None,
             leaf = child
             while isinstance(leaf, dict):
                 leaf = next(iter(leaf.values()))
+            if _is_q8(leaf):
+                leaf = leaf.q
             for i in range(np.asarray(leaf).shape[0]):
                 _flatten(child, f"{sub}.{i}", i, out)
         else:
@@ -60,13 +76,8 @@ def from_jax_params(tree: dict, cfg: OryxConfig) -> OryxModel:
     """The port's OryxModel (CPU, the arrays' dtype) holding `tree`."""
     state: dict[str, torch.Tensor] = {}
     _flatten(tree, "", None, state)
-    dtype = state["llm.embed.weight"].dtype
-    factory = dict(device="meta", dtype=dtype)
-    model = OryxModel(
-        qwen2.Qwen2(cfg.llm, **factory),
-        oryx_vit.OryxViT(cfg.vision, **factory),
-        compressor_lib.Compressor(cfg.vision, cfg.llm, **factory),
-    )
+    model = empty_model(cfg, state["llm.final_norm.weight"].dtype)
+    q8_shells(model, state)
     model = materialize(model, torch.device("cpu"), None)
     model.load_state_dict(state, strict=True)
     return model

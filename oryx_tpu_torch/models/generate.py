@@ -38,6 +38,7 @@ from oryx_tpu_torch.config import GenerationConfig, LLMConfig
 from oryx_tpu_torch.models import qwen2
 from oryx_tpu_torch.ops import paged_kv as paged_kv_lib
 from oryx_tpu_torch.ops.cuda import graphs
+from oryx_tpu_torch.utils.quant import embed_rows
 
 
 def sample_token(
@@ -410,7 +411,7 @@ def _release_graph(params, graph: _DecodeGraph) -> None:
         idle.move_to_end(graph.key)
         while sum(len(v) for v in idle.values()) > MAX_IDLE_GRAPHS:
             oldest = next(iter(idle))
-            idle[oldest].pop(0)
+            idle[oldest].pop(0).graph.release()
             if not idle[oldest]:
                 del idle[oldest]
 
@@ -952,7 +953,7 @@ def paged_ragged_step(
     pf_tok0 = None
     toks, fins = [], []
     for i in range(chunk):
-        emb = params.embed.weight[_feed_ids(cfg, tok)]  # [S, H]
+        emb = embed_rows(params.embed, _feed_ids(cfg, tok))  # [S, H]
         if compute_dtype is not None:
             emb = emb.to(compute_dtype)
         seg, pos, wm = seg0, cur_len, ~finished
@@ -1272,7 +1273,7 @@ def paged_spec_step(
     dev = tok.device
     drafts = drafts.to(torch.int32)
     ids = torch.cat([tok.to(torch.int32)[:, None], drafts], dim=1)
-    emb = params.embed.weight[_feed_ids(cfg, ids.reshape(-1))]
+    emb = embed_rows(params.embed, _feed_ids(cfg, ids.reshape(-1)))
     if compute_dtype is not None:
         emb = emb.to(compute_dtype)
     seg, pos = paged_kv_lib.spec_lane_metadata(lengths, k)

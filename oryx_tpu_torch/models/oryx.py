@@ -53,6 +53,18 @@ def init_params(
     )
 
 
+def empty_model(cfg: OryxConfig,
+                dtype: torch.dtype = torch.float32) -> OryxModel:
+    """The model's modules on the meta device (no memory), for a loader to
+    fill."""
+    factory = dict(device="meta", dtype=dtype)
+    return OryxModel(
+        qwen2.Qwen2(cfg.llm, **factory),
+        oryx_vit.OryxViT(cfg.vision, **factory),
+        compressor_lib.Compressor(cfg.vision, cfg.llm, **factory),
+    )
+
+
 def compute_dtype(cfg: OryxConfig) -> torch.dtype:
     """cfg.dtype string -> torch dtype for matmuls/activations."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
@@ -109,7 +121,7 @@ def forward(
         q_region_ids, remat=remat, compute_dtype=compute_dtype,
     )
     embeds = splice.embed_spliced(
-        params.llm.embed.weight, vis, token_ids, visual_idx, is_visual
+        params.llm.embed, vis, token_ids, visual_idx, is_visual
     )
     out, _ = qwen2.forward(
         params.llm, cfg.llm,
@@ -148,7 +160,7 @@ def mm_embeds(params: OryxModel, cfg: OryxConfig,
         compute_dtype=compute_dtype(cfg),
     )
     return splice.embed_spliced(
-        params.llm.embed.weight, vis,
+        params.llm.embed, vis,
         arrays["token_ids"], arrays["visual_idx"], arrays["is_visual"],
     )
 

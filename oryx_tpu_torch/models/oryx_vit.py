@@ -23,6 +23,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
+from oryx_tpu_torch.utils.quant import linear
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -91,10 +92,6 @@ def interp_pos_embed(
     )
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
-
-
 def forward(
     params: OryxViT,
     cfg: VisionConfig,
@@ -115,8 +112,7 @@ def forward(
     consumers mask on segment_ids).
     """
     # The patch embedding runs in fp32.
-    pe = params.patch_embed
-    emb = F.linear(patches.float(), pe.weight.float(), pe.bias.float())
+    emb = linear(patches.float(), params.patch_embed)
     emb = emb + interp_pos_embed(
         params.pos_embed.weight, pos_coords, cfg.base_grid
     )
@@ -138,14 +134,14 @@ def forward(
     def layer(h, lp):
         B, P, _ = h.shape
         x = lp.norm1(h)
-        q = _linear(x, lp.q_proj).view(B, P, cfg.num_heads, cfg.head_dim)
-        k = _linear(x, lp.k_proj).view(B, P, cfg.num_heads, cfg.head_dim)
-        v = _linear(x, lp.v_proj).view(B, P, cfg.num_heads, cfg.head_dim)
+        q = linear(x, lp.q_proj).view(B, P, cfg.num_heads, cfg.head_dim)
+        k = linear(x, lp.k_proj).view(B, P, cfg.num_heads, cfg.head_dim)
+        v = linear(x, lp.v_proj).view(B, P, cfg.num_heads, cfg.head_dim)
         o = attn_fn(q, k, v).reshape(B, P, -1)
-        h = h + _linear(o, lp.o_proj)
+        h = h + linear(o, lp.o_proj)
         x = lp.norm2(h)
-        x = F.gelu(_linear(x, lp.fc1), approximate="tanh")
-        return h + _linear(x, lp.fc2)
+        x = F.gelu(linear(x, lp.fc1), approximate="tanh")
+        return h + linear(x, lp.fc2)
 
     for lp in params.layers:
         h = checkpointed(remat, layer, h, lp)

@@ -30,6 +30,7 @@ from oryx_tpu_torch.ops.cuda import paged_attention
 from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
 from oryx_tpu_torch.ops.norms import RMSNorm
 from oryx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from oryx_tpu_torch.utils.quant import embed_rows, linear
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -132,11 +133,6 @@ def _cache_write(cache_layer: torch.Tensor, new: torch.Tensor,
     cache_layer[rows, cols] = new.to(cache_layer.dtype)
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    bias = None if lin.bias is None else lin.bias.to(x.dtype)
-    return F.linear(x, lin.weight.to(x.dtype), bias)
-
-
 def _attn_fn(attn_impl: str):
     if attn_impl == "pallas":
         def fn(q, k, v, **kw):
@@ -177,9 +173,9 @@ def _block(
     dequantizing `gather_pages`)."""
     B, T, _ = h.shape
     x = lp.input_norm(h)
-    q = _linear(x, lp.q_proj).view(B, T, cfg.num_heads, cfg.head_dim)
-    k = _linear(x, lp.k_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = _linear(x, lp.v_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = linear(x, lp.q_proj).view(B, T, cfg.num_heads, cfg.head_dim)
+    k = linear(x, lp.k_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(x, lp.v_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
 
     if cache_k is not None and block_tables is not None:
@@ -235,11 +231,11 @@ def _block(
             kv_mask=kv_mask,
             slot_positions=True,
         )
-    h = h + _linear(attn_out.reshape(B, T, -1), lp.o_proj)
+    h = h + linear(attn_out.reshape(B, T, -1), lp.o_proj)
 
     x = lp.post_attn_norm(h)
-    gate = F.silu(_linear(x, lp.gate_proj))
-    return h + _linear(gate * _linear(x, lp.up_proj), lp.down_proj)
+    gate = F.silu(linear(x, lp.gate_proj))
+    return h + linear(gate * linear(x, lp.up_proj), lp.down_proj)
 
 
 def logits_from_hidden(
@@ -247,11 +243,8 @@ def logits_from_hidden(
     logits_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Final hidden states [..., H] (after final_norm) -> vocab logits."""
-    if cfg.tie_word_embeddings:
-        w = params.embed.weight
-    else:
-        w = params.lm_head.weight
-    return F.linear(h, w.to(h.dtype)).to(logits_dtype)
+    head = params.embed if cfg.tie_word_embeddings else params.lm_head
+    return linear(h, head).to(logits_dtype)
 
 
 def forward(
@@ -309,7 +302,7 @@ def forward(
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("pass exactly one of input_ids / inputs_embeds")
     if inputs_embeds is None:
-        inputs_embeds = params.embed.weight[input_ids]
+        inputs_embeds = embed_rows(params.embed, input_ids)
     h = inputs_embeds
     if compute_dtype is not None:
         h = h.to(compute_dtype)

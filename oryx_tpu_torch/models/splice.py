@@ -25,6 +25,7 @@ from oryx_tpu_torch.ops.packing import (
     PackedVisual,
     round_up_bucket,
 )
+from oryx_tpu_torch.utils.quant import embed_rows
 
 
 def frame_separator_ids(tokenizer, frame_separator: str | None) -> tuple[int, ...]:
@@ -175,7 +176,9 @@ def embed_spliced(
     is_visual: torch.Tensor,
 ) -> torch.Tensor:
     """Build [B, T, H] inputs_embeds with one select-gather.
-    embed_table: [V, H]; visual_buffer: [Q, H] (compressor output)."""
-    text = embed_table[token_ids.long()]
+    embed_table: [V, H] (a tensor, or the LLM's embedding module, whose
+    rows `quant.embed_rows` takes); visual_buffer: [Q, H] (compressor
+    output), cast to the text rows' dtype."""
+    text = embed_rows(embed_table, token_ids.long())
     vis = visual_buffer[visual_idx.long()].to(text.dtype)
     return torch.where(is_visual[..., None], vis, text)

@@ -1,4 +1,4 @@
-"""Timing on the card and synthetic K1/K3/K4/K5 call shapes, shared by
+"""Timing on the card and synthetic K1/K3/K4/K5/q8 call shapes, shared by
 `chip_smoke.py` and the kernel check scripts (`scripts/torch_*_check.py`).
 Nothing on a model's path imports this module; every function here needs an
 NVIDIA GPU."""
@@ -273,3 +273,88 @@ def paged_bound(q_numel: int, Hq: int, D: int, Hk: int, bt_numel: int,
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
             "bytes", kv_rows, flops, nbytes)
+
+
+def q8_shapes(llm) -> dict[str, tuple[int, int, bool]]:
+    """{projection: (K, N, has bias)} of every distinct int8 product of a
+    decoder step (q, k and v share (K, N) for k and v; gate and up share
+    theirs)."""
+    H, Dq = llm.hidden_size, llm.num_heads * llm.head_dim
+    Dkv = llm.num_kv_heads * llm.head_dim
+    return {
+        "q": (H, Dq, llm.attention_bias),
+        "kv": (H, Dkv, llm.attention_bias),
+        "o": (Dq, H, False),
+        "gate_up": (H, llm.intermediate_size, False),
+        "down": (llm.intermediate_size, H, False),
+        "lm_head": (H, llm.vocab_size, False),
+    }
+
+
+def q8_case(K: int, N: int, M: int, bias: bool, gen: torch.Generator,
+            dtype=torch.bfloat16, column_scale: bool = False) -> dict:
+    """An int8 product on the card: x [M, K] in `dtype`, a random [N, K]
+    weight (normal 0.02, as the model's init) quantized per output channel
+    (`utils.quant.quantize_array`) or, with column_scale, per input column
+    (a tied head: the embedding table's scales), and a bias."""
+    from oryx_tpu_torch.utils.quant import quantize_array
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    w = (randn(N, K) * 0.02).to(dtype)
+    q, scale = quantize_array(w, dim=-2 if column_scale else -1)
+    return dict(x=randn(M, K).to(dtype), q=q,
+                scale=scale.reshape(-1).contiguous(),
+                bias=(randn(N) * 0.02).to(dtype) if bias else None,
+                column_scale=column_scale)
+
+
+def q8_bound(M: int, N: int, K: int, xbytes: int = 2) -> tuple[float, str]:
+    """The least time (ms) the card could take for one int8 product, and
+    what bounds it: the codes, the fp32 scales, x and y once
+    (K N + 4 N + xbytes (M K + M N) bytes) over 3.35 TB/s against 2 M N K
+    flops over the bf16 peak."""
+    nbytes = K * N + 4 * N + xbytes * (M * K + M * N)
+    t_ops = 2.0 * M * N * K / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def q8_compare(kw: dict, atol: float = 1e-2, rtol: float = 1e-2) -> dict:
+    """The q8 kernel against its plain twin on one case (`q8_case`): the
+    largest error and whether it is within atol + rtol |twin|; each one's
+    relative L2 error against an fp32 witness (the exact fp32 product of
+    the same x and dequantized weight); whether a second launch gives the
+    same bits and each row's bits do not depend on the other rows (the
+    first row alone, the first four, all). The kernel runs whatever the
+    row count (`q8_linear_kernel`, not the routing wrapper)."""
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    x, q, scale, bias = kw["x"], kw["q"], kw["scale"], kw["bias"]
+    col = kw.get("column_scale", False)
+
+    def kernel(rows):
+        return q8.q8_linear_kernel(rows, q, scale, bias, col)
+
+    out = kernel(x)
+    twin = q8.q8_linear_reference(x, q, scale, bias, column_scale=col)
+    witness = torch.nn.functional.linear(
+        x.float(), q8.dequantize_weight(q, scale, x.dtype, col).float(),
+        None if bias is None else bias.float())
+    again = kernel(x)
+    rows = all(torch.equal(kernel(x[:m]), out[:m])
+               for m in (1, 4) if m < x.shape[0])
+    torch.cuda.synchronize()
+    err = (out.float() - twin.float()).abs()
+
+    def rel(a):
+        return float((a.float() - witness).norm() / witness.norm())
+
+    return dict(
+        max_abs_err=float(err.max()),
+        within=bool((err <= atol + rtol * twin.float().abs()).all()),
+        rel_kernel=rel(out), rel_twin=rel(twin),
+        same_bits=torch.equal(out, again), rows_independent=rows,
+        finite=bool(torch.isfinite(out).all()),
+    )

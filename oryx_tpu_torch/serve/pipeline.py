@@ -37,6 +37,7 @@ from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2, splice
 from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.ops import packing
+from oryx_tpu_torch.utils.quant import embed_rows
 
 
 def infer_modality(num_images: int, is_video: bool) -> str:
@@ -283,9 +284,9 @@ class Pipeline:
         rows = np.zeros((1, packing.round_up_bucket(L)), np.int64)
         rows[0, :L] = ids
         with torch.inference_mode():
-            embeds = self.params.llm.embed.weight[
-                torch.from_numpy(rows).to(self.device)
-            ]
+            embeds = embed_rows(
+                self.params.llm.embed, torch.from_numpy(rows).to(self.device)
+            )
         return embeds, L
 
     def pack_requests(
@@ -412,9 +413,9 @@ class Pipeline:
             lengths[b] = len(ids)
         cache_len = packing.round_up_bucket(T + max_new)
         with torch.inference_mode():
-            embeds = self.params.llm.embed.weight[
-                torch.from_numpy(rows).to(self.device)
-            ]
+            embeds = embed_rows(
+                self.params.llm.embed, torch.from_numpy(rows).to(self.device)
+            )
             return generate_lib.generate(
                 self.params.llm, cfg.llm, cfg.generation,
                 inputs_embeds=embeds,
@@ -672,9 +673,10 @@ class Pipeline:
             # (-7 never reaches here: common == 0 has no cache hits.)
             rows[0, : len(suffix)] = np.where(suffix == -7, 0, suffix)
             with torch.inference_mode():
-                embeds = self.params.llm.embed.weight[
-                    torch.from_numpy(rows).to(self.device)
-                ]
+                embeds = embed_rows(
+                    self.params.llm.embed,
+                    torch.from_numpy(rows).to(self.device),
+                )
         cache = state.cache
         if cache is None or state.cache_len < cache_len:
             fresh = qwen2.init_kv_cache(
@@ -879,7 +881,8 @@ def _ll_suffix(params: oryx.OryxModel, cfg: OryxConfig, cache, cont_ids,
     ).to(torch.int32)
     logits, _ = qwen2.forward(
         params.llm, cfg.llm,
-        inputs_embeds=params.llm.embed.weight[cont_ids], positions=positions,
+        inputs_embeds=embed_rows(params.llm.embed, cont_ids),
+        positions=positions,
         kv_cache=cache,
         write_slots=torch.full((B,), length, dtype=torch.long, device=dev),
         kv_mask=kv_mask, attn_impl=cfg.attn_impl,

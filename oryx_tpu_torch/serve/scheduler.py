@@ -477,7 +477,14 @@ class ContinuousScheduler:
         if self._thread.is_alive():
             self._thread.join(timeout=30)
         if not self._thread.is_alive():
-            self._graphs.clear()
+            self._release_graphs()
+
+    def _release_graphs(self) -> None:
+        """Free the captured engine steps now, not when a collection finds
+        them (which may be while another engine captures)."""
+        for graph in self._graphs.values():
+            graph.graph.release()
+        self._graphs.clear()
 
     def check_pool_invariant(self) -> None:
         """Every page is free or exactly accounted to its holders (the
@@ -607,7 +614,7 @@ class ContinuousScheduler:
         if self.prefix_cache is not None:
             self.prefix_cache = self._build_prefix_cache()
         self.kv_pages = self._new_pool()
-        self._graphs.clear()  # captured on the old pool
+        self._release_graphs()  # captured on the old pool
         self.bt[:] = self._sentinel
         self.slots = [None] * self.num_slots
         self.gens = [None] * self.num_slots

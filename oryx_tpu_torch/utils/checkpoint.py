@@ -97,3 +97,90 @@ def _to_device(tree, dev):
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Projector-only npz (the JAX package's format, both ways)
+# ---------------------------------------------------------------------------
+
+
+def _npz_path(path: str) -> str:
+    """np.savez appends '.npz' when missing but np.load does not; normalize
+    so save/load round-trip on the same argument."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _compressor_leaves(model) -> dict[str, torch.Tensor]:
+    """The compressor's parameters under the JAX tree's '/'-joined keys
+    ('q_proj/kernel' [in, out], 'norm_q/weight', 'projector/fc1/bias', ...)."""
+    from torch import nn
+
+    from oryx_tpu_torch.utils.quant import Q8Embedding, Q8Linear
+
+    comp = getattr(model, "params", model).compressor
+    out = {}
+    for mod_name, mod in comp.named_modules():
+        if isinstance(mod, (Q8Linear, Q8Embedding)):
+            raise ValueError(
+                f"compressor.{mod_name} is int8: the projector npz holds the "
+                "float model's weights")
+        for pname, p in mod.named_parameters(recurse=False):
+            leaf = "kernel" if isinstance(mod, nn.Linear) and \
+                pname == "weight" else pname
+            key = "/".join([*mod_name.split("."), leaf] if mod_name
+                           else [leaf])
+            out[key] = p
+    return out
+
+
+def save_projector_only(path: str, params) -> None:
+    """Write the compressor's weights alone as a flat npz (the reference's
+    `mm_projector.bin` analog; `oryx_tpu.utils.checkpoint
+    .save_projector_only`'s keys, shapes and [in, out] kernels). bf16
+    leaves are written as fp32 (exact). Atomic: a temp sibling, then
+    os.replace, so a crash never leaves a torn file at `path`."""
+    import numpy as np
+
+    arrays = {}
+    for key, p in _compressor_leaves(params).items():
+        a = p.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        a = a.numpy()
+        arrays[key] = a.T if key.endswith("kernel") else a
+    final = _npz_path(path)
+    os.makedirs(os.path.dirname(os.path.abspath(final)), exist_ok=True)
+    tmp = final + ".tmp"
+    try:
+        np.savez(tmp, **arrays)
+        written = tmp if os.path.exists(tmp) else _npz_path(tmp)
+        os.replace(written, final)
+    finally:
+        for leftover in (tmp, _npz_path(tmp)):
+            if os.path.exists(leftover):
+                os.remove(leftover)
+
+
+def load_projector_only(path: str, params):
+    """Copy a projector-only npz into the model's compressor, in place
+    (keys the file lacks keep their values), each array cast to its
+    parameter's dtype; raw 2-byte arrays (bf16 written by the JAX package)
+    are read as bf16. Returns the model."""
+    import numpy as np
+
+    leaves = _compressor_leaves(params)
+    with np.load(_npz_path(path)) as data, torch.no_grad():
+        for key, p in leaves.items():
+            if key not in data:
+                continue
+            a = data[key]
+            t = (torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+                 if a.dtype.kind == "V" and a.dtype.itemsize == 2
+                 else torch.from_numpy(np.array(a)))
+            if key.endswith("kernel"):
+                t = t.T
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: npz shape {tuple(t.shape)} vs "
+                                 f"parameter {tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
+    return params

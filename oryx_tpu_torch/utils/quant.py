@@ -12,13 +12,37 @@ scales are byte-equal to it: fp32 `amax / qmax + finfo(f32).tiny`, then
 `x / scale`, then for int8 round half to even and clip, for fp8 clip to
 +-448 and cast (round to nearest even).
 
-The weight-only half (`Q8Weight`, `quantize_array`, `quantize_params`)
-serves `serve/builder.load_pipeline(quantize="int8")`, which is not ported.
+The weight half serves `serve/builder.load_pipeline(quantize="int8")`:
+symmetric per-output-channel int8 weights. The JAX `Q8Weight` stands in for
+an array at its use sites; here it is two modules with no `.weight`, so a
+use site that forgets them fails loudly:
+  * `Q8Linear`: codes `q` int8 [out, in] (the JAX kernel transposed), one
+    fp32 `scale` [out] per output channel, and the bias, if any. Its
+    product (`linear`) dequantizes in the activations' dtype,
+    `q.to(dt) * scale.to(dt)` as JAX's `astype(dt)`; on the card up to
+    `q8_linear.MAX_ROWS` rows run the hand-written kernel
+    (`ops/cuda/q8_linear.py`), which reads the codes directly.
+  * `Q8Embedding`: codes [V, H] and one fp32 scale row [H]. A row gather
+    (`embed_rows`) returns fp32 rows, `q[idx].float() * scale` as JAX's
+    `__getitem__`; the caller casts them. The tied head (`linear` on the
+    table) dequantizes in the activations' dtype, through the same kernel
+    with one scale per column.
+The encode order is JAX's step for step (bf16 `amax / 127` rounds to bf16
+before fp32 `tiny` promotes it), so codes and scales are byte-equal to
+JAX's for fp32 and bf16 leaves.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
+from typing import Callable
+
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from oryx_tpu_torch.ops.cuda import q8_linear
 
 # name -> (storage dtype, symmetric max representable magnitude)
 KV_STORAGE_DTYPES: dict[str, tuple[torch.dtype, float]] = {
@@ -116,3 +140,235 @@ def page_roundtrip_error(
         "rms_err": torch.sqrt(torch.mean(err * err, dim=1)),
         "scale": scale,
     }
+
+
+# ---------------------------------------------------------------------------
+# Weight-only int8 (serving)
+# ---------------------------------------------------------------------------
+
+# Leaves smaller than this stay in float (biases, norms, pos embeds): no
+# bandwidth win, and tiny tensors are precision-sensitive. Stacked decoder
+# and encoder leaves count all their layers, as in the JAX tree.
+MIN_QUANT_SIZE = 1 << 16
+
+
+def quantize_array(
+    w: torch.Tensor, dim: int = -2
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over `dim` (-2: the input axis of a JAX [.., in, out]
+    kernel; -1 for a [out, in] weight), on w's device. Returns (codes int8
+    like w, fp32 scale with `dim` kept as 1)."""
+    amax = torch.amax(torch.abs(w), dim=dim, keepdim=True)
+    # amax / 127 rounds in w's dtype; then fp32 tiny promotes the sum.
+    scale = (amax / 127.0).to(torch.float32) + _TINY
+    q = torch.clamp(torch.round(w.to(torch.float32) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _should_quantize(path: tuple[str, ...], shape: tuple[int, ...]) -> bool:
+    """JAX's leaf rule over the JAX tree's path and shape: linear kernels
+    and the LLM's embedding table of at least MIN_QUANT_SIZE elements."""
+    name = path[-1] if path else ""
+    size = 1
+    for d in shape:
+        size *= d
+    if len(shape) < 2 or size < MIN_QUANT_SIZE:
+        return False
+    if name == "kernel":
+        return True
+    return name == "weight" and len(path) >= 2 and path[-2] == "embed"
+
+
+class Q8Linear(nn.Module):
+    """A linear layer with int8 codes: y = x . deq(q, scale)^T (+ bias)."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> None:
+        super().__init__()
+        self.out_features, self.in_features = q.shape
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+        self.register_buffer("bias", bias)
+
+    @classmethod
+    def empty(cls, out_features: int, in_features: int, bias: bool,
+              bias_dtype: torch.dtype, device="meta") -> "Q8Linear":
+        return cls(
+            torch.empty(out_features, in_features, dtype=torch.int8,
+                        device=device),
+            torch.empty(out_features, dtype=torch.float32, device=device),
+            torch.empty(out_features, dtype=bias_dtype, device=device)
+            if bias else None,
+        )
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}, "
+                f"bias={self.bias is not None}")
+
+
+class Q8Embedding(nn.Module):
+    """An embedding table with int8 codes [V, H] and one fp32 scale per
+    column [H]."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        super().__init__()
+        self.num_embeddings, self.embedding_dim = q.shape
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+
+    @classmethod
+    def empty(cls, num: int, dim: int, device="meta") -> "Q8Embedding":
+        return cls(torch.empty(num, dim, dtype=torch.int8, device=device),
+                   torch.empty(dim, dtype=torch.float32, device=device))
+
+    def dequantize(self, dtype: torch.dtype) -> torch.Tensor:
+        return self.q.to(dtype) * self.scale.to(dtype)
+
+    def extra_repr(self) -> str:
+        return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+def q8_shells(model: nn.Module, state) -> nn.Module:
+    """Swap, in place, each linear layer or embedding of `model` (on the
+    meta device) that `state` ({name: tensor}) holds as `<name>.q` codes
+    for an empty Q8Linear / Q8Embedding of the same shape, so that the
+    state then loads into it."""
+    for key in [k for k in state if k.endswith(".q")]:
+        name = key[: -len(".q")]
+        parent, _, child = name.rpartition(".")
+        owner = model.get_submodule(parent)
+        mod = getattr(owner, child)
+        if isinstance(mod, nn.Linear):
+            bias = state.get(f"{name}.bias")
+            shell = Q8Linear.empty(
+                mod.out_features, mod.in_features, bias is not None,
+                mod.weight.dtype if bias is None else bias.dtype)
+        elif isinstance(mod, nn.Embedding):
+            shell = Q8Embedding.empty(*mod.weight.shape)
+        else:
+            raise ValueError(f"{key}: {type(mod).__name__} takes no codes")
+        setattr(owner, child, shell)
+    return model
+
+
+def linear(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
+    """x . W^T (+ b) in x's dtype, for every weight a model multiplies by:
+    an nn.Linear, a Q8Linear, or an embedding table (the tied head)."""
+    if isinstance(mod, Q8Linear):
+        return q8_linear.q8_linear(x, mod.q, mod.scale, mod.bias)
+    if isinstance(mod, Q8Embedding):  # the tied head: a scale per column
+        return q8_linear.q8_linear(x, mod.q, mod.scale, column_scale=True)
+    bias = getattr(mod, "bias", None)
+    return F.linear(x, mod.weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
+def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """Rows `ids` of an embedding table: an nn.Embedding's in its dtype, a
+    Q8Embedding's in fp32 (the scale's dtype; the caller casts), or a plain
+    tensor's."""
+    if isinstance(table, Q8Embedding):
+        return table.q[ids].to(torch.float32) * table.scale
+    if isinstance(table, nn.Embedding):
+        return table.weight[ids]
+    return table[ids]
+
+
+@torch.no_grad()
+def quantize_params(
+    model: nn.Module,
+    cast: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    device=None,
+) -> nn.Module:
+    """A copy of `model` whose large linear weights and LLM embedding table
+    are Q8Linear / Q8Embedding (JAX's `_should_quantize` on the JAX tree's
+    paths and layer-stacked shapes); every other leaf passes through `cast`
+    (identity by default: the copy then shares those tensors with `model`).
+    A weight is moved to `device` (default: where it lies) in its own dtype
+    before it is quantized, one leaf at a time, so a model held on the host
+    (a memory-mapped checkpoint) quantizes onto the card without its full
+    float tree ever landing there. Modules already quantized pass through,
+    their codes and scales moved to `device`."""
+    return _walk(model, cast or (lambda t: t), device, True, (), ())
+
+
+@torch.no_grad()
+def cast_params(model: nn.Module,
+                cast: Callable[[torch.Tensor], torch.Tensor],
+                device=None) -> nn.Module:
+    """A copy of `model` with every parameter and buffer passed through
+    `cast`; quantized modules keep their codes and fp32 scales (moved to
+    `device`), their biases cast."""
+    return _walk(model, cast, device, False, (), ())
+
+
+# The attributes nn.Module itself keeps. A copy keeps these and the public
+# ones (widths, eps); other private attributes are state derived from the
+# weights (the decode graphs kept on a model), which a copy must not share.
+_MODULE_STATE = frozenset(nn.Module().__dict__)
+
+
+def _copy(mod: nn.Module) -> nn.Module:
+    out = copy.copy(mod)
+    for k in [k for k in out.__dict__
+              if k.startswith("_") and k not in _MODULE_STATE]:
+        del out.__dict__[k]
+    out._non_persistent_buffers_set = set(mod._non_persistent_buffers_set)
+    return out
+
+
+def _walk(mod: nn.Module, cast, device, quantize: bool,
+          path: tuple[str, ...], lead: tuple[int, ...]) -> nn.Module:
+    def move(t):
+        return t if device is None else t.to(device)
+
+    if isinstance(mod, (Q8Linear, Q8Embedding)):
+        out = _copy(mod)
+        out._buffers = {
+            k: None if t is None else (cast(t) if k == "bias" else move(t))
+            for k, t in mod._buffers.items()
+        }
+        return out
+    if quantize and isinstance(mod, nn.Linear) and _should_quantize(
+        path + ("kernel",), lead + (mod.in_features, mod.out_features)
+    ):
+        q, scale = quantize_array(move(mod.weight.detach()), dim=-1)
+        bias = None if mod.bias is None else cast(mod.bias.detach())
+        return Q8Linear(q, scale[:, 0], bias)
+    if quantize and isinstance(mod, nn.Embedding) and _should_quantize(
+        path + ("weight",), lead + tuple(mod.weight.shape)
+    ):
+        q, scale = quantize_array(move(mod.weight.detach()), dim=-2)
+        return Q8Embedding(q, scale[0])
+    out = _copy(mod)
+    out._parameters = {}
+    for k, p in mod._parameters.items():
+        t = None if p is None else cast(p)
+        if t is not None and not isinstance(t, nn.Parameter):
+            t = nn.Parameter(t, requires_grad=False)
+        out._parameters[k] = t
+    out._buffers = {k: None if t is None else cast(t)
+                    for k, t in mod._buffers.items()}
+    stacked = isinstance(mod, nn.ModuleList)
+    out._modules = {
+        k: None if c is None else _walk(
+            c, cast, device, quantize,
+            path if stacked else path + (k,),
+            lead + (len(mod),) if stacked else lead,
+        )
+        for k, c in mod._modules.items()
+    }
+    return out
+
+
+def quantized_bytes(model: nn.Module) -> int:
+    """Total serving bytes of a (possibly quantized) model: every parameter
+    and buffer, each counted once."""
+    seen: set[int] = set()
+    total = 0
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        if id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total

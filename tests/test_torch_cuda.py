@@ -1565,3 +1565,217 @@ def test_engine_failed_capture_raises(card, monkeypatch):
     got, _, _ = _engine_run(card, eager=False, reqs=[("hi there", 12)])
     want, _, _ = _engine_run(card, eager=True, reqs=[("hi there", 12)])
     assert got == want
+
+
+# ---- the int8-weight product (csrc/q8_linear.cu) ---------------------------
+
+
+@pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584), (18944, 3584),
+                                 (72, 100), (130, 37), (80, 48)])
+@pytest.mark.parametrize("M", [1, 4, 20, 64, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_q8_kernel_matches_twin(card, K, N, M, dtype):
+    """Decoder shapes and tails (K, N not multiples of 16; K a multiple of
+    16 but not of the 64-column k block), M = 100 in two launches: within
+    tolerance of the twin, the same bits twice, and a row's bits the same
+    at 1, 4 and M rows."""
+    from oryx_tpu_torch.ops.cuda import measure
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    kw = measure.q8_case(K, N, M, N % 2 == 0, torch.Generator(
+        card).manual_seed(K + N + M), dtype)
+    before = sum(q8.LAUNCHES.values())
+    r = measure.q8_compare(kw, TOLS[dtype], TOLS[dtype])
+    assert sum(q8.LAUNCHES.values()) > before
+    assert r["within"] and r["finite"], r
+    assert r["same_bits"] and r["rows_independent"], r
+
+
+@pytest.mark.parametrize("K,N", [(3584, 152064), (72, 100), (130, 37),
+                                 (80, 48)])
+@pytest.mark.parametrize("M", [1, 4, 20, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_q8_kernel_column_scale_matches_twin(card, K, N, M, dtype):
+    """The tied head: the int8 table's codes [V, H] with one scale per
+    column (oryx_7b's V and H, and tails), as for the per-channel scales."""
+    from oryx_tpu_torch.ops.cuda import measure
+
+    kw = measure.q8_case(K, N, M, False, torch.Generator(card).manual_seed(
+        K + N + M), dtype, column_scale=True)
+    r = measure.q8_compare(kw, TOLS[dtype], TOLS[dtype])
+    assert r["within"] and r["finite"], r
+    assert r["same_bits"] and r["rows_independent"], r
+
+
+def test_q8_kernel_in_a_graph_equals_eager(card):
+    """A replay of the captured kernel (split-K merge included) gives the
+    eager bits, and CountedGraph counts each replay's launch."""
+    from oryx_tpu_torch.ops.cuda import graphs, measure
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    kw = measure.q8_case(3584, 3584, 4, True,
+                         torch.Generator(card).manual_seed(0))
+    eager = q8.q8_linear(**kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = graphs.CountedGraph()
+    with torch.cuda.stream(stream):
+        with graph.capture(stream):
+            out = q8.q8_linear(**kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    before = sum(q8.LAUNCHES.values())
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert sum(q8.LAUNCHES.values()) == before + 2
+
+
+def test_q8_kernel_rejects_operands_it_does_not_take(card):
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    x = torch.randn(4, 64, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(32, 64, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="scale"):
+        q8.q8_linear(x, q, torch.ones(32, device=card, dtype=torch.float16))
+    with pytest.raises(ValueError, match="x must be"):
+        q8.q8_linear(x.half(), q, torch.ones(32, device=card))
+
+
+def _tiny_int8(dev, tied=False):
+    """The tiny fp32 config widened so its large weights quantize
+    (tests/test_quant.py's `_quantizable_cfg`), x20 weights, int8 on `dev`,
+    the head tied to the embedding table if `tied`: (OryxModel,
+    OryxConfig)."""
+    import dataclasses
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.utils.quant import quantize_params
+
+    t = config.oryx_tiny()
+    cfg = dataclasses.replace(t, attn_impl="pallas", llm=dataclasses.replace(
+        t.llm, vocab_size=1024, hidden_size=128, intermediate_size=512,
+        num_heads=8, head_dim=16, tie_word_embeddings=tied))
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() >= 2:
+                p.mul_(20)
+    return quantize_params(params).to(dev), cfg
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["split", "ragged"])
+def test_tiny_int8_engines_on_card_match_cpu(card, ragged):
+    """fp32 int8-weight engines (and a dense chat) on the card, the q8
+    kernel taking every product of at most `q8_linear.MAX_ROWS` rows, and
+    on the CPU (the twins): the same replies."""
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, cfg = _tiny_int8(dev)
+        pipe = Pipeline(_CharTok(), model, cfg, device=dev)
+        sched = ContinuousScheduler(
+            pipe, autostart=False, num_slots=2, page_size=16, chunk=4,
+            max_ctx=256, ragged=ragged,
+            prefill_chunk=16 if ragged else None)
+        q8.LAUNCHES.clear()
+        handles = [sched.submit({"question": q}, n) for q, n in _ENGINE_REQS]
+        sched.start()
+        try:
+            served = [h.result(timeout=300) for h in handles]
+        finally:
+            sched.close()
+        out[dev] = (served, pipe.chat("hello there", max_new_tokens=8),
+                    sum(q8.LAUNCHES.values()))
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert out["cuda"][2] > 0 and out["cpu"][2] == 0
+
+
+def test_tiny_tied_int8_on_card_matches_cpu(card):
+    """A tied int8 head (the Q8Embedding table as the head) runs through
+    the q8 kernel with its per-column scales on the card, and the ragged
+    engine and a dense chat give the CPU's replies."""
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, cfg = _tiny_int8(dev, tied=True)
+        pipe = Pipeline(_CharTok(), model, cfg, device=dev)
+        sched = ContinuousScheduler(
+            pipe, autostart=False, num_slots=2, page_size=16, chunk=4,
+            max_ctx=256, ragged=True, prefill_chunk=16)
+        q8.LAUNCHES.clear()
+        handles = [sched.submit({"question": q}, n) for q, n in _ENGINE_REQS]
+        sched.start()
+        try:
+            served = [h.result(timeout=300) for h in handles]
+        finally:
+            sched.close()
+        out[dev] = (served, pipe.chat("hello there", max_new_tokens=8),
+                    dict(q8.LAUNCHES))
+    assert out["cuda"][:2] == out["cpu"][:2]
+    V, H = cfg.llm.vocab_size, cfg.llm.hidden_size
+    assert any(key[1:3] == (V, H) for key in out["cuda"][2])
+    assert not out["cpu"][2]
+
+
+def test_graph_dropped_during_a_capture_waits_for_its_end(card):
+    """A graph whose last reference goes while this thread captures another
+    (a collection of garbage that held it) is reset after that capture,
+    not during it: the capture succeeds and replays."""
+    import gc
+
+    from oryx_tpu_torch.ops.cuda import graphs
+
+    x = torch.zeros(8, device=card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+
+    class Holder:
+        pass
+
+    old = Holder()
+    old.me, old.graph = old, graphs.CountedGraph()  # a cycle: only gc frees it
+    with torch.cuda.stream(stream):
+        with old.graph.capture(stream):
+            x.add_(1)
+        new = graphs.CountedGraph()
+        with new.capture(stream):
+            del old
+            gc.collect()
+            x.add_(2)
+    torch.cuda.current_stream().wait_stream(stream)
+    new.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 2.0))
+
+
+def test_engine_close_releases_its_graphs(card, monkeypatch):
+    """close() resets the engine's captured steps itself, so no collection
+    frees them later, perhaps while another engine captures."""
+    from oryx_tpu_torch.ops.cuda import graphs
+
+    released = []
+    real = graphs.CountedGraph.release
+
+    def counting(self):
+        released.append(self)
+        real(self)
+
+    monkeypatch.setattr(graphs.CountedGraph, "release", counting)
+    sched = []
+    _engine_run(card, eager=False, reqs=[("hi there", 12)], sched_out=sched)
+    assert sched[0]._graphs and not released
+    n = len(sched[0]._graphs)
+    sched[0].close()
+    assert len(released) == n and not sched[0]._graphs
+

@@ -445,6 +445,9 @@ class _StandInGraph:
     def replay(self):
         self.owner.body()
 
+    def release(self):
+        pass
+
 
 @pytest.mark.parametrize("kw,sampling", [
     (dict(), None),
