@@ -23,7 +23,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
-from oryx_tpu_torch.utils.quant import linear
+from oryx_tpu_torch.utils.quant import linear, linear_group
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -134,9 +134,9 @@ def forward(
     def layer(h, lp):
         B, P, _ = h.shape
         x = lp.norm1(h)
-        q = linear(x, lp.q_proj).view(B, P, cfg.num_heads, cfg.head_dim)
-        k = linear(x, lp.k_proj).view(B, P, cfg.num_heads, cfg.head_dim)
-        v = linear(x, lp.v_proj).view(B, P, cfg.num_heads, cfg.head_dim)
+        q, k, v = (t.view(B, P, cfg.num_heads, cfg.head_dim)
+                   for t in linear_group(x, (lp.q_proj, lp.k_proj,
+                                             lp.v_proj)))
         o = attn_fn(q, k, v).reshape(B, P, -1)
         h = h + linear(o, lp.o_proj)
         x = lp.norm2(h)

@@ -30,7 +30,7 @@ from oryx_tpu_torch.ops.cuda import paged_attention
 from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
 from oryx_tpu_torch.ops.norms import RMSNorm
 from oryx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from oryx_tpu_torch.utils.quant import embed_rows, linear
+from oryx_tpu_torch.utils.quant import embed_rows, linear, linear_group
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -173,9 +173,10 @@ def _block(
     dequantizing `gather_pages`)."""
     B, T, _ = h.shape
     x = lp.input_norm(h)
-    q = linear(x, lp.q_proj).view(B, T, cfg.num_heads, cfg.head_dim)
-    k = linear(x, lp.k_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(x, lp.v_proj).view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = linear_group(x, (lp.q_proj, lp.k_proj, lp.v_proj))
+    q = q.view(B, T, cfg.num_heads, cfg.head_dim)
+    k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
 
     if cache_k is not None and block_tables is not None:
@@ -234,8 +235,8 @@ def _block(
     h = h + linear(attn_out.reshape(B, T, -1), lp.o_proj)
 
     x = lp.post_attn_norm(h)
-    gate = F.silu(linear(x, lp.gate_proj))
-    return h + linear(gate * linear(x, lp.up_proj), lp.down_proj)
+    gate, up = linear_group(x, (lp.gate_proj, lp.up_proj))
+    return h + linear(F.silu(gate) * up, lp.down_proj)
 
 
 def logits_from_hidden(

@@ -275,26 +275,42 @@ def paged_bound(q_numel: int, Hq: int, D: int, Hk: int, bt_numel: int,
             "bytes", kv_rows, flops, nbytes)
 
 
-def q8_shapes(llm) -> dict[str, tuple[int, int, bool]]:
-    """{projection: (K, N, has bias)} of every distinct int8 product of a
-    decoder step (q, k and v share (K, N) for k and v; gate and up share
-    theirs)."""
+def q8_shapes(llm) -> dict[str, tuple[int, tuple[int, ...], bool]]:
+    """{product: (K, output widths of its launch, has bias)} of every int8
+    launch of a decoder step: q/k/v and gate/up are grouped launches."""
     H, Dq = llm.hidden_size, llm.num_heads * llm.head_dim
     Dkv = llm.num_kv_heads * llm.head_dim
+    I = llm.intermediate_size
     return {
-        "q": (H, Dq, llm.attention_bias),
-        "kv": (H, Dkv, llm.attention_bias),
-        "o": (Dq, H, False),
-        "gate_up": (H, llm.intermediate_size, False),
-        "down": (llm.intermediate_size, H, False),
-        "lm_head": (H, llm.vocab_size, False),
+        "qkv": (H, (Dq, Dkv, Dkv), llm.attention_bias),
+        "o": (Dq, (H,), False),
+        "gate_up": (H, (I, I), False),
+        "down": (I, (H,), False),
+        "lm_head": (H, (llm.vocab_size,), False),
     }
 
 
-def q8_case(K: int, N: int, M: int, bias: bool, gen: torch.Generator,
+def q8_vision_shapes(cfg) -> dict[str, tuple[int, tuple[int, ...], str]]:
+    """{product: (K, output widths, x dtype name)} of the int8 launches of
+    the ViT (patch embedding in fp32, grouped q/k/v), the compressor and
+    the projector: what `quantize_params` quantizes outside the decoder."""
+    v, H = cfg.vision, cfg.llm.hidden_size
+    Hv, P = v.hidden_size, v.num_channels * v.patch_size ** 2
+    return {
+        "patch_embed": (P, (Hv,), "f32"),
+        "vit_qkv": (Hv, (Hv, Hv, Hv), "bf16"),
+        "vit_o/compressor": (Hv, (Hv,), "bf16"),
+        "vit_fc1": (Hv, (v.intermediate_size,), "bf16"),
+        "vit_fc2": (v.intermediate_size, (Hv,), "bf16"),
+        "projector_fc1": (Hv, (H,), "bf16"),
+    }
+
+
+def q8_case(K: int, Ns, M: int, bias: bool, gen: torch.Generator,
             dtype=torch.bfloat16, column_scale: bool = False) -> dict:
-    """An int8 product on the card: x [M, K] in `dtype`, a random [N, K]
-    weight (normal 0.02, as the model's init) quantized per output channel
+    """An int8 product (a grouped one for several widths) on the card:
+    x [M, K] in `dtype`, for each width N of Ns a random [N, K] weight
+    (normal 0.02, as the model's init) quantized per output channel
     (`utils.quant.quantize_array`) or, with column_scale, per input column
     (a tied head: the embedding table's scales), and a bias."""
     from oryx_tpu_torch.utils.quant import quantize_array
@@ -302,49 +318,90 @@ def q8_case(K: int, N: int, M: int, bias: bool, gen: torch.Generator,
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    w = (randn(N, K) * 0.02).to(dtype)
-    q, scale = quantize_array(w, dim=-2 if column_scale else -1)
-    return dict(x=randn(M, K).to(dtype), q=q,
-                scale=scale.reshape(-1).contiguous(),
-                bias=(randn(N) * 0.02).to(dtype) if bias else None,
+    members = []
+    for N in ((Ns,) if isinstance(Ns, int) else tuple(Ns)):
+        w = (randn(N, K) * 0.02).to(dtype)
+        q, scale = quantize_array(w, dim=-2 if column_scale else -1)
+        members.append((q, scale.reshape(-1).contiguous(),
+                        (randn(N) * 0.02).to(dtype) if bias else None))
+    return dict(x=randn(M, K).to(dtype), members=members,
                 column_scale=column_scale)
 
 
-def q8_bound(M: int, N: int, K: int, xbytes: int = 2) -> tuple[float, str]:
-    """The least time (ms) the card could take for one int8 product, and
-    what bounds it: the codes, the fp32 scales, x and y once
-    (K N + 4 N + xbytes (M K + M N) bytes) over 3.35 TB/s against 2 M N K
-    flops over the bf16 peak."""
+PEAK_F32 = 67e12  # H100 SXM fp32 outside the tensor cores
+
+
+def q8_bound(M: int, Ns, K: int, xbytes: int = 2) -> tuple[float, str]:
+    """The least time (ms) the card could take for one (grouped) int8
+    product of output widths Ns, and what bounds it: the codes, the fp32
+    scales, x and y once (K N + 4 N + xbytes (M K + M N) bytes, N summed
+    over Ns) over 3.35 TB/s against 2 M N K flops over the bf16 peak (the
+    fp32 peak for fp32 x)."""
+    N = Ns if isinstance(Ns, int) else sum(Ns)
     nbytes = K * N + 4 * N + xbytes * (M * K + M * N)
-    t_ops = 2.0 * M * N * K / PEAK_FLOPS * 1e3
+    peak = PEAK_F32 if xbytes == 4 else PEAK_FLOPS
+    t_ops = 2.0 * M * N * K / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
-def q8_compare(kw: dict, atol: float = 1e-2, rtol: float = 1e-2) -> dict:
-    """The q8 kernel against its plain twin on one case (`q8_case`): the
-    largest error and whether it is within atol + rtol |twin|; each one's
-    relative L2 error against an fp32 witness (the exact fp32 product of
-    the same x and dequantized weight); whether a second launch gives the
-    same bits and each row's bits do not depend on the other rows (the
-    first row alone, the first four, all). The kernel runs whatever the
-    row count (`q8_linear_kernel`, not the routing wrapper)."""
+def q8_calls(kw: dict):
+    """(kernel, plain twin, library) callables of one `q8_case`: the
+    kernel is the grouped wrapper (one launch), the twin dequantizes and
+    runs F.linear per member, the library call is one F.linear on the
+    members' dequantized weights stacked (the port never calls it)."""
     from oryx_tpu_torch.ops.cuda import q8_linear as q8
 
-    x, q, scale, bias = kw["x"], kw["q"], kw["scale"], kw["bias"]
+    x, members = kw["x"], kw["members"]
     col = kw.get("column_scale", False)
+    w = torch.cat([q8.dequantize_weight(q, s, x.dtype, col)
+                   for q, s, _ in members])
+    b = (None if members[0][2] is None
+         else torch.cat([bb.to(x.dtype) for _, _, bb in members]))
+    return (lambda: q8.q8_linear_group(x, members, column_scale=col),
+            lambda: [q8.q8_linear_reference(x, q, s, bb, column_scale=col)
+                     for q, s, bb in members],
+            lambda: torch.nn.functional.linear(x, w, b))
+
+
+def q8_compare(kw: dict, atol: float = 1e-2, rtol: float = 1e-2) -> dict:
+    """The q8 kernel against its plain twin on one case (`q8_case`), over
+    all members of the launch: the largest error and whether it is within
+    atol + rtol |twin|; each one's relative L2 error against an fp32
+    witness (the exact fp32 product of the same x and dequantized weight);
+    whether a second launch gives the same bits; whether each row's bits
+    do not depend on the other rows inside the route (calls on the first
+    lo, lo + 3 and 2 lo - 1 rows and on the last lo rows, lo the route's
+    fewest rows, where that stays below M); whether a grouped launch gives
+    each member the bits of its own launch; and, past SMALL_ROWS rows,
+    whether the first SMALL_ROWS rows get the same bits on the small route
+    (`cross_route`, None below: reported, not required)."""
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    x, members = kw["x"], kw["members"]
+    col = kw.get("column_scale", False)
+    M = x.shape[0]
 
     def kernel(rows):
-        return q8.q8_linear_kernel(rows, q, scale, bias, col)
+        return torch.cat(q8.q8_linear_group(rows, members,
+                                            column_scale=col), dim=-1)
 
     out = kernel(x)
-    twin = q8.q8_linear_reference(x, q, scale, bias, column_scale=col)
-    witness = torch.nn.functional.linear(
-        x.float(), q8.dequantize_weight(q, scale, x.dtype, col).float(),
-        None if bias is None else bias.float())
+    twin = torch.cat([q8.q8_linear_reference(x, q, s, b, column_scale=col)
+                      for q, s, b in members], dim=-1)
+    witness = torch.cat([torch.nn.functional.linear(
+        x.float(), q8.dequantize_weight(q, s, x.dtype, col).float(),
+        None if b is None else b.float()) for q, s, b in members], dim=-1)
     again = kernel(x)
-    rows = all(torch.equal(kernel(x[:m]), out[:m])
-               for m in (1, 4) if m < x.shape[0])
+    lo, _ = q8.route_rows(q8.route_of(M, x.dtype == torch.bfloat16))
+    views = [slice(0, m) for m in sorted({lo, lo + 3, 2 * lo - 1}) if m < M]
+    views += [slice(M - lo, M)] if M > lo else []
+    rows = all(torch.equal(kernel(x[v]), out[v]) for v in views)
+    alone = torch.cat([q8.q8_linear(x, q, s, b, column_scale=col)
+                       for q, s, b in members], dim=-1)
+    cross = None
+    if M > q8.SMALL_ROWS:
+        cross = torch.equal(kernel(x[:q8.SMALL_ROWS]), out[:q8.SMALL_ROWS])
     torch.cuda.synchronize()
     err = (out.float() - twin.float()).abs()
 
@@ -356,5 +413,6 @@ def q8_compare(kw: dict, atol: float = 1e-2, rtol: float = 1e-2) -> dict:
         within=bool((err <= atol + rtol * twin.float().abs()).all()),
         rel_kernel=rel(out), rel_twin=rel(twin),
         same_bits=torch.equal(out, again), rows_independent=rows,
+        grouped_equal=torch.equal(out, alone), cross_route=cross,
         finite=bool(torch.isfinite(out).all()),
     )

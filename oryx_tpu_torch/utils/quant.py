@@ -19,9 +19,10 @@ use site that forgets them fails loudly:
   * `Q8Linear`: codes `q` int8 [out, in] (the JAX kernel transposed), one
     fp32 `scale` [out] per output channel, and the bias, if any. Its
     product (`linear`) dequantizes in the activations' dtype,
-    `q.to(dt) * scale.to(dt)` as JAX's `astype(dt)`; on the card up to
-    `q8_linear.MAX_ROWS` rows run the hand-written kernel
-    (`ops/cuda/q8_linear.py`), which reads the codes directly.
+    `q.to(dt) * scale.to(dt)` as JAX's `astype(dt)`; on the card every
+    product runs a hand-written kernel (`ops/cuda/q8_linear.py`), which
+    reads the codes directly, and the products of one input (q/k/v,
+    gate/up: `linear_group`) run as one launch.
   * `Q8Embedding`: codes [V, H] and one fp32 scale row [H]. A row gather
     (`embed_rows`) returns fp32 rows, `q[idx].float() * scale` as JAX's
     `__getitem__`; the caller casts them. The tied head (`linear` on the
@@ -256,12 +257,26 @@ def linear(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
     """x . W^T (+ b) in x's dtype, for every weight a model multiplies by:
     an nn.Linear, a Q8Linear, or an embedding table (the tied head)."""
     if isinstance(mod, Q8Linear):
-        return q8_linear.q8_linear(x, mod.q, mod.scale, mod.bias)
+        b = mod._buffers  # not attribute lookups: host time every step
+        return q8_linear.q8_linear(x, b["q"], b["scale"], b["bias"])
     if isinstance(mod, Q8Embedding):  # the tied head: a scale per column
-        return q8_linear.q8_linear(x, mod.q, mod.scale, column_scale=True)
+        b = mod._buffers
+        return q8_linear.q8_linear(x, b["q"], b["scale"], column_scale=True)
     bias = getattr(mod, "bias", None)
     return F.linear(x, mod.weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype))
+
+
+def linear_group(x: torch.Tensor, mods) -> list[torch.Tensor]:
+    """[linear(x, m) for m in mods]: Q8Linears of one input width take one
+    grouped q8 product (one launch on the card, each output with the bits
+    of its own product); other layers take `linear` one by one."""
+    if len(mods) > 1 and all(isinstance(m, Q8Linear) for m in mods) and len(
+            {m.in_features for m in mods}) == 1:
+        return q8_linear.q8_linear_group(x, [
+            (m._buffers["q"], m._buffers["scale"], m._buffers["bias"])
+            for m in mods])
+    return [linear(x, m) for m in mods]
 
 
 def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Check (and optionally time) the port's int8-weight product on one NVIDIA
-GPU (`oryx_tpu_torch/csrc/q8_linear.cu`), at every distinct (K, N) of an
-oryx_7b decoder step (`measure.q8_shapes`: q, k/v, o, gate/up, down,
-lm_head) and at M = 1, 4, 20, 64 and 100 rows (two launches), the tied
-head (the embedding table's codes with one scale per column) at lm_head's
-shape, plus tails whose K and N are not multiples of 16, in bf16 and fp32.
+GPU (`oryx_tpu_torch/csrc/q8_linear.cu`), on each of its routes: every
+launch of an oryx_7b decoder step (`measure.q8_shapes`: the grouped q/k/v,
+o, the grouped gate/up, down, lm_head) at M = 1, 4, 20, 64 (the byte-bound
+route) and 65, 68, 128, 129, 516, 2048 (the wgmma route), the tied head
+(the embedding table's codes with one scale per column), the ViT's and the
+projector's products, and tails whose K and N are not multiples of 16, in
+bf16 and fp32.
 
     python3 scripts/torch_q8_check.py [--time] [--iters 50]
 
@@ -12,18 +14,19 @@ Prints the build's ptxas lines (registers, spills), then per case the
 kernel's largest error against the plain twin (dequantize, then F.linear;
 atol = rtol = 1e-2 in bf16, atol 2e-4 / rtol 2e-3 in fp32), both relative
 L2 errors against an fp32 witness (the kernel's at most NOISE_RATIO times
-the twin's, in bf16), whether two launches give the same bits and whether
-a row's bits are the same at 1, 4 and M rows, and whether a replay of the
-kernel captured in a CUDA graph gives the eager bits. With --time: the
+the twin's, in bf16), whether two launches give the same bits, whether a
+row's bits are the same at other row counts of its route, whether a
+grouped launch gives each member the bits of its own launch, and past 64
+rows whether the first 64 rows get the small route's bits (reported, not
+required); then whether a replay of the kernel captured in a CUDA graph
+gives the eager bits, at 4 and at 516 rows. With --time: per bf16 case the
 CUDA-event median of the kernel's call, its device time
-(`measure.device_ms`), the twin's, F.linear on a bf16 weight of the same
-shape (what the bf16 model pays), and the least time the card could take
-(`measure.q8_bound`); then, per decoder shape at M from 64 to 516 rows
-(the ragged engine's mixed dispatches: 4 decode rows and 64 or 512
-prefill lanes), the kernel in launches of 64 rows against the dequantized
-product, both summed over one forward's products, and the most rows at
-which the kernel's forward is still the faster: what `q8_linear.MAX_ROWS`
-is set from. Exits 1 on a disagreement.
+(`measure.device_ms`), the twin's, one F.linear on the dequantized bf16
+weights (what the bf16 model pays; the port never calls it) and the least
+time the card could take (`measure.q8_bound`); then, at M = 4, 20, 68 and
+516, the products of one decoder forward (each launch times its count a
+forward) summed on each of the three, and the host time of a call at
+M = 4 beside F.linear's. Exits 1 on a disagreement.
 """
 
 from __future__ import annotations
@@ -31,20 +34,20 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import torch
 
 NOISE_RATIO = 1.5
-ROWS = (1, 4, 20, 64, 100)
-# (K, N, M, bias, dtype): K and N not multiples of 16.
-TAILS = ((72, 100, 3, True, torch.bfloat16), (130, 37, 20, False,
-                                              torch.bfloat16),
-         (72, 100, 3, True, torch.float32), (130, 37, 64, True,
-                                             torch.float32),
-         (130, 37, 100, False, torch.float32))
-# Rows of the route comparison: the kernel in 64-row launches against the
-# dequantized product.
-CROSS_ROWS = (64, 68, 128, 192, 256, 384, 516)
+ROWS = (1, 4, 20, 64, 65, 68, 128, 129, 516, 2048)
+# (K, Ns, M, bias, dtype): K and N not multiples of 16.
+TAILS = ((72, (100,), 3, True, torch.bfloat16),
+         (130, (37,), 20, False, torch.bfloat16),
+         (130, (37, 20), 100, True, torch.bfloat16),
+         (72, (100,), 3, True, torch.float32),
+         (130, (37,), 64, True, torch.float32),
+         (130, (37, 20), 100, False, torch.float32))
+FORWARD_ROWS = (4, 20, 68, 516)
 
 
 def main() -> int:
@@ -61,107 +64,123 @@ def main() -> int:
     from oryx_tpu_torch.ops.cuda import build, measure
     from oryx_tpu_torch.ops.cuda import q8_linear as q8
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {measure.gpu_line()}")
     build.load("q8_linear")
     for line in build.build_logs.get("q8_linear", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     gen = torch.Generator("cuda").manual_seed(0)
-    shapes = measure.q8_shapes(config.oryx_7b().llm)
-    cases = [(f"{proj}[M={M}]", K, N, M, bias, torch.bfloat16, False)
-             for proj, (K, N, bias) in shapes.items() for M in ROWS]
-    K, N, _ = shapes["lm_head"]
-    cases += [(f"tied_head[M={M}]", K, N, M, False, torch.bfloat16, True)
-              for M in ROWS]
-    cases += [(f"tail[K={K},N={N},M={M},{str(dt)[6:]}{',tied' * col}]", K,
-               N, M, bias, dt, col)
-              for K, N, M, bias, dt in TAILS for col in (False, True)]
+    cfg = config.oryx_7b()
+    shapes = measure.q8_shapes(cfg.llm)
+    cases = [(f"{proj}[M={M}]", K, Ns, M, bias, torch.bfloat16, False)
+             for proj, (K, Ns, bias) in shapes.items() for M in ROWS]
+    K, Ns, _ = shapes["lm_head"]
+    cases += [(f"tied_head[M={M}]", K, Ns, M, False, torch.bfloat16, True)
+              for M in (1, 4, 20, 68, 516)]
+    cases += [(f"{name}[M={M}]", K, Ns, M, True,
+               torch.float32 if dt == "f32" else torch.bfloat16, False)
+              for name, (K, Ns, dt) in measure.q8_vision_shapes(cfg).items()
+              for M in (20, 1936)]
+    cases += [(f"tail[K={K},N={Ns},M={M},{str(dt)[6:]}{',tied' * col}]", K,
+               Ns, M, bias, dt, col)
+              for K, Ns, M, bias, dt in TAILS for col in (False, True)]
     bad = 0
-    for name, K, N, M, bias, dt, col in cases:
-        kw = measure.q8_case(K, N, M, bias, gen, dt, col)
+    for name, K, Ns, M, bias, dt, col in cases:
+        kw = measure.q8_case(K, Ns, M, bias, gen, dt, col)
         f32 = dt == torch.float32
         r = measure.q8_compare(kw, *((2e-4, 2e-3) if f32 else (1e-2, 1e-2)))
         # In fp32 the witness is the twin itself: no noise ratio.
         ok = (r["within"] and r["same_bits"] and r["rows_independent"]
-              and r["finite"] and (f32 or r["rel_kernel"] <= NOISE_RATIO
-                                   * r["rel_twin"]))
+              and r["grouped_equal"] and r["finite"]
+              and (f32 or r["rel_kernel"] <= NOISE_RATIO * r["rel_twin"]))
         bad += not ok
-        print(f"{name}: K={K} N={N} max abs err {r['max_abs_err']:.3e}, "
-              f"rel L2 kernel {r['rel_kernel']:.3e} twin {r['rel_twin']:.3e}"
-              f", same bits {r['same_bits']}, rows independent "
-              f"{r['rows_independent']} {'ok' if ok else 'FAILED'}")
-        if args.time and dt == torch.bfloat16:
-            x, qq, s, b = kw["x"], kw["q"], kw["scale"], kw["bias"]
-            w = q8.dequantize_weight(qq, s, x.dtype, col)
-            ms = measure.cuda_time_ms(
-                lambda: q8.q8_linear_kernel(x, qq, s, b, col), args.iters)
-            dev = measure.device_ms(
-                lambda: q8.q8_linear_kernel(x, qq, s, b, col))
-            plain = measure.cuda_time_ms(
-                lambda: q8.q8_linear_reference(x, qq, s, b, column_scale=col),
-                args.iters)
-            lib = measure.cuda_time_ms(
-                lambda: torch.nn.functional.linear(x, w, b), args.iters)
-            bound, by = measure.q8_bound(M, N, K)
-            print(f"    ms {ms:.4f} | device {dev} | plain {plain:.4f} | "
-                  f"F.linear bf16 {lib:.4f} | bound {bound:.4f} ({by})")
-    # A replay of a captured launch gives the eager bits.
-    kw = measure.q8_case(3584, 18944, 4, False, gen)
-    eager = q8.q8_linear(**kw)
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        q8.q8_linear(**kw)  # warm-up on the capture stream
-        with torch.cuda.graph(graph, stream=stream):
-            out = q8.q8_linear(**kw)
-    torch.cuda.current_stream().wait_stream(stream)
-    graph.replay()
-    torch.cuda.synchronize()
-    same = torch.equal(out, eager)
-    bad += not same
-    print(f"graph replay == eager: {same}")
+        p = q8.plan(K, M, not f32)
+        print(f"{name}: K={K} N={Ns} {p} max abs err {r['max_abs_err']:.3e}"
+              f", rel L2 kernel {r['rel_kernel']:.3e} twin "
+              f"{r['rel_twin']:.3e}, same bits {r['same_bits']}, rows "
+              f"independent {r['rows_independent']}, grouped == alone "
+              f"{r['grouped_equal']}, first 64 rows == small route "
+              f"{r['cross_route']} {'ok' if ok else 'FAILED'}", flush=True)
+        if args.time and not f32:
+            kern, plain, lib = measure.q8_calls(kw)
+            ms = measure.cuda_time_ms(kern, args.iters)
+            dev = measure.device_ms(kern)
+            plain_ms = measure.cuda_time_ms(plain, args.iters)
+            lib_ms = measure.cuda_time_ms(lib, args.iters)
+            bound, by = measure.q8_bound(M, Ns, K)
+            print(f"    ms {ms:.4f} | device {dev} | plain {plain_ms:.4f} | "
+                  f"F.linear bf16 {lib_ms:.4f} | bound {bound:.4f} ({by})")
+    for M in (4, 516):
+        same = graph_equals_eager(q8, measure.q8_case(
+            3584, (18944, 18944), M, False, gen))
+        bad += not same
+        print(f"graph replay == eager at M = {M}: {same}")
     if args.time:
-        crossover(config.oryx_7b().llm, gen, args.iters)
+        forward(cfg.llm, gen, args.iters)
     print("all ok" if not bad else f"{bad} FAILED")
     return 1 if bad else 0
 
 
-def crossover(llm, gen, iters: int) -> None:
-    """Per decoder shape and row count of CROSS_ROWS: CUDA-event ms of the
-    kernel in 64-row launches and of the dequantized product; then the
-    products of one forward over the whole decoder (each shape times its
-    count: per layer q, o, down once, k/v and gate/up twice; lm_head once)
-    on each route, and the most rows at which the kernel's forward is still
-    the faster."""
-    from oryx_tpu_torch.ops.cuda import measure
-    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+def graph_equals_eager(q8, kw) -> bool:
+    """A replay of a captured grouped launch gives the eager bits."""
+    x, members = kw["x"], kw["members"]
+    eager = q8.q8_linear_group(x, members)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        q8.q8_linear_group(x, members)  # warm-up on the capture stream
+        with torch.cuda.graph(graph, stream=stream):
+            out = q8.q8_linear_group(x, members)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(out, eager))
 
-    L = llm.num_layers
-    count = {"q": L, "kv": 2 * L, "o": L, "gate_up": 2 * L, "down": L,
-             "lm_head": 1}
-    print(f"kernel (64-row launches) vs dequantized product, bf16, event ms "
-          f"(q8_linear.MAX_ROWS = {q8.MAX_ROWS})")
-    total = {M: [0.0, 0.0] for M in CROSS_ROWS}
-    for proj, (K, N, bias) in measure.q8_shapes(llm).items():
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of fn, the device left to catch up after."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def forward(llm, gen, iters: int) -> None:
+    """At each M of FORWARD_ROWS, CUDA-event ms of every decoder launch on
+    the kernel, the dequantized product (the twin) and one F.linear on a
+    bf16 weight, then each summed over one forward (each launch times its
+    count: per layer one each; lm_head once)."""
+    from oryx_tpu_torch.ops.cuda import measure
+
+    count = {"lm_head": 1}
+    print("host us a call at M = 4 (200 calls, no sync between): kernel / "
+          "F.linear bf16")
+    for proj, (K, Ns, bias) in measure.q8_shapes(llm).items():
+        kern, _, lib = measure.q8_calls(measure.q8_case(K, Ns, 4, bias, gen))
+        print(f"  {proj}: {host_us(kern):.1f} / {host_us(lib):.1f}")
+    print("a decoder forward's int8 products, bf16, event ms: kernel / "
+          "dequantized twin / F.linear bf16")
+    for M in FORWARD_ROWS:
+        total = [0.0, 0.0, 0.0]
         cells = []
-        for M in CROSS_ROWS:
-            kw = measure.q8_case(K, N, M, bias, gen)
-            x, qq, s, b = kw["x"], kw["q"], kw["scale"], kw["bias"]
-            kern = measure.cuda_time_ms(
-                lambda: q8.q8_linear_kernel(x, qq, s, b), iters)
-            plain = measure.cuda_time_ms(
-                lambda: q8.q8_linear_reference(x, qq, s, b), iters)
-            total[M][0] += count[proj] * kern
-            total[M][1] += count[proj] * plain
-            cells.append(f"M={M} {kern:.4f}/{plain:.4f}")
-        print(f"  {proj} (K={K}, N={N}): " + " | ".join(cells))
-    print("  a forward's products: " + " | ".join(
-        f"M={M} {k:.3f}/{p:.3f}" for M, (k, p) in total.items()))
-    wins = [M for M in CROSS_ROWS
-            if all(total[m][0] < total[m][1] for m in CROSS_ROWS if m <= M)]
-    print(f"the kernel's forward is the faster up to M = "
-          f"{max(wins, default=None)}")
+        for proj, (K, Ns, bias) in measure.q8_shapes(llm).items():
+            kw = measure.q8_case(K, Ns, M, bias, gen)
+            ts = [measure.cuda_time_ms(f, iters)
+                  for f in measure.q8_calls(kw)]
+            n = count.get(proj, llm.num_layers)
+            for i, t in enumerate(ts):
+                total[i] += n * t
+            cells.append(f"{proj} {ts[0]:.4f}/{ts[1]:.4f}/{ts[2]:.4f}")
+        print(f"  M={M}: " + " | ".join(cells))
+        print(f"  M={M} a forward: kernel {total[0]:.3f} ms, dequantized "
+              f"{total[1]:.3f} ms, F.linear bf16 {total[2]:.3f} ms")
 
 
 if __name__ == "__main__":

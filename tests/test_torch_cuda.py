@@ -1570,66 +1570,98 @@ def test_engine_failed_capture_raises(card, monkeypatch):
 # ---- the int8-weight product (csrc/q8_linear.cu) ---------------------------
 
 
+Q8_ROWS = [1, 4, 20, 64, 65, 68, 128, 129, 516, 2048]
+
+
 @pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584), (18944, 3584),
                                  (72, 100), (130, 37), (80, 48)])
-@pytest.mark.parametrize("M", [1, 4, 20, 64, 100])
+@pytest.mark.parametrize("M", Q8_ROWS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_q8_kernel_matches_twin(card, K, N, M, dtype):
     """Decoder shapes and tails (K, N not multiples of 16; K a multiple of
-    16 but not of the 64-column k block), M = 100 in two launches: within
-    tolerance of the twin, the same bits twice, and a row's bits the same
-    at 1, 4 and M rows."""
+    16 but not of the 64-column k block) on every route (bf16 up to 64
+    rows: the cp.async ring with the cluster merge; past 64: wgmma; fp32:
+    the SIMT routes): within tolerance of the twin, one launch, the same
+    bits twice, and a row's bits the same at other row counts of its
+    route."""
     from oryx_tpu_torch.ops.cuda import measure
     from oryx_tpu_torch.ops.cuda import q8_linear as q8
 
-    kw = measure.q8_case(K, N, M, N % 2 == 0, torch.Generator(
+    kw = measure.q8_case(K, (N,), M, N % 2 == 0, torch.Generator(
         card).manual_seed(K + N + M), dtype)
     before = sum(q8.LAUNCHES.values())
+    q8.q8_linear(kw["x"], *kw["members"][0])
+    assert sum(q8.LAUNCHES.values()) == before + 1
     r = measure.q8_compare(kw, TOLS[dtype], TOLS[dtype])
-    assert sum(q8.LAUNCHES.values()) > before
     assert r["within"] and r["finite"], r
     assert r["same_bits"] and r["rows_independent"], r
 
 
 @pytest.mark.parametrize("K,N", [(3584, 152064), (72, 100), (130, 37),
                                  (80, 48)])
-@pytest.mark.parametrize("M", [1, 4, 20, 100])
+@pytest.mark.parametrize("M", [1, 4, 20, 68, 516])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_q8_kernel_column_scale_matches_twin(card, K, N, M, dtype):
     """The tied head: the int8 table's codes [V, H] with one scale per
-    column (oryx_7b's V and H, and tails), as for the per-channel scales."""
+    column (oryx_7b's V and H, and tails), as for the per-channel scales,
+    on both routes of each dtype."""
     from oryx_tpu_torch.ops.cuda import measure
 
-    kw = measure.q8_case(K, N, M, False, torch.Generator(card).manual_seed(
+    kw = measure.q8_case(K, (N,), M, False, torch.Generator(card).manual_seed(
         K + N + M), dtype, column_scale=True)
     r = measure.q8_compare(kw, TOLS[dtype], TOLS[dtype])
     assert r["within"] and r["finite"], r
     assert r["same_bits"] and r["rows_independent"], r
 
 
-def test_q8_kernel_in_a_graph_equals_eager(card):
-    """A replay of the captured kernel (split-K merge included) gives the
-    eager bits, and CountedGraph counts each replay's launch."""
+@pytest.mark.parametrize("K,Ns", [(3584, (3584, 512, 512)),
+                                  (3584, (18944, 18944)), (130, (37, 20)),
+                                  (72, (100, 48, 16, 8))])
+@pytest.mark.parametrize("M", [1, 4, 20, 68, 516])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_q8_grouped_equals_separate_launches(card, K, Ns, M, dtype):
+    """A grouped launch (q/k/v, gate/up, tails, four members) is one
+    launch, and gives each member the bits of its own launch."""
+    from oryx_tpu_torch.ops.cuda import measure
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+
+    kw = measure.q8_case(K, Ns, M, True, torch.Generator(card).manual_seed(
+        K + M), dtype)
+    x = kw["x"][:, None]  # a leading shape of two dims
+    before = sum(q8.LAUNCHES.values())
+    got = q8.q8_linear_group(x, kw["members"])
+    assert sum(q8.LAUNCHES.values()) == before + 1
+    for y, (q, s, b) in zip(got, kw["members"]):
+        assert y.shape == (M, 1, q.shape[0])
+        assert torch.equal(y, q8.q8_linear(x, q, s, b))
+
+
+@pytest.mark.parametrize("M", [4, 516])
+def test_q8_kernel_in_a_graph_equals_eager(card, M):
+    """A replay of the captured kernel (the cluster merge included) gives
+    the eager bits on both bf16 routes, and CountedGraph counts each
+    replay's launch."""
     from oryx_tpu_torch.ops.cuda import graphs, measure
     from oryx_tpu_torch.ops.cuda import q8_linear as q8
 
-    kw = measure.q8_case(3584, 3584, 4, True,
+    kw = measure.q8_case(3584, (3584, 512, 512), M, True,
                          torch.Generator(card).manual_seed(0))
-    eager = q8.q8_linear(**kw)
+    eager = q8.q8_linear_group(kw["x"], kw["members"])
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = graphs.CountedGraph()
     with torch.cuda.stream(stream):
         with graph.capture(stream):
-            out = q8.q8_linear(**kw)
+            out = q8.q8_linear_group(kw["x"], kw["members"])
     torch.cuda.current_stream().wait_stream(stream)
     before = sum(q8.LAUNCHES.values())
     graph.replay()
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(out, eager)
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
     assert sum(q8.LAUNCHES.values()) == before + 2
 
 
@@ -1642,13 +1674,15 @@ def test_q8_kernel_rejects_operands_it_does_not_take(card):
         q8.q8_linear(x, q, torch.ones(32, device=card, dtype=torch.float16))
     with pytest.raises(ValueError, match="x must be"):
         q8.q8_linear(x.half(), q, torch.ones(32, device=card))
+    with pytest.raises(ValueError, match="x must be"):
+        q8.q8_linear(x[:, :48], q, torch.ones(32, device=card))
 
 
-def _tiny_int8(dev, tied=False):
-    """The tiny fp32 config widened so its large weights quantize
+def _tiny_int8(dev, tied=False, dtype=torch.float32):
+    """The tiny config widened so its large weights quantize
     (tests/test_quant.py's `_quantizable_cfg`), x20 weights, int8 on `dev`,
-    the head tied to the embedding table if `tied`: (OryxModel,
-    OryxConfig)."""
+    `dtype` compute (the other floats cast to it), the head tied to the
+    embedding table if `tied`: (OryxModel, OryxConfig)."""
     import dataclasses
 
     from oryx_tpu_torch import config
@@ -1656,23 +1690,27 @@ def _tiny_int8(dev, tied=False):
     from oryx_tpu_torch.utils.quant import quantize_params
 
     t = config.oryx_tiny()
-    cfg = dataclasses.replace(t, attn_impl="pallas", llm=dataclasses.replace(
-        t.llm, vocab_size=1024, hidden_size=128, intermediate_size=512,
-        num_heads=8, head_dim=16, tie_word_embeddings=tied))
+    cfg = dataclasses.replace(
+        t, attn_impl="pallas",
+        dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+        llm=dataclasses.replace(
+            t.llm, vocab_size=1024, hidden_size=128, intermediate_size=512,
+            num_heads=8, head_dim=16, tie_word_embeddings=tied))
     params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
     with torch.no_grad():
         for p in params.parameters():
             if p.dim() >= 2:
                 p.mul_(20)
-    return quantize_params(params).to(dev), cfg
+    return quantize_params(params, cast=lambda t: t.to(dtype) if (
+        t.is_floating_point()) else t).to(dev), cfg
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["split", "ragged"])
 def test_tiny_int8_engines_on_card_match_cpu(card, ragged):
     """fp32 int8-weight engines (and a dense chat) on the card, the q8
-    kernel taking every product of at most `q8_linear.MAX_ROWS` rows, and
-    on the CPU (the twins): the same replies."""
+    kernels taking every product, and on the CPU (the twins): the same
+    replies."""
     from oryx_tpu_torch.ops.cuda import q8_linear as q8
     from oryx_tpu_torch.serve.pipeline import Pipeline
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
@@ -1726,6 +1764,52 @@ def test_tiny_tied_int8_on_card_matches_cpu(card):
     V, H = cfg.llm.vocab_size, cfg.llm.hidden_size
     assert any(key[1:3] == (V, H) for key in out["cuda"][2])
     assert not out["cpu"][2]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_int8_prefill_and_large_dispatch_never_take_the_twin(
+        card, monkeypatch, dtype):
+    """With the plain twin made to raise on a card tensor, an int8
+    `chat_batch` (an image, a prefill of more than 128 rows) and a ragged
+    engine dispatch of more than 128 rows run on the card: every product,
+    the ViT's and the prefill's included, takes a kernel."""
+    import numpy as np
+
+    from oryx_tpu_torch.ops.cuda import q8_linear as q8
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    real = q8.q8_linear_reference
+
+    def guarded(x, *args, **kw):
+        if x.device.type == "cuda":
+            raise AssertionError("q8_linear_reference reached on the card")
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(q8, "q8_linear_reference", guarded)
+    model, cfg = _tiny_int8(card, dtype=dtype)
+    pipe = Pipeline(_CharTok(), model, cfg, device=card)
+    img = np.random.default_rng(0).integers(0, 255, (40, 56, 3), np.uint8)
+    long_q = "tell me about the picture and all of its colours " * 4
+    q8.LAUNCHES.clear()
+    out = pipe.chat_batch([{"question": long_q, "images": [img]},
+                           {"question": "hi"}], max_new_tokens=4)
+    assert len(out) == 2
+    assert max(k[0] for k in q8.LAUNCHES) > 128, dict(q8.LAUNCHES)
+    sched = ContinuousScheduler(
+        pipe, autostart=False, num_slots=2, page_size=16, chunk=4,
+        max_ctx=512, ragged=True, prefill_chunk=640)
+    q8.LAUNCHES.clear()
+    handles = [sched.submit({"question": long_q}, 6),
+               sched.submit({"question": "hello"}, 6)]
+    sched.start()
+    try:
+        served = [h.result(timeout=300) for h in handles]
+    finally:
+        sched.close()
+    assert len(served) == 2
+    assert any(k[0] > 128 for k in q8.LAUNCHES), dict(q8.LAUNCHES)
 
 
 def test_graph_dropped_during_a_capture_waits_for_its_end(card):
