@@ -203,6 +203,36 @@ Phases (any failure exits non-zero):
      against the plain twins (dequantizing gather, atol = rtol = 1e-2), timed
      as in phase 6 (the yardstick: dequantizing gather_pages + SDPA).
 
+ 17. (Runs after 10, on phase 2's weights.) LoRA SFT under
+     scripts/configs/oryx_7b_sft_lora.json as written (r = 128, alpha 256,
+     the seven decoder projections, remat "attn", bf16) at full oryx_7b
+     width and depth: the adapters the Trainer draws (seed + 1), phase
+     10's records as conversations through the plain template (phase 10's
+     batch shapes), batch 128 -> 4, steps 5000 -> 4. Two fits from the
+     same start give identical losses; every base leaf is bitwise phase
+     10's; only lora_a, lora_b and compressor leaves move. Per step: wall,
+     tokens/s, model FLOPs and MFU (utils/flops.py), device fwd+bwd and
+     optimizer time, peak memory. Then one 4-step fit under each remat
+     policy (none, block, dots, attn, attn_qkv, attn_o) from the same
+     start: peak memory and step walls, losses identical (a policy that
+     runs out of card memory is reported as not fitting, and its losses
+     are held against "attn"'s at UNFIT_BATCH records). After phase 18:
+     merge_lora on the card against the adapted forward (the merged
+     weights within bf16 rounding of the exact sum; the prefill logits'
+     rel L2 printed), the PEFT round trip (export_hf +
+     export_lora_dir -> load_from_hf(lora_path=)) of a 2 + 2-layer model
+     of full width against merge_lora in memory, byte-equal, and the tiny
+     fp32 LoRA fit, card vs CPU, as phase 11.
+ 18. Packed-text training at full width: seeded text conversations of
+     64-1,500 tokens through collate_packed_text into 4 rows of 4,096,
+     four batches through Trainer.fit under the LoRA config. K1 with lse,
+     K5a and K5b at the packed call shape (causal in slot order, the
+     samples' segment ids, kv mask segs > 0) against their twins by
+     phase 9's rules, timed beside SDPA with the boolean block-diagonal
+     causal mask, the bound counting only the visible (q, k) pairs; the
+     fit must launch each. The packed batch's loss equals the padded
+     collation's of the same samples within 1e-2 (both printed).
+
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -213,6 +243,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -2176,12 +2207,12 @@ def train_config():
 
 
 def train_batches(cfg, records=None, media=train_media, batch=TRAIN_BATCH,
-                  **collate):
+                  template="plain", **collate):
     """grouped_batch_iterator over the records (endless epochs)."""
     from oryx_tpu_torch.train import data
 
     ds = data.SupervisedDataset(
-        records or train_records(), ByteTokenizer(), template="plain",
+        records or train_records(), ByteTokenizer(), template=template,
         max_patches_per_image=cfg.vision.max_patches_per_image,
         media_loader=media,
     )
@@ -2528,14 +2559,17 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
           f"{fams[kernel_family('tile_map')] / 1e3:.1f} ms")
     del fits, trainer, t2, batch
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return snap
 
 
-def tiny_training_on_card() -> None:
-    """Phase 11: the tiny fp32 config, tune full, 3 steps of Trainer.fit on
-    the card and on the CPU from the same init and batches: losses within
-    rtol 1e-4, params within atol 2e-4 / rtol 2e-3 (lr 1e-5, so Adam's
-    1/sqrt(v) on near-zero gradient entries moves no param by more than
-    2e-5)."""
+def tiny_training_on_card(tune: str = "full") -> None:
+    """Phase 11 (and 17 with tune "lora"): the tiny fp32 config, 3 steps
+    of Trainer.fit on the card and on the CPU from the same init and
+    batches: losses within rtol 1e-4, params within atol 2e-4 / rtol 2e-3
+    (lr 1e-5, so Adam's 1/sqrt(v) on near-zero gradient entries moves no
+    param by more than 2e-5). Under "lora" the Trainer attaches r = 4
+    adapters to all seven projections on each device from the same seed
+    (drawn on the CPU and moved)."""
     import shutil
 
     from oryx_tpu_torch import config
@@ -2544,9 +2578,11 @@ def tiny_training_on_card() -> None:
 
     base = config.oryx_tiny()
     cfg = dataclasses.replace(base, attn_impl="pallas", train=dataclasses.replace(
-        base.train, tune="full", learning_rate=1e-5, num_train_steps=10,
+        base.train, tune=tune, learning_rate=1e-5, num_train_steps=10,
         warmup_ratio=0.1, remat_policy="attn",
         checkpoint_dir=TRAIN_CKPT + "_tiny",
+        lora=config.LoraConfig(enable=tune == "lora", r=4, alpha=8.0,
+                               targets=LORA_TARGETS),
     ))
     recs = [dict(r, conversations=[
         {"from": "human", "value": "<image>"},
@@ -2563,7 +2599,15 @@ def tiny_training_on_card() -> None:
         for c in counters.values():
             c.clear()
         model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
-                                 device="cpu").to(dev)
+                                 device="cpu")
+        if tune == "lora":
+            oryx.enable_lora(model, cfg, torch.Generator().manual_seed(1))
+            g = torch.Generator().manual_seed(2)
+            with torch.no_grad():  # B = 0 would leave A's gradient zero
+                for n, p in model.named_parameters():
+                    if n.endswith("lora_b"):
+                        p.normal_(0.0, 0.05, generator=g)
+        model = model.to(dev)
         t = Trainer(cfg, params=model, device=dev)
         t.fit(train_batches(cfg, recs, small, batch=2,
                             buckets=(64, 128, 256)),
@@ -2586,6 +2630,407 @@ def tiny_training_on_card() -> None:
             and bwd["flash_fwd_lse"]):
         raise SystemExit("the tiny training run launched no K5")
     print(f"  card == cpu within tolerance; params max abs diff {worst:.3e}")
+
+# ---- LoRA SFT and packed text at full width (phases 17-18) ----------------
+
+LORA_CONFIG = "scripts/configs/oryx_7b_sft_lora.json"
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+REMAT_POLICIES = ("none", "block", "dots", "attn", "attn_qkv", "attn_o")
+UNFIT_BATCH = 1  # records a batch for a policy that does not fit at 4
+PACK_BUCKET = 4096
+PACK_ROWS = 4
+PACK_LENGTHS = (64, 1500)  # tokens of a packed text sample, drawn uniformly
+
+
+def lora_config():
+    """oryx_7b_sft_lora.json as written (r = 128, alpha 256, seven targets,
+    remat "attn"), checkpoints inside the checkout; the batch (128 -> 4)
+    and the steps (5000 -> 4) are cut by the callers."""
+    from oryx_tpu_torch import config
+
+    with open(LORA_CONFIG) as f:
+        cfg = config.OryxConfig.from_json(f.read())
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=TRAIN_CKPT + "_lora"))
+
+
+def sft_records():
+    """train_records() as conversations: a question about each image or
+    video, a supervised answer. Through the plain template, as phase 10,
+    the batches keep phase 10's shapes (the image batch 4 x 2048)."""
+    return [dict(r, conversations=[
+        {"from": "human", "value": "<image>\nWhat does this show?"},
+        r["conversations"][1],
+    ]) for r in train_records()]
+
+
+def _peak_gb(history) -> float:
+    return max(h["peak_bytes"] for h in history) / 1e9
+
+
+def _print_steps(history, card) -> None:
+    for i, h in enumerate(history):
+        mfu = h.get("mfu")
+        print(f"    step {i + 1}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} | wall {h['wall_s']:.3f} s, "
+              f"{h['tokens'] / h['wall_s']:.0f} tokens/s ({h['tokens']} "
+              f"tokens) | model {h['model_flops'] / 1e12:.2f} TFLOP, MFU "
+              f"{'not known' if mfu is None else f'{mfu:.1%}'} | device "
+              f"fwd+bwd {h['fwd_bwd_ms']:.1f} ms, optimizer "
+              f"{h['optimizer_ms']:.2f} ms | peak "
+              f"{h['peak_bytes'] / 1e9:.2f} GB ({card})")
+
+
+class LoraFits:
+    """Fits of one full-width model with adapters, each from the same
+    start: the adapters and the compressor are put back before each."""
+
+    def __init__(self, cfg, params) -> None:
+        from oryx_tpu_torch.models import oryx
+
+        self.cfg, self.params = cfg, params
+        # The adapters the Trainer would attach (seed + 1, on the card).
+        oryx.enable_lora(params, cfg, torch.Generator("cuda").manual_seed(
+            cfg.train.seed + 1))
+        self.init = {n: p.detach().float().clone()
+                     for n, p in params.named_parameters()
+                     if "lora_" in n or n.startswith("compressor.")}
+
+    def fit(self, batches, cfg=None, steps=TRAIN_STEPS):
+        """One Trainer.fit from the start; flash launch counts zeroed just
+        before and read just after. (history, launches)."""
+        import shutil
+
+        from oryx_tpu_torch.train.trainer import Trainer
+
+        cfg = cfg or self.cfg
+        with torch.no_grad():
+            for n, p in self.params.named_parameters():
+                if n in self.init:
+                    p.copy_(self.init[n])
+        shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+        trainer = Trainer(cfg, params=self.params, device="cuda")
+        counters = _flash_counters()
+        for c in counters.values():
+            c.clear()
+        try:
+            trainer.fit(batches, num_steps=steps, resume=False, prefetch=2)
+        finally:
+            trainer.close()
+            shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+        return trainer.history, {k: dict(c) for k, c in counters.items()}
+
+
+def lora_sft(cfg_l, params, snap, card):
+    """Phase 17 (a, b): two LoRA fits, then one fit under each remat
+    policy. Returns the LoraFits."""
+    fits = LoraFits(cfg_l, params)
+    lora = cfg_l.train.lora
+    n_ad = sum(v.numel() for n, v in fits.init.items() if "lora_" in n)
+    print(f"  adapters r = {lora.r} (alpha {lora.alpha}, scale "
+          f"{lora.scaling}) on {list(lora.targets)}: {n_ad / 1e6:.1f} M "
+          f"parameters; batch {TRAIN_BATCH} (config "
+          f"{cfg_l.train.global_batch_size}), {TRAIN_STEPS} steps (config "
+          f"{cfg_l.train.num_train_steps}), remat {cfg_l.train.remat_policy}")
+    runs = []
+    for run in range(2):
+        t0 = time.perf_counter()
+        hist, launches = fits.fit(
+            train_batches(cfg_l, sft_records()))
+        losses = [h["loss"] for h in hist]
+        print(f"  fit {run + 1}: wall {time.perf_counter() - t0:.2f} s, "
+              f"losses {losses}, peak {_peak_gb(hist):.2f} GB")
+        _print_steps(hist, card)
+        if not all(np.isfinite(losses)):
+            raise SystemExit("non-finite LoRA loss")
+        if not (launches["flash_fwd_lse"] and launches["flash_bwd_dq"]
+                and launches["flash_bwd_dkv"]):
+            raise SystemExit(f"the LoRA fit launched no K1/K5: {launches}")
+        runs.append(losses)
+    if runs[1] != runs[0]:
+        raise SystemExit(f"a second LoRA fit gave other losses: {runs}")
+    print("  the second fit from the same start gave identical losses")
+    cur = dict(params.named_parameters())
+    for n, want in snap.items():
+        if not torch.equal(cur[n].detach().cpu(), want):
+            raise SystemExit(f"base leaf {n} changed")
+    moved = {n for n, v in fits.init.items()
+             if not torch.equal(cur[n].detach().float(), v)}
+    bad = [n for n in moved if n.endswith("lora_scale")]
+    if bad or not any(n.endswith("lora_b") for n in moved) or not any(
+            n.endswith("lora_a") for n in moved):
+        raise SystemExit(f"moved leaves: lora_scale {bad[:3]}, "
+                         f"{len(moved)} moved")
+    print(f"  every base leaf bitwise unchanged ({len(snap)} leaves); "
+          f"moved: {sum(n.endswith('lora_a') for n in moved)} lora_a, "
+          f"{sum(n.endswith('lora_b') for n in moved)} lora_b, "
+          f"{sum(n.startswith('compressor.') for n in moved)} compressor "
+          "leaves; lora_scale unchanged")
+    print("  one fit under each remat policy (same start, same batches):")
+    losses, unfit = {}, []
+    for policy in REMAT_POLICIES:
+        cfg_p = dataclasses.replace(cfg_l, train=dataclasses.replace(
+            cfg_l.train, remat=policy != "none",
+            remat_policy="block" if policy == "none" else policy))
+        try:
+            hist, _ = fits.fit(train_batches(cfg_p, sft_records()), cfg_p)
+        except torch.cuda.OutOfMemoryError:
+            hist = None
+        if hist is None:  # the failed fit's tensors are free from here
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"    {policy}: does not fit in "
+                  f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+                  f" GB at batch {TRAIN_BATCH} ({card})")
+            unfit.append(cfg_p)
+            continue
+        losses[policy] = [h["loss"] for h in hist]
+        walls = [round(h["wall_s"], 3) for h in hist]
+        print(f"    {policy}: peak {_peak_gb(hist):.2f} GB, step walls "
+              f"{walls} s, device fwd+bwd "
+              f"{[round(h['fwd_bwd_ms'], 1) for h in hist]} ms, losses "
+              f"{losses[policy]} ({card})")
+    if "attn" not in losses or any(v != runs[0] for v in losses.values()):
+        raise SystemExit(f"remat policies gave other losses: {losses} vs "
+                         f"{runs[0]}")
+    print(f"  losses identical across the {len(losses)} policies that fit "
+          f"({sorted(losses)})")
+    # A policy that does not fit at TRAIN_BATCH is held against "attn" at
+    # UNFIT_BATCH records a batch.
+    for cfg_p in unfit:
+        small = {}
+        for c in (cfg_p, cfg_l):
+            hist, _ = fits.fit(train_batches(c, sft_records(),
+                                             batch=UNFIT_BATCH), c)
+            small[c.train.remat_policy if c.train.remat else "none"] = (
+                [h["loss"] for h in hist], _peak_gb(hist))
+        print(f"    at batch {UNFIT_BATCH}: {small}")
+        (a, _), (b, _) = small.values()
+        if a != b:
+            raise SystemExit(f"remat policies gave other losses at batch "
+                             f"{UNFIT_BATCH}: {small}")
+    return fits
+
+
+def packed_records(n_rows, seed):
+    """Seeded text conversations whose token counts (ByteTokenizer, qwen
+    template) fall in PACK_LENGTHS, as many as pack into n_rows rows of
+    PACK_BUCKET (first fit decreasing)."""
+    rng = np.random.default_rng(seed)
+    words = ("harbour", "gull", "boat", "tide", "rope", "sail", "pier",
+             "wave", "net", "mast", "fog", "dock")
+    recs, total = [], 0
+    while total < 0.85 * n_rows * PACK_BUCKET:
+        n = int(rng.integers(*PACK_LENGTHS))
+        text = " ".join(rng.choice(words, size=n // 5 + 1))[: max(1, n - 60)]
+        cut = len(text) // 3
+        recs.append({"id": f"t{seed}_{len(recs)}", "conversations": [
+            {"from": "human", "value": text[:cut]},
+            {"from": "gpt", "value": text[cut:]},
+        ]})
+        total += n
+    return recs
+
+
+def packed_batches(cfg, steps):
+    """`steps` packed batches ([PACK_ROWS, PACK_BUCKET]) of seeded text,
+    and the examples of the first."""
+    from oryx_tpu_torch.train import data
+
+    out, first = [], None
+    for i in range(steps):
+        ds = data.SupervisedDataset(packed_records(PACK_ROWS, 100 + i),
+                                    ByteTokenizer(), template="qwen")
+        exs = [ds[j] for j in range(len(ds))]
+        while True:
+            try:
+                host = data.collate_packed_text(
+                    exs, bucket=PACK_BUCKET, num_rows=PACK_ROWS,
+                    patch_size=cfg.vision.patch_size,
+                    base_grid=cfg.vision.base_grid)
+                break
+            except ValueError:
+                exs = exs[:-1]
+        out.append(host)
+        first = first or exs
+    return out, first
+
+
+def packed_kernel_case(cfg, host, gen):
+    """K1/K5's call shape in the packed decoder: slot positions, the
+    samples' segment ids, the kv mask segs > 0, random bf16 q/k/v."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    segs = torch.from_numpy(host["text_segment_ids"]).to(dev)
+    B, T = segs.shape
+    pos = torch.arange(T, device=dev).expand(B, T)
+    hq, hk, d = cfg.llm.num_heads, cfg.llm.num_kv_heads, cfg.llm.head_dim
+    return dict(q=rnd(B, T, hq, d), k=rnd(B, T, hk, d), v=rnd(B, T, hk, d),
+                causal=True, q_positions=pos, kv_positions=pos,
+                q_segment_ids=segs, kv_segment_ids=segs,
+                kv_mask=(segs > 0).to(torch.int32), slot_positions=True)
+
+
+def packed_training(fits, cfg_l, card, gen):
+    """Phase 18 (see the module docstring). Returns the three kernel
+    rows."""
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.train import data
+    from oryx_tpu_torch.train import step as step_lib
+
+    hosts, exs = packed_batches(cfg_l, TRAIN_STEPS)
+    h0 = hosts[0]
+    segs = h0["text_segment_ids"]
+    lens = [int((segs[r] == s).sum()) for r in range(segs.shape[0])
+            for s in range(1, int(segs[r].max()) + 1)]
+    print(f"  {len(lens)} samples of {min(lens)}-{max(lens)} tokens in "
+          f"{segs.shape[0]} x {segs.shape[1]} ({int((segs > 0).sum())} real "
+          f"tokens, {sum(int(h['attn_mask'].sum()) for h in hosts)} over the "
+          f"{len(hosts)} batches); per row {[int(x) for x in segs.max(1)]} "
+          "samples")
+    key, rows = check_backward_case(
+        "decoder_packed", packed_kernel_case(cfg_l, h0, gen), gen)
+    hist, launches = fits.fit(iter(hosts))
+    losses = [h["loss"] for h in hist]
+    print(f"  Trainer.fit on the packed batches: losses {losses}, peak "
+          f"{_peak_gb(hist):.2f} GB")
+    _print_steps(hist, card)
+    if not all(np.isfinite(losses)):
+        raise SystemExit("non-finite packed loss")
+    for row in rows:
+        kind = row["name"].split("[")[0]
+        row["launches"] = launches[kind].get(key, 0)
+        print(f"  launches {row['name']}: {row['launches']}")
+        if row["launches"] == 0:
+            raise SystemExit(f"{row['name']} was never launched by the "
+                             "packed fit")
+    # The same samples padded one a row: the same supervised tokens, the
+    # same mean loss within bf16 rounding (the packed fit moved the
+    # adapters: both losses are taken at the start).
+    with torch.no_grad():
+        for n, p in fits.params.named_parameters():
+            if n in fits.init:
+                p.copy_(fits.init[n].to(p.dtype))
+    padded = data.collate(exs, patch_size=cfg_l.vision.patch_size,
+                          base_grid=cfg_l.vision.base_grid)
+    out = {}
+    for name, host in (("packed", h0), ("padded", padded)):
+        mb = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+              for k, v in host.items()}
+        with torch.no_grad(), step_lib.compute_params(
+                fits.params, oryx.compute_dtype(cfg_l)):
+            loss, m = step_lib.microbatch_loss(fits.params, cfg_l, mb)
+        out[name] = (float(loss), int(m["num_tokens"]),
+                     tuple(host["token_ids"].shape))
+    (lp, np_, sp), (ld, nd, sd) = out["packed"], out["padded"]
+    print(f"  loss at the start: packed {lp:.6f} ({np_} supervised tokens, "
+          f"{sp}) vs padded {ld:.6f} ({nd}, {sd}); rel diff "
+          f"{abs(lp - ld) / abs(ld):.2e} (limit {TOL})")
+    if np_ != nd or abs(lp - ld) > TOL * abs(ld):
+        raise SystemExit("the packed loss differs from the padded one")
+    return rows
+
+
+def merge_on_card(fits, cfg_l):
+    """Phase 17c: merge_lora against the adapted forward on a 256-token
+    prompt: every merged weight of layer 0 is within bf16 rounding (2^-8
+    relative) of the exact fp32 sum; prefill logits' rel L2, merged vs
+    adapted, printed in bf16 and with fp32 compute (there only the merged
+    weights' rounding differs)."""
+    from oryx_tpu_torch.models import oryx, qwen2
+
+    params = fits.params
+    ids = torch.randint(3, 256, (1, 256), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+
+    def logits(dt):
+        with torch.inference_mode():
+            return qwen2.forward(params.llm, cfg_l.llm, input_ids=ids,
+                                 attn_impl=cfg_l.attn_impl,
+                                 compute_dtype=dt)[0].float()
+
+    with torch.no_grad():  # a trained adapter: B away from 0
+        g = torch.Generator("cuda").manual_seed(7)
+        for n, p in params.named_parameters():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=g)
+    layer = params.llm.layers[0]
+    exact = {}
+    with torch.no_grad():
+        for name in LORA_TARGETS:
+            mod = getattr(layer, name)
+            exact[name] = mod.weight.float() + (
+                mod.lora_b.float().T @ mod.lora_a.float().T
+            ) * mod.lora_scale.float()
+    adapted = {dt: logits(dt) for dt in (torch.bfloat16, torch.float32)}
+    oryx.merge_lora(params)
+    merged = {dt: logits(dt) for dt in (torch.bfloat16, torch.float32)}
+    rel = {str(dt).split(".")[1]: float(
+        (merged[dt] - adapted[dt]).norm() / adapted[dt].norm())
+        for dt in adapted}
+    left = [n for n, _ in params.named_parameters() if "lora_" in n]
+    with torch.no_grad():
+        worst = max(float(((getattr(layer, n).weight.float() - w).abs()
+                           / w.abs().clamp_min(1e-30)).max())
+                    for n, w in exact.items())
+    shape = tuple(merged[torch.bfloat16].shape)
+    print(f"  merge_lora on the card: prefill logits {shape}, rel L2 "
+          f"merged vs adapted {rel} (compute dtype); layer 0's "
+          f"merged weights vs the exact fp32 sum: max rel err {worst:.3e} "
+          f"(bf16 rounding <= 2^-8 = {2.0 ** -8:.3e}); adapters left "
+          f"{len(left)}")
+    # bf16 keeps 8 significant bits: rounding to nearest errs by at most
+    # 2^-8 relative; 1% over it, as `exact` sums in another order.
+    if left or worst > 1.01 * 2.0 ** -8 or not all(
+            np.isfinite(list(rel.values()))):
+        raise SystemExit("merge_lora does not fold the adapters")
+
+
+def peft_round_trip(cfg_l):
+    """Phase 17d: export_lora_dir + export_hf of a 2 + 2-layer model of
+    full width (phase 16a's disk cap), load_from_hf(lora_path=) against
+    merge_lora of the same model in memory: every tensor byte-equal."""
+    import tempfile
+
+    from oryx_tpu_torch.models import import_hf, oryx
+    from oryx_tpu_torch.serve import builder
+
+    run_cfg = dataclasses.replace(
+        cfg_l, llm=dataclasses.replace(cfg_l.llm, num_layers=DISK_LAYERS),
+        vision=dataclasses.replace(cfg_l.vision, num_layers=DISK_LAYERS))
+    model = oryx.init_params(run_cfg, torch.Generator("cuda").manual_seed(5),
+                             device="cuda", dtype=torch.bfloat16)
+    oryx.enable_lora(model, run_cfg, torch.Generator("cuda").manual_seed(8))
+    with torch.no_grad():
+        g = torch.Generator("cuda").manual_seed(9)
+        for n, p in model.named_parameters():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=g)
+    with tempfile.TemporaryDirectory() as d:
+        hf, ad = os.path.join(d, "hf"), os.path.join(d, "adapter")
+        t0 = time.perf_counter()
+        builder.export_hf(hf, run_cfg, model)
+        import_hf.export_lora_dir(model.llm, run_cfg.train.lora, ad)
+        t1 = time.perf_counter()
+        _, back, _ = builder.load_from_hf(
+            hf, hf, run_cfg, projector_path=os.path.join(hf, "mm_projector"),
+            lora_path=ad, dtype=torch.bfloat16, tokenizer=ByteTokenizer())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        oryx.merge_lora(model)
+        same = _states_equal(back, model)
+        print(f"  PEFT round trip, {DISK_LAYERS} + {DISK_LAYERS} layers of "
+              f"full width: adapter {_dir_bytes(ad) / 1e6:.1f} MB, export "
+              f"{t1 - t0:.2f} s, load_from_hf(lora_path=) {t2 - t1:.2f} s; "
+              f"== merge_lora in memory, byte-equal: {same}")
+    del model, back
+    torch.cuda.empty_cache()
+    if not same:
+        raise SystemExit("the PEFT round trip changed bytes")
 
 
 def main() -> int:
@@ -3014,11 +3459,41 @@ def main() -> int:
     print(f"phase 10: Trainer.fit, oryx_7b_pretrain.json at full width and "
           f"depth, {TRAIN_STEPS} steps of {TRAIN_BATCH} records ({card})",
           flush=True)
-    train_full_size(cfg_t, params, host_img, train_rows, card)
+    snap = train_full_size(cfg_t, params, host_img, train_rows, card)
     for _, case_rows in train_rows:
         rows.extend(case_rows)
-    del params, pipe, pipe_x, pipe_f, spipe
+    del pipe, pipe_x, pipe_f, spipe
+    # The decode graphs phases 3-16 captured live on the model, each with
+    # its cache and memory pool: training needs the room.
+    for pool in params.llm.__dict__.pop("_decode_graphs", {}).values():
+        for graph in pool:
+            graph.graph.release()
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 17. LoRA SFT at full width ----------------------------------------
+    cfg_l = lora_config()
+    print(f"phase 17: Trainer.fit, oryx_7b_sft_lora.json at full width and "
+          f"depth on phase 2's weights, {TRAIN_STEPS} steps of {TRAIN_BATCH} "
+          f"image/video conversations ({card})", flush=True)
+    fits = lora_sft(cfg_l, params, snap, card)
+    del snap
+
+    # ---- 18. packed-text training at full width ----------------------------
+    print(f"phase 18: collate_packed_text, {PACK_ROWS} rows of {PACK_BUCKET} "
+          f"tokens, Trainer.fit under the LoRA config; K1/K5 at the packed "
+          f"call shape ({card})", flush=True)
+    rows.extend(packed_training(fits, cfg_l, card,
+                                torch.Generator("cuda").manual_seed(10)))
+
+    print(f"phase 17 (continued): merge_lora on the card, the PEFT round "
+          f"trip, tiny fp32 LoRA card vs CPU ({card})", flush=True)
+    merge_on_card(fits, cfg_l)
+    del fits, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peft_round_trip(cfg_l)
+    tiny_training_on_card("lora")
 
     # ---- 11. tiny fp32 training on the card --------------------------------
     print(f"phase 11: tiny fp32 Trainer.fit, tune full, card vs CPU ({card})",

@@ -7,7 +7,10 @@
 (`oryx_tpu.utils.quant.quantize_params`) carries its int8 leaves as objects
 with `.q` and `.scale`; each becomes a `Q8Linear` or `Q8Embedding` holding
 the same codes (stacked [L, in, out] codes split per layer and transposed
-to [out, in], the scale row [.., 1, out] to [out]). `to_jax_layout` is
+to [out, in], the scale row [.., 1, out] to [out]). LoRA leaves (`lora_a`
+[L, in, r], `lora_b` [L, r, out], `lora_scale` [L, 1, 1]) become the
+projection modules' adapter parameters, split per layer and kept in the
+JAX orientation (x A B), and come back the same way. `to_jax_layout` is
 the way back, for the model's parameters or any tensors named like them
 (gradients, Adam moments). numpy only: it never imports jax.
 """
@@ -21,7 +24,8 @@ from torch import nn
 from oryx_tpu_torch.config import OryxConfig
 from oryx_tpu_torch.models.oryx import OryxModel, empty_model
 from oryx_tpu_torch.models.params import materialize
-from oryx_tpu_torch.utils.quant import q8_shells
+from oryx_tpu_torch.models.qwen2 import lora_shells
+from oryx_tpu_torch.utils.quant import LORA_LEAVES, q8_shells
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -56,6 +60,9 @@ def _flatten(node: dict, prefix: str, index: int | None,
         out[f"{prefix}.weight"] = _tensor(take(node["weight"]))
     if "bias" in node:
         out[f"{prefix}.bias"] = _tensor(take(node["bias"]))
+    for leaf in LORA_LEAVES:
+        if leaf in node:
+            out[f"{prefix}.{leaf}"] = _tensor(take(node[leaf]))
     if "kernel" in node or "weight" in node:
         return
     for name, child in node.items():
@@ -78,6 +85,7 @@ def from_jax_params(tree: dict, cfg: OryxConfig) -> OryxModel:
     _flatten(tree, "", None, state)
     model = empty_model(cfg, state["llm.final_norm.weight"].dtype)
     q8_shells(model, state)
+    lora_shells(model, state)
     model = materialize(model, torch.device("cpu"), None)
     model.load_state_dict(state, strict=True)
     return model

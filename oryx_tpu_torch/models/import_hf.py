@@ -11,13 +11,16 @@ within a patch), the JAX package's element order stored as [out, in].
 
 A state dict's values may be torch tensors (`utils/safetensors.py` reads
 them memory-mapped) or numpy arrays; each is cast to `dtype` on `device`
-one tensor at a time. The LoRA mergers are not ported yet.
+one tensor at a time. PEFT LoRA adapters merge into a decoder
+(`merge_lora`, `merge_lora_dir`) and trained in-model adapters export in
+PEFT's layout (`export_lora`, `export_lora_dir`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Mapping
 
 import torch
@@ -29,8 +32,9 @@ from oryx_tpu_torch.utils import safetensors as st
 from oryx_tpu_torch.utils.safetensors import load_safetensors_dir
 
 __all__ = [
-    "export_qwen2", "export_siglip", "import_qwen2", "import_siglip",
-    "llm_hf_config", "load_safetensors_dir", "save_hf_checkpoint",
+    "export_lora", "export_lora_dir", "export_qwen2", "export_siglip",
+    "import_qwen2", "import_siglip", "llm_hf_config", "load_safetensors_dir",
+    "merge_lora", "merge_lora_dir", "save_hf_checkpoint",
 ]
 
 StateDict = Mapping[str, Any]
@@ -234,3 +238,141 @@ def save_hf_checkpoint(params, llm_cfg: LLMConfig, vision_cfg: VisionConfig,
     ckpt_lib.save_projector_only(os.path.join(directory, "mm_projector"),
                                  params)
 
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (PEFT layout)
+# ---------------------------------------------------------------------------
+
+# PEFT module scope of each adaptable decoder projection.
+_LORA_SCOPE = {
+    "q_proj": "self_attn", "k_proj": "self_attn", "v_proj": "self_attn",
+    "o_proj": "self_attn", "gate_proj": "mlp", "up_proj": "mlp",
+    "down_proj": "mlp",
+}
+_LORA_KEY = re.compile(
+    r"layers\.(\d+)\.(?:self_attn|mlp)\.(\w+)\.lora_(A|B)\.weight$"
+)
+
+
+@torch.no_grad()
+def merge_lora(params: qwen2.Qwen2, adapter_sd: StateDict, cfg: LLMConfig,
+               *, scaling: float) -> qwen2.Qwen2:
+    """Merge a PEFT LoRA adapter into the decoder's weights, in place:
+    W += scaling * B A per adapted layer (A [r, in], B [out, r], torch
+    layout, under keys like
+    `base_model.model.model.layers.{i}.self_attn.q_proj.lora_A.weight`), in
+    fp32, cast back to W's dtype. Anything else in the adapter (embedding
+    or lm_head LoRA, modules_to_save, DoRA magnitudes) is refused rather
+    than skipped, as are out-of-range layers and incomplete pairs."""
+    found: dict[tuple[str, int], dict[str, torch.Tensor]] = {}
+    unhandled: list[str] = []
+    for key in adapter_sd:
+        m = _LORA_KEY.search(key)
+        if not m:
+            unhandled.append(key)
+            continue
+        layer, proj, ab = int(m.group(1)), m.group(2), m.group(3)
+        if proj not in _LORA_SCOPE:
+            raise ValueError(f"unsupported LoRA target {proj!r} in {key}")
+        if not 0 <= layer < cfg.num_layers:
+            raise ValueError(
+                f"adapter layer {layer} out of range for a "
+                f"{cfg.num_layers}-layer model ({key})"
+            )
+        found.setdefault((proj, layer), {})[ab] = _get(adapter_sd, key)
+    if unhandled:
+        raise ValueError(
+            "unsupported adapter weights (only decoder-proj lora_A/B "
+            f"supported): {sorted(unhandled)[:5]}"
+            f"{'...' if len(unhandled) > 5 else ''}"
+        )
+    if not found:
+        raise ValueError("no LoRA weights found in adapter state dict")
+    for (proj, i), pair in found.items():
+        if set(pair) != {"A", "B"}:
+            raise ValueError(f"layer {i} {proj}: incomplete LoRA pair")
+        w = getattr(params.layers[i], proj).weight
+        delta = (pair["B"].float().to(w.device)
+                 @ pair["A"].float().to(w.device)) * scaling
+        w.copy_((w.float() + delta).to(w.dtype))
+    return params
+
+
+def _adapter_scaling(adapter_dir: str):
+    from oryx_tpu_torch.config import LoraConfig
+
+    with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
+        acfg = json.load(f)
+    r = int(acfg["r"])
+    # The scaling formula (rsLoRA's alpha / sqrt(r) too) is LoraConfig's.
+    return LoraConfig(
+        r=r,
+        alpha=float(acfg.get("lora_alpha", r)),
+        use_rslora=bool(acfg.get("use_rslora")),
+    ).scaling
+
+
+def merge_lora_dir(params: qwen2.Qwen2, adapter_dir: str,
+                   cfg: LLMConfig) -> qwen2.Qwen2:
+    """Merge a PEFT adapter directory (adapter_config.json +
+    adapter_model.safetensors) into the decoder, in place."""
+    scaling = _adapter_scaling(adapter_dir)
+    sd = st.load_file(os.path.join(adapter_dir, "adapter_model.safetensors"))
+    return merge_lora(params, sd, cfg, scaling=scaling)
+
+
+def export_lora(params: qwen2.Qwen2, lora) -> tuple[dict, dict]:
+    """Trained in-model adapters -> PEFT layout (the reverse of
+    merge_lora): per layer `base_model.model.model.layers.{i}.<scope>.
+    <proj>.lora_A/lora_B.weight` as fp32 [r, in] / [out, r], plus the
+    adapter_config.json dict. `lora` (config.LoraConfig) must be the
+    config the adapters were made with: r and the scaling are checked
+    against the parameters, so the recorded config cannot disagree with
+    the weights."""
+    sd: dict[str, torch.Tensor] = {}
+    targets = []
+    for name in _LORA_SCOPE:
+        mods = [getattr(layer, name) for layer in params.layers]
+        if "lora_a" not in mods[0]._parameters:
+            continue
+        targets.append(name)
+        a0 = mods[0].lora_a
+        if a0.shape[1] != lora.r:
+            raise ValueError(
+                f"{name}: adapter rank {a0.shape[1]} != lora.r {lora.r}"
+            )
+        scale = float(mods[0].lora_scale.float().flatten()[0])
+        if abs(scale - lora.scaling) > 1e-6 * max(1.0, abs(scale)):
+            raise ValueError(
+                f"{name}: params lora_scale {scale} != config scaling "
+                f"{lora.scaling} (r/alpha/use_rslora mismatch)"
+            )
+        scope = _LORA_SCOPE[name]
+        for i, mod in enumerate(mods):
+            base = f"base_model.model.model.layers.{i}.{scope}.{name}"
+            sd[f"{base}.lora_A.weight"] = (
+                mod.lora_a.detach().float().cpu().T.contiguous())
+            sd[f"{base}.lora_B.weight"] = (
+                mod.lora_b.detach().float().cpu().T.contiguous())
+    if not sd:
+        raise ValueError("params contain no LoRA adapters")
+    adapter_cfg = {
+        "peft_type": "LORA",
+        "r": int(lora.r),
+        "lora_alpha": float(lora.alpha),
+        "use_rslora": bool(lora.use_rslora),
+        "target_modules": sorted(targets),
+        "bias": "none",
+    }
+    return sd, adapter_cfg
+
+
+def export_lora_dir(params: qwen2.Qwen2, lora, out_dir: str) -> None:
+    """Write a PEFT adapter directory (adapter_config.json +
+    adapter_model.safetensors) loadable by merge_lora_dir and PEFT."""
+    sd, acfg = export_lora(params, lora)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "adapter_config.json"), "w") as f:
+        json.dump(acfg, f, indent=2)
+    st.save_file(sd, os.path.join(out_dir, "adapter_model.safetensors"))

@@ -70,6 +70,20 @@ def compute_dtype(cfg: OryxConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+def enable_lora(params: OryxModel, cfg: OryxConfig,
+                generator: torch.Generator | None = None) -> OryxModel:
+    """Attach LoRA adapters (cfg.train.lora) to the decoder, in place."""
+    qwen2.add_lora_params(params.llm, cfg.llm, cfg.train.lora, generator)
+    return params
+
+
+def merge_lora(params: OryxModel) -> OryxModel:
+    """Fold trained adapters into the decoder weights for serving, in
+    place."""
+    qwen2.merge_lora_params(params.llm)
+    return params
+
+
 def encode_visual(
     params: OryxModel,
     cfg: OryxConfig,
@@ -111,11 +125,15 @@ def forward(
     remat: bool | str = False,
     compute_dtype: torch.dtype | None = None,
     return_hidden: bool = False,
+    text_segment_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Training forward: visual encode -> splice -> decoder fp32 logits
     [B, T, V] (or the final hidden states [B, T, H] with return_hidden, for the
     chunked loss). The arrays are the collated batch fields
-    (train/data.collate) on the device."""
+    (train/data.collate) on the device. text_segment_ids: the decoder rows'
+    sample ids of a sequence-packed text batch
+    (train/data.collate_packed_text), distinct from the visual buffer's
+    `segment_ids`."""
     vis = encode_visual(
         params, cfg, patches, segment_ids, pos_coords, region_ids,
         q_region_ids, remat=remat, compute_dtype=compute_dtype,
@@ -127,7 +145,7 @@ def forward(
         params.llm, cfg.llm,
         inputs_embeds=embeds, positions=positions, kv_mask=attn_mask,
         remat=remat, attn_impl=cfg.attn_impl, compute_dtype=compute_dtype,
-        return_hidden=return_hidden,
+        return_hidden=return_hidden, segment_ids=text_segment_ids,
     )
     return out
 

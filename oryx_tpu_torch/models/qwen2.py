@@ -8,8 +8,11 @@ paged pool ([L, P, page_size, Hk, D] addressed through block tables, in
 per-row and packed ragged form). Caches are updated IN PLACE where the JAX
 package returns a new cache. Without a cache the forward is the training
 forward too: differentiable in every parameter, each layer under the remat
-policy of utils/remat.py. Quantized pools, ring attention, LoRA and
-packed-training segment ids belong to later slices.
+policy of utils/remat.py, with packed-training segment ids. LoRA adapters
+(`add_lora_params`) are parameters of the projection modules themselves
+(`lora_a` [in, r], `lora_b` [r, out], `lora_scale` [1, 1]), and every
+product adds their residual (`utils/quant.linear`). Ring attention belongs
+to a later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +33,13 @@ from oryx_tpu_torch.ops.cuda import paged_attention
 from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
 from oryx_tpu_torch.ops.norms import RMSNorm
 from oryx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from oryx_tpu_torch.utils.quant import embed_rows, linear, linear_group
+from oryx_tpu_torch.utils.quant import (
+    LORA_LEAVES,
+    Q8Linear,
+    embed_rows,
+    linear,
+    linear_group,
+)
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -78,6 +87,84 @@ def init_params(
     dev = resolve_device(device)
     model = Qwen2(cfg, device="meta", dtype=dtype)
     return materialize(model, dev, generator or default_generator(dev))
+
+
+def _projection(layer: DecoderLayer, name: str) -> nn.Module:
+    mod = getattr(layer, name, None) if name.endswith("_proj") else None
+    if not isinstance(mod, (nn.Linear, Q8Linear)):
+        raise ValueError(f"unknown LoRA target {name!r}")
+    return mod
+
+
+@torch.no_grad()
+def add_lora_params(
+    params: Qwen2, cfg: LLMConfig, lora,
+    generator: torch.Generator | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> Qwen2:
+    """Attach LoRA adapters to the decoder projections named by
+    `lora.targets` (config.LoraConfig), in place: per target and layer
+    A ~ N(0, 0.02) [in, r], B = 0 [r, out] and scale = lora.scaling [1, 1],
+    so the adapted model is exactly the base model at step 0. A is drawn
+    from `generator` (seed 0 on the parameters' device when None), one
+    [L, in, r] draw per target: the port's own adapters (the JAX package
+    draws them from jax.random; parity goes through convert.py or a PEFT
+    directory). All three are frozen parameters of the projection module
+    (the Trainer makes A and B trainable); `lora_scale` is a parameter
+    because JAX's gradient norm covers it."""
+    dev = params.final_norm.weight.device
+    g = generator or default_generator(dev)
+    for name in lora.targets:
+        mods = [_projection(layer, name) for layer in params.layers]
+        d_in, d_out = mods[0].in_features, mods[0].out_features
+        a = torch.randn((len(mods), d_in, lora.r), generator=g,
+                        device=g.device, dtype=torch.float32) * 0.02
+        for i, mod in enumerate(mods):
+            for leaf, t in zip(LORA_LEAVES, (
+                a[i].to(dev, dtype),
+                torch.zeros((lora.r, d_out), dtype=dtype, device=dev),
+                torch.full((1, 1), lora.scaling, dtype=dtype, device=dev),
+            )):
+                mod.register_parameter(
+                    leaf, nn.Parameter(t, requires_grad=False))
+    return params
+
+
+@torch.no_grad()
+def merge_lora_params(params: Qwen2) -> Qwen2:
+    """Fold trained adapters into the base weights, in place (for serving or
+    export): W += scale B^T A^T in fp32, cast back to W's dtype; the adapter
+    parameters are removed. The product is PEFT's B A on contiguous
+    operands, as `import_hf.merge_lora` computes it from an exported
+    adapter, so both merges give the same bits."""
+    for layer in params.layers:
+        for mod in layer.children():
+            if "lora_a" not in mod._parameters:
+                continue
+            if not isinstance(mod, nn.Linear):
+                raise ValueError(
+                    f"cannot fold adapters into {type(mod).__name__} codes"
+                )
+            a, b, s = (mod._parameters.pop(k).float() for k in LORA_LEAVES)
+            w = mod.weight
+            delta = (b.T.contiguous() @ a.T.contiguous()) * s
+            w.copy_((w.float() + delta).to(w.dtype))
+    return params
+
+
+def lora_shells(params: nn.Module, state) -> nn.Module:
+    """Register empty adapter parameters (meta device) on each module that
+    `state` ({name: tensor}) holds `lora_*` entries for, so that the state
+    then loads into the model."""
+    for key in state:
+        owner, _, leaf = key.rpartition(".")
+        if leaf in LORA_LEAVES:
+            mod = params.get_submodule(owner)
+            t = state[key]
+            mod.register_parameter(leaf, nn.Parameter(
+                torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                requires_grad=False))
+    return params
 
 
 def init_kv_cache(
@@ -173,7 +260,9 @@ def _block(
     dequantizing `gather_pages`)."""
     B, T, _ = h.shape
     x = lp.input_norm(h)
-    q, k, v = linear_group(x, (lp.q_proj, lp.k_proj, lp.v_proj))
+    # Names for the "attn_qkv" / "attn_o" remat policies (utils/remat.py).
+    q, k, v = linear_group(x, (lp.q_proj, lp.k_proj, lp.v_proj),
+                           ("attn_q", "attn_k", "attn_v"))
     q = q.view(B, T, cfg.num_heads, cfg.head_dim)
     k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
     v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -232,7 +321,7 @@ def _block(
             kv_mask=kv_mask,
             slot_positions=True,
         )
-    h = h + linear(attn_out.reshape(B, T, -1), lp.o_proj)
+    h = h + linear(attn_out.reshape(B, T, -1), lp.o_proj, "attn_o")
 
     x = lp.post_attn_norm(h)
     gate, up = linear_group(x, (lp.gate_proj, lp.up_proj))
@@ -267,6 +356,7 @@ def forward(
     compute_dtype: torch.dtype | None = None,
     logits_dtype: torch.dtype = torch.float32,
     return_hidden: bool = False,
+    segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """Full decoder forward.
 
@@ -296,6 +386,11 @@ def forward(
         forward; only without a cache.
       return_hidden: return the final-norm hidden states instead of logits
         (callers project only the rows they need, `logits_from_hidden`).
+      segment_ids: [B, T] int SAMPLE ids for sequence-packed training (0 =
+        pad): attention is causal in SLOT order and masked on segment
+        equality, so samples packed into one row never attend each other,
+        while `positions` (restarting per sample) still drive RoPE.
+        Training only: no kv_cache.
 
     Returns (logits [B, T, V] in logits_dtype or hidden [B, T, H], the
     kv_cache updated in place or None).
@@ -326,7 +421,26 @@ def forward(
             )
     if kv_cache is not None and remat not in (False, None, "none"):
         raise ValueError("remat is for the training forward, without a cache")
+    if segment_ids is not None and (
+        kv_cache is not None or attn_impl not in ("xla", "pallas")
+    ):
+        raise ValueError(
+            "segment_ids (packed training) requires attn_impl xla|pallas "
+            "and no kv_cache"
+        )
     attn_fn = _attn_fn(attn_impl)
+    # Packed rows: causal order is the SLOT order (within a sample the two
+    # coincide; across samples the segment mask rules), which also keeps
+    # the kernel's slot-position promise despite the restarting RoPE
+    # positions.
+    attn_positions = positions
+    if segment_ids is not None:
+        attn_positions = torch.arange(T, device=h.device).expand(B, T)
+        base_attn_fn = attn_fn
+
+        def attn_fn(q, k, v, **kw):
+            return base_attn_fn(q, k, v, q_segment_ids=segment_ids,
+                                kv_segment_ids=segment_ids, **kw)
     index = None
     if kv_cache is not None and block_tables is not None:
         P, ps = kv_cache["k"].shape[1:3]
@@ -343,7 +457,7 @@ def forward(
     for i, lp in enumerate(params.layers):
         h = checkpointed(
             remat, _block, cfg, h, lp, cos, sin,
-            positions=positions,
+            positions=attn_positions,
             cache_k=None if kv_cache is None else kv_cache["k"][i],
             cache_v=None if kv_cache is None else kv_cache["v"][i],
             write_slots=write_slots,

@@ -18,9 +18,8 @@ cast, or quantized, onto the target device one at a time: with
 `quantize="int8"` the full float tree never lands on the card.
 
 Not ported: sharded loading over a mesh (`mesh=`, `shard=`,
-`sharding_mode=`, `serving_param_shardings`) waits for parallelism, and
-`lora_path=` for the LoRA mergers; passing either raises
-NotImplementedError.
+`sharding_mode=`, `serving_param_shardings`) waits for parallelism;
+passing it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from oryx_tpu_torch.models import compressor as compressor_lib
 from oryx_tpu_torch.models import import_hf
 from oryx_tpu_torch.models.oryx import OryxModel, empty_model
 from oryx_tpu_torch.models.params import default_generator, resolve_device
+from oryx_tpu_torch.models.qwen2 import lora_shells
 from oryx_tpu_torch.utils import checkpoint as ckpt_lib
 from oryx_tpu_torch.utils import safetensors as st
 from oryx_tpu_torch.utils.quant import cast_params, q8_shells, quantize_params
@@ -127,7 +127,7 @@ def load_pretrained_model(
         raise FileNotFoundError(
             f"no safetensors checkpoint under {model_path}") from None
 
-    model = q8_shells(empty_model(cfg), state)
+    model = lora_shells(q8_shells(empty_model(cfg), state), state)
     model.load_state_dict(state, strict=True, assign=True)
     model.requires_grad_(False)
     del state
@@ -156,18 +156,19 @@ def load_from_hf(
     tokenizer: Any | None = None,
     device="cuda",
 ) -> tuple[Any, OryxModel, OryxConfig]:
-    """Assemble the model from HF safetensors checkpoints: a Qwen2/Yi LLM,
-    a SigLIP-family tower and a compressor, merged from a projector npz
-    when `projector_path` is given, else initialized from a
+    """Assemble the model from HF safetensors checkpoints: a Qwen2/Yi LLM
+    (with the PEFT adapter directory `lora_path` merged into it when
+    given), a SigLIP-family tower and a compressor, merged from a projector
+    npz when `projector_path` is given, else initialized from a
     torch.Generator seeded with `seed` (the port's own weights: the JAX
     package draws them from jax.random)."""
-    if lora_path is not None:
-        raise _not_ported("lora_path= (merging a PEFT adapter)",
-                          "item 2, LoRA")
     dev = resolve_device(device)
+    llm = import_hf.import_qwen2(st.load_safetensors_dir(llm_path), cfg.llm,
+                                 dtype, dev)
+    if lora_path is not None:
+        import_hf.merge_lora_dir(llm, lora_path, cfg.llm)
     model = OryxModel(
-        import_hf.import_qwen2(st.load_safetensors_dir(llm_path), cfg.llm,
-                               dtype, dev),
+        llm,
         import_hf.import_siglip(st.load_safetensors_dir(vision_path),
                                 cfg.vision, dtype, dev),
         compressor_lib.init_params(

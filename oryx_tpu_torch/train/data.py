@@ -10,8 +10,8 @@ Record schema (the LLaVA-mix JSON family):
 The collator emits the static-shape packed arrays (ops/packing +
 models/splice) of `train.step.BATCH_FIELDS`; batches are grouped by modality
 and length. Media decoding is the caller's: `SupervisedDataset` takes an
-explicit `media_loader`. Sequence-packed text (`collate_packed_text`) waits
-for a later slice.
+explicit `media_loader`. Text-only records can be sequence-packed, several
+samples a row (`collate_packed_text`, `collate_microbatches(packed_text=)`).
 """
 
 from __future__ import annotations
@@ -241,6 +241,99 @@ def collate(
     }
 
 
+def collate_packed_text(
+    examples: Sequence[Example],
+    *,
+    bucket: int,
+    num_rows: int | None = None,
+    patch_size: int = 14,
+    base_grid: int = 27,
+    buckets: tuple[int, ...] = packing.DEFAULT_BUCKETS,
+    max_len: int | None = None,
+    # Accepted for **collate_kw parity with `collate`; text-only batches
+    # have no video placeholders.
+    frame_separator_ids: tuple[int, ...] = (),
+) -> dict[str, np.ndarray]:
+    """Sequence-packed text-only batch: samples share `bucket`-wide rows
+    (first-fit decreasing), told apart by `text_segment_ids` (1, 2, ... per
+    row, 0 = pad): attention stays causal within a sample and never crosses
+    samples (models/qwen2.forward segment_ids), RoPE positions restart per
+    sample, and each sample's last slot predicts nothing. The visual fields
+    are the empty packed buffer, so the batch feeds the standard step.
+
+    num_rows pins the row count (all-pad rows appended: segment 0, no
+    supervised token); packing that needs more rows raises."""
+    if any(ex.images for ex in examples):
+        raise ValueError("collate_packed_text is text-only; use collate")
+    if max_len is not None and bucket > max_len:
+        raise ValueError(f"bucket={bucket} exceeds max_len={max_len}")
+    order = sorted(
+        range(len(examples)),
+        key=lambda i: len(examples[i].input_ids),
+        reverse=True,
+    )
+    rows: list[list[int]] = []
+    space: list[int] = []
+    for i in order:
+        n = len(examples[i].input_ids)
+        if n > bucket:
+            raise ValueError(
+                f"sample of {n} tokens exceeds the {bucket} packing bucket"
+            )
+        for r in range(len(rows)):  # first fit
+            if space[r] >= n:
+                rows[r].append(i)
+                space[r] -= n
+                break
+        else:
+            rows.append([i])
+            space.append(bucket - n)
+
+    if num_rows is not None:
+        if len(rows) > num_rows:
+            raise ValueError(
+                f"{len(examples)} samples packed into {len(rows)} rows "
+                f"> num_rows={num_rows}; raise num_rows or the bucket"
+            )
+        rows += [[] for _ in range(num_rows - len(rows))]
+    R = len(rows)
+    token_ids = np.zeros((R, bucket), np.int32)
+    labels = np.full((R, bucket), IGNORE_INDEX, np.int32)
+    positions = np.zeros((R, bucket), np.int32)
+    segs = np.zeros((R, bucket), np.int32)
+    for r, idxs in enumerate(rows):
+        off = 0
+        for s, i in enumerate(idxs, start=1):
+            ex = examples[i]
+            n = len(ex.input_ids)
+            token_ids[r, off:off + n] = ex.input_ids
+            # Pre-shifted as splice.build_mm_batch: labels[t] is the target
+            # predicted at t, never the next sample's first token.
+            labels[r, off:off + n - 1] = ex.labels[1:]
+            positions[r, off:off + n] = np.arange(n, dtype=np.int32)
+            segs[r, off:off + n] = s
+            off += n
+
+    empty = packing.pack_raw_images(
+        [], patch_size=patch_size, base_grid=base_grid,
+        side_factors=[], max_patches=[], buckets=buckets,
+    )
+    return {
+        "patches": empty.patches,
+        "segment_ids": empty.segment_ids,
+        "pos_coords": empty.pos_coords,
+        "region_ids": empty.region_ids,
+        "q_region_ids": empty.q_region_ids,
+        "token_ids": token_ids,
+        "visual_idx": np.zeros((R, bucket), np.int32),
+        "is_visual": np.zeros((R, bucket), bool),
+        "attn_mask": (segs > 0).astype(np.int32),
+        "positions": positions,
+        "labels": labels,
+        "text_segment_ids": segs,
+    }
+
+
 def _pad_to_shape(arr: np.ndarray, shape: tuple[int, ...], fill) -> np.ndarray:
     if arr.shape == shape:
         return arr
@@ -250,20 +343,37 @@ def _pad_to_shape(arr: np.ndarray, shape: tuple[int, ...], fill) -> np.ndarray:
 
 
 def collate_microbatches(
-    examples: Sequence[Example], grad_accum_steps: int, **collate_kw,
+    examples: Sequence[Example], grad_accum_steps: int, *,
+    packed_text: bool = False,
+    pack_bucket: int | None = None,
+    pack_num_rows: int | None = None,
+    **collate_kw,
 ) -> dict[str, np.ndarray]:
     """`grad_accum_steps` microbatches stacked on a leading [accum, ...]
     axis (the train_step layout). Each microbatch is packed on its own (its
     visual_idx/region_ids index its own visual buffer), then all are padded
-    to common shapes with 0 / IGNORE_INDEX so they stack."""
+    to common shapes with 0 / IGNORE_INDEX so they stack. packed_text
+    collates each microbatch with `collate_packed_text` (pack_bucket wide,
+    pack_num_rows rows)."""
     n = len(examples)
     if n % grad_accum_steps != 0:
         raise ValueError(f"batch of {n} not divisible by {grad_accum_steps}")
     per = n // grad_accum_steps
-    micro = [
-        collate(examples[i * per : (i + 1) * per], **collate_kw)
-        for i in range(grad_accum_steps)
-    ]
+    if packed_text:
+        if pack_bucket is None:
+            raise ValueError("packed_text needs pack_bucket")
+        micro = [
+            collate_packed_text(
+                examples[i * per : (i + 1) * per], bucket=pack_bucket,
+                num_rows=pack_num_rows, **collate_kw,
+            )
+            for i in range(grad_accum_steps)
+        ]
+    else:
+        micro = [
+            collate(examples[i * per : (i + 1) * per], **collate_kw)
+            for i in range(grad_accum_steps)
+        ]
     out: dict[str, np.ndarray] = {}
     for key in micro[0]:
         fill = IGNORE_INDEX if key == "labels" else 0

@@ -29,7 +29,7 @@ from torch import nn
 from oryx_tpu_torch.config import TrainConfig
 
 GROUPS = ("llm", "projector", "vision")
-TUNES = ("full", "projector_only", "no_vision")
+TUNES = ("full", "projector_only", "no_vision", "lora")
 
 
 def group_of(name: str) -> str:
@@ -49,11 +49,16 @@ def param_groups(model: nn.Module) -> dict[str, str]:
 
 
 def trainable_mask(model: nn.Module, tune: str) -> dict[str, bool]:
-    """tune: 'full' | 'projector_only' | 'no_vision' (full fine-tuning,
-    stage-1 projector pretraining, frozen vision tower). 'lora' waits for
-    LoRA in the port's decoder."""
+    """tune: 'full' | 'projector_only' | 'no_vision' | 'lora' (full
+    fine-tuning, stage-1 projector pretraining, frozen vision tower, LoRA
+    adapters A/B and the projector with the base model frozen: each
+    adapter's `lora_scale` stays frozen)."""
     if tune == "lora":
-        raise ValueError("tune='lora' is not ported to PyTorch yet")
+        return {
+            name: name.rsplit(".", 1)[-1] in ("lora_a", "lora_b")
+            or name.split(".", 1)[0] == "compressor"
+            for name, _ in model.named_parameters()
+        }
     allowed = {
         "full": {"llm", "projector", "vision"},
         "projector_only": {"projector"},
@@ -68,7 +73,8 @@ def trainable_mask(model: nn.Module, tune: str) -> dict[str, bool]:
 
 
 def _jax_ndim(name: str, p: torch.Tensor) -> int:
-    """ndim of the leaf in the JAX tree (layer-stacked under "layers")."""
+    """ndim of the leaf in the JAX tree (layer-stacked under "layers"): a
+    decoder layer's lora_a [in, r] is the JAX [L, in, r], rank 3."""
     return p.dim() + (".layers." in f".{name}")
 
 

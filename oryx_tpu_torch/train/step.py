@@ -37,10 +37,12 @@ from oryx_tpu_torch.models.oryx import OryxModel
 from oryx_tpu_torch.train.loss import chunked_causal_lm_loss
 from oryx_tpu_torch.train.optimizer import AdamW, global_norm
 
+# The collated batch fields (train/data.py); "text_segment_ids" only in a
+# sequence-packed text batch (collate_packed_text).
 BATCH_FIELDS = (
     "patches", "segment_ids", "pos_coords", "region_ids", "q_region_ids",
     "token_ids", "visual_idx", "is_visual", "attn_mask", "positions",
-    "labels",
+    "labels", "text_segment_ids",
 )
 
 
@@ -85,7 +87,7 @@ def microbatch_loss(
     (`compute_params`)."""
     hidden = oryx.forward(
         params, cfg,
-        **{k: mb[k] for k in BATCH_FIELDS if k != "labels"},
+        **{k: mb[k] for k in BATCH_FIELDS if k != "labels" and k in mb},
         remat=cfg.train.remat_policy if cfg.train.remat else "none",
         compute_dtype=oryx.compute_dtype(cfg),
         return_hidden=True,

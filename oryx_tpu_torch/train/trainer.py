@@ -3,12 +3,15 @@
 no fault injection).
 
 `Trainer(cfg, params=..., device=...)` takes ownership of `params` (an
-`OryxModel`; a random init from cfg.train.seed when None): trainable leaves
-become fp32 masters and frozen leaves are held in the compute dtype, in
-place, and every step updates the parameters in place. `fit` keeps the JAX
-loop's order: data -> host-to-device -> step -> one sync for the metrics ->
-log -> checkpoint, with the `max_consecutive_skipped` abort and a final
-save.
+`OryxModel`; a random init from cfg.train.seed when None): with
+cfg.train.lora.enable it attaches LoRA adapters (seed + 1) unless the model
+carries them already, then trainable leaves become fp32 masters and frozen
+leaves are held in the compute dtype, in place, and every step updates the
+parameters in place. `fit` keeps the JAX loop's order: data -> batch check
+-> host-to-device -> step -> one sync for the metrics -> log -> checkpoint,
+with the `max_consecutive_skipped` abort and a final save. Each step's
+record in `history` carries its model FLOPs (utils/flops.py) and, on a card
+whose peak is known, its MFU over the step's wall.
 """
 
 from __future__ import annotations
@@ -25,8 +28,55 @@ from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.train import step as step_lib
 from oryx_tpu_torch.train.data import PrefetchIterator
 from oryx_tpu_torch.train.optimizer import make_optimizer
+from oryx_tpu_torch.utils import flops as flops_lib
 from oryx_tpu_torch.utils.checkpoint import CheckpointManager
 from oryx_tpu_torch.utils.metrics import MetricLogger
+
+
+def validate_train_batch(cfg: OryxConfig, batch: dict) -> None:
+    """Fail fast on config x data combinations that would train silently
+    wrong: packed text under ring attention, which has no segment support
+    (samples packed into one row would attend across sample boundaries)."""
+    if "text_segment_ids" in batch and cfg.attn_impl.startswith("ring"):
+        raise ValueError(
+            f"packed-text batches (text_segment_ids) cannot train under "
+            f"attn_impl={cfg.attn_impl!r}: ring attention has no "
+            "segment support, so packed samples would attend across "
+            "sample boundaries. Use attn_impl='xla'|'pallas' (sp=1) "
+            "or disable text packing (see docs/MIGRATING.md)."
+        )
+
+
+def setup_lora(cfg: OryxConfig, params: oryx.OryxModel) -> oryx.OryxModel:
+    """The JAX Trainer's LoRA set-up and refusals: tune='lora' needs
+    lora.enable and lora.enable needs targets; a model without adapters
+    gets them (drawn from seed + 1 on its device), one that carries them
+    must carry them on exactly the configured targets."""
+    lora = cfg.train.lora
+    if cfg.train.tune == "lora" and not lora.enable:
+        raise ValueError(
+            "tune='lora' requires train.lora.enable=True (otherwise "
+            "no adapters exist and only the projector would train)"
+        )
+    if not lora.enable:
+        return params
+    if not lora.targets:
+        raise ValueError("lora.enable with empty lora.targets")
+    layer = params.llm.layers[0]
+    have = [t for t in lora.targets
+            if "lora_a" in getattr(getattr(layer, t, None), "_parameters",
+                                   {})]
+    if not have:
+        dev = params.llm.final_norm.weight.device
+        gen = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
+        return oryx.enable_lora(params, cfg, gen)
+    if set(have) != set(lora.targets):
+        raise ValueError(
+            f"params carry adapters on {sorted(have)} but "
+            f"config targets {sorted(lora.targets)} "
+            f"- refusing to train a silently narrower adapter"
+        )
+    return params
 
 
 @torch.no_grad()
@@ -56,16 +106,21 @@ class Trainer:
         if params is None:
             gen = torch.Generator(self.device).manual_seed(cfg.train.seed)
             params = oryx.init_params(cfg, gen, device=self.device)
-        params = params.to(self.device)
+        params = setup_lora(cfg, params.to(self.device))
         self.tx = make_optimizer(cfg.train, params)
         prepare_params(params, self.tx.mask, oryx.compute_dtype(cfg))
         self.state = step_lib.init_state(params, self.tx)
         self.ckpt = CheckpointManager(cfg.train.checkpoint_dir)
         self.logger = MetricLogger(metrics_path,
                                    log_every=cfg.train.log_every)
-        # Host metrics of every step fit ran (the logged record's inputs
-        # plus, on a card, the device time of the step's two phases).
+        # Host metrics of every step fit ran (the logged record's inputs,
+        # the model FLOPs, plus, on a card, the device time of the step's
+        # two phases and MFU).
         self.history: list[dict[str, float]] = []
+        self.peak_flops = (
+            flops_lib.chip_peak_flops(torch.cuda.get_device_name(self.device))
+            if self.device.type == "cuda" else None
+        )
 
     def close(self) -> None:
         self.logger.close()
@@ -128,6 +183,7 @@ class Trainer:
                     print("data exhausted; stopping")
                     break
                 t1 = time.perf_counter()
+                validate_train_batch(cfg, host_batch)
                 batch = self._device_batch(host_batch)
                 marks = {}
                 if cuda:
@@ -168,6 +224,10 @@ class Trainer:
                         self.device)
                 host["wall_s"] = t4 - t0
                 host["tokens"] = int(np.asarray(host_batch["attn_mask"]).sum())
+                host["model_flops"] = flops_lib.batch_flops(cfg, host_batch)
+                if self.peak_flops:
+                    host["mfu"] = (host["model_flops"] / host["wall_s"]
+                                   / self.peak_flops)
                 self.history.append(host)
                 if int(host.get("skipped", 0)):
                     consecutive_skipped += 1

@@ -30,7 +30,9 @@ use site that forgets them fails loudly:
     with one scale per column.
 The encode order is JAX's step for step (bf16 `amax / 127` rounds to bf16
 before fp32 `tiny` promotes it), so codes and scales are byte-equal to
-JAX's for fp32 and bf16 leaves.
+JAX's for fp32 and bf16 leaves. A layer (float or int8) that carries LoRA
+adapters (`models/qwen2.add_lora_params`) adds their residual after the
+base product and before the bias, as JAX's `_linear`.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from oryx_tpu_torch.ops.cuda import q8_linear
+from oryx_tpu_torch.utils import remat
 
 # name -> (storage dtype, symmetric max representable magnitude)
 KV_STORAGE_DTYPES: dict[str, tuple[torch.dtype, float]] = {
@@ -52,6 +55,8 @@ KV_STORAGE_DTYPES: dict[str, tuple[torch.dtype, float]] = {
 }
 
 _TINY = torch.finfo(torch.float32).tiny
+# The LoRA leaves a linear layer may carry (models/qwen2.add_lora_params).
+LORA_LEAVES = ("lora_a", "lora_b", "lora_scale")
 
 
 def kv_storage_dtype(name: str) -> tuple[torch.dtype, float]:
@@ -253,30 +258,87 @@ def q8_shells(model: nn.Module, state) -> nn.Module:
     return model
 
 
-def linear(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
-    """x . W^T (+ b) in x's dtype, for every weight a model multiplies by:
-    an nn.Linear, a Q8Linear, or an embedding table (the tied head)."""
+def _leaf(mod: nn.Module, name: str):
+    """A module's tensor `name` (a parameter, or the compute-dtype copy
+    `train.step.compute_params` puts in its place), or None; dict lookups
+    only, no attribute search (host time every product)."""
+    t = mod.__dict__.get(name)
+    return mod._parameters.get(name) if t is None else t
+
+
+def lora_of(mod: nn.Module):
+    """(lora_a [in, r], lora_b [r, out], lora_scale [1, 1]) of a layer that
+    carries LoRA adapters (`models/qwen2.add_lora_params`), else None."""
+    a = _leaf(mod, "lora_a")
+    if a is None:
+        return None
+    return a, _leaf(mod, "lora_b"), _leaf(mod, "lora_scale")
+
+
+def _lora_residual(x: torch.Tensor, y: torch.Tensor, lora,
+                   bias: torch.Tensor | None) -> torch.Tensor:
+    """JAX `_linear`'s order after the base product y = x . W: the low-rank
+    residual ((x A) B) * scale, then the bias, each in x's dtype."""
+    a, b, s = lora
+    dt = x.dtype
+    y = y + torch.matmul(torch.matmul(x, a.to(dt)), b.to(dt)) * s.to(dt)
+    return y if bias is None else y + bias.to(dt)
+
+
+def _base(x: torch.Tensor, mod: nn.Module, with_bias: bool) -> torch.Tensor:
     if isinstance(mod, Q8Linear):
         b = mod._buffers  # not attribute lookups: host time every step
-        return q8_linear.q8_linear(x, b["q"], b["scale"], b["bias"])
+        return q8_linear.q8_linear(x, b["q"], b["scale"],
+                                   b["bias"] if with_bias else None)
     if isinstance(mod, Q8Embedding):  # the tied head: a scale per column
         b = mod._buffers
         return q8_linear.q8_linear(x, b["q"], b["scale"], column_scale=True)
-    bias = getattr(mod, "bias", None)
+    bias = getattr(mod, "bias", None) if with_bias else None
     return F.linear(x, mod.weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype))
 
 
-def linear_group(x: torch.Tensor, mods) -> list[torch.Tensor]:
-    """[linear(x, m) for m in mods]: Q8Linears of one input width take one
-    grouped q8 product (one launch on the card, each output with the bits
-    of its own product); other layers take `linear` one by one."""
+def _bias(mod: nn.Module):
+    if isinstance(mod, (Q8Linear, Q8Embedding)):
+        return mod._buffers.get("bias")
+    return getattr(mod, "bias", None)
+
+
+def linear(x: torch.Tensor, mod: nn.Module,
+           name: str | None = None) -> torch.Tensor:
+    """x . W^T (+ b) in x's dtype, for every weight a model multiplies by:
+    an nn.Linear, a Q8Linear, or an embedding table (the tied head). A
+    layer with LoRA adapters adds ((x A) B) * scale after the base product
+    and before the bias, as JAX's `_linear`. `name`: under a remat policy
+    that saves it (utils/remat.py), the base product is computed as that
+    name's."""
+    lora = lora_of(mod)
+    if name is not None and remat.naming():
+        with remat.named(name):
+            y = _base(x, mod, lora is None)
+    else:
+        y = _base(x, mod, lora is None)
+    return y if lora is None else _lora_residual(x, y, lora, _bias(mod))
+
+
+def linear_group(x: torch.Tensor, mods,
+                 names=None) -> list[torch.Tensor]:
+    """[linear(x, m, name) for m, name in zip(mods, names)]: Q8Linears of
+    one input width take one grouped q8 product (one launch on the card,
+    each output with the bits of its own product; a member's LoRA residual
+    and bias are added after it); other layers take `linear` one by one."""
+    names = names or (None,) * len(mods)
     if len(mods) > 1 and all(isinstance(m, Q8Linear) for m in mods) and len(
             {m.in_features for m in mods}) == 1:
-        return q8_linear.q8_linear_group(x, [
-            (m._buffers["q"], m._buffers["scale"], m._buffers["bias"])
-            for m in mods])
-    return [linear(x, m) for m in mods]
+        loras = [lora_of(m) for m in mods]
+        ys = q8_linear.q8_linear_group(x, [
+            (m._buffers["q"], m._buffers["scale"],
+             m._buffers["bias"] if lora is None else None)
+            for m, lora in zip(mods, loras)])
+        return [y if lora is None else
+                _lora_residual(x, y, lora, m._buffers["bias"])
+                for y, m, lora in zip(ys, mods, loras)]
+    return [linear(x, m, n) for m, n in zip(mods, names)]
 
 
 def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:
@@ -333,6 +395,16 @@ def _copy(mod: nn.Module) -> nn.Module:
     return out
 
 
+def _cast_parameters(mod: nn.Module, cast) -> dict:
+    out = {}
+    for k, p in mod._parameters.items():
+        t = None if p is None else cast(p)
+        if t is not None and not isinstance(t, nn.Parameter):
+            t = nn.Parameter(t, requires_grad=False)
+        out[k] = t
+    return out
+
+
 def _walk(mod: nn.Module, cast, device, quantize: bool,
           path: tuple[str, ...], lead: tuple[int, ...]) -> nn.Module:
     def move(t):
@@ -344,25 +416,26 @@ def _walk(mod: nn.Module, cast, device, quantize: bool,
             k: None if t is None else (cast(t) if k == "bias" else move(t))
             for k, t in mod._buffers.items()
         }
+        out._parameters = _cast_parameters(mod, cast)
         return out
     if quantize and isinstance(mod, nn.Linear) and _should_quantize(
         path + ("kernel",), lead + (mod.in_features, mod.out_features)
     ):
         q, scale = quantize_array(move(mod.weight.detach()), dim=-1)
         bias = None if mod.bias is None else cast(mod.bias.detach())
-        return Q8Linear(q, scale[:, 0], bias)
+        out = Q8Linear(q, scale[:, 0], bias)
+        # LoRA adapters are not kernels (JAX's rule): they pass through.
+        for k, p in _cast_parameters(mod, cast).items():
+            if k in LORA_LEAVES:
+                out.register_parameter(k, p)
+        return out
     if quantize and isinstance(mod, nn.Embedding) and _should_quantize(
         path + ("weight",), lead + tuple(mod.weight.shape)
     ):
         q, scale = quantize_array(move(mod.weight.detach()), dim=-2)
         return Q8Embedding(q, scale[0])
     out = _copy(mod)
-    out._parameters = {}
-    for k, p in mod._parameters.items():
-        t = None if p is None else cast(p)
-        if t is not None and not isinstance(t, nn.Parameter):
-            t = nn.Parameter(t, requires_grad=False)
-        out._parameters[k] = t
+    out._parameters = _cast_parameters(mod, cast)
     out._buffers = {k: None if t is None else cast(t)
                     for k, t in mod._buffers.items()}
     stacked = isinstance(mod, nn.ModuleList)

@@ -4,7 +4,7 @@ bf16, a training state, an int8 model), `dtype=` casts, `quantize="int8"`
 on load gives the JAX package's codes for the same numpy weights,
 `load_pipeline` gives the JAX pipeline's greedy tokens (float and int8),
 and the error paths raise as JAX's do (`NotImplementedError` for what
-waits for parallelism and LoRA).
+waits for parallelism).
 """
 
 import dataclasses
@@ -168,8 +168,12 @@ def test_error_paths(tmp_path, saved, case):
             builder.load_pipeline(d, tokenizer=tok, shard="tp=8",
                                   device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            builder.load_from_hf(d, d, ct, lora_path=d, tokenizer=tok,
+        # An HF checkpoint with a lora_path that holds no PEFT adapter
+        # (JAX's merge_lora_dir raises the same).
+        hf = str(tmp_path / "hf")
+        builder.export_hf(hf, ct, saved[3])
+        with pytest.raises(FileNotFoundError, match="adapter_config.json"):
+            builder.load_from_hf(hf, hf, ct, lora_path=empty, tokenizer=tok,
                                  device="cpu")
 
 

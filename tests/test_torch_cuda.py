@@ -1156,6 +1156,144 @@ def test_tiny_bf16_fit_with_head_dim_12_on_card(card, tmp_path):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-2)
 
 
+# ---- LoRA and packed text on the card ---------------------------------------
+
+
+def _packed_layout(dev, B, T, seed):
+    """Packed training rows: samples of 5-90 tokens end to end with RoPE
+    positions restarting, segment ids 1, 2, ... and pad slots (segment 0,
+    no valid key) after the last sample of each row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    segs = np.zeros((B, T), np.int32)
+    for b in range(B):
+        off, s = 0, 1
+        while True:
+            n = int(rng.integers(5, 90))
+            if off + n > T - 10 * (b + 1):
+                break
+            segs[b, off:off + n] = s
+            off, s = off + n, s + 1
+    segs = torch.from_numpy(segs).to(dev)
+    return segs, torch.arange(T, device=dev).expand(B, T)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_packed_causal_segments_pad_rows(card, dtype):
+    """K1-lse, K5a and K5b at the packed decoder's mask (causal in slot
+    order, segment equality, kv mask segs > 0, slot positions) against the
+    twins; then through autograd with the cotangent training gives (zero
+    on the pad rows, whose labels are ignored): the pad rows' dq and the
+    pad keys' dk/dv are exactly zero, every gradient finite. (A pad row
+    sees no key: the bf16 kernels give it zeros and lse FLT_MAX, the fp32
+    kernel and the twins Pallas's mean over the masked keys.)"""
+    segs, pos = _packed_layout(card, 2, 300, 0)
+    g = torch.Generator(device=card).manual_seed(1)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=card).to(dtype)
+
+    q, k, v = rnd(2, 300, 14, 64), rnd(2, 300, 2, 64), rnd(2, 300, 2, 64)
+    kw = dict(causal=True, q_positions=pos, kv_positions=pos,
+              q_segment_ids=segs, kv_segment_ids=segs,
+              kv_mask=(segs > 0).to(torch.int32))
+    _check_bwd(q, k, v, dict(kw, slot_positions=True))
+    tq, tk, tv = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, slot_positions=True, **kw)
+    pad = segs == 0
+    do = rnd(*q.shape) * (~pad)[:, :, None, None]
+    dq, dk, dv = torch.autograd.grad(out, (tq, tk, tv), do)
+    assert int(pad.sum()) > 0
+    for x in (dq, dk, dv):
+        assert bool(torch.isfinite(x).all())
+    assert not bool(dq[pad].any())
+    assert not bool(dk[pad].any()) and not bool(dv[pad].any())
+    assert bool(dq[~pad].any())
+
+
+def _fit_card_vs_cpu(cfg, batches, steps=3):
+    """Trainer.fit of `cfg` (tiny, fp32) from the same init on the CPU and
+    on the card: (losses by device, params by device, K5 launches on the
+    card)."""
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    out, launched = {}, 0
+    for dev in ("cpu", "cuda"):
+        fa.LAUNCHES_DQ.clear()
+        model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        if cfg.train.lora.enable:
+            oryx.enable_lora(model, cfg, torch.Generator().manual_seed(1))
+            g = torch.Generator().manual_seed(2)
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    if n.endswith("lora_b"):
+                        p.normal_(0.0, 0.05, generator=g)
+        t = Trainer(cfg, params=model.to(dev), device=dev)
+        t.fit(iter(batches), num_steps=steps, resume=False, prefetch=0)
+        out[dev] = ([h["loss"] for h in t.history],
+                    {n: p.detach().cpu()
+                     for n, p in t.state.params.named_parameters()})
+        if dev == "cuda":
+            launched = sum(fa.LAUNCHES_DQ.values())
+    return out, launched
+
+
+def _tiny_train_cfg(tmp_path, tune="lora"):
+    import dataclasses
+
+    from oryx_tpu_torch import config
+
+    base = config.oryx_tiny()
+    return dataclasses.replace(base, attn_impl="pallas", train=dataclasses.replace(
+        base.train, tune=tune, learning_rate=1e-5, num_train_steps=10,
+        warmup_ratio=0.1, remat_policy="attn_o",
+        checkpoint_dir=str(tmp_path / "ckpt"),
+        lora=config.LoraConfig(enable=True, r=4, alpha=8.0, targets=(
+            "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+            "down_proj"))))
+
+
+def _assert_fits_agree(out, launched):
+    import numpy as np
+
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for n, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][n], p, atol=2e-4,
+                                   rtol=2e-3, msg=lambda m: f"{n}: {m}")
+    assert launched > 0
+
+
+def test_tiny_lora_fit_on_card_matches_cpu(card, tmp_path):
+    """tune='lora' (r = 4 on all seven projections, remat "attn_o"), 3
+    steps of Trainer.fit: card (kernels) against CPU (twins)."""
+    host = _tiny_host_batch()
+    _assert_fits_agree(*_fit_card_vs_cpu(_tiny_train_cfg(tmp_path),
+                                         [host] * 3))
+
+
+def test_tiny_packed_fit_on_card_matches_cpu(card, tmp_path):
+    """Packed text (collate_packed_text, two 64-wide rows and a pad row)
+    under the LoRA config, 3 steps: card against CPU."""
+    import numpy as np
+
+    from oryx_tpu_torch.train import data
+
+    rng = np.random.default_rng(0)
+    exs = []
+    for n in (30, 21, 17, 40, 9):
+        ids = rng.integers(3, 500, size=n)
+        labels = np.where(np.arange(n) >= n // 2, ids, -100)
+        exs.append(data.Example(ids, labels, [], "image", 1))
+    host = data.collate_packed_text(exs, bucket=64, num_rows=3, base_grid=8,
+                                    buckets=(64, 128))
+    assert int((host["text_segment_ids"].max(1) > 0).sum()) == 2
+    _assert_fits_agree(*_fit_card_vs_cpu(_tiny_train_cfg(tmp_path),
+                                         [host] * 3))
+
+
 # ---- the dense decode loop as CUDA graphs; K1 at the prefix-reuse shapes ---
 
 
