@@ -197,6 +197,30 @@ Phases (any failure exits non-zero):
      the pool invariant holds. Cold-vs-cached and int8-vs-bf16 agreement
      are printed. Then generate_paged(kv_dtype="fp8_e4m3") on round A's
      prompts, split and ragged (the engine takes no fp8 pool).
+ 19. (Runs after 13.) The OpenAI-compatible HTTP server
+     (`serve/api_server.build_server`, port 0, on a thread) over phase 2's
+     weights, the client stdlib urllib, images as PNG data: URIs written by
+     `png_data_uri`. (a) The continuous ragged engine at phase 7's geometry
+     (prefix cache on): phase 7's mix without its video (the HTTP API
+     carries image parts only), one request at a time, every other one
+     streamed; replies, finish reasons and usage byte-equal to an
+     in-process `ContinuousScheduler` of the same geometry given the same
+     requests in the same order; K1 and K4 launched, K3 not. Then the seven
+     as a concurrent burst: all 200, admitted == completed, the
+     dispatches_total kinds sum to chunks, server TTFT p50/p99 from
+     /metrics through `histogram_quantile`; every finished request in
+     /debug/requests carries the full cost ledger, every /debug/trace the
+     six spans. (c) Drain: `begin_drain()` while a stream is resident:
+     /readyz and POSTs 503, the resident finishes, drain() returns. (b)
+     The window engine: a burst of five image and text requests; each
+     group the Batcher formed (read from the traces' decode spans) equals
+     a direct `chat_batch` of the group in its row order; a stream's
+     deltas join to a direct `chat_stream`. (d) Supervised restart: the
+     engine thread is killed mid-decode by a raise from the watchdog's
+     `set_active`, outside the loop's containment; the EngineSupervisor
+     restarts it and the reply equals the unbroken one. Walls, client
+     first-delta times, server TTFT quantiles, tokens/s and the HTTP
+     layer's wall beside the in-process one are printed.
  13. (Runs after 12.) K3q at phase 12's largest split decode step, K4q at
      its largest ragged step with prefill lanes and its largest pure decode
      step, each on random int8 and fp8 pools through the public wrappers,
@@ -987,6 +1011,29 @@ class PagedCallRecorder:
         return False
 
 
+def engine_counts(sched) -> dict:
+    """An engine's counters as one dict, read after its run: its
+    ServingMetrics (unlabeled families by name, `dispatches_total` by kind,
+    the accepted-tokens histogram's sum and count, the raw-named host-tier
+    counters) and its port-only `engine_stats`."""
+    m = sched.metrics
+    out = {name: m.get(name) for name in (
+        "admitted", "completed", "evicted", "cancelled", "chunks",
+        "prefill_tokens_total", "prefix_cache_hit_tokens_total",
+        "prefix_cache_miss_tokens_total", "prefix_cache_evicted_pages_total",
+        "harvest_total", "draft_proposed_total", "draft_accepted_total",
+        "decode_steps_total", "decode_steps_useful", "decode_steps_wasted")}
+    for name in ("oryx_cache_reload_hit_total",
+                 "oryx_cache_reload_upload_total"):
+        out[name] = m.registry.get(name, raw_name=True)
+    out["dispatches_total"] = m.by_label("dispatches_total")
+    (out["accepted_tokens_per_step_count"],
+     out["accepted_tokens_per_step_sum"]) = m.histogram_totals(
+        "accepted_tokens_per_step")
+    out.update(sched.engine_stats)
+    return out
+
+
 def run_scheduler(pipe, ragged: bool, record: bool, *, eager: bool = False,
                   reqs=None, **kw):
     """One scheduler run over `reqs` (serve_requests() by default), `kw`
@@ -1026,7 +1073,7 @@ def run_scheduler(pipe, ragged: bool, record: bool, *, eager: bool = False,
         "results": results, "caps": [n for _, n in reqs], "wall": wall,
         "ttft": [h.debug["ttft_s"] for h in handles],
         "cached": [h.debug["cached_tokens"] for h in handles],
-        "metrics": sched.metrics, "peak": torch.cuda.max_memory_allocated(),
+        "metrics": engine_counts(sched), "peak": torch.cuda.max_memory_allocated(),
         "flash": dict(fa.LAUNCHES), "paged": dict(paged),
         "paged_keys": dict(pa.LAUNCHES), "recorder": recorder,
         # After the last activation every dispatch is pure decode.
@@ -1220,6 +1267,501 @@ def paged_prefill_case(pipe, prompt_len: int, gen):
         q_positions=torch.arange(T, device=dev)[None],
         kv_mask=(slots < prompt_len).int(),
     ), torch.arange(T, device=dev)[None] < prompt_len)
+
+
+# ---- the HTTP server (phase 19) --------------------------------------------
+
+HTTP_SERVE = dict(num_slots=4, page_size=64, decode_chunk=8, max_ctx=4096,
+                  ragged=True, prefill_chunk=PREFILL_CHUNK)
+
+
+def encode_png(img: np.ndarray, filter_type: int | None = None) -> bytes:
+    """HW or HWC uint8 (gray, gray + alpha, RGB or RGBA) -> 8-bit PNG bytes.
+    `filter_type` 0-4 puts that filter on every scanline; None picks each
+    scanline's filter by the least sum of its bytes read as signed, the
+    heuristic of libpng and PIL. Written with zlib and numpy: the card's
+    client needs no PIL."""
+    import struct
+    import zlib
+
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    height, width, ch = img.shape
+    cur = img.reshape(height, width * ch).astype(np.int16)
+    up = np.concatenate([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.pad(cur, ((0, 0), (ch, 0)))[:, :-ch]
+    upleft = np.pad(up, ((0, 0), (ch, 0)))[:, :-ch]
+    pa, pb, pc = abs(up - upleft), abs(left - upleft), abs(left + up
+                                                           - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    cands = (np.stack([cur, cur - left, cur - up, cur - ((left + up) >> 1),
+                       cur - paeth]) & 0xFF).astype(np.uint8)
+    if filter_type is None:
+        cost = abs(cands.view(np.int8).astype(np.int32)).sum(-1)
+        choice = cost.argmin(0)
+    else:
+        choice = np.full(height, filter_type)
+    rows = cands[choice, np.arange(height)]
+    raw = np.concatenate([choice.astype(np.uint8)[:, None], rows], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, ctype,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def png_data_uri(img) -> str:
+    """An 8-bit RGB PNG from `encode_png` as a data: URI."""
+    import base64
+
+    return "data:image/png;base64," + base64.b64encode(
+        encode_png(img)).decode()
+
+
+def http_requests():
+    """Phase 7's mix without its video (the HTTP API carries image parts
+    only): (OpenAI body, the engine's request dict, max_tokens)."""
+    out = []
+    for req, n in serve_requests():
+        if req.get("is_video"):
+            continue
+        imgs = list(req.get("images", []))
+        content = req["question"] if not imgs else (
+            [{"type": "text", "text": req["question"]}]
+            + [{"type": "image_url", "image_url": {"url": png_data_uri(i)}}
+               for i in imgs])
+        out.append((
+            {"messages": [{"role": "user", "content": content}],
+             "max_tokens": n},
+            {"question": req["question"], "images": imgs,
+             "is_video": False, "history": []}, n))
+    return out
+
+
+class HttpServer:
+    """`build_server` on an ephemeral port, served from a thread, with a
+    stdlib client."""
+
+    def __init__(self, pipe, **kw):
+        import threading
+
+        from oryx_tpu_torch.serve import api_server
+
+        self.srv = api_server.build_server(pipe, port=0, **kw)
+        self.base = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def post(self, body, rid=None):
+        """(status, headers, reply dict) with the wall and, when streamed,
+        the first delta's time; a reply dict holds text, finish reason and
+        usage (for a stream joined from its deltas and final chunks)."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + "/v1/chat/completions",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json",
+                     **({"X-Request-Id": rid} if rid else {})})
+        t0 = time.perf_counter()
+        try:
+            r = urllib.request.urlopen(req, timeout=600)
+        except urllib.error.HTTPError as e:
+            with e:
+                return e.code, dict(e.headers), json.loads(e.read())
+        with r:
+            out = {"first_s": None}
+            if not body.get("stream"):
+                d = json.loads(r.read())
+                out.update(text=d["choices"][0]["message"]["content"],
+                           finish=d["choices"][0]["finish_reason"],
+                           usage=(d["usage"]["prompt_tokens"],
+                                  d["usage"]["completion_tokens"]),
+                           cost=d.get("oryx", {}).get("cost"))
+            else:
+                deltas = []
+                for line in r:
+                    line = line.decode().strip()
+                    if not line.startswith("data: {"):
+                        continue
+                    d = json.loads(line[6:])
+                    if out["first_s"] is None:
+                        out["first_s"] = time.perf_counter() - t0
+                    if d.get("usage"):
+                        out["usage"] = (d["usage"]["prompt_tokens"],
+                                        d["usage"]["completion_tokens"])
+                    for c in d["choices"]:
+                        if c["finish_reason"]:
+                            out["finish"] = c["finish_reason"]
+                        deltas.append(c["delta"].get("content", ""))
+                out["text"] = "".join(deltas)
+            out["wall"] = time.perf_counter() - t0
+            return r.status, dict(r.headers), out
+
+    def get(self, path):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.base + path, timeout=60) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            with e:
+                return e.code, e.read().decode()
+
+    def close(self):
+        if self.srv.scheduler is not None:
+            self.srv.scheduler.close()
+        if self.srv.supervisor is not None:
+            self.srv.supervisor.stop()
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _burst(server, bodies):
+    """Every body posted at once, one thread each; the responses in order
+    and the burst's wall."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = server.post(bodies[i], rid=f"burst-{i}-{time.monotonic_ns()}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def _launch_counts():
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    paged = collections.Counter()
+    for key, n in pa.LAUNCHES.items():
+        paged[key[0]] += n
+    return sum(fa.LAUNCHES.values()), dict(paged)
+
+
+def _zero_launches():
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    fa.LAUNCHES.clear()
+    pa.LAUNCHES.clear()
+
+
+def _quantiles(metrics_text, family, before):
+    """(n, p50, p99) of the observations a histogram family gained since
+    the scrape `before`."""
+    from oryx_tpu_torch.utils.metrics import (
+        histogram_quantile,
+        parse_prom_histogram,
+    )
+
+    bounds, counts, total, _ = parse_prom_histogram(metrics_text, family)
+    _, counts0, total0, _ = parse_prom_histogram(before, family)
+    counts = [c - c0 for c, c0 in zip(counts, counts0)]
+    total -= total0
+    return (total, histogram_quantile(0.5, bounds, counts, total),
+            histogram_quantile(0.99, bounds, counts, total))
+
+
+def png_decode_times(reqs) -> float:
+    """Median ms to decode one of the requests' PNG images as the server
+    does (`media.decode_image`: PIL where installed) and through the
+    port's own reader (`media.decode_png`, what a host without PIL runs),
+    printed with the filters the PNGs' rows use; returns the first."""
+    import base64
+    import importlib.util
+    import struct
+    import zlib
+
+    from oryx_tpu_torch.data import media
+
+    filters = collections.Counter()
+    times = {media.decode_image: [], media.decode_png: []}
+    for body, req, _ in reqs:
+        for part in body["messages"][0]["content"]:
+            if not isinstance(part, dict) or part["type"] != "image_url":
+                continue
+            data = base64.b64decode(part["image_url"]["url"].split(",")[1])
+            n = struct.unpack(">I", data[33:37])[0]  # the one IDAT
+            h = req["images"][0].shape[0]
+            raw = zlib.decompress(data[41:41 + n])
+            filters.update(np.frombuffer(raw, np.uint8).reshape(h, -1)[:, 0]
+                           .tolist())
+            for fn, ts in times.items():
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    fn(data)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+    med = {}
+    for fn, ts in times.items():
+        ts.sort()
+        med[fn] = ts[len(ts) // 2]
+        print(f"  PNG decode through {fn.__name__} of the requests' "
+              f"{len(ts) // 3} images (448x448 RGB; rows by filter "
+              f"None/Sub/Up/Average/Paeth {[filters[f] for f in range(5)]})"
+              f": median {med[fn]:.1f} ms, from {ts[0]:.1f} to "
+              f"{ts[-1]:.1f} ms an image")
+    print(f"  PIL on this host: "
+          f"{'yes' if importlib.util.find_spec('PIL') else 'no'}")
+    return med[media.decode_image]
+
+
+def _metric(text, name):
+    import re
+
+    m = re.search(rf"^oryx_serving_{name} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def http_serving(pipe, card) -> None:
+    """Phase 19: the port's HTTP server over full-width oryx_7b."""
+    import re
+
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    reqs = http_requests()
+    SPANS = {"queue_wait", "admission", "prompt_prep", "prefill",
+             "decode_chunk", "emission"}
+
+    # (a) the continuous ragged engine: sequential, in-process, burst.
+    decode_ms = png_decode_times(reqs)
+    server = HttpServer(pipe, engine="continuous", **HTTP_SERVE)
+    sched = ContinuousScheduler(
+        pipe, num_slots=HTTP_SERVE["num_slots"],
+        page_size=HTTP_SERVE["page_size"], chunk=HTTP_SERVE["decode_chunk"],
+        max_ctx=HTTP_SERVE["max_ctx"], ragged=True,
+        prefill_chunk=PREFILL_CHUNK)
+    # One request through each engine before timing, so neither side's
+    # walls hold its engine's first use.
+    warm_img = np.random.default_rng(1).integers(0, 256, (448, 448, 3),
+                                                 dtype=np.uint8)
+    server.post({"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "Warm up."},
+        {"type": "image_url", "image_url": {"url": png_data_uri(warm_img)}}
+    ]}], "max_tokens": 8})
+    sched.submit({"question": "Warm up.", "images": [warm_img],
+                  "is_video": False, "history": []}, 8).result(timeout=600)
+
+    def in_process(req, n):
+        t0 = time.perf_counter()
+        h = sched.submit(req, n)
+        reply, why, usage = h.result(timeout=600)
+        return dict(text=reply, finish=why, usage=tuple(usage),
+                    wall=time.perf_counter() - t0, ttft=h.debug["ttft_s"])
+
+    got, want = [], []
+    flash_n, paged_n = 0, collections.Counter()
+    for i, (body, req, n) in enumerate(reqs):
+        body = dict(body)
+        if i % 2:  # every other request streamed
+            body.update(stream=True, stream_options={"include_usage": True})
+        if i % 2:  # the sides alternate which runs first
+            want.append(in_process(req, n))
+        _zero_launches()
+        code, hdr, out = server.post(body, rid=f"seq-{i}")
+        f, p = _launch_counts()
+        flash_n += f
+        paged_n.update(p)
+        if code != 200 or hdr["X-Request-Id"] != f"seq-{i}":
+            raise SystemExit(f"phase 19: sequential request {i}: {code}")
+        got.append(out)
+        if not i % 2:
+            want.append(in_process(req, n))
+    sched.close()
+    print(f"  (a) continuous ragged engine {HTTP_SERVE}, {len(reqs)} "
+          f"requests one at a time over HTTP, each beside the same request "
+          f"to an in-process ContinuousScheduler, the side that runs first "
+          f"alternating, after one warm-up request each ({card}): "
+          f"K1 launches {flash_n}, paged launches {dict(paged_n)}")
+    if not flash_n or not paged_n.get("ragged_paged") or \
+            paged_n.get("paged_decode"):
+        raise SystemExit(f"phase 19: launches K1 {flash_n}, paged {paged_n}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        print(f"    request {i} ({'stream' if i % 2 else 'plain'}, "
+              f"{'in-process' if i % 2 else 'HTTP'} first): HTTP "
+              f"{g['wall']:.3f} s vs in-process {w['wall']:.3f} s"
+              + (f", client first delta {g['first_s']:.3f} s (server TTFT "
+                 f"in-process {w['ttft']:.3f} s)" if i % 2 else "")
+              + f", usage {g['usage']}, {g['finish']}, {g['text'][:24]!r}")
+        if (g["text"], g["finish"], tuple(g["usage"])) != \
+                (w["text"], w["finish"], w["usage"]):
+            raise SystemExit(f"phase 19: request {i} over HTTP differs from "
+                             f"the in-process engine: {g} vs {w}")
+    http_wall = sum(g["wall"] for g in got)
+    proc_wall = sum(w["wall"] for w in want)
+    toks = sum(w["usage"][1] for w in want)
+    extra = [(g["wall"] - w["wall"]) * 1e3 for g, w in zip(got, want)]
+    n_img = [len(r["images"]) for _, r, _ in reqs]
+    print(f"  sequential replies, finish reasons and usage byte-equal to the "
+          f"in-process ContinuousScheduler; walls HTTP {http_wall:.3f} s vs "
+          f"in-process {proc_wall:.3f} s ({toks / http_wall:.1f} vs "
+          f"{toks / proc_wall:.1f} tok/s); HTTP wall less in-process wall a "
+          f"request (ms, images a request {n_img}): "
+          f"{[round(x, 1) for x in extra]}, median "
+          f"{sorted(extra)[len(extra) // 2]:+.1f} ms; PNG decode "
+          f"{decode_ms:.1f} ms an image of these")
+    _, before = server.get("/metrics")
+    _zero_launches()
+    outs, burst_wall = _burst(server, [b for b, _, _ in reqs])
+    flash_b, paged_b = _launch_counts()
+    codes = [o[0] for o in outs]
+    if codes != [200] * len(reqs):
+        raise SystemExit(f"phase 19: burst status codes {codes}")
+    btoks = sum(o[2]["usage"][1] for o in outs)
+    status, text = server.get("/metrics")
+    admitted, completed = _metric(text, "admitted"), _metric(text,
+                                                               "completed")
+    kinds = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^oryx_serving_dispatches_total\{kind="(\w+)"\} (\S+)$', text,
+        re.M)}
+    chunks = _metric(text, "chunks")
+    total, p50, p99 = _quantiles(text, "oryx_serving_ttft_seconds", before)
+    print(f"  burst of {len(reqs)} concurrent requests: wall "
+          f"{burst_wall:.3f} s, {btoks} tokens, {btoks / burst_wall:.1f} "
+          f"tok/s; K1 launches {flash_b}, paged {paged_b}; admitted "
+          f"{admitted:g} completed {completed:g}, dispatches {kinds} sum "
+          f"{sum(kinds.values()):g} == chunks {chunks:g}; server TTFT of "
+          f"the burst's n={total} requests (the histogram's counts after "
+          f"the burst less those before it, histogram_quantile) p50 "
+          f"{p50:.4f} s p99 {p99:.4f} s")
+    n_all = 2 * len(reqs) + 1  # the sequential run, the burst, the warm-up
+    if not (admitted == completed == n_all) or \
+            sum(kinds.values()) != chunks or total != len(reqs):
+        raise SystemExit("phase 19: the burst's metrics do not reconcile")
+    done = json.loads(server.get("/debug/requests?state=done")[1])
+    from oryx_tpu_torch.utils.metrics import REQUEST_COST_KEYS
+
+    for rec in done["requests"]:
+        if list((rec["meta"].get("cost") or {})) != list(REQUEST_COST_KEYS):
+            raise SystemExit(f"phase 19: {rec['id']} has no full ledger")
+    for i in range(len(reqs)):
+        tr = json.loads(server.get(f"/debug/trace?id=seq-{i}")[1])
+        names = {e["name"] for e in tr["traceEvents"] if e["ph"] == "X"}
+        if not SPANS <= names:
+            raise SystemExit(f"phase 19: trace seq-{i} spans {names}")
+    print(f"  /debug/requests: {len(done['requests'])} finished, each with "
+          f"the full cost ledger; /debug/trace has the six spans "
+          f"(the oldest's ledger {done['requests'][-1]['meta']['cost']})")
+
+    # (c) drain: residents finish, /readyz and POSTs answer 503.
+    import threading
+
+    long_body = dict(reqs[-1][0], stream=True,
+                     stream_options={"include_usage": True})
+    res = []
+    t = threading.Thread(target=lambda: res.append(server.post(long_body)))
+    t.start()
+    sch = server.srv.scheduler
+    end = time.monotonic() + 120
+    while all(r is None for r in sch.slots) and time.monotonic() < end:
+        time.sleep(0.002)
+    server.srv.begin_drain()
+    ready = server.get("/readyz")
+    post = server.post(reqs[3][0])
+    t.join()
+    drained = sch.drain(timeout=120)
+    print(f"  (c) drain: /readyz {ready[0]} {json.loads(ready[1])}, POST "
+          f"{post[0]}, the resident stream {res[0][0]} with usage "
+          f"{res[0][2].get('usage')}, drained {drained}")
+    if ready[0] != 503 or post[0] != 503 or res[0][0] != 200 or \
+            res[0][2].get("usage", (0,))[0] != want[-1]["usage"][0] or \
+            res[0][2].get("finish") not in ("stop", "length") or not drained:
+        raise SystemExit("phase 19: drain")
+    server.close()
+
+    # (b) the window engine: chat_batch groups and a chat_stream.
+    server = HttpServer(pipe, engine="window", batch_window=0.5,
+                        max_batch=8)
+    _zero_launches()
+    wreqs = reqs[:5]
+    outs, wwall = _burst(server, [b for b, _, _ in wreqs])
+    flash_w, paged_w = _launch_counts()
+    groups = collections.defaultdict(list)
+    for i, (code, hdr, out) in enumerate(outs):
+        if code != 200:
+            raise SystemExit(f"phase 19: window burst request {i}: {code}")
+        tr = json.loads(server.get(
+            f"/debug/trace?id={hdr['X-Request-Id']}")[1])
+        dec = next(e for e in tr["traceEvents"] if e["name"] == "decode")
+        groups[dec["args"]["group"]].append((dec["args"]["row"], i,
+                                             dec["args"]["bucket"]))
+    print(f"  (b) window engine, {len(wreqs)} concurrent requests: wall "
+          f"{wwall:.3f} s, K1 launches {flash_w}, paged {paged_w}; "
+          f"chat_batch groups {[sorted(g) for g in groups.values()]}")
+    if not flash_w or paged_w:
+        raise SystemExit("phase 19: the window engine's launches")
+    for gid, rows in sorted(groups.items()):
+        rows.sort()
+        idx = [i for _, i, _ in rows]
+        replies, reasons, counts = pipe.chat_batch(
+            [wreqs[i][1] for i in idx], max_new_tokens=rows[0][2],
+            per_row_max=[wreqs[i][2] for i in idx],
+            return_finish_reasons=True, return_token_counts=True)
+        for i, r, why, use in zip(idx, replies, reasons, counts):
+            o = outs[i][2]
+            if (o["text"], o["finish"], tuple(o["usage"])) != \
+                    (r, why, tuple(use)):
+                raise SystemExit(f"phase 19: window request {i} differs "
+                                 "from a direct chat_batch of its group")
+    print("  window replies == direct Pipeline.chat_batch of the Batcher's "
+          "groups, in its row order")
+    body, req, n = reqs[0]
+    code, _, out = server.post(dict(body, stream=True))
+    direct = "".join(pipe.chat_stream(req["question"], images=req["images"],
+                                      history=[], max_new_tokens=n))
+    print(f"  window stream: {code}, first delta {out['first_s']:.3f} s, "
+          f"wall {out['wall']:.3f} s; joined deltas == direct chat_stream: "
+          f"{out['text'] == direct}")
+    if code != 200 or out["text"] != direct:
+        raise SystemExit("phase 19: the window stream differs from "
+                         "chat_stream")
+    server.close()
+
+    # (d) supervised restart: the engine thread dies mid-decode.
+    server = HttpServer(pipe, engine="continuous", prefix_cache=False,
+                        stall_timeout=600, **HTTP_SERVE)
+    body = reqs[-1][0]
+    _, _, first = server.post(body)
+    sch = server.srv.scheduler
+    orig = sch.watchdog.set_active
+    turns = [0]
+
+    def crash_on_the_fourth_turn(active):
+        # Raised outside the loop's containment: the thread dies.
+        if active:
+            turns[0] += 1
+            if turns[0] == 4:
+                raise RuntimeError("phase 19: injected engine crash")
+        orig(active)
+
+    sch.watchdog.set_active = crash_on_the_fourth_turn
+    code, _, again = server.post(body)
+    print(f"  (d) restart: engine restarts {sch.restarts}, "
+          f"engine_restarts_total "
+          f"{_metric(server.get('/metrics')[1], 'engine_restarts_total'):g};"
+          f" reply after the crash == unbroken reply: "
+          f"{again.get('text') == first['text']} (walls {first['wall']:.3f}"
+          f" / {again.get('wall', 0):.3f} s)")
+    if code != 200 or again["text"] != first["text"] or sch.restarts != 1:
+        raise SystemExit("phase 19: supervised restart")
+    server.close()
 
 
 def tiny_engines_on_card() -> None:
@@ -1554,7 +2096,7 @@ def tiny_spec_engines_on_card() -> None:
         out = [h.result(timeout=600) for h in hs]
         sched.close()
         sched.check_pool_invariant()
-        return out, sched.metrics
+        return out, engine_counts(sched)
 
     for kv in ("bf16", "int8"):
         plain, _ = serve("cpu", kv_dtype=kv)
@@ -1677,7 +2219,7 @@ def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str],
         "caps": [n for _, _, n in flat],
         "ttft": [h.debug["ttft_s"] for h, _, _ in flat],
         "cached": [h.debug["cached_tokens"] for h, _, _ in flat],
-        "metrics": sched.metrics, "peak": torch.cuda.max_memory_allocated(),
+        "metrics": engine_counts(sched), "peak": torch.cuda.max_memory_allocated(),
         "flash": dict(fa.LAUNCHES), "paged": dict(paged),
         "paged_keys": dict(pa.LAUNCHES), "recorder": recorder,
         "spilled": spilled, "spill_s": spill_s, "host_bytes": host_bytes,
@@ -3438,6 +3980,16 @@ def main() -> int:
                 print(f"  {name} is on no path's run; left out of the table")
                 continue
             rows.append(row)
+
+    # ---- 19. the HTTP server -----------------------------------------------
+    print(f"phase 19: the OpenAI-compatible server (api_server.build_server)"
+          f" over oryx_7b bf16, phase 7's mix without its video as PNG data "
+          f"URIs; continuous ragged engine, window engine, drain, supervised "
+          f"restart ({card})", flush=True)
+    t19 = time.perf_counter()
+    http_serving(Pipeline(ByteTokenizer(), params, cfg, device="cuda"), card)
+    gc.collect()
+    print(f"  phase 19 wall {time.perf_counter() - t19:.1f} s")
 
     # ---- 9. training kernels at the training step's shapes ----------------
     cfg_t = train_config()

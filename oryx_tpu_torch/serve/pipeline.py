@@ -37,6 +37,7 @@ from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2, splice
 from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.ops import packing
+from oryx_tpu_torch.utils import trace as trace_lib
 from oryx_tpu_torch.utils.quant import embed_rows
 
 
@@ -470,9 +471,9 @@ class Pipeline:
         COLD cache_state seeds from the index's longest stored prefix and
         the post-turn state is donated back.
 
-        The JAX pipeline's trace spans (prefill, decode_chunk, emission)
-        are not here: they belong to the observability plane, which the
-        port does not have yet.
+        Spans (prefill, decode_chunk, emission) land on the context-active
+        trace (`utils.trace.activate`, the API server's flight recorder)
+        and cost nothing outside one.
         """
         cfg = self._sampling_cfg(temperature, top_p)
         stop_seqs = self._stop_for(stop)
@@ -498,14 +499,19 @@ class Pipeline:
         kv_cache = start = flat = None
         media_key = ()
         if cache_state is not None:
-            flat, L, common, embeds, kv_cache, cache_len, media_key = (
-                self._prefix_plan(
-                    cache_state, cfg, ids, images, factors, caps, padded_new
+            with trace_lib.span("prefill", cached=True):
+                flat, L, common, embeds, kv_cache, cache_len, media_key = (
+                    self._prefix_plan(
+                        cache_state, cfg, ids, images, factors, caps,
+                        padded_new,
+                    )
                 )
-            )
             start = common
         else:
-            embeds, L = self._prompt_embeds(cfg, ids, images, factors, caps)
+            with trace_lib.span("prefill"):
+                embeds, L = self._prompt_embeds(
+                    cfg, ids, images, factors, caps
+                )
             cache_len = packing.round_up_bucket(embeds.shape[1] + padded_new)
         lengths = torch.tensor([L], dtype=torch.int32, device=self.device)
         eos = cfg.generation.eos_token_id
@@ -553,10 +559,25 @@ class Pipeline:
             kv_cache=kv_cache, start=start,
             yield_cache=cache_state is not None,
         )
+        def traced(gen):
+            """Each device chunk (the window between successive blocks) as
+            a decode_chunk span on the active trace."""
+            n = 0
+            while True:
+                t0 = trace_lib.now_ns()
+                try:
+                    b = next(gen)
+                except StopIteration:
+                    return
+                trace_lib.add_complete("decode_chunk", t0, chunk=n)
+                n += 1
+                yield b
+
         with contextlib.closing(blocks):
-            for block in blocks:
+            for block in traced(blocks):
                 if cache_state is not None:
                     block, final_cache = block
+                t_emit = trace_lib.now_ns()
                 chunk_start = len(emitted)
                 for t in block[0]:
                     if int(t) == eos:
@@ -578,6 +599,7 @@ class Pipeline:
                     text.strip() if finished
                     else stable_text_prefix(text, stops)
                 )
+                trace_lib.add_complete("emission", t_emit, chars=len(safe))
                 if len(safe) > len(text_done):
                     yield safe[len(text_done):]
                     text_done = safe

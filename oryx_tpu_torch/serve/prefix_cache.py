@@ -157,12 +157,15 @@ class PagedPrefixCache:
     an evicted entry's bytes move to host RAM and `reload` brings them
     back onto fresh pages, byte-identical to never having been evicted.
 
-    `metrics` is the engine's plain counter dict (or None): `evict` adds
-    to "prefix_cache_evicted_pages_total", `reload` to
-    "oryx_cache_reload_hit_total" and "oryx_cache_reload_upload_total".
+    `metrics` is the engine's `ServingMetrics` (or None): `evict` adds to
+    prefix_cache_evicted_pages_total, `reload` to
+    oryx_cache_reload_hit_total and oryx_cache_reload_upload_total, and
+    every change of the cache refreshes the prefix_cache_entries /
+    prefix_cache_pages and oryx_cache_spilled_pages / oryx_cache_host_bytes
+    gauges.
     """
 
-    def __init__(self, allocator, *, metrics: dict | None = None,
+    def __init__(self, allocator, *, metrics=None,
                  host_cache_bytes: int = 0,
                  spill_fetch=None, spill_upload=None):
         self.allocator = allocator
@@ -187,10 +190,19 @@ class PagedPrefixCache:
         self._spilled = 0  # thread-owned: engine
         self._pages = 0  # thread-owned: engine
         self.metrics = metrics
+        self._gauges()
 
-    def _count(self, name: str, n: int = 1) -> None:
+    def _gauges(self) -> None:
         if self.metrics is not None:
-            self.metrics[name] = self.metrics.get(name, 0) + n
+            self.metrics.set_gauge("prefix_cache_pages", self._pages)
+            self.metrics.set_gauge("prefix_cache_entries", self.entries)
+            reg = self.metrics.registry
+            reg.gauge("oryx_cache_spilled_pages", raw_name=True).set(
+                self._spilled
+            )
+            reg.gauge("oryx_cache_host_bytes", raw_name=True).set(
+                self._host_bytes
+            )
 
     # ---- accounting ------------------------------------------------------
 
@@ -301,8 +313,15 @@ class PagedPrefixCache:
                     self._pages += 1
                 else:  # unreachable while the engine thread owns the cache
                     self.allocator.free([page], owner="cache")
-            self._count("oryx_cache_reload_hit_total")
-            self._count("oryx_cache_reload_upload_total", len(reloaded))
+            if self.metrics is not None:
+                reg = self.metrics.registry
+                reg.counter(
+                    "oryx_cache_reload_hit_total", raw_name=True
+                ).inc()
+                reg.counter(
+                    "oryx_cache_reload_upload_total", raw_name=True
+                ).inc(len(reloaded))
+        self._gauges()
         return reloaded
 
     # ---- host tier internals ---------------------------------------------
@@ -418,6 +437,7 @@ class PagedPrefixCache:
             for dnode, hnode in zip(path, self._host.walk(head, root_key)):
                 if hnode.payload is not None and dnode.payload is not None:
                     self._host_forget_node(hnode)
+        self._gauges()
         return new
 
     def evict(self, need_pages: int, *, exclude=()) -> int:
@@ -449,8 +469,9 @@ class PagedPrefixCache:
                 self.trie.remove(victim)
                 self._pages -= 1
                 freed += 1
-        if freed:
-            self._count("prefix_cache_evicted_pages_total", freed)
+        if freed and self.metrics is not None:
+            self.metrics.inc("prefix_cache_evicted_pages_total", freed)
+        self._gauges()
         return freed
 
     def clear(self) -> None:
@@ -463,6 +484,7 @@ class PagedPrefixCache:
         self._host = TokenTrie(self.page_size)
         self._host_bytes = 0
         self._spilled = 0
+        self._gauges()
 
 
 class SessionPrefixCache:

@@ -61,21 +61,43 @@ replays a CUDA graph of one logical step (`_EngineStepGraph`, one per key,
 kept on the scheduler and dropped with its pool), K times back to back;
 dispatches with prefill lanes run eagerly.
 
-Threads: `submit` runs on any thread; the engine loop (`_run`) runs on its
-own. They share only the queue and the shutdown flag, under `_cond`. The
-loop syncs with the device once per dispatch, at the harvest.
+Observability (utils/metrics.py, utils/trace.py, utils/request_log.py):
+the families of `ServingMetrics` under the JAX engine's names, kinds and
+ladders; one `Trace` a request in the flight recorder (spans queue_wait,
+admission, prompt_prep, prefill, decode_chunk, emission; eviction and
+restart events); the optional stall watchdog; and the cost ledger: prefill
+tokens computed vs spliced from the prefix cache, device decode steps apart
+from the client's decode tokens, queue/prefill/decode wall time from the
+request's own spans, and the refcount-weighted pages-held x time integral
+(page-seconds), finalized on every terminal path into
+handle.debug["cost"], the trace meta, the oryx_serving_request_*
+histograms and one wide event in the request log.
 
-Not ported yet: the metrics registry (the JAX engine's gauges, such as
-fused_k, and its histograms), traces, the journal and its replay (and with
-it the journaled fuse plan), audit, the cost ledger, numerics probes,
-profiling, deadlines, degraded modes, watchdog and forensics, meshes (tp),
-the CLI and server flags, and supervised restart/drain.
+Failure containment: `max_queue` bounds admission (`AdmissionRejected`,
+HTTP 429); `request_timeout` (or `timeout_s` on submit) deadlines a
+request wherever it is (HTTP 504); `begin_drain()` stops admission and
+finishes the residents; `restart()`, driven by the API server's
+EngineSupervisor, requeues the residents at the front for eviction-style
+replay, rebuilds the pool with its invariant checked and starts a fresh
+engine thread.
+
+Threads: `submit` runs on any thread; the engine loop (`_run`) runs on its
+own. They share only the queue and the shutdown/drain/supervision flags,
+under `_cond`. The loop syncs with the device once per dispatch, at the
+harvest.
+
+Not ported yet: the step timeline, the page map and OOM forensics, the
+degraded-mode ladder (its gauge stays 0), the decision journal and its
+replay (and with it the journaled fuse plan), fault injection, audit,
+numerics probes, device-time profiling, meshes (tp), and the lock-order
+sanitizer.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import queue
 import threading
 import time
@@ -90,6 +112,22 @@ from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.packing import round_up_bucket
 from oryx_tpu_torch.serve import pipeline as pipeline_lib
 from oryx_tpu_torch.serve.prefix_cache import PagedPrefixCache
+from oryx_tpu_torch.utils import request_log as request_log_lib
+from oryx_tpu_torch.utils import trace as trace_lib
+from oryx_tpu_torch.utils.anomaly import AnomalyMonitor
+from oryx_tpu_torch.utils.metrics import (
+    DISPATCH_ROWS_BUCKETS,
+    PAGE_SECONDS_BUCKETS,
+    PREFILL_CHUNK_BUCKETS,
+    REQUEST_SECONDS_BUCKETS,
+    REQUEST_TOKEN_BUCKETS,
+    SPEC_ACCEPT_BUCKETS,
+    TTFT_BUCKETS,
+    ServingMetrics,
+)
+
+# Every line carries the request id (the X-Request-Id and /debug/trace id).
+_LOG = logging.getLogger("oryx.serve.scheduler")
 
 # The ladder of `fuse_steps="auto"`: K for a pure-decode step is the largest
 # rung that fits every live row's remaining budget (the large rung for a
@@ -99,7 +137,10 @@ FUSE_AUTO_LADDER: tuple[int, ...] = (4, 16)
 
 class AdmissionRejected(RuntimeError):
     """submit() refused the request without queueing it: the bounded queue
-    is full ("backpressure") or the scheduler is closed ("closed")."""
+    is full ("backpressure"), the engine is draining or closed
+    ("draining"), or it is dead with nothing to restart it
+    ("engine_dead"). Carries the Retry-After hint the HTTP layer forwards
+    (429 for load, 503 otherwise)."""
 
     def __init__(self, message: str, *, reason: str,
                  retry_after_s: float = 1.0):
@@ -124,13 +165,16 @@ class RequestHandle:
         self.finish_reason: str = "stop"
         self.usage: tuple[int, int] | None = None
         self.error: str | None = None
-        # "invalid_request" = rejected at admission, "server_error" =
-        # anything else.
+        # HTTP mapping: "invalid_request" = rejected at admission (400),
+        # "timeout" = deadline exceeded (504), "unavailable" = draining or
+        # dead engine (503), "server_error" = anything else (500).
         self.error_kind: str = "server_error"
         self.cancelled = False
         self.streaming = False
         self.debug: dict[str, Any] = {}
+        # The X-Request-Id and the span tree /debug/trace?id= serves.
         self.request_id = request_id
+        self.trace: trace_lib.Trace | None = None
 
     def result(self, timeout: float | None = None):
         """(reply, finish_reason, usage) or raises RuntimeError."""
@@ -149,6 +193,13 @@ class _Request:
     handle: RequestHandle
     submit_time: float
     stops: list[str]
+    # The request's span tree (set by submit).
+    trace: trace_lib.Trace | None = None
+    # Absolute monotonic deadline (None = none): enforced in the queue,
+    # during chunked prefill and at every engine step.
+    deadline: float | None = None
+    # The request came through a router (stamped into the wide event).
+    routed: bool = False
     # Filled at first admission and kept, so an evicted request never
     # re-runs the prompt prep: decoder embeds [1, T_bucket, H] on the
     # pool's device, the real length, the sampling knobs.
@@ -171,7 +222,6 @@ class _Request:
     # whether the slot has started decoding.
     prefill_pos: int = 0
     spliced: int = 0  # prompt tokens this placement took from the cache
-    cached_tokens: int = 0  # spliced tokens over every placement
     activated: bool = False
     ttft_done: bool = False
     # Host text state (survives eviction: replay re-derives the same tokens
@@ -181,6 +231,24 @@ class _Request:
     processed: int = 0  # tokens consumed from the device stream
     replay: int = 0  # tokens to skip after an eviction re-admission
     admit_seq: int = -1  # admission order (eviction picks the youngest)
+    evictions: int = 0  # replay re-admissions (eviction, restart)
+    # Cost ledger, accumulated across placements (a replay re-pays its
+    # prefill). decode_steps counts device work (chunk steps, or the 1 + k
+    # verify lanes of a speculative step, rejected drafts included);
+    # decode_tokens what the client got. Engine thread only, until the
+    # ledger is finalized into handle.debug["cost"].
+    cost_prefill_tokens: int = 0
+    cost_cached_tokens: int = 0
+    cost_decode_steps: int = 0
+    cost_decode_tokens: int = 0
+    cost_page_seconds: float = 0.0
+    pages_t: float = 0.0  # last accrual (0 = never held)
+    peak_pages: int = 0
+    peak_page_seconds: float = 0.0
+    # Spans that outlive one method: queue_wait opens at submit (and again
+    # at eviction), admission when the request reaches the queue head.
+    qw_span: int = -1
+    adm_span: int = -1
 
 
 class ContinuousScheduler:
@@ -198,6 +266,16 @@ class ContinuousScheduler:
     default). fuse_steps: logical steps per pure-decode dispatch, an int or
     "auto" (needs ragged=True; with speculate, a drafter that runs on the
     device, such as `generate.NeuralDrafter`).
+
+    metrics: the `ServingMetrics` the engine reports into (the API
+    server's, so /metrics renders it). tracer: the flight recorder its
+    requests' traces land in. stall_timeout: seconds without a decode
+    dispatch, while requests are live, before the watchdog dumps every
+    thread stack (None = no watchdog). anomaly: the SLO monitor fed each
+    TTFT and queue depth. request_timeout: the default per-request
+    deadline in seconds. request_log: the wide-event sink (an in-memory
+    ring by default); engine_label / replica_id: the engine's identity
+    in those events.
     """
 
     def __init__(
@@ -220,6 +298,14 @@ class ContinuousScheduler:
         speculate: int = 0,
         drafter: generate_lib.Drafter | None = None,
         fuse_steps: int | str = 1,
+        metrics: ServingMetrics | None = None,
+        tracer: trace_lib.Tracer | None = None,
+        stall_timeout: float | None = None,
+        anomaly: AnomalyMonitor | None = None,
+        request_timeout: float | None = None,
+        request_log: request_log_lib.RequestLog | None = None,
+        engine_label: str = "continuous",
+        replica_id: str | None = None,
     ):
         for name, v in (
             ("num_slots", num_slots), ("page_size", page_size),
@@ -343,31 +429,17 @@ class ContinuousScheduler:
         # dispatch runs eagerly).
         self._graphs: dict[tuple, generate_lib._EngineStepGraph] = {}
         self._eager_witness = False
-        # Counters under the JAX engine's metric names (engine thread only;
-        # read them once the loop has stopped).
-        self.metrics: dict[str, Any] = {
-            "admitted": 0, "completed": 0, "evicted": 0, "cancelled": 0,
-            "chunks": 0, "prefill_tokens_total": 0,
-            "dispatches_total": collections.Counter(),
-            "decode_steps_total": 0, "decode_steps_useful": 0,
-            "decode_steps_wasted": 0,
-            "prefix_cache_hit_tokens_total": 0,
-            "prefix_cache_miss_tokens_total": 0,
-            "prefix_cache_evicted_pages_total": 0,
-            # Port-only: copy-on-write splices (the JAX engine journals them).
-            "prefix_cache_cow_pages_total": 0,
-            "oryx_cache_reload_hit_total": 0,
-            "oryx_cache_reload_upload_total": 0,
-            "harvest_total": 0,
-            "draft_proposed_total": 0, "draft_accepted_total": 0,
-            # The accepted_tokens_per_step histogram's sum and count.
-            "accepted_tokens_per_step_sum": 0,
-            "accepted_tokens_per_step_count": 0,
-            # Port-only: megastep dispatches by K, and the engine-step
-            # graphs captured and the seconds their captures took.
+        # Port-only engine counters, outside the registry (the JAX engine
+        # has no such families): megastep dispatches by K, the engine-step
+        # graphs captured and the seconds their captures took, and the
+        # prefix cache's copy-on-write splices. Engine thread only.
+        self.engine_stats: dict[str, Any] = {
             "megasteps_total": collections.Counter(),
             "graph_captures_total": 0, "graph_capture_s": 0.0,
+            "prefix_cache_cow_pages_total": 0,
         }
+        self.metrics = metrics or ServingMetrics()
+        self._register_families()
         S = num_slots
         self.allocator = paged_kv.PageAllocator(self.num_pages, page_size)
         self._sentinel = self.allocator.sentinel
@@ -394,22 +466,80 @@ class ContinuousScheduler:
         )
         self.recent = np.full((S, stop_L), -2, np.int32)
         self._admit_seq = 0
-        self._next_id = 0
         self.chunks_run = 0
-        # The only state shared with submit() threads.
+        # The only state shared with submit() and supervisor threads.
         self._cond = threading.Condition()
         self._queue: collections.deque[_Request] = collections.deque()  # guarded-by: _cond
         self._shutdown = False  # guarded-by: _cond
+        self._draining = False  # guarded-by: _cond
+        # A dead loop with nobody to revive it (no EngineSupervisor, which
+        # calls set_supervised(True), or one that gave up) rejects new work
+        # instead of queueing requests that can never complete.
+        self._started = False
+        self.supervised = False  # guarded-by: _cond
+        self.restarts = 0
+        self.request_timeout = request_timeout
+        self.anomaly = anomaly
+        self.tracer = tracer or trace_lib.Tracer()
+        self.request_log = request_log or request_log_lib.RequestLog()
+        self.engine_label = engine_label
+        self.replica_id = replica_id
+        self.watchdog: trace_lib.StallWatchdog | None = None
+        if stall_timeout is not None:
+            self.watchdog = trace_lib.StallWatchdog(
+                self.tracer, stall_timeout, name="continuous-scheduler"
+            ).start()
         self._thread = threading.Thread(
             target=self._run, name="oryx-engine", daemon=True
         )
         if autostart:
-            self._thread.start()
+            self.start()
 
-    # ---- public API -------------------------------------------------------
+    def _register_families(self) -> None:
+        """Pre-register the engine's families, as the JAX engine does, so
+        their ladders render (at zero) from the first scrape."""
+        reg = self.metrics.registry
+        reg.counter("prefix_cache_hit_tokens_total")
+        reg.counter("prefix_cache_miss_tokens_total")
+        reg.counter("prefix_cache_evicted_pages_total")
+        reg.gauge("prefix_cache_entries")
+        reg.gauge("prefix_cache_pages")
+        reg.gauge("oryx_cache_spilled_pages", raw_name=True)
+        reg.gauge("oryx_cache_host_bytes", raw_name=True)
+        reg.counter("oryx_cache_reload_hit_total", raw_name=True)
+        reg.counter("oryx_cache_reload_upload_total", raw_name=True)
+        reg.info(
+            "oryx_pool_kv_dtype", {"kv_dtype": self.kv_dtype}, raw_name=True
+        )
+        reg.counter("prefill_tokens_total")
+        reg.histogram("prefill_chunk_tokens", PREFILL_CHUNK_BUCKETS)
+        reg.counter("dispatches_total", ("kind",))
+        reg.histogram("dispatch_rows", DISPATCH_ROWS_BUCKETS)
+        reg.gauge("fused_k")
+        reg.counter("harvest_total")
+        reg.histogram("accepted_tokens_per_step", SPEC_ACCEPT_BUCKETS)
+        reg.counter("draft_proposed_total")
+        reg.counter("draft_accepted_total")
+        reg.counter("admission_rejected_total", ("reason",))
+        reg.counter("deadline_exceeded_total")
+        reg.counter("engine_restarts_total")
+        reg.gauge("degraded_mode")
+        reg.histogram("request_prefill_tokens", REQUEST_TOKEN_BUCKETS)
+        reg.histogram("request_cached_tokens", REQUEST_TOKEN_BUCKETS)
+        reg.histogram("request_decode_steps", REQUEST_TOKEN_BUCKETS)
+        reg.histogram("request_decode_tokens", REQUEST_TOKEN_BUCKETS)
+        reg.histogram("request_page_seconds", PAGE_SECONDS_BUCKETS)
+        reg.histogram("request_queue_seconds", REQUEST_SECONDS_BUCKETS)
+        reg.histogram("request_prefill_seconds", REQUEST_SECONDS_BUCKETS)
+        reg.histogram("request_decode_seconds", REQUEST_SECONDS_BUCKETS)
+        reg.histogram("request_e2e_seconds", REQUEST_SECONDS_BUCKETS)
+        reg.histogram("request_peak_pages", REQUEST_TOKEN_BUCKETS)
+
+    # ---- public API (the Engine protocol, serve/engine.py) ---------------
 
     def start(self) -> None:
         if not self._thread.is_alive():
+            self._started = True
             self._thread.start()
 
     def submit(
@@ -419,38 +549,86 @@ class ContinuousScheduler:
         sampling: dict[str, Any] | None = None,
         *,
         streaming: bool = False,
+        timeout_s: float | None = None,
+        request_id: str | None = None,
+        routed: bool = False,
     ) -> RequestHandle:
         """Queue one request ({"question", optional "images", "is_video",
         "history"}); sampling may set temperature, top_p, top_k, seed and
-        stop. Raises AdmissionRejected, queueing nothing, when the bounded
-        queue is full or the scheduler is closed."""
+        stop. timeout_s overrides the scheduler's request_timeout for this
+        request. request_id: a client-supplied X-Request-Id (already
+        sanitized) to use as the trace id; the tracer mints another when
+        the flight recorder still holds it. routed: the request came
+        through a router. Raises AdmissionRejected, queueing nothing, when
+        draining, when the engine is dead for good, or when the bounded
+        queue is full."""
         sampling = sampling or {}
         stops = (
             [self.pipe.conv.stop_str] if self.pipe.conv.stop_str else []
         ) + [s for s in (sampling.get("stop") or []) if s]
+        tr = self.tracer.start_trace(
+            "request", label=f"chat max_new={max_new}", id=request_id,
+        )
+        h = RequestHandle(tr.id)
+        h.streaming = streaming
+        h.trace = tr
+        h.debug["request_id"] = tr.id
+        now = time.monotonic()
+        eff_timeout = (
+            timeout_s if timeout_s is not None else self.request_timeout
+        )
+        req = _Request(
+            request=request, max_new=max_new, sampling=sampling,
+            handle=h, submit_time=now, stops=stops, trace=tr,
+            deadline=(now + eff_timeout) if eff_timeout else None,
+            routed=routed,
+        )
+        req.qw_span = tr.begin("queue_wait")
         with self._cond:
-            rid = f"req-{self._next_id}"
-            self._next_id += 1
-            h = RequestHandle(rid)
-            h.streaming = streaming
-            req = _Request(
-                request=request, max_new=max_new, sampling=sampling,
-                handle=h, submit_time=time.monotonic(), stops=stops,
-            )
+            # The checks and the append are one atomic section: two racing
+            # submits never both take the last queue place.
             reject = None
-            if self._shutdown:
-                reject = ("closed", "scheduler is closed")
+            if self._shutdown or self._draining:
+                reject = ("draining", "server is draining; not "
+                          "accepting new requests", 1.0)
+            elif (
+                self._started and not self._thread.is_alive()
+                and not self.supervised
+            ):
+                reject = ("engine_dead", "engine is not running and "
+                          "nothing will restart it", 5.0)
             elif (
                 self.max_queue is not None
                 and len(self._queue) >= self.max_queue
             ):
-                reject = ("backpressure", f"admission queue full "
-                          f"({len(self._queue)} >= {self.max_queue})")
-            else:
+                retry = min(
+                    30.0, 1.0 + len(self._queue) / max(1, self.num_slots)
+                )
+                reject = ("backpressure",
+                          f"admission queue full ({len(self._queue)} "
+                          f">= {self.max_queue})", retry)
+            if reject is None:
                 self._queue.append(req)
+                depth = len(self._queue)
+                self.metrics.set_gauge("queue_depth", depth)
                 self._cond.notify()
         if reject is not None:
-            raise AdmissionRejected(reject[1], reason=reject[0])
+            reason, msg, retry_after = reject
+            self.metrics.inc(
+                "admission_rejected_total", labels={"reason": reason}
+            )
+            cost = self._finalize_cost(None, req, observe=False)
+            tr.finish(error=msg, rejected=reason, cost=cost)
+            self._emit_request_event(
+                req, status="rejected", error_kind=reason
+            )
+            _LOG.info("request %s rejected (%s)", tr.id, reason)
+            raise AdmissionRejected(
+                msg, reason=reason, retry_after_s=retry_after
+            )
+        _LOG.info("request %s queued (max_new=%d)", tr.id, max_new)
+        if self.anomaly is not None:
+            self.anomaly.observe_queue_depth(depth)
         return h
 
     def cancel(self, handle: RequestHandle) -> None:
@@ -466,8 +644,40 @@ class ContinuousScheduler:
         """The engine loop thread is running."""
         return self._thread.is_alive()
 
+    def readiness(self) -> tuple[bool, str]:
+        """(ready, reason): not draining, loop thread alive and, with a
+        watchdog, no stall in flight. The /readyz signal."""
+        if self.draining:
+            return False, "draining"
+        if not self.alive():
+            return False, "scheduler loop dead"
+        wd = self.watchdog
+        if wd is not None and wd.stalled():
+            return False, (
+                f"scheduler stalled (no decode beat in {wd.deadline_s:g}s)"
+            )
+        return True, "ok"
+
+    @property
+    def draining(self) -> bool:
+        with self._cond:
+            return self._draining
+
+    @property
+    def stopping(self) -> bool:
+        """close() or drain() in progress: the supervisor must not restart
+        a deliberately stopped engine."""
+        with self._cond:
+            return self._shutdown or self._draining
+
+    def set_supervised(self, value: bool) -> None:
+        """EngineSupervisor attach/detach (read by submit under _cond)."""
+        with self._cond:
+            self.supervised = value
+
     def stop(self) -> None:
-        """Stop the loop without waiting for resident requests."""
+        """Stop the loop without waiting for resident requests (drain() is
+        the graceful twin)."""
         self.close()
 
     def close(self) -> None:
@@ -476,8 +686,98 @@ class ContinuousScheduler:
             self._cond.notify()
         if self._thread.is_alive():
             self._thread.join(timeout=30)
+        if self.watchdog is not None:
+            self.watchdog.stop()
         if not self._thread.is_alive():
             self._release_graphs()
+
+    def begin_drain(self) -> None:
+        """Start drain-on-shutdown: admission stops now (new submits are
+        rejected, queued requests error with "draining"), residents run
+        to completion, then the loop exits. /readyz flips to 503 at once."""
+        with self._cond:
+            if self._draining:
+                return
+            self._draining = True
+            self._cond.notify()
+        _LOG.info("drain started: admission stopped, finishing resident "
+                  "requests")
+
+    def drain(self, timeout: float | None = 60.0) -> bool:
+        """begin_drain() and wait for the loop to finish the residents and
+        exit; returns whether it drained in time."""
+        self.begin_drain()
+        if self._thread.is_alive():
+            self._thread.join(timeout=timeout)
+        drained = not self._thread.is_alive()
+        if drained:
+            with self._cond:
+                stranded = bool(self._queue)
+            if stranded or any(r is not None for r in self.slots):
+                # The loop died before (or without) running the drain: the
+                # handles would never complete. Error them out (503).
+                self.fail_inflight("server draining with engine stopped")
+        if drained and self.watchdog is not None:
+            self.watchdog.stop()
+        return drained
+
+    def fail_inflight(self, msg: str, *, kind: str = "unavailable"
+                      ) -> None:
+        """Error out every queued and resident request and rebuild the
+        pool: for an engine that is dead and staying dead (supervisor give
+        up, drain of a dead engine). Never while the loop runs."""
+        for r in self._take_queue():
+            self._reject_queued(r, msg, kind=kind)
+        if self.anomaly is not None:
+            self.anomaly.observe_queue_depth(0)
+        for s, req in enumerate(self.slots):
+            if req is not None:
+                self._finish_error(s, msg, kind=kind)
+        self._reset_pool()
+
+    def restart(self) -> None:
+        """Recover from engine-thread death (the supervisor's entry point):
+        requeue every resident at the front for replay (the eviction
+        machinery: same prompt, same generator seed, the `processed`
+        tokens skipped on re-emission), rebuild the pool with its
+        invariant checked, and start a fresh engine thread. No client sees
+        an error."""
+        if self._thread.is_alive():
+            return
+        live = sorted(
+            ((req.admit_seq, s, req)
+             for s, req in enumerate(self.slots) if req is not None),
+            reverse=True,
+        )
+        for _, s, req in live:  # youngest first: the oldest ends at the head
+            # The rebuild frees these pages without _clear_slot: bank the
+            # page-seconds now.
+            self._accrue_page_seconds(s)
+            req.replay = req.processed
+            req.evictions += 1
+            req.activated = False
+            req.spliced = 0
+            req.prefill_pos = 0
+            req.trace.event(
+                "engine_restart_replay", slot=s,
+                replay_tokens=req.processed,
+            )
+            req.qw_span = req.trace.begin("queue_wait", requeued=True)
+            with self._cond:
+                self._queue.appendleft(req)
+        with self._cond:
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+        self._reset_pool()
+        self.restarts += 1
+        self.metrics.inc("engine_restarts_total")
+        _LOG.warning(
+            "engine thread restarted (#%d): %d request(s) requeued for "
+            "replay", self.restarts, len(live),
+        )
+        self._thread = threading.Thread(
+            target=self._run, name="oryx-engine", daemon=True
+        )
+        self._thread.start()
 
     def _release_graphs(self) -> None:
         """Free the captured engine steps now, not when a collection finds
@@ -540,11 +840,17 @@ class ContinuousScheduler:
     def _pop_head(self) -> None:
         with self._cond:
             self._queue.popleft()
+            depth = len(self._queue)
+            # Every pop refreshes the gauge.
+            self.metrics.set_gauge("queue_depth", depth)
+        if self.anomaly is not None:
+            self.anomaly.observe_queue_depth(depth)
 
     def _take_queue(self) -> list[_Request]:
         with self._cond:
             out = list(self._queue)
             self._queue.clear()
+            self.metrics.set_gauge("queue_depth", 0)
             return out
 
     # ---- slot bookkeeping -------------------------------------------------
@@ -556,6 +862,100 @@ class ContinuousScheduler:
     def _owner_tag(req: _Request | None) -> str | None:
         return None if req is None else f"req:{req.handle.request_id}"
 
+    def _accrue_page_seconds(self, s: int) -> None:
+        """Advance slot s's pages-held x time integral to now, weighted by
+        refcount (a page shared by k holders charges each 1/k, the prefix
+        cache's reference included), so the requests' page-seconds never
+        sum past the physical ones. Runs before every page-count change,
+        once per decode step and at finalization; also keeps the peak."""
+        req = self.slots[s]
+        if req is None or not req.pages_t:
+            return
+        now = time.monotonic()
+        held = 0
+        weight = 0.0
+        for p in self.bt[s]:
+            if p != self._sentinel:
+                held += 1
+                weight += 1.0 / max(1, self.allocator.refcount(int(p)))
+        req.cost_page_seconds += weight * (now - req.pages_t)
+        req.pages_t = now
+        if held > req.peak_pages:
+            req.peak_pages = held
+            req.peak_page_seconds = req.cost_page_seconds
+
+    def _finalize_cost(self, s: int | None, req: _Request,
+                       observe: bool = True) -> dict[str, Any]:
+        """Close the request's cost ledger on a terminal path (before its
+        slot's pages are freed; s=None for a request that never held a
+        slot): the last page-seconds accrual, queue/prefill/decode wall
+        time from its spans, the aggregate histograms (not for submit-time
+        rejections, `observe=False`). The dict lands in
+        handle.debug["cost"] and the trace meta."""
+        if s is not None:
+            self._accrue_page_seconds(s)
+        by = req.trace.span_seconds()
+        cost = {
+            "prefill_tokens": req.cost_prefill_tokens,
+            "cached_tokens": req.cost_cached_tokens,
+            "decode_steps": req.cost_decode_steps,
+            "decode_tokens": req.cost_decode_tokens,
+            "page_seconds": round(req.cost_page_seconds, 6),
+            "queue_s": round(by.get("queue_wait", 0.0), 6),
+            "prefill_s": round(by.get("prefill", 0.0), 6),
+            "decode_s": round(by.get("decode_chunk", 0.0), 6),
+            "e2e_s": round(time.monotonic() - req.submit_time, 6),
+            "peak_pages": req.peak_pages,
+            "peak_page_seconds": round(req.peak_page_seconds, 6),
+        }
+        req.handle.debug["cost"] = cost
+        if not observe:
+            return cost
+        m = self.metrics
+        m.observe("request_prefill_tokens", cost["prefill_tokens"])
+        m.observe("request_cached_tokens", cost["cached_tokens"])
+        m.observe("request_decode_steps", cost["decode_steps"])
+        m.observe("request_decode_tokens", cost["decode_tokens"])
+        m.observe("request_page_seconds", cost["page_seconds"])
+        m.observe("request_queue_seconds", cost["queue_s"])
+        m.observe("request_prefill_seconds", cost["prefill_s"])
+        m.observe("request_decode_seconds", cost["decode_s"])
+        m.observe("request_e2e_seconds", cost["e2e_s"])
+        m.observe("request_peak_pages", cost["peak_pages"])
+        return cost
+
+    def _emit_request_event(self, req: _Request, *, status: str,
+                            error_kind: str | None = None) -> None:
+        """Append the request's wide event on every terminal path, right
+        after its trace closes: the finalized ledger, outcome and this
+        engine's identity."""
+        h = req.handle
+        cost = h.debug.get("cost") or {}
+        aps = None
+        if self.speculate and cost.get("decode_steps"):
+            # decode_steps bills 1 + k lanes a verify step: tokens per
+            # step is the request's speculation yield.
+            steps = cost["decode_steps"] / (1 + self.speculate)
+            if steps:
+                aps = round(cost.get("decode_tokens", 0) / steps, 4)
+        usage = h.usage or (req.length, len(req.emitted))
+        self.request_log.append(request_log_lib.build_request_event(
+            request_id=req.trace.id,
+            engine=self.engine_label,
+            replica=self.replica_id,
+            routed=req.routed,
+            status=status,
+            error_kind=error_kind,
+            finish_reason=h.finish_reason if status == "ok" else None,
+            prompt_tokens=usage[0],
+            completion_tokens=usage[1],
+            streaming=h.streaming,
+            evictions=req.evictions,
+            accepted_tokens_per_step=aps,
+            journal_seq=None,
+            **cost,
+        ))
+
     def _free_slot_pages(self, s: int, owner: str | None = None) -> None:
         pages = [int(p) for p in self.bt[s] if p != self._sentinel]
         if pages:
@@ -565,6 +965,8 @@ class ContinuousScheduler:
         self.bt[s] = self._sentinel
 
     def _clear_slot(self, s: int) -> None:
+        # Last accrual while the occupant still holds its pages.
+        self._accrue_page_seconds(s)
         self._free_slot_pages(s)
         self.slots[s] = None
         self.finished[s] = True
@@ -588,6 +990,8 @@ class ContinuousScheduler:
         need = self.allocator.pages_for(tokens) - held
         if need <= 0:
             return True
+        # Bank the integral at the old page count before it changes.
+        self._accrue_page_seconds(s)
         if need > self.allocator.num_free and self.prefix_cache is not None:
             # Cached pages go before live requests, but only when evicting
             # them covers the shortfall (draining the cache for a grow that
@@ -629,15 +1033,40 @@ class ContinuousScheduler:
     def _run(self) -> None:
         with torch.inference_mode():
             while True:
+                drain_drop: list[_Request] = []
                 with self._cond:
                     if self._shutdown:
                         return
-                    if not self._queue and all(
+                    if self._draining and self._queue:
+                        # Drain: queued requests hold no pages; error them
+                        # out so their clients retry elsewhere.
+                        drain_drop = list(self._queue)
+                        self._queue.clear()
+                        self.metrics.set_gauge("queue_depth", 0)
+                    idle = not self._queue and all(
                         r is None for r in self.slots
-                    ):
+                    )
+                    # Decided with the idle check, under one hold: a
+                    # request queued after it is served, not stranded.
+                    drain_exit = idle and self._draining
+                    if idle and not drain_exit:
                         self._cond.wait(timeout=0.1)
-                        continue
+                for r in drain_drop:
+                    self._reject_queued(
+                        r, "server draining: request not admitted",
+                        kind="unavailable",
+                    )
+                if drain_exit:
+                    _LOG.info("drain complete: engine loop exiting")
+                    return
+                if idle:
+                    if self.watchdog is not None:
+                        self.watchdog.set_active(False)
+                    continue
+                if self.watchdog is not None:
+                    self.watchdog.set_active(True)
                 try:
+                    self._enforce_deadlines()
                     self._admit()
                     if self.ragged:
                         # Prefill lanes and decode lanes ride ONE dispatch.
@@ -663,41 +1092,103 @@ class ContinuousScheduler:
                 self._finish_error(s, msg)
         for r in self._take_queue():
             self._reject_queued(r, msg)
+        if self.anomaly is not None:
+            self.anomaly.observe_queue_depth(0)
         self._reset_pool()
 
     def _reject_queued(
         self, req: _Request, msg: str, *, kind: str = "server_error"
     ) -> None:
-        """Error out a request already popped from the queue and never
-        placed (it holds no pages)."""
+        """Error out a request already taken from the queue and never
+        placed (it holds no pages). Its ledger is finalized too (zero
+        resources, a real queue_s)."""
+        self._fail_handle(req, msg, kind, self._finalize_cost(None, req))
+        _LOG.info("request %s dropped: %s", req.trace.id, msg)
+
+    def _fail_handle(self, req: _Request, msg: str, kind: str,
+                     cost: dict[str, Any]) -> None:
+        """An error's terminal path: trace and wide event closed, then the
+        client woken with the error."""
         req.handle.error = msg
         req.handle.error_kind = kind
+        req.trace.finish(error=msg, cost=cost)
+        self._emit_request_event(req, status="error", error_kind=kind)
         req.handle.events.put(("error", msg))
         req.handle.done.set()
 
     def _cancel_queued(self, req: _Request) -> None:
         """A client hang-up before admission (no slot, no pages)."""
-        self.metrics["cancelled"] += 1
+        self.metrics.inc("cancelled")
+        cost = self._finalize_cost(None, req)
+        req.trace.finish(cancelled=True, cost=cost)
+        self._emit_request_event(req, status="cancelled")
+        _LOG.info("request %s cancelled in queue", req.trace.id)
 
     def _cancel_slot(self, s: int, req: _Request, where: str) -> None:
         """A client hang-up while holding slot s (mid-prefill or
         mid-decode, `where`): its pages return now."""
-        self.metrics["cancelled"] += 1
+        self.metrics.inc("cancelled")
         req.handle.debug["cancelled"] = where
+        cost = self._finalize_cost(s, req)
         self._clear_slot(s)
+        req.trace.finish(cancelled=True, cost=cost)
+        self._emit_request_event(req, status="cancelled")
+        _LOG.info("request %s cancelled %s", req.trace.id, where)
+
+    def _enforce_deadlines(self) -> None:
+        """Cancel every request past its deadline wherever it lives:
+        queued (no pages), mid-prefill or decoding (slot pages and cache
+        shares freed). Once per engine step."""
+        now = time.monotonic()
+        expired: list[_Request] = []
+        depth = None
+        with self._cond:
+            if any(
+                r.deadline is not None and now > r.deadline
+                for r in self._queue
+            ):
+                keep: collections.deque[_Request] = collections.deque()
+                for r in self._queue:
+                    if r.deadline is not None and now > r.deadline:
+                        expired.append(r)
+                    else:
+                        keep.append(r)
+                self._queue = keep
+                depth = len(keep)
+                self.metrics.set_gauge("queue_depth", depth)
+        for r in expired:
+            self.metrics.inc("deadline_exceeded_total")
+            self._reject_queued(
+                r, "deadline exceeded before admission", kind="timeout"
+            )
+        if depth is not None and self.anomaly is not None:
+            self.anomaly.observe_queue_depth(depth)
+        for s, req in enumerate(self.slots):
+            if req is None or req.deadline is None or now <= req.deadline:
+                continue
+            self.metrics.inc("deadline_exceeded_total")
+            self._finish_error(
+                s,
+                f"deadline exceeded after {now - req.submit_time:.2f}s "
+                f"({len(req.emitted)} tokens emitted)",
+                kind="timeout",
+            )
 
     def _prepare(self, req: _Request) -> None:
         """Prompt prep at the queue head (once per request): decoder
         embeds, length, sampling knobs, and the size checks. Raises
         ValueError for a request that can never be served."""
         gen = self.cfg.generation
-        ids, imgs, factors, caps = self.pipe._prepare_request(req.request)
-        req.embeds, req.length = self.pipe._prompt_embeds(
-            self.cfg, ids, imgs, factors, caps
-        )
-        # Text-only prompts key the prefix cache by token ids (ids == the
-        # logical KV stream); multimodal ones bypass it.
-        req.cache_tokens = None if imgs else np.asarray(ids, np.int64)
+        with req.trace.span("prompt_prep"):
+            ids, imgs, factors, caps = self.pipe._prepare_request(
+                req.request
+            )
+            req.embeds, req.length = self.pipe._prompt_embeds(
+                self.cfg, ids, imgs, factors, caps
+            )
+            # Text-only prompts key the prefix cache by token ids (ids ==
+            # the logical KV stream); multimodal ones bypass it.
+            req.cache_tokens = None if imgs else np.asarray(ids, np.int64)
         s_ = req.sampling
         req.temp = float(s_.get("temperature", gen.temperature) or 0.0)
         req.topp = float(s_.get("top_p", gen.top_p) or 1.0)
@@ -732,6 +1223,12 @@ class ContinuousScheduler:
                 self._cancel_queued(req)
                 continue
             if req.embeds is None:
+                # The request reached the queue head: queue_wait ends,
+                # admission (prompt prep, the wait for pages, the prefill)
+                # begins.
+                req.trace.end(req.qw_span)
+                req.qw_span = -1
+                req.adm_span = req.trace.begin("admission")
                 try:
                     self._prepare(req)
                 except Exception as e:  # the request is rejected, not the engine
@@ -763,6 +1260,8 @@ class ContinuousScheduler:
         waits). At least one suffix token always remains to prefill: the
         admission needs the next-token logit."""
         ps = self.page_size
+        # Page-seconds accrue from the moment this placement holds pages.
+        req.pages_t = time.monotonic()
         spliced = 0
         matched, pages, host_nodes = 0, [], []
         cache_on = (
@@ -832,7 +1331,7 @@ class ContinuousScheduler:
                         self.kv_pages, int(pages[full]), cow
                     )
                     self.bt[s, full] = cow
-                    self.metrics["prefix_cache_cow_pages_total"] += 1
+                    self.engine_stats["prefix_cache_cow_pages_total"] += 1
             spliced = use
         req.spliced = spliced
         req.prefill_pos = spliced
@@ -841,9 +1340,11 @@ class ContinuousScheduler:
             req.spliced = 0
             req.prefill_pos = 0
             return False
-        self.metrics["prefix_cache_hit_tokens_total"] += spliced
-        self.metrics["prefix_cache_miss_tokens_total"] += req.length - spliced
-        req.cached_tokens += spliced
+        self.metrics.inc("prefix_cache_hit_tokens_total", spliced)
+        self.metrics.inc(
+            "prefix_cache_miss_tokens_total", req.length - spliced
+        )
+        req.cost_cached_tokens += spliced
         return True
 
     def _place(self, s: int, req: _Request) -> None:
@@ -851,6 +1352,14 @@ class ContinuousScheduler:
         prefill starts after the spliced prefix) and start its prefill.
         The slot stays finished on the device, so decode steps skip it,
         until `_activate`."""
+        # First admission closes the "admission" span; a re-admission after
+        # an eviction or restart the reopened "queue_wait".
+        if req.adm_span >= 0:
+            req.trace.end(req.adm_span)
+            req.adm_span = -1
+        if req.qw_span >= 0:
+            req.trace.end(req.qw_span)
+            req.qw_span = -1
         self.slots[s] = req
         req.activated = False
         self.finished[s] = True
@@ -867,6 +1376,11 @@ class ContinuousScheduler:
         )
         req.admit_seq = self._admit_seq
         self._admit_seq += 1
+        _LOG.info(
+            "request %s %s slot=%d prompt=%d cached=%d", req.trace.id,
+            "re-admitted" if req.replay else "admitted", s, req.length,
+            req.spliced,
+        )
 
     def _prefill_step(self) -> None:
         """Advance every admitting slot by at most one prefill chunk; a slot
@@ -904,6 +1418,10 @@ class ContinuousScheduler:
         # Only the window holding the prompt's last token samples (and
         # draws from the request's generator).
         final = end >= L
+        pf = req.trace.begin(
+            "prefill", slot=s, start=off, tokens=end - off,
+            cached=req.spliced > 0, replay=req.replay > 0,
+        )
         self.kv_pages, tok0 = generate_lib.paged_prefill(
             self.pipe.params.llm, self.cfg.llm, emb,
             torch.tensor([end], device=dev),
@@ -913,11 +1431,22 @@ class ContinuousScheduler:
             [req.generator if final else None], *req.knobs,
             attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
         )
+        tok0 = int(tok0.reshape(-1)[0]) if final else None  # one read
+        req.trace.end(pf)
         req.prefill_pos = end
-        self.metrics["prefill_tokens_total"] += end - off
-        self.metrics["dispatches_total"]["prefill"] += 1
+        req.cost_prefill_tokens += end - off
+        self.metrics.inc("prefill_tokens_total", end - off)
+        self.metrics.observe(
+            "prefill_chunk_tokens", end - off, buckets=PREFILL_CHUNK_BUCKETS
+        )
+        self.metrics.inc("dispatches_total", labels={"kind": "prefill"})
+        self.metrics.observe(
+            "dispatch_rows", end - off, buckets=DISPATCH_ROWS_BUCKETS
+        )
+        if self.watchdog is not None:
+            self.watchdog.beat()
         if final:
-            self._activate(s, req, int(tok0.reshape(-1)[0]))  # one read
+            self._activate(s, req, tok0)
 
     def _activate(self, s: int, req: _Request, tok0: int) -> None:
         """Prefill complete: slot s is live from the next decode chunk. The
@@ -934,10 +1463,15 @@ class ContinuousScheduler:
         self.gens[s] = req.generator
         if not req.ttft_done:
             req.ttft_done = True
-            req.handle.debug["ttft_s"] = time.monotonic() - req.submit_time
+            ttft = time.monotonic() - req.submit_time
+            self.metrics.observe("ttft_seconds", ttft, buckets=TTFT_BUCKETS)
+            req.handle.debug["ttft_s"] = ttft
+            if self.anomaly is not None:
+                self.anomaly.observe_ttft(ttft, request_id=req.trace.id)
             req.handle.debug["admit_chunk"] = self.chunks_run
-        self.metrics["admitted"] += 1
+        self.metrics.inc("admitted")
         self._donate_prefix(s, req, req.length)
+        self._occupancy_gauge()
         # tok0 is the first generated token: process it now (a
         # max_tokens=1 request never occupies a chunk). The decode step
         # re-emits it as its first output (a step emits the token it was
@@ -1009,13 +1543,22 @@ class ContinuousScheduler:
         re-derives the same stream and skips the `processed` tokens."""
         req = self.slots[s]
         req.replay = req.processed
+        req.evictions += 1
         req.activated = False
         req.spliced = 0
         req.prefill_pos = 0
         self._clear_slot(s)
+        req.trace.event("evicted", slot=s, replay_tokens=req.processed)
+        req.qw_span = req.trace.begin("queue_wait", requeued=True)
+        _LOG.info(
+            "request %s evicted from slot %d (replay %d tokens)",
+            req.trace.id, s, req.processed,
+        )
         with self._cond:
             self._queue.appendleft(req)
-        self.metrics["evicted"] += 1
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+        self.metrics.inc("evicted")
+        self._occupancy_gauge()
 
     def _device_state(self) -> tuple:
         """The slot arrays as device tensors for one dispatch."""
@@ -1035,10 +1578,8 @@ class ContinuousScheduler:
 
     def _step_chunk(self) -> None:
         """One split-engine decode dispatch over every slot."""
-        live = [
-            s for s, r in enumerate(self.slots)
-            if r is not None and r.activated
-        ]
+        live = self._live()
+        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
         out = generate_lib.paged_decode_chunk(
             self.pipe.params.llm, self.cfg.llm, self.kv_pages,
             *self._device_state(),
@@ -1047,7 +1588,8 @@ class ContinuousScheduler:
         )
         self.kv_pages = out[0]
         toks, _ = self._harvest_chunk(*out[1:6])
-        self._finish_dispatch("decode", live, toks)
+        self._finish_dispatch("decode", len(live), live, toks, t0_ns,
+                              time.monotonic() - t0)
 
     def _harvest_chunk(self, tok, lengths, finished, recent, toks,
                        pf_tok0=None):
@@ -1070,40 +1612,81 @@ class ContinuousScheduler:
         parts = [x for x in parts if x is not None]
         flat = torch.cat([x.reshape(-1).long() for x in parts]).cpu().numpy()
         host = np.split(flat, np.cumsum([x.numel() for x in parts])[:-1])
-        self.metrics["harvest_total"] += 1
+        self.metrics.inc("harvest_total")
         return [h.reshape(x.shape) for h, x in zip(host, parts)]
 
-    def _finish_dispatch(self, kind: str, live: list[int], toks,
-                         n_new=None) -> None:
+    def _finish_dispatch(self, kind: str, rows: int, live: list[int],
+                         toks, t0_ns: int, dt: float, n_new=None) -> None:
         """Post-dispatch accounting shared by the split, ragged and
-        speculative steps: dispatch counters, the per-slot harvest, and the
-        decode-step utilization counters (skipped when no slot decoded).
-        n_new (speculative): the valid tokens of each slot's row of `toks`
-        (the fed token and its accepted drafts); a slot's device work is
-        then its 1 + k lanes, rejected drafts billed as wasted steps."""
+        speculative steps: dispatch counters and the rows histogram, the
+        watchdog beat, the per-slot harvest, and the decode-step counters
+        (skipped when no slot decoded). n_new (speculative): the valid
+        tokens of each slot's row of `toks` (the fed token and its accepted
+        drafts); a slot's device work is then its 1 + k lanes, rejected
+        drafts billed as wasted steps. The dispatch's window (t0_ns, dt)
+        lands on every live request as its decode_chunk span."""
         self.chunks_run += 1
-        self.metrics["chunks"] += 1
-        self.metrics["dispatches_total"][kind] += 1
-        self._bill_step(live, toks, n_new)
+        self.metrics.inc("chunks")
+        self.metrics.inc("dispatches_total", labels={"kind": kind})
+        self.metrics.observe(
+            "dispatch_rows", rows, buckets=DISPATCH_ROWS_BUCKETS
+        )
+        if self.watchdog is not None:
+            self.watchdog.beat()
+        self._bill_step(live, toks, n_new, t0_ns, dt, dt)
+        self._occupancy_gauge()
 
-    def _bill_step(self, live: list[int], toks, n_new) -> None:
+    def _bill_step(self, live: list[int], toks, n_new, t0_ns: int,
+                   dt: float, step_dt: float) -> None:
         """One logical step's harvest: feed each slot live during it its
-        tokens, then the decode-step counters."""
+        tokens (its decode_chunk span over the dispatch window, its ledger's
+        device steps), then the per-token latency (`step_dt` a logical
+        step) and the decode-step counters."""
         lane_steps = 1 + self.speculate if n_new is not None else self.chunk
         useful = 0
+        emitted = 0
         for s, tokens in generate_lib.unpack_ragged_rows(toks, live).items():
-            if self.slots[s] is None:
+            req = self.slots[s]
+            if req is None:
                 continue
             if n_new is not None:
                 tokens = tokens[:int(n_new[s])]
-                self.metrics["accepted_tokens_per_step_sum"] += len(tokens)
-                self.metrics["accepted_tokens_per_step_count"] += 1
+                emitted += len(tokens)
+                self.metrics.observe(
+                    "accepted_tokens_per_step", len(tokens),
+                    buckets=SPEC_ACCEPT_BUCKETS,
+                )
+            req.trace.add_complete(
+                "decode_chunk", t0_ns, int(dt * 1e9),
+                chunk=self.chunks_run, slot=s,
+            )
+            req.cost_decode_steps += lane_steps
+            self._accrue_page_seconds(s)
             useful += self._advance(s, tokens)
+        if live and n_new is not None and self.anomaly is not None:
+            self.anomaly.observe_spec_accept(
+                emitted / len(live), step=self.chunks_run,
+            )
         if live:
+            per_tok = emitted / len(live) if n_new is not None else self.chunk
+            self.metrics.observe(
+                "time_per_output_token_seconds", step_dt / max(1.0, per_tok)
+            )
             total = self.num_slots * lane_steps
-            self.metrics["decode_steps_total"] += total
-            self.metrics["decode_steps_useful"] += useful
-            self.metrics["decode_steps_wasted"] += total - useful
+            self.metrics.inc("decode_steps_total", total)
+            self.metrics.inc("decode_steps_useful", useful)
+            self.metrics.inc("decode_steps_wasted", total - useful)
+
+    def _occupancy_gauge(self) -> None:
+        live = sum(
+            1 for s, r in enumerate(self.slots)
+            if r is not None and not self.finished[s]
+        )
+        self.metrics.set_gauge("slot_occupancy", live / self.num_slots)
+        u = self.metrics.get("decode_steps_useful")
+        t = self.metrics.get("decode_steps_total")
+        if t:
+            self.metrics.set_gauge("decode_step_utilization", u / t)
 
     def _live(self) -> list[int]:
         return [
@@ -1139,6 +1722,7 @@ class ContinuousScheduler:
         if pf_req is None and not live:
             return
         fuse_k = self._select_fuse_k(live, pf_req)
+        self.metrics.set_gauge("fused_k", fuse_k)
         if fuse_k > 1:
             self._fused_megastep(fuse_k)
             return
@@ -1153,8 +1737,20 @@ class ContinuousScheduler:
             else self.chunk * self.pf_width
         )
         pf_kw: dict[str, Any] = {}
+        pf_span = -1
+        pf_rows = 0
         if pf_req is not None:
             pf_off, pf_len = pf_req.prefill_pos, pf_req.length
+            pf_span = pf_req.trace.begin(
+                "prefill", slot=pf_s, start=pf_off,
+                tokens=min(win_tokens, pf_len - pf_off),
+                cached=pf_req.spliced > 0, replay=pf_req.replay > 0,
+                ragged=True,
+            )
+            pf_rows = min(
+                self.prefill_chunk if self.speculate else self.pf_width,
+                pf_len - pf_off,
+            )
             pf_kw = dict(
                 pf_embeds=generate_lib.pack_prefill_window(
                     pf_req.embeds, pf_off, win_tokens
@@ -1166,6 +1762,7 @@ class ContinuousScheduler:
             )
         common = dict(eos=self.cfg.generation.eos_token_id,
                       attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype)
+        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
         if self.speculate:
             drafts, dlen, proposed = self._drafts(live)
             bt, tok, lengths, finished, _, gens, temp, top_p, top_k, _ = (
@@ -1180,7 +1777,10 @@ class ContinuousScheduler:
             toks, n_new, acc, pf_tok0 = self._harvest_spec(
                 *out[1:7], pf_tok0=out[7])
             self._count_drafts(live, proposed, acc, n_new)
-            self._finish_dispatch("spec", live, toks, n_new=n_new)
+            self._finish_dispatch(
+                "spec", len(live) * (1 + self.speculate) + pf_rows, live,
+                toks, t0_ns, time.monotonic() - t0, n_new=n_new,
+            )
         else:
             out = generate_lib.paged_ragged_step(
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages,
@@ -1191,11 +1791,20 @@ class ContinuousScheduler:
             self.kv_pages = out[0]
             toks, pf_tok0 = self._harvest_chunk(*out[1:6], pf_tok0=out[7])
             # Decode billing covers only slots live DURING the dispatch.
-            self._finish_dispatch("ragged", live, toks)
+            self._finish_dispatch(
+                "ragged", len(live) + pf_rows, live, toks, t0_ns,
+                time.monotonic() - t0,
+            )
         if pf_req is not None:
+            pf_req.trace.end(pf_span)
             advanced = min(win_tokens, pf_len - pf_off)
             pf_req.prefill_pos = pf_off + advanced
-            self.metrics["prefill_tokens_total"] += advanced
+            pf_req.cost_prefill_tokens += advanced
+            self.metrics.inc("prefill_tokens_total", advanced)
+            self.metrics.observe(
+                "prefill_chunk_tokens", advanced,
+                buckets=PREFILL_CHUNK_BUCKETS,
+            )
             if pf_req.prefill_pos >= pf_len:
                 self._activate(pf_s, pf_req, pf_tok0)
 
@@ -1239,6 +1848,7 @@ class ContinuousScheduler:
             return
         common = dict(k_steps=k_steps, eos=self.cfg.generation.eos_token_id,
                       attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype)
+        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
         bt, tok, lengths, finished, recent, gens, temp, top_p, top_k, stop = (
             self._device_state())
         if self.speculate:
@@ -1253,7 +1863,8 @@ class ContinuousScheduler:
             self.kv_pages = out[0]
             toks, n_new, acc, _ = self._harvest_spec(*out[1:7])
             self._count_drafts(live, None, acc, n_new)
-            self._finish_megastep("fused_spec", live, toks, k_steps, n_new)
+            self._finish_megastep("fused_spec", live, toks, k_steps, t0_ns,
+                                  time.monotonic() - t0, n_new)
         else:
             out = generate_lib.paged_fused_steps(
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
@@ -1262,27 +1873,39 @@ class ContinuousScheduler:
             )
             self.kv_pages = out[0]
             toks, _ = self._harvest_chunk(*out[1:6])
-            self._finish_megastep("fused", live, toks, k_steps)
+            self._finish_megastep("fused", live, toks, k_steps, t0_ns,
+                                  time.monotonic() - t0)
 
     def _finish_megastep(self, kind: str, live: list[int], toks,
-                         k_steps: int, n_new=None) -> None:
-        """Post-megastep accounting: one dispatch, then the harvest as K
-        logical steps, step j owning columns [j * width, (j + 1) * width)
-        of `toks` (and column j of n_new), so finishes, stop strings and
-        the per-step counters keep their K = 1 meaning. A row the host
-        finishes at step j drops out of steps j+1..: its later columns are
-        filler the sequential engine would never have run."""
-        self.metrics["dispatches_total"][kind] += 1
-        self.metrics["megasteps_total"][k_steps] += 1
+                         k_steps: int, t0_ns: int, dt: float,
+                         n_new=None) -> None:
+        """Post-megastep accounting: one dispatch (its counters, rows and
+        watchdog beat once), then the harvest as K logical steps, step j
+        owning columns [j * width, (j + 1) * width) of `toks` (and column j
+        of n_new), so finishes, stop strings and the per-step counters keep
+        their K = 1 meaning. A row the host finishes at step j drops out of
+        steps j+1..: its later columns are filler the sequential engine
+        would never have run."""
         width = 1 + self.speculate if n_new is not None else self.chunk
+        self.metrics.inc("dispatches_total", labels={"kind": kind})
+        self.metrics.observe(
+            "dispatch_rows",
+            len(live) * (width if n_new is not None else 1),
+            buckets=DISPATCH_ROWS_BUCKETS,
+        )
+        self.engine_stats["megasteps_total"][k_steps] += 1
+        if self.watchdog is not None:
+            self.watchdog.beat()
         for j in range(k_steps):
             self.chunks_run += 1
-            self.metrics["chunks"] += 1
+            self.metrics.inc("chunks")
             self._bill_step(
                 [s for s in live if self.slots[s] is not None],
                 toks[:, j * width:(j + 1) * width],
                 None if n_new is None else n_new[:, j],
+                t0_ns, dt, dt / k_steps,
             )
+        self._occupancy_gauge()
 
     def _graph_route(self) -> bool:
         """Pure-decode dispatches replay engine-step graphs: on the card,
@@ -1315,8 +1938,8 @@ class ContinuousScheduler:
                 device=self.device,
             )
             self._graphs[key] = graph
-            self.metrics["graph_captures_total"] += 1
-            self.metrics["graph_capture_s"] += graph.capture_s
+            self.engine_stats["graph_captures_total"] += 1
+            self.engine_stats["graph_capture_s"] += graph.capture_s
         return graph
 
     def _replay_steps(self, live: list[int], k_steps: int) -> None:
@@ -1324,6 +1947,7 @@ class ContinuousScheduler:
         route: the host state copied into the graph, k_steps replays, one
         harvest."""
         graph = self._engine_graph(any(g is not None for g in self.gens))
+        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
         host = dict(
             bt=self.bt, tok=self.tok, lengths=self.lengths,
             finished=self.finished, recent=self.recent, temp=self.temp,
@@ -1342,19 +1966,24 @@ class ContinuousScheduler:
                 out["tok"], out["lengths"], out["finished"], out["toks"],
                 out["n_new"], out["acc"])
             self._count_drafts(live, proposed, acc, n_new)
+            dt = time.monotonic() - t0
             if k_steps == 1:
-                self._finish_dispatch("spec", live, toks, n_new[:, 0])
+                self._finish_dispatch(
+                    "spec", len(live) * (1 + self.speculate), live, toks,
+                    t0_ns, dt, n_new[:, 0],
+                )
             else:
                 self._finish_megastep("fused_spec", live, toks, k_steps,
-                                      n_new)
+                                      t0_ns, dt, n_new)
             return
         toks, _ = self._harvest_chunk(
             out["tok"], out["lengths"], out["finished"], out["recent"],
             out["toks"])
+        dt = time.monotonic() - t0
         if k_steps == 1:
-            self._finish_dispatch("ragged", live, toks)
+            self._finish_dispatch("ragged", len(live), live, toks, t0_ns, dt)
         else:
-            self._finish_megastep("fused", live, toks, k_steps)
+            self._finish_megastep("fused", live, toks, k_steps, t0_ns, dt)
 
     def _drafts(self, live: list[int]):
         """(drafts [S, k], draft_len [S]) on the device for one
@@ -1383,8 +2012,8 @@ class ContinuousScheduler:
         if live:
             if proposed is None:
                 proposed = self.speculate * int((n_new[live] > 0).sum())
-            self.metrics["draft_proposed_total"] += proposed
-            self.metrics["draft_accepted_total"] += int(acc[live].sum())
+            self.metrics.inc("draft_proposed_total", proposed)
+            self.metrics.inc("draft_accepted_total", int(acc[live].sum()))
 
     def _confirmed_tail(self, s: int, keep: int) -> np.ndarray:
         """The last `keep` tokens of slot s's device-confirmed stream:
@@ -1485,6 +2114,7 @@ class ContinuousScheduler:
                 break
         if len(req.emitted) == chunk_start and finish is None:
             return useful  # pure replay skip: nothing new to decode
+        t_emit = trace_lib.now_ns()
         text = tokenizer.decode(req.emitted, skip_special_tokens=True)
         text, hit = pipeline_lib.stop_cut(text, req.stops)
         if hit:
@@ -1499,11 +2129,20 @@ class ContinuousScheduler:
             # Tokens past the one completing the finish did nothing for
             # the client.
             useful = min(useful, finish[1] - chunk_start)
+        # Ledger: the client-visible completion progress of this step.
+        req.cost_decode_tokens += useful
+        if finish is not None:
             self._emit_text(req, text.strip())
+            req.trace.add_complete(
+                "emission", t_emit, chars=len(req.text_done)
+            )
             self._finish(s, finish[0], completion=finish[1])
         else:
             self._emit_text(
                 req, pipeline_lib.stable_text_prefix(text, req.stops)
+            )
+            req.trace.add_complete(
+                "emission", t_emit, chars=len(req.text_done)
             )
         return useful
 
@@ -1515,6 +2154,7 @@ class ContinuousScheduler:
 
     def _finish(self, s: int, reason: str, completion: int) -> None:
         req = self.slots[s]
+        cost = self._finalize_cost(s, req)
         # Donate prompt + reply before the slot's references go, capped at
         # the device-confirmed KV length: a token the host emitted but the
         # device never fed back (tok0 of a max_tokens=1 request) has no KV.
@@ -1523,19 +2163,30 @@ class ContinuousScheduler:
         )
         self._clear_slot(s)
         h = req.handle
-        h.debug["cached_tokens"] = req.cached_tokens
+        h.debug["cached_tokens"] = req.cost_cached_tokens
         h.reply = req.text_done
         h.finish_reason = reason
         h.usage = (req.length, completion)
         h.debug["finish_chunk"] = self.chunks_run
         h.debug["e2e_s"] = time.monotonic() - req.submit_time
+        # The trace and the wide event close before the client is woken,
+        # so /debug shows a request as finished once its reply is out.
+        req.trace.finish(
+            finish_reason=reason, prompt_tokens=req.length,
+            completion_tokens=completion, cost=cost,
+        )
+        self._emit_request_event(req, status="ok")
         h.events.put(("end", reason, h.usage))
         h.done.set()
-        self.metrics["completed"] += 1
+        _LOG.info("request %s finished (%s, %d tokens)", req.trace.id,
+                  reason, completion)
+        self.metrics.inc("completed")
 
     def _finish_error(
         self, s: int, msg: str, *, kind: str = "server_error"
     ) -> None:
         req = self.slots[s]
+        cost = self._finalize_cost(s, req)
         self._clear_slot(s)
-        self._reject_queued(req, msg, kind=kind)
+        self._fail_handle(req, msg, kind, cost)
+        _LOG.info("request %s errored: %s", req.trace.id, msg)

@@ -1,0 +1,481 @@
+"""The port's OpenAI-compatible server against the JAX package's: the
+same sequential requests (text, a PNG image, multi-turn, streamed, seeded
+sampling, stop strings, bad input) to a JAX server and the port's server
+on the same tiny weights give identical replies, finish reasons, usage,
+SSE chunk sequences and status codes, over the window engine and the
+split and ragged continuous engines. Then the /metrics families (JAX's
+minus the families of modules not ported yet), the counters, the cost
+ledgers, the trace spans and the debug endpoints; 429 / 504 / 503 as the
+JAX server answers them; the options not ported yet; and the checks of
+scripts/check_serving_endpoints.py that apply, read back with the JAX
+package's quantile helpers (mirrors tests/test_api_server.py and the HTTP
+half of tests/test_containment.py)."""
+
+import base64
+import json
+import re
+import threading
+import time
+import urllib.request
+
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from oryx_tpu.serve import api_server as japi  # noqa: E402
+from oryx_tpu.utils.metrics import (  # noqa: E402
+    histogram_quantile,
+    parse_prom_histogram,
+)
+from oryx_tpu_torch.serve import api_server as tapi  # noqa: E402
+from oryx_tpu_torch.serve.scheduler import ContinuousScheduler  # noqa: E402
+from oryx_tpu_torch.utils.metrics import REQUEST_COST_KEYS  # noqa: E402
+
+from torch_serve_common import (  # noqa: E402
+    Server,
+    bomb_png,
+    image,
+    make_pipes,
+    png_uri,
+    sse_chunks,
+)
+
+LEDGER = ("prefill_tokens", "cached_tokens", "decode_steps",
+          "decode_tokens", "peak_pages")
+ENGINES = {
+    "window": dict(engine="window"),
+    "split": dict(engine="continuous", num_slots=2, page_size=16,
+                  decode_chunk=4, max_ctx=512),
+    "ragged": dict(engine="continuous", num_slots=2, page_size=16,
+                   decode_chunk=4, max_ctx=512, ragged=True,
+                   prefill_chunk=32),
+}
+# The JAX server's families whose modules the port has not yet: the
+# output auditor, the numerics probes, the page map, device-time
+# profiling and OOM forensics (ROADMAP Queue 1 item 3).
+CUT_FAMILY = re.compile(
+    r"^oryx_(audit|numerics|page|device_time|profile)_"
+    r"|^oryx_pool_(?!kv_dtype$)|^oryx_serving_oom_forensics_total$"
+)
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    old = jax.config.jax_default_matmul_precision
+    jax.config.update("jax_default_matmul_precision", "highest")
+    yield make_pipes()
+    jax.config.update("jax_default_matmul_precision", old)
+
+
+def _user(text, img=None):
+    content = text if img is None else [
+        {"type": "text", "text": text},
+        {"type": "image_url", "image_url": {"url": png_uri(img)}},
+    ]
+    return [{"role": "user", "content": content}]
+
+
+def _requests(stop_char):
+    """(request id, body) in order: the sequential mix of every engine."""
+    multi = [
+        {"role": "system", "content": "be brief"},
+        {"role": "user", "content": [
+            {"type": "text", "text": "what is this?"},
+            {"type": "image_url", "image_url": {"url": png_uri(image(1))}},
+        ]},
+        {"role": "assistant", "content": "a picture"},
+        {"role": "user", "content": "why?"},
+    ]
+    return [
+        ("r-text", {"messages": _user("hello there"), "max_tokens": 6}),
+        ("r-image", {"messages": _user("what is this?", image(2)),
+                     "max_tokens": 5}),
+        ("r-multi", {"messages": multi, "max_tokens": 7}),
+        ("r-history", {"messages": [
+            {"role": "user", "content": "hi"},
+            {"role": "assistant", "content": "hello"},
+            {"role": "user", "content": "tell me more"}], "max_tokens": 8}),
+        ("r-stream", {"messages": _user("tell me a story"),
+                      "max_tokens": 9, "stream": True,
+                      "stream_options": {"include_usage": True}}),
+        ("r-stream-img", {"messages": _user("describe", image(3, 28, 28)),
+                          "max_tokens": 4, "stream": True}),
+        ("r-seeded", {"messages": _user("hello there"), "max_tokens": 6,
+                      "temperature": 0.7, "top_p": 0.01, "seed": 3}),
+        ("r-stop", {"messages": _user("hello there"), "max_tokens": 6,
+                    "stop": [stop_char]}),
+        ("r-stop-stream", {"messages": _user("hello there"),
+                           "max_tokens": 6, "stop": stop_char,
+                           "stream": True}),
+        # Bad input: status codes only.
+        ("e-n", {"messages": _user("q"), "n": 2}),
+        ("e-logprobs", {"messages": _user("q"), "logprobs": True}),
+        ("e-img-assistant", {"messages": [
+            {"role": "user", "content": "q"},
+            {"role": "assistant", "content": [
+                {"type": "image_url",
+                 "image_url": {"url": png_uri(image(4))}}]},
+            {"role": "user", "content": "and?"}]}),
+        ("e-img-late", {"messages": [
+            {"role": "user", "content": "q"},
+            {"role": "assistant", "content": "a"},
+            {"role": "user", "content": [
+                {"type": "image_url",
+                 "image_url": {"url": png_uri(image(5))}}]}]}),
+        ("e-img-bomb", {"messages": [{"role": "user", "content": [
+            {"type": "text", "text": "q"},
+            {"type": "image_url", "image_url": {
+                "url": "data:image/png;base64,"
+                + base64.b64encode(bomb_png()).decode()}}]}]}),
+        ("e-max0", {"messages": _user("q"), "max_tokens": 0}),
+        ("e-max-limit", {"messages": _user("q"), "max_tokens": 100}),
+        ("e-temp", {"messages": _user("q"), "temperature": 3.0}),
+        ("e-roles", {"messages": [{"role": "assistant", "content": "x"}]}),
+        ("e-stream-opts", {"messages": _user("q"),
+                           "stream_options": {"include_usage": True}}),
+    ]
+
+
+def _norm(code, body):
+    """A response cut to what must match: status; replies, finish reasons,
+    usage and the ledger's token fields; SSE chunks without ids/stamps;
+    an error's type."""
+    if isinstance(body, list):
+        return code, sse_chunks(body)
+    if code != 200:
+        return code, body["error"].get("type")
+    out = {k: body[k] for k in ("object", "model", "choices", "usage")}
+    if "oryx" in body:
+        out["cost"] = {k: body["oryx"]["cost"][k] for k in LEDGER}
+    return code, out
+
+
+def _serve_all(api, pipe, kw, reqs):
+    s = Server(api.build_server(pipe, port=0, max_tokens_limit=64, **kw))
+    try:
+        out = {}
+        for rid, body in reqs:
+            code, hdr, resp = s.post(body, headers={"X-Request-Id": rid})
+            out[rid] = _norm(code, resp)
+            if code == 200:
+                assert hdr["X-Request-Id"] == rid
+        text = s.get("/metrics")[2]
+        traces = {rid: s.get(f"/debug/trace?id={rid}")[2]
+                  for rid, _ in reqs[:9]}
+        done = json.loads(s.get("/debug/requests?state=done")[2])
+        return out, text, traces, done
+    finally:
+        s.close()
+
+
+def _families(text):
+    return dict(re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M))
+
+
+def _span_names(trace_json):
+    return [e["name"] for e in json.loads(trace_json)["traceEvents"]
+            if e["ph"] == "X"]
+
+
+@pytest.fixture(scope="module")
+def served(pipes):
+    """Both servers' answers to the mix, per engine."""
+    jp, tp = pipes
+    stop_char = None
+    out = {}
+    for name, kw in ENGINES.items():
+        if stop_char is None:
+            probe = Server(tapi.build_server(tp, port=0, **kw))
+            reply = probe.post({"messages": _user("hello there"),
+                                "max_tokens": 6})[2]
+            probe.close()
+            stop_char = reply["choices"][0]["message"]["content"][2]
+        reqs = _requests(stop_char)
+        out[name] = (_serve_all(japi, jp, kw, reqs),
+                     _serve_all(tapi, tp, kw, reqs), reqs)
+    return out
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_replies_usage_sse_and_codes_equal_jax(served, engine):
+    (want, *_), (got, *_), reqs = served[engine]
+    for rid, _ in reqs:
+        assert got[rid] == want[rid], rid
+    codes = {rid: got[rid][0] for rid, _ in reqs}
+    assert all(c == 200 for r, c in codes.items() if r.startswith("r-"))
+    assert all(c == 400 for r, c in codes.items() if r.startswith("e-"))
+    # The stop string really cut the reply.
+    stop = got["r-stop"][1]["choices"][0]
+    assert stop["finish_reason"] == "stop"
+    assert len(stop["message"]["content"]) == 2
+    # SSE: deltas, a finish chunk, the usage chunk, [DONE].
+    chunks = got["r-stream"][1]
+    assert chunks[-1] == "[DONE]" and chunks[-2]["choices"] == []
+    assert chunks[-2]["usage"]["completion_tokens"] == 9
+    text = "".join(c["choices"][0]["delta"].get("content", "")
+                   for c in chunks[:-3])
+    assert text and chunks[-3]["choices"][0]["finish_reason"] == "length"
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_metrics_families_and_counters_equal_jax(served, engine):
+    (_, jtext, _, _), (_, text, _, _), _ = served[engine]
+    want = {k: v for k, v in _families(jtext).items()
+            if not CUT_FAMILY.search(k)}
+    assert _families(text) == want
+    if engine == "window":
+        names = ("completed", "decode_steps_total", "decode_steps_useful")
+    else:
+        names = ("admitted", "completed", "prefill_tokens_total",
+                 "prefix_cache_hit_tokens_total", "chunks",
+                 "decode_steps_total", "decode_steps_useful")
+    for name in names:
+        pat = rf"^oryx_serving_{name} (\S+)$"
+        assert re.search(pat, text, re.M).group(1) == \
+            re.search(pat, jtext, re.M).group(1), name
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_trace_spans_and_ledgers_equal_jax(served, engine):
+    (_, _, jtraces, jdone), (_, _, traces, done), reqs = served[engine]
+    for rid, _ in reqs[:9]:
+        assert _span_names(traces[rid]) == _span_names(jtraces[rid]), rid
+    if engine == "window":
+        return
+    assert {"queue_wait", "admission", "prompt_prep", "prefill",
+            "decode_chunk", "emission"} <= set(_span_names(traces["r-text"]))
+    jcost = {r["id"]: r["meta"]["cost"] for r in jdone["requests"]}
+    assert {r["id"] for r in done["requests"]} == set(jcost)
+    for r in done["requests"]:
+        assert r["done"] and list(r["meta"]["cost"]) == \
+            list(REQUEST_COST_KEYS)
+        assert {k: r["meta"]["cost"][k] for k in LEDGER} == \
+            {k: jcost[r["id"]][k] for k in LEDGER}, r["id"]
+
+
+def test_sampled_replies_match_the_ports_own_engines(pipes):
+    """Seeded sampling at temperature 0.9 draws other numbers than JAX's
+    sampler; over HTTP it gives the port's in-process replies, twice."""
+    _, tp = pipes
+    body = {"messages": _user("hello there"), "max_tokens": 8,
+            "temperature": 0.9, "seed": 5}
+    req = {"question": "hello there", "images": [], "is_video": False,
+           "history": []}
+    for name, kw in ENGINES.items():
+        s = Server(tapi.build_server(tp, port=0, **kw))
+        try:
+            a, b = (s.post(body)[2]["choices"][0]["message"]["content"]
+                    for _ in range(2))
+        finally:
+            s.close()
+        if name == "window":
+            want = tp.chat_batch([req], max_new_tokens=16, per_row_max=[8],
+                                 temperature=0.9, seed=5)[0]
+        else:
+            sched = ContinuousScheduler(
+                tp, autostart=False, num_slots=2, page_size=16, chunk=4,
+                max_ctx=512, ragged=kw.get("ragged", False),
+                prefill_chunk=kw.get("prefill_chunk"))
+            h = sched.submit(req, 8, {"temperature": 0.9, "seed": 5})
+            sched.start()
+            want = h.result(timeout=600)[0]
+            sched.close()
+        assert a == b == want, name
+
+
+def test_endpoint_checks_on_the_port(pipes):
+    """The checks of scripts/check_serving_endpoints.py that apply to the
+    port's replica, with the JAX package's quantile helpers."""
+    _, tp = pipes
+    s = Server(tapi.build_server(tp, port=0, **ENGINES["ragged"]))
+    try:
+        code, hdr, text = s.get("/metrics")
+        assert code == 200
+        assert hdr["Content-Type"] == "text/plain; version=0.0.4"
+        prefixes = ("oryx_serving_", "oryx_anomaly_", "oryx_pool_",
+                    "oryx_cache_")
+        assert [ln for ln in text.splitlines()
+                if ln and not ln.startswith("#")
+                and not ln.startswith(prefixes)] == []
+        assert re.search(r'^oryx_serving_build_info\{[^}]*engine='
+                         r'"continuous"[^}]*\} 1$', text, re.M)
+        assert 'revision="' in text
+        for fam in ("oryx_serving_hbm_live_bytes",
+                    "oryx_cache_spilled_pages", "oryx_cache_host_bytes",
+                    "oryx_cache_reload_hit_total",
+                    "oryx_cache_reload_upload_total"):
+            assert re.search(rf"^{fam} ", text, re.M), fam
+        assert re.search(r'^oryx_pool_kv_dtype\{kv_dtype="bf16"\} 1$',
+                         text, re.M)
+        assert json.loads(s.get("/healthz")[2]) == {"status": "ok"}
+        assert json.loads(s.get("/readyz")[2]) == {"ready": True,
+                                                   "reason": "ok"}
+        assert s.get("/v1/models")[0] == 200
+        _, hdr, _ = s.post({"messages": _user("hello there"),
+                            "max_tokens": 4},
+                           headers={"X-Request-Id": "endpoint-check-1"})
+        assert hdr["X-Request-Id"] == "endpoint-check-1"
+        sysmsg = "You are a helpful assistant. " * 6
+        for i in range(3):
+            s.post({"messages": [{"role": "system", "content": sysmsg},
+                                 {"role": "user", "content": f"q {i}?"}],
+                    "max_tokens": 3})
+        text = s.get("/metrics")[2]
+        for fam in ("prefix_cache_hit_tokens_total",
+                    "prefix_cache_miss_tokens_total",
+                    "prefix_cache_evicted_pages_total",
+                    "prefix_cache_entries", "prefix_cache_pages",
+                    "prefill_tokens_total"):
+            assert re.search(rf"^oryx_serving_{fam} ([0-9.e+-]+)$", text,
+                             re.M), fam
+        assert float(re.search(
+            r"^oryx_serving_prefix_cache_hit_tokens_total (\S+)$", text,
+            re.M).group(1)) > 0
+        assert re.search(r'^oryx_serving_prefill_chunk_tokens_bucket\{le='
+                         r'"\+Inf"\} [1-9]', text, re.M)
+        bounds, counts, total, _ = parse_prom_histogram(
+            text, "oryx_serving_ttft_seconds")
+        assert total >= 4
+        p50 = histogram_quantile(0.5, bounds, counts, total)
+        p99 = histogram_quantile(0.99, bounds, counts, total)
+        assert 0 < p50 <= p99
+        assert re.search(r"^oryx_serving_request_page_seconds_count [1-9]",
+                         text, re.M)
+        lim = json.loads(s.get("/debug/requests?limit=1")[2])
+        assert lim["returned"] == 1 and lim["total"] >= 4
+        done = json.loads(s.get("/debug/requests?state=done")[2])
+        assert done["requests"]
+        for rec in done["requests"]:
+            assert rec["done"]
+            assert set(REQUEST_COST_KEYS) <= set(rec["meta"]["cost"])
+        assert s.get("/debug/requests?state=bogus")[0] == 400
+        tr = json.loads(s.get("/debug/trace?id=endpoint-check-1")[2])
+        names = {e["name"] for e in tr["traceEvents"]}
+        assert {"queue_wait", "prefill", "decode_chunk"} <= names
+        assert s.get("/debug/trace")[0] == 400
+        assert s.get("/debug/trace?id=nope")[0] == 404
+        # The JAX server's endpoints whose modules are not ported yet.
+        for path in ("/debug/timeline", "/debug/pages", "/debug/oom",
+                     "/debug/audit", "/debug/journal", "/debug/profile"):
+            assert s.get(path)[0] == 404, path
+    finally:
+        s.close()
+
+
+def test_http_backpressure_deadline_and_drain_as_jax(pipes):
+    """429 + Retry-After on a full queue, 504 past a deadline, 503 once
+    draining (readyz and POST): the JAX server's codes and error types."""
+    jp, tp = pipes
+    kw = dict(engine="continuous", num_slots=1, page_size=16,
+              decode_chunk=4, max_ctx=512)
+    out = []
+    for api, pipe in ((japi, jp), (tapi, tp)):
+        s = Server(api.build_server(pipe, port=0, max_queue=1, **kw))
+        sched = s.srv.scheduler
+        done = []
+        threads = [threading.Thread(target=lambda n=n, i=i: done.append(
+            s.post({"messages": _user(f"load {i}"), "max_tokens": n})[0]))
+            for i, n in enumerate((256, 2))]
+        threads[0].start()
+        end = time.monotonic() + 120
+        while sched.slots[0] is None and time.monotonic() < end:
+            time.sleep(0.005)
+        threads[1].start()
+        while sched.queue_len() < 1 and time.monotonic() < end:
+            time.sleep(0.005)
+        code, hdr, body = s.post({"messages": _user("over the cap"),
+                                  "max_tokens": 2})
+        over = (code, int(hdr["Retry-After"]) >= 1, body["error"]["type"],
+                body["error"]["reason"])
+        for t in threads:
+            t.join()
+        s.close()
+        s = Server(api.build_server(pipe, port=0, request_timeout=0.01,
+                                    **kw))
+        code, _, body = s.post({"messages": _user("too slow"),
+                                "max_tokens": 300})
+        late = (code, body["error"]["type"])
+        s.close()
+        s = Server(api.build_server(pipe, port=0, **kw))
+        ready0 = s.get("/readyz")[0]
+        s.srv.begin_drain()
+        rz = s.get("/readyz")
+        code, hdr, body = s.post({"messages": _user("post-drain"),
+                                  "max_tokens": 2})
+        drain = (ready0, rz[0], json.loads(rz[2])["reason"], code,
+                 body["error"]["type"], bool(hdr.get("Retry-After")),
+                 s.srv.scheduler.drain(timeout=120))
+        s.close()
+        out.append((sorted(done), over, late, drain))
+    assert out[1] == out[0]
+    assert out[1][1][0] == 429 and out[1][2][0] == 504
+    assert out[1][3][1] == out[1][3][3] == 503
+
+
+@pytest.mark.parametrize("option,value", [
+    ("journal_path", "/nonexistent/journal.jsonl"),
+    ("faults_spec", "engine_crash:after=1"),
+    ("audit_sample_every", 4), ("audit_tol_maxdiff", 0.1),
+    ("audit_tol_kl", 0.1), ("profile_sample_every", 8),
+    ("numerics_every", 8), ("ttft_slo", 1.0), ("queue_depth_slo", 4),
+])
+def test_options_not_ported_raise(pipes, option, value):
+    _, tp = pipes
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        tapi.build_server(tp, port=0, engine="continuous",
+                          **{option: value})
+
+
+def test_main_refuses_shard_and_needs_a_card_for_cuda(monkeypatch):
+    import torch
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        tapi.main(["--model-path", "x", "--shard", "tp=2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tapi.main(["--model-path", "/nonexistent"])
+
+
+def test_pairing_checks_as_jax(pipes):
+    jp, tp = pipes
+    for kw in (dict(engine="window", ragged=True),
+               dict(engine="continuous", speculate=2),
+               dict(engine="window", fuse_steps=4),
+               dict(engine="continuous", fuse_steps=4),
+               dict(engine="continuous", draft_model="init:8:8:8:0"),
+               dict(engine="window", request_timeout=5.0),
+               dict(engine="window", kv_dtype="int8")):
+        for api, pipe in ((japi, jp), (tapi, tp)):
+            with pytest.raises(ValueError):
+                api.build_server(pipe, port=0, **kw)
+
+
+def test_parse_messages_and_sampling_equal_jax():
+    msgs = [
+        {"role": "developer", "content": "be brief"},
+        {"role": "system", "content": "in French"},
+        {"role": "user", "content": [
+            {"type": "text", "text": "what is this?"},
+            {"type": "image_url", "image_url": {"url": png_uri(image(7))}},
+        ]},
+        {"role": "assistant", "content": "a cat"},
+        {"role": "user", "content": "why?"},
+    ]
+    q, hist, imgs = tapi.parse_messages(msgs)
+    jq, jhist, jimgs = japi.parse_messages(msgs)
+    assert (q, hist) == (jq, jhist)
+    assert len(imgs) == len(jimgs) == 1
+    assert (imgs[0] == jimgs[0]).all()
+    for body in ({"temperature": 0.123, "top_p": 0.456, "stop": "x",
+                  "seed": 4}, {"stop": ["a", "", "b"]}, {}):
+        assert tapi._parse_sampling(body) == japi._parse_sampling(body)
+    for bad in ({"n": 2}, {"logprobs": True}, {"temperature": -1},
+                {"top_p": 0}, {"stop": ["x"] * 9}):
+        for api in (tapi, japi):
+            with pytest.raises(ValueError):
+                api._parse_sampling(bad)
+    with pytest.raises(ValueError, match="allow-local-files"):
+        tapi.parse_messages([{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": "/etc/x.png"}}]}])

@@ -1610,7 +1610,9 @@ def _engine_run(card, *, eager, kv_dtype="bf16", sampling=None,
     if sched_out is not None:
         sched_out.append(sched)
     sched.check_pool_invariant()
-    return out, sched.metrics, sum(pa.LAUNCHES.values())
+    stats = dict(sched.engine_stats,
+                 dispatches_total=sched.metrics.by_label("dispatches_total"))
+    return out, stats, sum(pa.LAUNCHES.values())
 
 
 def _neural(cfg_vocab=512):
@@ -1678,7 +1680,7 @@ def test_engine_reset_pool_drops_the_graphs(card):
     h = sched.submit({"question": "tell me more"}, 12)
     got = h.result(timeout=300)
     assert len(sched._graphs) == 1
-    assert sched.metrics["graph_captures_total"] == 2
+    assert sched.engine_stats["graph_captures_total"] == 2
     sched.close()
     want, _, _ = _engine_run(card, eager=True, reqs=[("tell me more", 12)])
     assert [got] == want
@@ -2001,3 +2003,84 @@ def test_engine_close_releases_its_graphs(card, monkeypatch):
     sched[0].close()
     assert len(released) == n and not sched[0]._graphs
 
+
+
+def _http(base, path, body=None):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read().decode()
+
+
+@pytest.mark.parametrize("engine", ["window", "split", "ragged"])
+def test_server_on_card_matches_cpu(card, engine):
+    """The tiny fp32 server on the card (its kernels) answers a text, a PNG
+    image and a streamed request as the same server on the CPU (the plain
+    twins) does, and its /metrics shows the card's memory."""
+    import json
+    import re
+    import threading
+
+    import numpy as np
+    from chip_smoke import png_data_uri
+
+    from oryx_tpu_torch.serve import api_server
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    kw = {"window": dict(engine="window"),
+          "split": dict(engine="continuous", num_slots=2, page_size=16,
+                        decode_chunk=4, max_ctx=256),
+          "ragged": dict(engine="continuous", num_slots=2, page_size=16,
+                         decode_chunk=4, max_ctx=256, ragged=True,
+                         prefill_chunk=16)}[engine]
+    img = np.random.default_rng(0).integers(0, 256, (40, 56, 3),
+                                            dtype=np.uint8)
+    bodies = [
+        {"messages": [{"role": "user", "content": "hello there"}],
+         "max_tokens": 12},
+        {"messages": [{"role": "user", "content": [
+            {"type": "text", "text": "what is this?"},
+            {"type": "image_url", "image_url": {"url": png_data_uri(img)}}]}],
+         "max_tokens": 8},
+        {"messages": [{"role": "user", "content": "tell me more"}],
+         "max_tokens": 10, "stream": True},
+    ]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        model, cfg = _tiny_model(dev, torch.float32)
+        srv = api_server.build_server(
+            Pipeline(_CharTok(), model, cfg, device=dev), port=0, **kw)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            replies = []
+            for b in bodies:
+                text = _http(base, "/v1/chat/completions", b)
+                if b.get("stream"):
+                    chunks = [json.loads(ln[6:]) for ln in text.split("\n\n")
+                              if ln.startswith("data: {")]
+                    replies.append("".join(
+                        c["choices"][0]["delta"].get("content", "")
+                        for c in chunks if c["choices"]))
+                else:
+                    d = json.loads(text)
+                    replies.append((d["choices"][0], d["usage"]))
+            out[dev.type] = replies
+            if dev.type == "cuda":
+                metrics = _http(base, "/metrics")
+                for g in ("hbm_live_bytes", "hbm_bytes_in_use",
+                          "hbm_peak_bytes", "hbm_limit_bytes"):
+                    v = re.search(rf"^oryx_serving_{g} (\S+)$", metrics,
+                                  re.M)
+                    assert v and float(v.group(1)) > 0, g
+        finally:
+            if srv.scheduler is not None:
+                srv.scheduler.close()
+                srv.supervisor.stop()
+            srv.shutdown()
+            srv.server_close()
+    assert out["cuda"] == out["cpu"]

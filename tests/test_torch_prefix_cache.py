@@ -234,20 +234,31 @@ def test_cache_call_sequences_equal(scenario):
 
 
 def test_cache_counts_into_the_metrics_dict():
-    metrics = {}
-    alloc = tpk.PageAllocator(16, 4)
-    dev = ToyDevice()
-    cache = tpc.PagedPrefixCache(alloc, metrics=metrics,
-                                 host_cache_bytes=1 << 20,
-                                 spill_fetch=dev.fetch,
-                                 spill_upload=dev.upload)
-    tokens = list(range(12))
-    _seed(alloc, dev, cache, tokens)
-    assert cache.evict(3) == 3
-    cache.reload(np.asarray(tokens), cache.lookup_tiered(tokens)[2])
-    assert metrics == {"prefix_cache_evicted_pages_total": 3,
-                       "oryx_cache_reload_hit_total": 1,
-                       "oryx_cache_reload_upload_total": 3}
+    """The cache's counters and gauges land in the engine's ServingMetrics
+    with the JAX cache's values (the same call sequence on both)."""
+    from oryx_tpu.utils.metrics import ServingMetrics as JaxMetrics
+    from oryx_tpu_torch.utils.metrics import ServingMetrics
+
+    names = ["prefix_cache_evicted_pages_total", "prefix_cache_entries",
+             "prefix_cache_pages"]
+    raw = ["oryx_cache_reload_hit_total", "oryx_cache_reload_upload_total",
+           "oryx_cache_spilled_pages", "oryx_cache_host_bytes"]
+    out = []
+    for (pk, pc), metrics in zip(PACKAGES, (JaxMetrics(), ServingMetrics())):
+        alloc = pk.PageAllocator(16, 4)
+        dev = ToyDevice()
+        cache = pc.PagedPrefixCache(alloc, metrics=metrics,
+                                    host_cache_bytes=1 << 20,
+                                    spill_fetch=dev.fetch,
+                                    spill_upload=dev.upload)
+        tokens = list(range(12))
+        _seed(alloc, dev, cache, tokens)
+        assert cache.evict(3) == 3
+        cache.reload(np.asarray(tokens), cache.lookup_tiered(tokens)[2])
+        out.append([metrics.get(n) for n in names]
+                   + [metrics.registry.get(n, raw_name=True) for n in raw])
+    assert out[1] == out[0]
+    assert out[1][0] == 3 and out[1][3:5] == [1, 3]
 
 
 # ---------------------------------------------------------------------------
@@ -335,10 +346,10 @@ def test_engines_equal_shared_prefix(pipes, kv_dtype, ragged):
     assert got[0] == got[2]  # cold == cached
     assert th[2].debug["cached_tokens"] > 0
     m = sched.metrics
-    assert m["prefix_cache_hit_tokens_total"] == sum(
+    assert m.get("prefix_cache_hit_tokens_total") == sum(
         h.debug["cached_tokens"] for h in th
     ) == jsched.metrics.get("prefix_cache_hit_tokens_total")
-    assert m["prefix_cache_miss_tokens_total"] == jsched.metrics.get(
+    assert m.get("prefix_cache_miss_tokens_total") == jsched.metrics.get(
         "prefix_cache_miss_tokens_total"
     )
     assert isinstance(sched.kv_pages["k"], tpk.QuantPages) == (
@@ -372,8 +383,8 @@ def test_cow_splice_on_page_aligned_prompt(pipes):
     q, L = _page_aligned(pipes[1], SYS + "describe it", 0, 16)
     sched, jsched, th, got = _both(pipes, [(q, 6), (q, 6)], **GEOM)
     assert got[0] == got[1]
-    assert sched.metrics["prefix_cache_hit_tokens_total"] == L - 1
-    assert sched.metrics["prefix_cache_cow_pages_total"] == 1
+    assert sched.metrics.get("prefix_cache_hit_tokens_total") == L - 1
+    assert sched.engine_stats["prefix_cache_cow_pages_total"] == 1
 
 
 def test_eviction_readmit_replay_with_shared_pages(pipes):
@@ -392,7 +403,7 @@ def test_eviction_readmit_replay_with_shared_pages(pipes):
     cap = (admit1 * ps - len(row1)) + ps  # one growth page per row
     kw = dict(GEOM, num_pages=admit1 + admit2 - shared_full + 1)
     sched, _, _, got = _both(pipes, [(q1, cap), (q2, cap)], **kw)
-    assert sched.metrics["evicted"] >= 1
+    assert sched.metrics.get("evicted") >= 1
     assert [u[1] for _, _, u in got] == [cap, cap]
 
 
@@ -466,10 +477,11 @@ def test_spill_reload_closed_loop(pipes, kv_dtype):
     assert (spilled, host_bytes) == (jspilled, jbytes)
     reg = jsched.metrics.registry
     m = sched.metrics
-    assert m["oryx_cache_reload_hit_total"] == 1 == reg.get(
-        "oryx_cache_reload_hit_total", raw_name=True)
-    assert m["oryx_cache_reload_upload_total"] == reg.get(
-        "oryx_cache_reload_upload_total", raw_name=True) > 0
+    for name in ("oryx_cache_reload_hit_total",
+                 "oryx_cache_reload_upload_total"):
+        assert m.registry.get(name, raw_name=True) == reg.get(
+            name, raw_name=True) > 0
+    assert m.registry.get("oryx_cache_reload_hit_total", raw_name=True) == 1
     assert h.debug["cached_tokens"] == _jax_cached(jh) > 0
     sched.check_pool_invariant()
     jsched._check_pool_invariant()
@@ -499,7 +511,8 @@ def test_failed_reload_degrades_to_cold_recompute(pipes, monkeypatch):
         monkeypatch.setattr(sched.prefix_cache, "spill_upload", fail_once)
         warm = sched.submit({"question": prompt}, 6)
         assert warm.result(timeout=300) == cold
-        assert fails and sched.metrics["oryx_cache_reload_upload_total"] == 0
+        assert fails and sched.metrics.registry.get(
+            "oryx_cache_reload_upload_total", raw_name=True) == 0
         _quiesce(sched)
         third = sched.submit({"question": prompt}, 6)
         assert third.result(timeout=300) == cold

@@ -152,9 +152,9 @@ def test_short_row_frees_slot_and_admits_within_chunk(pipes, ragged):
         admit_3 = handles[2].debug["admit_chunk"]
         assert admit_3 <= handles[0].debug["finish_chunk"]
     m = sched.metrics
-    assert m["admitted"] == m["completed"] == 3
-    assert m["decode_steps_wasted"] < m["decode_steps_total"]
-    kinds = set(m["dispatches_total"])
+    assert m.get("admitted") == m.get("completed") == 3
+    assert m.get("decode_steps_wasted") < m.get("decode_steps_total")
+    kinds = set(m.by_label("dispatches_total"))
     assert kinds == ({"ragged"} if ragged else {"prefill", "decode"})
 
 
@@ -214,7 +214,7 @@ def test_eviction_requeues_and_replays(pipes, ragged):
     sampled = {"temperature": 0.8, "seed": 5}
     reqs = [_q(q1, cap), _q(q2, cap, sampled)]
     sched, _, got, want = _both(pipes, reqs, **kw)
-    assert sched.metrics["evicted"] >= 1
+    assert sched.metrics.get("evicted") >= 1
     assert got[0] == want[0]
     assert got[1][2] == want[1][2] == (ids2, cap)
     # The evicted sampled row replays its own stream: a run with room for
@@ -223,7 +223,7 @@ def test_eviction_requeues_and_replays(pipes, ragged):
         pipes[1], autostart=False, **dict(kw, num_pages=None)
     )
     _, calm = _serve(roomy, reqs)
-    assert roomy.metrics["evicted"] == 0
+    assert roomy.metrics.get("evicted") == 0
     assert calm == got
 
 
@@ -289,7 +289,7 @@ def test_engines_equal_with_prefix_cache(pipes, case, ragged):
     cached = [h.debug["cached_tokens"] for h in handles]
     assert cached == [h.debug["cost"]["cached_tokens"] for h in jhandles]
     assert sum(cached) > 0
-    assert sched.metrics["prefix_cache_hit_tokens_total"] == sum(cached)
+    assert sched.metrics.get("prefix_cache_hit_tokens_total") == sum(cached)
 
 
 def test_request_too_large_errors_cleanly(pipes):
@@ -353,7 +353,7 @@ def test_streaming_cancel_and_backpressure(pipes):
         deltas.append(h.events.get())
     assert deltas[-1] == ("end", reason, usage)
     assert "".join(d[1] for d in deltas[:-1]) == reply
-    assert sched.metrics["cancelled"] == 1
+    assert sched.metrics.get("cancelled") == 1
     assert sched.queue_len() == 0 and not sched.alive()
     sched.check_pool_invariant()
     with pytest.raises(AdmissionRejected):

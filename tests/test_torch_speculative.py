@@ -385,12 +385,12 @@ def test_spec_engine_matches_jax_and_the_plain_engine(pipes, case):
     plain, _, _ = _serve(tp, reqs, **dict(kw, speculate=0))
     assert [r[0] for r in got] == [r[0] for r in plain]
     m = sched.metrics
-    assert set(m["dispatches_total"]) == {"spec"}
-    assert m["accepted_tokens_per_step_count"] > 0
+    assert set(m.by_label("dispatches_total")) == {"spec"}
+    assert m.histogram_totals("accepted_tokens_per_step")[0] > 0
     if case == "eviction_replay":
-        assert m["evicted"] >= 1
+        assert m.get("evicted") >= 1
     if case == "prefix_cache_cow":
-        assert m["prefix_cache_hit_tokens_total"] > 0
+        assert m.get("prefix_cache_hit_tokens_total") > 0
 
 
 class FixedDrafter(tgen.Drafter):
@@ -446,8 +446,8 @@ def test_spec_rejected_drafts_at_page_boundary_leak_nothing(pipes):
     plain, _, _ = _serve(tp, reqs, **dict(kw, speculate=0))
     assert got == plain
     m = sched.metrics
-    assert m["draft_proposed_total"] > m["draft_accepted_total"]
-    assert m["decode_steps_wasted"] > 0
+    assert m.get("draft_proposed_total") > m.get("draft_accepted_total")
+    assert m.get("decode_steps_wasted") > 0
 
 
 def test_spec_stop_string_across_accept_boundary(pipes):
@@ -475,7 +475,7 @@ def test_spec_stop_string_across_accept_boundary(pipes):
     text, reason, usage = got[0]
     assert reason == "stop" and reply[2:5] not in text
     assert usage[1] <= len(reply)
-    assert sched.metrics["draft_accepted_total"] > 0
+    assert sched.metrics.get("draft_accepted_total") > 0
 
 
 def test_spec_sampled_self_replay(pipes):
@@ -494,9 +494,9 @@ def test_spec_sampled_self_replay(pipes):
     reqs = [(q1, cap), (q2, cap)]
     tight, ts, _ = _serve(tp, reqs, sampling,
                           num_pages=admit1 + admit2 + 1, **kw)
-    assert ts.metrics["evicted"] >= 1
+    assert ts.metrics.get("evicted") >= 1
     roomy, rs, _ = _serve(tp, reqs, sampling, **kw)
-    assert rs.metrics["evicted"] == 0
+    assert rs.metrics.get("evicted") == 0
     again, _, _ = _serve(tp, reqs, sampling, **kw)
     assert tight == roomy == again
 
