@@ -1246,15 +1246,16 @@ def paged_kernel_case(name, kind, call, pool_shape, gen, fmt=None):
     }
 
 
-def paged_prefill_case(pipe, prompt_len: int, gen):
+def paged_prefill_case(pipe, prompt_len: int, gen, width=None):
     """The split engine's flash-kernel call for its longest prompt: the
-    bucketed prompt against the gathered max_ctx-wide stream, kv-masked at
-    the prompt length (the gather itself is random bf16)."""
+    bucketed prompt (or `width` rows) against the gathered max_ctx-wide
+    stream, kv-masked at the prompt length (the gather itself is random
+    bf16)."""
     from oryx_tpu_torch.ops.packing import round_up_bucket
 
     cfg = pipe.cfg.llm
     dev = pipe.device
-    T, K = round_up_bucket(prompt_len), SERVE["max_ctx"]
+    T, K = width or round_up_bucket(prompt_len), SERVE["max_ctx"]
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -1818,6 +1819,339 @@ def tiny_engines_on_card() -> None:
         if out[0] != out[1] or not pa.LAUNCHES:
             raise SystemExit(f"tiny {mode} engine on the card differs from "
                              f"the CPU: {out[1]} vs {out[0]}")
+
+
+# ---- the serving observatories (phase 20) ---------------------------------
+
+OBS_TOKENS = 16  # max_tokens of phase 20's requests
+OBS_ARMED = dict(audit_sample_every=1, numerics_every=4)
+
+
+def observatory_requests():
+    """Phase 19's first image request and its first three text requests,
+    at OBS_TOKENS tokens: (OpenAI body, the engine's request dict)."""
+    reqs = http_requests()
+    pick = ([r for r in reqs if r[1]["images"]][:1]
+            + [r for r in reqs if not r[1]["images"]][:3])
+    return [({**body, "max_tokens": OBS_TOKENS}, req) for body, req, _ in pick]
+
+
+def _families(text: str, family: str) -> dict[str, float]:
+    """{label value: value} of a one-label family, or {"": value} of an
+    unlabeled one, from a /metrics scrape."""
+    import re
+
+    return {
+        m.group(1) or "": float(m.group(2))
+        for m in re.finditer(
+            rf'^{family}(?:\{{\w+="([^"]*)"\}})? (\S+)$', text, re.M)
+    }
+
+
+def serve_observed(pipe, armed: bool) -> dict:
+    """One server of phase 20 (phase 19's ragged geometry; armed: audits of
+    every finished request and the numerics probe every 4 steps) over the
+    four requests one at a time; the kernel counts zeroed just before and
+    read after the audit backlog drained. Returns replies, scrapes, debug
+    bodies, counts and the K3 calls the auditor's twin made."""
+    import types
+
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    server = HttpServer(pipe, engine="continuous", **HTTP_SERVE,
+                        **(OBS_ARMED if armed else {}))
+    sched = server.srv.scheduler
+    recorder = None
+    if armed:
+        # The twin's decode reads the auditor's private pool.
+        sched.auditor._ensure_pool()
+        recorder = PagedCallRecorder(
+            types.SimpleNamespace(kv_pages=sched.auditor._kv))
+    out = {"replies": [], "usage": []}
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        with recorder or contextlib.nullcontext():
+            for i, (body, _) in enumerate(observatory_requests()):
+                code, _, reply = server.post(body, rid=f"obs-{i}")
+                if code != 200:
+                    raise SystemExit(f"phase 20: request {i}: {code}")
+                out["replies"].append((reply["text"], reply["finish"]))
+                out["usage"].append(reply["usage"])
+            end = time.monotonic() + 120
+            while True:
+                au = json.loads(server.get("/debug/audit?n=64")[1])
+                want = len(out["usage"]) if armed else 0
+                if au["pending"] == 0 and au["total"] >= want:
+                    break
+                if time.monotonic() > end:
+                    raise SystemExit(f"phase 20: audits never drained: {au}")
+                time.sleep(0.05)
+            torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+        out["flash"] = dict(fa.LAUNCHES)
+        out["paged"] = dict(pa.LAUNCHES)
+        out["audit"] = au
+        out["metrics"] = server.get("/metrics")[1]
+        for path in ("/debug/timeline?n=0", "/debug/pages", "/debug/oom"):
+            code, body = server.get(path)
+            if code != 200:
+                raise SystemExit(f"phase 20: {path} answered {code}")
+            out[path] = json.loads(body)
+        out["events"] = [json.loads(ln) for ln in server.get(
+            "/debug/requests?format=jsonl")[1].splitlines() if ln]
+        out["calls"] = recorder.calls["paged_decode"] if armed else []
+        out["pool_shape"] = (
+            sched.auditor.max_pages, sched.page_size,
+            pipe.cfg.llm.num_kv_heads, pipe.cfg.llm.head_dim)
+    finally:
+        server.close()
+    return out
+
+
+def check_observed(run: dict) -> None:
+    """The gate's reconciliations on one phase-20 server: timeline kinds ==
+    dispatches_total, the page map == the oryx_pool_* gauges with freed
+    pages in the lifetime histogram, /debug/audit == oryx_audit_total with
+    each record joined to its wide event."""
+    text = run["metrics"]
+    disp = _families(text, "oryx_serving_dispatches_total")
+    tl = run["/debug/timeline?n=0"]
+    if tl["counts_by_kind"] != {k: int(v) for k, v in disp.items()} or \
+            tl["total_steps"] != sum(disp.values()) or not tl["records"]:
+        raise SystemExit(f"phase 20: timeline {tl['counts_by_kind']} vs "
+                         f"dispatches_total {disp}")
+    pm = run["/debug/pages"]
+    s = pm["summary"]
+    parts = s["free"] + s["slot"] + s["cache"] + s["shared"]
+    if not s["reconciled"] or parts != pm["num_pages"] or \
+            len(pm["pages"]) != pm["num_pages"]:
+        raise SystemExit(f"phase 20: the page map does not reconcile: {s}")
+    for key in ("free", "slot", "cache", "shared"):
+        if _families(text, f"oryx_pool_{key}_pages") != {"": s[key]}:
+            raise SystemExit(f"phase 20: oryx_pool_{key}_pages vs {s}")
+    if _families(text, "oryx_page_lifetime_seconds_count").get("", 0) < 1:
+        raise SystemExit("phase 20: no page reached the lifetime histogram")
+    au = run["audit"]
+    got = _families(text, "oryx_audit_total")
+    if au["total"] != sum(au["verdicts"].values()) or \
+            got != {k: float(v) for k, v in au["verdicts"].items()}:
+        raise SystemExit(f"phase 20: /debug/audit {au['verdicts']} vs "
+                         f"oryx_audit_total {got}")
+    events = {e["audit_index"]: e for e in run["events"]
+              if e.get("kind") == "audit"}
+    if sorted(events) != sorted(r["index"] for r in au["records"]) or any(
+        events[r["index"]]["request_id"] != r["request_id"]
+        for r in au["records"]
+    ):
+        raise SystemExit("phase 20: audit records and wide events differ")
+
+
+def probe_step_ms(pipe) -> tuple[float, float]:
+    """CUDA-event ms of one replay of the ragged engine's pure-decode step
+    graph at phase 20's geometry (4 slots, 8 decode iterations), unarmed
+    and with the numerics probe armed (its own graph), on one pool."""
+    from oryx_tpu_torch.models import generate, qwen2
+    from oryx_tpu_torch.models.oryx import compute_dtype
+    from oryx_tpu_torch.ops.cuda.measure import cuda_time_ms
+
+    cfg, dev = pipe.cfg, pipe.device
+    S, ps, ctx = (HTTP_SERVE[k] for k in ("num_slots", "page_size",
+                                          "max_ctx"))
+    dtype = compute_dtype(cfg)
+    pool = qwen2.init_paged_kv_cache(cfg.llm, S * ctx // ps, ps, dtype=dtype,
+                                     device=dev)
+    out = []
+    for numerics in (False, True):
+        graph = generate._EngineStepGraph(
+            pipe.params.llm, cfg.llm, pool, None, num_slots=S,
+            max_pages=ctx // ps, chunk=HTTP_SERVE["decode_chunk"], k=0,
+            stop=None if pipe.stop_sequences is None
+            else pipe.stop_sequences.to(dev), eos=cfg.generation.eos_token_id,
+            attn_impl=cfg.attn_impl, compute_dtype=dtype, sampling=False,
+            draft=None, max_steps=1, device=dev, numerics=numerics)
+        # A replay writes its tokens at column block `step`: rewind it.
+        out.append(cuda_time_ms(
+            lambda: (graph.step.zero_(), graph.graph.replay()), iters=20))
+        graph.graph.release()
+    del pool
+    return out[0], out[1]
+
+
+def pressure_forensics(pipe) -> None:
+    """A ragged scheduler whose pool holds the longer of two text prompts
+    and nothing else: the second's admission falls short once, while the
+    first decodes its 8 tokens inside its pages; exactly one pool_pressure
+    record, naming both, and the pool invariant after it."""
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    texts = sorted(
+        (r for r in observatory_requests() if not r[1]["images"]),
+        key=lambda r: -len(pipe._prepare_request(r[1])[0]))[:2]
+    ps, chunk = SERVE["page_size"], SERVE["chunk"]
+    lens = [len(pipe._prepare_request(r[1])[0]) for r in texts]
+    pages = -(-(lens[0] + chunk) // ps)
+    sched = ContinuousScheduler(
+        pipe, autostart=False, ragged=True, prefill_chunk=PREFILL_CHUNK,
+        prefix_cache=False, **{**SERVE, "num_pages": pages})
+    hs = [sched.submit(r[1], chunk) for r in texts]
+    sched.start()
+    res = [h.result(timeout=600) for h in hs]
+    sched.close()
+    sched.check_pool_invariant()
+    recs = sched.forensics.snapshot()
+    ooms = [e for e in sched.request_log.snapshot()
+            if e.get("kind") == "oom_pressure"]
+    print(f"  pool pressure: prompts {lens} tokens on a pool of {pages} "
+          f"page(s) of {ps}: {len(recs)} forensic record(s) "
+          f"{[(r['trigger'], r['detail']) for r in recs]}; top requests "
+          f"{[(t['request_id'], t['pages'], t.get('asking_pages')) for r in recs for t in r['top_requests']]}; "
+          f"usage {[u for _, _, u in res]}; pool invariant holds")
+    if len(recs) != 1 or recs[0]["trigger"] != "pool_pressure" or \
+            len(recs[0]["top_requests"]) != 2 or \
+            not recs[0]["pool"]["reconciled"] or len(ooms) != 1 or \
+            ooms[0]["forensic_index"] != recs[0]["index"]:
+        raise SystemExit(f"phase 20: pool-pressure forensics {recs}")
+
+
+def tiny_audited_engines_on_card() -> None:
+    """The tiny fp32 config (its init as drawn) on the card through the
+    split and ragged engines with every request audited and the probe
+    every 2 steps: only pass verdicts (the twin: K1 prefill and K3 decode;
+    the reference: plain attention), replies equal to an unarmed engine's."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    pipe = Pipeline(ByteTokenizer(), params, cfg, device="cuda")
+    img = np.random.default_rng(0).integers(0, 255, (40, 56, 3), np.uint8)
+    reqs = [({"question": "hi there"}, 9),
+            ({"question": "what is this?", "images": [img]}, 6),
+            ({"question": "tell me more"}, 7)]
+    for ragged in (False, True):
+        out = []
+        for kw in ({}, dict(audit_sample_every=1, numerics_every=2)):
+            sched = ContinuousScheduler(
+                pipe, autostart=False, ragged=ragged,
+                prefill_chunk=32 if ragged else None, num_slots=2,
+                page_size=16, chunk=4, max_ctx=512, **kw)
+            hs = [sched.submit(r, n) for r, n in reqs]
+            sched.start()
+            out.append([h.result(timeout=600) for h in hs])
+            end = time.monotonic() + 120
+            while kw and (sched.auditor.pending() or sched.auditor.to_dict()[
+                    "total"] < len(reqs)) and time.monotonic() < end:
+                time.sleep(0.02)
+            d = sched.auditor.to_dict()
+            samples = sched.metrics.registry.get(
+                "oryx_numerics_samples_total", raw_name=True)
+            sched.close()
+        mode = "ragged" if ragged else "split"
+        diffs = [r["logit_max_abs_diff"] for r in d["records"]]
+        print(f"  tiny fp32 {mode}, audited: verdicts {d['verdicts']}, max "
+              f"abs diffs {diffs}, numerics samples {samples}; replies == "
+              f"unarmed: {out[0] == out[1]}")
+        if d["verdicts"] != {"pass": len(reqs), "drift": 0, "fail": 0} or \
+                out[0] != out[1] or not samples:
+            raise SystemExit(f"phase 20: tiny {mode} audited engine {d}")
+
+
+def observatories(pipe, card) -> list[dict]:
+    """Phase 20: the observatories at full width (see the docstring)."""
+    runs = {armed: serve_observed(pipe, armed) for armed in (False, True)}
+    plain, armed = runs[False], runs[True]
+    print(f"  unarmed server {plain['wall']:.2f} s, armed (audits of every "
+          f"request, the probe every {OBS_ARMED['numerics_every']} steps) "
+          f"{armed['wall']:.2f} s, the audit backlog drained ({card})")
+    if armed["replies"] != plain["replies"] or \
+            armed["usage"] != plain["usage"]:
+        raise SystemExit(f"phase 20: armed replies {armed['replies']} vs "
+                         f"{plain['replies']}")
+    disp = [_families(r["metrics"], "oryx_serving_dispatches_total")
+            for r in (armed, plain)]
+    if disp[0] != disp[1]:
+        raise SystemExit(f"phase 20: dispatches {disp[0]} vs {disp[1]}")
+    print(f"  replies, usage and dispatches_total {disp[0]} byte-equal to "
+          f"the unarmed server's")
+    for run in (plain, armed):
+        check_observed(run)
+    au = armed["audit"]
+    print(f"  timeline == dispatches_total, page map == oryx_pool_* gauges "
+          f"(lifetime count {_families(armed['metrics'], 'oryx_page_lifetime_seconds_count')['']:.0f}), "
+          f"/debug/audit == oryx_audit_total, records joined to wide events;"
+          f" /debug/oom total {armed['/debug/oom']['total']}")
+    print(f"  bf16 full-width audit verdicts {au['verdicts']} (a finding, "
+          "not gated: the live rows came from 4-row K4 dispatches, the "
+          "twin's from 1-row K3 and the reference's from plain attention)")
+    replayed = sum(r["replayed_tokens"] for r in au["records"])
+    audit_s = sum(r["audit_s"] for r in au["records"])
+    for r in reversed(au["records"]):
+        print(f"    {r['request_id']}: {r['verdict']} first_divergence "
+              f"{r['first_divergence']} max_abs_diff "
+              f"{r['logit_max_abs_diff']} kl {r['kl']} replayed "
+              f"{r['replayed_tokens']} tokens in {r['audit_s']:.3f} s")
+    print(f"  auditor {1e3 * audit_s / max(1, replayed):.2f} ms a replayed "
+          f"token ({replayed} tokens, {audit_s:.3f} s, two replays a "
+          f"request)")
+    samples = _families(armed["metrics"], "oryx_numerics_samples_total")
+    p_ms, a_ms = probe_step_ms(pipe)
+    print(f"  numerics: {samples.get('', 0):.0f} samples, entropy "
+          f"{_families(armed['metrics'], 'oryx_numerics_logits_entropy')}; "
+          f"a pure-decode engine step (graph replay, "
+          f"{HTTP_SERVE['num_slots']} rows x {HTTP_SERVE['decode_chunk']} "
+          f"iterations): armed {a_ms:.4f} ms vs unarmed {p_ms:.4f} ms "
+          f"({card})")
+    if not samples.get(""):
+        raise SystemExit("phase 20: the numerics probe never sampled")
+    flash_n = sum(armed["flash"].values())
+    paged_n = collections.Counter()
+    for key, n_ in armed["paged"].items():
+        paged_n[key[0]] += n_
+    print(f"  armed run launches: K1 {flash_n}, paged {dict(paged_n)}")
+    if not paged_n.get("paged_decode"):
+        raise SystemExit("phase 20: the twin never launched K3")
+    if plain["paged"] and any(k[0] == "paged_decode" for k in plain["paged"]):
+        raise SystemExit("phase 20: K3 launched without the auditor")
+
+    print(f"phase 20 kernels: the auditor's twin at its call shapes, vs "
+          f"plain twins, bf16, atol=rtol={TOL} ({card})", flush=True)
+    gen = torch.Generator("cuda").manual_seed(20)
+    rows = []
+    row = paged_kernel_case(
+        "paged_decode[audit]", "paged_decode",
+        _pick(armed["calls"], lambda c: int(c[2].sum())),
+        armed["pool_shape"], gen)
+    row["launches"] = paged_n["paged_decode"]
+    print(f"  launches {row['name']}: {row['launches']}")
+    rows.append(row)
+    # The twin's prefill: one row, the bucketed prompt against the gathered
+    # max_ctx-wide stream; the widest of its K1 launch keys (causal,
+    # segments, B, Hq, Hk, Tq, K, D).
+    llm = pipe.cfg.llm
+    widths = [k[5] for k in armed["flash"] if k[2:5] == (
+        1, llm.num_heads, llm.num_kv_heads) and k[6:] == (
+        HTTP_SERVE["max_ctx"], llm.head_dim)]
+    if not widths:
+        raise SystemExit("phase 20: the twin's prefill never launched K1")
+    _, kw, keep = paged_prefill_case(
+        pipe, max(u[0] for u in armed["usage"]), gen, width=max(widths))
+    key, row = check_kernel_case("audit_prefill", kw, keep)
+    row["launches"] = armed["flash"].get(key, 0)
+    print(f"  launches {row['name']}: {row['launches']}")
+    if row["launches"] == 0:
+        raise SystemExit("phase 20: the twin's prefill never launched K1 "
+                         "at its call shape")
+    rows.append(row)
+
+    pressure_forensics(pipe)
+    tiny_audited_engines_on_card()
+    return rows
 
 
 # ---- speculation and megasteps (phase 15) ----------------------------------
@@ -3990,6 +4324,16 @@ def main() -> int:
     http_serving(Pipeline(ByteTokenizer(), params, cfg, device="cuda"), card)
     gc.collect()
     print(f"  phase 19 wall {time.perf_counter() - t19:.1f} s")
+
+    # ---- 20. the serving observatories -------------------------------------
+    print(f"phase 20: the observatories over HTTP (step timeline, page map, "
+          f"OOM forensics, numerics probes, output auditor), oryx_7b bf16, "
+          f"{HTTP_SERVE}, {OBS_ARMED} vs unarmed ({card})", flush=True)
+    t20 = time.perf_counter()
+    rows.extend(observatories(
+        Pipeline(ByteTokenizer(), params, cfg, device="cuda"), card))
+    gc.collect()
+    print(f"  phase 20 wall {time.perf_counter() - t20:.1f} s")
 
     # ---- 9. training kernels at the training step's shapes ----------------
     cfg_t = train_config()

@@ -38,6 +38,7 @@ from oryx_tpu_torch.config import GenerationConfig, LLMConfig
 from oryx_tpu_torch.models import qwen2
 from oryx_tpu_torch.ops import paged_kv as paged_kv_lib
 from oryx_tpu_torch.ops.cuda import graphs
+from oryx_tpu_torch.utils import numerics as numerics_lib
 from oryx_tpu_torch.utils.quant import embed_rows
 
 
@@ -829,17 +830,23 @@ def paged_decode_chunk(
     eos: int,
     attn_impl: str = "xla",
     compute_dtype=None,
+    numerics: bool = False,
 ):
     """`chunk` decode steps over a FIXED-SLOT batch with a paged cache, the
     continuous-batching inner loop. Finished and empty slots still flow
     through the math, but their cache writes are dropped (write_mask) and
     their lengths freeze. No host read inside: the caller harvests once.
     Returns (kv_pages, tok, lengths, finished, recent, toks [S, chunk],
-    fin [S, chunk])."""
+    fin [S, chunk]).
+
+    numerics=True appends one more output: the [6] float32 logit-stat
+    accumulator (utils/numerics.py) folded over the chunk's live rows, from
+    the logits the sampler reads, so every other output is unchanged."""
     dev = tok.device
     K = block_tables.shape[1] * kv_pages["k"].shape[2]
     slot_ar = torch.arange(K, device=dev)[None, :]
     cur_len = lengths
+    nstats = numerics_lib.init_logit_stats(dev) if numerics else None
     toks, fins = [], []
     for _ in range(chunk):
         logits, kv_pages = qwen2.forward(
@@ -852,6 +859,10 @@ def paged_decode_chunk(
             kv_lengths=cur_len + 1,
             attn_impl=attn_impl, compute_dtype=compute_dtype,
         )
+        if numerics:
+            nstats = numerics_lib.accumulate_logit_stats(
+                nstats, logits[:, 0], ~finished
+            )
         nxt = sample_token_rows(
             logits[:, 0], generators,
             temperature=temperature, top_p=top_p, top_k=top_k,
@@ -867,8 +878,9 @@ def paged_decode_chunk(
         toks.append(tok)
         fins.append(finished)
         tok = nxt
-    return (kv_pages, tok, cur_len, finished, recent,
-            torch.stack(toks, dim=1), torch.stack(fins, dim=1))
+    out = (kv_pages, tok, cur_len, finished, recent,
+           torch.stack(toks, dim=1), torch.stack(fins, dim=1))
+    return out + (nstats,) if numerics else out
 
 
 # ---------------------------------------------------------------------------
@@ -926,6 +938,7 @@ def paged_ragged_step(
     attn_impl: str = "xla",
     compute_dtype=None,
     draws: torch.Tensor | None = None,
+    numerics: bool = False,
 ):
     """ONE dispatch for a mixed prefill+decode engine step. Each of the
     `chunk` iterations runs one packed forward over R = S + pf_width rows:
@@ -941,7 +954,9 @@ def paged_ragged_step(
 
     Returns (kv_pages, tok, lengths, finished, recent, toks [S, chunk],
     fin [S, chunk], pf_tok0 ([] int32, or None when no window held the
-    prompt's last token))."""
+    prompt's last token)); numerics=True appends the [6] logit-stat
+    accumulator of the decode lanes (as in `paged_decode_chunk`; prefill
+    lanes' logits are prompt positions, not sampling inputs)."""
     S = tok.shape[0]
     W = pf_width
     dev = tok.device
@@ -951,6 +966,7 @@ def paged_ragged_step(
     pf_ar = torch.arange(W, dtype=torch.int32, device=dev)
     pf_wm = torch.ones((W,), dtype=torch.bool, device=dev)
     pf_tok0 = None
+    nstats = numerics_lib.init_logit_stats(dev) if numerics else None
     toks, fins = [], []
     for i in range(chunk):
         emb = embed_rows(params.embed, _feed_ids(cfg, tok))  # [S, H]
@@ -971,8 +987,13 @@ def paged_ragged_step(
             attn_impl=attn_impl, compute_dtype=compute_dtype,
             return_hidden=True,
         )
+        logits = qwen2.logits_from_hidden(params, cfg, h[0, :S])
+        if numerics:
+            nstats = numerics_lib.accumulate_logit_stats(
+                nstats, logits, ~finished
+            )
         nxt = sample_token_rows(
-            qwen2.logits_from_hidden(params, cfg, h[0, :S]), generators,
+            logits, generators,
             temperature=temperature, top_p=top_p, top_k=top_k, draws=draws,
         )
         if recent.shape[1]:
@@ -993,8 +1014,9 @@ def paged_ragged_step(
         toks.append(tok)
         fins.append(finished)
         tok = nxt
-    return (kv_pages, tok, cur_len, finished, recent,
-            torch.stack(toks, dim=1), torch.stack(fins, dim=1), pf_tok0)
+    out = (kv_pages, tok, cur_len, finished, recent,
+           torch.stack(toks, dim=1), torch.stack(fins, dim=1), pf_tok0)
+    return out + (nstats,) if numerics else out
 
 
 def paged_fused_steps(
@@ -1018,6 +1040,7 @@ def paged_fused_steps(
     attn_impl: str = "xla",
     compute_dtype=None,
     draws: torch.Tensor | None = None,
+    numerics: bool = False,
 ):
     """K = `k_steps` pure-decode engine steps with one harvest, the decode
     megastep: `paged_ragged_step`'s pure-decode iteration (pf_width = 0)
@@ -1030,13 +1053,16 @@ def paged_fused_steps(
     this as K replays of one captured logical step (`_EngineStepGraph`).
 
     Returns (kv_pages, tok, lengths, finished, recent,
-    toks [S, k_steps * chunk], fin [S, k_steps * chunk])."""
-    return paged_ragged_step(
+    toks [S, k_steps * chunk], fin [S, k_steps * chunk]); numerics=True
+    appends the logit-stat accumulator (the engine arms it at K = 1
+    only)."""
+    out = paged_ragged_step(
         params, cfg, kv_pages, block_tables, tok, lengths, finished, recent,
         generators, temperature, top_p, top_k, stop_sequences,
         chunk=chunk * k_steps, pf_width=0, eos=eos, attn_impl=attn_impl,
-        compute_dtype=compute_dtype, draws=draws,
-    )[:7]
+        compute_dtype=compute_dtype, draws=draws, numerics=numerics,
+    )
+    return out[:7] + (out[8],) if numerics else out[:7]
 
 
 # ---------------------------------------------------------------------------
@@ -1634,15 +1660,24 @@ class _EngineStepGraph:
     engine copies each sampling slot's generator state in before the
     replays and back after, and `draws` marks the slots whose draws count.
     Capture runs one eager step first, over all-finished state that writes
-    nothing to the pool, and raises if it fails."""
+    nothing to the pool, and raises if it fails.
+
+    numerics (k = 0 only): the step is `paged_fused_steps(numerics=True)`,
+    a graph of its own (the engine keys it apart from the unarmed one),
+    which leaves the logit-stat accumulator in `nstats`; it replays once a
+    dispatch (an armed engine never fuses)."""
 
     def __init__(self, params, cfg: LLMConfig, kv_pages: dict, key, *,
                  num_slots: int, max_pages: int, chunk: int, k: int,
                  stop, eos: int, attn_impl: str, compute_dtype,
                  sampling: bool, draft, max_steps: int,
-                 device: torch.device):
+                 device: torch.device, numerics: bool = False):
+        if numerics and k:
+            raise ValueError("the numerics probe rides no speculative step")
         S, dev = num_slots, device
         self.key, self.k, self.max_steps = key, k, max_steps
+        self.numerics = numerics
+        self.nstats = numerics_lib.init_logit_stats(dev) if numerics else None
         self.width = k + 1 if k else chunk
         self.draft = draft  # None, or (params on dev, device_apply, window)
 
@@ -1681,10 +1716,12 @@ class _EngineStepGraph:
                     params, cfg, kv_pages, st["bt"], st["tok"],
                     st["lengths"], st["finished"], st["recent"], self.gens,
                     st["temp"], st["top_p"], st["top_k"], stop, chunk=chunk,
-                    k_steps=1, **common)
+                    k_steps=1, numerics=numerics, **common)
                 carry = dict(tok=out[1], lengths=out[2], finished=out[3],
                              recent=out[4])
                 toks = out[5]
+                if numerics:
+                    self.nstats.copy_(out[7])
             elif draft is None:
                 out = paged_spec_step(
                     params, cfg, kv_pages, st["bt"], st["tok"],
@@ -1731,10 +1768,11 @@ class _EngineStepGraph:
         sampling slots' generator states in, replay k_steps times, and copy
         the generator states back. Returns the device outputs: the carry
         (tok, lengths, finished, recent) and toks [S, k_steps * width]
-        (speculating: n_new and acc [S, k_steps]), valid until the next
-        run."""
-        if k_steps > self.max_steps:
-            raise ValueError(f"{k_steps=} > the graph's {self.max_steps}")
+        (speculating: n_new and acc [S, k_steps]; armed: nstats), valid
+        until the next run."""
+        most = 1 if self.numerics else self.max_steps
+        if k_steps > most:
+            raise ValueError(f"{k_steps=} > the graph's {most}")
         st = self.state
         for name, x in host.items():
             st[name].copy_(torch.from_numpy(np.ascontiguousarray(x)))
@@ -1751,6 +1789,8 @@ class _EngineStepGraph:
         out = {name: st[name] for name in ("tok", "lengths", "finished",
                                            "recent")}
         out["toks"] = self.toks[:, :k_steps].reshape(S, -1)
+        if self.numerics:
+            out["nstats"] = self.nstats
         if self.k:
             out["n_new"] = self.n_new[:, :k_steps]
             out["acc"] = self.acc[:, :k_steps]

@@ -44,6 +44,7 @@ Pieces:
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 
 import torch
@@ -66,8 +67,18 @@ class PageAllocator:
     `alloc` hands out pages at refcount 1, `share` adds a holder, `free`
     drops one; a page returns to the free list at refcount 0. Freeing an
     unallocated page, or more references than a page holds, raises with the
-    page id before anything changes. Every reference carries an owner tag
-    (accounting only; an untagged transition stamps "?").
+    page id before anything changes.
+
+    Ownership data (the page map, utils/pagemap.py): every reference
+    carries an owner tag stamped at the transition (`alloc` / `share` /
+    `free` take `owner=`; the scheduler stamps `req:<request-id>`, the
+    prefix cache `cache`; an untagged transition stamps "?"), and every
+    page records when its tenancy began (`_born`, at refcount 0 -> 1) and
+    when a reference last changed (`_touched`). `snapshot()` is the live
+    map /debug/pages serves; an attached `observer` (a
+    `pagemap.PoolObservatory`) is told each page's lifetime and idle tail
+    when it returns to the free list. Tags and clocks are accounting only:
+    they never change what the allocator does.
     """
 
     def __init__(self, num_pages: int, page_size: int):
@@ -80,8 +91,13 @@ class PageAllocator:
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
         self._refs: list[int] = [0] * num_pages
         self._owners: list[list[str]] = [[] for _ in range(num_pages)]
+        # Tenancy clocks (time.monotonic()).
+        self._born: list[float] = [0.0] * num_pages
+        self._touched: list[float] = [0.0] * num_pages
         # Low-water mark of the free list since construction.
         self.min_free: int = num_pages
+        # An object with page_freed(lifetime_s, idle_s), or None.
+        self.observer = None
 
     @property
     def sentinel(self) -> int:
@@ -115,10 +131,12 @@ class PageAllocator:
             return []
         out = self._free[-n:][::-1]
         del self._free[-n:]
+        now = time.monotonic()
         tag = owner or "?"
         for p in out:
             self._refs[p] = 1
             self._owners[p] = [tag]
+            self._born[p] = self._touched[p] = now
         self.min_free = min(self.min_free, len(self._free))
         return out
 
@@ -129,10 +147,12 @@ class PageAllocator:
             self._check_page(p)
             if self._refs[p] <= 0:
                 raise ValueError(f"share of unallocated page {p}")
+        now = time.monotonic()
         tag = owner or "?"
         for p in pages:
             self._refs[p] += 1
             self._owners[p].append(tag)
+            self._touched[p] = now
 
     def free(self, pages: list[int], *, owner: str | None = None) -> None:
         """Drop one reference per page; pages reaching refcount 0 return to
@@ -149,6 +169,7 @@ class PageAllocator:
                     f"freeing {n} references to page {p}, which holds "
                     f"only {self._refs[p]}"
                 )
+        now = time.monotonic()
         released = []
         for p in pages:
             self._refs[p] -= 1
@@ -159,6 +180,11 @@ class PageAllocator:
                 tags.pop()
             if self._refs[p] == 0:
                 released.append(p)
+                if self.observer is not None:
+                    self.observer.page_freed(
+                        now - self._born[p], now - self._touched[p]
+                    )
+            self._touched[p] = now
         self._free.extend(reversed(released))
 
     # `release` is `free` under its sharing-aware name: both drop one
@@ -198,6 +224,48 @@ class PageAllocator:
                     f"page {p}: refcount {self._refs[p]} but "
                     f"{held.get(p, 0)} holders"
                 )
+
+    @staticmethod
+    def classify(refcount: int, owners: list[str]) -> str:
+        """A page's state in the map; the four partition the pool: free
+        (refcount 0), shared (two or more holders, whoever they are),
+        cache (only the prefix cache's reference) or slot (one request's
+        reference)."""
+        if refcount <= 0:
+            return "free"
+        if refcount >= 2:
+            return "shared"
+        return "cache" if owners == ["cache"] else "slot"
+
+    def snapshot(self) -> dict:
+        """The live ownership map: one record per page (state, refcount,
+        owner tags, tenancy age, idle time) and the pool's geometry;
+        summaries live in utils/pagemap.summarize. A read from another
+        thread than the engine's is best-effort (each record is whole; the
+        map is exact on a quiesced engine)."""
+        now = time.monotonic()
+        pages = []
+        for p in range(self.num_pages):
+            r = self._refs[p]
+            owners = list(self._owners[p])
+            pages.append({
+                "page": p,
+                "state": self.classify(r, owners),
+                "refcount": r,
+                "owners": owners,
+                "age_s": round(now - self._born[p], 6) if r > 0 else None,
+                "idle_s": (
+                    round(now - self._touched[p], 6) if r > 0 else None
+                ),
+            })
+        return {
+            "num_pages": self.num_pages,
+            "page_size": self.page_size,
+            "num_free": len(self._free),
+            "min_free": self.min_free,
+            "free_pages": sorted(self._free),
+            "pages": pages,
+        }
 
 
 def init_paged_pool(
@@ -260,7 +328,7 @@ class QuantPages:
 def init_quant_pages(
     num_layers: int, num_pages: int, page_size: int, num_kv_heads: int,
     head_dim: int, *, fmt: str = "int8",
-    dequant_dtype: torch.dtype = torch.float32, device="cpu",
+    dequant_dtype: torch.dtype = torch.float32, device,
 ) -> QuantPages:
     """A zeroed quantized pool plane; codes and scales each get the sink
     page of `init_paged_pool`, so a dropped write drops both."""

@@ -19,10 +19,18 @@
                          the id is the X-Request-Id every response
                          carries. A client's X-Request-Id is honoured,
                          sanitized, minted on absence or collision.)
+  GET /debug/timeline?n= (scheduler engines: the step timeline, newest
+                         first, and its dispatch counts by kind, which
+                         reconcile with oryx_serving_dispatches_total)
+  GET /debug/pages      (the page-ownership map and its summary, which
+                         reconciles with the oryx_pool_* gauges;
+                         ?format=summary leaves out the per-page records)
+  GET /debug/oom?n=     (memory-pressure forensic records)
+  GET /debug/audit?n=   (output-audit records and verdict totals, which
+                         reconcile with oryx_audit_total)
 
-The JAX server's /debug/timeline, /debug/pages, /debug/oom, /debug/audit,
-/debug/journal and /debug/profile answer 404 here until their modules are
-ported (ROADMAP Queue 1 item 3).
+The JAX server's /debug/journal and /debug/profile answer 404 here until
+their modules are ported (ROADMAP Queue 1 item 3).
 
 Content may be a plain string or OpenAI content-part lists; image parts
 (`{"type": "image_url", "image_url": {"url": "data:image/png;base64,..."
@@ -74,11 +82,7 @@ from oryx_tpu_torch.utils.metrics import ServingMetrics
 _NOT_PORTED = {
     "journal_path": "the decision journal (serve/journal.py)",
     "faults_spec": "fault injection (utils/faults.py)",
-    "audit_sample_every": "the output auditor (serve/audit.py)",
-    "audit_tol_maxdiff": "the output auditor (serve/audit.py)",
-    "audit_tol_kl": "the output auditor (serve/audit.py)",
     "profile_sample_every": "device-time profiling (utils/profiling.py)",
-    "numerics_every": "the numerics probes (utils/numerics.py)",
     "ttft_slo": "the degraded-mode ladder the SLO detectors drive",
     "queue_depth_slo": "the degraded-mode ladder the SLO detectors drive",
 }
@@ -571,19 +575,19 @@ def build_server(
     stops admission and finishes the residents. events_path: where the
     anomaly monitor appends its JSONL events.
 
-    journal_path, faults_spec, audit_sample_every, audit_tol_maxdiff,
-    audit_tol_kl, profile_sample_every, numerics_every, ttft_slo and
+    Observatories (scheduler engines): audit_sample_every audits every Nth
+    finished request (0 = off; audit_tol_maxdiff / audit_tol_kl set its
+    drift-vs-fail boundary), numerics_every arms the logit probe every N
+    engine steps (0 = off).
+
+    journal_path, faults_spec, profile_sample_every, ttft_slo and
     queue_depth_slo raise NotImplementedError when set: their modules are
     not ported yet (ROADMAP Queue 1 item 3)."""
     from oryx_tpu_torch.utils.anomaly import AnomalyMonitor
 
     for option, value in (
         ("journal_path", journal_path), ("faults_spec", faults_spec),
-        ("audit_sample_every", audit_sample_every),
-        ("audit_tol_maxdiff", audit_tol_maxdiff),
-        ("audit_tol_kl", audit_tol_kl),
         ("profile_sample_every", profile_sample_every),
-        ("numerics_every", numerics_every),
         ("ttft_slo", ttft_slo), ("queue_depth_slo", queue_depth_slo),
     ):
         if value:
@@ -623,6 +627,12 @@ def build_server(
         raise ValueError(
             "--request-timeout requires a scheduler engine (the window "
             "batcher does not enforce per-request deadlines)"
+        )
+    if engine == "window" and (audit_sample_every or numerics_every):
+        raise ValueError(
+            "--audit-sample-every/--numerics-every require a scheduler "
+            "engine (the window batcher has no paged replay path or "
+            "engine step loop)"
         )
     if engine == "window" and (kv_dtype != "bf16" or host_cache_bytes):
         raise ValueError(
@@ -676,6 +686,9 @@ def build_server(
             host_cache_bytes=host_cache_bytes, max_queue=max_queue,
             request_timeout=request_timeout, request_log=request_log,
             engine_label=engine, replica_id=replica_id,
+            audit_sample_every=audit_sample_every,
+            audit_tol_maxdiff=audit_tol_maxdiff, audit_tol_kl=audit_tol_kl,
+            numerics_every=numerics_every,
         )
         if supervise:
             supervisor = EngineSupervisor(scheduler)
@@ -737,6 +750,30 @@ def build_server(
                 )
             elif route == "/debug/requests":
                 self._debug_requests()
+            elif route == "/debug/timeline":
+                # Newest-first step records and the cumulative dispatch
+                # counts by kind.
+                self._ring_debug(
+                    lambda: scheduler.timeline, default_n=64,
+                    unavailable="the step timeline requires a "
+                    "scheduler engine (the window batcher has no "
+                    "engine step loop)",
+                )
+            elif route == "/debug/pages":
+                self._debug_pages()
+            elif route == "/debug/oom":
+                self._ring_debug(
+                    lambda: scheduler.forensics, default_n=16,
+                    unavailable="OOM forensics require a scheduler "
+                    "engine (the window batcher has no paged pool)",
+                )
+            elif route == "/debug/audit":
+                self._ring_debug(
+                    lambda: scheduler.auditor, default_n=16,
+                    unavailable="output audits require a scheduler "
+                    "engine (the window batcher has no paged replay "
+                    "path)",
+                )
             elif self.path.startswith("/debug/trace"):
                 rid = (self._query().get("id") or [""])[0]
                 if not rid:
@@ -774,6 +811,55 @@ def build_server(
                 })
             else:
                 self._json(404, {"error": "not found"})
+
+        def _ring_debug(self, get_ring, *, unavailable: str,
+                        default_n: int) -> None:
+            """The ring-backed debug endpoints (/debug/timeline, /oom,
+            /audit): scheduler engines only, one ?n= contract (0 = all),
+            the engine label and the ring's to_dict(n)."""
+            if scheduler is None:
+                self._json(400, {"error": unavailable})
+                return
+            try:
+                n = int((self._query().get("n") or [str(default_n)])[0])
+                if n < 0:
+                    raise ValueError
+            except ValueError:
+                self._json(400, {
+                    "error": "n must be a non-negative integer",
+                })
+                return
+            body = {"engine": engine}
+            body.update(get_ring().to_dict(n or None))
+            self._json(200, body)
+
+        def _debug_pages(self) -> None:
+            """The live page-ownership map and its summary (?format=json,
+            the default, or summary: no per-page records)."""
+            if scheduler is None:
+                self._json(400, {
+                    "error": "the page map requires a scheduler engine "
+                    "(the window batcher has no paged pool)",
+                })
+                return
+            fmt = (self._query().get("format") or ["json"])[0]
+            if fmt not in ("json", "summary"):
+                self._json(400, {
+                    "error": f"unknown format {fmt!r} (json|summary)",
+                })
+                return
+            snap = scheduler.pool_snapshot()
+            body = {
+                "engine": engine,
+                "num_pages": snap["num_pages"],
+                "page_size": snap["page_size"],
+                "kv_dtype": snap.get("kv_dtype"),
+                "kv_pool_bytes": snap.get("kv_pool_bytes"),
+                "summary": snap["summary"],
+            }
+            if fmt == "json":
+                body["pages"] = snap["pages"]
+            self._json(200, body)
 
         def _debug_requests(self) -> None:
             """Newest-first summaries of the last N requests (?limit=,
@@ -1216,16 +1302,36 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--allow-local-files", action="store_true")
     ap.add_argument("--max-tokens-limit", type=int, default=2048)
     ap.add_argument("--quantize", default=None, choices=["int8"])
+    ap.add_argument(
+        "--audit-sample-every", type=int, default=0, metavar="N",
+        help="continuous engine: audit every Nth finished request, replayed "
+        "cold through the plain reference path at an idle point of the "
+        "engine loop (greedy byte parity and logit drift; GET /debug/audit; "
+        "0 = off)",
+    )
+    ap.add_argument(
+        "--audit-tol-maxdiff", type=float, default=None, metavar="X",
+        help="continuous engine: the logit max-abs-diff above which an "
+        "audit's drift is a fail verdict (default from the pool format's "
+        "round-trip error)",
+    )
+    ap.add_argument(
+        "--audit-tol-kl", type=float, default=None, metavar="X",
+        help="continuous engine: the KL above which an audit's drift is a "
+        "fail verdict",
+    )
+    ap.add_argument(
+        "--numerics-every", type=int, default=0, metavar="N",
+        help="continuous engine: every N engine steps the dispatch carries "
+        "the logit probe (oryx_numerics_* gauges; tokens unchanged; 0 = "
+        "off; not with --speculate)",
+    )
     # The JAX server's flags whose modules are not ported yet: accepted,
     # and refused with NotImplementedError when set.
     ap.add_argument("--shard", default=None, metavar="MODE=N")
     ap.add_argument("--journal", default=None, metavar="PATH")
     ap.add_argument("--faults", default=None, metavar="SPEC")
-    ap.add_argument("--audit-sample-every", type=int, default=0)
-    ap.add_argument("--audit-tol-maxdiff", type=float, default=None)
-    ap.add_argument("--audit-tol-kl", type=float, default=None)
     ap.add_argument("--profile-sample-every", type=int, default=0)
-    ap.add_argument("--numerics-every", type=int, default=0)
     ap.add_argument("--ttft-slo", type=float, default=None)
     ap.add_argument("--queue-depth-slo", type=int, default=None)
     args = ap.parse_args(argv)

@@ -65,7 +65,13 @@ Observability (utils/metrics.py, utils/trace.py, utils/request_log.py):
 the families of `ServingMetrics` under the JAX engine's names, kinds and
 ladders; one `Trace` a request in the flight recorder (spans queue_wait,
 admission, prompt_prep, prefill, decode_chunk, emission; eviction and
-restart events); the optional stall watchdog; and the cost ledger: prefill
+restart events); the optional stall watchdog; the observatories: the step
+timeline (utils/timeline.py, one record a dispatch), the page map
+(utils/pagemap.py over the allocator's ownership data, `pool_snapshot`),
+OOM forensics (utils/forensics.py, one capture per pressure episode and one
+per failed allocation), the output auditor (serve/audit.py, replays at
+idle points) and the numerics probes (utils/numerics.py, every
+`numerics_every` steps); and the cost ledger: prefill
 tokens computed vs spliced from the prefix cache, device decode steps apart
 from the client's decode tokens, queue/prefill/decode wall time from the
 request's own spans, and the refcount-weighted pages-held x time integral
@@ -86,11 +92,11 @@ own. They share only the queue and the shutdown/drain/supervision flags,
 under `_cond`. The loop syncs with the device once per dispatch, at the
 harvest.
 
-Not ported yet: the step timeline, the page map and OOM forensics, the
-degraded-mode ladder (its gauge stays 0), the decision journal and its
-replay (and with it the journaled fuse plan), fault injection, audit,
-numerics probes, device-time profiling, meshes (tp), and the lock-order
-sanitizer.
+Not ported yet: the degraded-mode ladder (its gauge stays 0, and with it
+the `degraded_escalation` forensic capture), the decision journal and its
+replay (and with it the journaled fuse plan), fault injection, device-time
+profiling (timeline records carry device_us null), meshes (tp), and the
+lock-order sanitizer.
 """
 
 from __future__ import annotations
@@ -110,8 +116,12 @@ from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2
 from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.packing import round_up_bucket
+from oryx_tpu_torch.serve import audit as audit_lib
 from oryx_tpu_torch.serve import pipeline as pipeline_lib
 from oryx_tpu_torch.serve.prefix_cache import PagedPrefixCache
+from oryx_tpu_torch.utils import forensics as forensics_lib
+from oryx_tpu_torch.utils import numerics as numerics_lib
+from oryx_tpu_torch.utils import pagemap
 from oryx_tpu_torch.utils import request_log as request_log_lib
 from oryx_tpu_torch.utils import trace as trace_lib
 from oryx_tpu_torch.utils.anomaly import AnomalyMonitor
@@ -125,6 +135,7 @@ from oryx_tpu_torch.utils.metrics import (
     TTFT_BUCKETS,
     ServingMetrics,
 )
+from oryx_tpu_torch.utils.timeline import StepTimeline
 
 # Every line carries the request id (the X-Request-Id and /debug/trace id).
 _LOG = logging.getLogger("oryx.serve.scheduler")
@@ -275,7 +286,11 @@ class ContinuousScheduler:
     TTFT and queue depth. request_timeout: the default per-request
     deadline in seconds. request_log: the wide-event sink (an in-memory
     ring by default); engine_label / replica_id: the engine's identity
-    in those events.
+    in those events. audit_sample_every: audit
+    every Nth finished request (0 = off); audit_tol_maxdiff /
+    audit_tol_kl: its drift-vs-fail boundary (defaults from the pool
+    format's round-trip error). numerics_every: arm the logit probe every
+    N engine steps (0 = off; not with speculate).
     """
 
     def __init__(
@@ -306,6 +321,10 @@ class ContinuousScheduler:
         request_log: request_log_lib.RequestLog | None = None,
         engine_label: str = "continuous",
         replica_id: str | None = None,
+        audit_sample_every: int = 0,
+        audit_tol_maxdiff: float | None = None,
+        audit_tol_kl: float | None = None,
+        numerics_every: int = 0,
     ):
         for name, v in (
             ("num_slots", num_slots), ("page_size", page_size),
@@ -389,6 +408,19 @@ class ContinuousScheduler:
                 "host_cache_bytes must be a non-negative integer "
                 f"(0 = host spill tier off), got {host_cache_bytes!r}"
             )
+        if not isinstance(numerics_every, int) or numerics_every < 0:
+            raise ValueError(
+                "numerics_every must be a non-negative integer (steps "
+                f"between probe samples; 0 = off), got {numerics_every!r}"
+            )
+        if numerics_every and speculate:
+            # The verify step carries no probe: the gauges would stay 0.
+            raise ValueError(
+                "numerics_every is not supported with speculate>0: the "
+                "speculative verify step carries no numerics probe; "
+                "drop --numerics-every or --speculate"
+            )
+        self.numerics_every = numerics_every
         self.kv_dtype = kv_dtype
         self.host_cache_bytes = host_cache_bytes
         self.pipe = pipe
@@ -442,6 +474,17 @@ class ContinuousScheduler:
         self._register_families()
         S = num_slots
         self.allocator = paged_kv.PageAllocator(self.num_pages, page_size)
+        # The page map's gauges and free-time histograms; every pool
+        # rebuild re-attaches the fresh allocator.
+        self.pool_observatory = pagemap.PoolObservatory(
+            self.metrics.registry, lambda: self.allocator
+        )
+        self.pool_observatory.attach(self.allocator)
+        self.forensics = forensics_lib.ForensicRing()
+        # One forensic a pool-pressure episode: armed at the first failed
+        # grow or admission, cleared by the next allocation that succeeds.
+        self._oom_episode = False
+        self.timeline = StepTimeline()
         self._sentinel = self.allocator.sentinel
         self.kv_pages = self._new_pool()
         self.prefix_cache = (
@@ -484,6 +527,35 @@ class ContinuousScheduler:
         self.request_log = request_log or request_log_lib.RequestLog()
         self.engine_label = engine_label
         self.replica_id = replica_id
+        # Built unconditionally, so the oryx_audit_* ladders render at zero
+        # with sampling off.
+        self.auditor = audit_lib.OutputAuditor(
+            pipe, page_size=page_size, max_ctx=max_ctx,
+            sample_every=audit_sample_every, metrics=self.metrics,
+            request_log=self.request_log, anomaly=self.anomaly,
+            engine_label=engine_label, replica_id=replica_id,
+            kv_dtype=kv_dtype,
+            fail_abs_tol=audit_tol_maxdiff, fail_kl_tol=audit_tol_kl,
+        )
+        # Literal declarations (numerics_lib.NUMERICS_GAUGES lists the
+        # same names; the tests hold the two equal).
+        reg = self.metrics.registry
+        self._numerics_gauges = {
+            "finite_frac": reg.gauge(
+                "oryx_numerics_logits_finite_frac", raw_name=True
+            ),
+            "absmax": reg.gauge("oryx_numerics_logits_absmax", raw_name=True),
+            "rms": reg.gauge("oryx_numerics_logits_rms", raw_name=True),
+            "entropy": reg.gauge(
+                "oryx_numerics_logits_entropy", raw_name=True
+            ),
+            "top1_margin": reg.gauge(
+                "oryx_numerics_logits_top1_margin", raw_name=True
+            ),
+        }
+        self._numerics_samples = reg.counter(
+            "oryx_numerics_samples_total", raw_name=True
+        )
         self.watchdog: trace_lib.StallWatchdog | None = None
         if stall_timeout is not None:
             self.watchdog = trace_lib.StallWatchdog(
@@ -534,6 +606,7 @@ class ContinuousScheduler:
         reg.histogram("request_decode_seconds", REQUEST_SECONDS_BUCKETS)
         reg.histogram("request_e2e_seconds", REQUEST_SECONDS_BUCKETS)
         reg.histogram("request_peak_pages", REQUEST_TOKEN_BUCKETS)
+        reg.counter("oom_forensics_total", ("trigger",))
 
     # ---- public API (the Engine protocol, serve/engine.py) ---------------
 
@@ -798,6 +871,140 @@ class ContinuousScheduler:
             holders.append(self.prefix_cache.held_pages())
         self.allocator.check_invariant(holders)
 
+    # ---- the page map and OOM forensics -----------------------------------
+
+    def pool_snapshot(self) -> dict[str, Any]:
+        """The live page-ownership map with its derived summary: the GET
+        /debug/pages body (utils/pagemap.summarize over
+        PageAllocator.snapshot). Engine-owned state read from a debug
+        thread: best-effort, exact on a quiesced engine. The oryx_pool_*
+        gauges are refreshed at the same moment, so a scrape right after
+        agrees with it."""
+        snap = self.allocator.snapshot()
+        self.pool_observatory.collect(force=True)
+        # The pool's wire format and device bytes, read off the live pool.
+        snap["kv_dtype"] = paged_kv.kv_pool_dtype(self.kv_pages)
+        snap["kv_pool_bytes"] = int(sum(
+            t.numel() * t.element_size()
+            for plane in (self.kv_pages["k"], self.kv_pages["v"])
+            for t in paged_kv._byte_leaves(plane)
+        ))
+        snap["summary"] = pagemap.summarize(snap)
+        return snap
+
+    def _capture_oom(self, trigger: str, detail: str, *,
+                     asking: tuple | None = None) -> None:
+        """A forensic capture at a memory-pressure moment (engine thread):
+        the pool summary, the top-K residents by pages held with their
+        in-flight ledgers, the prefix cache's LRU tail and the timeline
+        tail into the ring /debug/oom serves, and one flat oom_pressure
+        wide event. `asking` = (slot, request, pages needed): the
+        allocation that failed, named even before its request holds a
+        slot."""
+        summary = pagemap.summarize(self.allocator.snapshot())
+        residents = [
+            self._forensic_request(s, req)
+            for s, req in enumerate(self.slots) if req is not None
+        ]
+        if asking is not None:
+            s, req, need = asking
+            if req is not None and all(
+                r["request_id"] != req.trace.id for r in residents
+            ):
+                ent = self._forensic_request(s, req)
+                ent["asking_pages"] = int(need)
+                residents.append(ent)
+        residents.sort(key=lambda r: -r["pages"])
+        residents = residents[:forensics_lib.TOP_K]
+        cache = None
+        cache_lru = []
+        if self.prefix_cache is not None:
+            pc = self.prefix_cache
+            cache = {
+                "entries": pc.entries,
+                "pages": pc.pages,
+                "evictable_pages": pc.evictable_pages(),
+                "spilled_pages": pc.spilled_pages,
+                "host_bytes": pc.host_bytes,
+            }
+            for node in sorted(pc.trie.leaves(),
+                               key=lambda n: n.stamp)[:forensics_lib.TOP_K]:
+                depth = 0
+                walk = node
+                while walk is not None and walk.parent is not None:
+                    depth += 1
+                    walk = walk.parent
+                cache_lru.append({
+                    "leaf_page": node.payload,
+                    "depth_pages": depth,
+                    "lru_stamp": node.stamp,
+                    "refcount": self.allocator.refcount(node.payload),
+                })
+        record = {
+            "kind": "oom_pressure",
+            "trigger": trigger,
+            "detail": detail,
+            "engine": self.engine_label,
+            "replica": self.replica_id,
+            "degraded_mode": int(self.metrics.get("degraded_mode")),
+            "queue_depth": int(self.metrics.get("queue_depth")),
+            "live_slots": sum(1 for r in self.slots if r is not None),
+            "pool": summary,
+            "top_requests": residents,
+            "cache": cache,
+            "cache_lru": cache_lru,
+            "timeline_tail": self.timeline.snapshot(16),
+        }
+        idx = self.forensics.append(record)
+        self.metrics.inc("oom_forensics_total", labels={"trigger": trigger})
+        self.request_log.append(request_log_lib.build_oom_event(
+            trigger=trigger,
+            detail=detail,
+            engine=self.engine_label,
+            replica=self.replica_id,
+            degraded_mode=record["degraded_mode"],
+            queue_depth=record["queue_depth"],
+            live_slots=record["live_slots"],
+            free_pages=summary["free"],
+            slot_pages=summary["slot"],
+            cache_pages=summary["cache"],
+            shared_pages=summary["shared"],
+            fragmentation_ratio=summary["fragmentation_ratio"],
+            top_request_id=(
+                residents[0]["request_id"] if residents else None
+            ),
+            top_request_pages=residents[0]["pages"] if residents else 0,
+            forensic_index=idx,
+        ))
+        _LOG.warning(
+            "memory-pressure forensic #%d captured (%s: %s; free=%d "
+            "slot=%d cache=%d shared=%d)", idx, trigger, detail,
+            summary["free"], summary["slot"], summary["cache"],
+            summary["shared"],
+        )
+
+    def _forensic_request(self, s: int, req: _Request) -> dict[str, Any]:
+        """One resident's line in a forensic record: identity, pages held
+        and the in-flight half of its cost ledger."""
+        return {
+            "request_id": req.trace.id,
+            "slot": s,
+            "pages": self._held(s),
+            "prompt_tokens": req.length,
+            "emitted_tokens": len(req.emitted),
+            "spliced_tokens": req.spliced,
+            "activated": req.activated,
+            "evictions": req.evictions,
+            "cost": {
+                "prefill_tokens": req.cost_prefill_tokens,
+                "cached_tokens": req.cost_cached_tokens,
+                "decode_steps": req.cost_decode_steps,
+                "decode_tokens": req.cost_decode_tokens,
+                "page_seconds": round(req.cost_page_seconds, 6),
+                "peak_pages": req.peak_pages,
+            },
+        }
+
     # ---- pool and prefix cache --------------------------------------------
 
     def _pool_kv_dtype(self) -> str | None:
@@ -990,6 +1197,7 @@ class ContinuousScheduler:
         need = self.allocator.pages_for(tokens) - held
         if need <= 0:
             return True
+        req = req or self.slots[s]
         # Bank the integral at the old page count before it changes.
         self._accrue_page_seconds(s)
         if need > self.allocator.num_free and self.prefix_cache is not None:
@@ -1000,11 +1208,20 @@ class ContinuousScheduler:
             if self.prefix_cache.evictable_pages() >= shortfall:
                 self.prefix_cache.evict(shortfall)
         if need > self.allocator.num_free:
+            # The capacity path (deferral and eviction absorb it): one
+            # capture a pressure episode.
+            if not self._oom_episode:
+                self._oom_episode = True
+                self._capture_oom(
+                    "pool_pressure",
+                    f"free-list shortfall: need {need} page(s), "
+                    f"{self.allocator.num_free} free",
+                    asking=(s, req, need),
+                )
             return False
-        pages = self.allocator.alloc(
-            need, owner=self._owner_tag(req or self.slots[s])
-        )
+        pages = self.allocator.alloc(need, owner=self._owner_tag(req))
         self.bt[s, held:held + need] = pages
+        self._oom_episode = False  # pages flowed: the episode is over
         return True
 
     def _reset_pool(self) -> None:
@@ -1015,11 +1232,14 @@ class ContinuousScheduler:
         self.allocator = paged_kv.PageAllocator(
             self.num_pages, self.page_size
         )
+        # A fresh allocator has no observer: re-attach it.
+        self.pool_observatory.attach(self.allocator)
         if self.prefix_cache is not None:
             self.prefix_cache = self._build_prefix_cache()
         self.kv_pages = self._new_pool()
         self._release_graphs()  # captured on the old pool
         self.bt[:] = self._sentinel
+        self._oom_episode = False
         self.slots = [None] * self.num_slots
         self.gens = [None] * self.num_slots
         self.finished[:] = True
@@ -1049,7 +1269,9 @@ class ContinuousScheduler:
                     # Decided with the idle check, under one hold: a
                     # request queued after it is served, not stranded.
                     drain_exit = idle and self._draining
-                    if idle and not drain_exit:
+                    if idle and not drain_exit and (
+                        not self.auditor.pending()
+                    ):
                         self._cond.wait(timeout=0.1)
                 for r in drain_drop:
                     self._reject_queued(
@@ -1062,6 +1284,10 @@ class ContinuousScheduler:
                 if idle:
                     if self.watchdog is not None:
                         self.watchdog.set_active(False)
+                    # An idle point: run ONE queued audit replay, then look
+                    # for live work again, so an arrival never waits behind
+                    # a second replay and a replay never meets a live step.
+                    self.auditor.run_one()
                     continue
                 if self.watchdog is not None:
                     self.watchdog.set_active(True)
@@ -1287,6 +1513,16 @@ class ContinuousScheduler:
                 exclude=[int(p) for p in pages[:full]]
             )
         if total_need - full > avail:
+            # The admission side of _grow_slot's shortfall: one capture a
+            # pressure episode.
+            if not self._oom_episode:
+                self._oom_episode = True
+                self._capture_oom(
+                    "pool_pressure",
+                    f"admission shortfall: prompt needs "
+                    f"{total_need - full} fresh page(s), {avail} coverable",
+                    asking=(s, req, total_need - full),
+                )
             return False
         if cache_on and host_nodes and full == len(pages):
             # Host-tier hit: the cached prefix continues past the device
@@ -1324,7 +1560,11 @@ class ContinuousScheduler:
                     cow = self.allocator.alloc(
                         1, owner=self._owner_tag(req)
                     )[0]
-                except paged_kv.OutOfPagesError:
+                except paged_kv.OutOfPagesError as e:
+                    self._capture_oom(
+                        "oom", f"COW alloc: {type(e).__name__}: {e}",
+                        asking=(s, req, 1),
+                    )
                     use = full * ps
                 else:
                     self.kv_pages = paged_kv.copy_pages(
@@ -1422,6 +1662,7 @@ class ContinuousScheduler:
             "prefill", slot=s, start=off, tokens=end - off,
             cached=req.spliced > 0, replay=req.replay > 0,
         )
+        t0 = time.monotonic()
         self.kv_pages, tok0 = generate_lib.paged_prefill(
             self.pipe.params.llm, self.cfg.llm, emb,
             torch.tensor([end], device=dev),
@@ -1442,6 +1683,12 @@ class ContinuousScheduler:
         self.metrics.inc("dispatches_total", labels={"kind": "prefill"})
         self.metrics.observe(
             "dispatch_rows", end - off, buckets=DISPATCH_ROWS_BUCKETS
+        )
+        # Split prefill dispatches are engine steps too: the timeline's
+        # kinds reconcile with dispatches_total on every engine mode.
+        self._timeline_record(
+            dur_s=time.monotonic() - t0, kind="prefill", rows=end - off,
+            accepted=0,
         )
         if self.watchdog is not None:
             self.watchdog.beat()
@@ -1579,17 +1826,20 @@ class ContinuousScheduler:
     def _step_chunk(self) -> None:
         """One split-engine decode dispatch over every slot."""
         live = self._live()
+        numer = self._numerics_due()
         t0, t0_ns = time.monotonic(), trace_lib.now_ns()
         out = generate_lib.paged_decode_chunk(
             self.pipe.params.llm, self.cfg.llm, self.kv_pages,
             *self._device_state(),
             chunk=self.chunk, eos=self.cfg.generation.eos_token_id,
             attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
+            numerics=numer,
         )
         self.kv_pages = out[0]
         toks, _ = self._harvest_chunk(*out[1:6])
-        self._finish_dispatch("decode", len(live), live, toks, t0_ns,
-                              time.monotonic() - t0)
+        dt = time.monotonic() - t0
+        self._record_numerics(out[7] if numer else None)
+        self._finish_dispatch("decode", len(live), live, toks, t0_ns, dt)
 
     def _harvest_chunk(self, tok, lengths, finished, recent, toks,
                        pf_tok0=None):
@@ -1633,15 +1883,60 @@ class ContinuousScheduler:
         )
         if self.watchdog is not None:
             self.watchdog.beat()
-        self._bill_step(live, toks, n_new, t0_ns, dt, dt)
+        accepted = self._bill_step(live, toks, n_new, t0_ns, dt, dt)
         self._occupancy_gauge()
+        self._timeline_record(dur_s=dt, kind=kind, rows=rows,
+                              accepted=accepted)
+
+    def _numerics_due(self) -> bool:
+        """The probe's cadence: every `numerics_every` engine steps the
+        dispatch runs armed (tokens are those of the unarmed step)."""
+        return (
+            self.numerics_every > 0
+            and self.chunks_run % self.numerics_every == 0
+        )
+
+    def _record_numerics(self, nstats) -> None:
+        """Publish one probe sample after the harvest: the oryx_numerics_*
+        gauges and the entropy_collapse / absmax_explosion sentinels. A
+        dispatch where nothing decoded reports nothing."""
+        if nstats is None:
+            return
+        stats = numerics_lib.finalize_logit_stats(nstats)
+        if stats is None:
+            return
+        for key, gauge in self._numerics_gauges.items():
+            gauge.set(stats[key])
+        self._numerics_samples.inc()
+        if self.anomaly is not None:
+            self.anomaly.observe_numerics(
+                entropy=stats["entropy"], absmax=stats["absmax"],
+                source_step=self.chunks_run,
+            )
+
+    def _timeline_record(self, *, dur_s: float, kind: str, rows: int,
+                         accepted: int) -> None:
+        """One step record into the timeline (engine thread). Queue depth
+        and degraded mode come from the registry's gauges, so no telemetry
+        sample takes the scheduler's lock."""
+        self.timeline.record(
+            dur_s=dur_s, kind=kind, rows=rows,
+            live_slots=sum(
+                1 for r in self.slots if r is not None and r.activated
+            ),
+            accepted_tokens=accepted,
+            queue_depth=int(self.metrics.get("queue_depth")),
+            free_pages=self.allocator.num_free,
+            degraded_mode=int(self.metrics.get("degraded_mode")),
+        )
 
     def _bill_step(self, live: list[int], toks, n_new, t0_ns: int,
-                   dt: float, step_dt: float) -> None:
+                   dt: float, step_dt: float) -> int:
         """One logical step's harvest: feed each slot live during it its
         tokens (its decode_chunk span over the dispatch window, its ledger's
         device steps), then the per-token latency (`step_dt` a logical
-        step) and the decode-step counters."""
+        step) and the decode-step counters. Returns the step's accepted
+        tokens (speculating: the tokens emitted; else the useful steps)."""
         lane_steps = 1 + self.speculate if n_new is not None else self.chunk
         useful = 0
         emitted = 0
@@ -1676,6 +1971,7 @@ class ContinuousScheduler:
             self.metrics.inc("decode_steps_total", total)
             self.metrics.inc("decode_steps_useful", useful)
             self.metrics.inc("decode_steps_wasted", total - useful)
+        return emitted if n_new is not None else useful
 
     def _occupancy_gauge(self) -> None:
         live = sum(
@@ -1726,8 +2022,9 @@ class ContinuousScheduler:
         if fuse_k > 1:
             self._fused_megastep(fuse_k)
             return
+        numer = self._numerics_due() and bool(live)
         if pf_req is None and self._graph_route():
-            self._replay_steps(live, 1)
+            self._replay_steps(live, 1, numerics=numer)
             return
         # Per-dispatch prefill budget in tokens: the spec step is one
         # forward of prefill_chunk lanes, the ragged step `chunk` forwards
@@ -1786,10 +2083,11 @@ class ContinuousScheduler:
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages,
                 *self._device_state(), **pf_kw,
                 chunk=self.chunk, pf_width=self.pf_width if pf_kw else 0,
-                **common,
+                numerics=numer, **common,
             )
             self.kv_pages = out[0]
             toks, pf_tok0 = self._harvest_chunk(*out[1:6], pf_tok0=out[7])
+            self._record_numerics(out[8] if numer else None)
             # Decode billing covers only slots live DURING the dispatch.
             self._finish_dispatch(
                 "ragged", len(live) + pf_rows, live, toks, t0_ns,
@@ -1817,9 +2115,12 @@ class ContinuousScheduler:
         rung of the ladder within every live row's remaining budget in
         dispatch windows (a row the host finishes overruns at most one
         window, as at K = 1), aiming at the large rung for a solo resident
-        and the small one for shared steps."""
+        and the small one for shared steps. An armed numerics probe never
+        fuses."""
         if not self._fuse_ladder or pf_req is not None or not live:
             return 1
+        if self.numerics_every:
+            return 1  # the megastep carries no probe
         with self._cond:
             if self._queue:
                 return 1
@@ -1896,26 +2197,36 @@ class ContinuousScheduler:
         self.engine_stats["megasteps_total"][k_steps] += 1
         if self.watchdog is not None:
             self.watchdog.beat()
+        accepted = 0
         for j in range(k_steps):
             self.chunks_run += 1
             self.metrics.inc("chunks")
-            self._bill_step(
+            accepted += self._bill_step(
                 [s for s in live if self.slots[s] is not None],
                 toks[:, j * width:(j + 1) * width],
                 None if n_new is None else n_new[:, j],
                 t0_ns, dt, dt / k_steps,
             )
         self._occupancy_gauge()
+        # One dispatch, one timeline record.
+        self._timeline_record(
+            dur_s=dt, kind=kind,
+            rows=len(live) * (width if n_new is not None else 1),
+            accepted=accepted,
+        )
 
     def _graph_route(self) -> bool:
         """Pure-decode dispatches replay engine-step graphs: on the card,
         unless the private eager witness is set."""
         return self.device.type == "cuda" and not self._eager_witness
 
-    def _engine_graph(self, sampling: bool) -> generate_lib._EngineStepGraph:
-        """The engine-step graph of this scheduler's key and `sampling`
-        (whether it draws), captured at its first use. Keyed by everything
-        that fixes its launches."""
+    def _engine_graph(self, sampling: bool, numerics: bool = False
+                      ) -> generate_lib._EngineStepGraph:
+        """The engine-step graph of this scheduler's key, `sampling`
+        (whether it draws) and `numerics` (the probe armed: a graph of its
+        own, so an armed replay never reuses an unarmed graph or the
+        reverse), captured at its first use. Keyed by everything that
+        fixes its launches."""
         stop = self.stop_sequences
         key = (
             self.num_slots, self.chunk, self.speculate, self.max_pages,
@@ -1923,7 +2234,7 @@ class ContinuousScheduler:
             None if stop is None else tuple(stop.shape),
             None if self._draft is None else (
                 self._draft[2], tuple(self._draft[0]["embed"].shape)),
-            sampling,
+            sampling, numerics,
         )
         graph = self._graphs.get(key)
         if graph is None:
@@ -1935,18 +2246,20 @@ class ContinuousScheduler:
                 attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
                 sampling=sampling, draft=self._draft,
                 max_steps=max(self._fuse_ladder, default=1),
-                device=self.device,
+                device=self.device, numerics=numerics,
             )
             self._graphs[key] = graph
             self.engine_stats["graph_captures_total"] += 1
             self.engine_stats["graph_capture_s"] += graph.capture_s
         return graph
 
-    def _replay_steps(self, live: list[int], k_steps: int) -> None:
+    def _replay_steps(self, live: list[int], k_steps: int,
+                      numerics: bool = False) -> None:
         """A pure-decode dispatch of k_steps logical steps on the graph
         route: the host state copied into the graph, k_steps replays, one
-        harvest."""
-        graph = self._engine_graph(any(g is not None for g in self.gens))
+        harvest; `numerics` (k_steps = 1) replays the armed graph."""
+        graph = self._engine_graph(any(g is not None for g in self.gens),
+                                   numerics)
         t0, t0_ns = time.monotonic(), trace_lib.now_ns()
         host = dict(
             bt=self.bt, tok=self.tok, lengths=self.lengths,
@@ -1980,6 +2293,7 @@ class ContinuousScheduler:
             out["tok"], out["lengths"], out["finished"], out["recent"],
             out["toks"])
         dt = time.monotonic() - t0
+        self._record_numerics(out.get("nstats"))
         if k_steps == 1:
             self._finish_dispatch("ragged", len(live), live, toks, t0_ns, dt)
         else:
@@ -2178,6 +2492,9 @@ class ContinuousScheduler:
         self._emit_request_event(req, status="ok")
         h.events.put(("end", reason, h.usage))
         h.done.set()
+        # Every Nth finished request queues an audit job (host copies; the
+        # replay runs later, at an idle point of this thread).
+        self.auditor.observe_finished(req)
         _LOG.info("request %s finished (%s, %d tokens)", req.trace.id,
                   reason, completion)
         self.metrics.inc("completed")

@@ -416,6 +416,19 @@ REQUEST_TOKEN_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0,
 REQUEST_SECONDS_BUCKETS = TTFT_BUCKETS + (120.0, 300.0)
 PAGE_SECONDS_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                         5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0)
+# One page's whole tenancy (alloc -> refcount-0 free) and its idle tail,
+# fed at free time by the allocator's observer hook (utils/pagemap.py):
+# the oryx_page_{lifetime,idle}_seconds ladders.
+PAGE_LIFETIME_BUCKETS = (0.001, 0.005, 0.025, 0.1, 0.25, 0.5, 1.0,
+                         2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0,
+                         600.0)
+# Logit-drift ladders of the output auditor (serve/audit.py): max abs
+# diff from exact parity (the fp path's 0) through bf16 noise to "a
+# different model", and the same story for the KL.
+AUDIT_DIFF_BUCKETS = (0.0, 1e-6, 1e-5, 1e-4, 1e-3, 5e-3, 0.025, 0.1,
+                      0.5, 1.0, 4.0, 16.0)
+AUDIT_KL_BUCKETS = (0.0, 1e-8, 1e-6, 1e-5, 1e-4, 1e-3, 0.01, 0.1, 0.5,
+                    1.0, 4.0)
 
 # The per-request cost-ledger keys: what the scheduler writes into
 # handle.debug["cost"] and the trace meta at every terminal state, what
@@ -449,6 +462,45 @@ REQUEST_EVENT_KEYS = REQUEST_COST_KEYS + (
     "evictions",                 # replay re-admissions this request paid
     "accepted_tokens_per_step",  # speculation yield, null off spec
     "journal_seq",               # decision-journal join key
+)
+
+# The output-audit wide-event schema (kind="audit"): one flat line per
+# completed audit through the request-log sink; `audit_index` joins it to
+# the full record at /debug/audit.
+AUDIT_EVENT_KEYS = (
+    "schema", "ts_unix_s",
+    "kind",                   # always "audit"
+    "request_id",             # the audited request (joins its trace)
+    "engine", "replica",
+    "verdict",                # pass | drift | fail
+    "first_divergence",       # token index of the first mismatch, -1
+    "replayed_tokens",        # tokens the replay regenerated
+    "positions_checked",      # logit positions compared
+    "logit_max_abs_diff",     # max over the checked positions
+    "kl",                     # max KL over the checked positions
+    "evictions",              # replays the live request paid
+    "audit_index",            # index of the full record in /debug/audit
+)
+
+# The memory-pressure wide-event schema (kind="oom_pressure"): one flat
+# line per captured incident; `forensic_index` joins it to the full
+# record at /debug/oom (utils/forensics.py).
+OOM_EVENT_KEYS = (
+    "schema", "ts_unix_s",
+    "kind",                  # always "oom_pressure"
+    "trigger",               # oom (an allocation raised) |
+                             # pool_pressure (free-list shortfall
+                             # episode, defer/evict path) |
+                             # degraded_escalation (SLO ladder moved)
+    "detail",                # the OutOfPagesError text / ladder step
+    "engine", "replica",
+    "degraded_mode",
+    "queue_depth", "live_slots",
+    "free_pages", "slot_pages", "cache_pages", "shared_pages",
+    "fragmentation_ratio",
+    "top_request_id",        # largest resident by pages held
+    "top_request_pages",
+    "forensic_index",        # index of the full record in /debug/oom
 )
 
 

@@ -1,5 +1,5 @@
 """Wide-event request log: one canonical JSONL event per terminal request
-(port of the request half of `oryx_tpu.utils.request_log`).
+(port of `oryx_tpu.utils.request_log`).
 
 At the moment a request reaches any terminal state (finish / error /
 cancel / reject) the scheduler merges its cost ledger, the span-derived
@@ -15,8 +15,11 @@ Two sinks, same events:
     rolling to ``<path>.1`` past ``max_bytes`` (utils/rolling_sink.py).
 
 ``build_request_event`` rejects undeclared or non-snake_case keys, so the
-JSONL schema cannot drift from the metrics. The memory-pressure and audit
-events of the JAX package wait for their modules (forensics, audit).
+JSONL schema cannot drift from the metrics. The sink also carries the
+memory-pressure events (``build_oom_event``, kind "oom_pressure",
+utils/forensics.py holds the full records) and the output-audit events
+(``build_audit_event``, kind "audit", serve/audit.py), each validated
+against its own declared schema, dispatched on `kind`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,11 @@ import time
 from collections import deque
 from typing import Any
 
-from oryx_tpu_torch.utils.metrics import REQUEST_EVENT_KEYS
+from oryx_tpu_torch.utils.metrics import (
+    AUDIT_EVENT_KEYS,
+    OOM_EVENT_KEYS,
+    REQUEST_EVENT_KEYS,
+)
 from oryx_tpu_torch.utils.rolling_sink import RollingSink
 
 # The wide-event schema version, stamped into every event.
@@ -37,6 +44,12 @@ EVENT_SCHEMA = 1
 
 _SNAKE_RE = re.compile(r"^[a-z][a-z0-9_]*$")
 _KEYSET = frozenset(REQUEST_EVENT_KEYS)
+# Non-request events share the sink under their own schema, dispatched on
+# `kind` (not a request-event key, so a request event is never one).
+_KIND_KEYSETS = {
+    "oom_pressure": frozenset(OOM_EVENT_KEYS),
+    "audit": frozenset(AUDIT_EVENT_KEYS),
+}
 
 
 def build_request_event(**fields: Any) -> dict[str, Any]:
@@ -57,6 +70,38 @@ def build_request_event(**fields: Any) -> dict[str, Any]:
     ev: dict[str, Any] = {"schema": EVENT_SCHEMA, "ts_unix_s": time.time()}
     ev.update(fields)
     return ev
+
+
+def _kind_event(kind: str, registry: str, fields: dict[str, Any]
+                ) -> dict[str, Any]:
+    bad = sorted(
+        k for k in fields
+        if k not in _KIND_KEYSETS[kind] or not _SNAKE_RE.match(k)
+    )
+    if bad:
+        raise ValueError(
+            f"undeclared {kind} event field(s) {bad}: add them to "
+            f"utils.metrics.{registry} or fix the name"
+        )
+    ev: dict[str, Any] = {
+        "schema": EVENT_SCHEMA, "ts_unix_s": time.time(), "kind": kind,
+    }
+    ev.update(fields)
+    return ev
+
+
+def build_oom_event(**fields: Any) -> dict[str, Any]:
+    """One memory-pressure wide event (`kind="oom_pressure"`), validated
+    against utils.metrics.OOM_EVENT_KEYS; `forensic_index` joins it to
+    its full record at /debug/oom."""
+    return _kind_event("oom_pressure", "OOM_EVENT_KEYS", fields)
+
+
+def build_audit_event(**fields: Any) -> dict[str, Any]:
+    """One output-audit wide event (`kind="audit"`), validated against
+    utils.metrics.AUDIT_EVENT_KEYS; `audit_index` joins it to its full
+    record at /debug/audit."""
+    return _kind_event("audit", "AUDIT_EVENT_KEYS", fields)
 
 
 class RequestLog:
@@ -82,14 +127,17 @@ class RequestLog:
                 self._sink = RollingSink(self.path, max_bytes=max_bytes)
 
     def append(self, event: dict[str, Any]) -> None:
-        """Record one event (normally built by build_request_event;
-        re-validated here so a hand-rolled dict cannot bypass the
-        registry)."""
-        bad = sorted(k for k in event if k not in _KEYSET)
+        """Record one event (normally built by build_request_event,
+        build_oom_event or build_audit_event; re-validated here against
+        the schema its `kind` names, so a hand-rolled dict cannot bypass
+        the registry)."""
+        keyset = _KIND_KEYSETS.get(event.get("kind"), _KEYSET)
+        bad = sorted(k for k in event if k not in keyset)
         if bad:
             raise ValueError(
                 f"undeclared request-event field(s) {bad} "
-                "(utils.metrics.REQUEST_EVENT_KEYS is the schema)"
+                "(utils.metrics.REQUEST_EVENT_KEYS / OOM_EVENT_KEYS / "
+                "AUDIT_EVENT_KEYS is the schema)"
             )
         line = json.dumps(event)
         with self._lock:

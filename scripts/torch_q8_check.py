@@ -9,6 +9,7 @@ projector's products, and tails whose K and N are not multiples of 16, in
 bf16 and fp32.
 
     python3 scripts/torch_q8_check.py [--time] [--iters 50]
+        [--only gate_up,down --rows 8192]
 
 Prints the build's ptxas lines (registers, spills), then per case the
 kernel's largest error against the plain twin (dequantize, then F.linear;
@@ -26,7 +27,9 @@ weights (what the bf16 model pays; the port never calls it) and the least
 time the card could take (`measure.q8_bound`); then, at M = 4, 20, 68 and
 516, the products of one decoder forward (each launch times its count a
 forward) summed on each of the three, and the host time of a call at
-M = 4 beside F.linear's. Exits 1 on a disagreement.
+M = 4 beside F.linear's. --only and --rows restrict the run to those
+decoder launches at those row counts (and skip the rest). Exits 1 on a
+disagreement.
 """
 
 from __future__ import annotations
@@ -54,7 +57,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", default=None, metavar="PROJ[,PROJ]",
+                    help="decoder launches to check (qkv, o, gate_up, down, "
+                    "lm_head); the other cases are skipped")
+    ap.add_argument("--rows", default=None, metavar="M[,M]",
+                    help="row counts of the decoder launches")
     args = ap.parse_args()
+    rows = (tuple(int(m) for m in args.rows.split(",")) if args.rows
+            else ROWS)
+    only = set(args.only.split(",")) if args.only else None
     if not torch.cuda.is_available():
         print("torch_q8_check: no CUDA device", file=sys.stderr)
         return 2
@@ -74,7 +85,8 @@ def main() -> int:
     cfg = config.oryx_7b()
     shapes = measure.q8_shapes(cfg.llm)
     cases = [(f"{proj}[M={M}]", K, Ns, M, bias, torch.bfloat16, False)
-             for proj, (K, Ns, bias) in shapes.items() for M in ROWS]
+             for proj, (K, Ns, bias) in shapes.items() for M in rows
+             if only is None or proj in only]
     K, Ns, _ = shapes["lm_head"]
     cases += [(f"tied_head[M={M}]", K, Ns, M, False, torch.bfloat16, True)
               for M in (1, 4, 20, 68, 516)]
@@ -85,6 +97,8 @@ def main() -> int:
     cases += [(f"tail[K={K},N={Ns},M={M},{str(dt)[6:]}{',tied' * col}]", K,
                Ns, M, bias, dt, col)
               for K, Ns, M, bias, dt in TAILS for col in (False, True)]
+    if only is not None:
+        cases = [c for c in cases if c[0].split("[")[0] in only]
     bad = 0
     for name, K, Ns, M, bias, dt, col in cases:
         kw = measure.q8_case(K, Ns, M, bias, gen, dt, col)
@@ -111,12 +125,12 @@ def main() -> int:
             bound, by = measure.q8_bound(M, Ns, K)
             print(f"    ms {ms:.4f} | device {dev} | plain {plain_ms:.4f} | "
                   f"F.linear bf16 {lib_ms:.4f} | bound {bound:.4f} ({by})")
-    for M in (4, 516):
+    for M in (4, 516) if only is None else ():
         same = graph_equals_eager(q8, measure.q8_case(
             3584, (18944, 18944), M, False, gen))
         bad += not same
         print(f"graph replay == eager at M = {M}: {same}")
-    if args.time:
+    if args.time and only is None:
         forward(cfg.llm, gen, args.iters)
     print("all ok" if not bad else f"{bad} FAILED")
     return 1 if bad else 0

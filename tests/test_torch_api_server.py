@@ -5,14 +5,18 @@ on the same tiny weights give identical replies, finish reasons, usage,
 SSE chunk sequences and status codes, over the window engine and the
 split and ragged continuous engines. Then the /metrics families (JAX's
 minus the families of modules not ported yet), the counters, the cost
-ledgers, the trace spans and the debug endpoints; 429 / 504 / 503 as the
-JAX server answers them; the options not ported yet; and the checks of
-scripts/check_serving_endpoints.py that apply, read back with the JAX
-package's quantile helpers (mirrors tests/test_api_server.py and the HTTP
-half of tests/test_containment.py)."""
+ledgers, the trace spans and the debug endpoints (the observatories'
+bodies as the JAX server's); 429 / 504 / 503 as the JAX server answers
+them; the options not ported yet and the observatories' flags; and
+scripts/check_serving_endpoints.py's `run_checks`, unchanged, with one
+scripts/loadgen.py stage, against the port's server (mirrors
+tests/test_api_server.py and the HTTP half of
+tests/test_containment.py)."""
 
 import base64
+import importlib.util
 import json
+import os
 import re
 import threading
 import time
@@ -52,13 +56,11 @@ ENGINES = {
                    decode_chunk=4, max_ctx=512, ragged=True,
                    prefill_chunk=32),
 }
-# The JAX server's families whose modules the port has not yet: the
-# output auditor, the numerics probes, the page map, device-time
-# profiling and OOM forensics (ROADMAP Queue 1 item 3).
-CUT_FAMILY = re.compile(
-    r"^oryx_(audit|numerics|page|device_time|profile)_"
-    r"|^oryx_pool_(?!kv_dtype$)|^oryx_serving_oom_forensics_total$"
-)
+# The JAX server's families whose module the port has not yet: device-time
+# profiling (ROADMAP Queue 1 item 3).
+CUT_FAMILY = re.compile(r"^oryx_(device_time|profile)_")
+DEBUG_PATHS = ("/debug/timeline?n=0", "/debug/pages?format=summary",
+               "/debug/pages", "/debug/oom", "/debug/audit")
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +167,8 @@ def _serve_all(api, pipe, kw, reqs):
         traces = {rid: s.get(f"/debug/trace?id={rid}")[2]
                   for rid, _ in reqs[:9]}
         done = json.loads(s.get("/debug/requests?state=done")[2])
-        return out, text, traces, done
+        debug = {path: s.get(path)[::2] for path in DEBUG_PATHS}
+        return out, text, traces, done, debug
     finally:
         s.close()
 
@@ -221,7 +224,7 @@ def test_replies_usage_sse_and_codes_equal_jax(served, engine):
 
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_metrics_families_and_counters_equal_jax(served, engine):
-    (_, jtext, _, _), (_, text, _, _), _ = served[engine]
+    (_, jtext, *_), (_, text, *_), _ = served[engine]
     want = {k: v for k, v in _families(jtext).items()
             if not CUT_FAMILY.search(k)}
     assert _families(text) == want
@@ -239,7 +242,8 @@ def test_metrics_families_and_counters_equal_jax(served, engine):
 
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_trace_spans_and_ledgers_equal_jax(served, engine):
-    (_, _, jtraces, jdone), (_, _, traces, done), reqs = served[engine]
+    (_, _, jtraces, jdone, _), (_, _, traces, done, _), reqs = \
+        served[engine]
     for rid, _ in reqs[:9]:
         assert _span_names(traces[rid]) == _span_names(jtraces[rid]), rid
     if engine == "window":
@@ -253,6 +257,157 @@ def test_trace_spans_and_ledgers_equal_jax(served, engine):
             list(REQUEST_COST_KEYS)
         assert {k: r["meta"]["cost"][k] for k in LEDGER} == \
             {k: jcost[r["id"]][k] for k in LEDGER}, r["id"]
+
+
+def _untimed_debug(path, code, body):
+    """A debug endpoint's answer without its clocks: the timeline's
+    record times, the page map's ages and idle times (their None-ness
+    kept) and the time quantiles of its summary."""
+    body = json.loads(body)
+    if code != 200:
+        return code, body
+    for rec in body.get("records", []):
+        for k in ("ts_unix_s", "dur_s", "audit_s"):
+            rec.pop(k, None)
+    for rec in body.get("pages", []):
+        rec["resident"] = rec.pop("age_s") is not None and \
+            rec.pop("idle_s") is not None
+    if "summary" in body:
+        for k in ("resident_age_s", "resident_idle_s"):
+            body["summary"][k] = body["summary"][k]["n"]
+    return code, body
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_debug_endpoints_equal_jax(served, engine):
+    """/debug/timeline, /pages (json and summary), /oom and /audit after
+    the mix answer as the JAX server's (times left out); the window engine
+    answers each with the JAX server's 400."""
+    (*_, jdebug), (*_, debug), _ = served[engine]
+    for path in DEBUG_PATHS:
+        assert _untimed_debug(path, *debug[path]) == \
+            _untimed_debug(path, *jdebug[path]), path
+    codes = {debug[path][0] for path in DEBUG_PATHS}
+    assert codes == ({400} if engine == "window" else {200})
+    if engine != "window":
+        tl = json.loads(debug["/debug/timeline?n=0"][1])
+        assert tl["records"] and \
+            tl["total_steps"] == sum(tl["counts_by_kind"].values())
+        assert json.loads(debug["/debug/pages"][1])["summary"]["reconciled"]
+
+
+@pytest.mark.parametrize("option,value,reads", [
+    ("audit_sample_every", 4, lambda sc: sc.auditor.sample_every),
+    ("audit_tol_maxdiff", 0.25, lambda sc: sc.auditor.fail_abs_tol),
+    ("audit_tol_kl", 0.03, lambda sc: sc.auditor.fail_kl_tol),
+    ("numerics_every", 8, lambda sc: sc.numerics_every),
+])
+def test_observatory_flags_reach_the_engine(pipes, option, value, reads):
+    """Each flag reaches the auditor or the numerics cadence, as in the JAX
+    server, over an int8 pool (the auditor's quantized twin armed); the
+    window engine refuses the two that arm something."""
+    jp, tp = pipes
+    for api, pipe in ((tapi, tp), (japi, jp)):
+        srv = api.build_server(pipe, port=0, engine="continuous",
+                               kv_dtype="int8", **{option: value})
+        try:
+            assert reads(srv.scheduler) == value
+            assert srv.scheduler.auditor.compare_quant
+        finally:
+            srv.scheduler.close()
+            if srv.supervisor is not None:
+                srv.supervisor.stop()
+            srv.server_close()
+        if option in ("audit_sample_every", "numerics_every"):
+            with pytest.raises(ValueError, match="scheduler engine"):
+                api.build_server(pipe, port=0, engine="window",
+                                 **{option: value})
+
+
+def _script(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_script_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_serving_endpoint_gate_passes_on_the_port(pipes, tmp_path):
+    """scripts/check_serving_endpoints.py's `run_checks`, as written for
+    the JAX server, against the port's tiny ragged replica: it returns
+    "replica". Then one scripts/loadgen.py stage against the same server
+    carries the step timeline and the page map in its report."""
+    _, tp = pipes
+    s = Server(tapi.build_server(tp, port=0, **ENGINES["ragged"]))
+    try:
+        assert _script("check_serving_endpoints").run_checks(s.base) == \
+            "replica"
+        for path in ("/debug/timeline?n=-1", "/debug/oom?n=x",
+                     "/debug/audit?n=-2", "/debug/pages?format=bogus"):
+            assert s.get(path)[0] == 400, path
+        report = _script("loadgen").run([
+            "--base-url", s.base, "--rates", "2", "--duration", "2",
+            "--drain-s", "60", "--max-tokens-choices", "4,8",
+            "--out", str(tmp_path / "loadgen.json"),
+        ])
+        (stage,) = report["stages"]
+        assert stage["ok"] == stage["sent"] >= 1
+        tl = stage["timeline"]
+        assert tl["records"] and set(tl["counts_by_kind"]) == {"ragged"}
+        mem = stage["memory"]
+        assert mem["end"]["reconciled"] and mem["pool"]["num_pages"] == 64
+        assert mem["page_lifetime_s"]["count"] >= 1
+    finally:
+        s.close()
+
+
+def test_armed_server_never_perturbs_and_audits_reconcile(pipes):
+    """The same sequential greedy requests to a server with
+    audit_sample_every=1 and numerics_every=4 and to an unarmed one:
+    byte-equal replies and dispatch counts; every audit passes, the
+    /debug/audit totals equal oryx_audit_total, and each record joins one
+    kind="audit" wide event (check_serving_endpoints.run_audit_check)."""
+    _, tp = pipes
+    bodies = [{"messages": _user(q), "max_tokens": n} for q, n in (
+        ("hello there, audit me", 6), ("a different question now", 4),
+        ("hello there, audit me", 6), ("one more to finish", 5))]
+    out = []
+    for armed in (True, False):
+        kw = dict(audit_sample_every=1, numerics_every=4) if armed else {}
+        s = Server(tapi.build_server(tp, port=0, **ENGINES["ragged"], **kw))
+        try:
+            replies = [s.post(b)[2]["choices"][0]["message"]["content"]
+                       for b in bodies]
+            end = time.monotonic() + 120
+            while time.monotonic() < end:
+                au = json.loads(s.get("/debug/audit?n=64")[2])
+                if au["pending"] == 0 and au["total"] >= len(bodies) * armed:
+                    break
+                time.sleep(0.05)
+            text = s.get("/metrics")[2]
+            events = [json.loads(ln) for ln in s.get(
+                "/debug/requests?format=jsonl")[2].splitlines() if ln]
+        finally:
+            s.close()
+        dispatches = re.findall(
+            r'^oryx_serving_dispatches_total\{kind="([^"]+)"\} (\S+)$',
+            text, re.M)
+        out.append((replies, dispatches, au, text, events))
+    (replies, disp, au, text, events), (ureplies, udisp, uau, _, _) = out
+    assert replies == ureplies and disp == udisp
+    assert au["verdicts"] == {"pass": 4, "drift": 0, "fail": 0}
+    assert uau["total"] == uau["sampled"] == 0
+    for verdict, n in au["verdicts"].items():
+        assert re.search(rf'^oryx_audit_total\{{verdict="{verdict}"\}} '
+                         rf"{n}$", text, re.M), verdict
+    assert re.search(r"^oryx_numerics_samples_total [1-9]", text, re.M)
+    audits = {e["audit_index"]: e for e in events
+              if e.get("kind") == "audit"}
+    assert sorted(audits) == sorted(r["index"] for r in au["records"])
+    for rec in au["records"]:
+        assert audits[rec["index"]]["request_id"] == rec["request_id"]
+        assert audits[rec["index"]]["verdict"] == rec["verdict"]
 
 
 def test_sampled_replies_match_the_ports_own_engines(pipes):
@@ -295,6 +450,7 @@ def test_endpoint_checks_on_the_port(pipes):
         assert code == 200
         assert hdr["Content-Type"] == "text/plain; version=0.0.4"
         prefixes = ("oryx_serving_", "oryx_anomaly_", "oryx_pool_",
+                    "oryx_page_", "oryx_audit_", "oryx_numerics_",
                     "oryx_cache_")
         assert [ln for ln in text.splitlines()
                 if ln and not ln.startswith("#")
@@ -357,8 +513,7 @@ def test_endpoint_checks_on_the_port(pipes):
         assert s.get("/debug/trace")[0] == 400
         assert s.get("/debug/trace?id=nope")[0] == 404
         # The JAX server's endpoints whose modules are not ported yet.
-        for path in ("/debug/timeline", "/debug/pages", "/debug/oom",
-                     "/debug/audit", "/debug/journal", "/debug/profile"):
+        for path in ("/debug/journal", "/debug/profile"):
             assert s.get(path)[0] == 404, path
     finally:
         s.close()
@@ -417,9 +572,7 @@ def test_http_backpressure_deadline_and_drain_as_jax(pipes):
 @pytest.mark.parametrize("option,value", [
     ("journal_path", "/nonexistent/journal.jsonl"),
     ("faults_spec", "engine_crash:after=1"),
-    ("audit_sample_every", 4), ("audit_tol_maxdiff", 0.1),
-    ("audit_tol_kl", 0.1), ("profile_sample_every", 8),
-    ("numerics_every", 8), ("ttft_slo", 1.0), ("queue_depth_slo", 4),
+    ("profile_sample_every", 8), ("ttft_slo", 1.0), ("queue_depth_slo", 4),
 ])
 def test_options_not_ported_raise(pipes, option, value):
     _, tp = pipes

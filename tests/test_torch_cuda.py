@@ -754,6 +754,96 @@ def test_tiny_int8_scheduler_on_card_matches_cpu(card, ragged):
     assert {key[0] for key in pa.LAUNCHES} == {kind}
 
 
+# ---- the output auditor's twin (serve/audit.py) ------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_audit_twin_decode_k3_one_row(card, dtype):
+    """The audit twin's decode: K3 at one row over the auditor's private
+    pool (an identity block table of max_ctx / page_size pages), at
+    lengths from one slot to the whole table, against its plain twin."""
+    from oryx_tpu_torch.ops import paged_kv
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    P, ps, Hk, G, D = 64, 64, 4, 7, 128
+    g = torch.Generator().manual_seed(0)
+    k, v = (paged_kv.init_paged_pool(1, P, ps, Hk, D, dtype=dtype,
+                                     device=card)[0] for _ in range(2))
+    k.copy_(torch.randn(k.shape, generator=g).to(dtype))
+    v.copy_(torch.randn(v.shape, generator=g).to(dtype))
+    bt = torch.arange(P, dtype=torch.int32, device=card)[None]
+    for n in (1, ps, ps + 1, 1153, P * ps):
+        q = torch.randn((1, 1, Hk * G, D), generator=g).to(dtype).to(card)
+        lens = torch.tensor([n], dtype=torch.int32, device=card)
+        before = sum(c for key, c in pa.LAUNCHES.items()
+                     if key[0] == "paged_decode")
+        got = pa.ragged_decode_attention(q, k, v, bt, lens)
+        torch.cuda.synchronize()
+        assert sum(c for key, c in pa.LAUNCHES.items()
+                   if key[0] == "paged_decode") == before + 1
+        ref = paged_kv.ragged_decode_attention(q, k, v, bt, lens)
+        tol = TOLS[dtype]
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("ragged", [False, True], ids=["split", "ragged"])
+def test_tiny_audited_engine_on_card(card, ragged, kv_dtype):
+    """The tiny fp32 engine (its init as drawn) with every request audited
+    and the numerics probe every 2 steps: replies equal to the unarmed
+    engine's; no fail verdict, a dense pool only pass verdicts (the twin's
+    K1 prefill and K3 / K3q decode against plain attention); the twin
+    reproduces the client's bytes."""
+    import dataclasses
+    import time
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    class Tok:
+        def encode(self, text, add_special_tokens=False):
+            return [min(ord(c), 500) for c in text]
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "".join(chr(i) for i in ids if 0 < i < 500)
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    pipe = Pipeline(Tok(), params, cfg, device=card)
+    reqs = [("hi there", 9), ("what now?", 4), ("tell me more", 7)]
+    out = []
+    for kw in ({}, dict(audit_sample_every=1, numerics_every=2)):
+        sched = ContinuousScheduler(
+            pipe, autostart=False, num_slots=2, page_size=16, chunk=4,
+            max_ctx=256, ragged=ragged, prefill_chunk=32 if ragged else None,
+            kv_dtype=kv_dtype, **kw)
+        handles = [sched.submit({"question": q}, n) for q, n in reqs]
+        pa.LAUNCHES.clear()
+        sched.start()
+        out.append([h.result(timeout=300) for h in handles])
+        end = time.monotonic() + 120
+        while kw and (sched.auditor.pending() or sched.auditor.to_dict()[
+                "total"] < len(reqs)) and time.monotonic() < end:
+            time.sleep(0.02)
+        d = sched.auditor.to_dict()
+        samples = sched.metrics.registry.get("oryx_numerics_samples_total",
+                                             raw_name=True)
+        sched.close()
+    assert out[1] == out[0]
+    assert d["total"] == len(reqs) and d["verdicts"]["fail"] == 0
+    assert all(r["first_divergence"] == -1 for r in d["records"])
+    if kv_dtype == "bf16":
+        assert d["verdicts"]["pass"] == len(reqs)
+    assert samples >= 1
+    twin = "paged_decode" + ("_int8" if kv_dtype == "int8" else "")
+    assert twin in {key[0] for key in pa.LAUNCHES}
+
+
 # ---- backward: K1 with lse, K5a, K5b ----------------------------------------
 
 BWD_TOLS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}

@@ -115,7 +115,7 @@ def _quant_pools(rng, fmt, dequant=torch.float32):
     jl = jpk.QuantPages(codes.reshape(P, PS, HK, D), scale.reshape(P, PS),
                         dequant_dtype=jdt)
     tl = tpk.init_quant_pages(1, P, PS, HK, D, fmt=fmt,
-                              dequant_dtype=dequant)[0]
+                              dequant_dtype=dequant, device="cpu")[0]
     tl.q.view(torch.uint8).copy_(_t(_bytes(jl.q)).view(P, PS, HK, D))
     tl.scale.copy_(_t(np.asarray(jl.scale)))
     return jl, tl
@@ -174,7 +174,7 @@ def test_quantization_is_chunk_grouping_independent(fmt):
     new = _t(rng.standard_normal((1, 10, HK, D)).astype(np.float32))
 
     def write(*spans):
-        layer = tpk.init_quant_pages(1, 8, PS, HK, D, fmt=fmt)[0]
+        layer = tpk.init_quant_pages(1, 8, PS, HK, D, fmt=fmt, device="cpu")[0]
         off = 0
         for n in spans:
             tpk.write_pages(layer, new[:, off:off + n], bt,
@@ -194,7 +194,7 @@ def test_masked_rows_drop_codes_and_scales_together(fmt):
     """A masked row and a sentinel-routed row leave codes and scales of
     every real page untouched: both land in the sink page."""
     bt = _t(np.array([[0, 1, 2, P]], np.int32))
-    layer = tpk.init_quant_pages(1, P, PS, HK, D, fmt=fmt)[0]
+    layer = tpk.init_quant_pages(1, P, PS, HK, D, fmt=fmt, device="cpu")[0]
     new = torch.full((1, 4, HK, D), 5.0)
     tpk.write_pages(layer, new, bt, torch.tensor([0], dtype=torch.int32),
                     write_mask=torch.tensor([False]))
@@ -226,7 +226,7 @@ def _layered(fmt, rng, L=2):
             fmt,
         )
         jpool[name] = jpk.QuantPages(codes, scale)
-        t = tpk.init_quant_pages(L, P, PS, HK, D, fmt=fmt)
+        t = tpk.init_quant_pages(L, P, PS, HK, D, fmt=fmt, device="cpu")
         t.q.view(torch.uint8).copy_(_t(_bytes(codes)).view(t.q.shape))
         t.scale.copy_(_t(np.asarray(scale)))
         tpool[name] = t
@@ -316,7 +316,7 @@ def _written_pools(fmt, seed, ps, Hk=2, Dh=16, tokens=40):
         new = rng.standard_normal((1, tokens, Hk, Dh)).astype(np.float32)
         jl = jpk.write_pages(jl, jnp.asarray(new), jnp.asarray(bt),
                              jnp.asarray([0], jnp.int32))
-        tl = tpk.init_quant_pages(1, Pn, ps, Hk, Dh, fmt=fmt)[0]
+        tl = tpk.init_quant_pages(1, Pn, ps, Hk, Dh, fmt=fmt, device="cpu")[0]
         tl.q.view(torch.uint8).copy_(_t(_bytes(jl.q)).view(tl.q.shape))
         tl.scale.copy_(_t(np.asarray(jl.scale)))
         planes.append((jl, tl))
