@@ -237,10 +237,12 @@ Phases (any failure exits non-zero):
      10's; only lora_a, lora_b and compressor leaves move. Per step: wall,
      tokens/s, model FLOPs and MFU (utils/flops.py), device fwd+bwd and
      optimizer time, peak memory. Then one 4-step fit under each remat
-     policy (none, block, dots, attn, attn_qkv, attn_o) from the same
-     start: peak memory and step walls, losses identical (a policy that
-     runs out of card memory is reported as not fitting, and its losses
-     are held against "attn"'s at UNFIT_BATCH records). After phase 18:
+     policy (none, block, dots, attn, attn_qkv, attn_o) from one start, on
+     a model of full width cut to REMAT_LAYERS = 7 decoder layers (random,
+     seed 0, its own adapters): peak memory and step walls, losses
+     identical to "attn"'s (a policy that runs out of card memory is
+     reported as not fitting, and its losses are held against "attn"'s at
+     UNFIT_BATCH records). After phase 18:
      merge_lora on the card against the adapted forward (the merged
      weights within bf16 rounding of the exact sum; the prefill logits'
      rel L2 printed), the PEFT round trip (export_hf +
@@ -256,8 +258,30 @@ Phases (any failure exits non-zero):
      causal mask, the bound counting only the visible (q, k) pairs; the
      fit must launch each. The packed batch's loss equals the padded
      collation's of the same samples within 1e-2 (both printed).
+ 21. (Runs after 20, on phase 2's weights at phase 19's ragged geometry,
+     over phase 20's four requests at 16 tokens.) (a) A server with the
+     decision journal armed and faults_spec "engine_crash:after=3": the
+     supervisor restarts the dead engine thread, the replies equal phase
+     20's unarmed ones, the journal holds one `fault` and one `restart`
+     entry, and serve/replay.run_replay replays it cold on the same
+     weights (the image request from a payload sidecar) with no
+     divergence, equal reply fingerprints and equal deterministic cost
+     ledgers; the replay's wall is printed. (b) profile_sample_every=2:
+     replies equal unarmed, every sampled timeline record within its
+     window (one clock), device <= sampled wall per kind and positive for
+     `ragged`, no capture error; device / wall and the idle share per kind
+     printed. GET /debug/profile?steps=4 around the image request's
+     admission: a Chrome trace naming K1 (flash_fwd_bf16) and K4
+     (paged_split), whose K4 kernel count equals the K4 wrapper's launches
+     over the captured steps. (c) The degraded ladder (ttft_slo 1 ms,
+     queue_depth_slo 1, cooldown 1.5 s): a burst climbs it, short bursts
+     once its queue drained take it to 3, where a request gets 429 with
+     Retry-After; one
+     degraded_escalation forensic an escalation, journaled `degraded`
+     entries, back to 0 after quiet cooldowns, the pool invariant intact.
 
-The line before the last is the kernel table as JSON; the last line is
+Every phase ends with a `phase N wall X s` line. The line before the last
+is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2062,8 +2086,9 @@ def tiny_audited_engines_on_card() -> None:
             raise SystemExit(f"phase 20: tiny {mode} audited engine {d}")
 
 
-def observatories(pipe, card) -> list[dict]:
-    """Phase 20: the observatories at full width (see the docstring)."""
+def observatories(pipe, card) -> tuple[list[dict], list]:
+    """Phase 20: the observatories at full width (see the docstring).
+    Returns the kernel rows and the unarmed server's replies."""
     runs = {armed: serve_observed(pipe, armed) for armed in (False, True)}
     plain, armed = runs[False], runs[True]
     print(f"  unarmed server {plain['wall']:.2f} s, armed (audits of every "
@@ -2151,7 +2176,338 @@ def observatories(pipe, card) -> list[dict]:
 
     pressure_forensics(pipe)
     tiny_audited_engines_on_card()
-    return rows
+    return rows, plain["replies"]
+
+
+# ---- faults, the journal and its replay, device time, the ladder (21) -------
+
+FAULT_SPEC = "engine_crash:after=3"  # phase 21 (a): the 4th loop turn dies
+PROFILE_EVERY = 2  # phase 21 (b): a capture every second dispatch
+LADDER = dict(ttft_slo=1e-3, queue_depth_slo=1, degraded_cooldown=1.5)
+
+
+def _sync(pipe) -> None:
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sequential(server, tag: str) -> list:
+    """Phase 20's four requests one at a time (its order, so each dispatch
+    carries the rows it carried there): the (text, finish) replies."""
+    out = []
+    for i, (body, _) in enumerate(observatory_requests()):
+        code, _, reply = server.post(body, rid=f"{tag}-{i}")
+        if code != 200:
+            raise SystemExit(f"phase 21: {tag} request {i}: {code}")
+        out.append((reply["text"], reply["finish"]))
+    return out
+
+
+def journaled_crash(pipe, unarmed, tmp: str) -> None:
+    """Phase 21 (a): a journaled server whose engine thread dies at the 4th
+    loop turn with work; the supervisor restarts it and the replies equal
+    phase 20's unarmed ones. The journal replays cold through
+    serve/replay.run_replay on the same weights (the image request from its
+    payload sidecar) with no divergence."""
+    from oryx_tpu_torch.serve import journal as journal_lib
+    from oryx_tpu_torch.serve import replay
+    from oryx_tpu_torch.utils import faults
+
+    path = os.path.join(tmp, "journal.jsonl")
+    t0 = time.perf_counter()
+    server = HttpServer(pipe, engine="continuous", **HTTP_SERVE,
+                        journal_path=path, faults_spec=FAULT_SPEC)
+    try:
+        replies = _sequential(server, "p21a")
+        body = json.loads(server.get("/debug/journal?n=0")[1])
+        fired = _families(server.get("/metrics")[1],
+                          "oryx_faults_injected_total")
+    finally:
+        server.close()
+        server.srv.journal.close()
+        faults.reset()
+    live_wall = time.perf_counter() - t0
+    counts = body["counts_by_kind"]
+    print(f"  (a) {FAULT_SPEC}, journal armed: {live_wall:.2f} s, journal "
+          f"{body['total']} entries {counts}, oryx_faults_injected_total "
+          f"{fired}")
+    if replies != unarmed:
+        raise SystemExit(f"phase 21: crashed server's replies {replies} vs "
+                         f"phase 20's {unarmed}")
+    if counts.get("fault") != 1 or counts.get("restart") != 1 or \
+            fired != {"engine_crash": 1.0}:
+        raise SystemExit(f"phase 21: journal {counts}, faults {fired}")
+    header, entries = journal_lib.read_journal(path)
+    sidecar = {f"p21a-{i}": req
+               for i, (_, req) in enumerate(observatory_requests())}
+    t0 = time.perf_counter()
+    res = replay.run_replay(header, entries, pipe=pipe, timeout_s=120,
+                            payloads=sidecar)
+    replay_wall = time.perf_counter() - t0
+    div = replay.first_divergence(entries, res["entries"])
+    matched, total, bad = replay.reply_match(entries, res["entries"])
+    cost = [{rid: {k: e["cost"][k]
+                   for k in journal_lib.DETERMINISTIC_COST_KEYS}
+             for rid, e in replay._finishes(run).items()}
+            for run in (entries, res["entries"])]
+    print(f"  (a) cold replay (serve/replay.run_replay, same weights): wall "
+          f"{replay_wall:.2f} s, {len(replay.replayed_stream(entries))} "
+          f"replayed decisions, divergence {div}, replies {matched}/{total}, "
+          f"DETERMINISTIC_COST_KEYS equal {cost[0] == cost[1]}")
+    if div is not None or matched != total or total != len(unarmed) or \
+            cost[0] != cost[1] or res["feed_errors"] or res["timed_out"] \
+            or res["gave_up"]:
+        raise SystemExit(f"phase 21: replay {div}, {bad}, {res['feed_errors']}"
+                         f", timed out {res['timed_out']}")
+
+
+def _kernel_events(body: dict, symbol: str) -> int:
+    return sum(1 for e in body["traceEvents"]
+               if e["ph"] == "X" and symbol in e["name"])
+
+
+def _plane_kernels(planes, symbol: str) -> int:
+    """Kernel records of the device planes whose name holds `symbol`."""
+    return sum(1 for p in planes if p.name.startswith("/device:GPU")
+               for ln in p.lines for e in ln.events if symbol in e.name)
+
+
+def sampled_device_time(pipe, unarmed, card) -> dict:
+    """Phase 21 (b): profile_sample_every=2 over the four requests (replies
+    byte-equal to unarmed; every sampled timeline record within its window;
+    device <= wall per kind), then GET /debug/profile?steps=4 around the
+    image request's admission: K1 and K4 kernels in the Chrome trace, K4's
+    kernel count == the K4 wrapper's launches over the captured steps.
+    Returns the per-kind device and wall seconds."""
+    import threading
+
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.utils import xplane
+
+    server = HttpServer(pipe, engine="continuous", **HTTP_SERVE,
+                        profile_sample_every=PROFILE_EVERY)
+    sched = server.srv.scheduler
+    marks, counted, on_demand = [], [], []
+    begin, finish = sched.profiler.begin, sched.profiler.finish_capture
+    planes_of = xplane.planes_from_kineto
+
+    def counting(events):
+        # Every kernel record of the capture (the Chrome trace stops at
+        # its event cap).
+        planes = planes_of(events)
+        counted.append((_plane_kernels(planes, "paged_split"),
+                        _plane_kernels(planes, "flash_fwd_bf16")))
+        return planes
+
+    def k4() -> int:
+        return sum(n for key, n in pa.LAUNCHES.items()
+                   if key[0] == "ragged_paged")
+
+    def begin_marked():
+        marks.append(("begin", k4()))
+        return begin()
+
+    def finish_marked(windows):
+        marks.append(("finish", k4()))
+        n = len(counted)
+        out = finish(windows)
+        # The planes this capture parsed (periodic samples parse later).
+        on_demand.append(counted[n] if len(counted) > n else (0, 0))
+        return out
+
+    sched.profiler.begin = begin_marked
+    sched.profiler.finish_capture = finish_marked
+    xplane.planes_from_kineto = counting
+    try:
+        t0 = time.perf_counter()
+        replies = _sequential(server, "p21b")
+        wall = time.perf_counter() - t0
+        metrics = server.get("/metrics")[1]
+        timeline = json.loads(server.get("/debug/timeline?n=0")[1])
+        got = {}
+
+        def capture():
+            got["resp"] = server.get("/debug/profile?steps=4&timeout=60")
+
+        th = threading.Thread(target=capture)
+        th.start()
+        # The capture is parked before the requests arrive, so its steps
+        # begin at the image request's admission (the ViT's K1 launches);
+        # the image and a text request at once give it more than four
+        # dispatches.
+        time.sleep(0.2)
+        outs, _ = _burst(server, [b for b, _ in observatory_requests()[:2]])
+        code = max(o[0] for o in outs)
+        th.join(timeout=90)
+        _sync(pipe)
+        metrics_after = server.get("/metrics")[1]
+    finally:
+        xplane.planes_from_kineto = planes_of
+        server.close()
+    print(f"  (b) profile_sample_every={PROFILE_EVERY}: {wall:.2f} s for the "
+          f"four requests ({card})")
+    if replies != unarmed:
+        raise SystemExit(f"phase 21: sampled replies {replies} vs {unarmed}")
+    sampled = [r for r in timeline["records"] if r["device_us"] is not None]
+    over = [r for r in sampled
+            if not 0 <= r["device_us"] <= round(r["dur_s"] * 1e6)]
+    dev = _families(metrics, "oryx_device_time_seconds_total")
+    walls = _families(metrics, "oryx_profile_sampled_wall_seconds_total")
+    errs = _families(metrics_after, "oryx_profile_capture_errors_total")
+    print(f"  (b) {len(sampled)} of {len(timeline['records'])} timeline "
+          f"records sampled, all within their windows: {not over}; capture "
+          f"errors {errs or 0}")
+    ratios = {}
+    for kind in sorted(walls):
+        d, w = dev.get(kind, 0.0), walls[kind]
+        ratios[kind] = (d, w)
+        print(f"    {kind}: device {d * 1e3:.3f} ms / sampled wall "
+              f"{w * 1e3:.3f} ms = {d / w:.4f}, idle share "
+              f"{1 - d / w:.4f}")
+    print(f"    other (capture time outside every window): device "
+          f"{dev.get('other', 0.0) * 1e3:.3f} ms")
+    if not sampled or over or any(d > w for d, w in ratios.values()) or \
+            not dev.get("ragged") or any(errs.values()):
+        raise SystemExit(f"phase 21: sampling {over}, {dev}, {walls}, "
+                         f"{errs}")
+    status, text = got.get("resp", (None, ""))
+    if code != 200 or status != 200:
+        raise SystemExit(f"phase 21: /debug/profile {status}, request "
+                         f"{code}: {text[:300]}")
+    prof = json.loads(text)
+    end = max(i for i, (kind, _) in enumerate(marks) if kind == "finish")
+    start = max(i for i in range(end) if marks[i][0] == "begin")
+    launched = marks[end][1] - marks[start][1]
+    k4_events, k1_events = on_demand[-1]
+    named = [_kernel_events(prof, sym) > 0
+             for sym in ("flash_fwd_bf16", "paged_split")]
+    print(f"  (b) /debug/profile?steps=4: {prof['steps']} steps, source "
+          f"{prof['source']}, device_time_us {prof['device_time_us']}, "
+          f"{len(prof['traceEvents'])} trace events (truncated "
+          f"{prof['truncated']}) naming K1 flash_fwd_bf16 and K4 "
+          f"paged_split: {named}; the capture's kernel records: K1 "
+          f"{k1_events}, K4 {k4_events} vs the K4 wrapper's launches over "
+          f"the captured steps {launched}")
+    if prof["steps"] != 4 or prof["source"] != "gpu_kernels" or \
+            not all(named) or not k1_events or k4_events != launched \
+            or not launched:
+        raise SystemExit("phase 21: the on-demand capture")
+    return ratios
+
+
+def _wait_for(pred, timeout: float) -> bool:
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            return False
+        time.sleep(0.005)
+    return True
+
+
+def ladder(pipe, tmp: str) -> None:
+    """Phase 21 (c): ttft_slo 1 ms, queue_depth_slo 1 and a 1.5 s cooldown.
+    The burst of the four requests and four more fires the queue SLO and
+    the first TTFT (one level each when an engine turn lies between them);
+    each time its queue has drained (the queue detector re-armed), a short
+    burst of three fires the queue SLO again, until mode 3, where a
+    request gets the shed reply (429, Retry-After). Each escalation leaves one degraded_escalation forensic
+    and a journaled `degraded` entry; quiet cooldowns walk the mode back to
+    0, and the pool invariant holds."""
+    import threading
+
+    from oryx_tpu_torch.utils import faults
+
+    path = os.path.join(tmp, "ladder.jsonl")
+    server = HttpServer(pipe, engine="continuous", **HTTP_SERVE, **LADDER,
+                        journal_path=path)
+    sched = server.srv.scheduler
+    outs = []
+
+    def post_all(bodies, tag):
+        def one(i, body):
+            outs.append(server.post(body, rid=f"p21c-{tag}-{i}")[0])
+
+        threads = [threading.Thread(target=one, args=(i, b))
+                   for i, b in enumerate(bodies)]
+        for t in threads:
+            t.start()
+        return threads
+
+    try:
+        bodies = [b for b, _ in observatory_requests()]
+        extra = [{"messages": [{"role": "user",
+                                "content": f"Count to {i + 3}."}],
+                  "max_tokens": OBS_TOKENS} for i in range(4)]
+        t0 = time.perf_counter()
+        threads = post_all(bodies + extra, "burst")
+        _wait_for(lambda: sched.degraded_mode >= 1, 20)
+        waves = 0
+        while sched.degraded_mode < 3 and waves < 6:
+            # The queue detector re-arms once the queue drains; three
+            # requests at once then queue past the SLO again.
+            _wait_for(lambda: sched.queue_len() == 0, 20)
+            before = sched.degraded_mode
+            threads += post_all(extra[:3], f"wave{waves}")
+            waves += 1
+            _wait_for(lambda: sched.degraded_mode > before, 1.0)
+        peak = sched.degraded_mode
+        code, headers, body = server.post(extra[0], rid="p21c-shed")
+        t_top = time.perf_counter() - t0
+        for t in threads:
+            t.join()
+        back = _wait_for(lambda: sched.degraded_mode == 0,
+                         4 * LADDER["degraded_cooldown"] + 5)
+        t_down = time.perf_counter() - t0 - t_top
+        oom = json.loads(server.get("/debug/oom?n=0")[1])
+        journal = json.loads(server.get("/debug/journal?n=0")[1])
+        sched.check_pool_invariant()
+    finally:
+        server.close()
+        server.srv.journal.close()
+        faults.reset()
+    esc = [r for r in oom["records"] if r["trigger"] == "degraded_escalation"]
+    modes = [e["mode"] for e in reversed(journal["entries"])
+             if e["kind"] == "degraded"]
+    ups = sum(1 for a, b in zip([0] + modes, modes) if b > a)
+    err = body.get("error", {}) if isinstance(body, dict) else {}
+    print(f"  (c) ladder: a burst of {len(bodies + extra)} and {waves} "
+          f"short burst(s) of 3, statuses "
+          f"{dict(collections.Counter(outs))}; mode {peak} after "
+          f"{t_top:.2f} s; the request at mode 3 -> {code} Retry-After "
+          f"{headers.get('Retry-After')} ({err.get('type')}: "
+          f"{err.get('message')}); journaled mode walk {modes}; back to 0: "
+          f"{back}, {t_down:.2f} s later; degraded_escalation records "
+          f"{len(esc)} == escalations {ups}; pool invariant holds")
+    if peak != 3 or code != 429 or headers.get("Retry-After") is None or \
+            not back or len(esc) != ups or ups < 3 or modes[-1] != 0:
+        raise SystemExit("phase 21: the degraded ladder")
+
+
+def resilience(pipe, unarmed, card) -> None:
+    """Phase 21: (a), (b), (c) above; kernel launches counted over the
+    phase."""
+    import tempfile
+
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    _zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, run in (
+            ("a", lambda: journaled_crash(pipe, unarmed, tmp)),
+            ("b", lambda: sampled_device_time(pipe, unarmed, card)),
+            ("c", lambda: ladder(pipe, tmp)),
+        ):
+            t0 = time.perf_counter()
+            run()
+            print(f"  ({part}) wall {time.perf_counter() - t0:.1f} s")
+    paged = collections.Counter()
+    for key, n in pa.LAUNCHES.items():
+        paged[key[0]] += n
+    print(f"  phase 21 launches: K1 {sum(fa.LAUNCHES.values())}, paged "
+          f"{dict(paged)}")
+    if not sum(fa.LAUNCHES.values()) or not paged.get("ragged_paged"):
+        raise SystemExit("phase 21: K1 or K4 never launched")
 
 
 # ---- speculation and megasteps (phase 15) ----------------------------------
@@ -3514,6 +3870,9 @@ LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                 "up_proj", "down_proj")
 REMAT_POLICIES = ("none", "block", "dots", "attn", "attn_qkv", "attn_o")
 UNFIT_BATCH = 1  # records a batch for a policy that does not fit at 4
+# Decoder layers of phase 17's remat-policy fits (full width; the run's
+# time limit: 28 layers cost ~120 s over the eight fits and their saves).
+REMAT_LAYERS = 7
 PACK_BUCKET = 4096
 PACK_ROWS = 4
 PACK_LENGTHS = (64, 1500)  # tokens of a packed text sample, drawn uniformly
@@ -3643,14 +4002,27 @@ def lora_sft(cfg_l, params, snap, card):
           f"{sum(n.endswith('lora_b') for n in moved)} lora_b, "
           f"{sum(n.startswith('compressor.') for n in moved)} compressor "
           "leaves; lora_scale unchanged")
-    print("  one fit under each remat policy (same start, same batches):")
+    # The policies at a cut depth: a random full-width model (seed 0) of
+    # REMAT_LAYERS decoder layers with its own adapters, every policy from
+    # the same start, held to the config's policy ("attn").
+    from oryx_tpu_torch.models import oryx
+
+    cfg_r = dataclasses.replace(cfg_l, llm=dataclasses.replace(
+        cfg_l.llm, num_layers=REMAT_LAYERS))
+    shallow = LoraFits(cfg_r, oryx.init_params(
+        cfg_r, torch.Generator("cuda").manual_seed(0), device="cuda",
+        dtype=torch.bfloat16))
+    print(f"  one fit under each remat policy (same start, same batches), "
+          f"the decoder cut to {REMAT_LAYERS} of {cfg_l.llm.num_layers} "
+          f"layers at full width:")
     losses, unfit = {}, []
     for policy in REMAT_POLICIES:
-        cfg_p = dataclasses.replace(cfg_l, train=dataclasses.replace(
-            cfg_l.train, remat=policy != "none",
+        cfg_p = dataclasses.replace(cfg_r, train=dataclasses.replace(
+            cfg_r.train, remat=policy != "none",
             remat_policy="block" if policy == "none" else policy))
         try:
-            hist, _ = fits.fit(train_batches(cfg_p, sft_records()), cfg_p)
+            hist, _ = shallow.fit(train_batches(cfg_p, sft_records()),
+                                  cfg_p)
         except torch.cuda.OutOfMemoryError:
             hist = None
         if hist is None:  # the failed fit's tensors are free from here
@@ -3667,18 +4039,18 @@ def lora_sft(cfg_l, params, snap, card):
               f"{walls} s, device fwd+bwd "
               f"{[round(h['fwd_bwd_ms'], 1) for h in hist]} ms, losses "
               f"{losses[policy]} ({card})")
-    if "attn" not in losses or any(v != runs[0] for v in losses.values()):
-        raise SystemExit(f"remat policies gave other losses: {losses} vs "
-                         f"{runs[0]}")
+    if "attn" not in losses or any(
+            v != losses["attn"] for v in losses.values()):
+        raise SystemExit(f"remat policies gave other losses: {losses}")
     print(f"  losses identical across the {len(losses)} policies that fit "
           f"({sorted(losses)})")
     # A policy that does not fit at TRAIN_BATCH is held against "attn" at
     # UNFIT_BATCH records a batch.
     for cfg_p in unfit:
         small = {}
-        for c in (cfg_p, cfg_l):
-            hist, _ = fits.fit(train_batches(c, sft_records(),
-                                             batch=UNFIT_BATCH), c)
+        for c in (cfg_p, cfg_r):
+            hist, _ = shallow.fit(train_batches(c, sft_records(),
+                                                batch=UNFIT_BATCH), c)
             small[c.train.remat_policy if c.train.remat else "none"] = (
                 [h["loss"] for h in hist], _peak_gb(hist))
         print(f"    at batch {UNFIT_BATCH}: {small}")
@@ -3686,6 +4058,9 @@ def lora_sft(cfg_l, params, snap, card):
         if a != b:
             raise SystemExit(f"remat policies gave other losses at batch "
                              f"{UNFIT_BATCH}: {small}")
+    del shallow
+    gc.collect()
+    torch.cuda.empty_cache()
     return fits
 
 
@@ -3909,6 +4284,19 @@ def peft_round_trip(cfg_l):
         raise SystemExit("the PEFT round trip changed bytes")
 
 
+_PHASE = {"name": None, "t": 0.0}
+
+
+def phase_begin(name: str | None) -> None:
+    """Close the running phase with its `phase N wall X s` line and start
+    `name` (None: the last phase ends)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"  phase {_PHASE['name']} wall {now - _PHASE['t']:.1f} s",
+              flush=True)
+    _PHASE.update(name=name, t=now)
+
+
 def main() -> int:
     # Line-buffered: a pipe would otherwise hold back whole blocks of
     # output, so a run that dies (or is killed) would not show the phase it
@@ -3934,6 +4322,7 @@ def main() -> int:
     from oryx_tpu_torch.serve.pipeline import Pipeline
 
     # ---- 1. card and build ------------------------------------------------
+    phase_begin("1")
     card = gpu_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3954,6 +4343,7 @@ def main() -> int:
         print_ptxas(build.build_logs.get(name, ""))
 
     # ---- 2. kernel vs plain twin at the main path's shapes ----------------
+    phase_begin("2")
     cfg = dataclasses.replace(config.oryx_7b(), attn_impl="pallas")
     t0 = time.perf_counter()
     params = oryx.init_params(
@@ -3979,6 +4369,7 @@ def main() -> int:
         rows.append(row)
 
     # ---- 3. the main path at full width -----------------------------------
+    phase_begin("3")
     print(f"phase 3: Pipeline.chat_batch, oryx_7b bf16, greedy, "
           f"max_new_tokens={MAX_NEW} ({card})", flush=True)
     results = [run_main_path(pipe, reqs, tok) for _ in range(3)]
@@ -4034,6 +4425,7 @@ def main() -> int:
           f"{sum(launches[k] for k in decode_keys)} Tq = 1 calls")
 
     # ---- 4. the plain attention path --------------------------------------
+    phase_begin("4")
     cfg_x = dataclasses.replace(cfg, attn_impl="xla")
     pipe_x = Pipeline(tok, params, cfg_x, device="cuda")
     res_x = run_main_path(pipe_x, reqs, tok)
@@ -4077,6 +4469,7 @@ def main() -> int:
           f"({', '.join(r['name'] for r in rows)})")
 
     # ---- 5. where the device time goes ------------------------------------
+    phase_begin("5")
     walls = [f"{r[5]:.3f}" for r in results]
     print(f"phase 5: chat_batch under torch.profiler ({card}); unprofiled "
           f"walls of phase 3: {walls} s", flush=True)
@@ -4112,6 +4505,7 @@ def main() -> int:
               f"{(sum(calls.values()) - sum(pre.values())) / MAX_NEW:.1f}")
 
     # ---- 14. streaming, sessions and scoring at full width --------------
+    phase_begin("14")
     print(f"phase 14: chat_stream, seeded sampling, ChatSession, "
           f"SessionPrefixCache, score_options; oryx_7b bf16 (sessions also "
           f"with fp32 compute) ({card})", flush=True)
@@ -4121,6 +4515,7 @@ def main() -> int:
     del pipe_f32
 
     # ---- 7. the serving engine at full width ------------------------------
+    phase_begin("7")
     print(f"phase 7: ContinuousScheduler, oryx_7b bf16, greedy, {SERVE}, "
           f"{len(serve_requests())} requests, prefix cache on ({card})",
           flush=True)
@@ -4162,6 +4557,7 @@ def main() -> int:
     profile_call(lambda: run_scheduler(spipe, False, record=False))
 
     # ---- 6. paged kernels at the serving shapes ---------------------------
+    phase_begin("6")
     print(f"phase 6: paged kernels vs plain twins at phase 7's call shapes, "
           f"bf16, atol=rtol={TOL} ({card})", flush=True)
     llm = cfg.llm
@@ -4211,6 +4607,7 @@ def main() -> int:
     rows.append(row)
 
     # ---- 15. speculation and megasteps ------------------------------------
+    phase_begin("15")
     print(f"phase 15: speculation and megasteps in the ragged engine, "
           f"oryx_7b bf16, {SERVE}, prefill_chunk {PREFILL_CHUNK}, "
           f"k = {SPEC_K} ({card})", flush=True)
@@ -4218,6 +4615,7 @@ def main() -> int:
         spipe, serving["ragged_graph"], pool_shape, card))
 
     # ---- 16. checkpoints on disk and int8 weights --------------------------
+    phase_begin("16")
     print(f"phase 16: checkpoints on disk, then phase 2's weights as int8 "
           f"(quantize_params) through chat_batch and the ragged engine, and "
           f"the q8 kernel ({card})", flush=True)
@@ -4225,11 +4623,13 @@ def main() -> int:
     rows.extend(int8_weights(params, cfg, reqs, results, card))
 
     # ---- 8. tiny fp32 engines on the card ---------------------------------
+    phase_begin("8")
     print(f"phase 8: tiny fp32 engines (bf16 and int8 pools), card vs CPU "
           f"({card})", flush=True)
     tiny_engines_on_card()
 
     # ---- 12. the int8 engine, prefix cache and host tier -------------------
+    phase_begin("12")
     shared = shared_requests(spipe)
     print(f"phase 12: ContinuousScheduler kv_dtype='int8', oryx_7b bf16, "
           f"{SERVE}, host tier {HOST_CACHE >> 20} MiB; shared-context "
@@ -4273,6 +4673,7 @@ def main() -> int:
         fp8_launches.update(launches)
 
     # ---- 13. the dequantizing paged kernels at phase 12's shapes ----------
+    phase_begin("13")
     print(f"phase 13: K3q/K4q vs plain twins at phase 12's call shapes, int8 "
           f"and fp8 pools, bf16, atol=rtol={TOL} ({card})", flush=True)
     dec_calls = int8_runs["split"]["recorder"].calls["paged_decode"]
@@ -4316,26 +4717,36 @@ def main() -> int:
             rows.append(row)
 
     # ---- 19. the HTTP server -----------------------------------------------
+    phase_begin("19")
     print(f"phase 19: the OpenAI-compatible server (api_server.build_server)"
           f" over oryx_7b bf16, phase 7's mix without its video as PNG data "
           f"URIs; continuous ragged engine, window engine, drain, supervised "
           f"restart ({card})", flush=True)
-    t19 = time.perf_counter()
     http_serving(Pipeline(ByteTokenizer(), params, cfg, device="cuda"), card)
     gc.collect()
-    print(f"  phase 19 wall {time.perf_counter() - t19:.1f} s")
 
     # ---- 20. the serving observatories -------------------------------------
+    phase_begin("20")
     print(f"phase 20: the observatories over HTTP (step timeline, page map, "
           f"OOM forensics, numerics probes, output auditor), oryx_7b bf16, "
           f"{HTTP_SERVE}, {OBS_ARMED} vs unarmed ({card})", flush=True)
-    t20 = time.perf_counter()
-    rows.extend(observatories(
-        Pipeline(ByteTokenizer(), params, cfg, device="cuda"), card))
+    obs_rows, unarmed = observatories(
+        Pipeline(ByteTokenizer(), params, cfg, device="cuda"), card)
+    rows.extend(obs_rows)
     gc.collect()
-    print(f"  phase 20 wall {time.perf_counter() - t20:.1f} s")
+
+    # ---- 21. faults, the journal and its replay, device time, the ladder --
+    phase_begin("21")
+    print(f"phase 21: fault injection and supervised restart under the "
+          f"decision journal with its cold replay, sampled device time and "
+          f"/debug/profile, the degraded-mode ladder; oryx_7b bf16 over "
+          f"HTTP, {HTTP_SERVE} ({card})", flush=True)
+    resilience(Pipeline(ByteTokenizer(), params, cfg, device="cuda"),
+               unarmed, card)
+    gc.collect()
 
     # ---- 9. training kernels at the training step's shapes ----------------
+    phase_begin("9")
     cfg_t = train_config()
     # The image batch has 4 x 1,936 visual tokens, the video batch 512.
     first_two = list(itertools.islice(train_batches(cfg_t), 2))
@@ -4352,6 +4763,7 @@ def main() -> int:
         train_rows.append((key, case_rows))
 
     # ---- 10. Trainer.fit at full width and depth --------------------------
+    phase_begin("10")
     print(f"phase 10: Trainer.fit, oryx_7b_pretrain.json at full width and "
           f"depth, {TRAIN_STEPS} steps of {TRAIN_BATCH} records ({card})",
           flush=True)
@@ -4368,6 +4780,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 17. LoRA SFT at full width ----------------------------------------
+    phase_begin("17")
     cfg_l = lora_config()
     print(f"phase 17: Trainer.fit, oryx_7b_sft_lora.json at full width and "
           f"depth on phase 2's weights, {TRAIN_STEPS} steps of {TRAIN_BATCH} "
@@ -4376,12 +4789,14 @@ def main() -> int:
     del snap
 
     # ---- 18. packed-text training at full width ----------------------------
+    phase_begin("18")
     print(f"phase 18: collate_packed_text, {PACK_ROWS} rows of {PACK_BUCKET} "
           f"tokens, Trainer.fit under the LoRA config; K1/K5 at the packed "
           f"call shape ({card})", flush=True)
     rows.extend(packed_training(fits, cfg_l, card,
                                 torch.Generator("cuda").manual_seed(10)))
 
+    phase_begin("17 (continued)")
     print(f"phase 17 (continued): merge_lora on the card, the PEFT round "
           f"trip, tiny fp32 LoRA card vs CPU ({card})", flush=True)
     merge_on_card(fits, cfg_l)
@@ -4392,10 +4807,12 @@ def main() -> int:
     tiny_training_on_card("lora")
 
     # ---- 11. tiny fp32 training on the card --------------------------------
+    phase_begin("11")
     print(f"phase 11: tiny fp32 Trainer.fit, tune full, card vs CPU ({card})",
           flush=True)
     tiny_training_on_card()
 
+    phase_begin(None)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

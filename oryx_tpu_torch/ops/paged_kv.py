@@ -50,6 +50,7 @@ from collections import Counter
 import torch
 
 from oryx_tpu_torch.ops.attention import attention
+from oryx_tpu_torch.utils import faults
 from oryx_tpu_torch.utils import quant as quant_lib
 
 
@@ -123,6 +124,16 @@ class PageAllocator:
         return self._refs[page]
 
     def alloc(self, n: int, *, owner: str | None = None) -> list[int]:
+        if n > 0:
+            # Fault site: pool exhaustion. Every caller treats
+            # OutOfPagesError as a scheduling signal (defer, evict, recompute
+            # instead of a copy-on-write), never a crash.
+            faults.fault_point(
+                "page_alloc_oom",
+                exc=lambda: OutOfPagesError(
+                    f"injected pool exhaustion (asked {n} pages)"
+                ),
+            )
         if n > len(self._free):
             raise OutOfPagesError(
                 f"need {n} pages, {len(self._free)} free of {self.num_pages}"

@@ -28,9 +28,14 @@
   GET /debug/oom?n=     (memory-pressure forensic records)
   GET /debug/audit?n=   (output-audit records and verdict totals, which
                          reconcile with oryx_audit_total)
-
-The JAX server's /debug/journal and /debug/profile answer 404 here until
-their modules are ported (ROADMAP Queue 1 item 3).
+  GET /debug/journal?n= (the decision journal's ring: header, counts by
+                         kind, newest-first entries; armed=false without
+                         journal_path)
+  GET /debug/profile?steps=K&timeout=S
+                        (on-demand device-time capture: the next K engine
+                         dispatches under torch.profiler, answered with a
+                         Chrome trace and the per-kind attribution; 503
+                         when the engine runs no dispatch in time)
 
 Content may be a plain string or OpenAI content-part lists; image parts
 (`{"type": "image_url", "image_url": {"url": "data:image/png;base64,..."
@@ -73,26 +78,10 @@ from typing import Any
 import numpy as np
 
 from oryx_tpu_torch.data import media
+from oryx_tpu_torch.serve import journal as journal_lib
+from oryx_tpu_torch.utils import faults
 from oryx_tpu_torch.utils import trace as trace_lib
 from oryx_tpu_torch.utils.metrics import ServingMetrics
-
-# build_server's options that drive modules the port does not have yet:
-# option -> the module it waits for. Each raises NotImplementedError when
-# a caller sets it.
-_NOT_PORTED = {
-    "journal_path": "the decision journal (serve/journal.py)",
-    "faults_spec": "fault injection (utils/faults.py)",
-    "profile_sample_every": "device-time profiling (utils/profiling.py)",
-    "ttft_slo": "the degraded-mode ladder the SLO detectors drive",
-    "queue_depth_slo": "the degraded-mode ladder the SLO detectors drive",
-}
-
-
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet: it needs {_NOT_PORTED[option]}, "
-        "ROADMAP Queue 1 item 3"
-    )
 
 
 def _git_revision() -> str:
@@ -553,12 +542,14 @@ def build_server(
     events_path: str | None = None,
     max_queue: int | None = 256,
     request_timeout: float | None = None,
+    degraded_cooldown: float = 30.0,
     supervise: bool = True,
     faults_spec: str | None = None,
     replica_id: str | None = None,
     requests_log_path: str | None = None,
     requests_log_max_bytes: int = 16 * 1024 * 1024,
     journal_path: str | None = None,
+    journal_max_bytes: int = 64 * 1024 * 1024,
 ) -> ThreadingHTTPServer:
     """Construct (not start) the HTTP server around a pipeline; the engines
     run on the pipeline's device.
@@ -573,25 +564,28 @@ def build_server(
     EngineSupervisor restarts a dead engine thread with request replay,
     and `srv.begin_drain()` (SIGTERM in main()) flips /readyz to 503,
     stops admission and finishes the residents. events_path: where the
-    anomaly monitor appends its JSONL events.
+    anomaly monitor appends its JSONL events. ttft_slo / queue_depth_slo
+    arm the serving SLO detectors, whose firings drive the degraded-mode
+    ladder (gauge oryx_serving_degraded_mode; `degraded_cooldown` quiet
+    seconds step it down). faults_spec arms the seeded fault points
+    (utils/faults.py), for chaos testing.
 
     Observatories (scheduler engines): audit_sample_every audits every Nth
     finished request (0 = off; audit_tol_maxdiff / audit_tol_kl set its
     drift-vs-fail boundary), numerics_every arms the logit probe every N
-    engine steps (0 = off).
+    engine steps (0 = off), profile_sample_every captures the device time
+    of every Nth dispatch (0 = off), and journal_path records the decision
+    journal (size-capped at journal_max_bytes, rolling to PATH.1) that
+    serve/replay.py replays."""
+    from oryx_tpu_torch.utils.anomaly import AnomalyMonitor, AnomalyThresholds
 
-    journal_path, faults_spec, profile_sample_every, ttft_slo and
-    queue_depth_slo raise NotImplementedError when set: their modules are
-    not ported yet (ROADMAP Queue 1 item 3)."""
-    from oryx_tpu_torch.utils.anomaly import AnomalyMonitor
-
-    for option, value in (
-        ("journal_path", journal_path), ("faults_spec", faults_spec),
-        ("profile_sample_every", profile_sample_every),
-        ("ttft_slo", ttft_slo), ("queue_depth_slo", queue_depth_slo),
-    ):
-        if value:
-            raise _not_ported(option)
+    if faults_spec:
+        faults.configure(faults_spec)
+    if engine == "window" and (ttft_slo or queue_depth_slo):
+        raise ValueError(
+            "--ttft-slo/--queue-depth-slo require a scheduler engine (the "
+            "window batcher does not feed the SLO detectors)"
+        )
     if engine == "window" and ragged:
         raise ValueError(
             "--ragged requires a scheduler engine (the window batcher "
@@ -628,6 +622,11 @@ def build_server(
             "--request-timeout requires a scheduler engine (the window "
             "batcher does not enforce per-request deadlines)"
         )
+    if engine == "window" and profile_sample_every:
+        raise ValueError(
+            "--profile-sample-every requires a scheduler engine (the "
+            "window batcher has no engine step loop to sample)"
+        )
     if engine == "window" and (audit_sample_every or numerics_every):
         raise ValueError(
             "--audit-sample-every/--numerics-every require a scheduler "
@@ -639,6 +638,11 @@ def build_server(
             "--kv-dtype/--host-cache-bytes require a scheduler engine (the "
             "window batcher has no paged KV pool or prefix cache)"
         )
+    if engine == "window" and journal_path:
+        raise ValueError(
+            "--journal requires a scheduler engine (the window batcher has "
+            "no decision stream to record)"
+        )
     metrics = ServingMetrics()
     build_labels = {
         "revision": _git_revision(), "engine": engine, "model": model_name,
@@ -646,9 +650,15 @@ def build_server(
     if replica_id:
         build_labels["replica"] = replica_id
     metrics.set_info("build_info", build_labels)
+    if faults.armed():
+        faults.bind_registry(metrics.registry)
     # Always built, so oryx_anomaly_total exists on every replica.
     anomaly = AnomalyMonitor(
-        source="serve", events_path=events_path, registry=metrics.registry,
+        source="serve",
+        thresholds=AnomalyThresholds(
+            ttft_slo_s=ttft_slo, queue_depth_slo=queue_depth_slo,
+        ),
+        events_path=events_path, registry=metrics.registry,
     )
     # One flight recorder for the server: the last `flight_recorder_size`
     # requests, in flight and finished.
@@ -671,6 +681,17 @@ def build_server(
         request_log = RequestLog(
             requests_log_path, max_bytes=requests_log_max_bytes
         )
+        # The server stamps the workload's identity into the journal's
+        # header; the scheduler stamps its geometry and seals it.
+        journal = None
+        if journal_path:
+            journal = journal_lib.DecisionJournal(
+                journal_path, max_bytes=journal_max_bytes
+            )
+            journal.stamp_header(
+                model=model_name, faults_spec=faults_spec or None,
+                max_tokens_limit=max_tokens_limit,
+            )
         drafter = None
         if draft_model:
             from oryx_tpu_torch.models import generate as generate_lib
@@ -689,6 +710,8 @@ def build_server(
             audit_sample_every=audit_sample_every,
             audit_tol_maxdiff=audit_tol_maxdiff, audit_tol_kl=audit_tol_kl,
             numerics_every=numerics_every,
+            profile_sample_every=profile_sample_every,
+            degraded_cooldown=degraded_cooldown, journal=journal,
         )
         if supervise:
             supervisor = EngineSupervisor(scheduler)
@@ -774,6 +797,18 @@ def build_server(
                     "engine (the window batcher has no paged replay "
                     "path)",
                 )
+            elif route == "/debug/journal":
+                # The decision journal's ring; a server without one serves
+                # the same body shape with armed=false.
+                self._ring_debug(
+                    lambda: scheduler.journal or journal_lib.DISARMED,
+                    default_n=64,
+                    unavailable="the decision journal requires a "
+                    "scheduler engine (the window batcher has no "
+                    "decision stream to record)",
+                )
+            elif route == "/debug/profile":
+                self._debug_profile()
             elif self.path.startswith("/debug/trace"):
                 rid = (self._query().get("id") or [""])[0]
                 if not rid:
@@ -832,6 +867,45 @@ def build_server(
             body = {"engine": engine}
             body.update(get_ring().to_dict(n or None))
             self._json(200, body)
+
+        def _debug_profile(self) -> None:
+            """The next ?steps=K (1..256, default 4) dispatches under one
+            capture; ?timeout= seconds (clamped to [1, 300], default 30)
+            for them to happen."""
+            if scheduler is None:
+                self._json(400, {
+                    "error": "profiling requires a scheduler engine (the "
+                    "window batcher has no engine step loop)",
+                })
+                return
+            q = self._query()
+            try:
+                steps = int((q.get("steps") or ["4"])[0])
+                if not 1 <= steps <= 256:
+                    raise ValueError
+            except ValueError:
+                self._json(400, {
+                    "error": "steps must be an integer in [1, 256]",
+                })
+                return
+            try:
+                timeout = float((q.get("timeout") or ["30"])[0])
+            except ValueError:
+                self._json(400, {"error": "timeout must be a number"})
+                return
+            try:
+                result = scheduler.request_profile(
+                    steps, timeout=max(1.0, min(timeout, 300.0))
+                )
+            except TimeoutError as e:
+                self._json(503, {"error": str(e)},
+                           extra_headers={"Retry-After": "1"})
+                return
+            except RuntimeError as e:
+                self._json(503, {"error": str(e)})
+                return
+            result["engine"] = engine
+            self._json(200, result)
 
         def _debug_pages(self) -> None:
             """The live page-ownership map and its summary (?format=json,
@@ -1217,6 +1291,10 @@ def build_server(
                 handle.cancelled = True
 
         def _sse(self, body: dict[str, Any]) -> None:
+            # Fault site: a client that disconnects mid-stream; the raise
+            # takes the path a dropped socket takes (the request is
+            # cancelled and its pages freed).
+            faults.fault_point("client_disconnect", exc=BrokenPipeError)
             self.wfile.write(f"data: {json.dumps(body)}\n\n".encode())
             self.wfile.flush()
 
@@ -1230,6 +1308,7 @@ def build_server(
     srv.request_log = (
         scheduler.request_log if scheduler is not None else None
     )
+    srv.journal = scheduler.journal if scheduler is not None else None
 
     def begin_drain() -> None:
         """Drain-on-shutdown, step 1: /readyz flips to 503 now, POSTs
@@ -1326,14 +1405,50 @@ def main(argv: list[str] | None = None) -> None:
         "the logit probe (oryx_numerics_* gauges; tokens unchanged; 0 = "
         "off; not with --speculate)",
     )
-    # The JAX server's flags whose modules are not ported yet: accepted,
-    # and refused with NotImplementedError when set.
+    ap.add_argument(
+        "--profile-sample-every", type=int, default=0, metavar="N",
+        help="continuous engine: every N engine steps, bracket one dispatch "
+        "in a torch.profiler capture and credit its device busy time to "
+        "oryx_device_time_seconds_total{kind=} and the step's "
+        "/debug/timeline record (0 = off; a failed capture only counts in "
+        "oryx_profile_capture_errors_total). GET /debug/profile?steps=K "
+        "captures on demand either way",
+    )
+    ap.add_argument(
+        "--ttft-slo", type=float, default=None,
+        help="an oryx_anomaly_total{kind=\"ttft_slo\"} event when a "
+        "request's time to first token exceeds this many seconds; firings "
+        "drive the degraded-mode ladder (continuous engine only)",
+    )
+    ap.add_argument(
+        "--queue-depth-slo", type=int, default=None,
+        help="an oryx_anomaly_total{kind=\"queue_depth_slo\"} event when "
+        "the admission queue exceeds this depth (continuous engine only)",
+    )
+    ap.add_argument(
+        "--degraded-cooldown", type=float, default=30.0,
+        help="continuous engine: quiet seconds before the degraded-mode "
+        "ladder steps down one level",
+    )
+    ap.add_argument(
+        "--journal", default=None, metavar="PATH",
+        help="continuous engine: record the decision journal here, one JSONL "
+        "entry a dispatch and a scheduling decision (size-capped, rolls to "
+        "PATH.1, the header re-written each generation); "
+        "scripts/torch_replay_journal.py replays it; GET /debug/journal "
+        "serves the ring",
+    )
+    ap.add_argument(
+        "--journal-max-bytes", type=int, default=64 * 1024 * 1024,
+        help="the journal file's size cap before it rolls",
+    )
+    ap.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help="arm the seeded fault points (utils/faults.py), e.g. "
+        "'page_alloc_oom:p=0.05,seed=7;engine_crash:after=40'; chaos "
+        "testing only ($ORYX_FAULTS also works)",
+    )
     ap.add_argument("--shard", default=None, metavar="MODE=N")
-    ap.add_argument("--journal", default=None, metavar="PATH")
-    ap.add_argument("--faults", default=None, metavar="SPEC")
-    ap.add_argument("--profile-sample-every", type=int, default=0)
-    ap.add_argument("--ttft-slo", type=float, default=None)
-    ap.add_argument("--queue-depth-slo", type=int, default=None)
     args = ap.parse_args(argv)
     if args.shard:
         raise NotImplementedError(
@@ -1382,10 +1497,11 @@ def main(argv: list[str] | None = None) -> None:
         ttft_slo=args.ttft_slo, queue_depth_slo=args.queue_depth_slo,
         events_path=args.events_path, max_queue=args.max_queue or None,
         request_timeout=args.request_timeout,
+        degraded_cooldown=args.degraded_cooldown,
         supervise=not args.no_supervisor,
         faults_spec=args.faults or os.environ.get("ORYX_FAULTS"),
         replica_id=args.replica_id, requests_log_path=args.requests_log,
-        journal_path=args.journal,
+        journal_path=args.journal, journal_max_bytes=args.journal_max_bytes,
     )
 
     def _drain_and_exit() -> None:

@@ -34,6 +34,8 @@ from typing import Any, Iterable
 
 import numpy as np
 
+from oryx_tpu_torch.utils import faults
+
 
 class TrieNode:
     __slots__ = ("children", "payload", "stamp", "parent", "key")
@@ -293,6 +295,14 @@ class PagedPrefixCache:
             except Exception:
                 break
             try:
+                # Fault site: a host -> device re-upload that fails (the
+                # page returns, the match shortens, the suffix recomputes).
+                faults.fault_point(
+                    "host_spill_upload",
+                    exc=lambda: RuntimeError(
+                        "injected host-tier re-upload failure"
+                    ),
+                )
                 self.spill_upload(node.payload.blob, page)
             # fault-boundary: a failed re-upload degrades to a cold
             # recompute of the suffix; the page returns, nothing leaks

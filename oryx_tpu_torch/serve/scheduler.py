@@ -92,17 +92,36 @@ own. They share only the queue and the shutdown/drain/supervision flags,
 under `_cond`. The loop syncs with the device once per dispatch, at the
 harvest.
 
-Not ported yet: the degraded-mode ladder (its gauge stays 0, and with it
-the `degraded_escalation` forensic capture), the decision journal and its
-replay (and with it the journaled fuse plan), fault injection, device-time
-profiling (timeline records carry device_us null), meshes (tp), and the
-lock-order sanitizer.
+Degraded mode: serving-SLO anomaly firings (`anomaly` with ttft/queue
+depth SLOs) escalate `degraded_mode` 0 -> 3 — 1 sheds the prefix cache,
+2 clamps max_new to `degraded_clamp_tokens`, 3 rejects admission with
+"shed_load" — and quiet periods of `degraded_cooldown` seconds walk it back
+down; each escalation captures a `degraded_escalation` forensic.
+
+Decision journal (serve/journal.py, `journal=`): one entry a scheduling
+decision and a dispatch, from which serve/replay.py rebuilds a cold
+scheduler and replays the window byte for byte (`replay_feeder`,
+`replay_fuse_plan`).
+
+Fault points (utils/faults.py): `engine_crash` at the top of each loop
+turn, `prefill_dispatch` / `decode_dispatch` on the host before each
+dispatch (a captured CUDA graph never holds one), `page_alloc_oom` in the
+allocator, `host_spill_upload` in the cache's reload.
+
+Device time (utils/profiling.py): every `profile_sample_every` dispatches
+one is bracketed in a torch.profiler capture (CUPTI on the card; a graph's
+replayed kernels are ordinary kernel records there), its busy time lands in
+the timeline record's device_us and `oryx_device_time_seconds_total`;
+`request_profile(steps)` captures the next K dispatches on demand.
+
+Not ported yet: meshes (tp) and the lock-order sanitizer.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import logging
 import queue
 import threading
@@ -117,11 +136,14 @@ from oryx_tpu_torch.models import oryx, qwen2
 from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.packing import round_up_bucket
 from oryx_tpu_torch.serve import audit as audit_lib
+from oryx_tpu_torch.serve import journal as journal_lib
 from oryx_tpu_torch.serve import pipeline as pipeline_lib
 from oryx_tpu_torch.serve.prefix_cache import PagedPrefixCache
+from oryx_tpu_torch.utils import faults
 from oryx_tpu_torch.utils import forensics as forensics_lib
 from oryx_tpu_torch.utils import numerics as numerics_lib
 from oryx_tpu_torch.utils import pagemap
+from oryx_tpu_torch.utils import profiling as profiling_lib
 from oryx_tpu_torch.utils import request_log as request_log_lib
 from oryx_tpu_torch.utils import trace as trace_lib
 from oryx_tpu_torch.utils.anomaly import AnomalyMonitor
@@ -149,8 +171,8 @@ FUSE_AUTO_LADDER: tuple[int, ...] = (4, 16)
 class AdmissionRejected(RuntimeError):
     """submit() refused the request without queueing it: the bounded queue
     is full ("backpressure"), the engine is draining or closed
-    ("draining"), or it is dead with nothing to restart it
-    ("engine_dead"). Carries the Retry-After hint the HTTP layer forwards
+    ("draining"), it is dead with nothing to restart it ("engine_dead"),
+    or degraded mode 3 sheds load ("shed_load"). Carries the Retry-After hint the HTTP layer forwards
     (429 for load, 503 otherwise)."""
 
     def __init__(self, message: str, *, reason: str,
@@ -260,6 +282,9 @@ class _Request:
     # at eviction), admission when the request reaches the queue head.
     qw_span: int = -1
     adm_span: int = -1
+    # Seq of this request's journal `submit` entry (None: no journal),
+    # joining its wide event to the decision journal.
+    journal_seq: int | None = None
 
 
 class ContinuousScheduler:
@@ -290,7 +315,14 @@ class ContinuousScheduler:
     every Nth finished request (0 = off); audit_tol_maxdiff /
     audit_tol_kl: its drift-vs-fail boundary (defaults from the pool
     format's round-trip error). numerics_every: arm the logit probe every
-    N engine steps (0 = off; not with speculate).
+    N engine steps (0 = off; not with speculate). timeline / forensics:
+    the step timeline and OOM ring to record into (fresh ones by default).
+
+    degraded_cooldown: quiet seconds before the degraded ladder steps down;
+    degraded_clamp_tokens: the max_new cap of mode 2. journal: a
+    `serve.journal.DecisionJournal` to record the decision stream into
+    (None = disarmed). profile_sample_every: bracket every Nth dispatch in
+    a device-time capture (0 = off; on-demand captures work either way).
     """
 
     def __init__(
@@ -325,6 +357,12 @@ class ContinuousScheduler:
         audit_tol_maxdiff: float | None = None,
         audit_tol_kl: float | None = None,
         numerics_every: int = 0,
+        degraded_cooldown: float = 30.0,
+        degraded_clamp_tokens: int = 64,
+        profile_sample_every: int = 0,
+        journal: journal_lib.DecisionJournal | None = None,
+        timeline: StepTimeline | None = None,
+        forensics: forensics_lib.ForensicRing | None = None,
     ):
         for name, v in (
             ("num_slots", num_slots), ("page_size", page_size),
@@ -413,6 +451,13 @@ class ContinuousScheduler:
                 "numerics_every must be a non-negative integer (steps "
                 f"between probe samples; 0 = off), got {numerics_every!r}"
             )
+        if not isinstance(profile_sample_every, int) \
+                or profile_sample_every < 0:
+            raise ValueError(
+                "profile_sample_every must be a non-negative integer "
+                f"(steps between samples; 0 = off), got "
+                f"{profile_sample_every!r}"
+            )
         if numerics_every and speculate:
             # The verify step carries no probe: the gauges would stay 0.
             raise ValueError(
@@ -447,6 +492,10 @@ class ContinuousScheduler:
             FUSE_AUTO_LADDER if fuse_steps == "auto"
             else ((fuse_steps,) if fuse_steps > 1 else ())
         )
+        # Replay override (serve/replay.py): the steps_run value a megastep
+        # STARTED at -> its journaled K. Live K reads the queue, which is
+        # wall-clock-coupled, so a replay applies the captured plan.
+        self.replay_fuse_plan: dict[int, int] | None = None
         self._dtype = oryx.compute_dtype(self.cfg)
         # A drafter with the device contract drafts on the pool's device in
         # every speculative dispatch (K = 1, megasteps, graphs alike), so
@@ -480,11 +529,20 @@ class ContinuousScheduler:
             self.metrics.registry, lambda: self.allocator
         )
         self.pool_observatory.attach(self.allocator)
-        self.forensics = forensics_lib.ForensicRing()
+        self.forensics = forensics or forensics_lib.ForensicRing()
         # One forensic a pool-pressure episode: armed at the first failed
         # grow or admission, cleared by the next allocation that succeeds.
         self._oom_episode = False
-        self.timeline = StepTimeline()
+        self.timeline = timeline or StepTimeline()
+        # Device-time sampling: every `profile_sample_every` dispatches one
+        # is captured; HTTP threads park on-demand captures in
+        # _profile_pending, the engine loop adopts them.
+        self.profiler = profiling_lib.DeviceTimeSampler(
+            self.metrics.registry, every=profile_sample_every,
+            device=self.device,
+        )
+        self._profile_pending = None  # guarded-by: _cond
+        self._profile_active = None
         self._sentinel = self.allocator.sentinel
         self.kv_pages = self._new_pool()
         self.prefix_cache = (
@@ -522,11 +580,46 @@ class ContinuousScheduler:
         self.supervised = False  # guarded-by: _cond
         self.restarts = 0
         self.request_timeout = request_timeout
+        # The degraded-mode ladder (0 normal, 1 shed prefix cache, 2 clamp
+        # max_new, 3 shed load): read by submit() under _cond, moved by the
+        # engine thread.
+        self.degraded_cooldown = degraded_cooldown
+        self.degraded_clamp_tokens = degraded_clamp_tokens
+        self._degraded = 0  # guarded-by: _cond
+        self._slo_fired_seen = 0
+        self._degraded_changed = time.monotonic()
+        self._cache_shed = False
         self.anomaly = anomaly
         self.tracer = tracer or trace_lib.Tracer()
         self.request_log = request_log or request_log_lib.RequestLog()
         self.engine_label = engine_label
         self.replica_id = replica_id
+        # The decision journal (None = disarmed: every site is one attribute
+        # check). steps_run advances at every recorded dispatch (every
+        # logical step of a megastep): the gate a replay feeds on.
+        self.journal = journal
+        self.steps_run = 0
+        # Replay feeding hook (serve/replay.py), called at the top of every
+        # loop turn and admission attempt; None in live serving.
+        self.replay_feeder = None
+        if self.journal is not None:
+            self.journal.stamp_header(
+                num_slots=num_slots, page_size=page_size, chunk=chunk,
+                max_ctx=max_ctx, num_pages=self.num_pages, seed=seed,
+                prefill_chunk=prefill_chunk,
+                prefix_cache=bool(prefix_cache),
+                ragged=self.ragged, speculate=self.speculate,
+                fuse_steps=fuse_steps,
+                draft_model=getattr(self.drafter, "source", None),
+                kv_dtype=kv_dtype, host_cache_bytes=host_cache_bytes,
+                max_queue=max_queue,
+                degraded_clamp_tokens=degraded_clamp_tokens,
+                engine=engine_label, replica=replica_id,
+            )
+            self.journal.seal_header()
+            # Fault firings reach the journal through the module's observer
+            # hook; the seeded schedule makes them replay.
+            faults.add_observer(self._journal_fault)
         # Built unconditionally, so the oryx_audit_* ladders render at zero
         # with sampling off.
         self.auditor = audit_lib.OutputAuditor(
@@ -633,8 +726,8 @@ class ContinuousScheduler:
         sanitized) to use as the trace id; the tracer mints another when
         the flight recorder still holds it. routed: the request came
         through a router. Raises AdmissionRejected, queueing nothing, when
-        draining, when the engine is dead for good, or when the bounded
-        queue is full."""
+        draining, when the engine is dead for good, when degraded mode 3
+        sheds load, or when the bounded queue is full."""
         sampling = sampling or {}
         stops = (
             [self.pipe.conv.stop_str] if self.pipe.conv.stop_str else []
@@ -657,6 +750,11 @@ class ContinuousScheduler:
             routed=routed,
         )
         req.qw_span = tr.begin("queue_wait")
+        if self.journal is not None:
+            # The arrival is journaled before the admission verdict: the
+            # submit entry is the replayable workload record.
+            req.journal_seq = self._journal_submit(req)
+            tr.annotate(journal_seq=req.journal_seq)
         with self._cond:
             # The checks and the append are one atomic section: two racing
             # submits never both take the last queue place.
@@ -670,6 +768,9 @@ class ContinuousScheduler:
             ):
                 reject = ("engine_dead", "engine is not running and "
                           "nothing will restart it", 5.0)
+            elif self._degraded >= 3:
+                reject = ("shed_load", "server is shedding load "
+                          "(degraded mode 3); retry shortly", 2.0)
             elif (
                 self.max_queue is not None
                 and len(self._queue) >= self.max_queue
@@ -690,6 +791,12 @@ class ContinuousScheduler:
             self.metrics.inc(
                 "admission_rejected_total", labels={"reason": reason}
             )
+            if self.journal is not None:
+                # Not replayed (REPLAYED_KINDS): admission control is
+                # load- and timing-coupled.
+                self.journal.append(journal_lib.build_journal_event(
+                    kind="reject", request_id=tr.id, reason=reason,
+                ))
             cost = self._finalize_cost(None, req, observe=False)
             tr.finish(error=msg, rejected=reason, cost=cost)
             self._emit_request_event(
@@ -712,6 +819,43 @@ class ContinuousScheduler:
     def queue_len(self) -> int:
         with self._cond:
             return len(self._queue)
+
+    def request_profile(self, steps: int, timeout: float = 60.0
+                        ) -> dict[str, Any]:
+        """On-demand device-time capture (GET /debug/profile, any thread):
+        park a request the engine loop adopts at its next turn with work;
+        it brackets the next `steps` dispatches in one capture and answers
+        with the Chrome trace and the per-kind attribution. Raises
+        TimeoutError when the engine ran no dispatch in time (an idle engine
+        cannot be profiled) and RuntimeError when a capture is already
+        queued or the capture failed."""
+        if not isinstance(steps, int) or steps < 1:
+            raise ValueError(f"steps must be a positive integer, "
+                             f"got {steps!r}")
+        holder: dict[str, Any] = {
+            "steps": steps, "done": threading.Event(), "result": None,
+            "abandoned": False,
+        }
+        with self._cond:
+            pending = self._profile_pending
+            if pending is not None and not pending["abandoned"]:
+                raise RuntimeError("a profile capture is already queued")
+            # An abandoned request (its requester timed out) is replaced.
+            self._profile_pending = holder
+            self._cond.notify()
+        if not holder["done"].wait(timeout):
+            with self._cond:
+                # The engine drops it instead of adopting it.
+                holder["abandoned"] = True
+            raise TimeoutError(
+                f"no completed profile capture within {timeout:g}s "
+                "(engine idle, or a capture already in flight — "
+                "profiling needs live dispatches)"
+            )
+        result = holder["result"]
+        if isinstance(result, dict) and "error" in result:
+            raise RuntimeError(result["error"])
+        return result
 
     def alive(self) -> bool:
         """The engine loop thread is running."""
@@ -743,6 +887,11 @@ class ContinuousScheduler:
         with self._cond:
             return self._shutdown or self._draining
 
+    @property
+    def degraded_mode(self) -> int:
+        with self._cond:
+            return self._degraded
+
     def set_supervised(self, value: bool) -> None:
         """EngineSupervisor attach/detach (read by submit under _cond)."""
         with self._cond:
@@ -763,6 +912,10 @@ class ContinuousScheduler:
             self.watchdog.stop()
         if not self._thread.is_alive():
             self._release_graphs()
+        if self.journal is not None:
+            # The journal itself is closed by its owner (build_server, or
+            # the replay).
+            faults.remove_observer(self._journal_fault)
 
     def begin_drain(self) -> None:
         """Start drain-on-shutdown: admission stops now (new submits are
@@ -840,9 +993,18 @@ class ContinuousScheduler:
                 self._queue.appendleft(req)
         with self._cond:
             self.metrics.set_gauge("queue_depth", len(self._queue))
+        # A capture the dead thread left running is discarded.
+        self._abort_profile()
         self._reset_pool()
         self.restarts += 1
         self.metrics.inc("engine_restarts_total")
+        if self.journal is not None:
+            # The engine is dead, so steps_run is quiescent: the restart's
+            # place in the step stream is what a replay reproduces.
+            self.journal.append(journal_lib.build_journal_event(
+                kind="restart", step=self.steps_run,
+                restarts=self.restarts, requeued=len(live),
+            ))
         _LOG.warning(
             "engine thread restarted (#%d): %d request(s) requeued for "
             "replay", self.restarts, len(live),
@@ -1159,9 +1321,73 @@ class ContinuousScheduler:
             streaming=h.streaming,
             evictions=req.evictions,
             accepted_tokens_per_step=aps,
-            journal_seq=None,
+            journal_seq=req.journal_seq,
             **cost,
         ))
+        if self.journal is not None and status != "rejected":
+            # The terminal entry (a submit-time rejection wrote its own
+            # `reject`): the reply fingerprints are the replay's byte
+            # oracle, the cost subset the deterministic half of the ledger.
+            self.journal.append(journal_lib.build_journal_event(
+                kind="finish",
+                step=self._journal_step(),
+                request_id=req.trace.id,
+                status=status,
+                finish_reason=h.finish_reason if status == "ok" else None,
+                error_kind=error_kind,
+                completion_tokens=len(req.emitted),
+                reply_sha256=journal_lib.fingerprint_text(req.text_done),
+                tokens_sha256=journal_lib.fingerprint_tokens(req.emitted),
+                cost={
+                    k: cost.get(k, 0)
+                    for k in journal_lib.DETERMINISTIC_COST_KEYS
+                },
+            ))
+
+    # ---- the decision journal (serve/journal.py) ---------------------------
+
+    def _journal_step(self) -> int | None:
+        """steps_run when journaling from the engine thread, else None (the
+        counter is the engine thread's; entries from HTTP or supervisor
+        threads are timing-coupled, and a replay feeds on engine-thread
+        step gates only)."""
+        if threading.current_thread() is self._thread:
+            return self.steps_run
+        return None
+
+    def _journal_submit(self, req: _Request) -> int:
+        """One `submit` entry. A JSON-serializable request dict (every HTTP
+        request is one) is journaled verbatim as the payload; anything else
+        (raw arrays handed to submit()) only as a fingerprint, which marks
+        it unreplayable."""
+        try:
+            canon = json.dumps(req.request, sort_keys=True)
+        except (TypeError, ValueError):
+            prompt = None
+            sha = journal_lib.fingerprint_text(repr(req.request))
+        else:
+            prompt = req.request
+            sha = journal_lib.fingerprint_text(canon)
+        return self.journal.append(journal_lib.build_journal_event(
+            kind="submit",
+            request_id=req.trace.id,
+            arrival_seq=self.journal.next_arrival(),
+            prompt=prompt,
+            prompt_sha256=sha,
+            sampling=req.sampling,
+            max_new=req.max_new,
+            streaming=req.handle.streaming,
+        ))
+
+    def _journal_fault(self, site: str, fired: int) -> None:
+        """The fault module's observer: one entry a firing, from any thread
+        (the journal's lock is a leaf). Attached at construction when the
+        journal is armed, detached in close()."""
+        if self.journal is not None:
+            self.journal.append(journal_lib.build_journal_event(
+                kind="fault", step=self._journal_step(),
+                site=site, fires=fired,
+            ))
 
     def _free_slot_pages(self, s: int, owner: str | None = None) -> None:
         pages = [int(p) for p in self.bt[s] if p != self._sentinel]
@@ -1219,7 +1445,17 @@ class ContinuousScheduler:
                     asking=(s, req, need),
                 )
             return False
-        pages = self.allocator.alloc(need, owner=self._owner_tag(req))
+        try:
+            pages = self.allocator.alloc(need, owner=self._owner_tag(req))
+        except paged_kv.OutOfPagesError as e:
+            # The free list said yes but the allocation refused (an injected
+            # exhaustion): a scheduling signal for the defer and eviction
+            # machinery, never a crash. alloc is all-or-nothing, so nothing
+            # is held; the moment is a forensic.
+            self._capture_oom(
+                "oom", f"{type(e).__name__}: {e}", asking=(s, req, need),
+            )
+            return False
         self.bt[s, held:held + need] = pages
         self._oom_episode = False  # pages flowed: the episode is over
         return True
@@ -1253,6 +1489,11 @@ class ContinuousScheduler:
     def _run(self) -> None:
         with torch.inference_mode():
             while True:
+                if self.replay_feeder is not None:
+                    # Offline replay: feed the journaled admissions at their
+                    # recorded step gates before this turn looks at the
+                    # queue.
+                    self.replay_feeder(self)
                 drain_drop: list[_Request] = []
                 with self._cond:
                     if self._shutdown:
@@ -1282,6 +1523,15 @@ class ContinuousScheduler:
                     _LOG.info("drain complete: engine loop exiting")
                     return
                 if idle:
+                    if self._profile_active is not None:
+                        # Traffic drained mid-capture: close it now with the
+                        # windows so far, so the process-wide profiler never
+                        # records an idle engine and the requester is
+                        # answered.
+                        self._finish_profile_early()
+                    # The ladder decays while idle too: mode 3 sheds load,
+                    # so no traffic is exactly when it must walk down.
+                    self._update_degraded()
                     if self.watchdog is not None:
                         self.watchdog.set_active(False)
                     # An idle point: run ONE queued audit replay, then look
@@ -1291,7 +1541,25 @@ class ContinuousScheduler:
                     continue
                 if self.watchdog is not None:
                     self.watchdog.set_active(True)
+                # Fault site: engine-thread death. Outside the containment
+                # below, so the exception ends the thread, which is what the
+                # API server's supervisor restarts.
+                faults.fault_point("engine_crash")
+                # A parked /debug/profile request is adopted only with work
+                # to dispatch.
+                with self._cond:
+                    take = (
+                        self._profile_pending
+                        if self._profile_active is None else None
+                    )
+                    if take is not None:
+                        self._profile_pending = None
+                        if take["abandoned"]:
+                            take = None
+                if take is not None:
+                    self._adopt_profile(take)
                 try:
+                    self._update_degraded()
                     self._enforce_deadlines()
                     self._admit()
                     if self.ragged:
@@ -1320,7 +1588,64 @@ class ContinuousScheduler:
             self._reject_queued(r, msg)
         if self.anomaly is not None:
             self.anomaly.observe_queue_depth(0)
+        # A capture straddling the failure is discarded.
+        self._abort_profile()
         self._reset_pool()
+
+    # ---- the degraded-mode ladder -----------------------------------------
+
+    def _update_degraded(self) -> None:
+        """Each NEW serving-SLO anomaly firing (ttft_slo, queue_depth_slo)
+        escalates one level; `degraded_cooldown` quiet seconds de-escalate
+        one. Exported as the degraded_mode gauge."""
+        if self.anomaly is None:
+            return
+        fired = sum(
+            self.anomaly.counts.get(k, 0)
+            for k in ("ttft_slo", "queue_depth_slo")
+        )
+        now = time.monotonic()
+        with self._cond:
+            mode = self._degraded
+        if fired > self._slo_fired_seen:
+            self._slo_fired_seen = fired
+            self._degraded_changed = now
+            if mode < 3:
+                self._set_degraded(mode + 1)
+        elif mode > 0 and now - self._degraded_changed \
+                >= self.degraded_cooldown:
+            self._degraded_changed = now
+            self._set_degraded(mode - 1)
+
+    def _set_degraded(self, mode: int) -> None:
+        with self._cond:
+            prev, self._degraded = self._degraded, mode
+        self.metrics.set_gauge("degraded_mode", mode)
+        _LOG.warning(
+            "degraded mode %d -> %d (%s)", prev, mode,
+            ["normal", "prefix cache shed", "max_tokens clamped",
+             "shedding load"][mode],
+        )
+        if self.journal is not None:
+            # Journaled, not replayed: the ladder follows the wall clock;
+            # its effect on decisions is the clamped max_new of the admits.
+            self.journal.append(journal_lib.build_journal_event(
+                kind="degraded", step=self._journal_step(), mode=mode,
+            ))
+        if mode > prev:
+            # An escalation is a capacity incident in progress: the same
+            # forensic an OOM gets, while the pressure is visible.
+            self._capture_oom(
+                "degraded_escalation", f"degraded mode {prev} -> {mode}",
+            )
+        if mode >= 1 and not self._cache_shed:
+            # Shed the prefix cache: its pages go to live requests, and it
+            # is not fed until the ladder clears.
+            self._cache_shed = True
+            if self.prefix_cache is not None:
+                self.prefix_cache.clear()
+        elif mode == 0:
+            self._cache_shed = False
 
     def _reject_queued(
         self, req: _Request, msg: str, *, kind: str = "server_error"
@@ -1420,6 +1745,15 @@ class ContinuousScheduler:
         req.topp = float(s_.get("top_p", gen.top_p) or 1.0)
         req.topk = int(s_.get("top_k", gen.top_k) or 0)
         req.seed = int(s_.get("seed") or self.seed)
+        with self._cond:
+            mode = self._degraded
+        if mode >= 2 and req.max_new > self.degraded_clamp_tokens:
+            # Degraded mode 2: a shorter decode budget turns the backlog
+            # over faster; the client sees a "length" finish.
+            req.max_new = self.degraded_clamp_tokens
+            req.handle.debug["clamped_max_tokens"] = (
+                self.degraded_clamp_tokens
+            )
         if req.length + req.max_new > self.max_ctx:
             raise ValueError(
                 f"prompt ({req.length}) + max_tokens ({req.max_new}) "
@@ -1435,6 +1769,10 @@ class ContinuousScheduler:
 
     def _admit(self) -> None:
         while True:
+            if self.replay_feeder is not None:
+                # The gates are checked between admissions too: an
+                # unchunked prefill dispatches inside this loop.
+                self.replay_feeder(self)
             if any(r is not None and not r.activated for r in self.slots):
                 # A chunked prefill is in flight: one admission at a time.
                 break
@@ -1489,9 +1827,12 @@ class ContinuousScheduler:
         # Page-seconds accrue from the moment this placement holds pages.
         req.pages_t = time.monotonic()
         spliced = 0
+        cow_pages = 0
+        host_reloaded = 0
         matched, pages, host_nodes = 0, [], []
         cache_on = (
             self.prefix_cache is not None and req.cache_tokens is not None
+            and not self._cache_shed  # degraded >= 1: no splicing
         )
         if cache_on:
             matched, pages, host_nodes = (
@@ -1542,6 +1883,7 @@ class ContinuousScheduler:
                     req.cache_tokens, host_nodes[:n_host]
                 )
                 if reloaded:
+                    host_reloaded = len(reloaded)
                     pages = pages + reloaded
                     matched = len(pages) * ps
                     use = min(matched, limit)
@@ -1571,6 +1913,7 @@ class ContinuousScheduler:
                         self.kv_pages, int(pages[full]), cow
                     )
                     self.bt[s, full] = cow
+                    cow_pages = 1
                     self.engine_stats["prefix_cache_cow_pages_total"] += 1
             spliced = use
         req.spliced = spliced
@@ -1585,6 +1928,16 @@ class ContinuousScheduler:
             "prefix_cache_miss_tokens_total", req.length - spliced
         )
         req.cost_cached_tokens += spliced
+        if self.journal is not None and (spliced or host_reloaded):
+            # A hit (a miss is an admit with spliced_tokens 0).
+            self.journal.append(journal_lib.build_journal_event(
+                kind="splice", step=self.steps_run,
+                request_id=req.trace.id, slot=s,
+                spliced_tokens=spliced,
+                shared_pages=full,
+                cow_pages=cow_pages,
+                host_reload_pages=host_reloaded,
+            ))
         return True
 
     def _place(self, s: int, req: _Request) -> None:
@@ -1616,6 +1969,16 @@ class ContinuousScheduler:
         )
         req.admit_seq = self._admit_seq
         self._admit_seq += 1
+        if self.journal is not None:
+            # max_new is the EFFECTIVE budget (the degraded clamp applied at
+            # the queue head): a replay submits with it.
+            self.journal.append(journal_lib.build_journal_event(
+                kind="admit", step=self.steps_run,
+                request_id=req.trace.id, slot=s,
+                admit_seq=req.admit_seq, prompt_len=req.length,
+                max_new=req.max_new, replay_tokens=req.replay,
+                spliced_tokens=req.spliced,
+            ))
         _LOG.info(
             "request %s %s slot=%d prompt=%d cached=%d", req.trace.id,
             "re-admitted" if req.replay else "admitted", s, req.length,
@@ -1635,6 +1998,9 @@ class ContinuousScheduler:
             self._advance_prefill(s, req)
 
     def _advance_prefill(self, s: int, req: _Request) -> None:
+        # Fault site: a prefill dispatch that fails or stalls (a raise is
+        # contained by the loop: requests errored, pool rebuilt).
+        faults.fault_point("prefill_dispatch")
         off, L = req.prefill_pos, req.length
         if self.prefill_chunk is None and off == 0:
             emb, end = req.embeds, L
@@ -1662,7 +2028,8 @@ class ContinuousScheduler:
             "prefill", slot=s, start=off, tokens=end - off,
             cached=req.spliced > 0, replay=req.replay > 0,
         )
-        t0 = time.monotonic()
+        sampled = self._profile_dispatch_begin()
+        t0_ns = trace_lib.now_ns()
         self.kv_pages, tok0 = generate_lib.paged_prefill(
             self.pipe.params.llm, self.cfg.llm, emb,
             torch.tensor([end], device=dev),
@@ -1673,6 +2040,7 @@ class ContinuousScheduler:
             attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype,
         )
         tok0 = int(tok0.reshape(-1)[0]) if final else None  # one read
+        dt, dev_us = self._profile_dispatch_end(sampled, "prefill", t0_ns)
         req.trace.end(pf)
         req.prefill_pos = end
         req.cost_prefill_tokens += end - off
@@ -1686,10 +2054,11 @@ class ContinuousScheduler:
         )
         # Split prefill dispatches are engine steps too: the timeline's
         # kinds reconcile with dispatches_total on every engine mode.
-        self._timeline_record(
-            dur_s=time.monotonic() - t0, kind="prefill", rows=end - off,
-            accepted=0,
+        live = self._timeline_record(
+            dur_s=dt, kind="prefill", rows=end - off, accepted=0,
+            device_us=dev_us,
         )
+        self._journal_dispatch("prefill", end - off, live, 0)
         if self.watchdog is not None:
             self.watchdog.beat()
         if final:
@@ -1732,7 +2101,10 @@ class ContinuousScheduler:
         slots into the prefix cache (the cache takes its own references, so
         the entry outlives the slot): at activation with the prompt, at
         finish with prompt + reply."""
-        if self.prefix_cache is None or req.cache_tokens is None:
+        if (
+            self.prefix_cache is None or req.cache_tokens is None
+            or self._cache_shed
+        ):
             return
         stream = req.cache_tokens
         if tokens > req.length:
@@ -1797,6 +2169,13 @@ class ContinuousScheduler:
         self._clear_slot(s)
         req.trace.event("evicted", slot=s, replay_tokens=req.processed)
         req.qw_span = req.trace.begin("queue_wait", requeued=True)
+        if self.journal is not None:
+            self.journal.append(journal_lib.build_journal_event(
+                kind="evict", step=self.steps_run, slot=s,
+                victim_request_id=req.trace.id,
+                admit_seq=req.admit_seq,
+                replay_tokens=req.processed,
+            ))
         _LOG.info(
             "request %s evicted from slot %d (replay %d tokens)",
             req.trace.id, s, req.processed,
@@ -1806,6 +2185,90 @@ class ContinuousScheduler:
             self.metrics.set_gauge("queue_depth", len(self._queue))
         self.metrics.inc("evicted")
         self._occupancy_gauge()
+
+    # ---- device-time sampling (utils/profiling.DeviceTimeSampler) ---------
+
+    def _abort_profile(self) -> None:
+        """A failed dispatch (or a restart) may leave a capture straddling
+        the failure: stop and discard it, so the process-wide profiler
+        stays usable, and answer a waiting /debug/profile requester with an
+        error."""
+        self.profiler.abort()
+        act, self._profile_active = self._profile_active, None
+        if act is not None:
+            act["holder"]["result"] = {
+                "error": "engine step failed during the capture",
+            }
+            act["holder"]["done"].set()
+
+    def _adopt_profile(self, holder: dict[str, Any]) -> None:
+        """Begin an on-demand capture over the next `steps` dispatches; a
+        profiler that cannot start answers the requester at once."""
+        if self.profiler.begin():
+            self._profile_active = {
+                "holder": holder, "left": int(holder["steps"]),
+                "windows": [],
+            }
+        else:
+            holder["result"] = {
+                "error": "profiler start failed (see "
+                "oryx_profile_capture_errors_total)",
+            }
+            holder["done"].set()
+
+    def _finish_profile_early(self) -> None:
+        """The engine went idle inside an on-demand capture: finish it with
+        the windows collected so far (or report that there were none)."""
+        act, self._profile_active = self._profile_active, None
+        holder = act["holder"]
+        if act["windows"]:
+            holder["result"] = self.profiler.finish_capture(act["windows"])
+        else:
+            self.profiler.abort()
+            holder["result"] = {
+                "error": "engine went idle before any dispatch was "
+                "captured (profiling needs live traffic)",
+            }
+        holder["done"].set()
+
+    def _profile_dispatch_begin(self) -> bool:
+        """Right before a dispatch: True when THIS dispatch is a periodic
+        sample (capture started). Dispatches inside an on-demand capture
+        are never captured twice (the profiler is process-wide); their
+        windows are recorded at the end instead."""
+        due = self.profiler.tick()
+        if self._profile_active is not None:
+            return False
+        return due and self.profiler.begin()
+
+    def _profile_dispatch_end(self, sampled: bool, kind: str,
+                              t0_ns: int) -> tuple[float, int | None]:
+        """After the dispatch's harvest: (the window's seconds, the device
+        microseconds of a periodic sample or None). Both come from one
+        clock (utils/trace.now_ns, the profiler's epoch), so the device
+        time never exceeds the window. Inside an on-demand capture the
+        window is recorded, and the capture finished (its requester
+        answered) at the asked count."""
+        act = self._profile_active
+        if (sampled or act is not None) and self.device.type == "cuda":
+            # The window closes when the dispatch's kernels are done (a
+            # prefill chunk that samples nothing has no harvest).
+            torch.cuda.synchronize(self.device)
+        t1_ns = trace_lib.now_ns()
+        dt = (t1_ns - t0_ns) / 1e9
+        if act is not None:
+            act["windows"].append((kind, t0_ns, t1_ns))
+            act["left"] -= 1
+            if act["left"] <= 0:
+                self._profile_active = None
+                holder = act["holder"]
+                holder["result"] = self.profiler.finish_capture(
+                    act["windows"])
+                holder["done"].set()
+            return dt, None
+        if sampled:
+            return dt, self.profiler.end(kind, t0_ns, t1_ns)
+        return dt, None
 
     def _device_state(self) -> tuple:
         """The slot arrays as device tensors for one dispatch."""
@@ -1825,9 +2288,13 @@ class ContinuousScheduler:
 
     def _step_chunk(self) -> None:
         """One split-engine decode dispatch over every slot."""
+        # Fault site: a decode dispatch that fails (every in-flight request
+        # errors, the pool is rebuilt, serving goes on) or hangs (delay=).
+        faults.fault_point("decode_dispatch")
         live = self._live()
         numer = self._numerics_due()
-        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
+        sampled = self._profile_dispatch_begin()
+        t0_ns = trace_lib.now_ns()
         out = generate_lib.paged_decode_chunk(
             self.pipe.params.llm, self.cfg.llm, self.kv_pages,
             *self._device_state(),
@@ -1837,9 +2304,10 @@ class ContinuousScheduler:
         )
         self.kv_pages = out[0]
         toks, _ = self._harvest_chunk(*out[1:6])
-        dt = time.monotonic() - t0
+        dt, dev_us = self._profile_dispatch_end(sampled, "decode", t0_ns)
         self._record_numerics(out[7] if numer else None)
-        self._finish_dispatch("decode", len(live), live, toks, t0_ns, dt)
+        self._finish_dispatch("decode", len(live), live, toks, t0_ns, dt,
+                              device_us=dev_us)
 
     def _harvest_chunk(self, tok, lengths, finished, recent, toks,
                        pf_tok0=None):
@@ -1866,7 +2334,8 @@ class ContinuousScheduler:
         return [h.reshape(x.shape) for h, x in zip(host, parts)]
 
     def _finish_dispatch(self, kind: str, rows: int, live: list[int],
-                         toks, t0_ns: int, dt: float, n_new=None) -> None:
+                         toks, t0_ns: int, dt: float, n_new=None,
+                         device_us: int | None = None) -> None:
         """Post-dispatch accounting shared by the split, ragged and
         speculative steps: dispatch counters and the rows histogram, the
         watchdog beat, the per-slot harvest, and the decode-step counters
@@ -1885,8 +2354,9 @@ class ContinuousScheduler:
             self.watchdog.beat()
         accepted = self._bill_step(live, toks, n_new, t0_ns, dt, dt)
         self._occupancy_gauge()
-        self._timeline_record(dur_s=dt, kind=kind, rows=rows,
-                              accepted=accepted)
+        live = self._timeline_record(dur_s=dt, kind=kind, rows=rows,
+                                     accepted=accepted, device_us=device_us)
+        self._journal_dispatch(kind, rows, live, accepted)
 
     def _numerics_due(self) -> bool:
         """The probe's cadence: every `numerics_every` engine steps the
@@ -1915,20 +2385,39 @@ class ContinuousScheduler:
             )
 
     def _timeline_record(self, *, dur_s: float, kind: str, rows: int,
-                         accepted: int) -> None:
-        """One step record into the timeline (engine thread). Queue depth
-        and degraded mode come from the registry's gauges, so no telemetry
-        sample takes the scheduler's lock."""
+                         accepted: int, device_us: int | None = None) -> int:
+        """One step record into the timeline (engine thread); returns the
+        live slots it recorded. Queue depth and degraded mode come from the
+        registry's gauges, so no telemetry sample takes the scheduler's
+        lock."""
+        live = sum(1 for r in self.slots if r is not None and r.activated)
         self.timeline.record(
             dur_s=dur_s, kind=kind, rows=rows,
-            live_slots=sum(
-                1 for r in self.slots if r is not None and r.activated
-            ),
+            live_slots=live,
             accepted_tokens=accepted,
             queue_depth=int(self.metrics.get("queue_depth")),
             free_pages=self.allocator.num_free,
             degraded_mode=int(self.metrics.get("degraded_mode")),
+            device_us=device_us,
         )
+        return live
+
+    def _journal_dispatch(self, kind: str, rows: int, live: int,
+                          accepted: int, fused: tuple | None = None
+                          ) -> None:
+        """One logical step on the journal's step clock: steps_run counts
+        every recorded dispatch (every logical step of a megastep, with
+        (fused_k, fused_j)), the gate a replay feeds admissions on. No wall
+        or device time: the journal keeps what replays."""
+        self.steps_run += 1
+        if self.journal is not None:
+            extra = {} if fused is None else dict(
+                fused_k=fused[0], fused_j=fused[1])
+            self.journal.append(journal_lib.build_journal_event(
+                kind="step", step=self.steps_run, dispatch=kind,
+                rows=rows, live_slots=live, accepted_tokens=accepted,
+                free_pages=self.allocator.num_free, **extra,
+            ))
 
     def _bill_step(self, live: list[int], toks, n_new, t0_ns: int,
                    dt: float, step_dt: float) -> int:
@@ -2022,6 +2511,12 @@ class ContinuousScheduler:
         if fuse_k > 1:
             self._fused_megastep(fuse_k)
             return
+        # Fault sites: the fused dispatch is the admission's prefill work
+        # and the residents' decode beat, so both sites keep their meaning.
+        # They run on the host before any dispatch, graph replays included.
+        if pf_req is not None:
+            faults.fault_point("prefill_dispatch")
+        faults.fault_point("decode_dispatch")
         numer = self._numerics_due() and bool(live)
         if pf_req is None and self._graph_route():
             self._replay_steps(live, 1, numerics=numer)
@@ -2059,7 +2554,8 @@ class ContinuousScheduler:
             )
         common = dict(eos=self.cfg.generation.eos_token_id,
                       attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype)
-        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
+        sampled = self._profile_dispatch_begin()
+        t0_ns = trace_lib.now_ns()
         if self.speculate:
             drafts, dlen, proposed = self._drafts(live)
             bt, tok, lengths, finished, _, gens, temp, top_p, top_k, _ = (
@@ -2073,10 +2569,11 @@ class ContinuousScheduler:
             self.kv_pages = out[0]
             toks, n_new, acc, pf_tok0 = self._harvest_spec(
                 *out[1:7], pf_tok0=out[7])
+            dt, dev_us = self._profile_dispatch_end(sampled, "spec", t0_ns)
             self._count_drafts(live, proposed, acc, n_new)
             self._finish_dispatch(
                 "spec", len(live) * (1 + self.speculate) + pf_rows, live,
-                toks, t0_ns, time.monotonic() - t0, n_new=n_new,
+                toks, t0_ns, dt, n_new=n_new, device_us=dev_us,
             )
         else:
             out = generate_lib.paged_ragged_step(
@@ -2087,11 +2584,12 @@ class ContinuousScheduler:
             )
             self.kv_pages = out[0]
             toks, pf_tok0 = self._harvest_chunk(*out[1:6], pf_tok0=out[7])
+            dt, dev_us = self._profile_dispatch_end(sampled, "ragged", t0_ns)
             self._record_numerics(out[8] if numer else None)
             # Decode billing covers only slots live DURING the dispatch.
             self._finish_dispatch(
-                "ragged", len(live) + pf_rows, live, toks, t0_ns,
-                time.monotonic() - t0,
+                "ragged", len(live) + pf_rows, live, toks, t0_ns, dt,
+                device_us=dev_us,
             )
         if pf_req is not None:
             pf_req.trace.end(pf_span)
@@ -2116,7 +2614,9 @@ class ContinuousScheduler:
         dispatch windows (a row the host finishes overruns at most one
         window, as at K = 1), aiming at the large rung for a solo resident
         and the small one for shared steps. An armed numerics probe never
-        fuses."""
+        fuses. A replay applies the journaled plan instead."""
+        if self.replay_fuse_plan is not None:
+            return self.replay_fuse_plan.get(self.steps_run, 1)
         if not self._fuse_ladder or pf_req is not None or not live:
             return 1
         if self.numerics_every:
@@ -2140,6 +2640,7 @@ class ContinuousScheduler:
         mid-flight; evicting here is decided on host state alone, so a
         replay re-derives it), then `_finish_megastep` processes the
         harvest as K logical steps."""
+        faults.fault_point("decode_dispatch")
         self._ensure_capacity(self._win * k_steps)
         live = self._live()
         if not live:
@@ -2149,7 +2650,8 @@ class ContinuousScheduler:
             return
         common = dict(k_steps=k_steps, eos=self.cfg.generation.eos_token_id,
                       attn_impl=self.cfg.attn_impl, compute_dtype=self._dtype)
-        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
+        sampled = self._profile_dispatch_begin()
+        t0_ns = trace_lib.now_ns()
         bt, tok, lengths, finished, recent, gens, temp, top_p, top_k, stop = (
             self._device_state())
         if self.speculate:
@@ -2163,9 +2665,11 @@ class ContinuousScheduler:
             )
             self.kv_pages = out[0]
             toks, n_new, acc, _ = self._harvest_spec(*out[1:7])
+            dt, dev_us = self._profile_dispatch_end(
+                sampled, "fused_spec", t0_ns)
             self._count_drafts(live, None, acc, n_new)
             self._finish_megastep("fused_spec", live, toks, k_steps, t0_ns,
-                                  time.monotonic() - t0, n_new)
+                                  dt, n_new, device_us=dev_us)
         else:
             out = generate_lib.paged_fused_steps(
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
@@ -2174,12 +2678,13 @@ class ContinuousScheduler:
             )
             self.kv_pages = out[0]
             toks, _ = self._harvest_chunk(*out[1:6])
-            self._finish_megastep("fused", live, toks, k_steps, t0_ns,
-                                  time.monotonic() - t0)
+            dt, dev_us = self._profile_dispatch_end(sampled, "fused", t0_ns)
+            self._finish_megastep("fused", live, toks, k_steps, t0_ns, dt,
+                                  device_us=dev_us)
 
     def _finish_megastep(self, kind: str, live: list[int], toks,
                          k_steps: int, t0_ns: int, dt: float,
-                         n_new=None) -> None:
+                         n_new=None, device_us: int | None = None) -> None:
         """Post-megastep accounting: one dispatch (its counters, rows and
         watchdog beat once), then the harvest as K logical steps, step j
         owning columns [j * width, (j + 1) * width) of `toks` (and column j
@@ -2197,22 +2702,27 @@ class ContinuousScheduler:
         self.engine_stats["megasteps_total"][k_steps] += 1
         if self.watchdog is not None:
             self.watchdog.beat()
+        rows = len(live) * (width if n_new is not None else 1)
         accepted = 0
         for j in range(k_steps):
             self.chunks_run += 1
             self.metrics.inc("chunks")
-            accepted += self._bill_step(
-                [s for s in live if self.slots[s] is not None],
-                toks[:, j * width:(j + 1) * width],
+            live_j = [s for s in live if self.slots[s] is not None]
+            step_accepted = self._bill_step(
+                live_j, toks[:, j * width:(j + 1) * width],
                 None if n_new is None else n_new[:, j],
                 t0_ns, dt, dt / k_steps,
             )
+            accepted += step_accepted
+            # The journal's clock advances a LOGICAL step, each entry
+            # stamped (fused_k, fused_j), so a replay can rebuild the plan.
+            self._journal_dispatch(kind, rows, len(live_j), step_accepted,
+                                   fused=(k_steps, j))
         self._occupancy_gauge()
         # One dispatch, one timeline record.
         self._timeline_record(
-            dur_s=dt, kind=kind,
-            rows=len(live) * (width if n_new is not None else 1),
-            accepted=accepted,
+            dur_s=dt, kind=kind, rows=rows, accepted=accepted,
+            device_us=device_us,
         )
 
     def _graph_route(self) -> bool:
@@ -2260,7 +2770,12 @@ class ContinuousScheduler:
         harvest; `numerics` (k_steps = 1) replays the armed graph."""
         graph = self._engine_graph(any(g is not None for g in self.gens),
                                    numerics)
-        t0, t0_ns = time.monotonic(), trace_lib.now_ns()
+        # The graph exists (captured above) before any capture begins; the
+        # profiler sees its replayed kernels as ordinary kernel records.
+        kind = ("spec" if k_steps == 1 else "fused_spec") if self.speculate \
+            else ("ragged" if k_steps == 1 else "fused")
+        sampled = self._profile_dispatch_begin()
+        t0_ns = trace_lib.now_ns()
         host = dict(
             bt=self.bt, tok=self.tok, lengths=self.lengths,
             finished=self.finished, recent=self.recent, temp=self.temp,
@@ -2278,26 +2793,28 @@ class ContinuousScheduler:
             toks, n_new, acc, _ = self._harvest_spec(
                 out["tok"], out["lengths"], out["finished"], out["toks"],
                 out["n_new"], out["acc"])
+            dt, dev_us = self._profile_dispatch_end(sampled, kind, t0_ns)
             self._count_drafts(live, proposed, acc, n_new)
-            dt = time.monotonic() - t0
             if k_steps == 1:
                 self._finish_dispatch(
                     "spec", len(live) * (1 + self.speculate), live, toks,
-                    t0_ns, dt, n_new[:, 0],
+                    t0_ns, dt, n_new[:, 0], device_us=dev_us,
                 )
             else:
                 self._finish_megastep("fused_spec", live, toks, k_steps,
-                                      t0_ns, dt, n_new)
+                                      t0_ns, dt, n_new, device_us=dev_us)
             return
         toks, _ = self._harvest_chunk(
             out["tok"], out["lengths"], out["finished"], out["recent"],
             out["toks"])
-        dt = time.monotonic() - t0
+        dt, dev_us = self._profile_dispatch_end(sampled, kind, t0_ns)
         self._record_numerics(out.get("nstats"))
         if k_steps == 1:
-            self._finish_dispatch("ragged", len(live), live, toks, t0_ns, dt)
+            self._finish_dispatch("ragged", len(live), live, toks, t0_ns, dt,
+                                  device_us=dev_us)
         else:
-            self._finish_megastep("fused", live, toks, k_steps, t0_ns, dt)
+            self._finish_megastep("fused", live, toks, k_steps, t0_ns, dt,
+                                  device_us=dev_us)
 
     def _drafts(self, live: list[int]):
         """(drafts [S, k], draft_len [S]) on the device for one

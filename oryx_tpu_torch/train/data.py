@@ -134,7 +134,10 @@ class SupervisedDataset:
     """Lazy conversation dataset over records (or a JSON file of them).
 
     media_loader(record) -> list of raw HWC uint8/float arrays (the images,
-    or the sampled video frames); required as soon as a record has media.
+    or the sampled video frames). Defaults to reading an "image" record's
+    paths through PIL as RGB; video records need an explicit loader.
+    patch_size and video_frames are kept for the reference's signature
+    (it stores them and reads neither).
     """
 
     def __init__(
@@ -143,7 +146,9 @@ class SupervisedDataset:
         tokenizer,
         *,
         template: str = "qwen",
+        patch_size: int = 14,
         max_patches_per_image: int = 4096,
+        video_frames: int = 64,
         media_loader: Callable[[dict[str, Any]], list[np.ndarray]] | None = None,
     ) -> None:
         if isinstance(records, str):
@@ -152,23 +157,33 @@ class SupervisedDataset:
         self.records = list(records)
         self.tokenizer = tokenizer
         self.conv = conv_templates[template]
+        self.patch_size = patch_size
         self.max_patches = max_patches_per_image
-        self.media_loader = media_loader
+        self.video_frames = video_frames
+        self.media_loader = media_loader or self._default_loader
 
     def __len__(self) -> int:
         return len(self.records)
 
+    def _default_loader(self, rec: dict[str, Any]) -> list[np.ndarray]:
+        paths = rec.get("image")
+        if paths is None:
+            raise ValueError(
+                "video records need an explicit media_loader "
+                f"(record id {rec.get('id')})"
+            )
+        if isinstance(paths, str):
+            paths = [paths]
+        from PIL import Image
+
+        return [np.asarray(Image.open(p).convert("RGB")) for p in paths]
+
     def __getitem__(self, i: int) -> Example:
         rec = self.records[i]
         modality = record_modality(rec)
-        images: list[np.ndarray] = []
-        if rec.get("image") is not None or rec.get("video") is not None:
-            if self.media_loader is None:
-                raise ValueError(
-                    f"record {rec.get('id')} has media: SupervisedDataset "
-                    "needs a media_loader"
-                )
-            images = self.media_loader(rec)
+        images = self.media_loader(rec) if (
+            rec.get("image") is not None or rec.get("video") is not None
+        ) else []
         # Video frames share one budget; images each get the full cap.
         per_img_cap = (
             max(1, self.max_patches // max(len(images), 1))

@@ -1,6 +1,5 @@
 """SFT trainer: state, step loop, checkpoint/resume (port of
-`oryx_tpu.train.trainer`, one device: no mesh, no sharding, no telemetry,
-no fault injection).
+`oryx_tpu.train.trainer`, one device: no mesh, no sharding, no telemetry).
 
 `Trainer(cfg, params=..., device=...)` takes ownership of `params` (an
 `OryxModel`; a random init from cfg.train.seed when None): with
@@ -12,6 +11,13 @@ parameters in place. `fit` keeps the JAX loop's order: data -> batch check
 with the `max_consecutive_skipped` abort and a final save. Each step's
 record in `history` carries its model FLOPs (utils/flops.py) and, on a card
 whose peak is known, its MFU over the step's wall.
+
+Fault containment (utils/faults.py sites): a loader exception at
+`data_loader_next` skips to the next batch (`max_data_faults` consecutive
+ones abort), `data_loader_next:corrupt=1` poisons one float field with NaN
+for the non-finite guard to skip, `trainer_crash` ends fit at the top of a
+step (a fresh Trainer resumes from the last checkpoint), and checkpoint
+saves retry (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.train import step as step_lib
 from oryx_tpu_torch.train.data import PrefetchIterator
 from oryx_tpu_torch.train.optimizer import make_optimizer
+from oryx_tpu_torch.utils import faults
 from oryx_tpu_torch.utils import flops as flops_lib
 from oryx_tpu_torch.utils.checkpoint import CheckpointManager
 from oryx_tpu_torch.utils.metrics import MetricLogger
@@ -45,6 +52,22 @@ def validate_train_batch(cfg: OryxConfig, batch: dict) -> None:
             "sample boundaries. Use attn_impl='xla'|'pallas' (sp=1) "
             "or disable text packing (see docs/MIGRATING.md)."
         )
+
+
+def _poison_one_float_leaf(batch: dict) -> dict:
+    """`data_loader_next:corrupt=1`: NaN one element of the first floating
+    field, as a corrupt record would; the non-finite guard should skip the
+    step, not crash the run."""
+    batch = dict(batch)
+    for k, v in batch.items():
+        arr = np.asarray(v)
+        if np.issubdtype(arr.dtype, np.floating) and arr.size:
+            bad = arr.copy()
+            bad.flat[0] = np.nan
+            batch[k] = bad
+            print(f"fault injection: poisoned batch field {k!r}")
+            break
+    return batch
 
 
 def setup_lora(cfg: OryxConfig, params: oryx.OryxModel) -> oryx.OryxModel:
@@ -100,8 +123,13 @@ class Trainer:
         params: oryx.OryxModel | None = None,
         device="cuda",
         metrics_path: str | None = None,
+        max_data_faults: int = 8,
     ) -> None:
         self.cfg = cfg
+        # A transient loader exception skips to the next batch; this many
+        # in a row abort. `data_faults` counts the recoveries.
+        self.max_data_faults = max_data_faults
+        self.data_faults = 0
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(self.device).manual_seed(cfg.train.seed)
@@ -155,6 +183,33 @@ class Trainer:
             )
         return out
 
+    def _next_batch(self, batches: Iterator) -> dict:
+        """The next host batch, skipping a transient loader exception
+        (`max_data_faults` in a row still abort); StopIteration passes
+        through."""
+        consecutive = 0
+        while True:
+            try:
+                corrupt = faults.fault_point("data_loader_next")
+                batch = next(batches)
+                if corrupt:
+                    batch = _poison_one_float_leaf(batch)
+                return batch
+            except StopIteration:
+                raise
+            # fault-boundary: a transient data fault skips this fetch
+            except Exception as e:
+                consecutive += 1
+                self.data_faults += 1
+                print(f"data loader fault ({consecutive}/"
+                      f"{self.max_data_faults} consecutive): "
+                      f"{type(e).__name__}: {e}; skipping to next batch")
+                if consecutive >= self.max_data_faults:
+                    raise RuntimeError(
+                        f"{consecutive} consecutive data-loader failures "
+                        "- aborting (see Trainer max_data_faults)"
+                    ) from e
+
     def _save(self, step: int, *, force: bool = False) -> None:
         self.ckpt.save(step, self.state, self.tx.trainable(), force=force)
 
@@ -176,9 +231,12 @@ class Trainer:
         consecutive_skipped = 0
         try:
             for step_i in range(start, num_steps):
+                # Fault site: a process death mid-run; nothing contains it
+                # (a fresh Trainer resumes from the last checkpoint).
+                faults.fault_point("trainer_crash")
                 t0 = time.perf_counter()
                 try:
-                    host_batch = next(batches)
+                    host_batch = self._next_batch(batches)
                 except StopIteration:
                     print("data exhausted; stopping")
                     break

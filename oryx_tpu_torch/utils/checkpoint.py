@@ -8,22 +8,43 @@ continues bit for bit. Frozen parameters never change during training, so
 they are not written: a resume rebuilds them from the weights the run
 started from (the Trainer's `params`), which at full width spares writing
 the frozen ~16 GB of a projector-only run at every save.
+
+Saves retry transient failures under a bounded backoff policy
+(utils/retry.py), and the fault sites `checkpoint_save` (before each
+attempt) and `checkpoint_restore` sit where the reference plants them.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import time
+from typing import Callable
 
 import torch
 
+from oryx_tpu_torch.utils import faults
+from oryx_tpu_torch.utils.retry import BackoffPolicy, retry_call
+
 _NAME = re.compile(r"^step_(\d+)\.pt$")
-MAX_TO_KEEP = 3  # the newest checkpoints kept (the JAX manager's default)
 
 
 class CheckpointManager:
-    def __init__(self, directory: str) -> None:
+    """step_<N>.pt files under `directory`, the newest `max_to_keep` kept.
+    save_retry: the backoff policy of a failed save (default 3 retries,
+    0.5 s doubling to at most 10 s); `save_retries` counts the recoveries.
+    `sleep` is injectable so tests pin the schedule without waiting."""
+
+    def __init__(self, directory: str, *, max_to_keep: int = 3,
+                 save_retry: BackoffPolicy | None = None,
+                 sleep: Callable[[float], None] = time.sleep) -> None:
         self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self._save_retry = save_retry or BackoffPolicy(
+            retries=3, base_s=0.5, factor=2.0, max_s=10.0
+        )
+        self._sleep = sleep
+        self.save_retries = 0
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}.pt")
@@ -43,22 +64,37 @@ class CheckpointManager:
     def save(self, step: int, state, trainable: list[str], *,
              force: bool = False) -> bool:
         """Write the state at `step` (atomically: a temp file, then a
-        rename). `trainable` names the parameters to keep. Returns False
-        when a checkpoint of this step exists and not `force`."""
+        rename), retrying transient failures per `save_retry`; the fault
+        site `checkpoint_save` fires before each attempt. `trainable` names
+        the parameters to keep. Returns False when a checkpoint of this
+        step exists and not `force`."""
         path = self._path(step)
         if os.path.exists(path) and not force:
             return False
-        os.makedirs(self.directory, exist_ok=True)
         params = dict(state.params.named_parameters())
         blob = {
             "step": state.step,
             "params": {n: params[n].detach().cpu() for n in trainable},
             "opt_state": _to_cpu(state.opt_state),
         }
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(blob, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-MAX_TO_KEEP]:
+
+        def attempt() -> bool:
+            faults.fault_point("checkpoint_save")
+            os.makedirs(self.directory, exist_ok=True)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(blob, tmp)
+            os.replace(tmp, path)
+            return True
+
+        def count(_attempt, _exc, _delay) -> None:
+            self.save_retries += 1
+
+        retry_call(
+            attempt, policy=self._save_retry, retry_on=(Exception,),
+            sleep=self._sleep, on_retry=count,
+            describe=f"checkpoint save (step {step})",
+        )
+        for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
         return True
 
@@ -68,6 +104,7 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        faults.fault_point("checkpoint_restore")
         blob = torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
         params = dict(state.params.named_parameters())

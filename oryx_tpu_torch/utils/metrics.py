@@ -503,6 +503,66 @@ OOM_EVENT_KEYS = (
     "forensic_index",        # index of the full record in /debug/oom
 )
 
+# The decision-journal entry schema (serve/journal.py): every field a
+# journal entry may carry, across all entry kinds (`kind` dispatches —
+# submit / reject / admit / splice / evict / step / degraded / fault /
+# restart / finish). One flat registry, like REQUEST_EVENT_KEYS, so
+# build_journal_event validates at the write site; the replay
+# (serve/replay.py) depends on these names never drifting from what the
+# journal wrote.
+JOURNAL_EVENT_KEYS = (
+    "schema", "ts_unix_s",
+    "kind",                 # the entry's decision kind (see above)
+    "seq",                  # monotone per-journal entry index
+    "step",                 # engine dispatches completed when recorded
+    "request_id",
+    # -- submit / reject -------------------------------------------------
+    "arrival_seq",          # monotone per-journal submit index
+    "prompt",               # text-only request payload (question,
+                            # history) — replayable
+    "prompt_sha256",        # fingerprint when the payload has media
+                            # (sidecar needed; not replayable)
+    "prompt_len",           # prompt tokens (stamped at admit)
+    "sampling",             # the request's sampling dict, post-clamp
+    "max_new",              # effective cap (degraded clamp applied)
+    "streaming",
+    "reason",               # reject: admission-control reason
+    # -- admit / splice / evict ------------------------------------------
+    "slot",
+    "admit_seq",            # eviction-age order stamp
+    "replay_tokens",        # tokens skipped on re-admission / eviction
+    "spliced_tokens",       # prefix-cache splice length
+    "shared_pages",         # pages shared from the cache
+    "cow_pages",            # copy-on-write tail copies
+    "host_reload_pages",    # host-tier pages re-uploaded for the splice
+    "victim_request_id",    # evict: whose pages were taken
+    # -- step -------------------------------------------------------------
+    "dispatch",             # prefill | decode | ragged | spec | fused
+                            # | fused_spec
+    "rows",
+    "live_slots",
+    "accepted_tokens",
+    "free_pages",
+    "fused_k",              # megastep: logical steps in this dispatch
+    "fused_j",              # megastep: this entry's index within it
+                            # (0..fused_k-1; absent on K=1 dispatches)
+    # -- degraded / fault / restart ---------------------------------------
+    "mode",                 # degraded-mode ladder level
+    "site",                 # fault-point site name
+    "fires",                # cumulative firings at that site
+    "restarts",             # supervisor restart count
+    "requeued",             # in-flight requests requeued by the restart
+    # -- finish -----------------------------------------------------------
+    "status",               # ok | error | cancelled
+    "finish_reason",
+    "error_kind",
+    "completion_tokens",
+    "reply_sha256",         # reply TEXT bytes fingerprint
+    "tokens_sha256",        # emitted token-id stream fingerprint
+    "cost",                 # the deterministic cost-ledger subset
+)
+
+
 
 # ---------------------------------------------------------------------------
 # Quantile helpers (one implementation of the bucket math)

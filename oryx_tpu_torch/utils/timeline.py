@@ -5,9 +5,10 @@ The metrics answer "how is the engine doing on average" and the tracer
 "why was THIS request slow"; the timeline answers "what was the engine
 doing, step by step": one fixed-shape record per device dispatch (step
 wall time, dispatch kind, packed rows, live slots, accepted tokens, queue
-depth, free pages, degraded mode), kept in a bounded ring, served at
-``GET /debug/timeline?n=`` (serve/api_server.py) and snapshotted into
-scripts/loadgen.py's stage reports.
+depth, free pages, degraded mode, the device time of a sampled step),
+kept in a bounded ring, served at ``GET /debug/timeline?n=``
+(serve/api_server.py) and snapshotted into scripts/loadgen.py's stage
+reports.
 
 Concurrency: the ring has one writer (the engine thread, from the
 scheduler's dispatch accounting) and no lock. A record is an immutable
@@ -37,8 +38,8 @@ STEP_RECORD_KEYS = (
     "queue_depth",      # admission queue depth at the step
     "free_pages",       # allocator free pages at the step
     "degraded_mode",    # degraded-ladder level at the step
-    "device_us",        # device busy time of a profiled step; null (the
-                        # port has no device-time sampler yet)
+    "device_us",        # device busy time of a sampled step (within its
+                        # dur_s, one clock); null when not sampled
 )
 
 

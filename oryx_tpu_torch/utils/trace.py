@@ -356,6 +356,41 @@ def event(name: str, **args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Post-hoc span <-> device-time join helpers
+# ---------------------------------------------------------------------------
+
+
+def windows_from_traces(
+    traces: Iterable[dict[str, Any]], span_name: str = "decode_chunk"
+) -> list[tuple[str, int, int]]:
+    """Flight-recorder JSONL/`to_dict` records -> (label, start_ns, end_ns)
+    windows for `span_name` spans, the input shape
+    utils/xplane.attribute_device_time expects. Labels are
+    ``<trace-id>:<span-name>[<ordinal>]``."""
+    windows: list[tuple[str, int, int]] = []
+    for rec in traces:
+        n = 0
+        for s in rec.get("spans", []):
+            if s.get("name") != span_name or s.get("dur_ns") is None:
+                continue
+            windows.append((
+                f"{rec.get('id', '?')}:{span_name}[{n}]",
+                int(s["start_ns"]),
+                int(s["start_ns"]) + int(s["dur_ns"]),
+            ))
+            n += 1
+    return windows
+
+
+def windows_from_jsonl(
+    path: str, span_name: str = "decode_chunk"
+) -> list[tuple[str, int, int]]:
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return windows_from_traces(recs, span_name)
+
+
+# ---------------------------------------------------------------------------
 # Stall watchdog
 # ---------------------------------------------------------------------------
 

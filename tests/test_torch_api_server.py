@@ -56,9 +56,6 @@ ENGINES = {
                    decode_chunk=4, max_ctx=512, ragged=True,
                    prefill_chunk=32),
 }
-# The JAX server's families whose module the port has not yet: device-time
-# profiling (ROADMAP Queue 1 item 3).
-CUT_FAMILY = re.compile(r"^oryx_(device_time|profile)_")
 DEBUG_PATHS = ("/debug/timeline?n=0", "/debug/pages?format=summary",
                "/debug/pages", "/debug/oom", "/debug/audit")
 
@@ -225,9 +222,10 @@ def test_replies_usage_sse_and_codes_equal_jax(served, engine):
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_metrics_families_and_counters_equal_jax(served, engine):
     (_, jtext, *_), (_, text, *_), _ = served[engine]
-    want = {k: v for k, v in _families(jtext).items()
-            if not CUT_FAMILY.search(k)}
-    assert _families(text) == want
+    # Exactly the JAX server's families, the device-time ones included.
+    assert _families(text) == _families(jtext)
+    if engine != "window":
+        assert "oryx_device_time_seconds_total" in _families(text)
     if engine == "window":
         names = ("completed", "decode_steps_total", "decode_steps_useful")
     else:
@@ -451,7 +449,7 @@ def test_endpoint_checks_on_the_port(pipes):
         assert hdr["Content-Type"] == "text/plain; version=0.0.4"
         prefixes = ("oryx_serving_", "oryx_anomaly_", "oryx_pool_",
                     "oryx_page_", "oryx_audit_", "oryx_numerics_",
-                    "oryx_cache_")
+                    "oryx_cache_", "oryx_device_time_", "oryx_profile_")
         assert [ln for ln in text.splitlines()
                 if ln and not ln.startswith("#")
                 and not ln.startswith(prefixes)] == []
@@ -512,9 +510,6 @@ def test_endpoint_checks_on_the_port(pipes):
         assert {"queue_wait", "prefill", "decode_chunk"} <= names
         assert s.get("/debug/trace")[0] == 400
         assert s.get("/debug/trace?id=nope")[0] == 404
-        # The JAX server's endpoints whose modules are not ported yet.
-        for path in ("/debug/journal", "/debug/profile"):
-            assert s.get(path)[0] == 404, path
     finally:
         s.close()
 
@@ -569,16 +564,123 @@ def test_http_backpressure_deadline_and_drain_as_jax(pipes):
     assert out[1][3][1] == out[1][3][3] == 503
 
 
-@pytest.mark.parametrize("option,value", [
-    ("journal_path", "/nonexistent/journal.jsonl"),
-    ("faults_spec", "engine_crash:after=1"),
-    ("profile_sample_every", 8), ("ttft_slo", 1.0), ("queue_depth_slo", 4),
+def _profile_body(s):
+    """GET /debug/profile while three requests run: (status, body)."""
+    got = {}
+    th = threading.Thread(target=lambda: got.update(
+        r=s.get("/debug/profile?steps=2&timeout=60", timeout=120)))
+    th.start()
+    time.sleep(0.2)
+    for i in range(3):
+        s.post({"messages": _user(f"profile me {i}"), "max_tokens": 6})
+    th.join(timeout=120)
+    code, _, text = got["r"]
+    return code, json.loads(text)
+
+
+def test_journal_and_profile_endpoints_equal_jax(pipes, tmp_path):
+    """/debug/journal (disarmed and armed) and /debug/profile answer with
+    the JAX server's bodies: the same keys and defaults, the same 400s for
+    bad queries, 503 with Retry-After on an idle engine, the same 400 on
+    the window engine; a capture over live traffic returns the Chrome
+    trace and the per-kind attribution."""
+    jp, tp = pipes
+    out = []
+    for api, pipe, tag in ((japi, jp, "j"), (tapi, tp, "t")):
+        res = {}
+        s = Server(api.build_server(pipe, port=0, **ENGINES["ragged"]))
+        try:
+            res["disarmed"] = json.loads(s.get("/debug/journal")[2])
+            for q in ("steps=0", "steps=257", "steps=x", "timeout=x"):
+                code, _, text = s.get(f"/debug/profile?{q}")
+                res[q] = (code, json.loads(text))
+            code, hdr, text = s.get("/debug/profile?steps=1&timeout=0.1")
+            res["idle"] = (code, hdr.get("Retry-After"),
+                           json.loads(text)["error"].split(" (")[0])
+            code, body = _profile_body(s)
+            res["capture"] = (code, sorted(body), body["steps"],
+                              body["engine"], body["truncated"],
+                              set(body["device_time_us"]) <= {"ragged"},
+                              body["source"])
+            assert any(e["ph"] == "X" for e in body["traceEvents"])
+        finally:
+            s.close()
+        path = str(tmp_path / f"{tag}.jsonl")
+        s = Server(api.build_server(pipe, port=0, journal_path=path,
+                                    **ENGINES["ragged"]))
+        try:
+            s.post({"messages": _user("journal me"), "max_tokens": 4})
+            body = json.loads(s.get("/debug/journal?n=2")[2])
+            res["armed"] = (sorted(body), body["armed"], body["path"] == path,
+                            len(body["entries"]), body["counts_by_kind"],
+                            sorted(body["header"]["config"]),
+                            body["header"]["config"]["model"])
+            res["bad_n"] = s.get("/debug/journal?n=-1")[0]
+        finally:
+            s.close()
+            s.srv.journal.close()
+        s = Server(api.build_server(pipe, port=0, engine="window"))
+        try:
+            res["window"] = [(c, json.loads(t)) for c, _, t in (
+                s.get("/debug/journal"), s.get("/debug/profile"))]
+        finally:
+            s.close()
+        out.append(res)
+    assert out[1] == out[0]
+    assert out[1]["disarmed"]["armed"] is False
+    assert out[1]["idle"][:2] == (503, "1")
+    assert out[1]["capture"][0] == 200 and out[1]["capture"][2] == 2
+    assert out[1]["steps=0"][0] == out[1]["timeout=x"][0] == 400
+
+
+@pytest.mark.parametrize("option,value,reads,window_refuses", [
+    ("journal_path", "journal.jsonl",
+     lambda srv: (os.path.basename(srv.scheduler.journal.path),
+                  srv.journal is srv.scheduler.journal,
+                  srv.scheduler.journal.header["config"]["model"]), True),
+    ("faults_spec", "engine_crash:after=100",
+     lambda srv: "# TYPE oryx_faults_injected_total counter"
+     in srv.metrics.render(), False),
+    ("profile_sample_every", 8, lambda srv: srv.scheduler.profiler.every,
+     True),
+    ("ttft_slo", 1.0, lambda srv: srv.anomaly.thresholds.ttft_slo_s, True),
+    ("queue_depth_slo", 4,
+     lambda srv: srv.anomaly.thresholds.queue_depth_slo, True),
 ])
-def test_options_not_ported_raise(pipes, option, value):
-    _, tp = pipes
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tapi.build_server(tp, port=0, engine="continuous",
-                          **{option: value})
+def test_formerly_cut_options_reach_their_modules(pipes, tmp_path, option,
+                                                  value, reads,
+                                                  window_refuses):
+    """Each option build_server used to refuse reaches its module as the
+    JAX server wires it (the journal and its header, the fault registry
+    bound to /metrics, the sampler's cadence, the SLO detectors behind the
+    degraded ladder), and the window engine refuses it where JAX's
+    does."""
+    from oryx_tpu.utils import faults as jfaults
+    from oryx_tpu_torch.utils import faults as tfaults
+
+    jp, tp = pipes
+    if option == "journal_path":
+        value = str(tmp_path / value)
+    got = []
+    for api, pipe, fmod in ((japi, jp, jfaults), (tapi, tp, tfaults)):
+        srv = api.build_server(pipe, port=0, engine="continuous",
+                               **{option: value})
+        try:
+            got.append(reads(srv))
+        finally:
+            srv.scheduler.close()
+            if srv.supervisor is not None:
+                srv.supervisor.stop()
+            if getattr(srv, "journal", None) is not None:
+                srv.journal.close()
+            srv.server_close()
+            fmod.reset()
+        if window_refuses:
+            with pytest.raises(ValueError, match="scheduler engine"):
+                api.build_server(pipe, port=0, engine="window",
+                                 **{option: value})
+    assert got[1] == got[0]
+    assert got[1] not in (None, False, 0)
 
 
 def test_main_refuses_shard_and_needs_a_card_for_cuda(monkeypatch):

@@ -159,17 +159,49 @@ def test_drift_fail_tolerances_from_the_ports_roundtrip():
     assert audit.drift_fail_tolerances("bf16") == \
         jaudit.drift_fail_tolerances("bf16") == (1e-2, 1e-3)
     got = audit.drift_fail_tolerances("int8")
-    probe = np.random.default_rng(0).standard_normal((256, 128))
+    probe = audit.jax_normal(0, (256, 4, 32)).reshape(256, 128)
     rel = quant.roundtrip_error_stats(
-        torch.from_numpy(probe.astype(np.float32)), axis=-1,
-        fmt="int8")["rel_rms_err"]
+        torch.from_numpy(probe), axis=-1, fmt="int8")["rel_rms_err"]
     assert got == (pytest.approx(64.0 * rel), pytest.approx(8.0 * rel))
     assert 0 < got[1] < got[0] < 1.0
-    # The JAX package draws its probe from jax.random: the same statistic
-    # of another unit-normal sample.
-    want = jaudit.drift_fail_tolerances("int8")
-    assert got[0] == pytest.approx(want[0], rel=0.15)
-    assert got[1] == pytest.approx(want[1], rel=0.15)
+    # The probe is the JAX package's jax.random draw, so the boundary is
+    # its value to fp32 rounding.
+    for fmt in ("int8", "fp8_e4m3"):
+        got = audit.drift_fail_tolerances(fmt)
+        want = jaudit.drift_fail_tolerances(fmt)
+        assert got[0] == pytest.approx(want[0], rel=1e-6), fmt
+        assert got[1] == pytest.approx(want[1], rel=1e-6), fmt
+
+
+@pytest.mark.parametrize("seed,shape", [
+    (0, (256, 4, 32)), (1, (7, 5)), (123, (3,)), (7, (2, 3, 4)),
+])
+def test_jax_normal_is_jax_random_normal(seed, shape):
+    """The probe without jax: threefry2x32 bits and the uniforms they make
+    are jax.random's bit for bit; the normals (its erfinv polynomial in
+    float32) within 3 ulp."""
+    import jax
+
+    assert (audit.threefry2x32(0, 0, np.zeros(1, np.uint32),
+                               np.zeros(1, np.uint32))[0].dtype
+            == np.uint32)
+    want = np.asarray(jax.random.normal(jax.random.key(seed), shape))
+    got = audit.jax_normal(seed, shape)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    ulp = np.abs(got.view(np.int32).astype(np.int64)
+                 - want.view(np.int32).astype(np.int64))
+    assert ulp.max() <= 3
+    # The bits behind them, through jax.random.bits (bits1 ^ bits2 of the
+    # flat index under the partitionable Threefry).
+    n = int(np.prod(shape))
+    idx = np.arange(n, dtype=np.uint64)
+    b0, b1 = audit.threefry2x32(
+        (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF,
+        (idx >> np.uint64(32)).astype(np.uint32),
+        (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    assert np.array_equal((b0 ^ b1).reshape(shape),
+                          np.asarray(jax.random.bits(jax.random.key(seed),
+                                                     shape)))
 
 
 def test_audit_decode_step_is_the_engines_step(pipes):

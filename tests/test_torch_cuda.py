@@ -844,6 +844,159 @@ def test_tiny_audited_engine_on_card(card, ragged, kv_dtype):
     assert twin in {key[0] for key in pa.LAUNCHES}
 
 
+def _tiny_bf16_pipe(card):
+    import dataclasses
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.serve.replay import CharTokenizer
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas",
+                              dtype="bfloat16")
+    params = oryx.init_params(cfg, torch.Generator(card).manual_seed(0),
+                              device=card, dtype=torch.bfloat16)
+    return Pipeline(CharTokenizer(), params, cfg, device=card)
+
+
+def test_sampled_device_time_counts_k4_on_card(card, monkeypatch):
+    """profile_sample_every=1 on a tiny bf16 ragged engine: every dispatch
+    is captured (CUPTI through torch.profiler); each sampled record's
+    device_us is positive and within its window, and the captures' K4
+    kernels (paged_split) equal the K4 wrapper's launches inside the
+    captured windows; replies equal the unsampled engine's, no capture
+    error."""
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+    from oryx_tpu_torch.utils import xplane
+
+    def k4() -> int:
+        return sum(n for key, n in pa.LAUNCHES.items()
+                   if key[0] == "ragged_paged")
+
+    kernels, launched = [], []
+    planes_of = xplane.planes_from_kineto
+
+    def counting(events):
+        planes = planes_of(events)
+        kernels.append(sum(
+            1 for p in planes if p.name.startswith("/device:GPU")
+            for ln in p.lines for e in ln.events if "paged_split" in e.name))
+        return planes
+
+    pipe = _tiny_bf16_pipe(card)
+    reqs = [("hi there", 9), ("what now?", 4), ("tell me more", 7)]
+    out = []
+    for every in (0, 1):
+        sched = ContinuousScheduler(
+            pipe, autostart=False, num_slots=2, page_size=16, chunk=4,
+            max_ctx=256, ragged=True, prefill_chunk=32,
+            profile_sample_every=every)
+        if every:
+            monkeypatch.setattr(xplane, "planes_from_kineto", counting)
+            begin, end = sched.profiler.begin, sched.profiler.end
+            mark = []
+
+            def begin_marked():
+                mark.append(k4())
+                return begin()
+
+            def end_marked(kind, t0, t1):
+                launched.append(k4() - mark.pop())
+                return end(kind, t0, t1)
+
+            monkeypatch.setattr(sched.profiler, "begin", begin_marked)
+            monkeypatch.setattr(sched.profiler, "end", end_marked)
+        handles = [sched.submit({"question": q}, n) for q, n in reqs]
+        sched.start()
+        out.append([h.result(timeout=300) for h in handles])
+        sched.close()
+    assert out[1] == out[0]
+    recs = sched.timeline.snapshot()
+    assert recs and all(r["device_us"] is not None for r in recs)
+    assert all(0 < r["device_us"] <= round(r["dur_s"] * 1e6) for r in recs)
+    assert kernels == launched and sum(launched) > 0
+    errs = sched.metrics.registry.existing(
+        "oryx_profile_capture_errors_total", raw_name=True)
+    assert errs is None or not any(
+        c.value for c in errs.children().values())
+
+
+def test_armed_unfired_faults_leave_graph_replies_equal(card):
+    """Every fault site armed on a schedule that never fires: the ragged
+    engine's pure-decode dispatches still replay their CUDA graphs (a
+    fault point runs on the host before a replay, never inside one), and
+    replies, usage and dispatch counts equal the unarmed engine's."""
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+    from oryx_tpu_torch.utils import faults
+
+    pipe = _tiny_bf16_pipe(card)
+    reqs = [("hi there", 9), ("what now?", 4), ("tell me more", 7)]
+    sites = ("engine_crash", "prefill_dispatch", "decode_dispatch",
+             "page_alloc_oom", "host_spill_upload")
+    out = []
+    try:
+        for spec in (None, ";".join(f"{s}:after=1000000" for s in sites)):
+            faults.configure(spec)
+            sched = ContinuousScheduler(
+                pipe, autostart=False, num_slots=2, page_size=16, chunk=4,
+                max_ctx=256, ragged=True, prefill_chunk=32)
+            handles = [sched.submit({"question": q}, n) for q, n in reqs]
+            sched.start()
+            out.append(([h.result(timeout=300) for h in handles],
+                        sched.metrics.by_label("dispatches_total"),
+                        sched.engine_stats["graph_captures_total"]))
+            sched.close()
+            if spec:
+                assert faults.injected_count() == 0
+    finally:
+        faults.reset()
+    assert out[1] == out[0]
+    assert out[1][2] >= 1  # the graph route ran
+
+
+def test_journal_replays_on_card(card, tmp_path):
+    """A journal captured from a tiny bf16 ragged engine on the card (a
+    crash and supervised restart included) replays cold through
+    serve/replay.run_replay on the card with no divergence."""
+    from oryx_tpu_torch.serve import journal as journal_lib
+    from oryx_tpu_torch.serve import replay
+    from oryx_tpu_torch.serve.api_server import EngineSupervisor
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+    from oryx_tpu_torch.utils import faults
+
+    pipe = _tiny_bf16_pipe(card)
+    path = str(tmp_path / "journal.jsonl")
+    j = journal_lib.DecisionJournal(path)
+    j.stamp_header(faults_spec="engine_crash:after=3")
+    faults.configure("engine_crash:after=3")
+    try:
+        sched = ContinuousScheduler(
+            pipe, autostart=False, journal=j, num_slots=2, page_size=16,
+            chunk=4, max_ctx=256, ragged=True, prefill_chunk=32)
+        handles = [sched.submit({"question": q}, n, request_id=f"c{i}")
+                   for i, (q, n) in enumerate(
+                       [("hi there", 9), ("what now?", 4),
+                        ("tell me more", 7)])]
+        sched.start()
+        sup = EngineSupervisor(sched, poll_s=0.05)
+        sup.start()
+        for h in handles:
+            h.result(timeout=300)
+        sup.stop()
+        sched.close()
+    finally:
+        j.close()
+        faults.reset()
+    header, entries = journal_lib.read_journal(path)
+    assert {"fault", "restart"} <= {e["kind"] for e in entries}
+    res = replay.run_replay(header, entries, pipe=pipe, timeout_s=300)
+    assert replay.first_divergence(entries, res["entries"]) is None
+    matched, total, _ = replay.reply_match(entries, res["entries"])
+    assert matched == total == 3
+    assert not (res["feed_errors"] or res["timed_out"] or res["gave_up"])
+
+
 # ---- backward: K1 with lse, K5a, K5b ----------------------------------------
 
 BWD_TOLS = {torch.bfloat16: 2e-2, torch.float32: 1e-4}

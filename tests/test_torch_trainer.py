@@ -192,6 +192,54 @@ def test_collated_arrays_byte_equal():
         assert jm[k].dtype == tm[k].dtype and jm[k].tobytes() == tm[k].tobytes()
 
 
+def test_default_media_loader_equals_jax(tmp_path):
+    """Without a media_loader both datasets read an image record's PNG
+    through PIL as RGB (a grey and an RGBA file included) and give the same
+    example; a video record is refused with the reference's message."""
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    paths = []
+    for i, mode in enumerate(("RGB", "L", "RGBA")):
+        shape = (28, 42) + ((3,) if mode == "RGB" else
+                            (4,) if mode == "RGBA" else ())
+        p = tmp_path / f"img{i}.png"
+        Image.fromarray(rng.integers(0, 256, shape, np.uint8), mode).save(p)
+        paths.append(str(p))
+    recs = [
+        {"id": "one", "image": paths[0], "conversations": [
+            {"from": "human", "value": "<image>\nDescribe it."},
+            {"from": "gpt", "value": "A picture."}]},
+        {"id": "two", "image": paths[1:], "conversations": [
+            {"from": "human", "value": "<image>\n<image>\nCompare."},
+            {"from": "gpt", "value": "Two."}]},
+        {"id": "vid", "video": "clip.mp4", "conversations": [
+            {"from": "human", "value": "<image>\nWhat happens?"},
+            {"from": "gpt", "value": "Boats."}]},
+    ]
+    from torch_train_common import ByteTok
+
+    jds = jdata.SupervisedDataset(recs, ByteTok(), template="plain")
+    tds = tdata.SupervisedDataset(recs, ByteTok(), template="plain",
+                                  patch_size=14, video_frames=8)
+    assert tds.patch_size == 14 and tds.video_frames == 8
+    for i in range(2):
+        a, b = jds[i], tds[i]
+        assert len(a.images) == len(b.images) == i + 1
+        for x, y in zip(a.images, b.images):
+            assert x.shape[-1] == 3 and x.dtype == y.dtype
+            assert np.array_equal(x, y)
+        assert np.array_equal(a.input_ids, b.input_ids)
+        assert np.array_equal(a.labels, b.labels)
+        assert (a.modality, a.max_patches) == (b.modality, b.max_patches)
+    msgs = []
+    for ds in (jds, tds):
+        with pytest.raises(ValueError) as ei:
+            ds[2]
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1] and "explicit media_loader" in msgs[1]
+
+
 # ---- (g) Trainer ------------------------------------------------------------
 
 
