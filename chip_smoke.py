@@ -175,10 +175,10 @@ Phases (any failure exits non-zero):
      buffers), the byte tokenizer, the plain template, batch 4, 4 steps
      (global batch 256 -> 4, steps 2000 -> 4). Losses finite, frozen leaves
      bitwise unchanged, compressor changed, K1-lse/K5a/K5b launched at
-     every phase-9 shape, and a second fit from the same init gives the
-     same losses. Per step: wall, tokens/s, fwd+bwd vs optimizer device
-     time, peak memory; then one step under torch.profiler and K5a +
-     K5b's share of it.
+     every phase-9 shape, and a second fit from the same init, through
+     the training CLI (phase 22 (b)), gives the same losses. Per step:
+     wall, tokens/s, fwd+bwd vs optimizer device time, peak memory; then
+     one step under torch.profiler and K5a + K5b's share of it.
  11. The tiny fp32 config, tune full, 3 steps of Trainer.fit on the card
      (kernels) and on the CPU (plain twins): losses and params agree.
 
@@ -279,7 +279,36 @@ Phases (any failure exits non-zero):
      Retry-After; one
      degraded_escalation forensic an escalation, journaled `degraded`
      entries, back to 0 after quiet cooldowns, the pool invariant intact.
+ 22. The offline entry points. (a) (Runs after 21, on phase 2's bf16
+     Pipeline.) The eval harness, `eval/harness.evaluate` through the
+     native adapter over the committed smoke benchmark
+     (assets/smoke_eval/task.jsonl: 4 PNG images, 4 videos as directories
+     of 4 frames), EVAL_FRAMES frames, EVAL_NEW new tokens, batches of
+     EVAL_BATCH, in generate and in loglikelihood mode, each twice: the two
+     calls' records identical, every record with a reply (a letter in
+     loglikelihood mode), the generate replies byte-equal to `chat_batch`
+     of the same requests in the harness's own grouping. Accuracy (random
+     weights: no meaning), seconds, pad_waste, the parsed letters and K1's
+     launches by call shape printed. (b) (Inside phase 10.) Phase 10's
+     second fit is `train/cli.main`: phase 10's records written as JSON
+     with lossless PNGs (a video a directory of its 8 frames), the
+     pretraining config at batch 4, 4 steps, a checkpoint and a log record
+     every step and a fresh checkpoint dir (removed after), the plain
+     template, --video-frames 8, --metrics-path, --metrics-port 0,
+     --events-path, --numerics-every 2; the tokenizer and the start
+     weights through the seams `builder.load_tokenizer` (ByteTokenizer)
+     and `cli.load_params` (phase 10's start state). /metrics, /healthz
+     and /readyz scraped from a thread during the loop and again after:
+     the JSONL losses and grad norms bit-identical to fit 1's;
+     oryx_train_steps_total 4, oryx_numerics_samples_total 2, 28 finite
+     oryx_numerics_grad_layer_absmax{layer=} series; oryx_train_mfu in
+     (0, 1) and equal to model_flops_per_sec over the card's peak; /readyz
+     200 during the loop and 503 after; 4 train_step traces in the flight
+     recorder, each with the spans data, h2d, step_dispatch, device_sync,
+     checkpoint_save; K1-lse, K5a and K5b launched as often as in fit 1.
+     The JSONL records and any anomaly events printed.
 
+`python3 chip_smoke.py --help` prints this text.
 Every phase ends with a `phase N wall X s` line. The line before the last
 is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1300,6 +1329,19 @@ HTTP_SERVE = dict(num_slots=4, page_size=64, decode_chunk=8, max_ctx=4096,
                   ragged=True, prefill_chunk=PREFILL_CHUNK)
 
 
+def http_get(url: str) -> tuple[int, str]:
+    """(status, body) of a GET; an HTTP error status is a result."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.read().decode()
+
+
 def encode_png(img: np.ndarray, filter_type: int | None = None) -> bytes:
     """HW or HWC uint8 (gray, gray + alpha, RGB or RGBA) -> 8-bit PNG bytes.
     `filter_type` 0-4 puts that filter on every scanline; None picks each
@@ -1432,15 +1474,7 @@ class HttpServer:
             return r.status, dict(r.headers), out
 
     def get(self, path):
-        import urllib.error
-        import urllib.request
-
-        try:
-            with urllib.request.urlopen(self.base + path, timeout=60) as r:
-                return r.status, r.read().decode()
-        except urllib.error.HTTPError as e:
-            with e:
-                return e.code, e.read().decode()
+        return http_get(self.base + path)
 
     def close(self):
         if self.srv.scheduler is not None:
@@ -3427,14 +3461,17 @@ def train_media(rec):
 
 
 def train_config():
-    """oryx_7b_pretrain.json with its checkpoints inside the checkout
+    """oryx_7b_pretrain.json at TRAIN_BATCH records a batch and TRAIN_STEPS
+    steps (its LR schedule over those steps, as the training CLI reads the
+    same file in phase 22 (b)), with its checkpoints inside the checkout
     (listed in .gitignore, removed after the phase)."""
     from oryx_tpu_torch import config
 
     with open(TRAIN_CONFIG) as f:
         cfg = config.OryxConfig.from_json(f.read())
     return dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, checkpoint_dir=TRAIN_CKPT,
+        cfg.train, global_batch_size=TRAIN_BATCH,
+        num_train_steps=TRAIN_STEPS, checkpoint_dir=TRAIN_CKPT,
     ))
 
 
@@ -3738,26 +3775,27 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
           f"({sum(x.numel() for x in snap.values()) / 1e9:.2f} B params) in "
           f"{time.perf_counter() - t0:.1f} s; {len(comp)} compressor leaves "
           f"train ({sum(x.numel() for x in init.values()) / 1e6:.1f} M)")
-    fits = []
-    for run in range(2):
-        if run:
-            with torch.no_grad():
-                for n, p in params.named_parameters():
-                    if n in init:
-                        p.copy_(init[n])
-        print(f"  fit {run + 1}:")
-        trainer, launches, wall = fit_once(cfg_t, params)
-        losses = [h["loss"] for h in trainer.history]
-        print(f"  fit {run + 1}: wall {wall:.2f} s, losses {losses}, "
-              f"grad norms {[h['grad_norm'] for h in trainer.history]}")
-        if not all(np.isfinite(losses)):
-            raise SystemExit("non-finite training loss")
-        fits.append((trainer, launches, losses))
-    trainer, launches, _ = fits[0]
-    if fits[1][2] != fits[0][2]:
-        raise SystemExit(f"a second fit from the same init gave other "
-                         f"losses: {fits[1][2]} vs {fits[0][2]}")
-    print("  the second fit from the same init gave identical losses")
+    print("  fit 1:")
+    trainer, launches, wall = fit_once(cfg_t, params)
+    losses = [h["loss"] for h in trainer.history]
+    print(f"  fit 1: wall {wall:.2f} s, losses {losses}, grad norms "
+          f"{[h['grad_norm'] for h in trainer.history]}")
+    if not all(np.isfinite(losses)):
+        raise SystemExit("non-finite training loss")
+    # Fit 2 from the same init is the training CLI (phase 22 (b)): the same
+    # records through its JSON and PNG files, with the telemetry, the flight
+    # recorder and the numerics probes armed; it must give fit 1's bits.
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            if n in init:
+                p.copy_(init[n])
+    phase_begin("22 (b)")
+    print(f"phase 22 (b): fit 2 of phase 10 through the training CLI "
+          f"(train/cli.main), --metrics-port 0, --events-path, "
+          f"--numerics-every 2, a checkpoint every step ({card})",
+          flush=True)
+    t2 = cli_fit(params, trainer.history, launches, card)
+    phase_begin("10 (continued)")
     cur = dict(params.named_parameters())
     changed = [n for n in comp if not torch.equal(cur[n].float(), init[n])]
     if not changed:
@@ -3778,7 +3816,6 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
     print("  launches in the fit, all shapes: " + ", ".join(
         f"{k} {sum(v.values())}" for k, v in launches.items()))
     print("  one more step (the image batch) under torch.profiler:")
-    t2 = fits[1][0]
     batch = t2._device_batch(host_img)
     fams, wall_us, _ = profile_call(
         lambda: step_lib.train_step(t2.state, batch, cfg_t, t2.tx))
@@ -3789,7 +3826,7 @@ def train_full_size(cfg_t, params, host_img, train_rows, card) -> None:
           f"{k5 / wall_us:.1%} of its wall; K1 {k1 / 1e3:.1f} ms, "
           f"{k1 / sum(fams.values()):.1%}; the cell maps "
           f"{fams[kernel_family('tile_map')] / 1e3:.1f} ms")
-    del fits, trainer, t2, batch
+    del trainer, t2, batch
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     return snap
 
@@ -4287,6 +4324,313 @@ def peft_round_trip(cfg_l):
 _PHASE = {"name": None, "t": 0.0}
 
 
+# ---- the offline entry points (phase 22) -----------------------------------
+
+EVAL_TASK = "assets/smoke_eval/task.jsonl"
+EVAL_ROOT = "assets/smoke_eval"
+EVAL_FRAMES = 4  # every frame of the committed 4-frame videos
+EVAL_NEW = 8  # max_new_tokens of the generate mode
+EVAL_BATCH = 4  # the harness's batches: the 4 images, then the 4 videos
+CLI_ROOT = "checkpoints/chip_smoke_cli"  # gitignored, removed after
+
+
+def _eval_run(pipe, records, scoring):
+    """One harness.evaluate over the smoke task, K1 launches zeroed just
+    before and read just after; its `[eval]` lines printed indented.
+    Returns (result, K1 launches by call shape, pad_waste)."""
+    import io
+
+    from oryx_tpu_torch.eval import harness
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    fa.LAUNCHES.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = harness.evaluate(
+            pipe, records, media_root=EVAL_ROOT, num_frames=EVAL_FRAMES,
+            max_new_tokens=EVAL_NEW, batch_size=EVAL_BATCH,
+            log_every=len(records), scoring=scoring)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"    {line}")
+    waste = [int(x.split("pad_waste=")[1].split()[0]) for x in lines
+             if "pad_waste=" in x]
+    return res, dict(fa.LAUNCHES), waste[0]
+
+
+def eval_harness(pipe, card) -> None:
+    """Phase 22 (a) (see the module docstring)."""
+    from oryx_tpu_torch.data import media
+    from oryx_tpu_torch.eval import harness
+    from oryx_tpu_torch.eval.adapters import adapt
+
+    records = adapt("native", harness.load_task(EVAL_TASK))
+    kinds = collections.Counter(r["meta"]["kind"] for r in records)
+    print(f"  {len(records)} records ({dict(kinds)}), num_frames "
+          f"{EVAL_FRAMES}, max_new_tokens {EVAL_NEW}, batch_size "
+          f"{EVAL_BATCH} ({card})")
+    for scoring in ("generate", "loglikelihood"):
+        t0 = time.perf_counter()
+        res, launches, waste = _eval_run(pipe, records, scoring)
+        again, _, _ = _eval_run(pipe, records, scoring)
+        if again.records != res.records:
+            raise SystemExit(f"phase 22 (a): a second {scoring} evaluate "
+                             "gave other records")
+        letters = {}
+        for rec, row in zip(sorted(records, key=lambda r: r["id"]),
+                            sorted(res.records, key=lambda r: r["id"])):
+            if not row["reply"]:
+                raise SystemExit(f"phase 22 (a): {row['id']} has no reply")
+            letters[row["id"]] = harness.parse_choice(
+                row["reply"], len(rec["options"]), rec["options"])
+        if scoring == "loglikelihood" and not all(
+                row["reply"] in "ABCD" and len(row["reply"]) == 1
+                for row in res.records):
+            raise SystemExit(f"phase 22 (a): loglikelihood replies "
+                             f"{[r['reply'] for r in res.records]}")
+        print(f"  {scoring}: accuracy {res.accuracy:.3f} ({res.num_correct}/"
+              f"{res.num_total}; random weights: no meaning), "
+              f"{res.seconds:.3f} s and {again.seconds:.3f} s, pad_waste "
+              f"{waste}, both calls' records identical; wall of the pair "
+              f"{time.perf_counter() - t0:.2f} s ({card})")
+        print(f"    letters {letters}")
+        print(f"    replies {[r['reply'] for r in res.records]}")
+        print(f"    K1 launches by call shape: "
+              f"{ {str(k): n for k, n in sorted(launches.items())} }")
+        if not launches:
+            raise SystemExit(f"phase 22 (a): {scoring} never launched K1")
+        if scoring != "generate":
+            continue
+        # The harness adds nothing to a reply: chat_batch of the same
+        # requests in the harness's own grouping gives the same text.
+        mine = sorted(((r, harness.eval_length_proxy(r)) for r in records),
+                      key=lambda t: (harness._modality_key(t[0]), t[1]))
+        direct = {}
+        for b0 in range(0, len(mine), EVAL_BATCH):
+            group = [r for r, _ in mine[b0:b0 + EVAL_BATCH]]
+            reqs = []
+            for rec in group:
+                frames, is_video = media.load_record_media(
+                    rec, media_root=EVAL_ROOT, num_frames=EVAL_FRAMES)
+                reqs.append({"question": harness.format_question(rec),
+                             "images": frames, "is_video": is_video})
+            replies = pipe.chat_batch(reqs, max_new_tokens=EVAL_NEW)
+            direct.update({r["id"]: t for r, t in zip(group, replies)})
+        got = {r["id"]: r["reply"] for r in res.records}
+        if got != direct:
+            raise SystemExit(f"phase 22 (a): harness replies {got} vs "
+                             f"chat_batch {direct}")
+        print("  generate replies == chat_batch of the harness's groups "
+              "(byte-equal)")
+
+
+def _write_cli_inputs(cfg_path: str) -> tuple[str, float]:
+    """Phase 10's records as a JSON file under CLI_ROOT, their pixels as
+    lossless PNGs (a video as a directory of its 8 frames), and
+    oryx_7b_pretrain.json at batch 4, 4 steps, a checkpoint and a log
+    record every step and a fresh checkpoint dir. Returns (data path,
+    seconds)."""
+    t0 = time.perf_counter()
+    recs = []
+    for rec in train_records():
+        frames = train_media(rec)
+        rec = dict(rec)
+        if rec.get("video"):
+            os.makedirs(os.path.join(CLI_ROOT, rec["id"]))
+            for i, f in enumerate(frames):
+                with open(os.path.join(CLI_ROOT, rec["id"],
+                                       f"frame_{i}.png"), "wb") as fh:
+                    fh.write(encode_png(f))
+            rec["video"] = rec["id"]
+        else:
+            rec["image"] = f"{rec['id']}.png"
+            with open(os.path.join(CLI_ROOT, rec["image"]), "wb") as fh:
+                fh.write(encode_png(frames[0]))
+        recs.append(rec)
+    data = os.path.join(CLI_ROOT, "data.json")
+    with open(data, "w") as f:
+        json.dump(recs, f)
+    with open(TRAIN_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["train"].update(global_batch_size=TRAIN_BATCH,
+                        num_train_steps=TRAIN_STEPS, checkpoint_every=1,
+                        log_every=1,
+                        checkpoint_dir=os.path.join(CLI_ROOT, "ckpt"))
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    return data, time.perf_counter() - t0
+
+
+def cli_fit(params, fit1_hist, fit1_launches, card):
+    """Phase 22 (b): phase 10's second fit through `train/cli.main`, with
+    the telemetry, the flight recorder and the numerics probes armed.
+    Returns the CLI's Trainer (closed)."""
+    import shutil
+    import threading
+
+    from oryx_tpu_torch.serve import builder
+    from oryx_tpu_torch.train import cli
+    from oryx_tpu_torch.utils import flops as flops_lib
+
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    os.makedirs(CLI_ROOT)
+    cfg_path = os.path.join(CLI_ROOT, "config.json")
+    data, write_s = _write_cli_inputs(cfg_path)
+    metrics_path = os.path.join(CLI_ROOT, "metrics.jsonl")
+    events_path = os.path.join(CLI_ROOT, "events.jsonl")
+    argv = ["--config", cfg_path, "--data", data, "--media-root", CLI_ROOT,
+            "--tokenizer-path", "unused", "--template", "plain",
+            "--video-frames", "8", "--metrics-path", metrics_path,
+            "--metrics-port", "0", "--events-path", events_path,
+            "--numerics-every", "2"]
+    print(f"  wrote {len(train_records())} records as lossless PNGs and the "
+          f"config in {write_s:.2f} s ({card}); cli.main({' '.join(argv)})")
+    during = {}
+
+    def scrape_during(trainer, done):
+        # Once the first step is published, while the loop runs.
+        tel = trainer.telemetry
+        while not tel.registry.get("steps_total") and not done.wait(0.01):
+            pass
+        if tel.ready:
+            during.update({
+                p: http_get(f"http://127.0.0.1:{tel.port}{p}")
+                for p in ("/readyz", "/healthz", "/metrics")})
+
+    class ScrapedTrainer(cli.Trainer):
+        def fit(self, batches, **kw):
+            done = threading.Event()
+            thread = threading.Thread(target=scrape_during,
+                                      args=(self, done), daemon=True)
+            thread.start()
+            try:
+                return super().fit(batches, **kw)
+            finally:
+                done.set()
+                thread.join(timeout=60)
+
+    loaded = []
+
+    def hand_over(args, cfg):
+        loaded.append(args.init_from or args.hf_llm)
+        return params
+
+    seams = ((builder, "load_tokenizer", lambda path: ByteTokenizer()),
+             (cli, "load_params", hand_over), (cli, "Trainer", ScrapedTrainer))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in seams]
+    for c in _flash_counters().values():
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for mod, name, value in seams:
+            setattr(mod, name, value)
+        trainer = cli.main(argv)
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: dict(c) for k, c in _flash_counters().items()}
+    try:
+        if loaded != [None]:
+            raise SystemExit(f"phase 22 (b): load_params calls {loaded}")
+        print("  load path: the load_params seam handed over phase 10's "
+              "start state (no --init-from or --hf-llm given: the CLI's own "
+              "path is the Trainer's seeded random init); tokenizer: the "
+              "builder.load_tokenizer seam, ByteTokenizer")
+        return _check_cli_fit(trainer, during, fit1_hist, fit1_launches,
+                              launches, metrics_path, events_path, wall,
+                              flops_lib, card)
+    finally:
+        trainer.close()
+        shutil.rmtree(CLI_ROOT, ignore_errors=True)
+
+
+def _check_cli_fit(trainer, during, fit1_hist, fit1_launches, launches,
+                   metrics_path, events_path, wall, flops_lib, card):
+    recs = [json.loads(x) for x in open(metrics_path).read().splitlines()]
+    print(f"  the CLI's JSONL records (seconds and rates on {card}):")
+    for r in recs:
+        print(f"    {json.dumps(r)}")
+    events = open(events_path).read().splitlines() if os.path.exists(
+        events_path) else []
+    print(f"  anomaly events: {events or 'none'}")
+    losses = [r["loss"] for r in recs]
+    norms = [r["grad_norm"] for r in recs]
+    print(f"  cli fit: wall {wall:.2f} s ({card}), losses {losses}, grad "
+          f"norms {norms}")
+    if (losses != [h["loss"] for h in fit1_hist]
+            or norms != [h["grad_norm"] for h in fit1_hist]
+            or [h["loss"] for h in trainer.history] != losses):
+        raise SystemExit("phase 22 (b): the CLI's losses or grad norms are "
+                         "not fit 1's bits")
+    print("  losses and grad norms bit-identical to fit 1, with telemetry, "
+          "tracer and numerics armed")
+    if launches != fit1_launches:
+        raise SystemExit(f"phase 22 (b): launches {launches} vs fit 1's "
+                         f"{fit1_launches}")
+    print("  K1-lse / K5a / K5b launches equal fit 1's: " + ", ".join(
+        f"{k} {sum(v.values())}" for k, v in launches.items()))
+    if not during or during["/readyz"][0] != 200 or \
+            during["/healthz"][0] != 200:
+        raise SystemExit(f"phase 22 (b): the scrape during the loop: "
+                         f"{ {k: v[0] for k, v in during.items()} }")
+    base = f"http://127.0.0.1:{trainer.telemetry.port}"
+    ready_after = http_get(base + "/readyz")
+    text = http_get(base + "/metrics")[1]
+    final = {name: _families(text, name).get("", float("nan")) for name in (
+        "oryx_train_steps_total", "oryx_numerics_samples_total",
+        "oryx_numerics_grad_absmax", "oryx_numerics_act_absmax",
+        "oryx_numerics_param_absmax", "oryx_train_mfu",
+        "oryx_train_model_flops_per_sec", "oryx_train_goodput_ratio",
+        "oryx_train_checkpoints_total",
+        "oryx_train_checkpoint_seconds_total", "oryx_train_hbm_live_bytes")}
+    mid = _families(during["/metrics"][1], "oryx_train_steps_total")[""]
+    print(f"  during the loop: /readyz {during['/readyz'][0]}, /healthz "
+          f"{during['/healthz'][0]}, oryx_train_steps_total {mid:g}; after: "
+          f"/readyz {ready_after[0]} {ready_after[1].strip()}")
+    if ready_after[0] != 503:
+        raise SystemExit("phase 22 (b): /readyz after the loop")
+    layers = _families(text, "oryx_numerics_grad_layer_absmax")
+    peak = flops_lib.chip_peak_flops(torch.cuda.get_device_name(0))
+    mfu = final["oryx_train_mfu"]
+    rate = final["oryx_train_model_flops_per_sec"]
+    print(f"  /metrics after: steps {final['oryx_train_steps_total']:g}, "
+          f"numerics samples {final['oryx_numerics_samples_total']:g}, "
+          f"{len(layers)} layer series (max "
+          f"{max(layers.values(), default=float('nan')):.4g}), grad_absmax "
+          f"{final['oryx_numerics_grad_absmax']:.4g}, act_absmax "
+          f"{final['oryx_numerics_act_absmax']:.4g}, param_absmax "
+          f"{final['oryx_numerics_param_absmax']:.4g}; MFU {mfu:.4f} = "
+          f"{rate / 1e12:.2f} TFLOP/s / {peak / 1e12:.0f} TFLOP/s (last "
+          f"step), goodput {final['oryx_train_goodput_ratio']:.3f}, "
+          f"checkpoints {final['oryx_train_checkpoints_total']:g} "
+          f"({final['oryx_train_checkpoint_seconds_total']:.2f} s), card "
+          f"memory live {final['oryx_train_hbm_live_bytes'] / 1e9:.2f} GB "
+          f"({card})")
+    if (final["oryx_train_steps_total"] != TRAIN_STEPS
+            or final["oryx_numerics_samples_total"] != TRAIN_STEPS // 2
+            or len(layers) != trainer.cfg.llm.num_layers
+            or not all(np.isfinite(list(layers.values())))):
+        raise SystemExit("phase 22 (b): steps, numerics samples or layer "
+                         "series")
+    if not (0 < mfu < 1 and abs(mfu - rate / peak) <= 1e-9 * mfu):
+        raise SystemExit(f"phase 22 (b): MFU {mfu} vs {rate} / {peak}")
+    traces = trainer.tracer.traces()
+    spans = [[s.name for s in t.spans] for t in traces]
+    want = ["data", "h2d", "step_dispatch", "device_sync", "checkpoint_save"]
+    if [t.kind for t in traces] != ["train_step"] * TRAIN_STEPS or any(
+            names != want for names in spans):
+        raise SystemExit(f"phase 22 (b): flight recorder {spans}")
+    print(f"  flight recorder: {len(traces)} train_step traces, each "
+          f"{want}; span seconds of the last: "
+          f"{ {k: round(v, 4) for k, v in traces[-1].span_seconds().items()} }"
+          f" ({card})")
+    return trainer
+
+
 def phase_begin(name: str | None) -> None:
     """Close the running phase with its `phase N wall X s` line and start
     `name` (None: the last phase ends)."""
@@ -4302,6 +4646,9 @@ def main() -> int:
     # output, so a run that dies (or is killed) would not show the phase it
     # died in.
     sys.stdout.reconfigure(line_buffering=True)
+    if any(a in ("-h", "--help") for a in sys.argv[1:]):
+        print(__doc__)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -4744,6 +5091,13 @@ def main() -> int:
     resilience(Pipeline(ByteTokenizer(), params, cfg, device="cuda"),
                unarmed, card)
     gc.collect()
+
+    # ---- 22 (a). the eval harness over phase 2's pipeline -------------------
+    phase_begin("22 (a)")
+    print(f"phase 22 (a): the eval harness (eval/harness.evaluate, native "
+          f"adapter) over {EVAL_TASK} through phase 2's bf16 Pipeline, "
+          f"generate and loglikelihood ({card})", flush=True)
+    eval_harness(pipe, card)
 
     # ---- 9. training kernels at the training step's shapes ----------------
     phase_begin("9")

@@ -1,5 +1,6 @@
 """Host-side media loading: images, and video as a directory of frames
-(port of `oryx_tpu.data.media`).
+(port of `oryx_tpu.data.media`); `load_record_media` reads a training or
+eval record's media.
 
 Images decode through PIL where it is installed. A host without PIL
 still reads PNG, with zlib and numpy (8-bit gray, gray + alpha, RGB,
@@ -198,3 +199,22 @@ def load_video_frames(path: str, num_frames: int) -> list[np.ndarray]:
         raise FileNotFoundError(f"no frame images under {path}")
     idx = mm_utils.sample_frames(len(names), num_frames)
     return [load_image(os.path.join(path, names[i])) for i in idx]
+
+
+def load_record_media(
+    rec: dict, *, media_root: str = "", num_frames: int = 64
+) -> tuple[list[np.ndarray], bool]:
+    """A dataset record's media -> (frames or images, is_video). The
+    training records' schema (train/data.py): "image" is a path or a list
+    of paths, "video" a directory of frames (a video file is refused, as
+    `load_video_frames` says)."""
+    def join(p):
+        return os.path.join(media_root, p) if media_root else p
+
+    if rec.get("video") is not None:
+        return load_video_frames(join(rec["video"]), num_frames), True
+    img = rec.get("image")
+    if img is None:
+        return [], False
+    paths = [img] if isinstance(img, str) else list(img)
+    return [load_image(join(p)) for p in paths], False

@@ -1,5 +1,5 @@
-"""SFT trainer: state, step loop, checkpoint/resume (port of
-`oryx_tpu.train.trainer`, one device: no mesh, no sharding, no telemetry).
+"""SFT trainer: state, step loop, checkpoint/resume, telemetry (port of
+`oryx_tpu.train.trainer`, on one device: no mesh, no sharding).
 
 `Trainer(cfg, params=..., device=...)` takes ownership of `params` (an
 `OryxModel`; a random init from cfg.train.seed when None): with
@@ -7,10 +7,28 @@ cfg.train.lora.enable it attaches LoRA adapters (seed + 1) unless the model
 carries them already, then trainable leaves become fp32 masters and frozen
 leaves are held in the compute dtype, in place, and every step updates the
 parameters in place. `fit` keeps the JAX loop's order: data -> batch check
--> host-to-device -> step -> one sync for the metrics -> log -> checkpoint,
-with the `max_consecutive_skipped` abort and a final save. Each step's
-record in `history` carries its model FLOPs (utils/flops.py) and, on a card
-whose peak is known, its MFU over the step's wall.
+-> host-to-device -> step -> one sync for the metrics -> log -> checkpoint
+-> telemetry, with the `max_consecutive_skipped` abort and a final save.
+Each step's record in `history` carries its model FLOPs (utils/flops.py)
+and, on a card whose peak is known, its MFU over the step's wall.
+
+Observability, as JAX's options give it:
+  * every step is one `train_step` trace in the flight recorder (`tracer`,
+    `flight_recorder_size`) with the spans data, h2d, step_dispatch,
+    device_sync and checkpoint_save; `data_s`, `dispatch_s` and `sync_s`
+    in the logged record and in `history` are those spans' seconds;
+  * `stall_timeout` arms a `StallWatchdog` that dumps the thread stacks and
+    the recorder's tail when no step completes in time;
+  * `numerics_every=N` runs `train_step(numerics=True)` every N steps and
+    publishes the probes (train/telemetry.py `record_numerics`);
+  * a `TrainTelemetry` (/metrics, /healthz, /readyz and the anomaly
+    monitor) is built when `metrics_port`, `events_path` or
+    on_anomaly="halt" asks for one, or passed in as `telemetry`; under
+    "halt" an anomaly raises `AnomalyHalt` out of `fit`;
+  * `tensorboard_dir`: the logged records as TensorBoard scalars.
+`sharding_mode` ("fsdp", "zero2", "ddp") names how JAX places the state
+over a mesh; on the port's one device the three compute the same step,
+as JAX's do on a one-device mesh.
 
 Fault containment (utils/faults.py sites): a loader exception at
 `data_loader_next` skips to the next batch (`max_data_faults` consecutive
@@ -32,12 +50,17 @@ from oryx_tpu_torch.config import OryxConfig
 from oryx_tpu_torch.models import oryx
 from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.train import step as step_lib
+from oryx_tpu_torch.train import telemetry as telemetry_lib
 from oryx_tpu_torch.train.data import PrefetchIterator
-from oryx_tpu_torch.train.optimizer import make_optimizer
+from oryx_tpu_torch.train.optimizer import make_optimizer, make_schedule
 from oryx_tpu_torch.utils import faults
 from oryx_tpu_torch.utils import flops as flops_lib
+from oryx_tpu_torch.utils import trace as trace_lib
+from oryx_tpu_torch.utils.anomaly import AnomalyThresholds
 from oryx_tpu_torch.utils.checkpoint import CheckpointManager
-from oryx_tpu_torch.utils.metrics import MetricLogger
+from oryx_tpu_torch.utils.metrics import MetricLogger, rank0_print
+
+SHARDING_MODES = ("fsdp", "zero2", "ddp")
 
 
 def validate_train_batch(cfg: OryxConfig, batch: dict) -> None:
@@ -65,7 +88,7 @@ def _poison_one_float_leaf(batch: dict) -> dict:
             bad = arr.copy()
             bad.flat[0] = np.nan
             batch[k] = bad
-            print(f"fault injection: poisoned batch field {k!r}")
+            rank0_print(f"fault injection: poisoned batch field {k!r}")
             break
     return batch
 
@@ -122,15 +145,61 @@ class Trainer:
         *,
         params: oryx.OryxModel | None = None,
         device="cuda",
+        sharding_mode: str = "fsdp",
         metrics_path: str | None = None,
+        tensorboard_dir: str | None = None,
+        tracer: trace_lib.Tracer | None = None,
+        flight_recorder_size: int = 64,
+        stall_timeout: float | None = None,
+        metrics_port: int | None = None,
+        events_path: str | None = None,
+        on_anomaly: str = "warn",
+        anomaly_thresholds: AnomalyThresholds | None = None,
+        telemetry: telemetry_lib.TrainTelemetry | None = None,
         max_data_faults: int = 8,
+        numerics_every: int = 0,
     ) -> None:
         self.cfg = cfg
+        if not isinstance(numerics_every, int) or numerics_every < 0:
+            raise ValueError(
+                "numerics_every must be a non-negative integer (steps "
+                f"between probe samples; 0 = off), got {numerics_every!r}"
+            )
+        if sharding_mode not in SHARDING_MODES:
+            raise ValueError(
+                f"sharding_mode={sharding_mode!r}: one of {SHARDING_MODES}")
+        self.numerics_every = numerics_every
+        self.sharding_mode = sharding_mode
         # A transient loader exception skips to the next batch; this many
         # in a row abort. `data_faults` counts the recoveries.
         self.max_data_faults = max_data_faults
         self.data_faults = 0
         self.device = resolve_device(device)
+        self.logger = MetricLogger(metrics_path,
+                                   log_every=cfg.train.log_every,
+                                   tensorboard_dir=tensorboard_dir)
+        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+        # Off unless asked for; on_anomaly="halt" must build the monitor
+        # (registry-only without a port) rather than leave the run
+        # unprotected.
+        self.telemetry = telemetry
+        if self.telemetry is None and (
+            metrics_port is not None or events_path or on_anomaly == "halt"
+        ):
+            self.telemetry = telemetry_lib.TrainTelemetry(
+                port=metrics_port, events_path=events_path,
+                thresholds=anomaly_thresholds, on_anomaly=on_anomaly,
+                device=self.device,
+            )
+        if self.telemetry is not None and faults.armed():
+            faults.bind_registry(self.telemetry.registry)
+        self._lr_fn = make_schedule(cfg.train, cfg.train.learning_rate)
+        self.tracer = tracer or trace_lib.Tracer(flight_recorder_size)
+        self.watchdog: trace_lib.StallWatchdog | None = None
+        if stall_timeout is not None:
+            self.watchdog = trace_lib.StallWatchdog(
+                self.tracer, stall_timeout, name="trainer"
+            ).start()
         if params is None:
             gen = torch.Generator(self.device).manual_seed(cfg.train.seed)
             params = oryx.init_params(cfg, gen, device=self.device)
@@ -138,9 +207,6 @@ class Trainer:
         self.tx = make_optimizer(cfg.train, params)
         prepare_params(params, self.tx.mask, oryx.compute_dtype(cfg))
         self.state = step_lib.init_state(params, self.tx)
-        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir)
-        self.logger = MetricLogger(metrics_path,
-                                   log_every=cfg.train.log_every)
         # Host metrics of every step fit ran (the logged record's inputs,
         # the model FLOPs, plus, on a card, the device time of the step's
         # two phases and MFU).
@@ -151,14 +217,26 @@ class Trainer:
         )
 
     def close(self) -> None:
+        """Stop the watchdog thread and the telemetry server, and close the
+        metric writers. fit() may still run again before close()."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
+        if self.telemetry is not None:
+            self.telemetry.close()
+            self.telemetry = None
         self.logger.close()
 
     def resume_if_available(self) -> int:
-        """Restore the latest checkpoint if there is one; the start step."""
+        """Restore the latest checkpoint if there is one; the start step.
+        The restore's seconds go to the telemetry's restore counter."""
         if self.ckpt.latest_step() is None:
             return 0
+        t0 = time.perf_counter()
         self.state = self.ckpt.restore(self.state)
-        print(f"resumed from step {self.state.step}")
+        if self.telemetry is not None:
+            self.telemetry.record_restore(time.perf_counter() - t0)
+        rank0_print(f"resumed from step {self.state.step}")
         return self.state.step
 
     def _device_batch(self, batch: dict[str, np.ndarray]):
@@ -183,27 +261,29 @@ class Trainer:
             )
         return out
 
-    def _next_batch(self, batches: Iterator) -> dict:
-        """The next host batch, skipping a transient loader exception
-        (`max_data_faults` in a row still abort); StopIteration passes
-        through."""
+    def _next_batch(self, batches: Iterator, tr) -> tuple[dict, object]:
+        """The next host batch and its `data` span, skipping a transient
+        loader exception (`max_data_faults` in a row still abort);
+        StopIteration passes through."""
         consecutive = 0
         while True:
             try:
-                corrupt = faults.fault_point("data_loader_next")
-                batch = next(batches)
-                if corrupt:
-                    batch = _poison_one_float_leaf(batch)
-                return batch
+                with tr.span("data") as sp_data:
+                    corrupt = faults.fault_point("data_loader_next")
+                    batch = next(batches)
+                    if corrupt:
+                        batch = _poison_one_float_leaf(batch)
+                    return batch, sp_data
             except StopIteration:
                 raise
             # fault-boundary: a transient data fault skips this fetch
             except Exception as e:
                 consecutive += 1
                 self.data_faults += 1
-                print(f"data loader fault ({consecutive}/"
-                      f"{self.max_data_faults} consecutive): "
-                      f"{type(e).__name__}: {e}; skipping to next batch")
+                rank0_print(f"data loader fault ({consecutive}/"
+                            f"{self.max_data_faults} consecutive): "
+                            f"{type(e).__name__}: {e}; skipping to next "
+                            "batch")
                 if consecutive >= self.max_data_faults:
                     raise RuntimeError(
                         f"{consecutive} consecutive data-loader failures "
@@ -229,20 +309,29 @@ class Trainer:
             batches = prefetcher = PrefetchIterator(batches, depth=prefetch)
         cuda = self.device.type == "cuda"
         consecutive_skipped = 0
+        if self.watchdog is not None and start < num_steps:
+            self.watchdog.set_active(True)
+        if self.telemetry is not None:
+            self.telemetry.mark_ready(True, "ok")
         try:
             for step_i in range(start, num_steps):
                 # Fault site: a process death mid-run; nothing contains it
                 # (a fresh Trainer resumes from the last checkpoint).
                 faults.fault_point("trainer_crash")
                 t0 = time.perf_counter()
+                tr = self.tracer.start_trace("train_step",
+                                             label=f"step {step_i + 1}")
                 try:
-                    host_batch = self._next_batch(batches)
+                    host_batch, sp_data = self._next_batch(batches, tr)
                 except StopIteration:
-                    print("data exhausted; stopping")
+                    tr.finish(exhausted=True)
+                    rank0_print("data exhausted; stopping")
                     break
-                t1 = time.perf_counter()
                 validate_train_batch(cfg, host_batch)
-                batch = self._device_batch(host_batch)
+                with tr.span("h2d") as sp_h2d:
+                    batch = self._device_batch(host_batch)
+                numer = (self.numerics_every > 0
+                         and step_i % self.numerics_every == 0)
                 marks = {}
                 if cuda:
                     torch.cuda.reset_peak_memory_stats(self.device)
@@ -254,33 +343,50 @@ class Trainer:
                         marks[name] = torch.cuda.Event(enable_timing=True)
                         marks[name].record()
 
-                t2 = time.perf_counter()
-                self.state, metrics = step_lib.train_step(
-                    self.state, batch, cfg, self.tx, mark=mark,
-                )
-                t3 = time.perf_counter()
-                # The step loop's one deliberate sync: logging and the
-                # skip count need host scalars.
-                keys = list(metrics)
-                vals = torch.stack([
-                    metrics[k].to(self.device, torch.float64).reshape(())
-                    for k in keys
-                ]).tolist()
+                with tr.span("step_dispatch") as sp_disp:
+                    self.state, metrics = step_lib.train_step(
+                        self.state, batch, cfg, self.tx, mark=mark,
+                        numerics=numer,
+                    )
+                # The step loop's one deliberate sync: logging, the skip
+                # count and the telemetry need host scalars.
+                with tr.span("device_sync") as sp_sync:
+                    layer_absmax = metrics.pop("grad_layer_absmax", None)
+                    keys = list(metrics)
+                    vals = torch.cat([
+                        metrics[k].to(self.device, torch.float64).reshape(1)
+                        for k in keys
+                    ] + ([] if layer_absmax is None else
+                         [layer_absmax.to(self.device, torch.float64)])
+                    ).tolist()
+                t_synced = time.perf_counter()
                 host = dict(zip(keys, vals))
-                t4 = time.perf_counter()
-                host["data_s"] = t1 - t0
-                host["dispatch_s"] = t3 - t2
-                host["sync_s"] = t4 - t3
+                if self.watchdog is not None:
+                    self.watchdog.beat()
+                # The per-layer vector is telemetry-only: the logged record
+                # holds scalars.
+                if numer and self.telemetry is not None:
+                    self.telemetry.record_numerics(
+                        step_i + 1, host,
+                        layer_absmax=(None if layer_absmax is None
+                                      else vals[len(keys):]),
+                    )
+                data_s = sp_data.dur_ns / 1e9
+                dispatch_s = sp_disp.dur_ns / 1e9
+                sync_s = sp_sync.dur_ns / 1e9
+                host["data_s"] = data_s
+                host["dispatch_s"] = dispatch_s
+                host["sync_s"] = sync_s
                 self.logger.log_step(step_i + 1, host)
                 if cuda:
-                    host["h2d_s"] = t2 - t1
+                    host["h2d_s"] = sp_h2d.dur_ns / 1e9
                     host["fwd_bwd_ms"] = marks["start"].elapsed_time(
                         marks["grads"])
                     host["optimizer_ms"] = marks["grads"].elapsed_time(
                         marks["update"])
                     host["peak_bytes"] = torch.cuda.max_memory_allocated(
                         self.device)
-                host["wall_s"] = t4 - t0
+                host["wall_s"] = t_synced - t0
                 host["tokens"] = int(np.asarray(host_batch["attn_mask"]).sum())
                 host["model_flops"] = flops_lib.batch_flops(cfg, host_batch)
                 if self.peak_flops:
@@ -297,11 +403,32 @@ class Trainer:
                         )
                 else:
                     consecutive_skipped = 0
+                ckpt_s = 0.0
                 if (step_i + 1) % cfg.train.checkpoint_every == 0:
-                    self._save(step_i + 1)
+                    with tr.span("checkpoint_save") as sp_ckpt:
+                        self._save(step_i + 1)
+                    ckpt_s = sp_ckpt.dur_ns / 1e9
+                tr.finish(step=step_i + 1,
+                          skipped=int(host.get("skipped", 0)))
+                if self.telemetry is not None:
+                    # May raise AnomalyHalt under on_anomaly="halt" (the
+                    # finally below still releases the loop's resources).
+                    self.telemetry.record_step(
+                        step_i + 1, host,
+                        step_seconds=time.perf_counter() - t0,
+                        data_s=data_s, dispatch_s=dispatch_s, sync_s=sync_s,
+                        checkpoint_s=ckpt_s, flops=host["model_flops"],
+                        lr=float(self._lr_fn(step_i + 1)),
+                    )
         finally:
+            if self.watchdog is not None:
+                self.watchdog.set_active(False)
             if prefetcher is not None:
                 prefetcher.close()
+            # /readyz stops saying ready once the loop is gone (a halt has
+            # set its own reason already: keep it).
+            if self.telemetry is not None and self.telemetry.ready:
+                self.telemetry.mark_ready(False, "step loop exited")
         final_step = self.state.step
         if final_step > 0 and self.ckpt.latest_step() != final_step:
             self._save(final_step, force=True)

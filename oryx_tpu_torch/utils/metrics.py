@@ -4,7 +4,8 @@
 Two layers:
 
   * `MetricLogger` - the trainer's structured JSONL writer plus a stdout
-    line every `log_every` steps.
+    line every `log_every` steps, and TensorBoard scalars where asked
+    for; `rank0_print`, a flushed print (the port runs as one process).
   * A dependency-free metrics registry (`Registry`) in the Prometheus
     data model: Counter / Gauge / Histogram families with labels, one
     text-exposition renderer (byte-identical to the JAX package's for the
@@ -29,20 +30,41 @@ import time
 from typing import Any
 
 
+def rank0_print(*args, **kwargs) -> None:
+    """print, flushed: the port trains in one process, which is process 0."""
+    print(*args, **kwargs)
+    sys.stdout.flush()
+
+
 class MetricLogger:
     """Every `log_every` steps: one JSON record (the step's metrics,
     steps/s and tokens/s/chip over the window; the port trains on one
     device) appended to `path` and a line on stdout. Non-finite values are
-    written as null."""
+    written as null.
+
+    tensorboard_dir: every record's values also land as TensorBoard scalars
+    `train/{key}` (torch.utils.tensorboard's SummaryWriter). Without it
+    installed a line says so and training goes on without them."""
 
     def __init__(self, path: str | None = None, *,
-                 log_every: int = 10) -> None:
+                 log_every: int = 10,
+                 tensorboard_dir: str | None = None) -> None:
         self.path = path
         self.log_every = log_every
         self._f = None
+        self._tb = None
         if path:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._f = open(path, "a")
+        if tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(tensorboard_dir)
+            # fault-boundary: TensorBoard is optional; its absence only
+            # disables its scalars, never training
+            except Exception as e:
+                rank0_print(f"tensorboard disabled: {e!r}")
         self._last_time = time.perf_counter()
         self._last_step = 0
         self._tokens_since = 0
@@ -77,21 +99,27 @@ class MetricLogger:
         self._last_time, self._last_step = now, step
         self._tokens_since = 0
         self._skipped_since = 0
-        print(
+        rank0_print(
             f"step {step}: " + " ".join(
                 f"{k}={'nan' if v is None else format(v, '.4g')}"
                 for k, v in rec.items() if k != "step"
             )
         )
-        sys.stdout.flush()
         if self._f:
             self._f.write(json.dumps(rec) + "\n")
             self._f.flush()
+        if self._tb:
+            for k, v in rec.items():
+                if k != "step" and v is not None:
+                    self._tb.add_scalar(f"train/{k}", v, step)
 
     def close(self) -> None:
         if self._f:
             self._f.close()
             self._f = None
+        if self._tb:
+            self._tb.close()
+            self._tb = None
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,10 @@
     step's live decode rows. It reads the logits the sampler already has,
     so the token streams are those of the unarmed step, and it adds no
     dispatch; on the card the armed step is a CUDA graph of its own.
-  * Tree probes for the trainer (`tree_absmax` / `stacked_layer_absmax`):
-    whole-tree and per-layer absmax of gradients or activations. The
-    trainer does not call them yet.
+  * Tree probes for the trainer (`tree_absmax`, `layer_absmax`, and
+    `stacked_layer_absmax` for a stacked tree): whole-tree and per-layer
+    absmax of gradients, parameters or activations, reduced on the
+    leaves' device (train/step.py under `numerics=True`).
 
 Both feed the raw-named ``oryx_numerics_*`` families and the
 utils/anomaly.py sentinels (`entropy_collapse`, `absmax_explosion`).
@@ -127,8 +128,8 @@ def _leaves(tree: Any) -> list[torch.Tensor]:
 
 
 def tree_absmax(tree: Any) -> torch.Tensor:
-    """Scalar absmax over every floating leaf of a tree (0 when it has
-    none)."""
+    """Scalar float32 absmax over every floating leaf of a tree (0 when it
+    has none), reduced on the first leaf's device: no host sync."""
     maxes = [
         leaf.detach().abs().amax().to(torch.float32)
         for leaf in _leaves(tree)
@@ -136,7 +137,20 @@ def tree_absmax(tree: Any) -> torch.Tensor:
     ]
     if not maxes:
         return torch.zeros((), dtype=torch.float32)
-    return torch.stack([m.cpu() for m in maxes]).amax()
+    return torch.stack([m.to(maxes[0].device) for m in maxes]).amax()
+
+
+def layer_absmax(layers: list[Any]) -> torch.Tensor:
+    """Per-layer absmax [L] float32 over a list of per-layer trees, each
+    over its floating leaves of rank >= 1: `stacked_layer_absmax` of the
+    JAX layout, where the decoder's layers are stacked on a leading axis
+    and its rank >= 2 rule skips what is a scalar a layer."""
+    return torch.stack([
+        torch.stack([leaf.detach().abs().amax().to(torch.float32)
+                     for leaf in _leaves(layer)
+                     if leaf.is_floating_point() and leaf.dim() >= 1]).amax()
+        for layer in layers
+    ])
 
 
 def stacked_layer_absmax(layers: Any) -> torch.Tensor | None:
@@ -154,10 +168,11 @@ def stacked_layer_absmax(layers: Any) -> torch.Tensor | None:
         if leaf.shape[0] != L:
             continue
         x = leaf.detach().abs().to(torch.float32).reshape(L, -1)
-        per_leaf.append(x.amax(dim=-1).cpu())
+        per_leaf.append(x.amax(dim=-1))
     if not per_leaf:
         return None
-    return torch.stack(per_leaf).amax(dim=0)
+    return torch.stack([x.to(per_leaf[0].device) for x in per_leaf]
+                       ).amax(dim=0)
 
 
 def is_finite(value: Any) -> bool:

@@ -1359,6 +1359,134 @@ def test_train_step_on_card_matches_cpu(card):
                                    rtol=2e-3)
 
 
+def test_train_step_numerics_on_card_changes_no_bit(card):
+    """train_step(numerics=True) on the card: the probes are finite and
+    the loss, the grad norm, the params and the moments are the bits of
+    numerics=False (the tiny config, bf16, the flash kernels)."""
+    import dataclasses
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.train import step, trainer
+    from oryx_tpu_torch.train.optimizer import make_optimizer
+
+    base = config.oryx_tiny()
+    cfg = dataclasses.replace(base, dtype="bfloat16", attn_impl="pallas",
+                              train=dataclasses.replace(
+                                  base.train, tune="full", num_train_steps=10,
+                                  warmup_ratio=0.1, remat_policy="attn"))
+    host = _tiny_host_batch()
+    batch = {k: torch.from_numpy(v[None]).to(card) for k, v in host.items()}
+    runs = {}
+    for numerics in (False, True):
+        model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu").to(card)
+        tx = make_optimizer(cfg.train, model)
+        trainer.prepare_params(model, tx.mask, torch.bfloat16)
+        state = step.init_state(model, tx)
+        metrics = []
+        for _ in range(3):
+            state, m = step.train_step(state, batch, cfg, tx,
+                                       numerics=numerics)
+            metrics.append(m)
+        runs[numerics] = (metrics, state)
+    (m0, s0), (m1, s1) = runs[False], runs[True]
+    for a, b in zip(m0, m1):
+        for k in ("loss", "grad_norm", "num_tokens"):
+            assert torch.equal(a[k], b[k]), k
+        for k in ("act_absmax", "grad_absmax", "param_absmax"):
+            assert b[k].device.type == "cuda"
+            assert bool(torch.isfinite(b[k])) and float(b[k]) > 0, k
+        assert b["grad_layer_absmax"].shape == (cfg.llm.num_layers,)
+    for (n, a), (_, b) in zip(s0.params.named_parameters(),
+                              s1.params.named_parameters()):
+        assert torch.equal(a, b), n
+    for kind in ("mu", "nu"):
+        for n, x in s0.opt_state[kind].items():
+            assert torch.equal(s1.opt_state[kind][n], x), n
+
+
+def test_tiny_cli_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """python -m oryx_tpu_torch.train.cli's main on the tiny fp32 config
+    (images and a video directory as PNG files, 3 steps, telemetry and
+    numerics probes armed), on the card and with --device cpu from the same
+    --init-from weights: the JSONL losses and grad norms and the params
+    agree, the kernels launched on the card."""
+    import dataclasses
+    import json
+
+    import numpy as np
+
+    from chip_smoke import ByteTokenizer, encode_png
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.serve import builder
+    from oryx_tpu_torch.train import cli
+
+    rng = np.random.default_rng(0)
+    recs = []
+    for i, (h, w) in enumerate(((40, 56), (28, 42), (56, 28))):
+        (tmp_path / f"img{i}.png").write_bytes(
+            encode_png(rng.integers(0, 256, (h, w, 3), np.uint8)))
+        recs.append({"id": f"img{i}", "image": f"img{i}.png",
+                     "conversations": [
+                         {"from": "human", "value": "<image>\nWhat is it?"},
+                         {"from": "gpt", "value": "A boat. " * (i + 1)}]})
+    (tmp_path / "vid").mkdir()
+    for f in range(4):
+        (tmp_path / "vid" / f"frame_{f}.png").write_bytes(
+            encode_png(rng.integers(0, 256, (28, 28, 3), np.uint8)))
+    recs.append({"id": "vid", "video": "vid", "conversations": [
+        {"from": "human", "value": "<image>\nWhat happens?"},
+        {"from": "gpt", "value": "Gulls circle."}]})
+    (tmp_path / "data.json").write_text(json.dumps(recs))
+    base = config.oryx_tiny()
+    cfg = dataclasses.replace(base, attn_impl="pallas",
+                              train=dataclasses.replace(
+                                  base.train, tune="full", learning_rate=1e-5,
+                                  num_train_steps=3, warmup_ratio=0.1,
+                                  global_batch_size=2, log_every=1,
+                                  remat_policy="attn"))
+    init = tmp_path / "init"
+    builder.save_pretrained(str(init), cfg, oryx.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    monkeypatch.setattr(builder, "load_tokenizer",
+                        lambda path: ByteTokenizer())
+    out = {}
+    for dev in ("cpu", "cuda"):
+        run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=str(tmp_path / f"ckpt_{dev}")))
+        (tmp_path / f"{dev}.json").write_text(run_cfg.to_json())
+        fa.LAUNCHES_DQ.clear()
+        t = cli.main([
+            "--config", str(tmp_path / f"{dev}.json"),
+            "--data", str(tmp_path / "data.json"),
+            "--media-root", str(tmp_path), "--tokenizer-path", "unused",
+            "--template", "plain", "--video-frames", "4",
+            "--init-from", str(init), "--metrics-port", "0",
+            "--numerics-every", "1", "--device", dev,
+            "--metrics-path", str(tmp_path / f"{dev}.jsonl"),
+        ])
+        try:
+            recs_out = [json.loads(x) for x in
+                        (tmp_path / f"{dev}.jsonl").read_text().splitlines()]
+            out[dev] = (recs_out, {n: p.detach().cpu() for n, p in
+                                   t.state.params.named_parameters()},
+                        sum(fa.LAUNCHES_DQ.values()))
+            assert t.telemetry.registry.get("steps_total") == 3
+        finally:
+            t.close()
+    (rc, pc, _), (rg, pg, launched) = out["cpu"], out["cuda"]
+    assert launched > 0
+    assert [r["step"] for r in rg] == [r["step"] for r in rc] == [1, 2, 3]
+    for k in ("loss", "grad_norm", "grad_absmax", "act_absmax"):
+        np.testing.assert_allclose([r[k] for r in rg], [r[k] for r in rc],
+                                   rtol=1e-4, err_msg=k)
+    for n, p in pc.items():
+        torch.testing.assert_close(pg[n], p, atol=2e-4, rtol=2e-3,
+                                   msg=lambda m: f"{n}: {m}")
+
+
 def test_tiny_bf16_fit_with_head_dim_12_on_card(card, tmp_path):
     """bf16 Trainer.fit with attn_impl="pallas" on the tiny config: the ViT
     and compressor heads are 12 wide, q/k/v views of one projection, a

@@ -202,6 +202,35 @@ def test_trainer_without_device_raises_without_card(no_card):
         Trainer(config.oryx_tiny())
 
 
+def test_offline_entry_points_are_walked():
+    """The import walk above and the ast check cover the slice's modules."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"train/telemetry.py", "train/cli.py", "eval/__init__.py",
+            "eval/adapters.py", "eval/harness.py"} <= names
+
+
+def test_train_cli_without_device_raises_without_card(no_card, tmp_path,
+                                                      monkeypatch):
+    """python -m oryx_tpu_torch.train.cli trains on the card unless
+    --device cpu: without one it raises before a step."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.serve import builder
+    from oryx_tpu_torch.train import cli
+
+    class Tok:
+        def encode(self, text, add_special_tokens=False):
+            return [1]
+
+    monkeypatch.setattr(builder, "load_tokenizer", lambda path: Tok())
+    (tmp_path / "cfg.json").write_text(config.oryx_tiny().to_json())
+    (tmp_path / "data.json").write_text("[]")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--config", str(tmp_path / "cfg.json"),
+                  "--data", str(tmp_path / "data.json"),
+                  "--tokenizer-path", "unused"])
+
+
 def test_flash_kernel_launches_need_cuda_tensors():
     """K1-lse, K5a and K5b raise on CPU tensors; autograd through
     flash_attention takes the plain twins only for tensors on the CPU."""
