@@ -80,7 +80,7 @@ Phases (any failure exits non-zero):
      (prefill_chunk 512: every step one packed dispatch through the
      ragged-paged kernel K4), twice each: every request finishes with its
      usage, the two runs of an engine give identical tokens, and K3 (split)
-     or K4 (ragged) launched. The ragged engine's run 0 is the private eager
+     or K4 (ragged) launched. The ragged engine's run 0 is the eager
      witness, its run 1 the graph route (every pure-decode dispatch a replay
      of the captured engine step): their replies are byte-equal, and both
      walls, the tails after the last admission and the capture time are
@@ -307,6 +307,29 @@ Phases (any failure exits non-zero):
      recorder, each with the spans data, h2d, step_dispatch, device_sync,
      checkpoint_save; K1-lse, K5a and K5b launched as often as in fit 1.
      The JSONL records and any anomaly events printed.
+ 23. (Runs after 22 (a), on phase 2's weights.) The concurrency plane and
+     the fleet's front door. (a) Two ragged replicas at phase 19's
+     geometry over the one set of weights behind `serve/router.
+     build_router`, the lock-order sanitizer and race detector armed
+     (record mode) and the capture watchdog counting: both replicas
+     warmed at once (each captures its engine-step graph while the other
+     launches); phase 19's mix one request at a time, twice, through the
+     router and straight to the other replica, byte-equal (which side runs
+     first alternates by round; the router's added wall a request, with
+     its quartiles and range, and the TTFT through it printed); one merged
+     `/debug/trace` with router and engine spans; a shared-prefix burst
+     landing on one replica with cached tokens there only and admitted ==
+     completed; a stopped listener retried invisibly, then restored by
+     the prober; r0 drained at the first delta of a stream on it, the
+     requests beside it all 200 and the new ones on r1; zero lock, race
+     and hot-dispatch violations; one capture a graph key and replica.
+     (b) `serve/cli.main` one-shot and interactive (a `:reset`, a blank
+     line, `:q`) through the `builder.load_pipeline` seam, byte-equal to
+     `Pipeline.chat` and `ChatSession(shared=True).ask_stream`. (c) The
+     native loader built from `native/loader.cpp` on this machine,
+     byte-equal to its numpy twin on phase 2's images at the pipeline's
+     caps; `pack_raw_images`, which takes the library whenever it builds,
+     within 1e-4 of the numpy path.
 
 `python3 chip_smoke.py --help` prints this text.
 Every phase ends with a `phase N wall X s` line. The line before the last
@@ -1090,12 +1113,13 @@ def engine_counts(sched) -> dict:
 def run_scheduler(pipe, ragged: bool, record: bool, *, eager: bool = False,
                   reqs=None, **kw):
     """One scheduler run over `reqs` (serve_requests() by default), `kw`
-    passed to the engine; eager: the private eager witness (a ragged
-    engine's pure-decode dispatches launched one by one instead of replayed
-    as graphs). Returns a dict of what it served, what it cost and which
-    kernels it launched (counts zeroed just before the run and read just
+    passed to the engine; eager: the eager witness (graphs.routes(False):
+    a ragged engine's pure-decode dispatches launched one by one instead of
+    replayed as graphs). Returns a dict of what it served, what it cost and
+    which kernels it launched (counts zeroed just before the run and read just
     after), with the tail wall after the last admission."""
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import graphs
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
 
@@ -1103,7 +1127,6 @@ def run_scheduler(pipe, ragged: bool, record: bool, *, eager: bool = False,
         pipe, autostart=False, ragged=ragged,
         prefill_chunk=PREFILL_CHUNK if ragged else None, **SERVE, **kw,
     )
-    sched._eager_witness = eager
     reqs = reqs or serve_requests()
     recorder = PagedCallRecorder(sched) if record else None
     torch.cuda.synchronize()
@@ -1111,7 +1134,7 @@ def run_scheduler(pipe, ragged: bool, record: bool, *, eager: bool = False,
     fa.LAUNCHES.clear()
     pa.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with recorder or contextlib.nullcontext():
+    with recorder or contextlib.nullcontext(), graphs.routes(not eager):
         handles = [sched.submit(r, n) for r, n in reqs]
         sched.start()
         results = [h.result(timeout=600) for h in handles]
@@ -2891,6 +2914,7 @@ def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str],
     before, read just after; eager as in run_scheduler. Returns a dict of
     what it served and cost."""
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import graphs
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
 
@@ -2899,7 +2923,6 @@ def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str],
         prefill_chunk=PREFILL_CHUNK if ragged else None, kv_dtype="int8",
         host_cache_bytes=HOST_CACHE, **SERVE,
     )
-    sched._eager_witness = eager
     recorder = PagedCallRecorder(sched) if record else None
     rounds: dict[str, list] = {}
     walls: dict[str, float] = {}
@@ -2920,7 +2943,7 @@ def run_int8_engine(pipe, ragged: bool, record: bool, shared: list[str],
     fa.LAUNCHES.clear()
     pa.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with recorder or contextlib.nullcontext():
+    with recorder or contextlib.nullcontext(), graphs.routes(not eager):
         serve("phase 7 mix", serve_requests())
         serve("round A", texts)
         serve("round B", texts)
@@ -4332,6 +4355,7 @@ EVAL_FRAMES = 4  # every frame of the committed 4-frame videos
 EVAL_NEW = 8  # max_new_tokens of the generate mode
 EVAL_BATCH = 4  # the harness's batches: the 4 images, then the 4 videos
 CLI_ROOT = "checkpoints/chip_smoke_cli"  # gitignored, removed after
+FLEET_SYS = shared_context()  # phase 23's shared system prompt (24 pages)
 
 
 def _eval_run(pipe, records, scoring):
@@ -4629,6 +4653,497 @@ def _check_cli_fit(trainer, during, fit1_hist, fit1_launches, launches,
           f"{ {k: round(v, 4) for k, v in traces[-1].span_seconds().items()} }"
           f" ({card})")
     return trainer
+
+
+# ---- the fleet front door and the concurrency plane (phase 23) -------------
+
+FLEET_NEW = 48  # the drain's in-flight stream: long enough to drain under
+
+
+class Endpoint(HttpServer):
+    """The stdlib client of `HttpServer` against any base URL (the router,
+    a replica)."""
+
+    def __init__(self, base: str):
+        self.base = base
+
+
+def _stream_until(base, body, on_first_delta):
+    """One SSE stream through `base`; `on_first_delta` runs (in a thread)
+    at its first content delta. Returns (status, text, finish reason)."""
+    import threading
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + "/v1/chat/completions",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    text, finish = "", None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            d = json.loads(line[6:])
+            if "error" in d:
+                raise SystemExit(f"phase 23: stream error {d}")
+            for c in d["choices"]:
+                delta = c["delta"].get("content")
+                if delta:
+                    if not text:
+                        threading.Thread(target=on_first_delta,
+                                         daemon=True).start()
+                    text += delta
+                finish = c["finish_reason"] or finish
+        return r.status, text, finish
+
+
+def _fleet_metric(server, name) -> float:
+    return _metric(server.get("/metrics")[1], name)
+
+
+def _restart_listener(rep):
+    """A stopped replica's HTTP listener again, on its port and over its
+    engine (the handler reaches the engine through its closure)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    port = rep.srv.server_address[1]
+    rep.listener = ThreadingHTTPServer(("127.0.0.1", port),
+                                       rep.srv.RequestHandlerClass)
+    threading.Thread(target=rep.listener.serve_forever, daemon=True).start()
+
+
+def fleet_front_door(params, cfg, card) -> None:
+    """Phase 23 (a): two full-width replicas over one `params` behind the
+    prefix-affinity router, the lock-order sanitizer and race detector
+    armed, the capture watchdog counting."""
+    import threading
+
+    from oryx_tpu_torch.analysis import sanitizers
+    from oryx_tpu_torch.serve import router as router_lib
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    sanitizers.arm_lock_sanitizer(action="record")
+    reps = rsrv = None
+    try:
+        with sanitizers.recompile_watchdog(budget=1,
+                                           action="record") as caps:
+            reps = [HttpServer(Pipeline(ByteTokenizer(), params, cfg,
+                                        device="cuda"),
+                               engine="continuous", replica_id=f"r{i}",
+                               **HTTP_SERVE) for i in range(2)]
+            rsrv = router_lib.build_router(
+                [(f"r{i}", r.base) for i, r in enumerate(reps)], port=0,
+                probe=False)
+            threading.Thread(target=rsrv.serve_forever, daemon=True).start()
+            door = Endpoint(f"http://127.0.0.1:{rsrv.server_address[1]}")
+            _fleet_checks(reps, rsrv, door, card)
+        scheds = [r.srv.scheduler for r in reps]
+        owners = {s.graph_owner: s for s in scheds}
+        print(f"  capture watchdog (budget 1 a graph key): {caps.counts}")
+        for owner, s in owners.items():
+            mine = [k for k in caps.counts if k.startswith(owner + "/")]
+            if not mine or len(mine) != s.engine_stats[
+                    "graph_captures_total"]:
+                raise SystemExit(f"phase 23: {owner} captured {mine}, engine "
+                                 f"counts {s.engine_stats}")
+        if caps.over_budget() or set(k.split("/")[0] for k in caps.counts) \
+                != set(owners):
+            raise SystemExit(f"phase 23: captures {caps.counts}")
+        per = {o: s.engine_stats["graph_captures_total"]
+               for o, s in owners.items()}
+        print(f"  one capture a graph key and replica (graphs by engine "
+              f"{per}); no key captured twice")
+        stats = sanitizers.lock_stats()
+        print(f"  lock-order sanitizer and race detector armed: acquires "
+              f"{dict(sorted(stats.acquires.items()))}, re-entrant "
+              f"{stats.reentrant}; violations {stats.violations}, race "
+              f"{sanitizers.race_violations()}")
+        if stats.violations or sanitizers.race_violations():
+            raise SystemExit("phase 23: lock, race or hot-dispatch "
+                             "violations")
+        if not stats.acquires.get("router._lock") or not stats.acquires.get(
+                "scheduler._cond"):
+            raise SystemExit("phase 23: the armed locks were not taken")
+    finally:
+        if rsrv is not None:
+            rsrv.stop_prober()
+            rsrv.shutdown()
+            rsrv.server_close()
+        for r in reps or ():
+            listener = getattr(r, "listener", None)
+            if listener is not None:
+                listener.shutdown()
+                listener.server_close()
+            r.close()
+        sanitizers.disarm_lock_sanitizer()
+
+
+def _fleet_checks(reps, rsrv, door, card) -> None:
+    import statistics
+    import threading
+
+    router = rsrv.router
+    scheds = [r.srv.scheduler for r in reps]
+    # Both engines at once: each captures its engine-step graph while the
+    # other's thread launches. An image in the prompt, so neither side of
+    # the timed comparison below holds the ViT shapes' first use.
+    warm_img = np.random.default_rng(1).integers(0, 256, (448, 448, 3),
+                                                 dtype=np.uint8)
+    warm = [None, None]
+
+    def one(i):
+        warm[i] = reps[i].post({"messages": [{"role": "user", "content": [
+            {"type": "text", "text": "Warm up with a long line."},
+            {"type": "image_url", "image_url": {
+                "url": png_data_uri(warm_img)}}]}], "max_tokens": 24})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if [w[0] for w in warm] != [200, 200] or warm[0][2]["text"] != \
+            warm[1][2]["text"]:
+        raise SystemExit(f"phase 23: warm-up {warm}")
+    graphs = [s.engine_stats["graph_captures_total"] for s in scheds]
+    print(f"  warm-up: both replicas at once, each capturing its engine-step "
+          f"graph beside the other's launches: graphs {graphs}, replies "
+          f"equal")
+    if graphs != [1, 1]:
+        raise SystemExit(f"phase 23: engine-step graphs {graphs}")
+
+    # (i) phase 19's mix one request at a time, twice: each request through
+    # the router and the same body straight to the other replica (both
+    # replicas see every prompt once a round, so their caches stay alike).
+    # Round 0 sends the routed request first, round 1 the direct one, so
+    # neither side of the timed comparison always runs first.
+    reqs = http_requests()
+    _zero_launches()
+    added, ttft_router, ttft_direct, routed = [], [], [], []
+
+    def through(body, tag):
+        code, hdr, via = door.post(body, rid=tag)
+        if code != 200 or hdr.get("X-Oryx-Router-Retries") != "0" or \
+                hdr.get("X-Request-Id") != tag:
+            raise SystemExit(f"phase 23: mix request {tag}: {code} {hdr}")
+        return hdr.get("X-Oryx-Router-Replica"), via
+
+    for rnd in range(2):
+        for i, (body, _, n) in enumerate(reqs):
+            body = dict(body)
+            if i % 2:
+                body.update(stream=True,
+                            stream_options={"include_usage": True})
+            tag = f"fleet-{i}" if rnd == 0 else f"fleet-{i}-again"
+            if rnd == 0:
+                rid, via = through(body, tag)
+                code, _, direct = reps[1 - int(rid[1])].post(body)
+            else:
+                code, _, direct = reps[1 - int(routed[i][1])].post(body)
+                rid, via = through(body, tag)
+            if code != 200 or (via["text"], via["finish"],
+                               tuple(via["usage"])) != (
+                    direct["text"], direct["finish"],
+                    tuple(direct["usage"])):
+                raise SystemExit(f"phase 23: request {tag} through the "
+                                 f"router {via} differs from direct "
+                                 f"{direct}")
+            routed.append(rid)
+            added.append((via["wall"] - direct["wall"]) * 1e3)
+            if i % 2:
+                ttft_router.append(via["first_s"])
+                ttft_direct.append(direct["first_s"])
+    flash_n, paged_n = _launch_counts()
+    print(f"  (i) phase 19's mix ({len(reqs)} requests, every other "
+          f"streamed) one at a time, twice, through the router and straight "
+          f"to the other replica (round 0 routed first, round 1 direct "
+          f"first): replies, finish reasons and usage byte-equal; routed to "
+          f"{routed}; K1 launches {flash_n}, paged {paged_n}")
+    if not flash_n or not paged_n.get("ragged_paged"):
+        raise SystemExit(f"phase 23: launches K1 {flash_n}, paged {paged_n}")
+    half = len(reqs)
+    quart = statistics.quantiles(added, n=4)
+    print(f"  router's added wall over direct a request (ms): round 0 "
+          f"{[round(x, 1) for x in added[:half]]}, round 1 "
+          f"{[round(x, 1) for x in added[half:]]}; median "
+          f"{statistics.median(added):+.1f} ms (round 0 "
+          f"{statistics.median(added[:half]):+.1f}, round 1 "
+          f"{statistics.median(added[half:]):+.1f}), quartiles "
+          f"{quart[0]:+.1f} / {quart[2]:+.1f}, range {min(added):+.1f} / "
+          f"{max(added):+.1f}, {sum(x > 0 for x in added)} of {len(added)} "
+          f"above 0; TTFT through the router (client first delta) "
+          f"{[round(x * 1e3, 1) for x in ttft_router]} ms vs direct "
+          f"{[round(x * 1e3, 1) for x in ttft_direct]} ms, median "
+          f"{statistics.median(ttft_router) * 1e3:.1f} vs "
+          f"{statistics.median(ttft_direct) * 1e3:.1f} ms ({card})")
+
+    # (v) one merged trace: router spans on track 0, the replica's on 1.
+    code, text = door.get("/debug/trace?id=fleet-0")
+    tr = json.loads(text) if code == 200 else {}
+    tracks = {t: {e["name"] for e in tr.get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("tid") == t}
+              for t in (0, 1)}
+    print(f"  (v) /debug/trace?id=fleet-0 through the router: merged "
+          f"{tr.get('merged')}, replica {tr.get('replica')}, router spans "
+          f"{sorted(tracks[0])}, engine spans {sorted(tracks[1])}")
+    if not tr.get("merged") or not {"route_decide", "upstream_ttfb",
+                                    "proxy_stream"} <= tracks[0] or \
+            not {"prefill", "decode_chunk"} <= tracks[1]:
+        raise SystemExit("phase 23: the merged trace lacks spans")
+
+    # (ii) a shared-prefix burst lands on one replica and hits its cache.
+    def shared(q, tag=""):
+        return {"messages": [{"role": "system", "content": tag + FLEET_SYS},
+                             {"role": "user", "content": q}],
+                "max_tokens": 8}
+
+    code, hdr, _ = door.post(shared("Question 0: how many boats?"))
+    hot = hdr["X-Oryx-Router-Replica"]
+    before = [_fleet_metric(r, "prefix_cache_hit_tokens_total")
+              for r in reps]
+    outs, wall = _burst(door, [shared(f"Question {i}: how many boats?")
+                               for i in range(1, 5)])
+    landed = [o[1].get("X-Oryx-Router-Replica") for o in outs]
+    for s in scheds:
+        quiesce(s)
+    hits = [_fleet_metric(r, "prefix_cache_hit_tokens_total") - b
+            for r, b in zip(reps, before)]
+    ledger = [(_fleet_metric(r, "admitted"), _fleet_metric(r, "completed"))
+              for r in reps]
+    print(f"  (ii) shared-prefix burst ({len(FLEET_SYS)}-byte system prompt, "
+          f"4 at once after one seeding request on {hot}): landed {landed}, "
+          f"codes {[o[0] for o in outs]}, wall {wall:.3f} s; cached tokens "
+          f"gained by replica {hits}; admitted/completed {ledger}")
+    hot_i = int(hot[1])
+    if [o[0] for o in outs] != [200] * 4 or set(landed) != {hot} or \
+            hits[hot_i] <= 0 or hits[1 - hot_i] != 0 or \
+            any(a != c for a, c in ledger):
+        raise SystemExit("phase 23: the shared-prefix burst")
+
+    # (iv) a stopped replica: its listener closed, a request pinned to its
+    # prefix retries onto the other replica invisibly; then it listens
+    # again and the prober restores it.
+    victim = reps[hot_i]
+    victim.srv.shutdown()
+    victim.srv.server_close()
+    code, hdr, out = door.post(shared("Question 5: how many boats?"))
+    print(f"  (iv) {hot}'s listener stopped: a request pinned to its prefix "
+          f"answered {code} by {hdr.get('X-Oryx-Router-Replica')} after "
+          f"{hdr.get('X-Oryx-Router-Retries')} retry, {out.get('finish')}; "
+          f"replicas {router.snapshot()}")
+    if code != 200 or hdr.get("X-Oryx-Router-Replica") == hot or \
+            int(hdr.get("X-Oryx-Router-Retries", 0)) < 1 or \
+            router.snapshot()[hot]["healthy"]:
+        raise SystemExit("phase 23: the retry off a stopped replica")
+    _restart_listener(victim)
+    router.probe_all(timeout=5.0)
+    if router.healthy_ids() != ["r0", "r1"]:
+        raise SystemExit(f"phase 23: after restart {router.snapshot()}")
+    print(f"  {hot} listening again: restored by the prober, healthy "
+          f"{router.healthy_ids()}")
+
+    # (iii) a drain of r0 mid-burst: a fresh prefix (its first request a
+    # miss: the least-loaded replica, r0) carries a long stream and three
+    # more requests; r0 drains at the stream's first delta.
+    for s in scheds:
+        quiesce(s)
+    tag = "Drain log. "
+    drained = threading.Event()
+
+    def drain_r0():
+        reps[0].srv.begin_drain()
+        router.probe_all(timeout=5.0)
+        drained.set()
+
+    res = {}
+
+    def stream():
+        res["stream"] = _stream_until(door.base, dict(
+            shared("Tell the whole log slowly.", tag),
+            max_tokens=FLEET_NEW), drain_r0)
+
+    bodies = [shared(f"Drain question {i}?", tag) for i in range(3)]
+    st = threading.Thread(target=stream)
+    st.start()
+    time.sleep(0.05)
+    outs, _ = _burst(door, bodies)
+    st.join()
+    if not drained.wait(60):
+        raise SystemExit("phase 23: the drain never started")
+    code, text, finish = res["stream"]
+    quiesce(scheds[0])
+    after = [door.post(shared(f"After drain {i}?", tag)) for i in range(3)]
+    ready = [door.get("/readyz")[0], reps[0].get("/readyz")[0]]
+    r0_ledger = (_fleet_metric(reps[0], "admitted"),
+                 _fleet_metric(reps[0], "completed"))
+    print(f"  (iii) r0 drained at the first delta of a {FLEET_NEW}-token "
+          f"stream on it: the stream {code} {finish} ({len(text)} bytes); "
+          f"the burst beside it {[o[0] for o in outs]} by "
+          f"{[o[1].get('X-Oryx-Router-Replica') for o in outs]} with retries "
+          f"{[o[1].get('X-Oryx-Router-Retries') for o in outs]}; after the "
+          f"drain {[(c, h.get('X-Oryx-Router-Replica')) for c, h, _ in after]}"
+          f"; router /readyz {ready[0]}, r0 /readyz {ready[1]}; r0 admitted/"
+          f"completed {r0_ledger}; healthy {router.healthy_ids()}")
+    if code != 200 or finish not in ("length", "stop") or not text or \
+            [o[0] for o in outs] != [200] * 3 or \
+            [(c, h.get("X-Oryx-Router-Replica")) for c, h, _ in after] != \
+            [(200, "r1")] * 3 or ready != [200, 503] or \
+            r0_ledger[0] != r0_ledger[1] or router.healthy_ids() != ["r1"]:
+        raise SystemExit("phase 23: the drain mid-burst")
+    # The armed lock families reach the router's scrape (the newest bound
+    # registry owns the samples).
+    text = door.get("/metrics")[1]
+    if 'oryx_lock_hold_seconds_count{lock="router._lock"}' not in text:
+        raise SystemExit("phase 23: no lock histograms on the router")
+
+
+def serve_cli_on_card(params, cfg, reqs, card) -> None:
+    """Phase 23 (b): serve/cli.main one-shot and interactive on the card,
+    the pipeline through the `builder.load_pipeline` seam."""
+    import io
+    import shutil
+
+    from oryx_tpu_torch.data import media
+    from oryx_tpu_torch.serve import builder, cli
+    from oryx_tpu_torch.serve.pipeline import ChatSession, Pipeline
+
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    os.makedirs(CLI_ROOT)
+    path = os.path.join(CLI_ROOT, "image.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(reqs[0]["images"][0]))
+    img = media.load_image(path)
+    if not np.array_equal(img, reqs[0]["images"][0]):
+        raise SystemExit("phase 23 (b): the PNG round trip changed the image")
+    n = 24
+    handed = []
+
+    def hand_over(model_path, **kw):
+        handed.append((model_path, kw))
+        return Pipeline(ByteTokenizer(), params, cfg, device="cuda")
+
+    def run(argv, stdin=""):
+        saved = builder.load_pipeline, sys.stdin
+        builder.load_pipeline, sys.stdin = hand_over, io.StringIO(stdin)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(argv)
+        finally:
+            builder.load_pipeline, sys.stdin = saved
+        return out.getvalue(), time.perf_counter() - t0
+
+    try:
+        q = "Describe this image."
+        base = ["--model-path", "unused", "--image", path,
+                "--max-new-tokens", str(n)]
+        got, wall1 = run(base + ["--question", q])
+        want = Pipeline(ByteTokenizer(), params, cfg, device="cuda").chat(
+            q, images=[img], max_new_tokens=n)
+        if got != want + "\n":
+            raise SystemExit(f"phase 23 (b): one-shot {got!r} vs chat "
+                             f"{want!r}")
+        lines = ["What colours are there?", ":reset", "", "Any shapes?",
+                 ":q", "never read"]
+        got, wall2 = run(base + ["--interactive", "--question", q],
+                         "\n".join(lines) + "\n")
+        session = ChatSession(Pipeline(ByteTokenizer(), params, cfg,
+                                       device="cuda"), images=[img],
+                              shared=True)
+
+        def ask(text):
+            return "".join(session.ask_stream(text, max_new_tokens=n))
+
+        want = f"user: {q}\nassistant: {ask(q)}\n"
+        for line in lines:
+            want += "user: "
+            if line == ":q":
+                break
+            if line == ":reset":
+                session.reset()
+                continue
+            if line:
+                want += f"assistant: {ask(line)}\n"
+        if got != want:
+            raise SystemExit(f"phase 23 (b): interactive {got!r} vs "
+                             f"ChatSession {want!r}")
+        if [m for m, _ in handed] != ["unused", "unused"] or \
+                handed[0][1].get("device") != "cuda":
+            raise SystemExit(f"phase 23 (b): load_pipeline calls {handed}")
+        print(f"  (b) serve/cli.main, the pipeline through the "
+              f"builder.load_pipeline seam (device {handed[0][1]['device']}):"
+              f" one-shot == Pipeline.chat ({wall1:.2f} s), interactive "
+              f"(3 questions, :reset, a blank line, :q) == "
+              f"ChatSession(shared=True).ask_stream ({wall2:.2f} s), byte-"
+              f"equal; transcript {got[:160]!r}... ({card})")
+    finally:
+        shutil.rmtree(CLI_ROOT, ignore_errors=True)
+
+
+def native_loader_on_card(pipe, reqs, card) -> None:
+    """Phase 23 (c): data/native_loader built on this machine, against its
+    numpy twin on phase 2's images at the pipeline's caps."""
+    from oryx_tpu_torch.data import mm_utils, native_loader
+    from oryx_tpu_torch.ops import packing
+
+    prebuilt = native_loader.library_path().exists()
+    t0 = time.perf_counter()
+    if not native_loader.is_available():
+        raise SystemExit("phase 23 (c): native/loader.cpp did not build")
+    build_s = time.perf_counter() - t0
+    vis = pipe.cfg.vision
+    n_img, n_bytes, worst = 0, 0, 0.0
+    t_native = t_twin = 0.0
+    for req in reqs:
+        if not req.get("images"):
+            continue
+        _, images, factors, caps = pipe._prepare_request(req)
+        for img, cap in zip(images, caps):
+            hw = mm_utils.resize_to_patch_grid(img.shape[:2],
+                                               vis.patch_size, cap)
+            t = time.perf_counter()
+            got = native_loader.preprocess_image(
+                img, hw, vis.patch_size, mm_utils.IMAGE_MEAN,
+                mm_utils.IMAGE_STD)
+            t_native += time.perf_counter() - t
+            t = time.perf_counter()
+            twin = native_loader.preprocess_reference(
+                img, hw, vis.patch_size, mm_utils.IMAGE_MEAN,
+                mm_utils.IMAGE_STD)
+            t_twin += time.perf_counter() - t
+            if got.tobytes() != twin.tobytes():
+                raise SystemExit(f"phase 23 (c): image {n_img} differs from "
+                                 "the numpy twin")
+            n_img += 1
+            n_bytes += got.nbytes
+        kw = dict(patch_size=vis.patch_size, base_grid=vis.base_grid,
+                  side_factors=factors, max_patches=caps)
+        # pack_raw_images takes the library whenever it builds; each
+        # image's slice against the mm_utils path it falls back to.
+        native = packing.pack_raw_images(images, **kw)
+        off = 0
+        for img, cap, (h, w) in zip(images, caps, native.grids):
+            plain = packing.patchify(
+                mm_utils.preprocess_image(img, vis.patch_size, cap),
+                vis.patch_size)[0]
+            worst = max(worst, float(np.abs(
+                native.patches[off : off + h * w] - plain).max()))
+            off += h * w
+        if np.any(native.patches[off:]):
+            raise SystemExit("phase 23 (c): rows past the images written")
+    if worst > 1e-4:
+        raise SystemExit(f"phase 23 (c): native vs mm_utils {worst}")
+    print(f"  (c) native loader "
+          f"{'found built' if prebuilt else 'built from native/loader.cpp'}"
+          f" under {native_loader.BUILD_DIR.name}/, loaded in "
+          f"{build_s:.2f} s; {n_img} images of phase 2 at the pipeline's caps "
+          f"byte-equal to the numpy twin ({n_bytes / 1e6:.1f} MB of patch "
+          f"rows; one image at a time: native {t_native * 1e3:.1f} ms, twin "
+          f"{t_twin * 1e3:.1f} ms, host CPU); pack_raw_images (native) "
+          f"within {worst:.2e} of the mm_utils path ({card})")
 
 
 def phase_begin(name: str | None) -> None:
@@ -5098,6 +5613,18 @@ def main() -> int:
           f"adapter) over {EVAL_TASK} through phase 2's bf16 Pipeline, "
           f"generate and loglikelihood ({card})", flush=True)
     eval_harness(pipe, card)
+
+    # ---- 23. the fleet front door, the serve CLI, the native loader --------
+    phase_begin("23")
+    print(f"phase 23: two ragged replicas of oryx_7b bf16 over phase 2's "
+          f"weights, {HTTP_SERVE} each, behind serve/router.build_router with "
+          f"the lock-order sanitizer and race detector armed and the capture "
+          f"watchdog counting; then serve/cli.main and the native loader "
+          f"({card})", flush=True)
+    fleet_front_door(params, cfg, card)
+    gc.collect()
+    serve_cli_on_card(params, cfg, reqs, card)
+    native_loader_on_card(pipe, reqs, card)
 
     # ---- 9. training kernels at the training step's shapes ----------------
     phase_begin("9")

@@ -363,7 +363,8 @@ class _DecodeGraph:
             _steps(self.step, self.carry, 1)
         self.graph = graphs.CountedGraph()
         with self.graph.capture(
-            stream, [g for g in (self.generator,) if g is not None]
+            stream, [g for g in (self.generator,) if g is not None],
+            label=graphs.key_label("decode", key),
         ):
             carry, self.toks, self.fin = _steps(self.step, self.carry, chunk)
             for static, new in zip(self.carry[1:], carry[1:]):
@@ -430,13 +431,15 @@ def _dense_route(params, cfg: LLMConfig, gen_cfg: GenerationConfig, *,
     leaving, the caller's generator continues from where the graph's
     stopped. On the CPU: a copy of `kv_cache` (a fresh cache without one),
     the caller's generator, its own step and no graph. Either way
-    `kv_cache` itself is never written."""
+    `kv_cache` itself is never written. With the graph routes off
+    (utils/debug.debug_mode(disable_jit=True)) the card takes the eager
+    route too."""
     dtype = compute_dtype or torch.float32
     if kv_cache is not None and kv_cache["k"].shape[2] != cache_len:
         raise ValueError(
             f"kv_cache has {kv_cache['k'].shape[2]} slots, {cache_len=}"
         )
-    if device.type != "cuda":
+    if device.type != "cuda" or not graphs.enabled():
         cache = (
             qwen2.init_kv_cache(cfg, batch, cache_len, dtype=dtype,
                                 device=device)
@@ -1665,13 +1668,15 @@ class _EngineStepGraph:
     numerics (k = 0 only): the step is `paged_fused_steps(numerics=True)`,
     a graph of its own (the engine keys it apart from the unarmed one),
     which leaves the logit-stat accumulator in `nstats`; it replays once a
-    dispatch (an armed engine never fuses)."""
+    dispatch (an armed engine never fuses). `owner` (the engine's tag)
+    and the key label the capture for the capture watchdog."""
 
     def __init__(self, params, cfg: LLMConfig, kv_pages: dict, key, *,
                  num_slots: int, max_pages: int, chunk: int, k: int,
                  stop, eos: int, attn_impl: str, compute_dtype,
                  sampling: bool, draft, max_steps: int,
-                 device: torch.device, numerics: bool = False):
+                 device: torch.device, numerics: bool = False,
+                 owner: str = ""):
         if numerics and k:
             raise ValueError("the numerics probe rides no speculative step")
         S, dev = num_slots, device
@@ -1757,7 +1762,8 @@ class _EngineStepGraph:
             self.step.zero_()
         self.graph = graphs.CountedGraph()
         with self.graph.capture(
-            stream, [g for g in self.gens if g is not None]
+            stream, [g for g in self.gens if g is not None],
+            label=graphs.key_label("engine_step", key, owner),
         ):
             body()
         torch.cuda.current_stream(dev).wait_stream(stream)

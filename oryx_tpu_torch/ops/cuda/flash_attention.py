@@ -44,7 +44,7 @@ import ctypes
 
 import torch
 
-from oryx_tpu_torch.ops.cuda import build
+from oryx_tpu_torch.ops.cuda import build, launches
 
 FLT_MAX = torch.finfo(torch.float32).max
 NEG = -0.7 * FLT_MAX
@@ -303,7 +303,7 @@ def _mha_forward(
             B, Hq, Hk, Tq, Tk, D, float(scale), *flag_ints, splits, tps, wgs,
         )
         if Tq == 1 and err == 0:
-            LAUNCHES_DECODE[key] += 1
+            launches.count(LAUNCHES_DECODE, key)
     else:
         strides, stride_arr = _strides((q, k, v, o))
         # 16-byte vector loads need 16-byte aligned rows.
@@ -322,9 +322,9 @@ def _mha_forward(
         )
     _raise_on(err, entry, q, k)
     if with_lse:
-        LAUNCHES_LSE[key] += 1
+        launches.count(LAUNCHES_LSE, key)
         return o, lse
-    LAUNCHES[key] += 1
+    launches.count(LAUNCHES, key)
     return o
 
 
@@ -508,7 +508,7 @@ def _bwd_launch(
     )
     _raise_on(err, entry, q, k)
     counts = LAUNCHES_DQ if which == "dq" else LAUNCHES_DKV
-    counts[(causal, has_segments, B, Hq, Hk, Tq, Tk, D)] += 1
+    launches.count(counts, (causal, has_segments, B, Hq, Hk, Tq, Tk, D))
     return dq, dk, dv
 
 

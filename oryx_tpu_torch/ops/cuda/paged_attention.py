@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from oryx_tpu_torch.ops import paged_kv
-from oryx_tpu_torch.ops.cuda import build
+from oryx_tpu_torch.ops.cuda import build, launches
 from oryx_tpu_torch.ops.cuda.flash_attention import _call, _sm_count
 
 # Kernel launches, keyed by (kernel, R, Hk, G, D, P, page_size, max_pages);
@@ -243,7 +243,7 @@ def _launch(name, q, k_pages, v_pages, block_tables, ints, scale):
             f"{tuple(q.shape)} {q.dtype}, pages {tuple(k_pages.shape)} "
             f"{k_pages.dtype})"
         )
-    LAUNCHES[(kernel, R, Hk, G, D, P, ps, maxp)] += 1
+    launches.count(LAUNCHES, (kernel, R, Hk, G, D, P, ps, maxp))
     return o
 
 

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from oryx_tpu_torch.ops.cuda import build
+from oryx_tpu_torch.ops.cuda import build, launches
 
 # Kernel launches, keyed by (M, N, K, dtype name), N summed over a grouped
 # launch's members. Only `_launch` adds to it, once per launch.
@@ -296,7 +296,7 @@ def _launch(prep: _Prepared, x: torch.Tensor) -> list[torch.Tensor]:
         raise RuntimeError(
             f"q8_linear launch failed: CUDA error {err} (M={M}, N={prep.Ns}, "
             f"K={K}, plan {args}, column_scale={prep.column_scale})")
-    LAUNCHES[(M, prep.N, K, dt)] += 1
+    launches.count(LAUNCHES, (M, prep.N, K, dt))
     if single:
         return [y]
     return [t.view(*lead, n) for t, n in zip(

@@ -55,8 +55,11 @@ name resolves through the Engine registry (serve/engine.py):
     python -m oryx_tpu_torch.serve.api_server --model-path DIR \\
         [--engine continuous --ragged] [--device cpu] [--port 8000]
 
-The lock-order sanitizer of the JAX package (ORYX_LOCK_SANITIZER) is not
-honoured yet; the server's locks are plain `threading` locks.
+`ORYX_LOCK_SANITIZER=1` arms the lock-order sanitizer and race detector
+(analysis/sanitizers.py) when the server is built: every lock of the
+serving stack is a `named_lock` of oryx_tpu_torch/concurrency.py's order,
+and the oryx_lock_{wait,hold}_seconds histograms join /metrics. Disarmed,
+the locks are plain `threading` primitives and nothing changes.
 """
 
 from __future__ import annotations
@@ -77,6 +80,8 @@ from typing import Any
 
 import numpy as np
 
+from oryx_tpu_torch.analysis import sanitizers
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 from oryx_tpu_torch.data import media
 from oryx_tpu_torch.serve import journal as journal_lib
 from oryx_tpu_torch.utils import faults
@@ -643,6 +648,11 @@ def build_server(
             "--journal requires a scheduler engine (the window batcher has "
             "no decision stream to record)"
         )
+    # $ORYX_LOCK_SANITIZER=1 arms the lock-order sanitizer and race
+    # detector for this server, before the registry and the scheduler are
+    # built so every named lock they make is instrumented; the registry is
+    # bound right after, so oryx_lock_{wait,hold}_seconds reach /metrics.
+    sanitizers.maybe_arm_from_env()
     metrics = ServingMetrics()
     build_labels = {
         "revision": _git_revision(), "engine": engine, "model": model_name,
@@ -652,6 +662,7 @@ def build_server(
     metrics.set_info("build_info", build_labels)
     if faults.armed():
         faults.bind_registry(metrics.registry)
+    sanitizers.bind_lock_metrics(metrics.registry)
     # Always built, so oryx_anomaly_total exists on every replica.
     anomaly = AnomalyMonitor(
         source="serve",
@@ -665,7 +676,7 @@ def build_server(
     tracer = trace_lib.Tracer(flight_recorder_size)
     # chat_stream and chat_batch share one device: window-engine streams
     # serialize with each other and with the batcher through this lock.
-    stream_lock = threading.Lock()
+    stream_lock = named_lock("server.stream_lock")
     batcher = scheduler = supervisor = None
     # Set once by begin_drain(), read by /readyz and every POST.
     draining = threading.Event()

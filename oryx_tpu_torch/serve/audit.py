@@ -53,7 +53,6 @@ ring and counter edits, never across a replay.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from collections import deque
 from typing import Any
@@ -61,6 +60,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2
 from oryx_tpu_torch.ops.packing import round_up_bucket
@@ -341,7 +341,7 @@ class OutputAuditor:
         self._kv_prod = None  # the quantized twin's private pool
         self._bt = None
         # Ring and monotone verdict counts, shared with debug threads.
-        self._lock = threading.Lock()
+        self._lock = named_lock("audit._lock")
         self._ring: deque[dict[str, Any]] = deque(  # guarded-by: _lock
             maxlen=max(1, int(keep))
         )

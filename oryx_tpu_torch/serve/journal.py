@@ -67,11 +67,11 @@ import hashlib
 import json
 import os
 import re
-import threading
 import time
 from collections import deque
 from typing import Any
 
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 from oryx_tpu_torch.utils.metrics import JOURNAL_EVENT_KEYS
 from oryx_tpu_torch.utils.rolling_sink import RollingSink
 
@@ -141,7 +141,7 @@ class DecisionJournal:
 
     def __init__(self, path: str | None = None, *, keep: int = 2048,
                  max_bytes: int = 64 * 1024 * 1024):
-        self._lock = threading.Lock()
+        self._lock = named_lock("journal._lock")
         self._ring: deque[dict[str, Any]] = deque(  # guarded-by: _lock
             maxlen=max(1, keep)
         )

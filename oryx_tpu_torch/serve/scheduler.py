@@ -114,13 +114,20 @@ replayed kernels are ordinary kernel records there), its busy time lands in
 the timeline record's device_us and `oryx_device_time_seconds_total`;
 `request_profile(steps)` captures the next K dispatches on demand.
 
-Not ported yet: meshes (tp) and the lock-order sanitizer.
+Concurrency (oryx_tpu_torch/concurrency.py): `_cond` is
+`named_lock("scheduler._cond")`, the dispatch sites call `hot_dispatch`,
+and the engine-owned fields carry `# thread-owned: engine`, so an armed
+lock-order sanitizer and race detector (`ORYX_LOCK_SANITIZER=1`) check
+this module as they check the JAX scheduler.
+
+Not ported yet: meshes (tp).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
 import logging
 import queue
@@ -131,9 +138,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from oryx_tpu_torch.analysis.sanitizers import (
+    hot_dispatch,
+    named_lock,
+    race_exempt,
+)
 from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2
 from oryx_tpu_torch.ops import paged_kv
+from oryx_tpu_torch.ops.cuda import graphs
 from oryx_tpu_torch.ops.packing import round_up_bucket
 from oryx_tpu_torch.serve import audit as audit_lib
 from oryx_tpu_torch.serve import journal as journal_lib
@@ -161,6 +174,9 @@ from oryx_tpu_torch.utils.timeline import StepTimeline
 
 # Every line carries the request id (the X-Request-Id and /debug/trace id).
 _LOG = logging.getLogger("oryx.serve.scheduler")
+
+# Engine tags for the capture watchdog's graph labels, one per scheduler.
+_ENGINE_SEQ = itertools.count()
 
 # The ladder of `fuse_steps="auto"`: K for a pure-decode step is the largest
 # rung that fits every live row's remaining budget (the large rung for a
@@ -264,20 +280,20 @@ class _Request:
     processed: int = 0  # tokens consumed from the device stream
     replay: int = 0  # tokens to skip after an eviction re-admission
     admit_seq: int = -1  # admission order (eviction picks the youngest)
-    evictions: int = 0  # replay re-admissions (eviction, restart)
+    evictions: int = 0  # replay re-admissions (eviction, restart) # thread-owned: engine
     # Cost ledger, accumulated across placements (a replay re-pays its
     # prefill). decode_steps counts device work (chunk steps, or the 1 + k
     # verify lanes of a speculative step, rejected drafts included);
     # decode_tokens what the client got. Engine thread only, until the
     # ledger is finalized into handle.debug["cost"].
-    cost_prefill_tokens: int = 0
-    cost_cached_tokens: int = 0
-    cost_decode_steps: int = 0
-    cost_decode_tokens: int = 0
-    cost_page_seconds: float = 0.0
-    pages_t: float = 0.0  # last accrual (0 = never held)
-    peak_pages: int = 0
-    peak_page_seconds: float = 0.0
+    cost_prefill_tokens: int = 0  # thread-owned: engine
+    cost_cached_tokens: int = 0  # thread-owned: engine
+    cost_decode_steps: int = 0  # thread-owned: engine
+    cost_decode_tokens: int = 0  # thread-owned: engine
+    cost_page_seconds: float = 0.0  # thread-owned: engine
+    pages_t: float = 0.0  # last accrual (0 = never held) # thread-owned: engine
+    peak_pages: int = 0  # thread-owned: engine
+    peak_page_seconds: float = 0.0  # thread-owned: engine
     # Spans that outlive one method: queue_wait opens at submit (and again
     # at eviction), admission when the request reaches the queue head.
     qw_span: int = -1
@@ -495,7 +511,7 @@ class ContinuousScheduler:
         # Replay override (serve/replay.py): the steps_run value a megastep
         # STARTED at -> its journaled K. Live K reads the queue, which is
         # wall-clock-coupled, so a replay applies the captured plan.
-        self.replay_fuse_plan: dict[int, int] | None = None
+        self.replay_fuse_plan: dict[int, int] | None = None  # thread-owned: engine
         self._dtype = oryx.compute_dtype(self.cfg)
         # A drafter with the device contract drafts on the pool's device in
         # every speculative dispatch (K = 1, megasteps, graphs alike), so
@@ -505,11 +521,11 @@ class ContinuousScheduler:
              self.drafter.device_apply, self.drafter.window)
             if device_drafter else None
         )
-        # Engine-step CUDA graphs by key (the card only), and the private
-        # eager witness chip_smoke.py holds them against (True: every
-        # dispatch runs eagerly).
+        # Engine-step CUDA graphs by key (the card only); inside
+        # graphs.routes(False) every dispatch runs eagerly instead, the
+        # witness the replays are held against.
         self._graphs: dict[tuple, generate_lib._EngineStepGraph] = {}
-        self._eager_witness = False
+        self.graph_owner = f"engine{next(_ENGINE_SEQ)}"
         # Port-only engine counters, outside the registry (the JAX engine
         # has no such families): megastep dispatches by K, the engine-step
         # graphs captured and the seconds their captures took, and the
@@ -532,7 +548,7 @@ class ContinuousScheduler:
         self.forensics = forensics or forensics_lib.ForensicRing()
         # One forensic a pool-pressure episode: armed at the first failed
         # grow or admission, cleared by the next allocation that succeeds.
-        self._oom_episode = False
+        self._oom_episode = False  # thread-owned: engine
         self.timeline = timeline or StepTimeline()
         # Device-time sampling: every `profile_sample_every` dispatches one
         # is captured; HTTP threads park on-demand captures in
@@ -542,7 +558,7 @@ class ContinuousScheduler:
             device=self.device,
         )
         self._profile_pending = None  # guarded-by: _cond
-        self._profile_active = None
+        self._profile_active = None  # thread-owned: engine
         self._sentinel = self.allocator.sentinel
         self.kv_pages = self._new_pool()
         self.prefix_cache = (
@@ -569,7 +585,7 @@ class ContinuousScheduler:
         self._admit_seq = 0
         self.chunks_run = 0
         # The only state shared with submit() and supervisor threads.
-        self._cond = threading.Condition()
+        self._cond = named_lock("scheduler._cond", kind="condition")
         self._queue: collections.deque[_Request] = collections.deque()  # guarded-by: _cond
         self._shutdown = False  # guarded-by: _cond
         self._draining = False  # guarded-by: _cond
@@ -598,10 +614,10 @@ class ContinuousScheduler:
         # check). steps_run advances at every recorded dispatch (every
         # logical step of a megastep): the gate a replay feeds on.
         self.journal = journal
-        self.steps_run = 0
+        self.steps_run = 0  # thread-owned: engine
         # Replay feeding hook (serve/replay.py), called at the top of every
         # loop turn and admission attempt; None in live serving.
-        self.replay_feeder = None
+        self.replay_feeder = None  # thread-owned: engine
         if self.journal is not None:
             self.journal.stamp_header(
                 num_slots=num_slots, page_size=page_size, chunk=chunk,
@@ -1024,14 +1040,17 @@ class ContinuousScheduler:
     def check_pool_invariant(self) -> None:
         """Every page is free or exactly accounted to its holders (the
         slots' block tables and the prefix cache); raises RuntimeError
-        otherwise. Call on a quiesced engine (tests between bursts)."""
-        holders = [
-            [int(p) for p in self.bt[s] if p != self._sentinel]
-            for s in range(self.num_slots)
-        ]
-        if self.prefix_cache is not None:
-            holders.append(self.prefix_cache.held_pages())
-        self.allocator.check_invariant(holders)
+        otherwise. Call on a quiesced engine (tests between bursts): the
+        cross-thread reads of engine-owned state are declared to the armed
+        race detector."""
+        with race_exempt("pool-invariant check: caller asserts quiescence"):
+            holders = [
+                [int(p) for p in self.bt[s] if p != self._sentinel]
+                for s in range(self.num_slots)
+            ]
+            if self.prefix_cache is not None:
+                holders.append(self.prefix_cache.held_pages())
+            self.allocator.check_invariant(holders)
 
     # ---- the page map and OOM forensics -----------------------------------
 
@@ -1041,9 +1060,11 @@ class ContinuousScheduler:
         PageAllocator.snapshot). Engine-owned state read from a debug
         thread: best-effort, exact on a quiesced engine. The oryx_pool_*
         gauges are refreshed at the same moment, so a scrape right after
-        agrees with it."""
-        snap = self.allocator.snapshot()
-        self.pool_observatory.collect(force=True)
+        agrees with it. Declared to the armed race detector like the
+        pool-invariant check."""
+        with race_exempt("pool snapshot: debug read, quiesced by contract"):
+            snap = self.allocator.snapshot()
+            self.pool_observatory.collect(force=True)
         # The pool's wire format and device bytes, read off the live pool.
         snap["kv_dtype"] = paged_kv.kv_pool_dtype(self.kv_pages)
         snap["kv_pool_bytes"] = int(sum(
@@ -1998,6 +2019,7 @@ class ContinuousScheduler:
             self._advance_prefill(s, req)
 
     def _advance_prefill(self, s: int, req: _Request) -> None:
+        hot_dispatch("scheduler._advance_prefill")
         # Fault site: a prefill dispatch that fails or stalls (a raise is
         # contained by the loop: requests errored, pool rebuilt).
         faults.fault_point("prefill_dispatch")
@@ -2252,8 +2274,12 @@ class ContinuousScheduler:
         act = self._profile_active
         if (sampled or act is not None) and self.device.type == "cuda":
             # The window closes when the dispatch's kernels are done (a
-            # prefill chunk that samples nothing has no harvest).
-            torch.cuda.synchronize(self.device)
+            # prefill chunk that samples nothing has no harvest): an event
+            # on the engine's stream, since a device-wide synchronize would
+            # invalidate another engine's open graph capture.
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
         t1_ns = trace_lib.now_ns()
         dt = (t1_ns - t0_ns) / 1e9
         if act is not None:
@@ -2288,6 +2314,7 @@ class ContinuousScheduler:
 
     def _step_chunk(self) -> None:
         """One split-engine decode dispatch over every slot."""
+        hot_dispatch("scheduler._step_chunk")
         # Fault site: a decode dispatch that fails (every in-flight request
         # errors, the pool is rebuilt, serving goes on) or hangs (delay=).
         faults.fault_point("decode_dispatch")
@@ -2493,6 +2520,7 @@ class ContinuousScheduler:
         With fuse_steps, a pure-decode step with an empty queue becomes a
         megastep of K logical steps (`_select_fuse_k`). On the card a
         pure-decode dispatch replays the engine-step graph."""
+        hot_dispatch("scheduler._ragged_step")
         for s, req in enumerate(self.slots):
             if req is not None and not req.activated and req.handle.cancelled:
                 self._cancel_slot(s, req, "mid-prefill")
@@ -2640,6 +2668,7 @@ class ContinuousScheduler:
         mid-flight; evicting here is decided on host state alone, so a
         replay re-derives it), then `_finish_megastep` processes the
         harvest as K logical steps."""
+        hot_dispatch("scheduler._fused_megastep")
         faults.fault_point("decode_dispatch")
         self._ensure_capacity(self._win * k_steps)
         live = self._live()
@@ -2727,8 +2756,9 @@ class ContinuousScheduler:
 
     def _graph_route(self) -> bool:
         """Pure-decode dispatches replay engine-step graphs: on the card,
-        unless the private eager witness is set."""
-        return self.device.type == "cuda" and not self._eager_witness
+        unless the graph routes are off (graphs.routes(False): the eager
+        witness, utils/debug.debug_mode(disable_jit=True))."""
+        return self.device.type == "cuda" and graphs.enabled()
 
     def _engine_graph(self, sampling: bool, numerics: bool = False
                       ) -> generate_lib._EngineStepGraph:
@@ -2757,6 +2787,7 @@ class ContinuousScheduler:
                 sampling=sampling, draft=self._draft,
                 max_steps=max(self._fuse_ladder, default=1),
                 device=self.device, numerics=numerics,
+                owner=self.graph_owner,
             )
             self._graphs[key] = graph
             self.engine_stats["graph_captures_total"] += 1

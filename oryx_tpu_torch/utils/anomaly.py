@@ -45,11 +45,11 @@ import logging
 import math
 import os
 import statistics
-import threading
 import time
 from collections import deque
 from typing import Any
 
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 from oryx_tpu_torch.utils.rolling_sink import RollingSink
 
 _LOG = logging.getLogger("oryx.anomaly")
@@ -165,7 +165,7 @@ class AnomalyMonitor:
         self.recent: deque[AnomalyEvent] = deque(maxlen=keep)
         self.counts: dict[str, int] = {}
         self.total = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("anomaly._lock")
         self._sink = None
         if self.events_path:
             self._sink = RollingSink(

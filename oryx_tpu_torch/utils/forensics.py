@@ -19,10 +19,11 @@ Stdlib only.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any
+
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 
 # Residents / cache entries kept per record: enough to name the pressure
 # sources, few enough that a record stays one readable screen.
@@ -35,7 +36,7 @@ class ForensicRing:
     event."""
 
     def __init__(self, keep: int = 64):
-        self._lock = threading.Lock()
+        self._lock = named_lock("forensics._lock")
         self._ring: deque[dict[str, Any]] = deque(  # guarded-by: _lock
             maxlen=max(1, int(keep))
         )

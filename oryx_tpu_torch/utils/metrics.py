@@ -29,6 +29,8 @@ import threading
 import time
 from typing import Any
 
+from oryx_tpu_torch.analysis.sanitizers import named_lock
+
 
 def rank0_print(*args, **kwargs) -> None:
     """print, flushed: the port trains in one process, which is process 0."""
@@ -191,7 +193,7 @@ class Histogram:
         self.counts = [0] * len(self.buckets)
         self.total = 0
         self.sum = 0.0
-        self._lock = lock or threading.Lock()
+        self._lock = lock or named_lock("metrics.family")
 
     def observe(self, value: float) -> None:
         with self._lock:
@@ -229,7 +231,7 @@ class MetricFamily:
         self.mtype = mtype
         self.labelnames = tuple(labelnames)
         self.buckets = tuple(sorted(buckets)) if buckets else None
-        self._lock = lock or threading.Lock()
+        self._lock = lock or named_lock("metrics.family")
         self._children: dict[tuple[str, ...], Any] = {}  # guarded-by: _lock
         if not self.labelnames:
             with self._lock:
@@ -309,7 +311,7 @@ class Registry:
 
     def __init__(self, prefix: str = ""):
         self.prefix = prefix
-        self._lock = threading.Lock()
+        self._lock = named_lock("registry._lock")
         self._families: dict[str, MetricFamily] = {}  # guarded-by: _lock
         self._info_names: set[str] = set()  # guarded-by: _lock
         self._collectors: list[Any] = []  # guarded-by: _lock
@@ -442,6 +444,11 @@ SPEC_ACCEPT_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0,
 REQUEST_TOKEN_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0,
                          256.0, 512.0, 1024.0, 2048.0, 4096.0, 8192.0)
 REQUEST_SECONDS_BUCKETS = TTFT_BUCKETS + (120.0, 300.0)
+# Lock wait/hold times of the lock-order sanitizer's
+# oryx_lock_{wait,hold}_seconds{lock=} histograms: microseconds up to the
+# one second that would mean a lock is held across device work.
+LOCK_SECONDS_BUCKETS = (1e-6, 5e-6, 1e-5, 5e-5, 1e-4, 5e-4, 1e-3,
+                        5e-3, 0.025, 0.1, 0.5, 1.0)
 PAGE_SECONDS_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                         5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0)
 # One page's whole tenancy (alloc -> refcount-0 free) and its idle tail,

@@ -23,6 +23,7 @@ from typing import Iterator
 
 import torch
 
+from oryx_tpu_torch.ops.cuda import graphs
 from oryx_tpu_torch.utils import trace as trace_lib
 from oryx_tpu_torch.utils import xplane
 
@@ -43,15 +44,25 @@ def _activities(device) -> list:
 
 def _start_trace(device):
     """A started torch.profiler session for `device`; the one helper every
-    capture path (trace(), op_profile, the DeviceTimeSampler) shares."""
+    capture path (op_profile, the DeviceTimeSampler) shares. A session
+    starts and stops while no CUDA graph is being captured: both act on
+    the whole device, and another engine's capture may be open
+    (ops/cuda/graphs.no_capture)."""
     prof = torch.profiler.profile(activities=_activities(device))
-    prof.start()
+    with graphs.no_capture():
+        prof.start()
     return prof
+
+
+def _stop(prof) -> None:
+    """Stop a session that `_start_trace` started."""
+    with graphs.no_capture():
+        prof.stop()
 
 
 def _stop_trace(prof) -> list[xplane.Plane]:
     """Stop a session and return its planes."""
-    prof.stop()
+    _stop(prof)
     return xplane.planes_from_kineto(prof.profiler.kineto_results.events())
 
 
@@ -248,7 +259,7 @@ class DeviceTimeSampler:
         if prof is None:
             return
         try:
-            prof.stop()
+            _stop(prof)
         except Exception:
             self._err("stop")
 
@@ -257,7 +268,7 @@ class DeviceTimeSampler:
         (planes, session_end_ns) or None with the stage counted."""
         prof, self._prof = self._prof, None
         try:
-            prof.stop()
+            _stop(prof)
             end_ns = trace_lib.now_ns()
         except Exception:
             self._err("stop")

@@ -27,11 +27,11 @@ from __future__ import annotations
 import json
 import os
 import re
-import threading
 import time
 from collections import deque
 from typing import Any
 
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 from oryx_tpu_torch.utils.metrics import (
     AUDIT_EVENT_KEYS,
     OOM_EVENT_KEYS,
@@ -116,7 +116,7 @@ class RequestLog:
                  max_bytes: int = 16 * 1024 * 1024):
         self.path = os.path.abspath(path) if path else None
         self.max_bytes = max_bytes
-        self._lock = threading.Lock()
+        self._lock = named_lock("request_log._lock")
         self._ring: deque[dict[str, Any]] = deque(  # guarded-by: _lock
             maxlen=max(1, keep)
         )

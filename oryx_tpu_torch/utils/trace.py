@@ -22,8 +22,10 @@ context (``contextvars``: per thread, per task); the module-level
 trace is active and do nothing when none is, so library code
 (serve/pipeline.py) adds spans without holding a tracer.
 
-The locks are plain ``threading.Lock``s: the lock-order sanitizer of the
-JAX package (ORYX_LOCK_SANITIZER) is not honoured by the port yet.
+The locks are ``named_lock``s (``trace._lock``, ``tracer._lock``,
+``watchdog._lock`` in oryx_tpu_torch/concurrency.py's order): plain
+``threading.Lock``s unless ``ORYX_LOCK_SANITIZER`` armed the lock-order
+sanitizer, which then checks every acquire.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import traceback
 import uuid
 from collections import deque
 from typing import Any, Iterable, Iterator
+
+from oryx_tpu_torch.analysis.sanitizers import named_lock
 
 # perf_counter anchored to the wall clock once at import: spans get the
 # monotonicity of perf_counter AND absolute unix-ns starts.
@@ -115,7 +119,7 @@ class Trace:
         self.done = False
         self.spans: list[Span] = []  # guarded-by: _lock
         self._stack: list[int] = []  # open-span indices # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = named_lock("trace._lock")
 
     # ---- recording -------------------------------------------------------
 
@@ -254,7 +258,7 @@ class Tracer:
 
     def __init__(self, capacity: int = 256):
         self.capacity = max(1, capacity)
-        self._lock = threading.Lock()
+        self._lock = named_lock("tracer._lock")
         self._traces: deque[Trace] = deque(maxlen=self.capacity)  # guarded-by: _lock
         self._by_id: dict[str, Trace] = {}  # guarded-by: _lock
 
@@ -409,7 +413,7 @@ class StallWatchdog:
         self.tail = tail
         self.out = out  # None => sys.stderr resolved at dump time
         self.dumps = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("watchdog._lock")
         self._last_beat = time.perf_counter()  # guarded-by: _lock
         self._active = False  # guarded-by: _lock
         self._armed = True  # guarded-by: _lock

@@ -160,6 +160,9 @@ def _serve_all(api, pipe, kw, reqs):
             out[rid] = _norm(code, resp)
             if code == 200:
                 assert hdr["X-Request-Id"] == rid
+            # The reply is released inside the harvest, before the step's
+            # timeline record: the next submit waits for that record.
+            s.quiesce()
         text = s.get("/metrics")[2]
         traces = {rid: s.get(f"/debug/trace?id={rid}")[2]
                   for rid, _ in reqs[:9]}
@@ -610,6 +613,7 @@ def test_journal_and_profile_endpoints_equal_jax(pipes, tmp_path):
                                     **ENGINES["ragged"]))
         try:
             s.post({"messages": _user("journal me"), "max_tokens": 4})
+            s.quiesce()
             body = json.loads(s.get("/debug/journal?n=2")[2])
             res["armed"] = (sorted(body), body["armed"], body["path"] == path,
                             len(body["entries"]), body["counts_by_kind"],

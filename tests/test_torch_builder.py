@@ -26,6 +26,7 @@ from oryx_tpu.models import oryx as joryx  # noqa: E402
 from oryx_tpu.serve.pipeline import OryxInference  # noqa: E402
 from oryx_tpu.utils import quant as jquant  # noqa: E402
 from oryx_tpu_torch import config as tcfg  # noqa: E402
+from oryx_tpu_torch.data import native_loader as tnative  # noqa: E402
 from oryx_tpu_torch.models import oryx as toryx  # noqa: E402
 from oryx_tpu_torch.models.convert import from_jax_params  # noqa: E402
 from oryx_tpu_torch.serve import builder  # noqa: E402
@@ -65,7 +66,9 @@ def saved(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
+    """Both packages on the numpy preprocessing path (pixels byte-equal)."""
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(tnative, "is_available", lambda: False)
 
 
 def _assert_equal(a, b):

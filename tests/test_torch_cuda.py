@@ -1960,6 +1960,7 @@ def _engine_run(card, *, eager, kv_dtype="bf16", sampling=None,
                 reqs=_ENGINE_REQS, sched_out=None, **kw):
     """The tiny bf16 ragged engine on the card, on the graph route or the
     eager witness: (results, metrics, K4 launches)."""
+    from oryx_tpu_torch.ops.cuda import graphs
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
     from oryx_tpu_torch.serve.pipeline import Pipeline
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
@@ -1969,12 +1970,12 @@ def _engine_run(card, *, eager, kv_dtype="bf16", sampling=None,
         Pipeline(_CharTok(), model, cfg, device=card), autostart=False,
         num_slots=2, page_size=16, chunk=4, max_ctx=256, ragged=True,
         prefill_chunk=16, kv_dtype=kv_dtype, **kw)
-    sched._eager_witness = eager
     handles = [sched.submit({"question": q}, n, sampling) for q, n in reqs]
     pa.LAUNCHES.clear()
     sched.start()
     try:
-        out = [h.result(timeout=300) for h in handles]
+        with graphs.routes(not eager):
+            out = [h.result(timeout=300) for h in handles]
     finally:
         if sched_out is None:
             sched.close()
@@ -2455,3 +2456,108 @@ def test_server_on_card_matches_cpu(card, engine):
             srv.shutdown()
             srv.server_close()
     assert out["cuda"] == out["cpu"]
+
+
+def test_router_on_card_two_replicas(card):
+    """Two tiny fp32 ragged replicas over one model on the card behind the
+    prefix-affinity router, the lock-order sanitizer and race detector
+    armed and the capture watchdog counting: both engines capture their
+    engine-step graph at once (one capture a replica) while r0 samples the
+    device time of every dispatch (its profiler sessions start and stop
+    beside r1's capture, and its windows close on its own stream), replies
+    through the router equal the direct replies and the same fleet's on
+    the CPU, a shared-prefix burst lands on one replica, no violation."""
+    import json
+    import threading
+
+    from oryx_tpu_torch.analysis import sanitizers
+    from oryx_tpu_torch.serve import api_server
+    from oryx_tpu_torch.serve import router as router_lib
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    kw = dict(engine="continuous", num_slots=2, page_size=16, decode_chunk=4,
+              max_ctx=256, ragged=True, prefill_chunk=16)
+    sys_prompt = "You are a careful assistant who counts boats. " * 2
+    bodies = [{"messages": [{"role": "system", "content": sys_prompt},
+                            {"role": "user", "content": f"question {i}?"}],
+               "max_tokens": 10} for i in range(3)]
+
+    def profiled(s):
+        """(device-time captures, capture errors) of a replica."""
+        reg = s.scheduler.metrics.registry
+        errs = reg.existing("oryx_profile_capture_errors_total",
+                            raw_name=True)
+        return (reg.get("oryx_profile_captures_total", raw_name=True),
+                sum(c.value for c in errs.children().values()) if errs else 0)
+
+    def fleet(dev):
+        model, cfg = _tiny_model(dev, torch.float32)
+        reps = [api_server.build_server(
+            Pipeline(_CharTok(), model, cfg, device=dev), port=0,
+            replica_id=f"r{i}", profile_sample_every=1 - i, **kw)
+            for i in range(2)]
+        rsrv = router_lib.build_router(
+            [(f"r{i}", f"http://127.0.0.1:{s.server_address[1]}")
+             for i, s in enumerate(reps)], port=0, probe=False)
+        for s in (*reps, rsrv):
+            threading.Thread(target=s.serve_forever, daemon=True).start()
+        bases = [f"http://127.0.0.1:{s.server_address[1]}"
+                 for s in (*reps, rsrv)]
+        try:
+            warm = [None, None]
+
+            def one(i):
+                warm[i] = _http(bases[i], "/v1/chat/completions",
+                                {"messages": [{"role": "user",
+                                               "content": "warm up"}],
+                                 "max_tokens": 12})
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out = [json.loads(_http(bases[2], "/v1/chat/completions", b))
+                   for b in bodies]
+            direct = [json.loads(_http(bases[1], "/v1/chat/completions", b))
+                      for b in bodies]
+            snap = json.loads(_http(bases[2], "/debug/replicas"))
+            return ([(o["choices"][0]["message"]["content"],
+                      o["usage"]) for o in out],
+                    [(d["choices"][0]["message"]["content"], d["usage"])
+                     for d in direct],
+                    [json.loads(w)["choices"][0]["message"]["content"]
+                     for w in warm], snap,
+                    [s.scheduler.graph_owner for s in reps],
+                    [s.scheduler.engine_stats["graph_captures_total"]
+                     for s in reps],
+                    [profiled(s) for s in reps])
+        finally:
+            rsrv.shutdown()
+            rsrv.server_close()
+            for s in reps:
+                s.scheduler.close()
+                if s.supervisor is not None:
+                    s.supervisor.stop()
+                s.shutdown()
+                s.server_close()
+
+    sanitizers.arm_lock_sanitizer(action="record")
+    try:
+        with sanitizers.recompile_watchdog(budget=1, action="record") as caps:
+            on_card = fleet(card)
+        stats = sanitizers.lock_stats()
+        assert stats.violations == [] and sanitizers.race_violations() == []
+        assert stats.acquires["router._lock"] > 0
+    finally:
+        sanitizers.disarm_lock_sanitizer()
+    on_cpu = fleet(torch.device("cpu"))
+    replies, direct, warm, snap, owners, graphs, profiled = on_card
+    assert replies == direct == on_cpu[0] and warm[0] == warm[1]
+    assert graphs == [1, 1] and on_cpu[5] == [0, 0]
+    assert profiled[0][0] > 0 and profiled[0][1] == 0
+    assert profiled[1] == (0, 0)
+    assert sorted(caps.counts.values()) == [1, 1]
+    assert {k.split("/")[0] for k in caps.counts} == set(owners)
+    assert all(r["healthy"] for r in snap["replicas"].values())

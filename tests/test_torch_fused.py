@@ -43,6 +43,7 @@ from oryx_tpu.models import oryx as joryx  # noqa: E402
 from oryx_tpu.serve.pipeline import OryxInference  # noqa: E402
 from oryx_tpu.serve.scheduler import ContinuousScheduler as JaxScheduler  # noqa: E402
 from oryx_tpu_torch import config as tcfg  # noqa: E402
+from oryx_tpu_torch.data import native_loader as tnative  # noqa: E402
 from oryx_tpu_torch.models import generate as tgen  # noqa: E402
 from oryx_tpu_torch.models.convert import from_jax_params  # noqa: E402
 from oryx_tpu_torch.serve import scheduler as tsched  # noqa: E402
@@ -207,7 +208,9 @@ def pipes():
 
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
+    """Both packages on the numpy preprocessing path (pixels byte-equal)."""
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(tnative, "is_available", lambda: False)
 
 
 GEOM = dict(num_slots=2, page_size=16, chunk=4, max_ctx=512,
@@ -438,7 +441,7 @@ class _StandInGraph:
     def __init__(self):
         self.owner = None
 
-    def capture(self, stream, generators=()):
+    def capture(self, stream, generators=(), label="graph"):
         import contextlib
 
         return contextlib.nullcontext()

@@ -17,6 +17,7 @@ from oryx_tpu.models import splice as jsplice  # noqa: E402
 from oryx_tpu.ops import packing as jpack  # noqa: E402
 from oryx_tpu_torch import conversation as tconv  # noqa: E402
 from oryx_tpu_torch.data import mm_utils as tmm  # noqa: E402
+from oryx_tpu_torch.data import native_loader as tnative  # noqa: E402
 from oryx_tpu_torch.models import splice as tsplice  # noqa: E402
 from oryx_tpu_torch.ops import packing as tpack  # noqa: E402
 
@@ -37,6 +38,7 @@ class CharTokenizer:
 def numpy_packing(monkeypatch):
     """Both packages on the numpy preprocessing path (pixels byte-equal)."""
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(tnative, "is_available", lambda: False)
 
 
 def _images(seed, shapes):

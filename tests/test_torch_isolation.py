@@ -248,3 +248,42 @@ def test_flash_kernel_launches_need_cuda_tensors():
     fa.flash_attention(q, q, q).sum().backward()
     assert q.grad is not None and q.grad.device.type == "cpu"
     assert not (fa.LAUNCHES_LSE or fa.LAUNCHES_DQ or fa.LAUNCHES_DKV)
+
+
+def test_concurrency_plane_and_front_door_modules_are_walked():
+    """The import walk and the ast check cover the concurrency plane, the
+    router, the inference CLI, the Gradio gate, the debug helpers and the
+    native loader; the router's entry point is a module of the port."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"concurrency.py", "analysis/__init__.py",
+            "analysis/sanitizers.py", "serve/router.py", "serve/cli.py",
+            "serve/gradio_app.py", "utils/debug.py",
+            "data/native_loader.py"} <= names
+    res = subprocess.run(
+        [sys.executable, "-m", "oryx_tpu_torch.serve.router", "--help"],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert res.returncode == 0 and "--replica" in res.stdout, res.stderr
+
+
+def test_serve_cli_without_device_raises_without_card(no_card, tmp_path):
+    """python -m oryx_tpu_torch.serve.cli answers on the card unless
+    --device cpu: without one it raises before loading a weight."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.serve import cli
+
+    (tmp_path / "oryx_config.json").write_text(config.oryx_tiny().to_json())
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--model-path", str(tmp_path), "--question", "q"])
+
+
+def test_native_loader_never_loads_the_library_in_native():
+    """The port's native loader builds its own library under _build/; a
+    library file left in native/ is never the one it opens."""
+    from oryx_tpu_torch.data import native_loader
+
+    assert native_loader.library_path().parent == PORT / "_build"
+    if native_loader.is_available():
+        assert Path(native_loader._lib._name).parent == PORT / "_build"

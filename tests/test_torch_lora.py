@@ -60,6 +60,8 @@ LORA = dict(enable=True, r=4, alpha=8.0, targets=TARGETS)
 @pytest.fixture(autouse=True)
 def full_precision(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     with jax.default_matmul_precision("highest"):
         yield
 

@@ -78,6 +78,8 @@ def full_precision():
 @pytest.fixture
 def packed(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     rng = np.random.default_rng(1)
     imgs = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
             for h, w in ((40, 56), (60, 30), (28, 42))]

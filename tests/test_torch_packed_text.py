@@ -51,6 +51,8 @@ BASE_GRID = 8
 @pytest.fixture(autouse=True)
 def full_precision(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     with jax.default_matmul_precision("highest"):
         yield
 

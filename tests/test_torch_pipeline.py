@@ -84,6 +84,8 @@ def _both(weights, impl, requests, **kw):
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_chat_batch_mixed_equal(weights, impl, monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     want, got = _both(
         weights, impl, _requests(), max_new_tokens=10,
         return_finish_reasons=True, return_token_counts=True,
@@ -104,6 +106,8 @@ def test_chat_batch_text_only_equal(weights):
 def test_chat_batch_stop_string_and_row_caps_equal(weights, monkeypatch):
     """Request stop strings and per-row output caps trim the same way."""
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     reqs = _requests()[:2]
     kw = dict(max_new_tokens=8, per_row_max=[3, 8], return_finish_reasons=True)
     want, got = _both(weights, "xla", reqs, **kw)

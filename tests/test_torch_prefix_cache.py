@@ -293,6 +293,8 @@ def pipes():
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
 
 
 SYS = "You are a careful assistant. Answer briefly and cite what you see. "

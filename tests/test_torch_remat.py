@@ -50,6 +50,8 @@ LORA = jcfg.LoraConfig(enable=True, r=4, alpha=8.0, targets=(
 @pytest.fixture(autouse=True)
 def full_precision(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     with jax.default_matmul_precision("highest"):
         yield
 

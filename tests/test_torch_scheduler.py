@@ -71,6 +71,8 @@ def pipes():
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
 
 
 def _serve(sched, reqs):

@@ -305,6 +305,8 @@ def pipes():
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
 
 
 GEOM = dict(num_slots=2, page_size=16, chunk=4, max_ctx=512,

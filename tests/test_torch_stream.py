@@ -320,6 +320,8 @@ def test_chat_stream_matches_jax_and_chat(weights, monkeypatch):
     """Text and image requests at chunks 2 and 4 (6 % 4 != 0): the port's
     deltas and finish reason equal JAX's, and join to chat()'s reply."""
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     jpipe, tpipe = _pipes(weights)
     img = _img(np.random.default_rng(4), 30, 44)
     for kw in (dict(question="hello there"),
@@ -409,6 +411,8 @@ def test_chat_video_matches_jax(weights, monkeypatch):
     """7 frames sampled down to 3, 16x-compressed video chat: the same
     reply as JAX's, and as chat() over the sampled frames."""
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     jpipe, tpipe = _pipes(weights)
     rng = np.random.default_rng(1)
     frames = [_img(rng, 30, 30) for _ in range(7)]

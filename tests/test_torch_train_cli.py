@@ -65,6 +65,8 @@ def seams(monkeypatch):
                         staticmethod(lambda *a, **k: FakeTok()))
     monkeypatch.setattr(builder, "load_tokenizer", lambda path: FakeTok())
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     with jax.default_matmul_precision("highest"):
         yield
     faults.reset()

@@ -76,6 +76,8 @@ _SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
 @pytest.fixture(autouse=True)
 def full_precision(monkeypatch):
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     with jax.default_matmul_precision("highest"):
         yield
 

@@ -53,9 +53,11 @@ from torch_train_common import (  # noqa: E402
 
 @pytest.fixture(autouse=True)
 def full_precision(monkeypatch):
-    # The port's packing is numpy; the JAX package may take its native
-    # loader, so both sides use the numpy path.
+    # Both packages take their native loader when it builds; both sides
+    # use the numpy path here, so the pixels are byte-equal.
     monkeypatch.setattr(native_loader, "is_available", lambda: False)
+    monkeypatch.setattr(
+        "oryx_tpu_torch.data.native_loader.is_available", lambda: False)
     with jax.default_matmul_precision("highest"):
         yield
 

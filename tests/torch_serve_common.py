@@ -7,8 +7,10 @@ character tokenizer, PNG data URIs and an HTTP client."""
 import base64
 import io
 import json
+import re
 import struct
 import threading
+import time
 import urllib.error
 import urllib.request
 import zlib
@@ -117,6 +119,31 @@ class Server:
         except urllib.error.HTTPError as e:
             with e:
                 return e.code, dict(e.headers), e.read().decode()
+
+    def quiesce(self, timeout=120):
+        """Wait until the engine has booked every dispatch it counted: a
+        timeline record (and, with a journal, a step entry) for each of
+        `dispatches_total`, and no audit replay pending. A reply is
+        released inside the harvest, before the step's records, so a read
+        or the next submit right after it can race them; tests call this
+        on both servers before either."""
+        sched = self.srv.scheduler
+        if sched is None:
+            return
+        deadline = time.monotonic() + timeout
+        while True:
+            counted = sum(float(v) for v in re.findall(
+                r"^oryx_serving_dispatches_total\{[^}]*\} (\S+)$",
+                sched.metrics.render(), re.M))
+            booked = [sched.timeline.total_steps]
+            if sched.journal is not None:
+                booked.append(sched.journal.to_dict(0)["counts_by_kind"]
+                              .get("step", 0))
+            if all(b == counted for b in booked) and \
+                    not sched.auditor.pending():
+                return
+            assert time.monotonic() < deadline, (counted, booked)
+            time.sleep(0.01)
 
     def close(self):
         if self.srv.scheduler is not None:
