@@ -330,6 +330,23 @@ Phases (any failure exits non-zero):
      byte-equal to its numpy twin on phase 2's images at the pipeline's
      caps; `pack_raw_images`, which takes the library whenever it builds,
      within 1e-4 of the numpy path.
+ 24. (Runs after 23, before 9.) Tensor-parallel serving, `--shard tp=2`
+     as the entry points run it: this process rank 0, rank 1 started by
+     `parallel/mesh.parse_shard_arg`, both on the one card over gloo
+     (printed: backend, devices), the activations summed on the card;
+     each rank draws its shard of phase 2's seed-0 init tensor by tensor.
+     (a) `Pipeline.chat_batch` over phase 3's mix, twice: byte-equal
+     runs, both ranks' dispatch digests equal, prefill logits within
+     NOISE_RATIO of the one-process bf16 error against phase 4's fp32
+     witness; the leading tokens equal to phase 3's stream printed (bf16
+     rounds a row-parallel sum differently). (b) the `sharded` engine over
+     the 8 serving requests: the split route over a bf16 pool, then the
+     ragged route with the prefix cache over an int8 pool twice,
+     byte-equal; each rank's peak memory; then rank 1 killed: the engine
+     reports dead within the collective timeout. (c) K1 at 14/2 decoder
+     heads and 8 ViT heads, K3 and K4q at Hk = 2, each vs its twin at
+     rank 0's recorded call shapes, with both ranks' launch counts (they
+     must be equal).
 
 `python3 chip_smoke.py --help` prints this text.
 Every phase ends with a `phase N wall X s` line. The line before the last
@@ -5146,6 +5163,293 @@ def native_loader_on_card(pipe, reqs, card) -> None:
           f"within {worst:.2e} of the mm_utils path ({card})")
 
 
+# ---- tensor-parallel serving on two ranks of the card (phase 24) ----------
+
+
+def tp_zero_launches() -> None:
+    """Zero this rank's kernel launch counters (a dispatch every rank
+    runs)."""
+    _zero_launches()
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    fa.LAUNCHES_DECODE.clear()
+
+
+def tp_launch_table(world, keys) -> list[list[int]]:
+    """Every rank's launch count of each (counter, key) of `keys`: a
+    [ranks][keys] table, each rank filling its row (a dispatch every rank
+    runs)."""
+    import torch.distributed as dist
+
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    counters = {"fa": fa.LAUNCHES, "pa": pa.LAUNCHES}
+    table = torch.zeros((world.size, len(keys)), dtype=torch.int64)
+    for i, (which, key) in enumerate(keys):
+        table[world.rank, i] = counters[which].get(key, 0)
+    dist.all_reduce(table, group=world.ctl_timed)
+    return table.tolist()
+
+
+def _rank_launches(smoke, world) -> tuple[list, list[list[int]]]:
+    """This run's launch keys on rank 0 and every rank's counts of them;
+    fails unless the ranks launched the same kernels the same number of
+    times."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    keys = [("fa", k) for k in fa.LAUNCHES] + [("pa", k) for k in pa.LAUNCHES]
+    table = world.call(smoke.tp_launch_table, world, keys)
+    if any(row != table[0] for row in table[1:]):
+        raise SystemExit(f"the ranks launched different kernels: {table}")
+    return keys, table
+
+
+def tp_engine_run(smoke, world, tpipe, ragged: bool, record: bool, **kw):
+    """One run of the `sharded` engine over serve_requests(), every rank's
+    launch counters zeroed just before it and read just after."""
+    from oryx_tpu_torch.serve.engine import create_engine
+
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.ops.cuda import paged_attention as pa
+
+    world.call(smoke.tp_zero_launches)
+    sched = create_engine(
+        "sharded", tpipe, autostart=False, ragged=ragged,
+        prefill_chunk=PREFILL_CHUNK if ragged else None, **SERVE, **kw)
+    recorder = PagedCallRecorder(sched) if record else None
+    reqs = serve_requests()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recorder or contextlib.nullcontext():
+        handles = [sched.submit(r, n) for r, n in reqs]
+        sched.start()
+        results = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched.close()
+    sched.check_pool_invariant()
+    paged = collections.Counter()
+    for key, n in pa.LAUNCHES.items():
+        paged[key[0]] += n
+    run = {"results": results, "caps": [n for _, n in reqs], "wall": wall,
+           "ttft": [h.debug["ttft_s"] for h in handles],
+           "cached": [h.debug["cached_tokens"] for h in handles],
+           "metrics": engine_counts(sched),
+           "peak": torch.cuda.max_memory_allocated(),
+           "flash": dict(fa.LAUNCHES), "paged": dict(paged),
+           "recorder": recorder,
+           "heads": int(sched.kv_pages["k"].shape[3])}
+    run["keys"], run["table"] = _rank_launches(smoke, world)
+    return run
+
+
+def _key_launches(run, which, match) -> tuple[int, int]:
+    """(rank 0, rank 1) launches of the keys `match` accepts."""
+    cols = [i for i, (w, k) in enumerate(run["keys"])
+            if w == which and match(k)]
+    return tuple(sum(row[i] for i in cols) for row in run["table"][:2])
+
+
+def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
+    """Phase 24: `--shard tp=2` as the entry points run it (this process
+    rank 0, rank 1 started by parse_shard_arg), both ranks on the one
+    card over gloo, each drawing its shard of phase 2's seeded weights;
+    (a) chat_batch, (b) the sharded engine, (c) K1/K3/K4 at the per-rank
+    shapes. Returns the kernel rows."""
+    import importlib
+    from types import SimpleNamespace
+
+    from oryx_tpu_torch.models import qwen2
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+    from oryx_tpu_torch.parallel import mesh as mesh_lib
+    from oryx_tpu_torch.parallel import sharding
+    from oryx_tpu_torch.parallel import tp as tp_lib
+    from oryx_tpu_torch.serve.engine import create_engine
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    # Functions a dispatch names must import on every rank: this script as
+    # the module `chip_smoke`, not as __main__.
+    smoke = importlib.import_module("chip_smoke")
+    t0 = time.perf_counter()
+    mesh, _ = mesh_lib.parse_shard_arg("tp=2")
+    world = tp_lib.current()
+    print(f"  ranks up in {time.perf_counter() - t0:.1f} s: backend "
+          f"{world.backend}, devices {[str(d) for d in world.devices]} "
+          f"(ranks that share a card take gloo; NCCL only with a card a "
+          f"rank)")
+    rows = []
+    try:
+        t0 = time.perf_counter()
+        tok = smoke.ByteTokenizer()
+        tpipe = Pipeline(tok, sharding.SeededParams(0, torch.bfloat16), cfg,
+                         device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        print(f"  each rank drew its shard of the seed-0 init in "
+              f"{time.perf_counter() - t0:.1f} s; rank 0 holds q_proj "
+              f"{tuple(tpipe.params.llm.layers[0].q_proj.weight.shape)}, "
+              f"o_proj {tuple(tpipe.params.llm.layers[0].o_proj.weight.shape)}"
+              f", ViT fc1 "
+              f"{tuple(tpipe.params.vit.layers[0].fc1.weight.shape)}")
+
+        # (a) chat_batch over phase 3's mix, twice.
+        streams = []
+        for i in range(2):
+            world.call(smoke.tp_zero_launches)
+            tok.decoded.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            replies, counts = tpipe.chat_batch(
+                reqs, max_new_tokens=MAX_NEW, return_token_counts=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            streams.append([list(t) for t in tok.decoded])
+            if i == 0:
+                keys, table = _rank_launches(smoke, world)
+                main_run = {"keys": keys, "table": table}
+            print(f"  (a) chat_batch run {i}: wall {wall:.3f} s, tokens "
+                  f"{[gt for _, gt in counts]}")
+        if streams[1] != streams[0]:
+            raise SystemExit("tp chat_batch: the two runs differ")
+        digests = world.digests()
+        if len(set(digests)) != 1:
+            raise SystemExit(f"the ranks sampled different tokens: {digests}")
+        print(f"  (a) two runs byte-equal; both ranks' dispatch digests "
+              f"equal ({digests[0][:16]})")
+        lead = []
+        for a, b in zip(streams[0], toks0):
+            n = 0
+            while n < min(len(a), len(b)) and a[n] == b[n]:
+                n += 1
+            lead.append(f"{n}/{len(b)}")
+        print(f"  (a) leading tokens equal to the one-process stream (bf16 "
+              f"rounds a row-parallel sum differently; not gated): {lead}")
+        lt = world.call(smoke.prefill_logits, tpipe, reqs)
+        if not bool(torch.isfinite(lt).all()):
+            raise SystemExit("tp prefill logits are not finite")
+
+        def rel(a, b):
+            return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+
+        rt, r1 = rel(lt, lf), rel(la, lf)
+        print(f"  (a) prefill logits rel L2 vs the fp32 witness: tp "
+              f"{[f'{x:.3e}' for x in rt]}, one process "
+              f"{[f'{x:.3e}' for x in r1]} (limit {NOISE_RATIO}x)")
+        if any(a > NOISE_RATIO * b for a, b in zip(rt, r1)):
+            raise SystemExit("tp prefill logits are further from the fp32 "
+                             "witness than bf16 noise allows")
+
+        # (b) the sharded engine: the split route over a bf16 pool (K3),
+        # then the ragged route with the prefix cache over an int8 pool
+        # (K4q), twice.
+        split = tp_engine_run(smoke, world, tpipe, False, True)
+        print("  (b) the sharded engine, split route, bf16 pool:")
+        check_serving_run("split", 0, split)
+        int8_runs = [tp_engine_run(smoke, world, tpipe, True, i == 0,
+                                   kv_dtype="int8") for i in range(2)]
+        print("  (b) the sharded engine, ragged route, int8 pool, prefix "
+              "cache on:")
+        for i, run in enumerate(int8_runs):
+            check_serving_run("ragged", i, run, "_int8")
+        if int8_runs[1]["results"] != int8_runs[0]["results"]:
+            raise SystemExit("tp int8 ragged: the two runs differ")
+        print(f"  (b) sharded engine, KV heads a rank {split['heads']}: split "
+              f"wall {split['wall']:.3f} s; int8 ragged walls "
+              f"{[round(r['wall'], 3) for r in int8_runs]} s, replies "
+              f"byte-equal across the two runs; prefix hits "
+              f"{int8_runs[1]['metrics']['prefix_cache_hit_tokens_total']}")
+        c = tp_lib.SHARED_CARD
+        print(f"  rank 0's all-reduces summed on the shared card so far: "
+              f"{c['calls']}, {c['bytes'] / 1e9:.3f} GB contributed, "
+              f"{c['seconds']:.3f} s from entry to return")
+        peaks = world.peak_memory()
+        print(f"  peak card memory by rank: "
+              f"{[f'{p / 1e9:.2f} GB' for p in peaks]} (rank 0's includes "
+              f"phase 2's whole model)")
+
+        # (c) the kernels at the per-rank call shapes.
+        rcfg = dataclasses.replace(
+            cfg, llm=qwen2.rank_cfg(tpipe.params.llm, cfg.llm),
+            vision=dataclasses.replace(
+                cfg.vision, num_heads=cfg.vision.num_heads // 2))
+        stand_in = SimpleNamespace(cfg=rcfg, device=tpipe.device,
+                                   pack_requests=tpipe.pack_requests)
+        gen = torch.Generator("cuda").manual_seed(24)
+        print(f"  (c) kernels vs plain twins at rank 0's shapes: K1 at "
+              f"{rcfg.llm.num_heads}/{rcfg.llm.num_kv_heads} decoder heads "
+              f"and {rcfg.vision.num_heads} ViT heads, K3/K4 at Hk = "
+              f"{rcfg.llm.num_kv_heads}")
+        for name, kw, keep in attention_cases(stand_in, reqs, gen):
+            if name == "compressor":  # whole on every rank: phase 2's row
+                continue
+            key, row = check_kernel_case(f"tp_{name}", kw, keep)
+            r0, r1 = _key_launches(main_run, "fa", lambda k: k == key)
+            row["launches"] = r0
+            print(f"  launches {row['name']}: rank 0 {r0}, rank 1 {r1}")
+            if r0 == 0:
+                raise SystemExit(f"{row['name']} was never launched on the "
+                                 "tp path")
+            rows.append(row)
+        S = SERVE["num_slots"]
+        pool_shape = (S * SERVE["max_ctx"] // SERVE["page_size"],
+                      SERVE["page_size"], rcfg.llm.num_kv_heads,
+                      rcfg.llm.head_dim)
+        dec = split["recorder"].calls["paged_decode"]
+        rag = int8_runs[0]["recorder"].calls["ragged_paged"]
+        cases = [
+            ("paged_decode[tp_decode]", "paged_decode", None, split,
+             _pick(dec, lambda c: int(c[2].sum())), lambda k: True),
+            ("ragged_paged_int8[tp_prefill]", "ragged_paged", "int8",
+             int8_runs[0], _pick([c for c in rag if c[0][0][0] > S],
+                                 lambda c: int((c[3] + 1).sum())),
+             lambda k: k[1] > S),
+            ("ragged_paged_int8[tp_decode]", "ragged_paged", "int8",
+             int8_runs[0], _pick([c for c in rag if c[0][0][0] == S],
+                                 lambda c: int((c[3] + 1).sum())),
+             lambda k: k[1] == S),
+        ]
+        for name, kind, fmt, run, call, which in cases:
+            row = paged_kernel_case(name, kind, call, pool_shape, gen, fmt)
+            kernel = kind + (f"_{fmt}" if fmt else "")
+            r0, r1 = _key_launches(
+                run, "pa", lambda k: k[0] == kernel and which(k))
+            row["launches"] = r0
+            print(f"  launches {name}: rank 0 {r0}, rank 1 {r1}")
+            if r0 == 0:
+                raise SystemExit(f"{name} was never launched on the tp path")
+            rows.append(row)
+
+        # (b, continued) a follower that dies: the engine reports dead
+        # within the collective timeout, nothing hangs.
+        sched = create_engine("sharded", tpipe, autostart=False, ragged=True,
+                              prefill_chunk=PREFILL_CHUNK, kv_dtype="int8",
+                              **SERVE)
+        world.kill_follower(1)
+        t1 = time.perf_counter()
+        h = sched.submit({"question": "Name three colours."}, 8)
+        sched.start()
+        try:
+            h.result(timeout=world.timeout_s + 30)
+            raise SystemExit("a request was served with a dead follower")
+        except RuntimeError as e:
+            err = str(e)
+        while sched.alive() and time.perf_counter() - t1 < world.timeout_s:
+            time.sleep(0.01)
+        dead_s = time.perf_counter() - t1
+        alive = sched.alive()
+        sched.close()
+        print(f"  (b) rank 1 killed: the engine reported dead after "
+              f"{dead_s:.3f} s (collective timeout {world.timeout_s:g} s); "
+              f"the request failed with {err[:90]!r}")
+        if alive:
+            raise SystemExit("the sharded engine outlived its dead follower")
+    finally:
+        world.shutdown()
+    return rows
+
+
 def phase_begin(name: str | None) -> None:
     """Close the running phase with its `phase N wall X s` line and start
     `name` (None: the last phase ends)."""
@@ -5625,6 +5929,17 @@ def main() -> int:
     gc.collect()
     serve_cli_on_card(params, cfg, reqs, card)
     native_loader_on_card(pipe, reqs, card)
+
+    # ---- 24. tensor-parallel serving on two ranks of the card -------------
+    phase_begin("24")
+    print(f"phase 24: tensor-parallel serving (--shard tp=2), oryx_7b bf16 "
+          f"at full width and depth, two ranks on the one card; chat_batch "
+          f"vs the one-process pipeline, the sharded engine (split bf16, "
+          f"ragged int8 with the prefix cache), K1/K3/K4 at the per-rank "
+          f"shapes, a dead follower ({card})", flush=True)
+    rows.extend(tensor_parallel(params, cfg, reqs, toks0, la, lf, card))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 9. training kernels at the training step's shapes ----------------
     phase_begin("9")

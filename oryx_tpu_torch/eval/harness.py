@@ -19,8 +19,9 @@ protocol: the prompt lists lettered options, the reply's first letter in
 range counts); open-ended records by normalized exact match. A video is a
 directory of frames (data/media.py).
 
-Not ported: `--shard` (a model sharded over several cards) waits for
-parallelism and raises NotImplementedError.
+`--shard tp=N` evaluates through a tensor-parallel pipeline over N ranks
+this process starts (parallel/); `--shard fsdp=N` belongs to the training
+slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -391,8 +392,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--process-count", type=int, default=1)
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
-        help="multi-chip serving (tp=8 / fsdp=8) for models that exceed "
-        "one chip (not ported: raises)",
+        help="multi-chip serving (tp=N) for models that exceed one chip; "
+        "fsdp=N belongs to the training slice and raises",
     )
     ap.add_argument(
         "--quantize", default=None, choices=["int8"],
@@ -407,11 +408,8 @@ def main(argv: list[str] | None = None) -> None:
     from oryx_tpu_torch.eval.adapters import adapt
     from oryx_tpu_torch.serve import builder
 
-    if args.shard:
-        raise builder._not_ported("--shard (multi-chip serving)",
-                                  "item 4, parallelism")
-    pipe = builder.load_pipeline(
-        args.model_path, tokenizer_path=args.tokenizer_path,
+    pipe = builder.shard_pipeline(
+        args.model_path, args.shard, tokenizer_path=args.tokenizer_path,
         quantize=args.quantize, device=args.device,
     )
     records = adapt(args.format, load_task(args.task))

@@ -25,7 +25,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
-from oryx_tpu_torch.utils.quant import linear
+from oryx_tpu_torch.utils.quant import linear, row_linear
 
 EPS = 1e-6
 
@@ -125,9 +125,10 @@ def forward(
         )
     x = pooled + linear(o.reshape(Q, Hv), params.o_proj)
 
-    # MLP projector into LLM embedding space (mlp2x_gelu-equivalent).
+    # MLP projector into LLM embedding space (mlp2x_gelu-equivalent). A
+    # tensor-parallel shard holds fc1's columns and fc2's rows of its own.
     x = F.gelu(linear(x, params.projector.fc1), approximate="tanh")
-    x = linear(x, params.projector.fc2)
+    x = row_linear(x, params.projector.fc2, getattr(params, "tp", None))
 
     valid_q = (q_region_ids > 0)[:, None]
     return torch.where(valid_q, x, 0.0).to(features.dtype)

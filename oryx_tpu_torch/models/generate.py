@@ -433,16 +433,18 @@ def _dense_route(params, cfg: LLMConfig, gen_cfg: GenerationConfig, *,
     the caller's generator, its own step and no graph. Either way
     `kv_cache` itself is never written. With the graph routes off
     (utils/debug.debug_mode(disable_jit=True)) the card takes the eager
-    route too."""
+    route too, and so does a tensor-parallel shard: its all-reduces run
+    over gloo, which a CUDA graph cannot capture."""
     dtype = compute_dtype or torch.float32
     if kv_cache is not None and kv_cache["k"].shape[2] != cache_len:
         raise ValueError(
             f"kv_cache has {kv_cache['k'].shape[2]} slots, {cache_len=}"
         )
-    if device.type != "cuda" or not graphs.enabled():
+    if device.type != "cuda" or not graphs.enabled() or (
+            getattr(params, "tp", None) is not None):
         cache = (
-            qwen2.init_kv_cache(cfg, batch, cache_len, dtype=dtype,
-                                device=device)
+            qwen2.init_kv_cache(qwen2.rank_cfg(params, cfg), batch,
+                                cache_len, dtype=dtype, device=device)
             if kv_cache is None
             else {name: x.clone() for name, x in kv_cache.items()}
         )
@@ -512,7 +514,8 @@ def prefill(
     slot_ar = torch.arange(cache_len, device=dev)[None, :]
     kv_mask = (slot_ar < lengths[:, None]).to(torch.int32)
     cache = kv_cache if kv_cache is not None else qwen2.init_kv_cache(
-        cfg, B, cache_len, dtype=compute_dtype or torch.float32, device=dev
+        qwen2.rank_cfg(params, cfg), B, cache_len,
+        dtype=compute_dtype or torch.float32, device=dev,
     )
     h, cache = qwen2.forward(
         params, cfg,
@@ -1865,6 +1868,10 @@ def row_generator(device: torch.device, seed: int, row: int = 0
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
+def _returned_state(out):
+    return out[-1]
+
+
 @torch.inference_mode()
 def generate_paged(
     params,
@@ -1889,6 +1896,7 @@ def generate_paged(
     ragged: bool = False,
     kv_dtype: str | None = None,
     device="cuda",
+    mesh=None,
 ):
     """`generate`, but over a paged KV cache in `chunk`-step dispatches: the
     reference driver of the continuous-batching path (the scheduler runs
@@ -1907,11 +1915,31 @@ def generate_paged(
     "fp8_e4m3" a quantized pool (qwen2.init_paged_kv_cache), which the
     paged programs take unchanged. Sampling rows draw from per-row generators seeded from `seed`.
 
+    mesh: tensor-parallel decode (parallel/mesh.py). `params` is rank 0's
+    shard (`Pipeline(mesh=).params.llm`): every rank runs this call on its
+    own shard (parallel/tp.py), a fresh pool holds each rank's KV heads,
+    and greedy tokens equal the one-device path's. A returned `state` is
+    rank-local; pass it back on the same mesh.
+
     Returns host tensors (tokens [B, max_new_tokens] int32, num_generated
     [B] int32, finished [B] bool)[, state]."""
     from oryx_tpu_torch.models.params import resolve_device
     from oryx_tpu_torch.ops.packing import round_up_bucket
+    from oryx_tpu_torch.parallel import tp as tp_lib
 
+    world = tp_lib.current() if mesh is not None else None
+    if world is not None and world.size > 1 and not tp_lib.inside():
+        return world.call(
+            generate_paged, params, cfg, gen_cfg,
+            inputs_embeds=inputs_embeds, lengths=lengths,
+            max_new_tokens=max_new_tokens, page_size=page_size, chunk=chunk,
+            kv_capacity=kv_capacity, num_pages=num_pages, seed=seed,
+            attn_impl=attn_impl, compute_dtype=compute_dtype,
+            stop_sequences=stop_sequences, state=state, start=start,
+            return_state=return_state, prefill_chunk=prefill_chunk,
+            ragged=ragged, kv_dtype=kv_dtype, device=device, mesh=mesh,
+            bind=_returned_state if return_state else None,
+        )
     dev = resolve_device(device)
     inputs_embeds = inputs_embeds.to(dev)
     B = inputs_embeds.shape[0]
@@ -1930,7 +1958,7 @@ def generate_paged(
         allocator = paged_kv_lib.PageAllocator(num_pages, page_size)
         state = PagedState(
             kv_pages=qwen2.init_paged_kv_cache(
-                cfg, num_pages, page_size,
+                qwen2.rank_cfg(params, cfg), num_pages, page_size,
                 dtype=compute_dtype or torch.float32, device=dev,
                 kv_dtype=kv_dtype,
             ),

@@ -23,7 +23,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
-from oryx_tpu_torch.utils.quant import linear, linear_group
+from oryx_tpu_torch.utils.quant import linear, linear_group, row_linear
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -131,17 +131,21 @@ def forward(
             f"attn_impl {attn_impl!r}: the port has 'xla' and 'pallas'"
         )
 
+    # A tensor-parallel shard holds its own heads and fc1 columns; its
+    # o_proj and fc2 partial products are summed over the ranks.
+    tp = getattr(params, "tp", None)
+
     def layer(h, lp):
         B, P, _ = h.shape
         x = lp.norm1(h)
-        q, k, v = (t.view(B, P, cfg.num_heads, cfg.head_dim)
+        q, k, v = (t.view(B, P, -1, cfg.head_dim)
                    for t in linear_group(x, (lp.q_proj, lp.k_proj,
                                              lp.v_proj)))
         o = attn_fn(q, k, v).reshape(B, P, -1)
-        h = h + linear(o, lp.o_proj)
+        h = h + row_linear(o, lp.o_proj, tp)
         x = lp.norm2(h)
         x = F.gelu(linear(x, lp.fc1), approximate="tanh")
-        return h + linear(x, lp.fc2)
+        return h + row_linear(x, lp.fc2, tp)
 
     for lp in params.layers:
         h = checkpointed(remat, layer, h, lp)

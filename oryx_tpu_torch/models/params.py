@@ -26,6 +26,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def init_draws(module: nn.Module, device: torch.device,
+               generator: torch.Generator):
+    """The random init of `module` (its shapes; it may sit on the meta
+    device), in draw order: (module path, leaf name, the whole fp32
+    tensor on `device`). `materialize` copies each into place; a
+    tensor-parallel rank keeps its slice of each (parallel/sharding)."""
+    for path, m in module.named_modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            yield path, "weight", torch.randn(
+                m.weight.shape, generator=generator, device=device,
+                dtype=torch.float32,
+            ).mul_(0.02)
+            if getattr(m, "bias", None) is not None:
+                yield path, "bias", torch.zeros(m.bias.shape, device=device)
+        elif isinstance(m, (RMSNorm, LayerNorm)):
+            yield path, "weight", torch.ones(m.weight.shape, device=device)
+            if isinstance(m, LayerNorm):
+                yield path, "bias", torch.zeros(m.bias.shape, device=device)
+
+
 @torch.no_grad()
 def materialize(
     module: nn.Module,
@@ -33,24 +53,13 @@ def materialize(
     generator: torch.Generator | None,
 ) -> nn.Module:
     """Allocate a meta-device module on `device` (frozen: inference only).
-    With a generator, fill it with the random init; without one, leave the
-    values for the caller to load."""
+    With a generator, fill it with the random init (`init_draws`);
+    without one, leave the values for the caller to load."""
     module = module.to_empty(device=device).requires_grad_(False)
     if generator is None:
         return module
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Embedding)):
-            w = torch.randn(
-                m.weight.shape, generator=generator, device=device,
-                dtype=torch.float32,
-            )
-            m.weight.copy_(w * 0.02)
-            if getattr(m, "bias", None) is not None:
-                m.bias.zero_()
-        elif isinstance(m, (RMSNorm, LayerNorm)):
-            m.weight.fill_(1.0)
-            if isinstance(m, LayerNorm):
-                m.bias.zero_()
+    for path, leaf, full in init_draws(module, device, generator):
+        getattr(module.get_submodule(path), leaf).copy_(full)
     return module
 
 

@@ -17,6 +17,8 @@ to a later slice.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,6 +41,7 @@ from oryx_tpu_torch.utils.quant import (
     embed_rows,
     linear,
     linear_group,
+    row_linear,
 )
 from oryx_tpu_torch.utils.remat import checkpointed
 
@@ -167,6 +170,21 @@ def lora_shells(params: nn.Module, state) -> nn.Module:
     return params
 
 
+def rank_cfg(params, cfg: LLMConfig) -> LLMConfig:
+    """`cfg` at this rank's widths: a tensor-parallel shard (its `tp` the
+    world of parallel/tp.py) holds num_heads / tp query heads,
+    num_kv_heads / tp KV heads and intermediate_size / tp MLP columns, and
+    its caches hold its KV heads. `cfg` itself off tp."""
+    tp = getattr(params, "tp", None)
+    if tp is None or tp.size == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp.size,
+        num_kv_heads=cfg.num_kv_heads // tp.size,
+        intermediate_size=cfg.intermediate_size // tp.size,
+    )
+
+
 def init_kv_cache(
     cfg: LLMConfig, batch: int, max_len: int,
     dtype: torch.dtype = torch.bfloat16, device="cuda",
@@ -252,26 +270,30 @@ def _block(
     kv_lengths: torch.Tensor | None = None,
     q_segments: torch.Tensor | None = None,
     attn_impl: str = "xla",
+    tp=None,
 ) -> torch.Tensor:
     """One decoder block. h: [B, T, H]; writes k/v into the cache layer
     views in place when given (a paged layer at `write_index`, the pool
     rows `forward` computed once for every layer; a quantized page plane
     quantizes them on write, and a T > 1 prefill reads it through the
-    dequantizing `gather_pages`)."""
+    dequantizing `gather_pages`). tp: a tensor-parallel shard's world: the
+    layer holds its own heads and MLP columns, and the o_proj and
+    down_proj partial products are summed over the ranks."""
     B, T, _ = h.shape
     x = lp.input_norm(h)
     # Names for the "attn_qkv" / "attn_o" remat policies (utils/remat.py).
     q, k, v = linear_group(x, (lp.q_proj, lp.k_proj, lp.v_proj),
                            ("attn_q", "attn_k", "attn_v"))
-    q = q.view(B, T, cfg.num_heads, cfg.head_dim)
-    k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    # Head counts from the widths: a tensor-parallel shard holds its own.
+    q = q.view(B, T, -1, cfg.head_dim)
+    k = k.view(B, T, -1, cfg.head_dim)
+    v = v.view(B, T, -1, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
 
     if cache_k is not None and block_tables is not None:
-        rows = (B * T, cfg.num_kv_heads, cfg.head_dim)
-        paged_kv.scatter_rows(cache_k, write_index, k.reshape(rows))
-        paged_kv.scatter_rows(cache_v, write_index, v.reshape(rows))
+        rows = (B * T, -1, cfg.head_dim)
+        paged_kv.scatter_rows(cache_k, write_index, k.reshape(rows), tp)
+        paged_kv.scatter_rows(cache_v, write_index, v.reshape(rows), tp)
     if cache_k is not None and block_tables is not None and (
         q_segments is not None
     ):
@@ -321,11 +343,11 @@ def _block(
             kv_mask=kv_mask,
             slot_positions=True,
         )
-    h = h + linear(attn_out.reshape(B, T, -1), lp.o_proj, "attn_o")
+    h = h + row_linear(attn_out.reshape(B, T, -1), lp.o_proj, tp, "attn_o")
 
     x = lp.post_attn_norm(h)
     gate, up = linear_group(x, (lp.gate_proj, lp.up_proj))
-    return h + linear(F.silu(gate) * up, lp.down_proj)
+    return h + row_linear(F.silu(gate) * up, lp.down_proj, tp)
 
 
 def logits_from_hidden(
@@ -468,6 +490,7 @@ def forward(
             kv_lengths=kv_lengths,
             q_segments=q_segments,
             attn_impl=attn_impl,
+            tp=getattr(params, "tp", None),
         )
 
     h = params.final_norm(h)

@@ -430,6 +430,22 @@ def upload_page(kv_pages: dict, dst: int, blob: dict) -> dict:
     return kv_pages
 
 
+class HostPage:
+    """A `fetch_page` blob as an object a tensor-parallel rank can name
+    (parallel/tp.py registers objects, and a dict cannot be watched for
+    collection): each rank keeps the blob of its own heads."""
+
+    def __init__(self, blob: dict):
+        self.blob = blob
+
+    @classmethod
+    def fetch(cls, kv_pages: dict, page: int) -> "HostPage":
+        return cls(fetch_page(kv_pages, page))
+
+    def upload(self, kv_pages: dict, dst: int) -> dict:
+        return upload_page(kv_pages, dst, self.blob)
+
+
 def _rows_with_sink(cache_layer: torch.Tensor) -> torch.Tensor:
     """[P * ps + 1, *row] row view of a layer from `init_paged_pool` (or a
     scale plane [P, ps] of `init_quant_pages`): row P * ps is the first row
@@ -505,14 +521,21 @@ def write_index_packed(
 
 
 def scatter_rows(cache_layer, index: torch.Tensor,
-                 new: torch.Tensor) -> None:
+                 new: torch.Tensor, tp=None) -> None:
     """pool_rows[index[i]] = new[i] ([N, Hk, D] rows), IN PLACE, with an
     index from `write_index` / `write_index_packed`. A quantized plane
     quantizes the rows on write and scatters codes and scales through the
-    same index, so a dropped row drops both."""
+    same index, so a dropped row drops both. tp: the tensor-parallel
+    world whose ranks hold the row's other heads; a row's scale is taken
+    over all of them (the max of the ranks' amax), so each rank's codes
+    are the one-device pool's codes of its heads."""
     if isinstance(cache_layer, QuantPages):
+        reduce = None
+        if tp is not None and tp.size > 1:
+            def reduce(amax):
+                return tp.all_reduce(amax, "max")
         codes, scale = quant_lib.quantize_kv_rows(
-            new, _quant_fmt(cache_layer)
+            new, _quant_fmt(cache_layer), amax_reduce=reduce
         )
         rows = _rows_with_sink(cache_layer.q).view(torch.uint8)
         rows.index_put_((index,), codes.view(torch.uint8))

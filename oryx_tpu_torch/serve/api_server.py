@@ -1356,7 +1356,7 @@ def main(argv: list[str] | None = None) -> None:
         "--engine", choices=["window"] + engine_names(), default="window",
         help="the window batcher (group within --batch-window) or the "
         "continuous-batching scheduler over a paged KV cache; sharded is "
-        "not ported yet",
+        "the continuous engine over a --shard tp=N pipeline",
     )
     ap.add_argument("--replica-id", default=None)
     ap.add_argument("--num-slots", type=int, default=4)
@@ -1459,13 +1459,17 @@ def main(argv: list[str] | None = None) -> None:
         "'page_alloc_oom:p=0.05,seed=7;engine_crash:after=40'; chaos "
         "testing only ($ORYX_FAULTS also works)",
     )
-    ap.add_argument("--shard", default=None, metavar="MODE=N")
+    ap.add_argument(
+        "--shard", default=None, metavar="MODE=N",
+        help="tensor-parallel serving over N ranks this process starts "
+        "(tp=N; rank r on cuda:(r %% device_count), gloo where ranks share "
+        "a card); fsdp=N belongs to the training slice and raises",
+    )
     args = ap.parse_args(argv)
-    if args.shard:
-        raise NotImplementedError(
-            "--shard (multi-card serving) is not ported yet: it waits for "
-            "the port's meshes, ROADMAP Queue 1 item 4"
-        )
+    if args.quantize and args.shard:
+        ap.error("--quantize is single-chip serving; drop --shard")
+    if args.engine == "sharded" and not args.shard:
+        ap.error("--engine sharded requires --shard tp=N")
     if args.ragged and not args.prefill_chunk:
         ap.error("--ragged requires a nonzero --prefill-chunk")
     if args.speculate < 0:
@@ -1480,12 +1484,17 @@ def main(argv: list[str] | None = None) -> None:
         if fuse_steps < 1:
             ap.error("--fuse-steps must be a positive integer or 'auto'")
 
-    from oryx_tpu_torch.serve.builder import load_pipeline
+    from oryx_tpu_torch.serve.builder import shard_pipeline
 
-    pipe = load_pipeline(
-        args.model_path, tokenizer_path=args.tokenizer_path,
-        quantize=args.quantize, device=args.device,
-    )
+    try:
+        pipe = shard_pipeline(
+            args.model_path, args.shard, tokenizer_path=args.tokenizer_path,
+            quantize=args.quantize, device=args.device,
+        )
+    except ValueError as e:
+        if args.shard and "--shard" in str(e):
+            ap.error(str(e))
+        raise
     srv = build_server(
         pipe, model_name=args.model_name, host=args.host, port=args.port,
         batch_window=args.batch_window, max_batch=args.max_batch,

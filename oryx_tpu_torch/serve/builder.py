@@ -17,9 +17,10 @@ Files are read memory-mapped (utils/safetensors.py) and every tensor is
 cast, or quantized, onto the target device one at a time: with
 `quantize="int8"` the full float tree never lands on the card.
 
-Not ported: sharded loading over a mesh (`mesh=`, `shard=`,
-`sharding_mode=`, `serving_param_shardings`) waits for parallelism;
-passing it raises NotImplementedError.
+Tensor-parallel loading (`mesh=` / `shard="tp=N"`): every rank cuts its
+own slices off the memory-mapped file (parallel/sharding.CheckpointParams),
+so no rank holds the whole tree. int8 weights with a mesh raise, as in the
+JAX package; `fsdp` belongs to the training slice and raises.
 """
 
 from __future__ import annotations
@@ -49,12 +50,43 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{item})")
 
 
-def _single_device(mesh=None, shard=None, sharding_mode=None) -> None:
-    for name, value in (("mesh", mesh), ("shard", shard),
-                        ("sharding_mode", sharding_mode)):
-        if value is not None:
-            raise _not_ported(f"{name}= (sharded serving)",
-                              "item 4, parallelism")
+def shard_pipeline(model_path: str, shard: str | None, *, tokenizer_path=None,
+                   tokenizer=None, template: str = "qwen",
+                   quantize: str | None = None, device="cuda"):
+    """The entry points' pipeline: `--shard` parsed as JAX parses it (a
+    malformed value raises ValueError; fsdp=N raises NotImplementedError),
+    then `load_pipeline`. With tp=N this process becomes rank 0 of N
+    ranks it starts itself, rank r on cuda:(r % device_count) (or the CPU
+    with device="cpu"; "cuda" without a card raises); the backend is
+    printed at start-up."""
+    from oryx_tpu_torch.parallel.mesh import parse_shard_arg
+
+    if shard is not None and quantize:
+        raise ValueError("--quantize is single-chip serving; drop --shard")
+    mesh, mode = parse_shard_arg(shard, device=device)
+    return load_pipeline(model_path, tokenizer_path=tokenizer_path,
+                         tokenizer=tokenizer, template=template,
+                         quantize=quantize, device=device, mesh=mesh,
+                         sharding_mode=mode if mesh is not None else None)
+
+
+def serving_param_shardings(mesh, params_like, mode: str = "tp"):
+    """Inference-time placement over a mesh: {parameter name: this rank's
+    `sharding.Placement`}. "tp" splits weights over attention heads / MLP
+    columns (the zero2 rules: embeddings and norms whole); "fsdp" belongs
+    to the training slice and raises. params_like may be a meta-device
+    model (`oryx.empty_model(cfg)`)."""
+    from oryx_tpu_torch.parallel import sharding as sharding_lib
+    from oryx_tpu_torch.parallel.mesh import TRAINING_HALF
+
+    rules_mode = {"tp": "zero2", "fsdp": "fsdp"}.get(mode)
+    if rules_mode is None:
+        raise ValueError(f"unknown serving sharding mode {mode!r}: tp|fsdp")
+    if mode == "fsdp":
+        raise NotImplementedError(
+            f"fsdp serving is not ported to oryx_tpu_torch yet "
+            f"({TRAINING_HALF})")
+    return sharding_lib.param_shardings(mesh, params_like, rules_mode)
 
 
 def _model_of(state_or_params) -> OryxModel:
@@ -107,10 +139,20 @@ def load_pretrained_model(
     package). quantize="int8": weight-only per-channel int8
     (utils/quant.py), each large weight quantized on `device` from its
     stored dtype, straight off the memory-mapped file, the other leaves
-    cast to `dtype`."""
+    cast to `dtype`.
+
+    mesh: a tensor-parallel mesh (parallel/mesh.py). The weights come back
+    as `sharding.CheckpointParams`, which `Pipeline(mesh=)` resolves on
+    every rank to that rank's slices, each read off the memory-mapped
+    file: no rank ever holds the whole tree. Mutually exclusive with
+    quantize."""
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize={quantize!r}: int8 or None")
-    _single_device(mesh=mesh, sharding_mode=sharding_mode)
+    if quantize and mesh is not None:
+        raise ValueError(
+            "quantize='int8' is single-chip serving; drop --shard "
+            "(sharded serving splits the float weights instead)"
+        )
     dev = resolve_device(device)
     cfg_file = os.path.join(model_path, CONFIG_NAME)
     if cfg is None:
@@ -121,6 +163,15 @@ def load_pretrained_model(
             )
         with open(cfg_file) as f:
             cfg = OryxConfig.from_json(f.read())
+    if mesh is not None:
+        from oryx_tpu_torch.parallel import sharding as sharding_lib
+
+        serving_param_shardings(mesh, empty_model(cfg),
+                                sharding_mode or "tp")
+        if tokenizer is None:
+            tokenizer = load_tokenizer(tokenizer_path or model_path)
+        return tokenizer, sharding_lib.CheckpointParams(
+            model_path, dtype), cfg
     try:
         state = st.load_safetensors_dir(model_path)
     except FileNotFoundError:
@@ -195,15 +246,33 @@ def load_pipeline(
     device="cuda",
 ):
     """One-call serving setup: (optionally int8-quantized) model load, then
-    the port's `Pipeline` on `device`."""
+    the port's `Pipeline` on `device`. shard ("tp=N", as `--shard`) or
+    mesh: tensor-parallel serving over N ranks (parallel/), this process
+    rank 0 on the world's first device, which must be of `device`'s type
+    ("cuda" without a card raises)."""
+    from oryx_tpu_torch.parallel.mesh import parse_shard_arg
     from oryx_tpu_torch.serve.pipeline import Pipeline
 
-    _single_device(mesh=mesh, shard=shard, sharding_mode=sharding_mode)
+    if shard is not None:
+        if mesh is not None:
+            raise ValueError("pass shard= or mesh=, not both")
+        mesh, sharding_mode = parse_shard_arg(shard, device=device)
+    if mesh is not None:
+        from oryx_tpu_torch.parallel import tp as tp_lib
+
+        world = tp_lib.current()
+        if resolve_device(device).type != world.device.type:
+            raise ValueError(
+                f"device={str(device)!r}, but the tp ranks run on "
+                f"{world.device.type}")
+        device = world.device
     tokenizer, params, cfg = load_pretrained_model(
         model_path, tokenizer_path=tokenizer_path, tokenizer=tokenizer,
-        quantize=quantize, device=device,
+        quantize=quantize, device=device, mesh=mesh,
+        sharding_mode=sharding_mode,
     )
-    return Pipeline(tokenizer, params, cfg, template=template, device=device)
+    return Pipeline(tokenizer, params, cfg, template=template, device=device,
+                    mesh=mesh, sharding_mode=sharding_mode or "tp")
 
 
 def export_hf(directory: str, cfg: OryxConfig, params: Any) -> None:

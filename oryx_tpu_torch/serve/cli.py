@@ -12,9 +12,9 @@ read frame by frame or a directory of frame images. It runs on the card
     python -m oryx_tpu_torch.serve.cli --model-path DIR \\
         --image a.png --question "what is this?" [--quantize int8]
 
-Not ported: `--shard` (a model sharded over several cards) raises
-`NotImplementedError`; it waits for the port's meshes (ROADMAP Queue 1
-item 4).
+`--shard tp=N` serves the model tensor-parallel over N ranks this
+process starts (parallel/); `--shard fsdp=N` belongs to the training slice
+and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--template", default="qwen")
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
-        help="multi-card serving, e.g. tp=8 (not ported: raises)",
+        help="tensor-parallel serving, e.g. tp=2 (fsdp=N raises)",
     )
     ap.add_argument(
         "--quantize", default=None, choices=["int8"],
@@ -70,11 +70,8 @@ def main(argv: list[str] | None = None) -> None:
     from oryx_tpu_torch.serve import builder
     from oryx_tpu_torch.serve.pipeline import ChatSession
 
-    if args.shard:
-        raise builder._not_ported("--shard (multi-card serving)",
-                                  "item 4, parallelism")
-    pipe = builder.load_pipeline(
-        args.model_path, tokenizer_path=args.tokenizer_path,
+    pipe = builder.shard_pipeline(
+        args.model_path, args.shard, tokenizer_path=args.tokenizer_path,
         template=args.template, quantize=args.quantize, device=args.device,
     )
 

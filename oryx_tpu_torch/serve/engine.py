@@ -14,9 +14,9 @@
 Registered shapes:
 
   * `continuous` - `ContinuousScheduler` over one pipeline on one device.
-  * `sharded` - registered, and raises NotImplementedError: the
-    tensor-parallel engine waits for the port's meshes (ROADMAP Queue 1
-    item 4).
+  * `sharded` - the same scheduler over a tensor-parallel pipeline
+    (`Pipeline(mesh=)`, parallel/): every dispatch runs on every rank's
+    shard; refuses a pipe without a tp mesh.
 
 (The window Batcher stays a special case inside api_server: it has no
 admission queue, drain ladder or supervisor hooks to conform with.)
@@ -126,7 +126,32 @@ def _continuous(pipe, **kwargs) -> Engine:
 
 @register_engine("sharded")
 def _sharded(pipe, **kwargs) -> Engine:
-    raise NotImplementedError(
-        "--engine sharded (the tensor-parallel continuous engine) is not "
-        "ported yet: it waits for the port's meshes, ROADMAP Queue 1 item 4"
-    )
+    """Tensor-parallel continuous engine: the same scheduler, with the
+    mesh made a REQUIREMENT. Each rank holds its KV heads of the pool
+    (scheduler._place_kv) and runs every dispatch on its shard
+    (parallel/tp.py); construction fails when the pipe has no mesh, the
+    mesh has no tp width, or the KV heads don't divide - a deployment
+    asking for sharded serving must never silently fall back to one
+    device."""
+    from oryx_tpu_torch.parallel.mesh import axis_sizes
+    from oryx_tpu_torch.parallel.sharding import paged_kv_spec
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    mesh = getattr(pipe, "mesh", None)
+    if mesh is None:
+        raise ValueError(
+            "--engine sharded needs a multi-device pipeline: pass "
+            "--shard tp=N (mesh absent)"
+        )
+    if paged_kv_spec(mesh) is None:
+        raise ValueError(
+            f"--engine sharded needs a tp axis > 1 on the mesh, got "
+            f"axes {axis_sizes(mesh)!r} (use --shard tp=N)"
+        )
+    heads = pipe.cfg.llm.num_kv_heads
+    tp = axis_sizes(mesh)["tp"]
+    if heads % tp:
+        raise ValueError(
+            f"--engine sharded: {heads} KV heads do not divide over tp={tp}"
+        )
+    return ContinuousScheduler(pipe, **kwargs)

@@ -84,7 +84,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--port", type=int, default=7860)
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
-        help="multi-card serving (not ported: raises)",
+        help="tensor-parallel serving over N ranks (tp=N; fsdp=N raises)",
     )
     ap.add_argument(
         "--quantize", default=None, choices=["int8"],
@@ -99,11 +99,8 @@ def main(argv: list[str] | None = None) -> None:
 
     from oryx_tpu_torch.serve import builder
 
-    if args.shard:
-        raise builder._not_ported("--shard (multi-card serving)",
-                                  "item 4, parallelism")
-    pipe = builder.load_pipeline(
-        args.model_path, tokenizer_path=args.tokenizer_path,
+    pipe = builder.shard_pipeline(
+        args.model_path, args.shard, tokenizer_path=args.tokenizer_path,
         quantize=args.quantize, device=args.device,
     )
     app = build_app(pipe, num_frames=args.num_frames)

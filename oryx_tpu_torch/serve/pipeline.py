@@ -7,20 +7,28 @@ and build the spliced index map. Device side: ViT -> compressor -> splice ->
 dense-KV prefill -> greedy/sampled decode (CUDA graphs of the decode chunk
 on the card). Also streaming (`chat_stream`), multi-turn KV prefix reuse
 (`chat_cached`, `ChatSession`, the cross-session `SessionPrefixCache`),
-option scoring (`score_options`) and video QA (`chat_video`). Multi-device
-meshes come in a later slice.
+option scoring (`score_options`) and video QA (`chat_video`).
+
+Tensor-parallel serving (`mesh=` a tp mesh of parallel/mesh.py): each rank
+holds its shard of the weights (parallel/sharding.py), rank 0's pipeline
+is the one a caller drives, and every entry point below runs on every
+rank (parallel/tp.py): the followers repeat the call on their shards and
+return nothing. A session on tp takes the pipeline's own shared cache
+(`shared=True`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 import zlib
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from oryx_tpu_torch.config import OryxConfig
 from oryx_tpu_torch.constants import (
@@ -37,8 +45,78 @@ from oryx_tpu_torch.models import generate as generate_lib
 from oryx_tpu_torch.models import oryx, qwen2, splice
 from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.ops import packing
+from oryx_tpu_torch.parallel import sharding as sharding_lib
+from oryx_tpu_torch.parallel import tp as tp_lib
+from oryx_tpu_torch.parallel.mesh import TRAINING_HALF, axis_sizes
 from oryx_tpu_torch.utils import trace as trace_lib
-from oryx_tpu_torch.utils.quant import embed_rows
+from oryx_tpu_torch.utils.quant import Q8Embedding, Q8Linear, embed_rows
+
+
+def on_every_rank(bind=None):
+    """A pipeline method that, on rank 0 of a tensor-parallel pipeline,
+    every rank runs (parallel/tp.World.call; bind: what each rank keeps
+    of the result under one handle). Off tp, and inside a dispatch, a
+    plain call."""
+    def deco(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            world = self.tp
+            if world is None or tp_lib.inside():
+                return method(self, *args, **kwargs)
+            return world.call(getattr(self, method.__name__), *args,
+                              bind=bind, **kwargs)
+        return run
+    return deco
+
+
+def _second(out):
+    return out[1]
+
+
+def _stream_step(gen):
+    """One step of a stream as a value: ("y", delta) or ("r", return)."""
+    try:
+        return "y", next(gen)
+    except StopIteration as stop:
+        return "r", stop.value
+
+
+def _stream_state(out):
+    """The session state a finished stream returned, if any."""
+    kind, value = out
+    return value[1] if kind == "r" and isinstance(value, tuple) else None
+
+
+def _close_stream(gen) -> None:
+    gen.close()
+
+
+class _RankStream:
+    """`chat_stream` on rank 0 of a tensor-parallel pipeline: each step
+    of the stream is a dispatch every rank runs on its own generator."""
+
+    def __init__(self, world, gen):
+        self._world = world
+        self._gen = gen
+        self._done = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        kind, value = self._world.call(_stream_step, self._gen,
+                                       bind=_stream_state)
+        if kind == "r":
+            self._done = True
+            raise StopIteration(value)
+        return value
+
+    def close(self) -> None:
+        if not self._done:
+            self._done = True
+            self._world.call(_close_stream, self._gen)
 
 
 def infer_modality(num_images: int, is_video: bool) -> str:
@@ -111,6 +189,8 @@ class Pipeline:
         *,
         template: str = "qwen",
         device="cuda",
+        mesh=None,
+        sharding_mode: str = "tp",
     ) -> None:
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
@@ -123,14 +203,61 @@ class Pipeline:
             impl = "pallas" if self.device.type == "cuda" else "xla"
             cfg = dataclasses.replace(cfg, attn_impl=impl)
         self.cfg = cfg
-        self.params = params.to(self.device)
+        self.mesh = mesh
+        self.sharding_mode = sharding_mode
+        self.tp = None
+        tp = self._check_mesh(params)
+        if tp > 1:
+            self.tp = tp_lib.current()
+            if self.device.type != self.tp.device.type:
+                raise ValueError(f"this rank drives {self.tp.device}, "
+                                 f"not {self.device}")
+            self.device = self.tp.device
+            self.params = sharding_lib.rank_params(params, cfg, mesh,
+                                                   self.device)
+        else:
+            self.params = params.to(self.device)
         self.conv = conv_templates[template]
         # In-loop stop matching: rows end as soon as the template's stop
         # string is emitted.
         self.stop_sequences = generate_lib.make_stop_sequences(
             [self.conv.stop_str] if self.conv.stop_str else [], tokenizer
         )
+        if self.tp is not None and not tp_lib.inside():
+            # The followers build their pipelines on their own shards.
+            source = (params.state_dict() if isinstance(params, nn.Module)
+                      else params)
+            self.tp.call(Pipeline, tokenizer, source, cfg,
+                         template=template, device=self.device, mesh=mesh,
+                         sharding_mode=sharding_mode, peer=self)
+            # The shard's modules cross later dispatches as handles.
+            self.tp.call(getattr, self, "params", bind=True)
 
+    def _check_mesh(self, params) -> int:
+        """The mesh's tp width, after JAX's refusals (int8 weights with a
+        mesh, an unknown mode) and the port's (fsdp belongs to the
+        training slice; every head count must divide)."""
+        if self.mesh is None:
+            return 1
+        if self.sharding_mode == "fsdp":
+            raise NotImplementedError(
+                "sharding_mode='fsdp' serving is not ported to "
+                f"oryx_tpu_torch yet ({TRAINING_HALF})")
+        if self.sharding_mode != "tp":
+            raise ValueError(f"unknown serving sharding mode "
+                             f"{self.sharding_mode!r}: tp|fsdp")
+        if isinstance(params, nn.Module) and any(
+                isinstance(m, (Q8Linear, Q8Embedding))
+                for m in params.modules()):
+            raise ValueError(
+                "quantize='int8' is single-chip serving; drop --shard "
+                "(sharded serving splits the float weights instead)")
+        tp = axis_sizes(self.mesh)["tp"]
+        if tp > 1:
+            sharding_lib.check_divisible(self.cfg, tp)
+        return tp
+
+    @on_every_rank(bind=True)
     def session_prefix_cache(self, capacity: int = 4):
         """Pipe-level cross-SESSION prefix cache (created at first use):
         pass it as `ChatSession(pipe, shared=pipe.session_prefix_cache())`,
@@ -263,6 +390,7 @@ class Pipeline:
             ids, images, [factor] * len(images), [per_img_cap] * len(images)
         )
 
+    @on_every_rank()
     def _prompt_embeds(self, cfg, ids, imgs, factors, caps
                        ) -> tuple[torch.Tensor, int]:
         """One prompt row -> (decoder input embeds [1, T_bucket, H] on the
@@ -320,6 +448,7 @@ class Pipeline:
             ids_rows, splice.query_slots(packed)
         )
 
+    @on_every_rank()
     def chat_batch(
         self,
         requests: Sequence[dict[str, Any]],
@@ -427,7 +556,16 @@ class Pipeline:
                 stop_sequences=stop_seqs, timings=timings,
             )
 
-    def chat_stream(
+    def chat_stream(self, question: str, **kwargs):
+        """Streaming `chat`: see `_chat_stream`. On rank 0 of a
+        tensor-parallel pipeline every step of the stream is a dispatch
+        every rank runs."""
+        if self.tp is None or tp_lib.inside():
+            return self._chat_stream(question, **kwargs)
+        gen = self.tp.call(self._chat_stream, question, bind=True, **kwargs)
+        return _RankStream(self.tp, gen)
+
+    def _chat_stream(
         self,
         question: str,
         *,
@@ -712,6 +850,7 @@ class Pipeline:
             cache = fresh
         return flat, L, common, embeds, cache, cache_len, media_key
 
+    @on_every_rank(bind=_second)
     def chat_cached(
         self,
         state: "PrefixCacheState",
@@ -791,6 +930,7 @@ class Pipeline:
             shared.insert(new_state)
         return reply, new_state
 
+    @on_every_rank()
     @torch.inference_mode()
     def score_options(
         self,

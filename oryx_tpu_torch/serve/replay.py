@@ -283,7 +283,9 @@ def run_replay(header: dict[str, Any], entries: list[dict[str, Any]], *,
                 )
                 if not idle:
                     return
-            pending.popleft()
+            # Pop only once the handle is booked: the waiting loop below
+            # reads `pending` and `handles` from another thread, and an
+            # item in neither would end the replay before it ran.
             try:
                 handles[item["request_id"]] = s.submit(
                     item["prompt"], item["max_new"], item["sampling"],
@@ -294,6 +296,7 @@ def run_replay(header: dict[str, Any], entries: list[dict[str, Any]], *,
                 feed_errors.append(
                     (item["request_id"], f"{type(e).__name__}: {e}")
                 )
+            pending.popleft()
 
     sched.replay_feeder = feeder
     # The journal records the K each megastep chose (fused_k on its

@@ -148,6 +148,7 @@ from oryx_tpu_torch.models import oryx, qwen2
 from oryx_tpu_torch.ops import paged_kv
 from oryx_tpu_torch.ops.cuda import graphs
 from oryx_tpu_torch.ops.packing import round_up_bucket
+from oryx_tpu_torch.parallel import tp as tp_lib
 from oryx_tpu_torch.serve import audit as audit_lib
 from oryx_tpu_torch.serve import journal as journal_lib
 from oryx_tpu_torch.serve import pipeline as pipeline_lib
@@ -636,6 +637,10 @@ class ContinuousScheduler:
             # Fault firings reach the journal through the module's observer
             # hook; the seeded schedule makes them replay.
             faults.add_observer(self._journal_fault)
+        if audit_sample_every and pipe.tp is not None:
+            raise ValueError(
+                "audit_sample_every on a tensor-parallel pipe: the audit's "
+                "private replay runs on rank 0 alone (ROADMAP.md Queue 1)")
         # Built unconditionally, so the oryx_audit_* ladders render at zero
         # with sampling off.
         self.auditor = audit_lib.OutputAuditor(
@@ -874,8 +879,10 @@ class ContinuousScheduler:
         return result
 
     def alive(self) -> bool:
-        """The engine loop thread is running."""
-        return self._thread.is_alive()
+        """The engine loop thread is running (and, on a tensor-parallel
+        pipe, its ranks are still in step)."""
+        world = self.pipe.tp
+        return self._thread.is_alive() and not (world and world.broken)
 
     def readiness(self) -> tuple[bool, str]:
         """(ready, reason): not draining, loop thread alive and, with a
@@ -928,6 +935,8 @@ class ContinuousScheduler:
             self.watchdog.stop()
         if not self._thread.is_alive():
             self._release_graphs()
+            if self.pipe.tp is not None:
+                self.pipe.tp.release(self.kv_pages)
         if self.journal is not None:
             # The journal itself is closed by its owner (build_server, or
             # the replay).
@@ -1195,11 +1204,35 @@ class ContinuousScheduler:
         pages in the compute dtype)."""
         return None if self.kv_dtype == "bf16" else self.kv_dtype
 
+    def _on_ranks(self, fn, *args, **kwargs):
+        """A device call: on a tensor-parallel pipe every rank runs it on
+        its own shard and pool (parallel/tp.World.call); else a plain
+        call. Every decision stays here, on rank 0."""
+        world = self.pipe.tp
+        if world is None:
+            return fn(*args, **kwargs)
+        return world.call(fn, *args, **kwargs)
+
     def _new_pool(self) -> dict:
-        return qwen2.init_paged_kv_cache(
-            self.cfg.llm, self.num_pages, self.page_size, dtype=self._dtype,
-            device=self.device, kv_dtype=self._pool_kv_dtype(),
-        )
+        return self._place_kv()
+
+    def _place_kv(self) -> dict:
+        """A fresh page pool, placed: on a tensor-parallel pipe each rank
+        makes a pool of its own KV heads (num_kv_heads / tp; every rank
+        addresses the same pages through rank 0's block tables) and the
+        old pool's handle is dropped. Applied at construction and in
+        `_reset_pool`."""
+        args = (qwen2.rank_cfg(self.pipe.params.llm, self.cfg.llm),
+                self.num_pages, self.page_size)
+        kw = dict(dtype=self._dtype, device=self.device,
+                  kv_dtype=self._pool_kv_dtype())
+        world = self.pipe.tp
+        if world is None:
+            return qwen2.init_paged_kv_cache(*args, **kw)
+        old = getattr(self, "kv_pages", None)
+        if old is not None:
+            world.release(old)
+        return world.call(qwen2.init_paged_kv_cache, *args, bind=True, **kw)
 
     def _build_prefix_cache(self) -> PagedPrefixCache:
         """The prefix cache over the CURRENT allocator, its host tier
@@ -1212,14 +1245,25 @@ class ContinuousScheduler:
         )
 
     def _spill_fetch(self, page: int):
-        """Device -> host byte copy of one pool page (engine thread)."""
-        blob = paged_kv.fetch_page(self.kv_pages, int(page))
-        return blob, paged_kv.host_blob_bytes(blob)
+        """Device -> host byte copy of one pool page (engine thread). On a
+        tensor-parallel pipe each rank keeps the blob of its own heads
+        (a HostPage under one handle; the host tier counts rank 0's
+        bytes)."""
+        if self.pipe.tp is None:
+            blob = paged_kv.fetch_page(self.kv_pages, int(page))
+            return blob, paged_kv.host_blob_bytes(blob)
+        held = self.pipe.tp.call(paged_kv.HostPage.fetch, self.kv_pages,
+                                 int(page), bind=True)
+        return held, paged_kv.host_blob_bytes(held.blob)
 
     def _spill_upload(self, blob, page: int) -> None:
         """Host -> device byte copy into a freshly allocated pool page
         (engine thread), in place."""
-        self.kv_pages = paged_kv.upload_page(self.kv_pages, int(page), blob)
+        if self.pipe.tp is None:
+            self.kv_pages = paged_kv.upload_page(self.kv_pages, int(page),
+                                                 blob)
+        else:
+            self.pipe.tp.call(blob.upload, self.kv_pages, int(page))
 
     # ---- queue access (the engine thread is the queue's only consumer) ----
 
@@ -1566,6 +1610,12 @@ class ContinuousScheduler:
                 # below, so the exception ends the thread, which is what the
                 # API server's supervisor restarts.
                 faults.fault_point("engine_crash")
+                # A tensor-parallel pipe whose ranks fell out of step (a
+                # dead follower, a timed-out collective) ends the thread
+                # the same way: no dispatch can be trusted after it.
+                world = self.pipe.tp
+                if world is not None and world.broken:
+                    raise tp_lib.WorldBroken(world.broken)
                 # A parked /debug/profile request is adopted only with work
                 # to dispatch.
                 with self._cond:
@@ -1930,8 +1980,9 @@ class ContinuousScheduler:
                     )
                     use = full * ps
                 else:
-                    self.kv_pages = paged_kv.copy_pages(
-                        self.kv_pages, int(pages[full]), cow
+                    self.kv_pages = self._on_ranks(
+                        paged_kv.copy_pages, self.kv_pages,
+                        int(pages[full]), cow,
                     )
                     self.bt[s, full] = cow
                     cow_pages = 1
@@ -2052,7 +2103,7 @@ class ContinuousScheduler:
         )
         sampled = self._profile_dispatch_begin()
         t0_ns = trace_lib.now_ns()
-        self.kv_pages, tok0 = generate_lib.paged_prefill(
+        self.kv_pages, tok0 = self._on_ranks(generate_lib.paged_prefill,
             self.pipe.params.llm, self.cfg.llm, emb,
             torch.tensor([end], device=dev),
             torch.tensor(self.bt[s][None], device=dev),
@@ -2322,7 +2373,7 @@ class ContinuousScheduler:
         numer = self._numerics_due()
         sampled = self._profile_dispatch_begin()
         t0_ns = trace_lib.now_ns()
-        out = generate_lib.paged_decode_chunk(
+        out = self._on_ranks(generate_lib.paged_decode_chunk,
             self.pipe.params.llm, self.cfg.llm, self.kv_pages,
             *self._device_state(),
             chunk=self.chunk, eos=self.cfg.generation.eos_token_id,
@@ -2588,7 +2639,7 @@ class ContinuousScheduler:
             drafts, dlen, proposed = self._drafts(live)
             bt, tok, lengths, finished, _, gens, temp, top_p, top_k, _ = (
                 self._device_state())
-            out = generate_lib.paged_spec_step(
+            out = self._on_ranks(generate_lib.paged_spec_step,
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
                 lengths, finished, gens, temp, top_p, top_k, drafts, dlen,
                 **pf_kw, k=self.speculate,
@@ -2604,7 +2655,7 @@ class ContinuousScheduler:
                 toks, t0_ns, dt, n_new=n_new, device_us=dev_us,
             )
         else:
-            out = generate_lib.paged_ragged_step(
+            out = self._on_ranks(generate_lib.paged_ragged_step,
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages,
                 *self._device_state(), **pf_kw,
                 chunk=self.chunk, pf_width=self.pf_width if pf_kw else 0,
@@ -2686,7 +2737,7 @@ class ContinuousScheduler:
         if self.speculate:
             ctx, clen = (torch.from_numpy(x).to(self.device)
                          for x in self._build_draft_ctx(live))
-            out = generate_lib.paged_fused_spec_steps(
+            out = self._on_ranks(generate_lib.paged_fused_spec_steps,
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
                 lengths, finished, gens, temp, top_p, top_k, self._draft[0],
                 ctx, clen, k=self.speculate, draft_apply=self._draft[1],
@@ -2700,7 +2751,7 @@ class ContinuousScheduler:
             self._finish_megastep("fused_spec", live, toks, k_steps, t0_ns,
                                   dt, n_new, device_us=dev_us)
         else:
-            out = generate_lib.paged_fused_steps(
+            out = self._on_ranks(generate_lib.paged_fused_steps,
                 self.pipe.params.llm, self.cfg.llm, self.kv_pages, bt, tok,
                 lengths, finished, recent, gens, temp, top_p, top_k, stop,
                 chunk=self.chunk, **common,
@@ -2757,8 +2808,12 @@ class ContinuousScheduler:
     def _graph_route(self) -> bool:
         """Pure-decode dispatches replay engine-step graphs: on the card,
         unless the graph routes are off (graphs.routes(False): the eager
-        witness, utils/debug.debug_mode(disable_jit=True))."""
-        return self.device.type == "cuda" and graphs.enabled()
+        witness, utils/debug.debug_mode(disable_jit=True)). A
+        tensor-parallel pipe takes the eager route: its all-reduces run
+        over gloo where ranks share a card, and a CUDA graph cannot capture
+        a gloo collective (a failed capture raises by the port's rules)."""
+        return (self.device.type == "cuda" and graphs.enabled()
+                and self.pipe.tp is None)
 
     def _engine_graph(self, sampling: bool, numerics: bool = False
                       ) -> generate_lib._EngineStepGraph:

@@ -88,13 +88,17 @@ def _encode(x: torch.Tensor, scale: torch.Tensor, fmt: str) -> torch.Tensor:
 
 
 def quantize_kv_rows(
-    x: torch.Tensor, fmt: str = "int8"
+    x: torch.Tensor, fmt: str = "int8", amax_reduce=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token-row symmetric quantization of KV rows [..., Hk, D].
-    Returns (codes [..., Hk, D] in the storage dtype, scale [...] fp32)."""
+    Returns (codes [..., Hk, D] in the storage dtype, scale [...] fp32).
+    amax_reduce: the max over the ranks that hold the row's other heads
+    (a tensor-parallel pool keeps one scale per row over all heads)."""
     xf = x.to(torch.float32)
     _, qmax = kv_storage_dtype(fmt)
     amax = torch.amax(torch.abs(xf), dim=(-2, -1))
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scale = amax / qmax + _TINY
     return _encode(xf, scale[..., None, None], fmt), scale
 
@@ -319,6 +323,18 @@ def linear(x: torch.Tensor, mod: nn.Module,
     else:
         y = _base(x, mod, lora is None)
     return y if lora is None else _lora_residual(x, y, lora, _bias(mod))
+
+
+def row_linear(x: torch.Tensor, mod: nn.Module, tp,
+               name: str | None = None) -> torch.Tensor:
+    """`linear` of a product whose input rows are split over
+    tensor-parallel ranks (parallel/tp.py): each rank's partial product,
+    summed over the ranks, then the bias once. tp None: `linear`."""
+    if tp is None or tp.size == 1:
+        return linear(x, mod, name)
+    y = tp.all_reduce(_base(x, mod, False))
+    bias = _bias(mod)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def linear_group(x: torch.Tensor, mods,

@@ -135,6 +135,12 @@ def test_load_pipeline_tokens_equal_jax(saved, quantize):
         assert tp.chat("hello there", max_new_tokens=8, **kw) == want
 
 
+class _Tp2Mesh:
+    """A tp=2 mesh's axes, for the paths that read only its shape."""
+    mesh_dim_names = ("dp", "fsdp", "tp", "sp")
+    shape = (1, 1, 2, 1)
+
+
 @pytest.mark.parametrize("case", [
     "quantize", "no_config", "no_checkpoint", "mesh", "sharding_mode",
     "pipeline_shard", "lora",
@@ -159,16 +165,27 @@ def test_error_paths(tmp_path, saved, case):
                            match="no safetensors checkpoint under"):
             builder.load_pretrained_model(empty, tokenizer=tok, device="cpu")
     elif case == "mesh":
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            builder.load_pretrained_model(d, tokenizer=tok, mesh=object(),
-                                          device="cpu")
+        # int8 with a mesh raises as JAX's; without, every rank reads its
+        # own slices later (parallel/sharding.CheckpointParams).
+        mesh = _Tp2Mesh()
+        with pytest.raises(ValueError, match="single-chip serving"):
+            builder.load_pretrained_model(d, tokenizer=tok, mesh=mesh,
+                                          quantize="int8", device="cpu")
+        _, src, _ = builder.load_pretrained_model(d, tokenizer=tok,
+                                                  mesh=mesh, device="cpu")
+        assert src.path == d
     elif case == "sharding_mode":
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            builder.load_pretrained_model(d, tokenizer=tok,
-                                          sharding_mode="tp", device="cpu")
+        with pytest.raises(NotImplementedError, match="training half"):
+            builder.load_pretrained_model(d, tokenizer=tok, mesh=_Tp2Mesh(),
+                                          sharding_mode="fsdp", device="cpu")
+        with pytest.raises(ValueError, match="unknown serving sharding"):
+            builder.serving_param_shardings(_Tp2Mesh(), None, "ddp")
     elif case == "pipeline_shard":
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            builder.load_pipeline(d, tokenizer=tok, shard="tp=8",
+        with pytest.raises(NotImplementedError, match="training half"):
+            builder.load_pipeline(d, tokenizer=tok, shard="fsdp=8",
+                                  device="cpu")
+        with pytest.raises(ValueError, match="--shard expects"):
+            builder.load_pipeline(d, tokenizer=tok, shard="tp8",
                                   device="cpu")
     else:
         # An HF checkpoint with a lora_path that holds no PEFT adapter

@@ -2561,3 +2561,65 @@ def test_router_on_card_two_replicas(card):
     assert sorted(caps.counts.values()) == [1, 1]
     assert {k.split("/")[0] for k in caps.counts} == set(owners)
     assert all(r["healthy"] for r in snap["replicas"].values())
+
+
+def test_tp_two_ranks_share_the_card(card):
+    """`--shard tp=2` on one card: this process rank 0, rank 1 started by
+    parse_shard_arg, both over gloo (NCCL refuses two ranks on one card).
+    The tiny fp32 model at one KV head a rank: chat_batch and the sharded
+    engines (split bf16 pool, ragged int8 pool) give the one-process
+    pipeline's replies on the same card, and both ranks sampled the same
+    tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.models import oryx
+    from oryx_tpu_torch.parallel import mesh as mesh_lib
+    from oryx_tpu_torch.parallel import tp as tp_lib
+    from oryx_tpu_torch.serve.engine import create_engine
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+    from torch_tp_common import GEOM, CharTokenizer
+
+    cfg = dataclasses.replace(config.oryx_tiny(), attn_impl="pallas")
+    params = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() >= 2:
+                p.mul_(20)
+    img = np.random.default_rng(0).integers(0, 255, size=(40, 56, 3),
+                                            dtype=np.uint8)
+    reqs = [{"question": "hi there"},
+            {"question": "what is this?", "images": [img]}]
+    texts = [("hello there", 12), ("hello there friend", 12)]
+
+    def serve(pipe, engine, **kw):
+        sched = create_engine(engine, pipe, autostart=False, **GEOM, **kw)
+        hs = [sched.submit({"question": q}, n) for q, n in texts]
+        sched.start()
+        try:
+            return [h.result(timeout=300)[0] for h in hs]
+        finally:
+            sched.close()
+
+    one = Pipeline(CharTokenizer(), params, cfg, device=card)
+    want = (one.chat_batch(reqs, max_new_tokens=8),
+            serve(one, "continuous"),
+            serve(one, "continuous", ragged=True, prefill_chunk=16,
+                  kv_dtype="int8"))
+    mesh, _ = mesh_lib.parse_shard_arg("tp=2")
+    world = tp_lib.current()
+    try:
+        assert world.backend == "gloo"
+        tpipe = Pipeline(CharTokenizer(), params, cfg, device=card,
+                         mesh=mesh)
+        got = (tpipe.chat_batch(reqs, max_new_tokens=8),
+               serve(tpipe, "sharded"),
+               serve(tpipe, "sharded", ragged=True, prefill_chunk=16,
+                     kv_dtype="int8"))
+        assert got == want
+        assert len(set(world.digests())) == 1
+    finally:
+        world.shutdown()

@@ -47,15 +47,23 @@ def test_nan_check_faults_in_backward():
 
 def test_disable_jit_takes_the_eager_routes():
     """Inside debug_mode(disable_jit=True) the engine's graph route is off
-    (the card runs its eager witness path), and back on after."""
+    (the card runs its eager witness path), and back on after; on a
+    tensor-parallel pipe it is off."""
     from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+
+    from types import SimpleNamespace
 
     sched = ContinuousScheduler.__new__(ContinuousScheduler)
     sched.device = torch.device("cuda")
+    sched.pipe = SimpleNamespace(tp=None)  # one device
     assert sched._graph_route()
     with debug.debug_mode(nan_checks=False, disable_jit=True):
         assert not sched._graph_route()
     assert sched._graph_route()
+    # A tensor-parallel pipe takes the eager route too (gloo collectives
+    # cannot be captured).
+    sched.pipe = SimpleNamespace(tp=object())
+    assert not sched._graph_route()
 
 
 def _message(fn, tree, name="tree"):

@@ -13,7 +13,7 @@ JAX package on the CPU:
     tiny `save_pretrained` directory, the tokenizer through the builder's
     seam: its result file's records equal JAX's `evaluate` on the same
     weights; `--merge`, `--by`, `--output`, `--quantize int8`, and
-    `--shard` raising.
+    `--shard fsdp=N` raising.
 """
 
 import dataclasses
@@ -420,8 +420,9 @@ def test_main_quantize_int8_and_shard(tmp_path, capsys, monkeypatch,
     harness.main(base + ["--quantize", "int8"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["n"] == 8
-    with pytest.raises(NotImplementedError, match="item 4"):
-        harness.main(base + ["--shard", "tp=2"])
+    # fsdp=N is the training slice's; tp=N runs in test_torch_tp_serving.
+    with pytest.raises(NotImplementedError, match="training half"):
+        harness.main(base + ["--shard", "fsdp=2"])
     with pytest.raises(SystemExit):
         harness.main(base + ["--shard", "tp=2", "--quantize", "int8"])
 

@@ -268,6 +268,28 @@ def test_concurrency_plane_and_front_door_modules_are_walked():
     assert res.returncode == 0 and "--replica" in res.stdout, res.stderr
 
 
+def test_parallel_modules_are_walked():
+    """The import walk and the ast check cover parallel/ (meshes, the
+    sharding rules, the tensor-parallel ranks); a follower rank's main
+    imports nothing of jax either."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharding.py", "parallel/tp.py"} <= names
+    from oryx_tpu_torch.parallel import tp
+
+    code = tp._FOLLOWER.replace(
+        "sys.exit(tp._follower_main(sys.argv[1:]))",
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'oryx_tpu')))")
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=str(ROOT),
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stderr
+
+
 def test_serve_cli_without_device_raises_without_card(no_card, tmp_path):
     """python -m oryx_tpu_torch.serve.cli answers on the card unless
     --device cpu: without one it raises before loading a weight."""

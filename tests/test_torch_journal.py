@@ -3,8 +3,8 @@
 shared rolling sink; byte-exact offline replay across eviction, supervisor
 restart, speculation, int8 KV, host-spill reload and prefix-cache COW
 splices; the first-divergence report; what-if overrides; armed == unarmed
-(mirrors tests/test_journal.py, less its tp=2 case, which waits for the
-port's meshes). Two cross-package cases on the same weights: the port's
+(mirrors tests/test_journal.py; its tp=2 case is in
+tests/test_torch_tp_serving.py). Two cross-package cases on the same weights: the port's
 entries equal JAX's field by field for one workload (less wall clocks),
 and a journal JAX's engine captured replays through the port's
 `run_replay` with no divergence."""

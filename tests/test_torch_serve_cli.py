@@ -166,9 +166,9 @@ def test_quantize_int8_equals_the_int8_pipeline(weights, media_dir,
 
 def test_refusals_and_argument_surface(weights, monkeypatch, capsys):
     _, model_dir = weights
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="training half"):
         cli.main(["--model-path", model_dir, "--question", "q",
-                  "--shard", "tp=2", "--device", "cpu"])
+                  "--shard", "fsdp=2", "--device", "cpu"])
     for main in (cli.main, jcli.main):
         with pytest.raises(SystemExit):
             main(["--model-path", model_dir])  # no --question

@@ -1,0 +1,271 @@
+"""The serving half of the port's sharding rules (parallel/sharding.py)
+against the JAX package's: `param_specs` leaf by leaf through the name map
+of models/convert.py (tiny and oryx_7b, every mode), `paged_kv_spec`; the
+rank's slices (whole module, seeded init); the model's row-parallel sums,
+run as two ranks in two threads of this process (qwen2, the ViT, the
+compressor, and the quantized pool's row amax) against the whole model;
+and the refusals (heads that do not divide, the training half)."""
+
+import dataclasses
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from oryx_tpu import config as jcfg  # noqa: E402
+from oryx_tpu.config import MeshConfig as JMeshConfig  # noqa: E402
+from oryx_tpu.models import oryx as joryx  # noqa: E402
+from oryx_tpu.parallel import sharding as jsharding  # noqa: E402
+from oryx_tpu_torch import config as tcfg  # noqa: E402
+from oryx_tpu_torch.models import oryx, qwen2  # noqa: E402
+from oryx_tpu_torch.ops import paged_kv  # noqa: E402
+from oryx_tpu_torch.parallel import sharding  # noqa: E402
+
+
+class _Mesh:
+    """A mesh's axes (the rules read nothing else)."""
+    mesh_dim_names = ("dp", "fsdp", "tp", "sp")
+
+    def __init__(self, tp=2, fsdp=1):
+        self.shape = (1, fsdp, tp, 1)
+
+
+class _Peers:
+    """Two ranks as two threads: `all_reduce` meets at a barrier and
+    reduces in rank order, as gloo's two-rank sum does."""
+
+    def __init__(self, n=2):
+        self.n = n
+        self.barrier = threading.Barrier(n, timeout=60)
+        self.slots = [None] * n
+
+    def rank(self, r):
+        peers = self
+
+        class Rank:
+            size = peers.n
+            rank = r
+
+            def all_reduce(self, x, op="sum"):
+                wide = torch.float32 if x.is_floating_point() else x.dtype
+                peers.slots[r] = x.to(wide)
+                peers.barrier.wait()
+                stack = torch.stack(peers.slots)
+                out = stack.sum(0) if op == "sum" else stack.amax(0)
+                peers.barrier.wait()
+                return out.to(x.dtype)
+
+        return Rank()
+
+
+def _on_two_ranks(fn):
+    """[fn(rank 0), fn(rank 1)] run in lockstep threads."""
+    peers = _Peers()
+    out, errs = [None, None], []
+
+    def run(r):
+        try:
+            out[r] = fn(peers.rank(r), r)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+            peers.barrier.abort()
+
+    ts = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _jax_specs(tree, mode):
+    flat = jax.tree_util.tree_flatten_with_path(
+        jsharding.param_specs(tree, mode),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return {jsharding._path_str(p): tuple(s) for p, s in flat}
+
+
+@pytest.mark.parametrize("preset", ["oryx_tiny", "oryx_7b"])
+@pytest.mark.parametrize("mode", ["zero2", "fsdp", "ddp"])
+def test_param_specs_match_jax_leaf_by_leaf(preset, mode):
+    """Every port parameter's spec is JAX's for its leaf (layer axis
+    dropped, linear kernels reversed), except the ViT o_proj pair, where
+    JAX's `?_proj` patterns shadow the o_proj rules it declares: the port
+    applies those declared rules."""
+    jc = getattr(jcfg, preset)()
+    jtree = jax.eval_shape(lambda: joryx.init_params(jc, jax.random.key(0)))
+    want = _jax_specs(jtree, mode)
+    model = oryx.empty_model(getattr(tcfg, preset)())
+    linear = {f"{n}.weight" for n, m in model.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    got = sharding.param_specs(model, mode)
+    assert len(got) == len(list(model.parameters()))
+    rules = jsharding.mesh_rules(mode)
+    declared = dict(jsharding.LOGICAL_RULES)
+    for name, spec in got.items():
+        path, stacked = sharding.jax_path(name, name in linear)
+        jspec = want[path]
+        if path.startswith("vit/layers/o_proj/"):
+            jspec = tuple(None if a is None else rules.get(a)
+                          for a in declared[path])
+            assert jspec != want[path]  # the shadowing is still there
+        jspec = jspec[1:] if stacked else jspec
+        if name in linear:
+            jspec = tuple(reversed(jspec))
+        assert spec == jspec, (name, path)
+
+
+def test_paged_kv_spec_matches_jax():
+    if jax.device_count() >= 2:
+        from oryx_tpu.parallel.mesh import build_mesh
+
+        jm = build_mesh(JMeshConfig(tp=2), devices=jax.devices()[:2])
+        assert sharding.paged_kv_spec(_Mesh(tp=2)) == tuple(
+            jsharding.paged_kv_spec(jm))
+    assert sharding.paged_kv_spec(_Mesh(tp=1)) is None
+    assert sharding.paged_kv_spec(None) is None
+
+
+def test_rank_slices_are_contiguous_heads_and_columns():
+    cfg = tcfg.oryx_tiny()
+    model = oryx.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    whole = model.state_dict()
+    for r in range(2):
+        place = sharding.param_shardings(_Mesh(), model, "zero2", rank=r)
+        state = sharding.shard_params(model, place)
+        q = "llm.layers.0.q_proj.weight"
+        n = whole[q].shape[0] // 2
+        assert torch.equal(state[q], whole[q][r * n:(r + 1) * n])
+        o = "llm.layers.0.o_proj.weight"
+        assert torch.equal(state[o], whole[o][:, r * n:(r + 1) * n])
+        # Row-parallel biases stay whole; a column split's bias splits.
+        for name in ("vit.layers.0.o_proj.bias", "vit.layers.0.fc2.bias",
+                     "compressor.projector.fc2.bias", "llm.embed.weight"):
+            assert torch.equal(state[name], whole[name]), name
+        b = "compressor.projector.fc1.bias"
+        m = whole[b].shape[0] // 2
+        assert torch.equal(state[b], whole[b][r * m:(r + 1) * m])
+
+
+def test_seeded_shards_are_slices_of_the_seeded_init():
+    cfg = tcfg.oryx_tiny()
+    whole = oryx.init_params(cfg, torch.Generator().manual_seed(7),
+                             device="cpu").state_dict()
+    for r in range(2):
+        place = sharding.param_shardings(_Mesh(), oryx.empty_model(cfg),
+                                         "zero2", rank=r)
+        got = sharding.seeded_shard(cfg, place, 7, device="cpu",
+                                    dtype=torch.float32)
+        want = sharding.shard_params(whole, place)
+        assert got.keys() == want.keys()
+        for name in got:
+            assert torch.equal(got[name], want[name]), name
+
+
+def _ranks_model(cfg, model, world, r):
+    place = sharding.param_shardings(_Mesh(), model, "zero2", rank=r)
+    return sharding.local_model(cfg, sharding.shard_params(model, place),
+                                world)
+
+
+def test_row_parallel_forwards_sum_to_the_whole_model():
+    """The decoder (dense cache), the ViT and the compressor at tp = 2:
+    each rank's heads and columns, the row-parallel partials summed,
+    equal the whole model's outputs."""
+    cfg = tcfg.oryx_tiny()
+    model = oryx.init_params(cfg, torch.Generator().manual_seed(1),
+                             device="cpu")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, 400, (2, 9)))
+    P = 12
+    patches = torch.from_numpy(rng.normal(size=(P, 3 * cfg.vision.patch_size
+                                                 ** 2)).astype(np.float32))
+    seg = torch.tensor([1] * 8 + [2] * 4)
+    coords = torch.from_numpy(rng.uniform(0, 4, (P, 2)).astype(np.float32))
+    region = torch.tensor([1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 5, 5])
+    q_region = torch.tensor([1, 2, 3, 4, 5, 0])
+
+    def run(m):
+        with torch.inference_mode():
+            logits, _ = qwen2.forward(m.llm, cfg.llm, input_ids=ids)
+            vis = oryx.encode_visual(m, cfg, patches, seg, coords, region,
+                                     q_region)
+        return logits, vis
+
+    want = run(model)
+    got = _on_two_ranks(lambda w, r: run(_ranks_model(cfg, model, w, r)))
+    for out in got:
+        for a, b in zip(out, want):
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-4)
+    # Both ranks hold the same (whole) logits, bit for bit.
+    assert torch.equal(got[0][0], got[1][0])
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+def test_quantized_rows_take_the_amax_over_every_rank(fmt):
+    """A row's scale is the max over all heads: each rank's codes are the
+    one-device pool's codes of its heads only with the all-reduced amax
+    (without it, the rank that lacks the row's largest head encodes
+    differently)."""
+    rows = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(6, 2, 8)).astype(np.float32))
+    rows[:, 1] *= 4.0
+    one = paged_kv.init_quant_pages(1, 2, 4, 2, 8, fmt=fmt,
+                                    device="cpu")[0]
+    paged_kv.scatter_rows(one, torch.arange(6), rows)
+
+    def write(world, r):
+        plane = paged_kv.init_quant_pages(1, 2, 4, 1, 8, fmt=fmt,
+                                          device="cpu")[0]
+        paged_kv.scatter_rows(plane, torch.arange(6),
+                              rows[:, r:r + 1].contiguous(), world)
+        return plane
+
+    planes = _on_two_ranks(write)
+    for r, plane in enumerate(planes):
+        assert torch.equal(plane.q.view(torch.uint8)[:, :, 0],
+                           one.q.view(torch.uint8)[:, :, r])
+        assert torch.equal(plane.scale, one.scale)
+    alone = paged_kv.init_quant_pages(1, 2, 4, 1, 8, fmt=fmt,
+                                      device="cpu")[0]
+    paged_kv.scatter_rows(alone, torch.arange(6), rows[:, :1].contiguous())
+    assert not torch.equal(alone.scale, one.scale)
+
+
+def test_shard_paged_kv_keeps_a_sink_and_refuses_indivisible_heads():
+    cfg = tcfg.oryx_tiny()
+    pool = qwen2.init_paged_kv_cache(cfg.llm, 3, 4, dtype=torch.float32,
+                                     device="cpu", kv_dtype="int8")
+    pool["k"].q.view(torch.uint8)[:] = 7
+    mine = sharding.shard_paged_kv(pool, _Mesh(), rank=1)
+    L, P, ps, h, D = mine["k"].shape
+    assert (P, h) == (3, cfg.llm.num_kv_heads // 2)
+    assert torch.all(mine["k"].q.view(torch.uint8) == 7)
+    # Writes through the sink-checked path land (a plane with no sink
+    # behind it would raise).
+    paged_kv.scatter_rows(mine["k"][0], torch.tensor([0]),
+                          torch.ones((1, h, D)))
+    assert sharding.shard_paged_kv(pool, _Mesh(tp=1)) is pool
+    with pytest.raises(ValueError, match="do not divide"):
+        sharding.shard_paged_kv(pool, _Mesh(tp=4), rank=0)
+
+
+def test_divisibility_and_training_half_refusals():
+    cfg = tcfg.oryx_tiny()
+    with pytest.raises(ValueError, match="llm.num_kv_heads = 2"):
+        sharding.check_divisible(cfg, 4)
+    odd = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_heads=3))
+    with pytest.raises(ValueError, match="vision.num_heads = 3"):
+        sharding.check_divisible(odd, 2)
+    sharding.check_divisible(tcfg.oryx_7b(), 2)
+    with pytest.raises(NotImplementedError, match="training half"):
+        sharding.param_shardings(_Mesh(fsdp=2, tp=1),
+                                 oryx.empty_model(cfg), "fsdp", rank=0)
