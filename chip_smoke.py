@@ -347,6 +347,27 @@ Phases (any failure exits non-zero):
      heads and 8 ViT heads, K3 and K4q at Hk = 2, each vs its twin at
      rank 0's recorded call shapes, with both ranks' launch counts (they
      must be equal).
+ 25. (Runs after 1, before 2, on the empty card: ddp holds two whole
+     copies of (a)'s state.) Data/sequence-parallel training and fsdp
+     serving, two ranks on the one card (this process rank 0), their
+     collectives through its exchange buffers, the K1/K5 plain twins made
+     to raise on a card tensor on both ranks. (a) `oryx_7b_sft.json` (tune full) at
+     2 decoder + 4 ViT layers, full width (ddp's 16 bytes a parameter,
+     twice on one card), 2 steps on phase 10's records at fsdp=2 in each
+     of fsdp, zero2 and ddp, twice each, and once on one process: each
+     mode's runs bit-identical, the modes within rel 1e-3, fsdp within
+     rel 1e-2 of one process, fsdp's resident param + grad + moment bytes
+     at most 0.55x ddp's, both ranks' K1-lse/K5 launches equal. (b)
+     `oryx_7b_longvideo.json` widths at 1 + 1 layers under ring_flash on
+     sp=2, one row of 16,384 tokens, 2 steps, each rank's K1-lse launches
+     following JAX's liveness rule; one decoder layer's ring attention
+     (forward, q/k/v gradients) vs the one-process K1/K5 on the whole
+     sequence, against the fp32 kernels' witness (NOISE_RATIO), and the
+     xla ring once at 2,048 tokens. (d) `--shard fsdp=2` chat_batch over
+     phase 3's mix at (a)'s depth, byte-equal to one process. (c) The
+     training CLI as two processes (`--coordinator`, this one process 0):
+     losses bit-equal to (a)'s fsdp fit. Then K1-lse/K5 vs their twins at
+     the fsdp decoder's and the ring block's call shapes.
 
 `python3 chip_smoke.py --help` prints this text.
 Every phase ends with a `phase N wall X s` line. The line before the last
@@ -3509,7 +3530,9 @@ def train_config():
 
     with open(TRAIN_CONFIG) as f:
         cfg = config.OryxConfig.from_json(f.read())
-    return dataclasses.replace(cfg, train=dataclasses.replace(
+    # One card: the file's fsdp=16 mesh would need sixteen ranks.
+    return dataclasses.replace(cfg, mesh=config.MeshConfig(),
+                               train=dataclasses.replace(
         cfg.train, global_batch_size=TRAIN_BATCH,
         num_train_steps=TRAIN_STEPS, checkpoint_dir=TRAIN_CKPT,
     ))
@@ -3958,12 +3981,13 @@ PACK_LENGTHS = (64, 1500)  # tokens of a packed text sample, drawn uniformly
 def lora_config():
     """oryx_7b_sft_lora.json as written (r = 128, alpha 256, seven targets,
     remat "attn"), checkpoints inside the checkout; the batch (128 -> 4)
-    and the steps (5000 -> 4) are cut by the callers."""
+    and the steps (5000 -> 4) are cut by the callers; one card's mesh."""
     from oryx_tpu_torch import config
 
     with open(LORA_CONFIG) as f:
         cfg = config.OryxConfig.from_json(f.read())
-    return dataclasses.replace(cfg, train=dataclasses.replace(
+    return dataclasses.replace(cfg, mesh=config.MeshConfig(),
+                               train=dataclasses.replace(
         cfg.train, checkpoint_dir=TRAIN_CKPT + "_lora"))
 
 
@@ -4466,8 +4490,9 @@ def eval_harness(pipe, card) -> None:
               "(byte-equal)")
 
 
-def _write_cli_inputs(cfg_path: str) -> tuple[str, float]:
-    """Phase 10's records as a JSON file under CLI_ROOT, their pixels as
+def _write_cli_inputs(cfg_path: str, root: str = CLI_ROOT
+                      ) -> tuple[str, float]:
+    """Phase 10's records as a JSON file under `root`, their pixels as
     lossless PNGs (a video as a directory of its 8 frames), and
     oryx_7b_pretrain.json at batch 4, 4 steps, a checkpoint and a log
     record every step and a fresh checkpoint dir. Returns (data path,
@@ -4478,26 +4503,28 @@ def _write_cli_inputs(cfg_path: str) -> tuple[str, float]:
         frames = train_media(rec)
         rec = dict(rec)
         if rec.get("video"):
-            os.makedirs(os.path.join(CLI_ROOT, rec["id"]))
+            os.makedirs(os.path.join(root, rec["id"]))
             for i, f in enumerate(frames):
-                with open(os.path.join(CLI_ROOT, rec["id"],
+                with open(os.path.join(root, rec["id"],
                                        f"frame_{i}.png"), "wb") as fh:
                     fh.write(encode_png(f))
             rec["video"] = rec["id"]
         else:
             rec["image"] = f"{rec['id']}.png"
-            with open(os.path.join(CLI_ROOT, rec["image"]), "wb") as fh:
+            with open(os.path.join(root, rec["image"]), "wb") as fh:
                 fh.write(encode_png(frames[0]))
         recs.append(rec)
-    data = os.path.join(CLI_ROOT, "data.json")
+    data = os.path.join(root, "data.json")
     with open(data, "w") as f:
         json.dump(recs, f)
     with open(TRAIN_CONFIG) as f:
         cfg = json.load(f)
+    # One card (the file's mesh is fsdp=16).
+    cfg["mesh"] = {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1}
     cfg["train"].update(global_batch_size=TRAIN_BATCH,
                         num_train_steps=TRAIN_STEPS, checkpoint_every=1,
                         log_every=1,
-                        checkpoint_dir=os.path.join(CLI_ROOT, "ckpt"))
+                        checkpoint_dir=os.path.join(root, "ckpt"))
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     return data, time.perf_counter() - t0
@@ -5450,6 +5477,512 @@ def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
     return rows
 
 
+# ---- data/sequence-parallel training on two ranks of the card (phase 25) --
+
+ZERO_CONFIG = "scripts/configs/oryx_7b_sft.json"
+RING_CONFIG = "scripts/configs/oryx_7b_longvideo.json"
+# (a)'s depth (decoder, ViT layers). ddp holds 16 bytes a parameter on each
+# rank: embed + head are 1.09 B parameters, a decoder layer 233 M, a ViT
+# layer 15.2 M, so 2 + 4 layers are ~26 GB a copy, two copies on the card.
+ZERO_LAYERS = (2, 4)
+RING_LAYERS = (1, 1)
+RING_T = 16384  # (b)'s sequence: 8,192 tokens a rank
+RING_XLA_T = 2048  # the "ring" (xla) impl's check, [Tl, Tl] fp32 logits
+PAR_STEPS = 2
+PAR_CKPT = "checkpoints/chip_smoke_par"  # gitignored; no save is written
+PAR_CLI = "checkpoints/chip_smoke_par_cli"  # gitignored, removed after
+ZERO_RESIDENT = 0.55  # fsdp's resident bytes a rank at most this x ddp's
+
+
+def par_config(path, layers, **top):
+    """`path` at `layers` (decoder, ViT) deep, TRAIN_BATCH records a
+    batch, PAR_STEPS steps, no accumulation; `top` replaces top-level
+    fields (mesh, attn_impl)."""
+    from oryx_tpu_torch import config
+
+    with open(path) as f:
+        cfg = config.OryxConfig.from_json(f.read())
+    return dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, num_layers=layers[0]),
+        vision=dataclasses.replace(cfg.vision, num_layers=layers[1]),
+        train=dataclasses.replace(
+            cfg.train, global_batch_size=TRAIN_BATCH, grad_accum_steps=1,
+            num_train_steps=PAR_STEPS, log_every=1,
+            checkpoint_every=10 ** 9, checkpoint_dir=PAR_CKPT),
+        **top)
+
+
+def par_zero() -> None:
+    """Zero this rank's K1/K5 launch counters and its collective counts
+    (a dispatch every rank runs)."""
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    for c in _flash_counters().values():
+        c.clear()
+    tp_lib.reset_collectives()
+
+
+def par_free() -> None:
+    """Free what a finished fit left on this rank's card (a dispatch: the
+    dropped handles go first)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def par_guard(on: bool) -> None:
+    """While on, the K1/K5 plain twins raise on a card tensor on this rank
+    (a dispatch): phase 25's paths take the kernels alone."""
+    from oryx_tpu_torch.ops.cuda import flash_attention as fa
+
+    names = ("_mha_forward_reference", "_mha_backward_reference")
+    if not on:
+        for name in names:
+            setattr(fa, name, getattr(fa, name).__wrapped__)
+        return
+    for name in names:
+        plain = getattr(fa, name)
+
+        def guarded(q, *a, _plain=plain, _name=name, **kw):
+            if q.device.type == "cuda":
+                raise RuntimeError(f"{_name} ran on the card")
+            return _plain(q, *a, **kw)
+
+        guarded.__wrapped__ = plain
+        setattr(fa, name, guarded)
+
+
+def _unsaved_trainer():
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    class Unsaved(Trainer):
+        """Phase 25 writes no checkpoint: the full-tune state of the cut
+        model is ~19 GB a fit (the sharded save and resume are held bit
+        for bit by the CPU tests)."""
+
+        def _save(self, step, *, force=False):
+            pass
+
+    return Unsaved
+
+
+def par_fit(smoke, cfg, mode, data, label, card) -> dict:
+    """One fit of PAR_STEPS steps over the host batches `data`, every
+    rank's launch counters zeroed just before and read just after."""
+    trainer = _unsaved_trainer()(cfg, device="cuda", sharding_mode=mode)
+    world = trainer.world
+    if world is not None:
+        world.call(smoke.par_zero)
+    else:
+        par_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(iter(data), num_steps=PAR_STEPS, resume=False, prefetch=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"losses": [h["loss"] for h in trainer.history],
+           "norms": [h["grad_norm"] for h in trainer.history], "wall": wall,
+           "steps": [h["wall_s"] for h in trainer.history],
+           "lse": dict(_flash_counters()["flash_fwd_lse"]),
+           "dq": dict(_flash_counters()["flash_bwd_dq"]),
+           "dkv": dict(_flash_counters()["flash_bwd_dkv"])}
+    if world is not None:
+        run["reports"] = trainer.rank_reports()
+        run["peak"] = world.peak_memory()
+    else:
+        run["peak"] = [torch.cuda.max_memory_allocated()]
+    print(f"  {label}: losses {run['losses']} grad norms {run['norms']} | "
+          f"fit {wall:.2f} s, steps {[round(x, 3) for x in run['steps']]} s"
+          f" | peak {[round(b / 1e9, 2) for b in run['peak']]} GB a rank "
+          f"({card})")
+    for rep in run.get("reports", []):
+        print(f"    rank {rep['rank']}: params {rep['param_bytes'] / 1e9:.2f}"
+              f" GB, grads {rep['grad_bytes'] / 1e9:.2f} GB, moments "
+              f"{rep['moment_bytes'] / 1e9:.2f} GB; launches "
+              f"{rep['launches']}; collectives "
+              + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.2f} GB"
+                          f" {v['seconds']:.2f} s"
+                          for k, v in rep["collectives"].items()))
+    del trainer
+    gc.collect()
+    if world is not None:
+        # Twice: the first call carries the handles rank 0 dropped before
+        # it, the second those its own collection dropped.
+        world.call(smoke.par_free)
+        world.call(smoke.par_free)
+    else:
+        par_free()
+    return run
+
+
+def _resident(rep) -> int:
+    return rep["param_bytes"] + rep["grad_bytes"] + rep["moment_bytes"]
+
+
+def _rel_diff(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def zero_stages(smoke, card) -> tuple[dict, list, object]:
+    """Phase 25 (a): 2 steps of oryx_7b_sft.json (tune full) at ZERO_LAYERS
+    on fsdp=2 in each of fsdp, zero2 and ddp, twice each, and once on one
+    process. Returns (the fsdp run, the batches, the fsdp config)."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    cfg = par_config(ZERO_CONFIG, ZERO_LAYERS,
+                     mesh=config.MeshConfig(fsdp=2))
+    data = list(itertools.islice(train_batches(cfg), PAR_STEPS))
+    print(f"  {ZERO_CONFIG} at {ZERO_LAYERS[0]} decoder + {ZERO_LAYERS[1]} "
+          f"ViT layers (full width), tune {cfg.train.tune}, remat "
+          f"{cfg.train.remat_policy}, attn {cfg.attn_impl}; batches "
+          f"{[tuple(b['token_ids'].shape) for b in data]}")
+    par_guard(True)
+    try:
+        one = par_fit(smoke, dataclasses.replace(
+            cfg, mesh=config.MeshConfig()), "fsdp", data, "one process",
+            card)
+    finally:
+        par_guard(False)
+    t0 = time.perf_counter()
+    world = tp_lib.start(2, tp_lib.default_devices(2, "cuda"))
+    print(f"  ranks up in {time.perf_counter() - t0:.1f} s: backend "
+          f"{world.backend}, devices {[str(d) for d in world.devices]}")
+    world.call(smoke.par_guard, True)
+    runs = {}
+    try:
+        for mode in ("fsdp", "zero2", "ddp"):
+            runs[mode] = [par_fit(smoke, cfg, mode, data, f"{mode} run {i}",
+                                  card) for i in range(2)]
+    finally:
+        world.call(smoke.par_guard, False)
+    for mode, (a, b) in runs.items():
+        if (a["losses"], a["norms"]) != (b["losses"], b["norms"]):
+            raise SystemExit(f"phase 25 (a): {mode}'s two runs differ")
+        rel = _rel_diff(a["losses"], runs["fsdp"][0]["losses"])
+        if rel > 1e-3:
+            raise SystemExit(f"phase 25 (a): {mode} vs fsdp losses rel "
+                             f"{rel:.2e} > 1e-3")
+        for rep in a["reports"]:
+            if not all(rep["launches"].values()):
+                raise SystemExit(f"phase 25 (a): {mode} rank {rep['rank']} "
+                                 f"launched no {rep['launches']}")
+        if a["reports"][0]["launches"] != a["reports"][1]["launches"]:
+            raise SystemExit(f"phase 25 (a): {mode}'s ranks launched "
+                             "different kernels")
+    rel_one = _rel_diff(runs["fsdp"][0]["losses"], one["losses"])
+    if rel_one > 1e-2:
+        raise SystemExit(f"phase 25 (a): fsdp vs one process rel "
+                         f"{rel_one:.2e} > 1e-2")
+    ratios = [_resident(f) / _resident(d) for f, d in zip(
+        runs["fsdp"][0]["reports"], runs["ddp"][0]["reports"])]
+    if max(ratios) > ZERO_RESIDENT:
+        raise SystemExit(f"phase 25 (a): fsdp resident bytes {ratios} x "
+                         f"ddp's > {ZERO_RESIDENT}")
+    print(f"  (a) each mode's two runs bit-identical; modes within rel "
+          f"{max(_rel_diff(r[0]['losses'], runs['fsdp'][0]['losses']) for r in runs.values()):.2e}"
+          f" of fsdp; fsdp vs one process rel {rel_one:.2e} (limit 1e-2); "
+          f"fsdp's resident param+grad+moment bytes {[round(r, 3) for r in ratios]}"
+          f" x ddp's (limit {ZERO_RESIDENT}); both ranks' K1-lse/K5a/K5b "
+          f"launches equal; the plain twins guarded (none ran on the card)")
+    return runs["fsdp"][0], data, cfg
+
+
+def ring_records():
+    """One record for (b): a 616 x 616 image (1,936 visual tokens) and a
+    caption long enough that the row pads to RING_T tokens."""
+    words = " ".join(f"wave{i % 97}" for i in range(1850))
+    return [{"id": "img0", "image": "img0.jpg", "conversations": [
+        {"from": "human", "value": "<image>"},
+        {"from": "gpt", "value": words}]}]
+
+
+def ring_layer_case(T: int, impl: str, seed: int) -> dict:
+    """Every rank: its block of a seeded [1, T] causal sequence at the
+    oryx_7b decoder's heads through `ring_attention_shard` over the two
+    ranks, forward and backward (bf16, a dispatch); the output and the
+    q/k/v gradients gathered whole, and each rank's launch counts."""
+    from oryx_tpu_torch.ops import ring_attention as ring_lib
+    from oryx_tpu_torch.parallel import tp as tp_lib
+    from oryx_tpu_torch.parallel.zero import gather_objects
+
+    world = tp_lib.current()
+    group = tuple(range(world.size))
+    par_zero()
+    # Outside the follower's inference mode: autograd saves these.
+    with torch.inference_mode(False), torch.enable_grad():
+        g = torch.Generator("cuda").manual_seed(seed)
+        q, do = (torch.randn((1, T, 28, 128), generator=g, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((1, T, 4, 128), generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        pos = torch.arange(T, device="cuda", dtype=torch.int32)[None]
+        tl = T // world.size
+        sl = slice(world.rank * tl, (world.rank + 1) * tl)
+        ring = ring_lib.Ring(world, group, ring_lib.live_table(
+            pos.cpu().numpy(), world.size, world.rank))
+        qb, kb, vb = (x[:, sl].detach().clone().requires_grad_()
+                      for x in (q, k, v))
+        out = ring_lib.ring_attention_shard(
+            qb, kb, vb, pos[:, sl], pos[:, sl], torch.ones_like(pos[:, sl]),
+            ring=ring, causal=True, impl=impl)
+        grads = torch.autograd.grad(out, (qb, kb, vb), do[:, sl])
+    torch.cuda.synchronize()
+    counts = {k2: sum(c.values()) for k2, c in _flash_counters().items()}
+    whole = [world.all_gather(x.detach(), list(group), dim=1)
+             for x in (out, *grads)]
+    return {"whole": [x.cpu() for x in whole],
+            "launches": gather_objects(world, counts), "live": ring.live}
+
+
+def _ring_against_one(smoke, world, T, impl, card) -> dict:
+    """ring_layer_case against the one-process K1/K5 on the whole sequence
+    (bf16) and the fp32 kernels' witness."""
+    from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+    got = world.call(smoke.ring_layer_case, T, impl, 11)
+    g = torch.Generator("cuda").manual_seed(11)
+    q, do = (torch.randn((1, T, 28, 128), generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, T, 4, 128), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+
+    def one(dtype):
+        x = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*x, causal=True)
+        return [o.detach().float()] + [
+            t.float() for t in torch.autograd.grad(o, x, do.to(dtype))]
+
+    single, witness = one(torch.bfloat16), one(torch.float32)
+    worst = 0.0
+    for name, r, s_, w in zip(("out", "dq", "dk", "dv"), got["whole"],
+                              single, witness):
+        er, es = _rel(r.cuda(), w), _rel(s_, w)
+        worst = max(worst, er / es)
+        print(f"    {impl} T={T} {name}: rel L2 vs fp32 witness ring {er:.3e},"
+              f" one process {es:.3e}")
+        if not er <= NOISE_RATIO * es:
+            raise SystemExit(f"phase 25 (b): ring {impl} {name} is further "
+                             "from the fp32 witness than bf16 noise allows")
+    print(f"    {impl} T={T}: live blocks a rank {got['live']}, launches a "
+          f"rank {got['launches']} ({card})")
+    return got
+
+
+def ring_training(smoke, card) -> dict:
+    """Phase 25 (b): oryx_7b_longvideo.json widths under ring_flash on
+    sp=2, one row of RING_T tokens, 2 steps; one decoder layer's ring
+    attention against the one-process kernels; the xla ring once at
+    RING_XLA_T. Returns the fit."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    cfg = par_config(RING_CONFIG, RING_LAYERS, attn_impl="ring_flash",
+                     mesh=config.MeshConfig(sp=2))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, global_batch_size=1))
+    data = list(itertools.islice(
+        train_batches(cfg, records=ring_records(), batch=1), PAR_STEPS))
+    T = data[0]["token_ids"].shape[1]
+    if T != RING_T:
+        raise SystemExit(f"phase 25 (b): the row is {T} tokens, not {RING_T}")
+    print(f"  {RING_CONFIG} at {RING_LAYERS[0]} decoder + {RING_LAYERS[1]} "
+          f"ViT layer (full width), ring_flash on sp=2: one row of {T} "
+          f"tokens ({int(data[0]['attn_mask'].sum())} real, "
+          f"{int(data[0]['is_visual'].sum())} visual), {T // 2} a rank")
+    run = par_fit(smoke, cfg, "fsdp", data, "ring_flash fit", card)
+    if not all(np.isfinite(run["losses"] + run["norms"])):
+        raise SystemExit("phase 25 (b): the ring fit is not finite")
+    from oryx_tpu_torch.ops.ring_attention import live_table
+
+    lse = [rep["launches"]["flash_fwd_lse"] for rep in run["reports"]]
+    live = [sum(sum(live_table(b["positions"], 2, r)) for b in data)
+            for r in range(2)]
+    print(f"  (b) K1-lse launches a rank {lse}; live blocks a rank over the "
+          f"steps {live} (JAX's rule, min(kv_pos) <= max(q_pos) over the "
+          f"block: the padded tail's positions count)")
+    if not (lse[0] > 0 and lse[0] * live[1] == lse[1] * live[0]):
+        raise SystemExit(f"phase 25 (b): launches {lse} do not follow the "
+                         f"live blocks {live}")
+    world = tp_lib.current()
+    world.call(smoke.par_guard, True)
+    try:
+        got = _ring_against_one(smoke, world, RING_T, "flash", card)
+        _ring_against_one(smoke, world, RING_XLA_T, "xla", card)
+    finally:
+        world.call(smoke.par_guard, False)
+    # arange positions: the contiguous causal split, rank i sees i + 1
+    # blocks, each launching K1-lse, K5a and K5b once.
+    want = [{k: r + 1 for k in ("flash_fwd_lse", "flash_bwd_dq",
+                                "flash_bwd_dkv")} for r in range(2)]
+    counts = [{k: c[k] for k in want[0]} for c in got["launches"]]
+    if counts != want:
+        raise SystemExit(f"phase 25 (b): one layer's launches {counts} != "
+                         f"{want}")
+    return run
+
+
+def fsdp_serving(smoke, cfg_a, card) -> None:
+    """Phase 25 (d): `--shard fsdp=2` over phase 3's mix at (a)'s depth,
+    bf16, against the one-process pipeline on the same seeded weights."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.parallel import mesh as mesh_lib
+    from oryx_tpu_torch.parallel import sharding
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    cfg = dataclasses.replace(cfg_a, mesh=config.MeshConfig())
+    mesh, mode = mesh_lib.parse_shard_arg("fsdp=2")
+    reqs = requests()
+    fpipe = Pipeline(smoke.ByteTokenizer(),
+                     sharding.SeededParams(0, torch.bfloat16), cfg,
+                     device="cuda", mesh=mesh, sharding_mode=mode)
+    whole = sharding.seeded_shard(
+        cfg, {n: sharding.Placement(None, 1, 0) for n, _ in
+              oryx_empty(cfg).named_parameters()}, 0, device="cuda",
+        dtype=torch.bfloat16)
+    one = Pipeline(smoke.ByteTokenizer(), sharding.frozen_model(cfg, whole),
+                   cfg, device="cuda")
+    del whole
+    shapes = (tuple(fpipe.params.llm.layers[0].q_proj.weight.shape),
+              tuple(fpipe.params.llm.embed.weight.shape))
+    t0 = time.perf_counter()
+    got = fpipe.chat_batch(reqs, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = one.chat_batch(reqs, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    if got != want:
+        raise SystemExit(f"phase 25 (d): fsdp=2 replies {got!r} != one "
+                         f"process {want!r}")
+    print(f"  (d) fsdp=2 chat_batch over phase 3's mix == the one-process "
+          f"pipeline, byte for byte; rank 0 holds q_proj {shapes[0]}, embed "
+          f"{shapes[1]}; wall {wall:.2f} s vs {wall1:.2f} s one process "
+          f"({card})")
+
+
+def oryx_empty(cfg):
+    from oryx_tpu_torch.models.oryx import empty_model
+
+    return empty_model(cfg)
+
+
+def cli_two_processes(cfg, fsdp_run, card) -> None:
+    """Phase 25 (c): the training CLI as two processes with --coordinator
+    (this one process 0, a second started here), 2 steps at (a)'s fsdp
+    config on phase 10's records as PNGs: losses == (a)'s fsdp fit's."""
+    import shutil
+    import socket
+    import subprocess
+
+    from oryx_tpu_torch.parallel import tp as tp_lib
+    from oryx_tpu_torch.serve import builder
+    from oryx_tpu_torch.train import cli
+
+    shutil.rmtree(PAR_CLI, ignore_errors=True)
+    os.makedirs(PAR_CLI)
+    cfg_path = os.path.join(PAR_CLI, "config.json")
+    data, _ = _write_cli_inputs(cfg_path, root=PAR_CLI)
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    metrics = os.path.join(PAR_CLI, "metrics.jsonl")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["--config", cfg_path, "--data", data, "--media-root", PAR_CLI,
+            "--tokenizer-path", "unused", "--template", "plain",
+            "--video-frames", "8", "--metrics-path", metrics,
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    follower = subprocess.Popen(
+        [sys.executable, "-m", "oryx_tpu_torch.train.cli", *argv,
+         "--process-id", "1"], env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    seams = ((builder, "load_tokenizer", lambda path: ByteTokenizer()),
+             (cli, "Trainer", _unsaved_trainer()))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in seams]
+    try:
+        for mod, name, value in seams:
+            setattr(mod, name, value)
+        trainer = cli.main(argv + ["--process-id", "0"])
+        hist = [(h["loss"], h["grad_norm"]) for h in trainer.history]
+        trainer.close()
+        del trainer
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+        world = tp_lib.current()
+        if world is not None:
+            world.shutdown()
+        try:
+            _, err = follower.communicate(timeout=120)
+        finally:
+            follower.kill()
+        shutil.rmtree(PAR_CLI, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    if follower.returncode != 0:
+        raise SystemExit(f"phase 25 (c): process 1 exited "
+                         f"{follower.returncode}: {err.decode()[-2000:]}")
+    want = list(zip(fsdp_run["losses"], fsdp_run["norms"]))
+    if hist != want:
+        raise SystemExit(f"phase 25 (c): the CLI's {hist} != (a)'s fsdp fit"
+                         f" {want}")
+    print(f"  (c) two processes (--coordinator 127.0.0.1:{port}, process 1 "
+          f"a follower): losses and grad norms == (a)'s fsdp fit, bit for "
+          f"bit; {wall:.1f} s with both processes' start-up ({card})")
+
+
+def parallel_training(card) -> list[dict]:
+    """Phase 25: (a) the ZeRO stages, (b) ring attention, (d) fsdp serving
+    on two ranks of the card (this process rank 0, rank 1 started by the
+    first Trainer's mesh), then (c) the CLI as two processes, and the
+    K1/K5 rows at the ring block's and the fsdp decoder's shapes. Returns
+    the kernel rows."""
+    import importlib
+
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    smoke = importlib.import_module("chip_smoke")
+    fsdp_run, data, cfg_a = zero_stages(smoke, card)
+    ring_run = ring_training(smoke, card)
+    fsdp_serving(smoke, cfg_a, card)
+    tp_lib.current().shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_two_processes(cfg_a, fsdp_run, card)
+
+    # The kernel rows at the two new call shapes; launches from (a)'s first
+    # fsdp fit and (b)'s fit, on rank 0.
+    gen = torch.Generator("cuda").manual_seed(12)
+    big = max(data, key=lambda b: b["token_ids"].shape[1])
+    rank0 = {k: v[:TRAIN_BATCH // 2] for k, v in big.items()
+             if k in ("positions", "attn_mask", "token_ids")}
+    _, _, dec = training_attention_cases(cfg_a, {**big, **rank0}, big, gen)
+    tl = RING_T // 2
+    pos = torch.arange(RING_T, device="cuda", dtype=torch.int32)[None]
+    ring_kw = dict(
+        q=torch.randn((1, tl, 28, 128), generator=gen, device="cuda"
+                      ).to(torch.bfloat16),
+        k=torch.randn((1, tl, 4, 128), generator=gen, device="cuda"
+                      ).to(torch.bfloat16),
+        v=torch.randn((1, tl, 4, 128), generator=gen, device="cuda"
+                      ).to(torch.bfloat16),
+        causal=True, q_positions=pos[:, tl:], kv_positions=pos[:, :tl])
+    rows = []
+    for name, kw, run in (("fsdp_decoder", dec[1], fsdp_run),
+                          ("ring_block", ring_kw, ring_run)):
+        key, case_rows = check_backward_case(name, kw, gen)
+        for row, counter in zip(case_rows, ("lse", "dq", "dkv")):
+            row["launches"] = run[counter].get(key, 0)
+            print(f"  launches {row['name']} (rank 0): {row['launches']}")
+            if row["launches"] == 0:
+                raise SystemExit(f"{row['name']}: no launch on its path")
+        rows.extend(case_rows)
+    return rows
+
+
 def phase_begin(name: str | None) -> None:
     """Close the running phase with its `phase N wall X s` line and start
     `name` (None: the last phase ends)."""
@@ -5507,6 +6040,17 @@ def main() -> int:
         build.load(name)
         print(f"built {name} in {secs[name]:.1f} s")
         print_ptxas(build.build_logs.get(name, ""))
+
+    # ---- 25. data/sequence-parallel training on two ranks ------------------
+    # On the empty card: ddp holds two full copies of (a)'s state.
+    phase_begin("25")
+    print(f"phase 25: ZeRO-3/ZeRO-2/DDP (oryx_7b_sft.json, fsdp=2), ring "
+          f"attention (oryx_7b_longvideo.json, ring_flash, sp=2), fsdp "
+          f"serving, the training CLI as two processes; two ranks on the "
+          f"one card ({card})", flush=True)
+    par_rows = parallel_training(card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 2. kernel vs plain twin at the main path's shapes ----------------
     phase_begin("2")
@@ -6007,6 +6551,8 @@ def main() -> int:
     print(f"phase 11: tiny fp32 Trainer.fit, tune full, card vs CPU ({card})",
           flush=True)
     tiny_training_on_card()
+
+    rows.extend(par_rows)
 
     phase_begin(None)
     print(card)

@@ -73,7 +73,7 @@ class CompressorConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Logical device mesh axes (dp, fsdp, tp, sp); sizes of 1 collapse an
-    axis. The port runs one device per process today."""
+    axis. The port runs one rank a process (parallel/tp.py)."""
 
     dp: int = 1
     fsdp: int = 1

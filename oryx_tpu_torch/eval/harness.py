@@ -20,8 +20,8 @@ range counts); open-ended records by normalized exact match. A video is a
 directory of frames (data/media.py).
 
 `--shard tp=N` evaluates through a tensor-parallel pipeline over N ranks
-this process starts (parallel/); `--shard fsdp=N` belongs to the training
-slice and raises NotImplementedError.
+this process starts (parallel/), `--shard fsdp=N` through one whose ranks
+each hold a shard of every layer, gathered as the layer runs.
 """
 
 from __future__ import annotations
@@ -392,8 +392,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--process-count", type=int, default=1)
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
-        help="multi-chip serving (tp=N) for models that exceed one chip; "
-        "fsdp=N belongs to the training slice and raises",
+        help="multi-chip serving (tp=N or fsdp=N) for models that exceed "
+        "one chip",
     )
     ap.add_argument(
         "--quantize", default=None, choices=["int8"],

@@ -433,15 +433,17 @@ def _dense_route(params, cfg: LLMConfig, gen_cfg: GenerationConfig, *,
     the caller's generator, its own step and no graph. Either way
     `kv_cache` itself is never written. With the graph routes off
     (utils/debug.debug_mode(disable_jit=True)) the card takes the eager
-    route too, and so does a tensor-parallel shard: its all-reduces run
-    over gloo, which a CUDA graph cannot capture."""
+    route too, and so does a sharded rank (tp or fsdp): its collectives
+    meet the other ranks through the host, which a CUDA graph cannot
+    capture."""
     dtype = compute_dtype or torch.float32
     if kv_cache is not None and kv_cache["k"].shape[2] != cache_len:
         raise ValueError(
             f"kv_cache has {kv_cache['k'].shape[2]} slots, {cache_len=}"
         )
     if device.type != "cuda" or not graphs.enabled() or (
-            getattr(params, "tp", None) is not None):
+            getattr(params, "tp", None) is not None
+            or getattr(params, "zero", None) is not None):
         cache = (
             qwen2.init_kv_cache(qwen2.rank_cfg(params, cfg), batch,
                                 cache_len, dtype=dtype, device=device)

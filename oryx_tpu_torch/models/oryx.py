@@ -97,14 +97,21 @@ def encode_visual(
     compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Packed patches -> packed LLM-space visual embeddings [Q, H_llm]: one
-    ViT pass over all images/frames of the batch, then the compressor."""
+    ViT pass over all images/frames of the batch, then the compressor.
+    The ring impls are the decoder's sequence parallelism and mean nothing
+    to the packed visual buffer: under them the ViT takes its plain
+    segment attention ("xla"), and the compressor takes its kernel only
+    under "pallas", as JAX's encode_visual does."""
+    vit_impl = "xla" if cfg.attn_impl in ("ring", "ring_flash") else (
+        cfg.attn_impl)
     feats = oryx_vit.forward(
         params.vit, cfg.vision, patches, segment_ids, pos_coords,
-        remat=remat, attn_impl=cfg.attn_impl, compute_dtype=compute_dtype,
+        remat=remat, attn_impl=vit_impl, compute_dtype=compute_dtype,
     )
     return compressor_lib.forward(
         params.compressor, cfg.compressor, cfg.vision,
-        feats, region_ids, q_region_ids, attn_impl=cfg.attn_impl,
+        feats, region_ids, q_region_ids,
+        attn_impl="pallas" if cfg.attn_impl == "pallas" else "xla",
     )
 
 

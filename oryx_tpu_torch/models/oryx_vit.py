@@ -24,6 +24,7 @@ from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
 from oryx_tpu_torch.utils.quant import linear, linear_group, row_linear
+from oryx_tpu_torch.parallel.zero import gathered
 from oryx_tpu_torch.utils.remat import checkpointed
 
 
@@ -148,6 +149,6 @@ def forward(
         return h + row_linear(x, lp.fc2, tp)
 
     for lp in params.layers:
-        h = checkpointed(remat, layer, h, lp)
+        h = checkpointed(remat, gathered(layer, lp), h, lp)
 
     return params.post_norm(h)[0]

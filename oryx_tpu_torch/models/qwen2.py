@@ -11,8 +11,12 @@ forward too: differentiable in every parameter, each layer under the remat
 policy of utils/remat.py, with packed-training segment ids. LoRA adapters
 (`add_lora_params`) are parameters of the projection modules themselves
 (`lora_a` [in, r], `lora_b` [r, out], `lora_scale` [1, 1]), and every
-product adds their residual (`utils/quant.linear`). Ring attention belongs
-to a later slice.
+product adds their residual (`utils/quant.linear`). Under attn_impl "ring"
+/ "ring_flash" (sequence parallelism, training only) each layer's attention
+runs around the ring the trainer attaches as `params.ring`
+(ops/ring_attention.py; a ring of one rank when none is attached). On a
+ZeRO-3 rank each layer's sharded leaves are gathered as the layer runs
+(parallel/zero.gathered).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from oryx_tpu_torch.ops.cuda import paged_attention
 from oryx_tpu_torch.ops.cuda.flash_attention import flash_attention
 from oryx_tpu_torch.ops.norms import RMSNorm
 from oryx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from oryx_tpu_torch.parallel.zero import gathered
 from oryx_tpu_torch.utils.quant import (
     LORA_LEAVES,
     Q8Linear,
@@ -238,7 +243,23 @@ def _cache_write(cache_layer: torch.Tensor, new: torch.Tensor,
     cache_layer[rows, cols] = new.to(cache_layer.dtype)
 
 
-def _attn_fn(attn_impl: str):
+def _attn_fn(attn_impl: str, ring=None):
+    if attn_impl in ("ring", "ring_flash"):
+        from oryx_tpu_torch.ops import ring_attention as ring_lib
+
+        ring = ring or ring_lib.Ring()
+        impl = "flash" if attn_impl == "ring_flash" else "xla"
+
+        def fn(q, k, v, *, q_positions, kv_positions, kv_mask,
+               slot_positions=False):
+            B, T = q.shape[:2]
+            kv_valid = (torch.ones((B, T), dtype=torch.int32,
+                                   device=q.device) if kv_mask is None
+                        else kv_mask)
+            return ring_lib.ring_attention_shard(
+                q, k, v, q_positions, kv_positions, kv_valid, ring=ring,
+                causal=True, impl=impl)
+        return fn
     if attn_impl == "pallas":
         def fn(q, k, v, **kw):
             return flash_attention(q, k, v, causal=True, **kw)
@@ -246,9 +267,7 @@ def _attn_fn(attn_impl: str):
         def fn(q, k, v, slot_positions=False, **kw):
             return attention(q, k, v, causal=True, **kw)
     else:
-        raise ValueError(
-            f"attn_impl {attn_impl!r}: the port has 'xla' and 'pallas'"
-        )
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
     return fn
 
 
@@ -450,7 +469,9 @@ def forward(
             "segment_ids (packed training) requires attn_impl xla|pallas "
             "and no kv_cache"
         )
-    attn_fn = _attn_fn(attn_impl)
+    if attn_impl in ("ring", "ring_flash") and kv_cache is not None:
+        raise ValueError(f"attn_impl={attn_impl!r} needs no kv_cache")
+    attn_fn = _attn_fn(attn_impl, getattr(params, "ring", None))
     # Packed rows: causal order is the SLOT order (within a sample the two
     # coincide; across samples the segment mask rules), which also keeps
     # the kernel's slot-position promise despite the restarting RoPE
@@ -478,7 +499,7 @@ def forward(
 
     for i, lp in enumerate(params.layers):
         h = checkpointed(
-            remat, _block, cfg, h, lp, cos, sin,
+            remat, gathered(_block, lp), cfg, h, lp, cos, sin,
             positions=attn_positions,
             cache_k=None if kv_cache is None else kv_cache["k"][i],
             cache_v=None if kv_cache is None else kv_cache["v"][i],

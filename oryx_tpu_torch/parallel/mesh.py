@@ -8,9 +8,10 @@ builds starts its ranks on this host; later meshes are laid over the
 same ranks.
 
   dp    pure data parallelism (replicated params)
-  fsdp  ZeRO-3-style parameter sharding (the training slice)
+  fsdp  ZeRO-3 parameter sharding (parallel/zero.py; in serving, each
+        layer's weights gathered as it runs)
   tp    tensor parallelism: attention heads, MLP columns, KV-pool heads
-  sp    sequence parallelism (ring attention, the training slice)
+  sp    sequence parallelism (ring attention, ops/ring_attention.py)
 """
 
 from __future__ import annotations
@@ -24,10 +25,6 @@ from oryx_tpu_torch.config import MeshConfig
 from oryx_tpu_torch.parallel import tp as tp_lib
 
 AXES = ("dp", "fsdp", "tp", "sp")
-
-TRAINING_HALF = ("ROADMAP.md Queue 1, item 4's training half: FSDP2, ring "
-                 "attention and the multi-process training flags")
-
 
 def _shape(cfg: MeshConfig) -> tuple[int, int, int, int]:
     return (cfg.dp, cfg.fsdp, cfg.tp, cfg.sp)
@@ -93,8 +90,7 @@ def parse_shard_arg(arg: str | None, *, device=None):
     """CLI `--shard MODE=N` (e.g. "tp=8") -> (mesh, mode); (None, "tp")
     when arg is None. Shared by the serve and eval entry points so the
     validation lives once. device: the entry point's `--device`, where
-    the ranks run (`build_mesh`). fsdp=N parses, then raises: the port's
-    fsdp belongs to the training slice."""
+    the ranks run (`build_mesh`)."""
     if arg is None:
         return None, "tp"
     mode, sep, n = arg.partition("=")
@@ -102,11 +98,7 @@ def parse_shard_arg(arg: str | None, *, device=None):
         raise ValueError(
             f"--shard expects tp=N or fsdp=N with N >= 1, got {arg!r}"
         )
-    if mode == "fsdp":
-        raise NotImplementedError(
-            f"--shard {arg} is not ported to oryx_tpu_torch yet "
-            f"({TRAINING_HALF})")
-    return build_mesh(MeshConfig(tp=int(n)), device=device), mode
+    return build_mesh(MeshConfig(**{mode: int(n)}), device=device), mode
 
 
 def initialize_distributed(

@@ -22,10 +22,16 @@ input rows: a column-split o_proj would need an all-gather). And JAX's
 projector fc1 bias is declared whole, which GSPMD reconciles with its
 column-split kernel; a rank here keeps the bias slice of its columns.
 
+Training splits over the combined ("fsdp", "sp") width as well
+(`param_shardings(mode="fsdp")`, the ZeRO stages of parallel/zero.py): a
+leaf's `embed` dim is cut in contiguous chunks, one a rank of its
+(fsdp, sp) group; a leaf with no embed axis, or whose embed width does not
+divide, stays whole (JAX's GSPMD pads such a dim; the port keeps it
+whole). `opt_state_specs`, `batch_spec`, `batch_field_spec` and
+`cast_params_for_compute` give JAX's specs and casts leaf by leaf.
+
 `constrain`, `ambient_mesh` and `mesh_scope` annotate a GSPMD program and
-have no counterpart here (nothing partitions a torch program). The
-training half (`cast_params_for_compute`, `opt_state_specs`, `batch_spec`,
-`batch_field_spec`) comes with FSDP2.
+have no counterpart here (nothing partitions a torch program).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 from torch import nn
 
 from oryx_tpu_torch.config import OryxConfig
-from oryx_tpu_torch.parallel.mesh import TRAINING_HALF, axis_sizes
+from oryx_tpu_torch.parallel.mesh import AXES, axis_sizes
 
 # JAX path pattern -> logical axes of the JAX leaf (fnmatch on
 # "/"-joined JAX paths; first match wins). JAX's table, with the ViT
@@ -146,43 +152,157 @@ class Placement:
     parts: int
     index: int
 
+    @property
+    def split(self) -> bool:
+        return self.dim is not None and self.parts > 1
+
     def take(self, t: torch.Tensor) -> torch.Tensor:
-        if self.dim is None or self.parts == 1:
+        if not self.split:
             return t
         n = t.shape[self.dim]
         if n % self.parts:
             raise ValueError(f"dim {self.dim} of width {n} does not divide "
-                             f"over tp={self.parts}")
+                             f"over {self.parts} ranks")
         w = n // self.parts
         return t.narrow(self.dim, self.index * w, w)
+
+
+def mesh_coords(shape, rank: int) -> dict[str, int]:
+    """{axis: this rank's index on it} of a rank of a (dp, fsdp, tp, sp)
+    mesh laid out rank-major (`mesh.build_mesh`)."""
+    return dict(zip(AXES, (int(i) for i in _unravel(rank, shape))))
+
+
+def _unravel(rank: int, shape) -> tuple[int, ...]:
+    out = []
+    for n in reversed(tuple(shape)):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def axis_group(shape, rank: int, axes) -> list[int]:
+    """The ranks that share `rank`'s place on every mesh axis but `axes`
+    (rank order): the group a collective over `axes` meets."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    mine = _unravel(rank, shape)
+    total = 1
+    for n in shape:
+        total *= n
+    return [r for r in range(total)
+            if all(a == b or name in axes for name, a, b in
+                   zip(AXES, _unravel(r, shape), mine))]
+
+
+def _mesh_shape(mesh) -> tuple[int, int, int, int]:
+    if mesh is None:
+        return (1, 1, 1, 1)
+    sizes = axis_sizes(mesh)
+    return tuple(sizes.get(a, 1) for a in AXES)
 
 
 def param_shardings(mesh, params: nn.Module, mode: str = "zero2",
                     rank: int | None = None) -> dict[str, Placement]:
     """{parameter name: this rank's Placement} on `mesh` (rank: this
-    process's rank in the world by default). Only the tp axis splits a
-    serving weight; a bias follows its weight's split output columns."""
+    process's rank in the world by default). A dim is split over the
+    product of its mesh axes' sizes, this rank's chunk its index in their
+    group; a leaf split on two dims at once (tp and fsdp x sp both wider
+    than 1) is refused. A bias follows its weight's split output columns
+    (tp). An fsdp dim that does not divide stays whole."""
     specs = param_specs(params, mode)
-    for name, spec in specs.items():
-        if any(a is not None and a != "tp" for a in spec):
-            raise NotImplementedError(
-                f"{name}: {mode} placement is not ported yet "
-                f"({TRAINING_HALF})")
-    tp = axis_sizes(mesh)["tp"] if mesh is not None else 1
+    shape = _mesh_shape(mesh)
+    sizes = dict(zip(AXES, shape))
     if rank is None:
         from oryx_tpu_torch.parallel import tp as tp_lib
 
         world = tp_lib.current()
         rank = world.rank if world is not None else 0
+    shapes = dict((n, tuple(p.shape)) for n, p in params.named_parameters())
     out = {}
     for name, spec in specs.items():
-        dim = spec.index("tp") if "tp" in spec else None
-        if dim is None and name.endswith(".bias"):
+        cuts = []
+        for dim, axes in enumerate(spec):
+            if axes is None:
+                continue
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            parts = 1
+            for a in axes:
+                parts *= sizes[a]
+            if parts == 1:
+                continue
+            if axes != ("tp",) and shapes[name][dim] % parts:
+                continue
+            group = axis_group(shape, rank, axes)
+            cuts.append(Placement(dim, parts, group.index(rank)))
+        if not cuts and name.endswith(".bias"):
             w = specs.get(name[: -len("bias")] + "weight")
-            if w is not None and w and w[0] == "tp":
-                dim = 0
-        out[name] = Placement(dim, tp, rank % tp if tp > 1 else 0)
+            if w is not None and w and w[0] == "tp" and sizes["tp"] > 1:
+                group = axis_group(shape, rank, "tp")
+                cuts.append(Placement(0, sizes["tp"], group.index(rank)))
+        if len(cuts) > 1:
+            raise ValueError(
+                f"{name}: split over tp and over fsdp x sp at once; a rank "
+                "holds a slice of one dim")
+        out[name] = cuts[0] if cuts else Placement(None, 1, 0)
     return out
+
+
+def batch_spec() -> tuple:
+    """Activations/batch rows shard over the full data-parallel width."""
+    return (("dp", "fsdp"),)
+
+
+# Packed visual buffer fields of the training batch (ops/packing +
+# splice.query_slots layout): their second axis is the packing axis.
+VISUAL_BATCH_FIELDS = (
+    "patches", "segment_ids", "pos_coords", "region_ids", "q_region_ids",
+)
+
+
+def batch_field_spec(name: str) -> tuple:
+    """JAX's placement of a [accum, ...] training batch field: packed
+    visual buffers over (dp, fsdp, sp) on their packing axis, row fields
+    over (dp, fsdp). The port's ranks take their rows of a row field (and,
+    under sp, their slice of its sequence: parallel/zero.py) and run the
+    visual encode on the whole buffer."""
+    if name in VISUAL_BATCH_FIELDS:
+        return (None, ("dp", "fsdp", "sp"))
+    return (None, ("dp", "fsdp"))
+
+
+def cast_params_for_compute(params, dtype: torch.dtype, mode: str = "fsdp"
+                            ) -> dict[str, torch.Tensor]:
+    """{name: the leaf in the compute dtype} (floating leaves not in
+    `dtype` cast, the rest as they are). A ZeRO-3 rank casts ITS SHARD
+    before the all-gather, so the gathers move compute-dtype bytes, the
+    point of JAX's constrained cast; the cast's gradient arrives in the
+    leaf's own dtype. `mode` names the placement, as in JAX, and changes
+    no value."""
+    mesh_rules(mode)
+    items = (params.named_parameters() if isinstance(params, nn.Module)
+             else params.items())
+    return {n: (p.to(dtype) if p.is_floating_point() and p.dtype != dtype
+                else p) for n, p in items}
+
+
+def opt_state_specs(opt_state: dict, params: nn.Module, mode: str = "fsdp"
+                    ) -> dict:
+    """Specs of the optimizer state (train/optimizer.AdamW.init's tree):
+    a moment inherits its parameter's spec under `mode`; the counts are
+    replicated (()). For ZeRO-2 pass mode="fsdp" (sharded moments) with
+    mode="zero2" for the params, as in JAX."""
+    specs = param_specs(params, mode)
+    shapes = {n: p.dim() for n, p in params.named_parameters()}
+
+    def walk(tree, leaf_name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if (isinstance(tree, torch.Tensor) and leaf_name in specs
+                and tree.dim() == shapes[leaf_name]):
+            return specs[leaf_name]
+        return ()
+
+    return walk(opt_state)
 
 
 def check_divisible(cfg: OryxConfig, tp: int) -> None:
@@ -241,6 +361,16 @@ def local_model(cfg: OryxConfig, state: dict[str, torch.Tensor], world
     """The rank's OryxModel over its slices (frozen), each of its three
     parts carrying `tp` = the world its row-parallel products reduce
     over."""
+    model = frozen_model(cfg, state)
+    for part in (model.llm, model.vit, model.compressor):
+        part.tp = world
+    return model
+
+
+def frozen_model(cfg: OryxConfig, state: dict[str, torch.Tensor]
+                 ) -> nn.Module:
+    """An OryxModel over the tensors of `state` ({name: tensor}, LoRA
+    leaves included), each a frozen parameter as it is."""
     from oryx_tpu_torch.models.oryx import empty_model
 
     model = empty_model(cfg)
@@ -248,9 +378,28 @@ def local_model(cfg: OryxConfig, state: dict[str, torch.Tensor], world
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner)
         mod._parameters[leaf] = nn.Parameter(t, requires_grad=False)
-    for part in (model.llm, model.vit, model.compressor):
-        part.tp = world
     return model
+
+
+_LAYER_LEAF = re.compile(r"^(llm|vit)\.layers\.\d+\.")
+
+
+def serving_shardings(mesh, params: nn.Module, mode: str,
+                      rank: int | None = None) -> dict[str, Placement]:
+    """A serving rank's placements. "tp": `param_shardings` under the
+    zero2 rules (heads and MLP columns over tp). "fsdp": the fsdp rules
+    for the decoder's and the ViT's layer leaves, each gathered as its
+    layer runs (parallel/zero.serving_gatherer); the embedding, the head,
+    the final norms and the compressor stay whole on every rank (JAX
+    shards them too and gathers them at use: the port keeps the one
+    weight a decode step reads outside the layers resident)."""
+    if mode == "tp":
+        return param_shardings(mesh, params, "zero2", rank)
+    if mode != "fsdp":
+        raise ValueError(f"unknown serving sharding mode {mode!r}: tp|fsdp")
+    places = param_shardings(mesh, params, "fsdp", rank)
+    return {n: p if _LAYER_LEAF.match(n) else Placement(None, 1, 0)
+            for n, p in places.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,16 +423,18 @@ class CheckpointParams:
     dtype: torch.dtype = torch.float32
 
 
-def rank_params(params, cfg: OryxConfig, mesh, device) -> nn.Module:
+def rank_params(params, cfg: OryxConfig, mesh, device, mode: str = "tp"
+                ) -> nn.Module:
     """This rank's shard of `params` (a whole OryxModel, a state dict,
-    SeededParams or CheckpointParams) on `device`, its three parts
-    carrying the world (`local_model`)."""
+    SeededParams or CheckpointParams) on `device`: under "tp" its three
+    parts carrying the world (`local_model`), under "fsdp" its layers
+    gathering their leaves as they run (`serving_shardings`)."""
     from oryx_tpu_torch.models.oryx import empty_model
     from oryx_tpu_torch.parallel import tp as tp_lib
 
     world = tp_lib.current()
-    shardings = param_shardings(mesh, empty_model(cfg), "zero2",
-                                rank=world.rank)
+    shardings = serving_shardings(mesh, empty_model(cfg), mode,
+                                  rank=world.rank)
     if isinstance(params, SeededParams):
         state = seeded_shard(cfg, shardings, params.seed, device=device,
                              dtype=params.dtype)
@@ -294,7 +445,13 @@ def rank_params(params, cfg: OryxConfig, mesh, device) -> nn.Module:
                              device=device, dtype=params.dtype)
     else:
         state = shard_params(params, shardings, device=device)
-    return local_model(cfg, state, world)
+    if mode == "tp":
+        return local_model(cfg, state, world)
+    from oryx_tpu_torch.parallel import zero
+
+    model = frozen_model(cfg, state)
+    zero.serving_gatherer(model, shardings, world, _mesh_shape(mesh))
+    return model
 
 
 def paged_kv_spec(mesh) -> tuple | None:

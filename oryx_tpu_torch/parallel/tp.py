@@ -65,6 +65,9 @@ import torch.distributed as dist
 from torch import nn
 
 DEFAULT_TIMEOUT_S = 120.0
+# The most payload bytes a rank puts through the shared card's exchange
+# buffers in one turn of a training collective.
+EXCHANGE_BYTES = 256 << 20
 # The descriptor channel waits as long as the server idles.
 _IDLE_WAIT = timedelta(days=7)
 
@@ -72,6 +75,47 @@ _IDLE_WAIT = timedelta(days=7)
 # the bytes this rank contributed, and the host seconds from entry to
 # return (the wait for the partial product and for the peers included).
 SHARED_CARD = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+# The training collectives (`World.all_gather`, `reduce_scatter`, `sum`,
+# `shift`), whatever the layout: per kind, calls, the bytes this rank
+# contributed and the host seconds from entry to return.
+COLLECTIVES = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0}
+               for kind in ("all_gather", "reduce_scatter", "sum", "shift")}
+
+
+def reset_collectives() -> None:
+    """Zero this process's COLLECTIVES counts."""
+    for row in COLLECTIVES.values():
+        row.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _align(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pack(tensors, device) -> tuple[torch.Tensor, list]:
+    """Tensors -> one uint8 payload (each at a 16-byte offset) and the
+    layout (offset, dtype, shape) to read them back."""
+    layout, off = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        layout.append((off, t.dtype, tuple(t.shape)))
+        off += _align(n)
+    buf = torch.empty(max(off, 16), dtype=torch.uint8, device=device)
+    for t, (o, _, _) in zip(tensors, layout):
+        n = t.numel() * t.element_size()
+        if n:
+            buf[o:o + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+    return buf, layout
+
+
+def _unpack(raw: torch.Tensor, layout) -> list[torch.Tensor]:
+    out = []
+    for off, dtype, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64)) * torch.empty(
+            (), dtype=dtype).element_size()
+        out.append(raw[off:off + n].view(dtype).view(shape))
+    return out
 
 _TLS = threading.local()
 _WORLD: "World | None" = None
@@ -355,6 +399,134 @@ class World:
         SHARED_CARD["seconds"] += time.perf_counter() - t0
         return acc.view(x.shape).to(x.dtype)
 
+    # ---- the training collectives ------------------------------------------
+    #
+    # Every rank of the world enters each of these at the same point of
+    # the same program (SPMD), each naming its own group: the ranks it
+    # meets (in rank order), a subset of the world that holds this rank.
+    # Groups of one collective partition the world (the ranks of one mesh
+    # axis, or of several). Every payload is as large on every rank.
+
+    def _rounds(self, payload: torch.Tensor, ranks):
+        """Exchange the uint8 [R, L] `payload` (R rows of L bytes, one
+        shape on every rank): yields (a, b, views), views[k] being rank
+        ranks[k]'s payload[:, a:b] ([R, b - a] uint8), column range by
+        column range until L is covered. Consume each round's views
+        before the next. On a shared card a round is one turn of the
+        exchange buffers, at most EXCHANGE_BYTES of payload (so a
+        gradient of any size moves through bounded buffers); otherwise one
+        all_gather of the whole world's payloads over the backend."""
+        R, L = payload.shape
+        if self.size == 1:
+            yield 0, L, [payload for _ in ranks]
+            return
+        try:
+            if self.barrier is None:
+                outs = [torch.empty_like(payload) for _ in range(self.size)]
+                dist.all_gather(outs, payload.contiguous(), group=self.group)
+                yield 0, L, [outs[r] for r in ranks]
+                return
+            step = max(16, EXCHANGE_BYTES // R // 16 * 16)
+            for a in range(0, max(L, 1), step):
+                b = min(L, a + step)
+                n = R * (b - a)
+                bufs = self._exchange(-(-n // 4))
+                mine = bufs[self.rank].view(torch.uint8)[:n].view(R, b - a)
+                mine.copy_(payload[:, a:b])
+                torch.cuda.current_stream(self.device).synchronize()
+                self.barrier.wait(self.timeout_s, self._check_followers)
+                yield a, b, [bufs[r].view(torch.uint8)[:n].view(R, b - a)
+                             for r in ranks]
+        except WorldBroken as e:
+            self.broken = str(e)
+            raise
+        except Exception as e:
+            self.broken = f"collective failed: {type(e).__name__}: {e}"
+            raise WorldBroken(self.broken) from e
+
+    @staticmethod
+    def _count(kind: str, nbytes: int, t0: float) -> None:
+        row = COLLECTIVES[kind]
+        row["calls"] += 1
+        row["bytes"] += nbytes
+        row["seconds"] += time.perf_counter() - t0
+
+    def all_gather(self, x: torch.Tensor, group, dim: int = 0
+                   ) -> torch.Tensor:
+        """The group's tensors concatenated along `dim`, in rank order
+        (every rank's `x` of one shape and dtype)."""
+        t0 = time.perf_counter()
+        lead = x.movedim(dim, 0).contiguous()
+        raw = lead.reshape(1, -1).view(torch.uint8)
+        out = torch.empty((len(group), raw.shape[1]), dtype=torch.uint8,
+                          device=x.device)
+        for a, b, views in self._rounds(raw, group):
+            for k, v in enumerate(views):
+                out[k, a:b] = v[0]
+        whole = out.view(x.dtype).view((len(group) * lead.shape[0],)
+                                       + tuple(lead.shape[1:]))
+        self._count("all_gather", raw.numel(), t0)
+        return whole.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, group, dim: int = 0
+                       ) -> torch.Tensor:
+        """This rank's chunk (its index in `group`) of the group's sum of
+        `x` along `dim`, summed in fp32 in rank order; returned in fp32."""
+        t0 = time.perf_counter()
+        parts = len(group)
+        lead = x.movedim(dim, 0).to(torch.float32).contiguous()
+        if lead.shape[0] % parts:
+            raise ValueError(f"dim {dim} of width {lead.shape[0]} does not "
+                             f"divide over {parts} ranks")
+        i = list(group).index(self.rank)
+        raw = lead.reshape(parts, -1).view(torch.uint8)
+        acc = torch.empty(raw.shape[1] // 4, dtype=torch.float32,
+                          device=x.device)
+        for a, b, views in self._rounds(raw, group):
+            dst = acc[a // 4:b // 4]
+            dst.copy_(views[0][i].view(torch.float32))
+            for v in views[1:]:
+                dst += v[i].view(torch.float32)
+        del raw, lead
+        shape = (x.shape[dim] // parts,) + tuple(
+            s for d, s in enumerate(x.shape) if d != dim)
+        self._count("reduce_scatter", x.numel() * 4, t0)
+        return acc.view(shape).movedim(0, dim)
+
+    def sum(self, x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+        """The group's sum (fp32, rank order) or max of a floating `x`,
+        in x's dtype."""
+        t0 = time.perf_counter()
+        flat = x.to(torch.float32).contiguous().reshape(1, -1)
+        raw = flat.view(torch.uint8)
+        acc = torch.empty(flat.shape[1], dtype=torch.float32,
+                          device=x.device)
+        for a, b, views in self._rounds(raw, group):
+            dst = acc[a // 4:b // 4]
+            dst.copy_(views[0][0].view(torch.float32))
+            for v in views[1:]:
+                if op == "sum":
+                    dst += v[0].view(torch.float32)
+                else:
+                    torch.maximum(dst, v[0].view(torch.float32), out=dst)
+        self._count("sum", raw.numel(), t0)
+        return acc.view(x.shape).to(x.dtype)
+
+    def shift(self, tensors, group) -> list[torch.Tensor]:
+        """The ring step: the tensors of the rank before this one in
+        `group` (cyclically), so rank j's go to rank j + 1: `lax.ppermute`
+        with perm [(j, j + 1)]. Any dtypes."""
+        t0 = time.perf_counter()
+        group = list(group)
+        src = group[(group.index(self.rank) - 1) % len(group)]
+        raw, layout = _pack(list(tensors), self.device)
+        got = torch.empty_like(raw)
+        for a, b, views in self._rounds(raw.view(1, -1), [src]):
+            got[a:b] = views[0][0]
+        out = _unpack(got, layout)
+        self._count("shift", raw.numel(), t0)
+        return out
+
     def _check_followers(self) -> None:
         for r, p in enumerate(self._procs, 1):
             if p.poll() is not None:
@@ -506,6 +678,9 @@ class World:
                 obj = out if bind in (None, True) else bind(out)
                 if obj is not None:
                     self._objs[h] = obj
+            # Hold nothing past the dispatch: a dropped handle's object
+            # must go when rank 0 lets go of it.
+            msg = fn = args = kwargs = out = obj = None
 
     # ---- checks -------------------------------------------------------------
 
@@ -554,6 +729,22 @@ class World:
         self._by_id.clear()
         if self.tmpdir:
             shutil.rmtree(self.tmpdir, ignore_errors=True)
+
+    def follow(self) -> None:
+        """A follower's life in a world it joined with `adopt`: serve rank
+        0's dispatches until it stops, then leave the group."""
+        global _WORLD
+        try:
+            with torch.inference_mode():
+                self.serve()
+        finally:
+            self._xbufs = []
+            if _WORLD is self:
+                _WORLD = None
+            try:
+                dist.destroy_process_group()
+            except Exception:  # fault-boundary: rank 0 left first
+                pass
 
     def kill_follower(self, rank: int) -> None:
         """End follower `rank`'s process (tests of a dead rank)."""
@@ -654,6 +845,42 @@ def start(size: int, devices: list[torch.device], *,
     world.devices = devices
     _WORLD = world
     atexit.register(world.shutdown)
+    return world
+
+
+def adopt(devices: list[torch.device], *, timeout_s: float =
+          DEFAULT_TIMEOUT_S, tag: str = "") -> World:
+    """The world of a process group this process has already joined
+    (`mesh.initialize_distributed`: processes started on their own, each
+    with its rank), rank r on `devices[r]`. Rank 0 returns as the
+    controller; a follower then runs `World.follow`. Ranks that share a
+    card meet at a host barrier in the temp directory, named by `tag`
+    (the coordinator's address), which rank 0 makes before any rank maps
+    it."""
+    global _WORLD
+    if _WORLD is not None:
+        raise RuntimeError("a world is already running in this process")
+    devices = [torch.device(d) for d in devices]
+    rank, size = dist.get_rank(), dist.get_world_size()
+    if len(devices) != size:
+        raise ValueError(f"{len(devices)} devices for {size} ranks")
+    backend = choose_backend(devices)
+    world = World(rank, size, devices[rank], backend, timeout_s)
+    world.devices = devices
+    _groups(world)
+    if backend == "gloo" and devices[0].type == "cuda":
+        safe = "".join(c if c.isalnum() else "_" for c in tag)
+        root = os.path.join(tempfile.gettempdir(), f"oryx_tp_{safe}")
+        path = os.path.join(root, "barrier")
+        if rank == 0:
+            os.makedirs(root, exist_ok=True)
+            _HostBarrier.create(path, size)
+            world.tmpdir = root
+        dist.barrier(group=world.ctl_timed)
+        world.barrier = _HostBarrier(path, rank, size)
+    _WORLD = world
+    if rank == 0:
+        atexit.register(world.shutdown)
     return world
 
 

@@ -1462,8 +1462,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
         help="tensor-parallel serving over N ranks this process starts "
-        "(tp=N; rank r on cuda:(r %% device_count), gloo where ranks share "
-        "a card); fsdp=N belongs to the training slice and raises",
+        "(tp=N or fsdp=N; rank r on cuda:(r %% device_count), gloo where "
+        "ranks share a card)",
     )
     args = ap.parse_args(argv)
     if args.quantize and args.shard:

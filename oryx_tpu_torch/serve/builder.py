@@ -17,10 +17,10 @@ Files are read memory-mapped (utils/safetensors.py) and every tensor is
 cast, or quantized, onto the target device one at a time: with
 `quantize="int8"` the full float tree never lands on the card.
 
-Tensor-parallel loading (`mesh=` / `shard="tp=N"`): every rank cuts its
-own slices off the memory-mapped file (parallel/sharding.CheckpointParams),
-so no rank holds the whole tree. int8 weights with a mesh raise, as in the
-JAX package; `fsdp` belongs to the training slice and raises.
+Sharded loading (`mesh=` / `shard="tp=N"` or `"fsdp=N"`): every rank cuts
+its own slices off the memory-mapped file
+(parallel/sharding.CheckpointParams), so no rank holds the whole tree.
+int8 weights with a mesh raise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,19 +44,12 @@ CONFIG_NAME = "oryx_config.json"
 WEIGHTS_NAME = "model.safetensors"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to oryx_tpu_torch yet (ROADMAP.md Queue 1, "
-        f"{item})")
-
-
 def shard_pipeline(model_path: str, shard: str | None, *, tokenizer_path=None,
                    tokenizer=None, template: str = "qwen",
                    quantize: str | None = None, device="cuda"):
     """The entry points' pipeline: `--shard` parsed as JAX parses it (a
-    malformed value raises ValueError; fsdp=N raises NotImplementedError),
-    then `load_pipeline`. With tp=N this process becomes rank 0 of N
-    ranks it starts itself, rank r on cuda:(r % device_count) (or the CPU
+    malformed value raises ValueError), then `load_pipeline`. With tp=N or
+    fsdp=N this process becomes rank 0 of N ranks it starts itself, rank r on cuda:(r % device_count) (or the CPU
     with device="cpu"; "cuda" without a card raises); the backend is
     printed at start-up."""
     from oryx_tpu_torch.parallel.mesh import parse_shard_arg
@@ -73,20 +66,13 @@ def shard_pipeline(model_path: str, shard: str | None, *, tokenizer_path=None,
 def serving_param_shardings(mesh, params_like, mode: str = "tp"):
     """Inference-time placement over a mesh: {parameter name: this rank's
     `sharding.Placement`}. "tp" splits weights over attention heads / MLP
-    columns (the zero2 rules: embeddings and norms whole); "fsdp" belongs
-    to the training slice and raises. params_like may be a meta-device
-    model (`oryx.empty_model(cfg)`)."""
+    columns (the zero2 rules: embeddings and norms whole); "fsdp" splits
+    the decoder's and the ViT's layer leaves on their embed axis, each
+    layer gathered as it runs (`sharding.serving_shardings`).
+    params_like may be a meta-device model (`oryx.empty_model(cfg)`)."""
     from oryx_tpu_torch.parallel import sharding as sharding_lib
-    from oryx_tpu_torch.parallel.mesh import TRAINING_HALF
 
-    rules_mode = {"tp": "zero2", "fsdp": "fsdp"}.get(mode)
-    if rules_mode is None:
-        raise ValueError(f"unknown serving sharding mode {mode!r}: tp|fsdp")
-    if mode == "fsdp":
-        raise NotImplementedError(
-            f"fsdp serving is not ported to oryx_tpu_torch yet "
-            f"({TRAINING_HALF})")
-    return sharding_lib.param_shardings(mesh, params_like, rules_mode)
+    return sharding_lib.serving_shardings(mesh, params_like, mode)
 
 
 def _model_of(state_or_params) -> OryxModel:
@@ -141,7 +127,7 @@ def load_pretrained_model(
     stored dtype, straight off the memory-mapped file, the other leaves
     cast to `dtype`.
 
-    mesh: a tensor-parallel mesh (parallel/mesh.py). The weights come back
+    mesh: a serving mesh (parallel/mesh.py, tp or fsdp). The weights come back
     as `sharding.CheckpointParams`, which `Pipeline(mesh=)` resolves on
     every rank to that rank's slices, each read off the memory-mapped
     file: no rank ever holds the whole tree. Mutually exclusive with

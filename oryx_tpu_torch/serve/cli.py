@@ -13,8 +13,8 @@ read frame by frame or a directory of frame images. It runs on the card
         --image a.png --question "what is this?" [--quantize int8]
 
 `--shard tp=N` serves the model tensor-parallel over N ranks this
-process starts (parallel/); `--shard fsdp=N` belongs to the training slice
-and raises `NotImplementedError`.
+process starts (parallel/), `--shard fsdp=N` with each rank holding its
+shard of every layer, gathered as the layer runs.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--template", default="qwen")
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
-        help="tensor-parallel serving, e.g. tp=2 (fsdp=N raises)",
+        help="sharded serving over N ranks, e.g. tp=2 or fsdp=2",
     )
     ap.add_argument(
         "--quantize", default=None, choices=["int8"],

@@ -84,7 +84,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--port", type=int, default=7860)
     ap.add_argument(
         "--shard", default=None, metavar="MODE=N",
-        help="tensor-parallel serving over N ranks (tp=N; fsdp=N raises)",
+        help="sharded serving over N ranks (tp=N or fsdp=N)",
     )
     ap.add_argument(
         "--quantize", default=None, choices=["int8"],

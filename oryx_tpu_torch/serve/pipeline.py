@@ -9,12 +9,13 @@ on the card). Also streaming (`chat_stream`), multi-turn KV prefix reuse
 (`chat_cached`, `ChatSession`, the cross-session `SessionPrefixCache`),
 option scoring (`score_options`) and video QA (`chat_video`).
 
-Tensor-parallel serving (`mesh=` a tp mesh of parallel/mesh.py): each rank
-holds its shard of the weights (parallel/sharding.py), rank 0's pipeline
-is the one a caller drives, and every entry point below runs on every
-rank (parallel/tp.py): the followers repeat the call on their shards and
-return nothing. A session on tp takes the pipeline's own shared cache
-(`shared=True`).
+Sharded serving (`mesh=` a mesh of parallel/mesh.py): each rank holds its
+shard of the weights (parallel/sharding.py; sharding_mode "tp": heads and
+MLP columns, "fsdp": each layer's leaves, gathered as the layer runs),
+rank 0's pipeline is the one a caller drives, and every entry point below
+runs on every rank (parallel/tp.py): the followers repeat the call on
+their shards and return nothing. A session on a mesh takes the pipeline's
+own shared cache (`shared=True`).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from oryx_tpu_torch.models.params import resolve_device
 from oryx_tpu_torch.ops import packing
 from oryx_tpu_torch.parallel import sharding as sharding_lib
 from oryx_tpu_torch.parallel import tp as tp_lib
-from oryx_tpu_torch.parallel.mesh import TRAINING_HALF, axis_sizes
+from oryx_tpu_torch.parallel.mesh import axis_sizes
 from oryx_tpu_torch.utils import trace as trace_lib
 from oryx_tpu_torch.utils.quant import Q8Embedding, Q8Linear, embed_rows
 
@@ -206,15 +207,15 @@ class Pipeline:
         self.mesh = mesh
         self.sharding_mode = sharding_mode
         self.tp = None
-        tp = self._check_mesh(params)
-        if tp > 1:
+        width = self._check_mesh(params)
+        if width > 1:
             self.tp = tp_lib.current()
             if self.device.type != self.tp.device.type:
                 raise ValueError(f"this rank drives {self.tp.device}, "
                                  f"not {self.device}")
             self.device = self.tp.device
-            self.params = sharding_lib.rank_params(params, cfg, mesh,
-                                                   self.device)
+            self.params = sharding_lib.rank_params(
+                params, cfg, mesh, self.device, sharding_mode)
         else:
             self.params = params.to(self.device)
         self.conv = conv_templates[template]
@@ -234,16 +235,13 @@ class Pipeline:
             self.tp.call(getattr, self, "params", bind=True)
 
     def _check_mesh(self, params) -> int:
-        """The mesh's tp width, after JAX's refusals (int8 weights with a
-        mesh, an unknown mode) and the port's (fsdp belongs to the
-        training slice; every head count must divide)."""
+        """The number of ranks the mesh splits the weights over (tp, or
+        fsdp x sp under "fsdp"), after JAX's refusals (int8 weights with a
+        mesh, an unknown mode) and the port's (under tp every head count
+        must divide)."""
         if self.mesh is None:
             return 1
-        if self.sharding_mode == "fsdp":
-            raise NotImplementedError(
-                "sharding_mode='fsdp' serving is not ported to "
-                f"oryx_tpu_torch yet ({TRAINING_HALF})")
-        if self.sharding_mode != "tp":
+        if self.sharding_mode not in ("tp", "fsdp"):
             raise ValueError(f"unknown serving sharding mode "
                              f"{self.sharding_mode!r}: tp|fsdp")
         if isinstance(params, nn.Module) and any(
@@ -252,7 +250,10 @@ class Pipeline:
             raise ValueError(
                 "quantize='int8' is single-chip serving; drop --shard "
                 "(sharded serving splits the float weights instead)")
-        tp = axis_sizes(self.mesh)["tp"]
+        sizes = axis_sizes(self.mesh)
+        if self.sharding_mode == "fsdp":
+            return sizes["fsdp"] * sizes["sp"]
+        tp = sizes["tp"]
         if tp > 1:
             sharding_lib.check_divisible(self.cfg, tp)
         return tp

@@ -18,9 +18,17 @@ Trainer's seeded random init. The tokenizer comes from
 `serve/builder.load_tokenizer`. `$ORYX_FAULTS` arms the trainer's fault
 points (utils/faults.py).
 
-Not ported: the multi-process rendezvous (`--coordinator`,
-`--num-processes`, `--process-id`) waits for parallelism and raises
-NotImplementedError.
+Multi-process training: `--coordinator HOST:PORT --num-processes N
+--process-id I`, one command a process, each started on its own. They meet
+through `parallel/mesh.initialize_distributed` (gloo when the processes
+share a card or run on the CPU, NCCL with a card each: process I on
+cuda:(I % device_count)) and form one world of ranks (parallel/tp.adopt).
+Process 0 is the controller: it reads the records, runs the Trainer over
+cfg.mesh (which must have N devices) and sends each step's whole batch to
+every rank, each rank taking its share (parallel/zero.py), so the numbers
+are the one-process fit's over the same global batch. The other processes
+are followers: they serve process 0's dispatches and return None when it
+is done.
 """
 
 from __future__ import annotations
@@ -85,8 +93,9 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--num-steps", type=int, default=None)
     ap.add_argument("--video-frames", type=int, default=64)
-    # Multi-process rendezvous (not ported: raises).
-    ap.add_argument("--coordinator", default=None)
+    # Multi-process rendezvous (all three, or none).
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of process 0's rendezvous")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
@@ -111,18 +120,42 @@ def load_params(args, cfg: OryxConfig):
     return None
 
 
-def main(argv: list[str] | None = None) -> Trainer:
+def join_world(args):
+    """Meet the other processes (`--coordinator` and the rest): the world
+    this process is a rank of, or None without the flags."""
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if all(f is None for f in flags):
+        return None
+    if any(f is None for f in flags):
+        raise ValueError("--coordinator, --num-processes and --process-id "
+                         "go together")
+    import torch
+
+    from oryx_tpu_torch.parallel import mesh as mesh_lib
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    devices = tp_lib.default_devices(args.num_processes, args.device)
+    mine = devices[args.process_id]
+    if mine.type == "cuda":
+        torch.cuda.set_device(mine)
+    mesh_lib.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        backend=tp_lib.choose_backend(devices))
+    return tp_lib.adopt(devices, tag=args.coordinator)
+
+
+def main(argv: list[str] | None = None) -> Trainer | None:
     """Train as the arguments say; returns the Trainer, not closed, so its
-    telemetry server answers until the caller closes it."""
+    telemetry server answers until the caller closes it (None on a
+    follower process of a multi-process run, once process 0 is done)."""
     args = build_argparser().parse_args(argv)
     if faults.configure_from_env():
         # Chaos testing only, never a production config.
         rank0_print("fault injection armed from $ORYX_FAULTS")
-    if (args.coordinator or args.num_processes
-            or args.process_id is not None):
-        raise builder._not_ported(
-            "--coordinator / --num-processes / --process-id (multi-process "
-            "training)", "item 4, parallelism")
+    world = join_world(args)
+    if world is not None and not world.controller:
+        world.follow()
+        return None
 
     with open(args.config) as f:
         cfg = OryxConfig.from_json(f.read())
@@ -185,7 +218,12 @@ def main(argv: list[str] | None = None) -> Trainer:
     if args.output_dir:
         # Weights only: the optimizer moments are 2/3 of a state's bytes,
         # and cfg.train.checkpoint_dir already holds the resumable state.
-        builder.save_pretrained(args.output_dir, cfg, state.params,
+        model = state.params
+        if trainer.world is not None:
+            from oryx_tpu_torch.parallel.sharding import frozen_model
+
+            model = frozen_model(cfg, trainer.full_params())
+        builder.save_pretrained(args.output_dir, cfg, model,
                                 step=state.step)
         rank0_print(f"saved model to {args.output_dir}")
     return trainer

@@ -65,10 +65,24 @@ def chunked_causal_lm_loss(
     checkpoint, so one [B, chunk, V] fp32 block lives at a time in the
     forward and in the backward. The dense loss when chunk <= 0, T <= chunk
     or T % chunk (as JAX)."""
+    return _metrics(*chunked_causal_lm_sums(hidden, weight, labels,
+                                            chunk=chunk))
+
+
+def chunked_causal_lm_sums(
+    hidden: torch.Tensor,
+    weight: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sum of token losses, supervised count, correct count) of
+    `chunked_causal_lm_loss`: what a data- or sequence-parallel rank adds
+    to the global mean (parallel/zero.py)."""
     B, T, _ = hidden.shape
     if chunk <= 0 or T <= chunk or T % chunk:
-        return causal_lm_loss(F.linear(hidden, weight.to(hidden.dtype)),
-                              labels)
+        return _stats(F.linear(hidden, weight.to(hidden.dtype)).float(),
+                      labels)
     tot = hidden.new_zeros((), dtype=torch.float32)
     n = torch.zeros((), dtype=torch.int64, device=hidden.device)
     correct = torch.zeros_like(n)
@@ -82,4 +96,4 @@ def chunked_causal_lm_loss(
         else:
             dl, dn, dc = _chunk_stats(hc, weight, lc)
         tot, n, correct = tot + dl, n + dn, correct + dc
-    return _metrics(tot, n, correct)
+    return tot, n, correct

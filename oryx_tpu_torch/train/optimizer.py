@@ -159,6 +159,10 @@ class AdamW:
         self.schedules = {g: make_schedule(cfg, lr) for g, lr in lrs.items()}
         self.mu_dtype = {"float32": torch.float32,
                          "bfloat16": torch.bfloat16}[cfg.moment_dtype]
+        # {name: gradient} -> a group's clip norm; a ZeRO rank sets its
+        # own, which counts each chunk of a sharded gradient once
+        # (parallel/zero.RankTrainer.global_norm).
+        self.norm_fn = None
 
     def trainable(self) -> list[str]:
         return [n for n, m in self.mask.items() if m]
@@ -180,38 +184,83 @@ class AdamW:
         """(updates {name: tensor} for the trainable leaves, new state).
         `grads` holds at least the trainable leaves' fp32 gradients; the
         old state is left untouched."""
-        cfg = self.cfg
-        b1, b2 = cfg.adam_b1, cfg.adam_b2
         new = {"count": dict(state["count"]),
                "lr_count": dict(state["lr_count"]),
-               "mu": dict(state["mu"]), "nu": dict(state["nu"])}
+               "mu": {n: t.clone() for n, t in state["mu"].items()},
+               "nu": {n: t.clone() for n, t in state["nu"].items()}}
         updates: dict[str, torch.Tensor] = {}
+
+        def put(name, sl, u):
+            updates[name] = u
+
+        self._walk(grads, new, params, put, None)
+        return updates, new
+
+    @torch.no_grad()
+    def update_(self, grads: dict[str, torch.Tensor], state: dict,
+                params: dict[str, torch.Tensor], after=None,
+                elems: int = 1 << 26) -> None:
+        """`update` applied in place: the moments in `state` and each
+        parameter in `params` (a view may stand for it) are overwritten,
+        leaf by leaf in slices of about `elems` elements along the leading
+        dim, so no second copy of the state and no tree of updates ever
+        lives (the bits are `update`'s, then `p + u`). `after(name)` runs
+        once a leaf is done."""
+        def put(name, sl, u):
+            p = params[name]
+            p[sl].copy_((p[sl] + u).to(p.dtype))
+
+        self._walk(grads, state, params, put, elems, after)
+
+    def _walk(self, grads, state, params, put, elems, after=None) -> None:
+        """The optimizer step over `state` in place: per group the counts,
+        the clip norm, then each trainable leaf's new moments written into
+        the state and its update handed to put(name, rows, u), in slices
+        of about `elems` elements (None: whole leaves)."""
+        cfg = self.cfg
+        b1, b2 = cfg.adam_b1, cfg.adam_b2
         for group in GROUPS:
             names = [n for n in self.trainable() if self.groups[n] == group]
             # The groups' chains run whatever their leaves (optax keeps the
             # counts of an empty group too).
-            count = new["count"][group] = state["count"][group] + 1
+            count = state["count"][group] = state["count"][group] + 1
             lr = self.schedules[group](state["lr_count"][group])
-            new["lr_count"][group] = state["lr_count"][group] + 1
+            state["lr_count"][group] += 1
             if not names:
                 continue
             gs = {n: grads[n].float() for n in names}
-            g_norm = global_norm(gs.values())
+            g_norm = (global_norm(gs.values()) if self.norm_fn is None
+                      else self.norm_fn(gs))
             clip = g_norm >= cfg.max_grad_norm
             bc1 = 1 - b1**count
             bc2 = 1 - b2**count
             for n in names:
-                g = torch.where(clip, (gs[n] / g_norm) * cfg.max_grad_norm,
-                                gs[n])
-                mu = (1 - b1) * g + b1 * state["mu"][n].float()
-                nu = (1 - b2) * (g * g) + b2 * state["nu"][n]
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
-                if cfg.weight_decay and _jax_ndim(n, params[n]) >= 2:
-                    u = u + cfg.weight_decay * params[n].float()
-                updates[n] = -lr * u
-                new["mu"][n] = mu.to(self.mu_dtype)
-                new["nu"][n] = nu
-        return updates, new
+                p, mu_s, nu_s, g = (params[n], state["mu"][n],
+                                    state["nu"][n], gs.pop(n))
+                rows = (p.shape[0] if elems is None
+                        else max(1, elems // max(1, p[0].numel())))
+                for a in range(0, p.shape[0], rows):
+                    sl = slice(a, a + rows)
+                    u, mu, nu = self._leaf(n, g[sl], g_norm, clip, mu_s[sl],
+                                           nu_s[sl], p[sl], bc1, bc2, lr)
+                    mu_s[sl].copy_(mu)
+                    nu_s[sl].copy_(nu)
+                    put(n, sl, u)
+                if after is not None:
+                    after(n)
+
+    def _leaf(self, name, g, g_norm, clip, mu_old, nu_old, p, bc1, bc2, lr):
+        """(the update -lr u, the new mu in moment_dtype, the new nu) of one
+        leaf, or of any slice of one: every op is elementwise."""
+        cfg = self.cfg
+        b1, b2 = cfg.adam_b1, cfg.adam_b2
+        g = torch.where(clip, (g / g_norm) * cfg.max_grad_norm, g)
+        mu = (1 - b1) * g + b1 * mu_old.float()
+        nu = (1 - b2) * (g * g) + b2 * nu_old
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
+        if cfg.weight_decay and _jax_ndim(name, p) >= 2:
+            u = u + cfg.weight_decay * p.float()
+        return -lr * u, mu.to(self.mu_dtype), nu
 
 
 def make_optimizer(cfg: TrainConfig, model: nn.Module) -> AdamW:

@@ -71,7 +71,14 @@ def compute_params(model: torch.nn.Module, dtype: torch.dtype):
     replaced on its module by its (differentiable) cast to `dtype`, so the
     model reads the compute copy and the gradients flow back to the
     parameter. The backward must run inside the block too: the remat
-    recompute reads the same attributes."""
+    recompute reads the same attributes. On a ZeRO-3 rank
+    (parallel/zero.py) the model's sharded leaves are gathered instead:
+    those of the decoder and ViT layers as each layer runs."""
+    zero = getattr(model, "zero", None)
+    if zero is not None:
+        with zero.compute(model, dtype):
+            yield
+        return
     swapped = []
     for mod in model.modules():
         for name, p in list(mod._parameters.items()):

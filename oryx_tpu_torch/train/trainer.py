@@ -1,5 +1,15 @@
 """SFT trainer: state, step loop, checkpoint/resume, telemetry (port of
-`oryx_tpu.train.trainer`, on one device: no mesh, no sharding).
+`oryx_tpu.train.trainer`).
+
+The mesh is cfg.mesh, over the ranks the caller provides: the running
+world's (parallel/tp.py), or `devices=`, or the Trainer's one device. As
+JAX's `build_mesh`, a mesh whose size is not the number of devices raises
+("mesh 1x16x1x1=16 != 1 devices"). A one-device mesh is the one-device
+path below. A wider one (dp x fsdp x sp ranks; tp is not trained) runs
+each step on every rank through the ZeRO stages of parallel/zero.py: rank
+0 (this process) owns the loop, the logging and the telemetry, each rank
+its shards; `full_params()` gathers the trained leaves, `rank_reports()`
+lists what each rank holds.
 
 `Trainer(cfg, params=..., device=...)` takes ownership of `params` (an
 `OryxModel`; a random init from cfg.train.seed when None): with
@@ -26,9 +36,9 @@ Observability, as JAX's options give it:
     on_anomaly="halt" asks for one, or passed in as `telemetry`; under
     "halt" an anomaly raises `AnomalyHalt` out of `fit`;
   * `tensorboard_dir`: the logged records as TensorBoard scalars.
-`sharding_mode` ("fsdp", "zero2", "ddp") names how JAX places the state
-over a mesh; on the port's one device the three compute the same step,
-as JAX's do on a one-device mesh.
+`sharding_mode` ("fsdp", "zero2", "ddp") places the state over the mesh
+(parallel/zero.py); on one device the three compute the same step, as
+JAX's do on a one-device mesh.
 
 Fault containment (utils/faults.py sites): a loader exception at
 `data_loader_next` skips to the next batch (`max_data_faults` consecutive
@@ -49,6 +59,9 @@ import torch
 from oryx_tpu_torch.config import OryxConfig
 from oryx_tpu_torch.models import oryx
 from oryx_tpu_torch.models.params import resolve_device
+from oryx_tpu_torch.parallel import mesh as mesh_lib
+from oryx_tpu_torch.parallel import tp as tp_lib
+from oryx_tpu_torch.parallel import zero as zero_lib
 from oryx_tpu_torch.train import step as step_lib
 from oryx_tpu_torch.train import telemetry as telemetry_lib
 from oryx_tpu_torch.train.data import PrefetchIterator
@@ -145,6 +158,7 @@ class Trainer:
         *,
         params: oryx.OryxModel | None = None,
         device="cuda",
+        devices=None,
         sharding_mode: str = "fsdp",
         metrics_path: str | None = None,
         tensorboard_dir: str | None = None,
@@ -175,10 +189,29 @@ class Trainer:
         self.max_data_faults = max_data_faults
         self.data_faults = 0
         self.device = resolve_device(device)
+        # The mesh over the caller's ranks (None: one device).
+        self.world = self.mesh = self.zero = None
+        m = cfg.mesh
+        if m.num_devices > 1 or devices is not None:
+            world = tp_lib.current()
+            if devices is None:
+                devices = (world.devices if world is not None
+                           else [self.device])
+            if m.num_devices != len(devices):
+                raise ValueError(
+                    f"mesh {m.dp}x{m.fsdp}x{m.tp}x{m.sp}={m.num_devices} "
+                    f"!= {len(devices)} devices")
+        if m.num_devices > 1:
+            self.mesh = mesh_lib.build_mesh(m, devices)
+            self.world = tp_lib.current()
+            self.device = self.world.device
         self.logger = MetricLogger(metrics_path,
                                    log_every=cfg.train.log_every,
                                    tensorboard_dir=tensorboard_dir)
-        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+        ckpt_dir = cfg.train.checkpoint_dir
+        if self.world is not None:
+            ckpt_dir = zero_lib.rank_dir(ckpt_dir, 0, self.world.size)
+        self.ckpt = CheckpointManager(ckpt_dir)
         # Off unless asked for; on_anomaly="halt" must build the monitor
         # (registry-only without a port) rather than leave the run
         # unprotected.
@@ -200,13 +233,25 @@ class Trainer:
             self.watchdog = trace_lib.StallWatchdog(
                 self.tracer, stall_timeout, name="trainer"
             ).start()
-        if params is None:
-            gen = torch.Generator(self.device).manual_seed(cfg.train.seed)
-            params = oryx.init_params(cfg, gen, device=self.device)
-        params = setup_lora(cfg, params.to(self.device))
-        self.tx = make_optimizer(cfg.train, params)
-        prepare_params(params, self.tx.mask, oryx.compute_dtype(cfg))
-        self.state = step_lib.init_state(params, self.tx)
+        if self.world is not None:
+            # Every rank builds its shards from the same whole model: the
+            # seeded init, or the caller's weights sent by value.
+            source = None if params is None else {
+                n: t.detach().cpu() for n, t in params.state_dict().items()}
+            self.zero = self.world.call(
+                zero_lib.start, cfg, source, sharding_mode,
+                (m.dp, m.fsdp, m.tp, m.sp), bind=True)
+            self.tx = self.zero.tx
+            self.state = self.zero.state
+        else:
+            if params is None:
+                gen = torch.Generator(self.device).manual_seed(
+                    cfg.train.seed)
+                params = oryx.init_params(cfg, gen, device=self.device)
+            params = setup_lora(cfg, params.to(self.device))
+            self.tx = make_optimizer(cfg.train, params)
+            prepare_params(params, self.tx.mask, oryx.compute_dtype(cfg))
+            self.state = step_lib.init_state(params, self.tx)
         # Host metrics of every step fit ran (the logged record's inputs,
         # the model FLOPs, plus, on a card, the device time of the step's
         # two phases and MFU).
@@ -233,15 +278,21 @@ class Trainer:
         if self.ckpt.latest_step() is None:
             return 0
         t0 = time.perf_counter()
-        self.state = self.ckpt.restore(self.state)
+        if self.world is not None:
+            self.world.call(zero_lib.rank_restore, self.zero,
+                            self.cfg.train.checkpoint_dir)
+            self.state = self.zero.state
+        else:
+            self.state = self.ckpt.restore(self.state)
         if self.telemetry is not None:
             self.telemetry.record_restore(time.perf_counter() - t0)
         rank0_print(f"resumed from step {self.state.step}")
         return self.state.step
 
-    def _device_batch(self, batch: dict[str, np.ndarray]):
-        """Host batch -> device tensors with the leading [accum, ...] axis
-        (with grad_accum_steps > 1 the batch must come stacked from
+    def _stacked(self, batch: dict[str, np.ndarray]
+                 ) -> dict[str, np.ndarray]:
+        """Host batch with the leading [accum, ...] axis (with
+        grad_accum_steps > 1 the batch must come stacked from
         data.collate_microbatches)."""
         accum = self.cfg.train.grad_accum_steps
         out = {}
@@ -256,10 +307,33 @@ class Trainer:
                     )
             else:
                 x = x[None]
-            out[name] = torch.from_numpy(np.ascontiguousarray(x)).to(
-                self.device
-            )
+            out[name] = np.ascontiguousarray(x)
         return out
+
+    def _device_batch(self, batch: dict[str, np.ndarray]):
+        """Host batch -> the step's input: device tensors [accum, ...] on
+        one device; on a mesh the stacked host arrays, each rank taking
+        its share of every field by `sharding.batch_field_spec`
+        (parallel/zero.RankTrainer)."""
+        stacked = self._stacked(batch)
+        if self.world is not None:
+            return stacked
+        return {k: torch.from_numpy(x).to(self.device)
+                for k, x in stacked.items()}
+
+    def full_params(self) -> dict[str, torch.Tensor]:
+        """Every trained leaf whole, {name: CPU tensor}."""
+        if self.world is not None:
+            return self.world.call(zero_lib.rank_full_params, self.zero)
+        return {n: p.detach().cpu()
+                for n, p in self.state.params.named_parameters()}
+
+    def rank_reports(self) -> list[dict]:
+        """Each rank's holdings (parallel/zero.RankTrainer.report), by
+        rank; one entry on one device."""
+        if self.world is not None:
+            return self.world.call(zero_lib.rank_reports, self.zero)
+        return []
 
     def _next_batch(self, batches: Iterator, tr) -> tuple[dict, object]:
         """The next host batch and its `data` span, skipping a transient
@@ -291,6 +365,10 @@ class Trainer:
                     ) from e
 
     def _save(self, step: int, *, force: bool = False) -> None:
+        if self.world is not None:
+            self.world.call(zero_lib.rank_save, self.zero,
+                            self.cfg.train.checkpoint_dir, step, force)
+            return
         self.ckpt.save(step, self.state, self.tx.trainable(), force=force)
 
     def fit(
@@ -344,10 +422,16 @@ class Trainer:
                         marks[name].record()
 
                 with tr.span("step_dispatch") as sp_disp:
-                    self.state, metrics = step_lib.train_step(
-                        self.state, batch, cfg, self.tx, mark=mark,
-                        numerics=numer,
-                    )
+                    if self.world is not None:
+                        metrics, rank_marks = self.world.call(
+                            zero_lib.rank_step, self.zero, batch, numer)
+                        marks.update(rank_marks)
+                        self.state = self.zero.state
+                    else:
+                        self.state, metrics = step_lib.train_step(
+                            self.state, batch, cfg, self.tx, mark=mark,
+                            numerics=numer,
+                        )
                 # The step loop's one deliberate sync: logging, the skip
                 # count and the telemetry need host scalars.
                 with tr.span("device_sync") as sp_sync:

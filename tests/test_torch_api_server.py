@@ -688,16 +688,16 @@ def test_formerly_cut_options_reach_their_modules(pipes, tmp_path, option,
 
 
 def test_main_refuses_shard_and_needs_a_card_for_cuda(monkeypatch):
-    """fsdp=N belongs to the training slice; a malformed --shard, int8
-    with --shard and --engine sharded without it are argument errors, as
-    in JAX's main (tp=N itself runs: tests/test_torch_tp_serving.py)."""
+    """A malformed --shard, int8 with --shard (tp or fsdp) and --engine
+    sharded without it are argument errors, as in JAX's main (tp=N and
+    fsdp=N themselves run: tests/test_torch_tp_serving.py,
+    tests/test_torch_fsdp_serving.py)."""
     import torch
 
-    with pytest.raises(NotImplementedError, match="training half"):
-        tapi.main(["--model-path", "x", "--shard", "fsdp=2",
-                   "--device", "cpu"])
-    for argv in (["--shard", "tp=x"], ["--shard", "tp=2", "--quantize",
-                                       "int8"], ["--engine", "sharded"]):
+    for argv in (["--shard", "tp=x"], ["--shard", "fsdp=0"],
+                 ["--shard", "tp=2", "--quantize", "int8"],
+                 ["--shard", "fsdp=2", "--quantize", "int8"],
+                 ["--engine", "sharded"]):
         with pytest.raises(SystemExit):
             tapi.main(["--model-path", "x", "--device", "cpu"] + argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -3,8 +3,8 @@
 bf16, a training state, an int8 model), `dtype=` casts, `quantize="int8"`
 on load gives the JAX package's codes for the same numpy weights,
 `load_pipeline` gives the JAX pipeline's greedy tokens (float and int8),
-and the error paths raise as JAX's do (`NotImplementedError` for what
-waits for parallelism).
+and the error paths raise as JAX's do; with a mesh (tp or fsdp) the
+weights stay on disk for each rank to cut its slices.
 """
 
 import dataclasses
@@ -175,14 +175,23 @@ def test_error_paths(tmp_path, saved, case):
                                                   mesh=mesh, device="cpu")
         assert src.path == d
     elif case == "sharding_mode":
-        with pytest.raises(NotImplementedError, match="training half"):
-            builder.load_pretrained_model(d, tokenizer=tok, mesh=_Tp2Mesh(),
-                                          sharding_mode="fsdp", device="cpu")
+        # fsdp serving: the weights stay on disk until each rank cuts its
+        # layers' slices; the layer leaves split, the rest whole.
+        _, src, _ = builder.load_pretrained_model(
+            d, tokenizer=tok, mesh=_Tp2Mesh(), sharding_mode="fsdp",
+            device="cpu")
+        assert src.path == d
+        fsdp2 = _Tp2Mesh()
+        fsdp2.shape = (1, 2, 1, 1)
+        place = builder.serving_param_shardings(fsdp2, toryx.empty_model(ct),
+                                                "fsdp")
+        assert place["llm.layers.0.q_proj.weight"].parts == 2
+        assert not place["llm.embed.weight"].split
         with pytest.raises(ValueError, match="unknown serving sharding"):
             builder.serving_param_shardings(_Tp2Mesh(), None, "ddp")
     elif case == "pipeline_shard":
-        with pytest.raises(NotImplementedError, match="training half"):
-            builder.load_pipeline(d, tokenizer=tok, shard="fsdp=8",
+        with pytest.raises(ValueError, match="--shard expects"):
+            builder.load_pipeline(d, tokenizer=tok, shard="fsdp=0",
                                   device="cpu")
         with pytest.raises(ValueError, match="--shard expects"):
             builder.load_pipeline(d, tokenizer=tok, shard="tp8",

@@ -420,9 +420,10 @@ def test_main_quantize_int8_and_shard(tmp_path, capsys, monkeypatch,
     harness.main(base + ["--quantize", "int8"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["n"] == 8
-    # fsdp=N is the training slice's; tp=N runs in test_torch_tp_serving.
-    with pytest.raises(NotImplementedError, match="training half"):
-        harness.main(base + ["--shard", "fsdp=2"])
+    # tp=N and fsdp=N run in test_torch_tp_serving / test_torch_fsdp_serving;
+    # with int8 weights either is an argument error.
+    with pytest.raises(SystemExit):
+        harness.main(base + ["--shard", "fsdp=2", "--quantize", "int8"])
     with pytest.raises(SystemExit):
         harness.main(base + ["--shard", "tp=2", "--quantize", "int8"])
 

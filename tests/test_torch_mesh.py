@@ -1,7 +1,7 @@
 """The port's meshes (parallel/mesh.py) against the JAX package's (mirrors
 tests/test_mesh.py): a dense 2x2x2 mesh over eight ranks and its product
 check, the hybrid layout with a sum over each slice, and `--shard`
-parsing; plus the multi-host helpers' refusals. Rank 0 is a process of
+parsing (tp=N and fsdp=N); plus the multi-host helpers' refusals. Rank 0 is a process of
 its own (tests/torch_tp_common.RankZero); this process never joins the
 ranks."""
 
@@ -61,10 +61,12 @@ def test_parse_shard_arg(eight):
             mesh_lib.parse_shard_arg(bad)
         with pytest.raises(ValueError, match="--shard expects"):
             jmesh.parse_shard_arg(bad)
-    # fsdp=N parses, then names the training half it waits for.
-    with pytest.raises(NotImplementedError, match="training half"):
-        mesh_lib.parse_shard_arg("fsdp=8")
     assert out["tp8"] == ({"dp": 1, "fsdp": 1, "tp": 8, "sp": 1}, "tp")
+    # fsdp=N lays an fsdp mesh over the same ranks.
+    assert out["fsdp8"] == ({"dp": 1, "fsdp": 8, "tp": 1, "sp": 1}, "fsdp")
+    for bad in ("fsdp=0", "fsdp="):
+        with pytest.raises(ValueError, match="--shard expects"):
+            mesh_lib.parse_shard_arg(bad)
 
 
 def test_multi_host_helpers_refuse_what_they_cannot_know():

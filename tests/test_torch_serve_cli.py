@@ -166,9 +166,10 @@ def test_quantize_int8_equals_the_int8_pipeline(weights, media_dir,
 
 def test_refusals_and_argument_surface(weights, monkeypatch, capsys):
     _, model_dir = weights
-    with pytest.raises(NotImplementedError, match="training half"):
+    with pytest.raises(SystemExit):
         cli.main(["--model-path", model_dir, "--question", "q",
-                  "--shard", "fsdp=2", "--device", "cpu"])
+                  "--shard", "fsdp=2", "--quantize", "int8",
+                  "--device", "cpu"])
     for main in (cli.main, jcli.main):
         with pytest.raises(SystemExit):
             main(["--model-path", model_dir])  # no --question

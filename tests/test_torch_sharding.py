@@ -4,7 +4,10 @@ of models/convert.py (tiny and oryx_7b, every mode), `paged_kv_spec`; the
 rank's slices (whole module, seeded init); the model's row-parallel sums,
 run as two ranks in two threads of this process (qwen2, the ViT, the
 compressor, and the quantized pool's row amax) against the whole model;
-and the refusals (heads that do not divide, the training half)."""
+and the refusals (heads that do not divide, a leaf split over tp and fsdp
+at once). The training half: fsdp placements over the combined fsdp x sp
+width, `opt_state_specs`, `batch_spec` / `batch_field_spec` and
+`cast_params_for_compute` against JAX's."""
 
 import dataclasses
 import threading
@@ -30,8 +33,8 @@ class _Mesh:
     """A mesh's axes (the rules read nothing else)."""
     mesh_dim_names = ("dp", "fsdp", "tp", "sp")
 
-    def __init__(self, tp=2, fsdp=1):
-        self.shape = (1, fsdp, tp, 1)
+    def __init__(self, tp=2, fsdp=1, sp=1, dp=1):
+        self.shape = (dp, fsdp, tp, sp)
 
 
 class _Peers:
@@ -266,6 +269,111 @@ def test_divisibility_and_training_half_refusals():
     with pytest.raises(ValueError, match="vision.num_heads = 3"):
         sharding.check_divisible(odd, 2)
     sharding.check_divisible(tcfg.oryx_7b(), 2)
-    with pytest.raises(NotImplementedError, match="training half"):
-        sharding.param_shardings(_Mesh(fsdp=2, tp=1),
+    # The training half places fsdp; a leaf split over tp and fsdp at once
+    # is what it refuses.
+    assert sharding.param_shardings(
+        _Mesh(fsdp=2, tp=1), oryx.empty_model(cfg), "fsdp",
+        rank=1)["llm.embed.weight"] == sharding.Placement(1, 2, 1)
+    with pytest.raises(ValueError, match="at once"):
+        sharding.param_shardings(_Mesh(fsdp=2, tp=2),
                                  oryx.empty_model(cfg), "fsdp", rank=0)
+
+
+# ---- the training half -------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1, 1), (2, 2, 1, 1), (1, 2, 1, 2),
+                                   (1, 1, 1, 4)])
+def test_fsdp_placement_cuts_embed_over_fsdp_times_sp(shape):
+    """Each rank's chunk of a leaf's embed dim is its index in its
+    (fsdp, sp) group (dp replicas hold the same chunk); leaves without an
+    embed axis stay whole; zero2 and ddp keep every leaf whole."""
+    dp, fsdp, tp, sp = shape
+    model = oryx.empty_model(tcfg.oryx_tiny())
+    mesh = _Mesh(dp=dp, fsdp=fsdp, tp=tp, sp=sp)
+    width = fsdp * sp
+    seen = set()
+    for r in range(dp * fsdp * sp):
+        place = sharding.param_shardings(mesh, model, "fsdp", rank=r)
+        embed = place["llm.embed.weight"]
+        assert (embed.dim, embed.parts) == (1, width)
+        seen.add((r // width, embed.index))
+        assert place["llm.layers.0.q_proj.weight"].dim == 1
+        assert place["llm.layers.0.o_proj.weight"].dim == 0
+        assert not place["llm.final_norm.weight"].split
+        assert not place["llm.layers.0.q_proj.bias"].split
+        for mode in ("zero2", "ddp"):
+            assert not any(p.split for p in sharding.param_shardings(
+                mesh, model, mode, rank=r).values())
+    assert seen == {(d, i) for d in range(dp) for i in range(width)}
+    assert sharding.axis_group(shape, 0, ("fsdp", "sp")) == list(
+        range(width))
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "zero2", "ddp"])
+def test_opt_state_specs_match_jax(mode):
+    """A moment's spec is its parameter's in both packages (JAX's
+    opt_state_specs over optax's tree, the port's over AdamW's), and the
+    counts are replicated; the parameters' specs are JAX's leaf by leaf
+    (test_param_specs_match_jax_leaf_by_leaf), so the moments' are too."""
+    from oryx_tpu.train import optimizer as jopt
+    from oryx_tpu_torch.train import optimizer as topt
+
+    jc = jcfg.oryx_tiny()
+    jtree = joryx.init_params(jc, jax.random.key(0))
+    jstate = jopt.make_optimizer(jc.train, jtree).init(jtree)
+    jspecs = jsharding.opt_state_specs(jstate, jtree, mode)
+    pspecs = _jax_specs(jtree, mode)
+    flat = jax.tree_util.tree_flatten_with_path(
+        jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    moments = 0
+    for path, spec in flat[0]:
+        keys = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
+        for kind in ("mu", "nu"):
+            if kind in keys:
+                leaf = "/".join(keys[keys.index(kind) + 1:])
+                if leaf in pspecs:
+                    assert tuple(spec) == pspecs[leaf], (kind, leaf)
+                    moments += 1
+    assert moments == 2 * len(pspecs)
+
+    model = oryx.init_params(tcfg.oryx_tiny(), torch.Generator(),
+                             device="cpu")
+    tx = topt.make_optimizer(tcfg.oryx_tiny().train, model)
+    specs = sharding.opt_state_specs(tx.init(model), model, mode)
+    want = sharding.param_specs(model, mode)
+    assert specs["count"] == {g: () for g in topt.GROUPS}
+    for kind in ("mu", "nu"):
+        assert specs[kind] == {n: want[n] for n in tx.trainable()}
+
+
+def test_batch_specs_match_jax():
+    from oryx_tpu_torch.train.step import BATCH_FIELDS
+
+    assert sharding.batch_spec() == tuple(jsharding.batch_spec())
+    assert sharding.VISUAL_BATCH_FIELDS == jsharding.VISUAL_BATCH_FIELDS
+    for name in BATCH_FIELDS:
+        assert sharding.batch_field_spec(name) == tuple(
+            jsharding.batch_field_spec(name)), name
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "zero2", "ddp"])
+def test_cast_params_for_compute_matches_jax(mode):
+    """The compute-dtype cast of every leaf, bit for bit (off a mesh JAX's
+    sharding constraint passes the cast through)."""
+    from oryx_tpu_torch.models.convert import from_jax_params, to_jax_layout
+
+    jc = jcfg.oryx_tiny()
+    jtree = joryx.init_params(jc, jax.random.key(3))
+    want = jsharding.cast_params_for_compute(jtree, jax.numpy.bfloat16, mode)
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jtree),
+                            tcfg.oryx_tiny())
+    got = sharding.cast_params_for_compute(model, torch.bfloat16, mode)
+    assert all(t.dtype == torch.bfloat16 for t in got.values())
+    flat_got = jax.tree_util.tree_flatten_with_path(
+        to_jax_layout(model, got))[0]
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    assert len(flat_got) == len(flat_want)
+    for path, a in flat_got:
+        b = np.asarray(flat_want[path], np.float32)
+        assert np.array_equal(a, b), jax.tree_util.keystr(path)

@@ -10,7 +10,9 @@
     tolerance; the port's `--output-dir` loads back through
     `load_pretrained_model`;
   * `--init-from`, the telemetry flags, TensorBoard and `$ORYX_FAULTS`
-    through the port's CLI; the multi-process flags raise;
+    through the port's CLI; the multi-process flags, one alone raising,
+    all three as two processes (fsdp=2) against the same fit by two ranks
+    of one process and JAX's CLI;
   * `load_record_media` equals JAX's on images, image lists, a frame
     directory and a text record.
 
@@ -114,10 +116,12 @@ def hf_dir(tmp_path_factory):
     return d
 
 
-def _cfg_file(tmp_path, name, **train):
+def _cfg_file(tmp_path, name, mesh=jcfg.MeshConfig(dp=2, fsdp=4), **train):
+    """The run's config file; JAX's 8-device mesh unless `mesh` (the port
+    trains over as many ranks as its mesh names)."""
     base = jcfg.oryx_tiny()
     cfg = dataclasses.replace(
-        base, mesh=jcfg.MeshConfig(dp=2, fsdp=4),
+        base, mesh=mesh,
         train=dataclasses.replace(base.train, **{
             "global_batch_size": 4, "num_train_steps": 2,
             "learning_rate": 1e-3, "warmup_ratio": 0.0, "log_every": 1,
@@ -171,7 +175,9 @@ def test_train_cli_argparser():
     ["--process-id", "0"],
 ])
 def test_multi_process_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="item 4"):
+    """The three rendezvous flags go together; one alone raises before
+    anything is read."""
+    with pytest.raises(ValueError, match="go together"):
         cli.main(["--config", "unused.json", "--data", "unused.json",
                   "--tokenizer-path", "unused", "--device", "cpu", *flags])
 
@@ -179,22 +185,43 @@ def test_multi_process_flags_raise(flags):
 # ---- the CLI against JAX's CLI -----------------------------------------------
 
 
-def test_cli_matches_jax_cli_from_hf_weights(tmp_path, data_dir, hf_dir):
-    weights = ["--hf-llm", hf_dir, "--hf-vision", hf_dir,
-               "--projector", os.path.join(hf_dir, "mm_projector")]
-    cfg, jpath = _cfg_file(tmp_path, "j")
-    jcli.main(_args(jpath, data_dir, tmp_path / "j.jsonl", *weights))
-    _, tpath = _cfg_file(tmp_path, "t")
-    out = tmp_path / "model"
-    trainer = cli.main(_args(tpath, data_dir, tmp_path / "t.jsonl", *weights,
-                             "--output-dir", str(out), "--device", "cpu"))
-    trainer.close()
-    jr, tr = _records(tmp_path / "j.jsonl"), _records(tmp_path / "t.jsonl")
+_JAX_RUN: dict = {}
+
+
+def _weights(hf_dir):
+    return ["--hf-llm", hf_dir, "--hf-vision", hf_dir,
+            "--projector", os.path.join(hf_dir, "mm_projector")]
+
+
+def _jax_records(tmp_path_factory, data_dir, hf_dir):
+    """JAX's CLI from the HF weights on its 8-device mesh (once a module):
+    (config, its JSONL records)."""
+    if not _JAX_RUN:
+        d = tmp_path_factory.mktemp("jax_cli")
+        cfg, jpath = _cfg_file(d, "j")
+        jcli.main(_args(jpath, data_dir, d / "j.jsonl", *_weights(hf_dir)))
+        _JAX_RUN.update(cfg=cfg, records=_records(d / "j.jsonl"))
+    return _JAX_RUN["cfg"], _JAX_RUN["records"]
+
+
+def _assert_records(tr, jr):
     assert [r["step"] for r in tr] == [r["step"] for r in jr] == [1, 2]
     for a, b in zip(tr, jr):
         assert set(a) == set(b)
         for k in set(b) - set(TIMING) - {"step"}:
             np.testing.assert_allclose(a[k], b[k], **TOL, err_msg=k)
+
+
+def test_cli_matches_jax_cli_from_hf_weights(tmp_path, tmp_path_factory,
+                                             data_dir, hf_dir):
+    cfg, jr = _jax_records(tmp_path_factory, data_dir, hf_dir)
+    _, tpath = _cfg_file(tmp_path, "t", mesh=jcfg.MeshConfig())
+    out = tmp_path / "model"
+    trainer = cli.main(_args(tpath, data_dir, tmp_path / "t.jsonl",
+                             *_weights(hf_dir), "--output-dir", str(out),
+                             "--device", "cpu"))
+    trainer.close()
+    _assert_records(_records(tmp_path / "t.jsonl"), jr)
     assert trainer.ckpt.latest_step() == 2
     # The weights-only export loads back as the trained model.
     _, model, cfg2 = builder.load_pretrained_model(
@@ -203,6 +230,77 @@ def test_cli_matches_jax_cli_from_hf_weights(tmp_path, data_dir, hf_dir):
     trained = dict(trainer.state.params.named_parameters())
     for n, p in model.named_parameters():
         assert torch.equal(p, trained[n].float()), n
+
+
+_PROCESS = """
+import sys
+sys.path[:0] = {paths!r}
+from torch_tp_common import CharTokenizer
+from oryx_tpu_torch.data import native_loader
+from oryx_tpu_torch.serve import builder
+from oryx_tpu_torch.train import cli
+builder.load_tokenizer = lambda path: CharTokenizer()
+native_loader.is_available = lambda: False
+trainer = cli.main(sys.argv[1:])
+if trainer is not None:
+    trainer.close()
+"""
+
+
+def test_two_processes_match_the_in_process_fit_and_jax(
+        tmp_path, tmp_path_factory, data_dir, hf_dir):
+    """`--coordinator / --num-processes 2 / --process-id {0,1}`, two
+    commands started on their own (fsdp=2, the CPU): process 0 trains,
+    process 1 serves its dispatches. The losses are the bits of the same
+    fit by two ranks one process starts (tests/torch_tp_common.RankZero),
+    and JAX's CLI's within tolerance; the output dir holds the whole
+    trained model."""
+    import socket
+    import subprocess
+    import sys
+
+    from torch_tp_common import RankZero
+
+    _, jr = _jax_records(tmp_path_factory, data_dir, hf_dir)
+    _, path = _cfg_file(tmp_path, "two", mesh=jcfg.MeshConfig(fsdp=2))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = _PROCESS.format(paths=[os.path.dirname(tests), tests])
+    argv = _args(path, data_dir, tmp_path / "two.jsonl", *_weights(hf_dir),
+                 "--device", "cpu", "--output-dir", str(tmp_path / "out"),
+                 "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", "2")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", GLOO_SOCKET_IFNAME="lo",
+               OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv,
+                               "--process-id", str(i)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for i in (1, 0)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err.decode()[-3000:]
+    two = _records(tmp_path / "two.jsonl")
+    _assert_records(two, jr)
+
+    _, path1 = _cfg_file(tmp_path, "inproc", mesh=jcfg.MeshConfig(fsdp=2))
+    d = RankZero(shape=(1, 2, 1, 1))
+    try:
+        d.run("job_cli", _args(path1, data_dir, tmp_path / "in.jsonl",
+                               *_weights(hf_dir), "--device", "cpu"))
+    finally:
+        d.close()
+    inproc = _records(tmp_path / "in.jsonl")
+    for a, b in zip(two, inproc):
+        assert (a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+    _, model, _ = builder.load_pretrained_model(
+        str(tmp_path / "out"), tokenizer=FakeTok(), device="cpu")
+    assert model.llm.embed.weight.shape == (512, 64)
 
 
 class FakeWriter:
@@ -232,7 +330,8 @@ def test_cli_init_from_telemetry_and_faults(tmp_path, data_dir, monkeypatch,
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard",
                         types.SimpleNamespace(SummaryWriter=FakeWriter))
     FakeWriter.scalars = []
-    cfg, path = _cfg_file(tmp_path, "c", checkpoint_every=1)
+    cfg, path = _cfg_file(tmp_path, "c", mesh=jcfg.MeshConfig(),
+                          checkpoint_every=1)
     ct = tcfg.OryxConfig.from_dict(cfg.to_dict())
     init = tmp_path / "init"
     builder.save_pretrained(str(init), ct, from_jax_params(make_tree(), ct))

@@ -136,8 +136,10 @@ def _configs(tmp_path, **train):
             "log_every": 1, "checkpoint_every": 1,
             "checkpoint_dir": str(tmp_path / "j"), **train}),
     )
+    # The port trains on one device: its mesh says so (a JAX-sized mesh
+    # over one device raises, as JAX's build_mesh does).
     ct = tcfg.OryxConfig.from_dict(dataclasses.replace(
-        cj, train=dataclasses.replace(
+        cj, mesh=jcfg.MeshConfig(), train=dataclasses.replace(
             cj.train, checkpoint_dir=str(tmp_path / "t"))).to_dict())
     return cj, ct
 

@@ -48,6 +48,7 @@ from torch_train_common import (  # noqa: E402
     make_batches,
     make_tree,
     port_model,
+    tbatch,
 )
 
 
@@ -254,8 +255,9 @@ def test_trainer_jsonl_matches_jax(tree, batches, tmp_path):
         train=dataclasses.replace(cj.train, log_every=1, checkpoint_every=100,
                                   checkpoint_dir=str(tmp_path / "j")),
     )
+    # The port trains on one device: its mesh says so.
     ct = tcfg.OryxConfig.from_dict(dataclasses.replace(
-        cj, train=dataclasses.replace(
+        cj, mesh=jcfg.MeshConfig(), train=dataclasses.replace(
             cj.train, checkpoint_dir=str(tmp_path / "t"))).to_dict())
     data = [{k: v[0] for k, v in batches[1].items()}] * 3
     jt = JTrainer(cj, params=jax.tree_util.tree_map(jnp.asarray, tree),
@@ -306,3 +308,41 @@ def test_resume_continues_bit_for_bit(tree, batches, tmp_path):
         for n, t in whole.state.opt_state[kind].items():
             assert torch.equal(again.state.opt_state[kind][n], t), n
     assert again.state.opt_state["count"] == whole.state.opt_state["count"]
+
+
+def test_trainer_builds_its_mesh_from_the_config(tree, batches, tmp_path):
+    """The Trainer's mesh is cfg.mesh over the ranks it is given, as
+    JAX's: a pod config over one device raises with JAX's message, and
+    the one-device mesh is the one-device step, bit for bit."""
+    from oryx_tpu.parallel import mesh as jmesh
+    from oryx_tpu_torch.train import step as tstep
+
+    _, ct = cfgs(tune="full", lr=1e-3)
+    pod = dataclasses.replace(ct, mesh=tcfg.MeshConfig(fsdp=16))
+    with pytest.raises(ValueError) as port:
+        Trainer(pod, params=from_jax_params(tree, ct), device="cpu")
+    with pytest.raises(ValueError) as ref:
+        jmesh.build_mesh(jcfg.MeshConfig(fsdp=16), devices=jax.devices()[:1])
+    assert str(port.value) == str(ref.value) == (
+        "mesh 1x16x1x1=16 != 1 devices")
+    with pytest.raises(ValueError, match="mesh 1x1x1x1=1 != 2 devices"):
+        Trainer(ct, params=from_jax_params(tree, ct), device="cpu",
+                devices=["cpu", "cpu"])
+
+    cfg = dataclasses.replace(ct, train=dataclasses.replace(
+        ct.train, checkpoint_dir=str(tmp_path / "one"), log_every=1))
+    data = [{k: v[0] for k, v in batches[1].items()}] * 2
+    tt = Trainer(cfg, params=from_jax_params(tree, ct), device="cpu")
+    assert tt.mesh is None and tt.world is None
+    tt.fit(iter(data), num_steps=2, resume=False, prefetch=0)
+    model = port_model(tree, ct)
+    tx = topt.make_optimizer(ct.train, model)
+    state = tstep.init_state(model, tx)
+    for h, b in zip(tt.history, data):
+        state, m = tstep.train_step(
+            state, tbatch({k: v[None] for k, v in b.items()}), ct, tx)
+        assert h["loss"] == m["loss"].item()
+        assert h["grad_norm"] == m["grad_norm"].item()
+    for (n, a), (_, c) in zip(tt.state.params.named_parameters(),
+                              state.params.named_parameters()):
+        assert torch.equal(a, c), n

@@ -68,6 +68,11 @@ class RankZero:
 
 
 def _rank0_main(conn, shape) -> None:
+    import os
+
+    # Two compute threads a rank: the followers inherit the variable, and
+    # the test run's workers share the host's cores with every rank.
+    os.environ["OMP_NUM_THREADS"] = "2"
     import torch
 
     torch.set_num_threads(2)
@@ -110,15 +115,16 @@ def _cfg(cfg_dict):
     return OryxConfig.from_dict(cfg_dict)
 
 
-def job_pipeline(state, key, tree, cfg_dict, mesh_key="mesh"):
-    """A tp Pipeline over the JAX tree's weights, kept under `key`."""
+def job_pipeline(state, key, tree, cfg_dict, mesh_key="mesh", mode="tp"):
+    """A sharded Pipeline (`mode` tp or fsdp) over the JAX tree's weights,
+    kept under `key`."""
     from oryx_tpu_torch.models.convert import from_jax_params
     from oryx_tpu_torch.serve.pipeline import Pipeline
 
     cfg = _cfg(cfg_dict)
     state["pipes"][key] = Pipeline(
         CharTokenizer(), from_jax_params(tree, cfg), cfg, device="cpu",
-        mesh=state[mesh_key])
+        mesh=state[mesh_key], sharding_mode=mode)
     pipe = state["pipes"][key]
     return {"tp": pipe.tp.size,
             "q_rows": int(pipe.params.llm.layers[0].q_proj.weight.shape[0]),
@@ -303,10 +309,17 @@ def job_pool_rows(state, k_rows, fmt, page_size=4):
                       page_size)
 
 
-def job_entry_points(state, model_dir, task, media_root, image_path):
-    """`--shard tp=2` through serve/cli, eval/harness, gradio_app and
-    api_server's main (its server answering one request): what each
-    printed or answered."""
+def job_shapes(state, key):
+    """{parameter name: the shape this rank holds} of a pipe's shard."""
+    return {n: tuple(p.shape)
+            for n, p in state["pipes"][key].params.named_parameters()}
+
+
+def job_entry_points(state, model_dir, task, media_root, image_path,
+                     shard="tp=2", engine="sharded"):
+    """`--shard` (tp=2 by default) through serve/cli, eval/harness,
+    gradio_app and api_server's main (`--engine`, its server answering one
+    request): what each printed or answered."""
     import contextlib
     import io
     import json
@@ -322,13 +335,13 @@ def job_entry_points(state, model_dir, task, media_root, image_path):
     with contextlib.redirect_stdout(buf):
         cli.main(["--model-path", model_dir, "--image", image_path,
                   "--question", "what is this?", "--max-new-tokens", "6",
-                  "--shard", "tp=2", "--device", "cpu"])
+                  "--shard", shard, "--device", "cpu"])
     out["cli"] = buf.getvalue()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         harness.main(["--model-path", model_dir, "--task", task,
                       "--media-root", media_root, "--num-frames", "2",
-                      "--max-new-tokens", "2", "--shard", "tp=2",
+                      "--max-new-tokens", "2", "--shard", shard,
                       "--device", "cpu"])
     out["harness"] = json.loads(buf.getvalue().strip().splitlines()[-1])
 
@@ -346,7 +359,7 @@ def job_entry_points(state, model_dir, task, media_root, image_path):
     real_app = gradio_app.build_app
     gradio_app.build_app = lambda pipe, **kw: App(pipe)
     try:
-        gradio_app.main(["--model-path", model_dir, "--shard", "tp=2",
+        gradio_app.main(["--model-path", model_dir, "--shard", shard,
                          "--device", "cpu"])
     finally:
         gradio_app.build_app = real_app
@@ -389,8 +402,8 @@ def job_entry_points(state, model_dir, task, media_root, image_path):
     api_server.build_server = build
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            api_server.main(["--model-path", model_dir, "--shard", "tp=2",
-                             "--engine", "sharded", "--ragged",
+            api_server.main(["--model-path", model_dir, "--shard", shard,
+                             "--engine", engine, "--ragged",
                              "--prefill-chunk", "32", "--page-size", "16",
                              "--max-ctx", "512", "--num-slots", "2",
                              "--device", "cpu"])
@@ -472,6 +485,8 @@ def job_mesh_checks(state):
         out["hybrid_bad"] = str(e)
     tp8, mode = mesh_lib.parse_shard_arg("tp=8")
     out["tp8"] = (mesh_lib.axis_sizes(tp8), mode)
+    fsdp8, mode = mesh_lib.parse_shard_arg("fsdp=8")
+    out["fsdp8"] = (mesh_lib.axis_sizes(fsdp8), mode)
     return out
 
 
@@ -511,3 +526,82 @@ def job_generate_paged(state, key, ids, lengths, kw):
         inputs_embeds=embeds, lengths=lengths, device="cpu",
         mesh=state["mesh"], **kw)
     return tuple(x.numpy() for x in out)
+
+
+# ---- ring attention and the ranked trainer ------------------------------------
+
+
+def ring_run(q, k, v, kw, grad):
+    """Every rank: the port's global `ring_attention` over the world's
+    ranks on the whole q/k/v (numpy); the output and, with `grad`, the
+    gradients of sum(out ** 2), each rank's blocks summed over the ranks."""
+    import torch
+
+    from oryx_tpu_torch.ops.ring_attention import Ring, ring_attention
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    world = tp_lib.current()
+    group = tuple(range(world.size))
+    with torch.inference_mode(False), torch.enable_grad():
+        qkv = [torch.from_numpy(x.copy()).requires_grad_(grad)
+               for x in (q, k, v)]
+        kw = dict(kw)
+        if kw.get("kv_mask") is not None:
+            kw["kv_mask"] = torch.from_numpy(kw["kv_mask"].copy())
+        out = ring_attention(*qkv, ring=Ring(world, group), **kw)
+        res = {"out": out.detach().numpy()}
+        if grad:
+            (out ** 2).sum().backward()
+            res["grads"] = [world.sum(x.grad, group).numpy() for x in qkv]
+    return res
+
+
+def job_ring(state, q, k, v, kw, grad=False):
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    return tp_lib.current().call(ring_run, q, k, v, kw, grad)
+
+
+def _history(trainer):
+    return [{k: h[k] for k in ("loss", "grad_norm", "num_tokens")}
+            for h in trainer.history]
+
+
+def job_fit(state, key, tree, cfg_dict, mode, batches, steps, resume=False):
+    """A `Trainer` over the world's ranks in `mode` from the JAX tree's
+    weights, fit for `steps` steps on `batches` (host dicts); its metric
+    history, every leaf gathered whole (numpy) and each rank's holdings.
+    The trainer is kept under `key`."""
+    from oryx_tpu_torch.models.convert import from_jax_params
+    from oryx_tpu_torch.train.trainer import Trainer
+
+    cfg = _cfg(cfg_dict)
+    trainer = Trainer(cfg, params=from_jax_params(tree, cfg), device="cpu",
+                      sharding_mode=mode)
+    start = (trainer.ckpt.latest_step() or 0) if resume else 0
+    trainer.fit(iter(batches[start:]), num_steps=steps, resume=resume,
+                prefetch=0)
+    trainer.close()
+    state.setdefault("trainers", {})[key] = trainer
+    reports = trainer.rank_reports()
+    return {
+        "start": start,
+        "history": _history(trainer),
+        "params": {n: t.numpy() for n, t in trainer.full_params().items()},
+        "reports": [{k: r[k] for k in ("param_shapes", "mu_shapes",
+                                       "param_bytes", "moment_bytes")}
+                    for r in reports],
+        "step": trainer.state.step,
+    }
+
+
+def job_cli(state, argv):
+    """The training CLI in this process, over the running world's ranks
+    (the stand-in tokenizer, the numpy packing path)."""
+    from oryx_tpu_torch.data import native_loader
+    from oryx_tpu_torch.serve import builder
+    from oryx_tpu_torch.train import cli
+
+    builder.load_tokenizer = lambda path: CharTokenizer()
+    native_loader.is_available = lambda: False
+    cli.main(argv).close()
