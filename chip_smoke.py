@@ -273,7 +273,8 @@ Phases (any failure exits non-zero):
      printed. GET /debug/profile?steps=4 around the image request's
      admission: a Chrome trace naming K1 (flash_fwd_bf16) and K4
      (paged_split), whose K4 kernel count equals the K4 wrapper's launches
-     over the captured steps. (c) The degraded ladder (ttft_slo 1 ms,
+     over the captured steps (`scripts/torch_capture_check.py` repeats
+     (b) alone). (c) The degraded ladder (ttft_slo 1 ms,
      queue_depth_slo 1, cooldown 1.5 s): a burst climbs it, short bursts
      once its queue drained take it to 3, where a request gets 429 with
      Retry-After; one
@@ -346,7 +347,14 @@ Phases (any failure exits non-zero):
      reports dead within the collective timeout. (c) K1 at 14/2 decoder
      heads and 8 ViT heads, K3 and K4q at Hk = 2, each vs its twin at
      rank 0's recorded call shapes, with both ranks' launch counts (they
-     must be equal).
+     must be equal). (e) The output auditor on the tp pipe: phase 3's mix
+     at 16 tokens through the sharded ragged engine over a bf16 pool,
+     unarmed and with audit_sample_every=1 (each replay step a dispatch
+     both ranks run, over a private pool of the rank's KV heads): replies
+     byte-equal, the
+     bf16 verdicts printed (not gated, as in phase 20), then the
+     auditor's K1 prefill (`flash_fwd[tp_audit_prefill]`) and one-row K3
+     (`paged_decode[tp_audit]`) at rank 0's call shapes vs their twins.
  25. (Runs after 1, before 2, on the empty card: ddp holds two whole
      copies of (a)'s state.) Data/sequence-parallel training and fsdp
      serving, two ranks on the one card (this process rank 0), their
@@ -366,8 +374,17 @@ Phases (any failure exits non-zero):
      xla ring once at 2,048 tokens. (d) `--shard fsdp=2` chat_batch over
      phase 3's mix at (a)'s depth, byte-equal to one process. (c) The
      training CLI as two processes (`--coordinator`, this one process 0):
-     losses bit-equal to (a)'s fsdp fit. Then K1-lse/K5 vs their twins at
-     the fsdp decoder's and the ring block's call shapes.
+     losses bit-equal to (a)'s fsdp fit. Every rank encodes its 1/W of
+     the packed visual buffer (W = dp x fsdp x sp): (a) prints each
+     rank's ViT rows and its peak beside the whole-buffer run's, and
+     (b) counts the decoder's ring launches apart from the ViT's K2. (e)
+     (a)'s config at fsdp=2 x tp=2 on four ranks of the card, 2 rows a
+     batch, twice: bit-identical fits, losses and grad norms within rel
+     1e-3 of an fsdp=2 fit on the same rows (run in (a)'s world), the four
+     ranks' launches equal, each rank's bytes and peak. Then K1-lse/K5 vs their twins at
+     the fsdp decoder's, the ring block's, (a)'s ViT shard's (4,096 query
+     patches against 8,192, 16 heads) and (e)'s decoder (14 q / 2 kv
+     heads) and ViT shard (8 heads) call shapes.
 
 `python3 chip_smoke.py --help` prints this text.
 Every phase ends with a `phase N wall X s` line. The line before the last
@@ -2398,6 +2415,9 @@ def sampled_device_time(pipe, unarmed, card) -> dict:
         return sum(n for key, n in pa.LAUNCHES.items()
                    if key[0] == "ragged_paged")
 
+    # Every mark is taken on the engine thread between two dispatches (the
+    # capture begins before a loop turn's dispatch and closes after one,
+    # once its kernels are done), so a mark cannot fall inside a dispatch.
     def begin_marked():
         marks.append(("begin", k4()))
         return begin()
@@ -5233,9 +5253,15 @@ def _rank_launches(smoke, world) -> tuple[list, list[list[int]]]:
     return keys, table
 
 
-def tp_engine_run(smoke, world, tpipe, ragged: bool, record: bool, **kw):
-    """One run of the `sharded` engine over serve_requests(), every rank's
-    launch counters zeroed just before it and read just after."""
+def tp_engine_run(smoke, world, tpipe, ragged: bool, record: bool,
+                  reqs=None, **kw):
+    """One run of the `sharded` engine over `reqs` (serve_requests() by
+    default), every rank's launch counters zeroed just before it and read
+    just after. With `audit_sample_every` in kw the run waits for the
+    audit backlog to drain, and `record` records the auditor's K3 calls
+    on its private pool (else the engine's paged calls)."""
+    import types
+
     from oryx_tpu_torch.serve.engine import create_engine
 
     from oryx_tpu_torch.ops.cuda import flash_attention as fa
@@ -5245,8 +5271,15 @@ def tp_engine_run(smoke, world, tpipe, ragged: bool, record: bool, **kw):
     sched = create_engine(
         "sharded", tpipe, autostart=False, ragged=ragged,
         prefill_chunk=PREFILL_CHUNK if ragged else None, **SERVE, **kw)
-    recorder = PagedCallRecorder(sched) if record else None
-    reqs = serve_requests()
+    audited = kw.get("audit_sample_every")
+    recorder = None
+    if record and audited:
+        sched.auditor._ensure_pool()  # a dispatch: every rank's own pool
+        recorder = PagedCallRecorder(
+            types.SimpleNamespace(kv_pages=sched.auditor._kv))
+    elif record:
+        recorder = PagedCallRecorder(sched)
+    reqs = serve_requests() if reqs is None else reqs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5254,8 +5287,16 @@ def tp_engine_run(smoke, world, tpipe, ragged: bool, record: bool, **kw):
         handles = [sched.submit(r, n) for r, n in reqs]
         sched.start()
         results = [h.result(timeout=600) for h in handles]
+        end = time.monotonic() + 600
+        while audited and (sched.auditor.pending() or sched.auditor.to_dict(
+                )["total"] < len(reqs) // audited):
+            if time.monotonic() > end:
+                raise SystemExit(f"tp audits never drained: "
+                                 f"{sched.auditor.to_dict()}")
+            time.sleep(0.05)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    audit = sched.auditor.to_dict() if audited else None
     sched.close()
     sched.check_pool_invariant()
     paged = collections.Counter()
@@ -5267,7 +5308,7 @@ def tp_engine_run(smoke, world, tpipe, ragged: bool, record: bool, **kw):
            "metrics": engine_counts(sched),
            "peak": torch.cuda.max_memory_allocated(),
            "flash": dict(fa.LAUNCHES), "paged": dict(paged),
-           "recorder": recorder,
+           "recorder": recorder, "audit": audit,
            "heads": int(sched.kv_pages["k"].shape[3])}
     run["keys"], run["table"] = _rank_launches(smoke, world)
     return run
@@ -5278,6 +5319,82 @@ def _key_launches(run, which, match) -> tuple[int, int]:
     cols = [i for i, (w, k) in enumerate(run["keys"])
             if w == which and match(k)]
     return tuple(sum(row[i] for i in cols) for row in run["table"][:2])
+
+
+# Phase 24 (e)'s reply cap: every replayed token is a one-row dispatch of
+# both ranks (145 ms at 32 tokens; NVIDIA H100 80GB HBM3, 700 W).
+TP_AUDIT_NEW = 16
+
+
+def tp_audit(smoke, world, tpipe, rcfg, reqs, gen, card) -> list[dict]:
+    """Phase 24 (e): phase 3's mix at TP_AUDIT_NEW tokens through the
+    sharded ragged engine over a bf16 pool, unarmed and then with every
+    request audited (each replay's
+    prefill and steps dispatches every rank runs, over a private pool of
+    its KV heads a rank): replies byte-equal, the bf16 verdicts printed;
+    the auditor's K1 prefill and one-row K3 decode at rank 0's call shapes
+    vs their plain twins. Returns the two kernel rows."""
+    import types
+
+    mix = [(r, TP_AUDIT_NEW) for r in reqs]
+    plain = tp_engine_run(smoke, world, tpipe, True, False, reqs=mix)
+    armed = tp_engine_run(smoke, world, tpipe, True, True, reqs=mix,
+                          audit_sample_every=1)
+    if armed["results"] != plain["results"]:
+        raise SystemExit(f"phase 24 (e): armed replies {armed['results']} "
+                         f"vs unarmed {plain['results']}")
+    au = armed["audit"]
+    replayed = sum(r["replayed_tokens"] for r in au["records"])
+    audit_s = sum(r["audit_s"] for r in au["records"])
+    print(f"  (e) audit_sample_every=1 on the tp=2 ragged engine: replies "
+          f"byte-equal to unarmed ({plain['wall']:.2f} s unarmed, "
+          f"{armed['wall']:.2f} s armed with the backlog drained); bf16 "
+          f"verdicts {au['verdicts']} (printed, not gated); "
+          f"{1e3 * audit_s / max(1, replayed):.2f} ms a replayed token "
+          f"({replayed} tokens, two replays a request) ({card})")
+    for r in au["records"]:
+        print(f"    {r['request_id']}: {r['verdict']} first_divergence "
+              f"{r['first_divergence']} max_abs_diff "
+              f"{r['logit_max_abs_diff']} kl {r['kl']}")
+    if au["total"] != len(mix) or au["pending"]:
+        raise SystemExit(f"phase 24 (e): audits {au['total']} of {len(mix)}")
+    rows = []
+    llm = rcfg.llm
+    pool_shape = (SERVE["max_ctx"] // SERVE["page_size"], SERVE["page_size"],
+                  llm.num_kv_heads, llm.head_dim)
+    row = paged_kernel_case(
+        "paged_decode[tp_audit]", "paged_decode",
+        _pick(armed["recorder"].calls["paged_decode"],
+              lambda c: int(c[2].sum())), pool_shape, gen)
+    row["launches"], r1 = _key_launches(
+        armed, "pa", lambda k: k[0] == "paged_decode")
+    print(f"  launches {row['name']}: rank 0 {row['launches']}, rank 1 {r1}")
+    if not row["launches"] or _key_launches(
+            plain, "pa", lambda k: k[0] == "paged_decode")[0]:
+        raise SystemExit("phase 24 (e): K3 launched without the auditor, "
+                         "or not with it")
+    rows.append(row)
+    # The twin's prefill: one row, the bucketed prompt against the gathered
+    # max_ctx-wide stream at the rank's heads; the widest of its K1 keys
+    # (causal, segments, B, Hq, Hk, Tq, Tk, D).
+    widths = [k[5] for w, k in armed["keys"] if w == "fa" and k[2:5] == (
+        1, llm.num_heads, llm.num_kv_heads) and k[6:] == (
+        SERVE["max_ctx"], llm.head_dim)]
+    if not widths:
+        raise SystemExit("phase 24 (e): the twin's prefill never launched "
+                         "K1")
+    stand_in = types.SimpleNamespace(cfg=rcfg, device=tpipe.device)
+    longest = max(u[2][0] for u in armed["results"])
+    _, kw, keep = paged_prefill_case(stand_in, longest, gen,
+                                     width=max(widths))
+    key, row = check_kernel_case("tp_audit_prefill", kw, keep)
+    row["launches"], r1 = _key_launches(armed, "fa", lambda k: k == key)
+    print(f"  launches {row['name']}: rank 0 {row['launches']}, rank 1 {r1}")
+    if row["launches"] == 0:
+        raise SystemExit("phase 24 (e): the twin's prefill never launched "
+                         "K1 at its call shape")
+    rows.append(row)
+    return rows
 
 
 def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
@@ -5448,6 +5565,8 @@ def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
                 raise SystemExit(f"{name} was never launched on the tp path")
             rows.append(row)
 
+        rows.extend(tp_audit(smoke, world, tpipe, rcfg, reqs, gen, card))
+
         # (b, continued) a follower that dies: the engine reports dead
         # within the collective timeout, nothing hangs.
         sched = create_engine("sharded", tpipe, autostart=False, ragged=True,
@@ -5492,6 +5611,16 @@ PAR_STEPS = 2
 PAR_CKPT = "checkpoints/chip_smoke_par"  # gitignored; no save is written
 PAR_CLI = "checkpoints/chip_smoke_par_cli"  # gitignored, removed after
 ZERO_RESIDENT = 0.55  # fsdp's resident bytes a rank at most this x ddp's
+# (a)'s peak card memory a rank with the packed visual buffer whole on each
+# rank, before each rank encoded its share (NVIDIA H100 80GB HBM3, 700 W).
+WHOLE_BUFFER_PEAK_GB = {"fsdp": 20.39, "zero2": 24.73, "ddp": 31.53}
+# (e): rows a batch, one a data rank: at four rows the embed and head state
+# (~8.7 GB a rank at fsdp = 2) and two-row logits put four ranks near 72 GB.
+TP_BATCH = 2
+# Grad norms of a sharded fit against its one-process or fsdp=2 reference
+# on the same rows: bf16 rounding moved them by 4-5e-5 (NVIDIA H100 80GB
+# HBM3, 700 W); a tp backward without its group sum moves them by tenths.
+GRAD_NORM_REL = 1e-3
 
 
 def par_config(path, layers, **top):
@@ -5670,10 +5799,28 @@ def zero_stages(smoke, card) -> tuple[dict, list, object]:
         if a["reports"][0]["launches"] != a["reports"][1]["launches"]:
             raise SystemExit(f"phase 25 (a): {mode}'s ranks launched "
                              "different kernels")
+    P = data[0]["patches"].shape[0]
+    for mode, whole in WHOLE_BUFFER_PEAK_GB.items():
+        a = runs[mode][0]
+        rows_ = [rep["vit_rows"] for rep in a["reports"]]
+        print(f"  (a) {mode}: peak a rank "
+              f"{[round(b / 1e9, 2) for b in a['peak']]} GB (the visual "
+              f"buffer whole on each rank: {whole} GB); ViT rows a "
+              f"rank {rows_} of {P}")
+        if rows_ != [P // 2] * 2:
+            raise SystemExit(f"phase 25 (a): {mode}'s ranks encoded "
+                             f"{rows_} visual rows, not {P // 2} each")
     rel_one = _rel_diff(runs["fsdp"][0]["losses"], one["losses"])
     if rel_one > 1e-2:
         raise SystemExit(f"phase 25 (a): fsdp vs one process rel "
                          f"{rel_one:.2e} > 1e-2")
+    # The grad norms hold the backward too (the visual shard's K/V
+    # reduce-scatter and pooled-region sum): step 1 runs at lr ~0, so the
+    # losses read the forward alone.
+    rel_norm = _rel_diff(runs["fsdp"][0]["norms"], one["norms"])
+    if rel_norm > GRAD_NORM_REL:
+        raise SystemExit(f"phase 25 (a): fsdp vs one process grad norms rel "
+                         f"{rel_norm:.2e} > {GRAD_NORM_REL}")
     ratios = [_resident(f) / _resident(d) for f, d in zip(
         runs["fsdp"][0]["reports"], runs["ddp"][0]["reports"])]
     if max(ratios) > ZERO_RESIDENT:
@@ -5681,11 +5828,101 @@ def zero_stages(smoke, card) -> tuple[dict, list, object]:
                          f"ddp's > {ZERO_RESIDENT}")
     print(f"  (a) each mode's two runs bit-identical; modes within rel "
           f"{max(_rel_diff(r[0]['losses'], runs['fsdp'][0]['losses']) for r in runs.values()):.2e}"
-          f" of fsdp; fsdp vs one process rel {rel_one:.2e} (limit 1e-2); "
+          f" of fsdp; fsdp vs one process rel {rel_one:.2e} (limit 1e-2), "
+          f"grad norms rel {rel_norm:.2e} (limit {GRAD_NORM_REL}); "
           f"fsdp's resident param+grad+moment bytes {[round(r, 3) for r in ratios]}"
           f" x ddp's (limit {ZERO_RESIDENT}); both ranks' K1-lse/K5a/K5b "
           f"launches equal; the plain twins guarded (none ran on the card)")
-    return runs["fsdp"][0], data, cfg
+    # (e)'s reference: the fsdp fit on TP_BATCH rows a batch.
+    cfg2 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, global_batch_size=TP_BATCH))
+    data2 = list(itertools.islice(train_batches(cfg2, batch=TP_BATCH),
+                                  PAR_STEPS))
+    world.call(smoke.par_guard, True)
+    try:
+        ref2 = par_fit(smoke, cfg2, "fsdp", data2,
+                       f"fsdp, {TP_BATCH} rows a batch ((e)'s reference)",
+                       card)
+    finally:
+        world.call(smoke.par_guard, False)
+    return runs["fsdp"][0], data, cfg, (ref2, data2, cfg2)
+
+
+def fsdp_tp(smoke, ref, card) -> dict:
+    """Phase 25 (e): (a)'s config at fsdp=2 x tp=2 on four ranks sharing
+    the card, TP_BATCH rows a batch (one a data rank), twice: the two fits
+    bit-identical, losses within rel 1e-3 of (a)'s fsdp fit on the same
+    rows and so are its grad norms, every rank's K1-lse/K5 launches equal,
+    each rank's resident bytes and peak printed. Returns the first fit."""
+    from oryx_tpu_torch import config
+    from oryx_tpu_torch.parallel import tp as tp_lib
+
+    ref_run, data, cfg2 = ref
+    cfg = dataclasses.replace(cfg2, mesh=config.MeshConfig(fsdp=2, tp=2))
+    # Four ranks' state fills the card: nothing of (a)-(d) stays cached.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (e) rank 0 holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"before the four ranks start")
+    t0 = time.perf_counter()
+    world = tp_lib.start(4, tp_lib.default_devices(4, "cuda"))
+    print(f"  (e) four ranks up in {time.perf_counter() - t0:.1f} s: backend "
+          f"{world.backend}, devices {[str(d) for d in world.devices]}")
+    world.call(smoke.par_guard, True)
+    try:
+        runs = [par_fit(smoke, cfg, "fsdp", data,
+                        f"(e) fsdp=2 x tp=2 run {i}", card) for i in range(2)]
+    finally:
+        world.call(smoke.par_guard, False)
+        world.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs
+    if (a["losses"], a["norms"]) != (b["losses"], b["norms"]):
+        raise SystemExit("phase 25 (e): the two fsdp x tp fits differ")
+    rel = _rel_diff(a["losses"], ref_run["losses"])
+    if rel > 1e-3:
+        raise SystemExit(f"phase 25 (e): losses rel {rel:.2e} > 1e-3 of the "
+                         f"fsdp fit on the same rows")
+    # The tp backward (the column input's group sum, the row sum's
+    # identity) shows in the grad norms alone.
+    rel_norm = _rel_diff(a["norms"], ref_run["norms"])
+    if rel_norm > GRAD_NORM_REL:
+        raise SystemExit(f"phase 25 (e): grad norms rel {rel_norm:.2e} > "
+                         f"{GRAD_NORM_REL} of the fsdp fit on the same rows")
+    launches = [rep["launches"] for rep in a["reports"]]
+    if any(x != launches[0] for x in launches) or not all(
+            launches[0].values()):
+        raise SystemExit(f"phase 25 (e): the ranks' launches {launches}")
+    P = data[0]["patches"].shape[0]
+    vit = [rep["vit_rows"] for rep in a["reports"]]
+    if vit != [P // 2] * 4:
+        raise SystemExit(f"phase 25 (e): ViT rows a rank {vit}, not "
+                         f"{P // 2}")
+    print(f"  (e) the two fits bit-identical; losses within rel {rel:.2e} "
+          f"(limit 1e-3) and grad norms within rel {rel_norm:.2e} (limit "
+          f"{GRAD_NORM_REL}) of the fsdp fit on the same rows; the four ranks' "
+          f"K1-lse/K5a/K5b launches equal {launches[0]}; ViT rows a rank "
+          f"{vit} of {P}; peak a rank "
+          f"{[round(x / 1e9, 2) for x in a['peak']]} GB ({card})")
+    return a
+
+
+def vit_shard_case(cfg, host, width: int, heads: int, gen) -> dict:
+    """The ViT's attention on a rank's shard of the packed buffer: its
+    first P / width patches' queries against the whole buffer's keys, at
+    `heads` heads (random bf16 q/k/v, the batch's segment ids)."""
+    seg = torch.from_numpy(np.ascontiguousarray(
+        host["segment_ids"])).to("cuda")[None]
+    P, d = seg.shape[1], cfg.vision.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    return dict(q=rnd(1, P // width, heads, d), k=rnd(1, P, heads, d),
+                v=rnd(1, P, heads, d), causal=False,
+                q_segment_ids=seg[:, :P // width], kv_segment_ids=seg)
 
 
 def ring_records():
@@ -5795,10 +6032,14 @@ def ring_training(smoke, card) -> dict:
         raise SystemExit("phase 25 (b): the ring fit is not finite")
     from oryx_tpu_torch.ops.ring_attention import live_table
 
-    lse = [rep["launches"]["flash_fwd_lse"] for rep in run["reports"]]
+    # The decoder's ring blocks (no segment ids): the ViT's K2 launches on
+    # the rank's shard of the visual buffer are the same on both ranks.
+    lse = [sum(n for key, n in rep["launch_keys"]["flash_fwd_lse"].items()
+               if not key[1]) for rep in run["reports"]]
     live = [sum(sum(live_table(b["positions"], 2, r)) for b in data)
             for r in range(2)]
-    print(f"  (b) K1-lse launches a rank {lse}; live blocks a rank over the "
+    print(f"  (b) the decoder's K1-lse launches a rank {lse}; live blocks "
+          f"a rank over the "
           f"steps {live} (JAX's rule, min(kv_pos) <= max(q_pos) over the "
           f"block: the padded tail's positions count)")
     if not (lse[0] > 0 and lse[0] * live[1] == lse[1] * live[0]):
@@ -5937,21 +6178,23 @@ def cli_two_processes(cfg, fsdp_run, card) -> None:
 def parallel_training(card) -> list[dict]:
     """Phase 25: (a) the ZeRO stages, (b) ring attention, (d) fsdp serving
     on two ranks of the card (this process rank 0, rank 1 started by the
-    first Trainer's mesh), then (c) the CLI as two processes, and the
-    K1/K5 rows at the ring block's and the fsdp decoder's shapes. Returns
-    the kernel rows."""
+    first Trainer's mesh), then (c) the CLI as two processes, (e) fsdp=2 x
+    tp=2 on four ranks, and the K1/K5 rows at the ring block's, the fsdp
+    decoder's, the ViT shard's and the tp decoder's and ViT shard's
+    shapes. Returns the kernel rows."""
     import importlib
 
     from oryx_tpu_torch.parallel import tp as tp_lib
 
     smoke = importlib.import_module("chip_smoke")
-    fsdp_run, data, cfg_a = zero_stages(smoke, card)
+    fsdp_run, data, cfg_a, ref = zero_stages(smoke, card)
     ring_run = ring_training(smoke, card)
     fsdp_serving(smoke, cfg_a, card)
     tp_lib.current().shutdown()
     gc.collect()
     torch.cuda.empty_cache()
     cli_two_processes(cfg_a, fsdp_run, card)
+    tp_run = fsdp_tp(smoke, ref, card)
 
     # The kernel rows at the two new call shapes; launches from (a)'s first
     # fsdp fit and (b)'s fit, on rank 0.
@@ -5970,9 +6213,28 @@ def parallel_training(card) -> list[dict]:
         v=torch.randn((1, tl, 4, 128), generator=gen, device="cuda"
                       ).to(torch.bfloat16),
         causal=True, q_positions=pos[:, tl:], kv_positions=pos[:, :tl])
+    # (e)'s rank 0: one row a data rank at the rank's heads (decoder 14 q /
+    # 2 kv, ViT 8), its half of the visual buffer; (a)'s ViT at 16 heads
+    # on its half.
+    ref_data = ref[1]
+    big2 = max(ref_data, key=lambda b: b["token_ids"].shape[1])
+    rcfg = dataclasses.replace(cfg_a, llm=dataclasses.replace(
+        cfg_a.llm, num_heads=cfg_a.llm.num_heads // 2,
+        num_kv_heads=cfg_a.llm.num_kv_heads // 2))
+    row0 = {k: v[:1] for k, v in big2.items()
+            if k in ("positions", "attn_mask", "token_ids")}
+    _, _, tp_dec = training_attention_cases(rcfg, {**big2, **row0}, big2,
+                                            gen)
     rows = []
-    for name, kw, run in (("fsdp_decoder", dec[1], fsdp_run),
-                          ("ring_block", ring_kw, ring_run)):
+    for name, kw, run in (
+            ("fsdp_decoder", dec[1], fsdp_run),
+            ("ring_block", ring_kw, ring_run),
+            ("vit_shard", vit_shard_case(cfg_a, big, 2,
+                                         cfg_a.vision.num_heads, gen),
+             fsdp_run),
+            ("tp_decoder", tp_dec[1], tp_run),
+            ("tp_vit_shard", vit_shard_case(
+                cfg_a, big2, 2, cfg_a.vision.num_heads // 2, gen), tp_run)):
         key, case_rows = check_backward_case(name, kw, gen)
         for row, counter in zip(case_rows, ("lse", "dq", "dkv")):
             row["launches"] = run[counter].get(key, 0)
@@ -6046,8 +6308,9 @@ def main() -> int:
     phase_begin("25")
     print(f"phase 25: ZeRO-3/ZeRO-2/DDP (oryx_7b_sft.json, fsdp=2), ring "
           f"attention (oryx_7b_longvideo.json, ring_flash, sp=2), fsdp "
-          f"serving, the training CLI as two processes; two ranks on the "
-          f"one card ({card})", flush=True)
+          f"serving, the training CLI as two processes, each rank encoding "
+          f"its share of the packed visual buffer; two ranks on the one "
+          f"card; then fsdp=2 x tp=2 on four ({card})", flush=True)
     par_rows = parallel_training(card)
     gc.collect()
     torch.cuda.empty_cache()

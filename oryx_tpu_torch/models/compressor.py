@@ -25,7 +25,7 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
-from oryx_tpu_torch.utils.quant import linear, row_linear
+from oryx_tpu_torch.utils.quant import column_input, linear, row_linear
 
 EPS = 1e-6
 
@@ -75,12 +75,18 @@ def forward(
     q_region_ids: torch.Tensor,
     *,
     attn_impl: str = "xla",
+    shard=None,
 ) -> torch.Tensor:
     """Compress packed ViT features into packed LLM-space embeddings.
 
     features:     [P, Hv] packed ViT output (pad rows garbage, region 0).
     region_ids:   [P] int - compressor region per patch (0 = pad).
     q_region_ids: [Q] int - region served by each query slot (0 = pad).
+    shard: a training rank's `parallel/zero.VisualShard`, when the three
+    are the rank's rows of the buffer and of the query slots: the region
+    sums are summed over its group (a region's patches may lie on several
+    ranks) before the rank's queries read them, and the queries attend to
+    the whole buffer's keys and values, gathered over it.
 
     Returns [Q, H_llm]; pad rows (q_region_ids == 0) are zeros. Queries are
     image-major, row-major within each image's downsampled grid.
@@ -95,10 +101,16 @@ def forward(
     # index_put_ with accumulate sums duplicates in a fixed order on CUDA
     # (sort-based), where index_add_'s atomics would make the pooled
     # values, and so the replies, vary from run to run.
-    sums = torch.zeros((Q + 1, Hv), dtype=torch.float32, device=features.device)
+    # Region ids count over the whole buffer's query slots (a shard holds
+    # an equal part of them).
+    R = Q if shard is None else Q * len(shard.group)
+    sums = torch.zeros((R + 1, Hv), dtype=torch.float32, device=features.device)
     sums.index_put_((rid,), feat32 * valid_p, accumulate=True)
-    counts = torch.zeros((Q + 1,), dtype=torch.float32, device=features.device)
+    counts = torch.zeros((R + 1,), dtype=torch.float32, device=features.device)
     counts.index_put_((rid,), valid_p[:, 0], accumulate=True)
+    if shard is not None:
+        both = shard.sum(torch.cat([sums, counts[:, None]], 1))
+        sums, counts = both[:, :Hv], both[:, Hv]
     qr = q_region_ids.long()
     pooled = sums[qr] / torch.clamp(counts[qr], min=1.0)[:, None]
     pooled = pooled.to(features.dtype)
@@ -111,13 +123,17 @@ def forward(
     q = linear(nq, params.q_proj).view(1, Q, nh, hd)
     k = linear(nkv, params.k_proj).view(1, P, nh, hd)
     v = linear(nkv, params.v_proj).view(1, P, nh, hd)
+    kv_region = region_ids
+    if shard is not None:
+        k, v = shard.gather_kv(k, v)
+        kv_region = shard.region_ids
     if attn_impl == "pallas":
-        o = segment_attention(q, k, v, q_region_ids[None], region_ids[None])
+        o = segment_attention(q, k, v, q_region_ids[None], kv_region[None])
     elif attn_impl == "xla":
         o = attention(
             q, k, v,
             q_segment_ids=q_region_ids[None],
-            kv_segment_ids=region_ids[None],
+            kv_segment_ids=kv_region[None],
         )
     else:
         raise ValueError(
@@ -127,8 +143,10 @@ def forward(
 
     # MLP projector into LLM embedding space (mlp2x_gelu-equivalent). A
     # tensor-parallel shard holds fc1's columns and fc2's rows of its own.
-    x = F.gelu(linear(x, params.projector.fc1), approximate="tanh")
-    x = row_linear(x, params.projector.fc2, getattr(params, "tp", None))
+    tp = getattr(params, "tp", None)
+    x = F.gelu(linear(column_input(x, tp), params.projector.fc1),
+               approximate="tanh")
+    x = row_linear(x, params.projector.fc2, tp)
 
     valid_q = (q_region_ids > 0)[:, None]
     return torch.where(valid_q, x, 0.0).to(features.dtype)

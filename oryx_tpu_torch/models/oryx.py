@@ -95,24 +95,33 @@ def encode_visual(
     *,
     remat: bool | str = False,
     compute_dtype: torch.dtype | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """Packed patches -> packed LLM-space visual embeddings [Q, H_llm]: one
     ViT pass over all images/frames of the batch, then the compressor.
     The ring impls are the decoder's sequence parallelism and mean nothing
-    to the packed visual buffer: under them the ViT takes its plain
-    segment attention ("xla"), and the compressor takes its kernel only
-    under "pallas", as JAX's encode_visual does."""
-    vit_impl = "xla" if cfg.attn_impl in ("ring", "ring_flash") else (
-        cfg.attn_impl)
+    to the packed visual buffer: under "ring" the ViT takes its plain
+    segment attention ("xla"), under "ring_flash" its kernel ("pallas":
+    JAX runs XLA there because a pallas_call does not partition under
+    GSPMD, and a port rank holds its shard outright), and the compressor
+    takes its kernel only under "pallas", as JAX's encode_visual does.
+    shard: a training rank's `parallel/zero.VisualShard` when the five
+    arrays are the rank's 1/W of the buffer; the visual tokens of every
+    rank are gathered, so the result is the whole [Q, H_llm]."""
+    vit_impl = "pallas" if cfg.attn_impl in ("pallas", "ring_flash") else (
+        "xla")
     feats = oryx_vit.forward(
         params.vit, cfg.vision, patches, segment_ids, pos_coords,
         remat=remat, attn_impl=vit_impl, compute_dtype=compute_dtype,
+        shard=shard,
     )
-    return compressor_lib.forward(
+    vis = compressor_lib.forward(
         params.compressor, cfg.compressor, cfg.vision,
         feats, region_ids, q_region_ids,
         attn_impl="pallas" if cfg.attn_impl == "pallas" else "xla",
+        shard=shard,
     )
+    return vis if shard is None else shard.gather(vis)
 
 
 def forward(
@@ -133,6 +142,7 @@ def forward(
     compute_dtype: torch.dtype | None = None,
     return_hidden: bool = False,
     text_segment_ids: torch.Tensor | None = None,
+    visual_shard=None,
 ) -> torch.Tensor:
     """Training forward: visual encode -> splice -> decoder fp32 logits
     [B, T, V] (or the final hidden states [B, T, H] with return_hidden, for the
@@ -140,10 +150,11 @@ def forward(
     (train/data.collate) on the device. text_segment_ids: the decoder rows'
     sample ids of a sequence-packed text batch
     (train/data.collate_packed_text), distinct from the visual buffer's
-    `segment_ids`."""
+    `segment_ids`. visual_shard: see `encode_visual`."""
     vis = encode_visual(
         params, cfg, patches, segment_ids, pos_coords, region_ids,
         q_region_ids, remat=remat, compute_dtype=compute_dtype,
+        shard=visual_shard,
     )
     embeds = splice.embed_spliced(
         params.llm.embed, vis, token_ids, visual_idx, is_visual

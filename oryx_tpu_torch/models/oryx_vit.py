@@ -23,7 +23,12 @@ from oryx_tpu_torch.models.params import (
 from oryx_tpu_torch.ops.attention import attention
 from oryx_tpu_torch.ops.cuda.segment_attention import segment_attention
 from oryx_tpu_torch.ops.norms import LayerNorm
-from oryx_tpu_torch.utils.quant import linear, linear_group, row_linear
+from oryx_tpu_torch.utils.quant import (
+    column_input,
+    linear,
+    linear_group,
+    row_linear,
+)
 from oryx_tpu_torch.parallel.zero import gathered
 from oryx_tpu_torch.utils.remat import checkpointed
 
@@ -103,12 +108,16 @@ def forward(
     remat: bool | str = False,
     attn_impl: str = "xla",
     compute_dtype: torch.dtype | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """Encode a packed patch buffer.
 
     patches: [P, patch_dim]; segment_ids: [P] (0 = pad); pos_coords: [P, 2].
     remat: the per-layer remat policy (utils/remat.py) of the training
-    forward.
+    forward. shard: a training rank's `parallel/zero.VisualShard`, when the
+    three arrays are the rank's rows of the buffer: each layer's keys and
+    values are gathered over its group, and the rank's query rows attend
+    to the whole buffer's.
     Returns features [P, hidden] in the compute dtype (pad rows are garbage;
     consumers mask on segment_ids).
     """
@@ -121,16 +130,23 @@ def forward(
 
     h = emb[None]  # [1, P, H]: the packed buffer is the batch
     seg = segment_ids[None]
+    kv_seg = seg if shard is None else shard.segment_ids[None]
     if attn_impl == "pallas":
-        def attn_fn(q, k, v):
-            return segment_attention(q, k, v, seg, seg)
+        def attend(q, k, v):
+            return segment_attention(q, k, v, seg, kv_seg)
     elif attn_impl == "xla":
-        def attn_fn(q, k, v):
-            return attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
+        def attend(q, k, v):
+            return attention(q, k, v, q_segment_ids=seg,
+                             kv_segment_ids=kv_seg)
     else:
         raise ValueError(
             f"attn_impl {attn_impl!r}: the port has 'xla' and 'pallas'"
         )
+
+    def attn_fn(q, k, v):
+        if shard is not None:
+            k, v = shard.gather_kv(k, v)
+        return attend(q, k, v)
 
     # A tensor-parallel shard holds its own heads and fc1 columns; its
     # o_proj and fc2 partial products are summed over the ranks.
@@ -138,13 +154,13 @@ def forward(
 
     def layer(h, lp):
         B, P, _ = h.shape
-        x = lp.norm1(h)
+        x = column_input(lp.norm1(h), tp)
         q, k, v = (t.view(B, P, -1, cfg.head_dim)
                    for t in linear_group(x, (lp.q_proj, lp.k_proj,
                                              lp.v_proj)))
         o = attn_fn(q, k, v).reshape(B, P, -1)
         h = h + row_linear(o, lp.o_proj, tp)
-        x = lp.norm2(h)
+        x = column_input(lp.norm2(h), tp)
         x = F.gelu(linear(x, lp.fc1), approximate="tanh")
         return h + row_linear(x, lp.fc2, tp)
 

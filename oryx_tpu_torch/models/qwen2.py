@@ -43,6 +43,7 @@ from oryx_tpu_torch.parallel.zero import gathered
 from oryx_tpu_torch.utils.quant import (
     LORA_LEAVES,
     Q8Linear,
+    column_input,
     embed_rows,
     linear,
     linear_group,
@@ -299,7 +300,7 @@ def _block(
     layer holds its own heads and MLP columns, and the o_proj and
     down_proj partial products are summed over the ranks."""
     B, T, _ = h.shape
-    x = lp.input_norm(h)
+    x = column_input(lp.input_norm(h), tp)
     # Names for the "attn_qkv" / "attn_o" remat policies (utils/remat.py).
     q, k, v = linear_group(x, (lp.q_proj, lp.k_proj, lp.v_proj),
                            ("attn_q", "attn_k", "attn_v"))
@@ -364,7 +365,7 @@ def _block(
         )
     h = h + row_linear(attn_out.reshape(B, T, -1), lp.o_proj, tp, "attn_o")
 
-    x = lp.post_attn_norm(h)
+    x = column_input(lp.post_attn_norm(h), tp)
     gate, up = linear_group(x, (lp.gate_proj, lp.up_proj))
     return h + row_linear(F.silu(gate) * up, lp.down_proj, tp)
 

@@ -27,7 +27,9 @@ Training splits over the combined ("fsdp", "sp") width as well
 leaf's `embed` dim is cut in contiguous chunks, one a rank of its
 (fsdp, sp) group; a leaf with no embed axis, or whose embed width does not
 divide, stays whole (JAX's GSPMD pads such a dim; the port keeps it
-whole). `opt_state_specs`, `batch_spec`, `batch_field_spec` and
+whole). Every mode cuts heads and MLP columns over tp, so under fsdp x tp
+a leaf with both axes is cut on both (`Placement.tp` beside its (fsdp,
+sp) cut). `opt_state_specs`, `batch_spec`, `batch_field_spec` and
 `cast_params_for_compute` give JAX's specs and casts leaf by leaf.
 
 `constrain`, `ambient_mesh` and `mesh_scope` annotate a GSPMD program and
@@ -147,24 +149,45 @@ def param_specs(params: nn.Module, mode: str = "fsdp") -> dict[str, tuple]:
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """One rank's slice of a parameter: `dim` split in `parts` contiguous
-    chunks (None: whole), this rank's chunk `index`."""
+    chunks over the (fsdp, sp) width (None: whole), this rank's chunk
+    `index`, the cut the ZeRO stages gather; and `tp` = (dim, parts,
+    index), the cut over the tensor-parallel ranks (heads or MLP
+    columns) a rank holds for good, or None. The two cuts are on
+    different dims of the leaf."""
     dim: int | None
     parts: int
     index: int
+    tp: tuple[int, int, int] | None = None
 
     @property
     def split(self) -> bool:
         return self.dim is not None and self.parts > 1
 
+    def chunk(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's (fsdp, sp) chunk of `t`, a tensor that already
+        holds this rank's tp slice."""
+        return _narrow(t, self.dim, self.parts, self.index) if self.split \
+            else t
+
     def take(self, t: torch.Tensor) -> torch.Tensor:
-        if not self.split:
-            return t
-        n = t.shape[self.dim]
-        if n % self.parts:
-            raise ValueError(f"dim {self.dim} of width {n} does not divide "
-                             f"over {self.parts} ranks")
-        w = n // self.parts
-        return t.narrow(self.dim, self.index * w, w)
+        """This rank's slice of the whole leaf `t` (both cuts)."""
+        if self.tp is not None:
+            t = _narrow(t, *self.tp)
+        return self.chunk(t)
+
+    def tp_only(self) -> "Placement":
+        """This placement without its (fsdp, sp) cut."""
+        return Placement(None, 1, 0, self.tp)
+
+
+def _narrow(t: torch.Tensor, dim: int, parts: int, index: int
+            ) -> torch.Tensor:
+    n = t.shape[dim]
+    if n % parts:
+        raise ValueError(f"dim {dim} of width {n} does not divide over "
+                         f"{parts} ranks")
+    w = n // parts
+    return t.narrow(dim, index * w, w)
 
 
 def mesh_coords(shape, rank: int) -> dict[str, int]:
@@ -206,9 +229,11 @@ def param_shardings(mesh, params: nn.Module, mode: str = "zero2",
     """{parameter name: this rank's Placement} on `mesh` (rank: this
     process's rank in the world by default). A dim is split over the
     product of its mesh axes' sizes, this rank's chunk its index in their
-    group; a leaf split on two dims at once (tp and fsdp x sp both wider
-    than 1) is refused. A bias follows its weight's split output columns
-    (tp). An fsdp dim that does not divide stays whole."""
+    group: the heads/mlp dim over tp (`Placement.tp`), the embed dim over
+    (fsdp, sp) under the fsdp rules, both at once on a leaf that has both
+    (JAX's `param_specs` in every mode). A bias follows its weight's
+    split output columns (tp). An fsdp dim that does not divide stays
+    whole."""
     specs = param_specs(params, mode)
     shape = _mesh_shape(mesh)
     sizes = dict(zip(AXES, shape))
@@ -218,9 +243,10 @@ def param_shardings(mesh, params: nn.Module, mode: str = "zero2",
         world = tp_lib.current()
         rank = world.rank if world is not None else 0
     shapes = dict((n, tuple(p.shape)) for n, p in params.named_parameters())
+    tp_index = axis_group(shape, rank, "tp").index(rank)
     out = {}
     for name, spec in specs.items():
-        cuts = []
+        zero, tp = (None, 1, 0), None
         for dim, axes in enumerate(spec):
             if axes is None:
                 continue
@@ -230,20 +256,16 @@ def param_shardings(mesh, params: nn.Module, mode: str = "zero2",
                 parts *= sizes[a]
             if parts == 1:
                 continue
-            if axes != ("tp",) and shapes[name][dim] % parts:
-                continue
-            group = axis_group(shape, rank, axes)
-            cuts.append(Placement(dim, parts, group.index(rank)))
-        if not cuts and name.endswith(".bias"):
+            if axes == ("tp",):
+                tp = (dim, parts, tp_index)
+            elif not shapes[name][dim] % parts:
+                group = axis_group(shape, rank, axes)
+                zero = (dim, parts, group.index(rank))
+        if tp is None and name.endswith(".bias") and sizes["tp"] > 1:
             w = specs.get(name[: -len("bias")] + "weight")
-            if w is not None and w and w[0] == "tp" and sizes["tp"] > 1:
-                group = axis_group(shape, rank, "tp")
-                cuts.append(Placement(0, sizes["tp"], group.index(rank)))
-        if len(cuts) > 1:
-            raise ValueError(
-                f"{name}: split over tp and over fsdp x sp at once; a rank "
-                "holds a slice of one dim")
-        out[name] = cuts[0] if cuts else Placement(None, 1, 0)
+            if w is not None and w and w[0] == "tp":
+                tp = (0, sizes["tp"], tp_index)
+        out[name] = Placement(*zero, tp)
     return out
 
 
@@ -263,8 +285,8 @@ def batch_field_spec(name: str) -> tuple:
     """JAX's placement of a [accum, ...] training batch field: packed
     visual buffers over (dp, fsdp, sp) on their packing axis, row fields
     over (dp, fsdp). The port's ranks take their rows of a row field (and,
-    under sp, their slice of its sequence: parallel/zero.py) and run the
-    visual encode on the whole buffer."""
+    under sp, their slice of its sequence) and their 1/W of a visual
+    field's packing axis (parallel/zero.RankTrainer._local)."""
     if name in VISUAL_BATCH_FIELDS:
         return (None, ("dp", "fsdp", "sp"))
     return (None, ("dp", "fsdp"))

@@ -668,6 +668,10 @@ class World:
             except BaseException as e:  # noqa: BLE001 - rank 0 re-raises
                 err = e
                 out = None
+                # Rank 0 sees only that a follower failed: say what did.
+                print(f"tp rank {self.rank}: {getattr(fn, '__name__', fn)}"
+                      f" raised {type(e).__name__}: {e}", file=sys.stderr,
+                      flush=True)
             failed = self._agree(err is not None)
             if failed not in (0, self.size):
                 raise WorldBroken(f"ranks disagree on {fn}: {err!r}")

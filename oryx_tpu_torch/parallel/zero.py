@@ -31,10 +31,20 @@ written out over them:
     chunks are all-gathered into every rank's whole parameter.
   * ddp: everything whole; the gradients are summed over the ranks.
 
-A leaf with no embed axis (or an indivisible one) is whole in every mode:
-its gradient is summed over every rank that computes part of the loss
-(dp, fsdp and sp), and with dp > 1 a sharded gradient is summed over dp
-after its reduce-scatter.
+A leaf with no embed axis (or an indivisible one) is whole over (fsdp,
+sp) in every mode: its gradient is summed over every rank that computes
+part of the loss (dp, fsdp and sp, at the rank's tp coordinate), and with
+dp > 1 a sharded gradient is summed over dp after its reduce-scatter.
+
+Tensor parallelism (tp > 1). Every mode also cuts a leaf's heads or MLP
+columns over tp (JAX's `param_specs`; under fsdp a leaf with both axes is
+cut on both, sharding.Placement), a rank holding its tp slice for good;
+the ZeRO gathers and reduce-scatters run over the (fsdp, sp) ranks of the
+rank's tp coordinate. The model's three parts carry a `TpGroup`: the
+row-parallel products (o_proj, down_proj, the ViT's o_proj and fc2, the
+projector's fc2) sum over the tp group with an identity backward, and the
+column-parallel inputs (q/k/v, gate/up, fc1, the projector's fc1) sum
+their gradient over it. A tp group computes one loss from the same rows.
 
 The step (`RankTrainer.step`). Each rank takes its rows of the batch (its
 index on the (dp, fsdp) width) and, under sp, its T / sp slice of every
@@ -42,12 +52,18 @@ row field (labels arrive shifted, train/loss.py, so no target is lost at a
 cut). The loss is the GLOBAL mean over supervised tokens: a rank
 backpropagates its CE SUM over the microbatch's supervised-token count,
 which every rank reads off the whole host batch, and the scalars are
-summed over the ranks. The visual encode runs whole on every rank over the
-microbatch's packed buffer (JAX shards its packing axis instead): each
-rank's loss reaches the encoder only through its own rows' visual tokens,
-so the ranks' encoder gradients sum to the true gradient. `grad_norm`
-counts each chunk of a sharded gradient once (a sum of squares over the
-(fsdp, sp) group) and each whole leaf once, every leaf included, frozen or
+summed over the (dp, fsdp, sp) ranks. The packed visual fields' packing
+axis is cut over the W = dp x fsdp x sp ranks as JAX places it
+(`sharding.batch_field_spec`; whole when a field does not divide, as JAX
+then replicates it): a rank encodes its 1/W of the patches, each ViT
+layer's keys and values and the compressor's are gathered over the W
+ranks and reduce-scattered back in the backward, the region pooling is
+summed over them (fp32, rank order) before the rank's query shard reads
+it, and the visual tokens are gathered whole for the splice
+(`VisualShard`). The encoder's gradient is then summed with the rest.
+`grad_norm` counts each chunk of a sharded gradient once (a sum of
+squares over the ranks holding its chunks: the (fsdp, sp) group, the tp
+group, or both) and each whole leaf once, every leaf included, frozen or
 not; the optimizer's per-group clip takes the same norm.
 
 Dispatch. Rank 0 holds the `Trainer`; each rank's `RankTrainer` is made
@@ -58,10 +74,10 @@ shards of the trainable leaves and of the optimizer state with
 `torch.save` under `<checkpoint_dir>/rank<r>of<n>/` (utils/checkpoint.py),
 so a resumed run continues bit for bit.
 
-Refused: tp > 1 in training (a leaf split over tp and fsdp at once, and
-the tensor-parallel backward, are not part of the port), sp > 1 without a
-ring attn_impl (each rank would attend only its own slice), and rows or
-sequence lengths that do not divide over the data width and sp.
+Refused: tune "lora" with tp > 1 (adapters on tp-split layers are not
+part of the port yet), sp > 1 without a ring attn_impl (each rank would
+attend only its own slice), and rows or sequence lengths that do not
+divide over the data width and sp.
 """
 
 from __future__ import annotations
@@ -99,23 +115,109 @@ def gathered(fn, module: nn.Module):
 
 
 class _Gather(torch.autograd.Function):
-    """shard -> the whole leaf in `dtype`, cast before the all-gather; the
-    backward reduce-scatters the gradient in fp32, returned in the
-    shard's dtype."""
+    """x -> the group's x concatenated along `dim` in rank order, cast to
+    `dtype` before the all-gather (None: x's own); the backward
+    reduce-scatters the gradient in fp32 to the owners, returned in x's
+    dtype. A ZeRO-3 rank's leaf shard, or a rank's shard of the packed
+    visual buffer's activations."""
 
     @staticmethod
-    def forward(ctx, shard, zero, dim, dtype):
-        ctx.zero, ctx.dim, ctx.dtype = zero, dim, shard.dtype
-        x = shard.detach()
-        if x.is_floating_point() and x.dtype != dtype:
+    def forward(ctx, x, world, group, dim, dtype):
+        ctx.world, ctx.group, ctx.dim, ctx.dtype = world, group, dim, x.dtype
+        x = x.detach()
+        if dtype is not None and x.is_floating_point() and x.dtype != dtype:
             x = x.to(dtype)
-        return zero.world.all_gather(x, zero.shard_group, dim)
+        return world.all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        z = ctx.zero
-        gs = z.world.reduce_scatter(g, z.shard_group, ctx.dim)
-        return gs.to(ctx.dtype), None, None, None
+        gs = ctx.world.reduce_scatter(g, ctx.group, ctx.dim)
+        return gs.to(ctx.dtype), None, None, None, None
+
+
+class _GroupSum(torch.autograd.Function):
+    """The group's sum of x (fp32, rank order, in x's dtype). `back_sum`
+    False: the row-parallel sum of tensor parallelism, whose backward is
+    the identity (every rank of the group computes the same loss from the
+    sum). True: a sum each rank's loss reads, whose backward sums the
+    gradient over the group as well."""
+
+    @staticmethod
+    def forward(ctx, x, world, group, back_sum):
+        ctx.world, ctx.group, ctx.back_sum = world, group, back_sum
+        return world.sum(x.detach(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.back_sum:
+            g = ctx.world.sum(g, ctx.group)
+        return g, None, None, None
+
+
+class _ColumnIn(torch.autograd.Function):
+    """The input of a column-parallel product: the identity forward; the
+    backward sums the input's gradient over the tp group (each rank's
+    columns give a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, world, group):
+        ctx.world, ctx.group = world, group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world.sum(g, ctx.group), None, None
+
+
+class TpGroup:
+    """A training rank's tensor-parallel group, carried as `tp` by the
+    model's three parts (in place of serving's World): `all_reduce` is
+    the row-parallel sum of o_proj, down_proj, the ViT's o_proj and fc2
+    and the projector's fc2 (identity backward), `enter` the
+    column-parallel input of q/k/v, gate/up, fc1 and the projector's fc1
+    (a group sum in the backward). Under fsdp x tp the world is larger
+    than the group, so these sum over the group, not the world."""
+
+    def __init__(self, world, group):
+        self.world = world
+        self.group = list(group)
+        self.size = len(self.group)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if op != "sum":
+            raise ValueError(f"a training tp group sums; op={op!r}")
+        return _GroupSum.apply(x, self.world, self.group, False)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _ColumnIn.apply(x, self.world, self.group)
+
+
+class VisualShard:
+    """A rank's 1/W of a microbatch's packed visual buffer, W the data
+    width dp x fsdp x sp (JAX's `batch_field_spec`): the rank encodes its
+    patches and its compressor queries; the ViT's keys and values, the
+    compressor's keys and values and its visual tokens are gathered over
+    the group (reduce-scattered back in the backward), and the region
+    pooling is summed over it. `segment_ids` / `region_ids`: the whole
+    buffer's ids (the gathered keys' segments)."""
+
+    def __init__(self, world, group, segment_ids, region_ids):
+        self.world = world
+        self.group = list(group)
+        self.segment_ids = segment_ids
+        self.region_ids = region_ids
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return _Gather.apply(x, self.world, self.group, dim, None)
+
+    def gather_kv(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
+        """The whole buffer's keys and values ([1, P, heads, D] each) from
+        every rank's rows, one gather for the two."""
+        kv = self.gather(torch.cat([k, v], -1), 1)
+        return tuple(t.contiguous() for t in kv.chunk(2, -1))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _GroupSum.apply(x, self.world, self.group, True)
 
 
 def _swap(mod: nn.Module, name: str, value) -> tuple:
@@ -168,8 +270,8 @@ class Gatherer:
                 for name, p in list(mod._parameters.items()):
                     if p is not None and id(p) in self.dims:
                         swapped.append(_swap(mod, name, _Gather.apply(
-                            p, self, self.dims[id(p)], self.dtype or
-                            p.dtype)))
+                            p, self.world, self.shard_group,
+                            self.dims[id(p)], self.dtype or p.dtype)))
             yield
         finally:
             _restore(swapped)
@@ -209,10 +311,11 @@ class RankTrainer(Gatherer):
         self.cfg, self.mode = cfg, mode
         self.shape = tuple(mesh_shape)
         dp, fsdp, tp, sp = self.shape
-        if tp > 1:
+        if tp > 1 and cfg.train.tune == "lora":
             raise ValueError(
-                f"mesh tp={tp}: tensor-parallel training is not part of "
-                "the port (tp serves: parallel/tp.py)")
+                f"mesh tp={tp} with tune 'lora': LoRA adapters on "
+                "tensor-parallel layers are not part of the port yet "
+                "(ROADMAP.md Queue 1)")
         if sp > 1 and not cfg.attn_impl.startswith("ring"):
             raise ValueError(
                 f"mesh sp={sp} needs attn_impl 'ring' or 'ring_flash', "
@@ -225,6 +328,8 @@ class RankTrainer(Gatherer):
         self.loss_group = sharding.axis_group(self.shape, rank,
                                               ("dp", "fsdp", "sp"))
         self.sp_group = tuple(sharding.axis_group(self.shape, rank, "sp"))
+        self.tp_group = sharding.axis_group(self.shape, rank, "tp")
+        self.vit_rows = None
         self.data_width = dp * fsdp
         self.data_index = self.coords["dp"] * fsdp + self.coords["fsdp"]
         device = self.world.device
@@ -250,17 +355,23 @@ class RankTrainer(Gatherer):
         self.opt_place = sharding.param_shardings(mesh, model, opt_mode,
                                                   rank=rank)
         self.param_place = (self.opt_place if mode == "fsdp" else
-                            {n: sharding.Placement(None, 1, 0)
-                             for n in self.opt_place})
+                            {n: p.tp_only()
+                             for n, p in self.opt_place.items()})
         with torch.no_grad():
             for name, p in list(model.named_parameters()):
                 place = self.param_place[name]
-                if place.split:
+                if place.split or place.tp is not None:
                     owner, _, leaf = name.rpartition(".")
                     mod = model.get_submodule(owner)
                     mod._parameters[leaf] = nn.Parameter(
                         place.take(p).clone(), requires_grad=True)
         self.names = [n for n, _ in model.named_parameters()]
+        if tp > 1:
+            # Each rank holds its heads and MLP columns; the model's
+            # row-parallel sums and column-parallel inputs meet the group.
+            group = TpGroup(self.world, self.tp_group)
+            for part in (model.llm, model.vit, model.compressor):
+                part.tp = group
         if mode == "fsdp":
             model.zero = self
             self.attach(model, self.param_place)
@@ -297,7 +408,8 @@ class RankTrainer(Gatherer):
                         if in_layer:
                             continue
                         swapped.append(_swap(mod, name, _Gather.apply(
-                            p, self, self.dims[id(p)], dtype)))
+                            p, self.world, self.shard_group,
+                            self.dims[id(p)], dtype)))
                     elif p.is_floating_point() and p.dtype != dtype:
                         swapped.append(_swap(mod, name, p.to(dtype)))
             yield
@@ -309,18 +421,25 @@ class RankTrainer(Gatherer):
     def global_norm(self, grads: dict) -> torch.Tensor:
         """sqrt of the sum of squares of the gradient tree (grads in the
         optimizer's layout): each chunk of a sharded leaf once (summed over
-        the (fsdp, sp) group), each whole leaf once."""
+        the ranks that hold its chunks: the (fsdp, sp) group, the tp group,
+        or both), each whole leaf once."""
+        groups = {("fsdp", "sp"): self.shard_group, ("tp",): self.tp_group,
+                  ("fsdp", "sp", "tp"): sharding.axis_group(
+                      self.shape, self.world.rank, ("fsdp", "sp", "tp"))}
         dev = self.device
-        sh = torch.zeros((), dtype=torch.float32, device=dev)
-        wh = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = {k: torch.zeros((), dtype=torch.float32, device=dev)
+               for k in [()] + list(groups)}
         for n, g in grads.items():
             sq = torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
-            if self.opt_place[n].split:
-                sh = sh + sq
-            else:
-                wh = wh + sq
-        sh = self.world.sum(sh, self.shard_group)
-        return torch.sqrt(sh + wh)
+            place = self.opt_place[n]
+            key = (("fsdp", "sp") if place.split else ()) + (
+                ("tp",) if place.tp is not None else ())
+            acc[key] = acc[key] + sq
+        total = acc[()]
+        for key, group in groups.items():
+            total = total + (self.world.sum(acc[key], group)
+                             if len(group) > 1 else acc[key])
+        return torch.sqrt(total)
 
     def _sum_into(self, grads: list, idx: list[int], group) -> None:
         """grads[i] for i in `idx` replaced by their sums over `group`,
@@ -367,9 +486,12 @@ class RankTrainer(Gatherer):
 
     # ---- the step -----------------------------------------------------------
 
-    def _local(self, mb: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    def _local(self, mb: dict[str, np.ndarray]
+               ) -> tuple[dict[str, torch.Tensor], VisualShard | None]:
         """This rank's share of one microbatch on its device: its rows and
-        sequence slice of the row fields, the visual buffers whole."""
+        sequence slice of the row fields, and its 1/W of the packed visual
+        fields' packing axis (W = dp x fsdp x sp; whole, with no shard,
+        when a field does not divide, as JAX then replicates it)."""
         B, T = mb["token_ids"].shape
         if B % self.data_width:
             raise ValueError(
@@ -382,13 +504,27 @@ class RankTrainer(Gatherer):
         rb, tl = B // self.data_width, T // sp
         rows = slice(self.data_index * rb, (self.data_index + 1) * rb)
         cols = slice(self.coords["sp"] * tl, (self.coords["sp"] + 1) * tl)
+        W = len(self.loss_group)
+        i = self.loss_group.index(self.world.rank)
+        split = W > 1 and all(mb[k].shape[0] % W == 0
+                              for k in sharding.VISUAL_BATCH_FIELDS)
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
         out = {}
         for k, x in mb.items():
             if k in ROW_FIELDS:
                 x = x[rows, cols]
-            out[k] = torch.from_numpy(np.ascontiguousarray(x)).to(
-                self.device)
-        return out
+            elif split and k in sharding.VISUAL_BATCH_FIELDS:
+                n = x.shape[0] // W
+                x = x[i * n:(i + 1) * n]
+            out[k] = put(x)
+        shard = None
+        if split:
+            shard = VisualShard(self.world, self.loss_group,
+                                put(mb["segment_ids"]), put(mb["region_ids"]))
+        return out, shard
 
     def _ring(self, mb: dict[str, np.ndarray]):
         from oryx_tpu_torch.ops.ring_attention import Ring, live_table
@@ -403,7 +539,7 @@ class RankTrainer(Gatherer):
                     self.sp_group if sp > 1 else (0,),
                     live_table(pos, sp, self.coords["sp"]))
 
-    def _loss(self, mb, count, numerics):
+    def _loss(self, mb, shard, count, numerics):
         """This rank's CE sum over its tokens / the microbatch's count."""
         from oryx_tpu_torch.models import oryx
         from oryx_tpu_torch.train.loss import chunked_causal_lm_sums
@@ -415,7 +551,9 @@ class RankTrainer(Gatherer):
             params, cfg,
             **{k: mb[k] for k in BATCH_FIELDS if k != "labels" and k in mb},
             remat=cfg.train.remat_policy if cfg.train.remat else "none",
-            compute_dtype=self.dtype, return_hidden=True)
+            compute_dtype=self.dtype, return_hidden=True,
+            visual_shard=shard)
+        self.vit_rows = int(mb["patches"].shape[0])
         llm = params.llm
         w = (llm.embed.weight if cfg.llm.tie_word_embeddings
              else llm.lm_head.weight)
@@ -460,7 +598,7 @@ class RankTrainer(Gatherer):
                 count = int((host["labels"] != IGNORE_INDEX).sum())
                 params.llm.ring = self._ring(host)
                 try:
-                    loss, act = self._loss(self._local(host), count,
+                    loss, act = self._loss(*self._local(host), count,
                                            numerics)
                     g = torch.autograd.grad(loss, leaves, allow_unused=True)
                 finally:
@@ -528,7 +666,7 @@ class RankTrainer(Gatherer):
         """The parameter as the optimizer sees it: the rank's chunk under
         zero2's sharded moments, else the parameter itself."""
         if self.opt_place[name].split and not self.param_place[name].split:
-            return self.opt_place[name].take(p)
+            return self.opt_place[name].chunk(p)
         return p
 
     # ---- reports and checkpoints ---------------------------------------------
@@ -541,13 +679,16 @@ class RankTrainer(Gatherer):
             t = p.detach()
             if place.split:
                 t = self.world.all_gather(t, self.shard_group, place.dim)
+            if place.tp is not None:
+                t = self.world.all_gather(t, self.tp_group, place.tp[0])
             out[n] = t.cpu()
         return out
 
     def report(self) -> dict:
         """This rank's holdings: the shapes of its parameters and moments,
-        their bytes, the last step's gradient bytes and its kernel launch
-        counts."""
+        their bytes, the last step's gradient bytes, the packed visual rows
+        its ViT last ran on, and its kernel launch counts (summed, and by
+        launch key)."""
         from oryx_tpu_torch.ops.cuda import flash_attention as fa
 
         params = dict(self.state.params.named_parameters())
@@ -562,10 +703,16 @@ class RankTrainer(Gatherer):
                                 for part in ("mu", "nu")
                                 for t in opt[part].values()),
             "grad_bytes": self.grad_bytes,
+            "vit_rows": self.vit_rows,
             "launches": {
                 "flash_fwd_lse": sum(fa.LAUNCHES_LSE.values()),
                 "flash_bwd_dq": sum(fa.LAUNCHES_DQ.values()),
                 "flash_bwd_dkv": sum(fa.LAUNCHES_DKV.values()),
+            },
+            "launch_keys": {
+                "flash_fwd_lse": dict(fa.LAUNCHES_LSE),
+                "flash_bwd_dq": dict(fa.LAUNCHES_DQ),
+                "flash_bwd_dkv": dict(fa.LAUNCHES_DKV),
             },
             "collectives": {k: dict(v)
                             for k, v in tp_lib.COLLECTIVES.items()},

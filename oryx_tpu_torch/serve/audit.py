@@ -397,23 +397,50 @@ class OutputAuditor:
 
     # ---- replay (engine thread, idle points only) ------------------------
 
+    def _on_ranks(self, fn, *args, **kwargs):
+        """A device call of the replay: on a sharded pipe (tp or fsdp)
+        every rank runs it on its own shard and its own private pool, a
+        dispatch of `World.call` (the engine thread's, so it never
+        interleaves with the engine's); else a plain call. Only rank 0
+        decides."""
+        world = self.pipe.tp
+        if world is None:
+            kwargs.pop("bind", None)
+            return fn(*args, **kwargs)
+        return world.call(fn, *args, **kwargs)
+
     def _ensure_pool(self):
         """Build the private replay pools on first use: one request's pages
-        and an identity block table, outside the serving allocator."""
+        and an identity block table, outside the serving allocator. On a
+        tensor-parallel pipe each rank makes a pool of its own KV heads,
+        held under a handle, as the engine's pool is."""
         dtype = oryx.compute_dtype(self.cfg)
+        llm_cfg = qwen2.rank_cfg(self.pipe.params.llm, self.cfg.llm)
         if self._kv is None:
-            self._kv = qwen2.init_paged_kv_cache(
-                self.cfg.llm, self.max_pages, self.page_size, dtype=dtype,
-                device=self.device,
+            self._kv = self._on_ranks(
+                qwen2.init_paged_kv_cache, llm_cfg, self.max_pages,
+                self.page_size, dtype=dtype, device=self.device, bind=True,
             )
             self._bt = torch.arange(
                 self.max_pages, dtype=torch.int32, device=self.device
             )[None]
         if self.compare_quant and self._kv_prod is None:
-            self._kv_prod = qwen2.init_paged_kv_cache(
-                self.cfg.llm, self.max_pages, self.page_size, dtype=dtype,
-                device=self.device, kv_dtype=self.kv_dtype,
+            self._kv_prod = self._on_ranks(
+                qwen2.init_paged_kv_cache, llm_cfg, self.max_pages,
+                self.page_size, dtype=dtype, device=self.device,
+                kv_dtype=self.kv_dtype, bind=True,
             )
+
+    def _drop_pools(self) -> None:
+        """Forget the private pools (the followers' with the next
+        dispatch): a raise mid-replay may have left them half written."""
+        world = self.pipe.tp
+        for name in ("_kv", "_kv_prod"):
+            pool = getattr(self, name)
+            if world is not None and pool is not None:
+                world.release(pool)
+            setattr(self, name, None)
+        self._bt = None
 
     def _replay(self, job: dict[str, Any], attn_impl: str,
                 want_positions: list[int], pool: str = "_kv",
@@ -440,8 +467,8 @@ class OutputAuditor:
         if width > emb.shape[1]:
             emb = torch.cat([emb, emb.new_zeros(
                 (1, width - emb.shape[1], emb.shape[2]))], dim=1)
-        kv, tok0 = generate_lib.paged_prefill(
-            self.pipe.params.llm, self.cfg.llm, emb.to(dev),
+        kv, tok0 = self._on_ranks(
+            generate_lib.paged_prefill, self.pipe.params.llm, self.cfg.llm, emb.to(dev),
             torch.tensor([L], device=dev), self._bt, getattr(self, pool),
             torch.tensor([0], device=dev), [None],
             torch.zeros(1, device=dev), torch.ones(1, device=dev),
@@ -474,8 +501,8 @@ class OutputAuditor:
                 break
             if len(emitted) >= target:
                 break
-            kv, nxt, lg = audit_decode_step(
-                self.pipe.params.llm, self.cfg.llm, getattr(self, pool),
+            kv, nxt, lg = self._on_ranks(
+                audit_decode_step, self.pipe.params.llm, self.cfg.llm, getattr(self, pool),
                 self._bt, torch.tensor([t], device=dev),
                 torch.tensor([cur_len], dtype=torch.int32, device=dev),
                 attn_impl=attn_impl, compute_dtype=dtype,
@@ -512,9 +539,7 @@ class OutputAuditor:
         except Exception as e:
             # A raise mid-replay may have left the private pools half
             # written: drop them so the next audit starts from fresh ones.
-            self._kv = None
-            self._kv_prod = None
-            self._bt = None
+            self._drop_pools()
             record = {
                 "request_id": job["request_id"],
                 "verdict": "fail",

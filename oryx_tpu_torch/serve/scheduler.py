@@ -637,10 +637,6 @@ class ContinuousScheduler:
             # Fault firings reach the journal through the module's observer
             # hook; the seeded schedule makes them replay.
             faults.add_observer(self._journal_fault)
-        if audit_sample_every and pipe.tp is not None:
-            raise ValueError(
-                "audit_sample_every on a tensor-parallel pipe: the audit's "
-                "private replay runs on rank 0 alone (ROADMAP.md Queue 1)")
         # Built unconditionally, so the oryx_audit_* ladders render at zero
         # with sampling off.
         self.auditor = audit_lib.OutputAuditor(

@@ -337,6 +337,16 @@ def row_linear(x: torch.Tensor, mod: nn.Module, tp,
     return y if bias is None else y + bias.to(y.dtype)
 
 
+def column_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a product whose output columns are split over
+    tensor-parallel ranks: x itself in the forward; in a training rank's
+    backward its gradient summed over the tp group
+    (parallel/zero.TpGroup.enter). Serving (a World, no backward) and
+    tp None: x."""
+    enter = getattr(tp, "enter", None)
+    return x if enter is None or tp.size == 1 else enter(x)
+
+
 def linear_group(x: torch.Tensor, mods,
                  names=None) -> list[torch.Tensor]:
     """[linear(x, m, name) for m, name in zip(mods, names)]: Q8Linears of

@@ -269,14 +269,20 @@ def test_divisibility_and_training_half_refusals():
     with pytest.raises(ValueError, match="vision.num_heads = 3"):
         sharding.check_divisible(odd, 2)
     sharding.check_divisible(tcfg.oryx_7b(), 2)
-    # The training half places fsdp; a leaf split over tp and fsdp at once
-    # is what it refuses.
+    # The training half places fsdp; a leaf with a heads/mlp dim and an
+    # embed dim is cut on both under fsdp x tp (rank 3 of (1, 2, 2, 1):
+    # fsdp index 1, tp index 1), one without a heads/mlp dim on embed only.
     assert sharding.param_shardings(
         _Mesh(fsdp=2, tp=1), oryx.empty_model(cfg), "fsdp",
         rank=1)["llm.embed.weight"] == sharding.Placement(1, 2, 1)
-    with pytest.raises(ValueError, match="at once"):
-        sharding.param_shardings(_Mesh(fsdp=2, tp=2),
-                                 oryx.empty_model(cfg), "fsdp", rank=0)
+    place = sharding.param_shardings(_Mesh(fsdp=2, tp=2),
+                                     oryx.empty_model(cfg), "fsdp", rank=3)
+    assert place["llm.layers.0.q_proj.weight"] == sharding.Placement(
+        1, 2, 1, (0, 2, 1))
+    assert place["llm.embed.weight"] == sharding.Placement(1, 2, 1)
+    whole = torch.arange(64 * 64.0).view(64, 64)
+    assert torch.equal(place["llm.layers.0.q_proj.weight"].take(whole),
+                       whole[32:, 32:])
 
 
 # ---- the training half -------------------------------------------------------

@@ -6,6 +6,8 @@ the same mode and from the same weights and batches:
     dp=2 x fsdp=4 (tests/test_trainer_modes.py's mesh), including
     grad_accum_steps=2 and a batch whose two rows (one a rank) hold
     different supervised-token counts;
+  * the packed visual buffer over the data width (each rank encodes half
+    of it) under attn_impl "pallas" and "xla";
   * (sequence parallelism: tests/test_torch_train_ring.py);
   * placement, as JAX's test asserts it, on the shapes each rank holds:
     fsdp shards `embed`, zero2 and ddp keep the parameters whole; the
@@ -140,6 +142,24 @@ def test_modes_match_jax_and_place_as_jax(two, tree, batches, tmp_path,
     a, b = got["reports"]
     if mode == "fsdp":
         assert a["param_bytes"] == b["param_bytes"]
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_visual_encode_shards_over_the_data_width(two, tree, batches,
+                                                  tmp_path, impl):
+    """Each of the two ranks encodes its half of every microbatch's packed
+    visual buffer (its patches, its compressor queries; the keys and
+    values gathered, the region sums summed): losses, grad norms and
+    every leaf, the encoder's included, are JAX's."""
+    cj, ct = _configs(tmp_path, f"vis{impl}", impl, 2, JAX_DATA_MESH,
+                      tcfg.MeshConfig(fsdp=2))
+    data = _data(batches, 2)
+    got = two.run("job_fit", f"vis{impl}", tree, ct.to_dict(), "fsdp", data,
+                  STEPS)
+    _compare(got, _jax_fit(tmp_path, f"vis{impl}", cj, tree, "fsdp", data),
+             tree, ct)
+    P = batches[2]["patches"].shape[1]
+    assert [r["vit_rows"] for r in got["reports"]] == [P // 2, P // 2]
 
 
 def test_resume_continues_identically(two, tree, batches, tmp_path):

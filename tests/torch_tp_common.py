@@ -275,6 +275,63 @@ def job_journal(state, key, path, reqs, kw):
             [e["kind"] for e in entries])
 
 
+def job_audit(state, key, reqs, kw):
+    """`reqs` [(question, cap)] through a `ContinuousScheduler` on the
+    sharded pipe, request ids r0.., everything submitted before the start;
+    with `audit_sample_every` in `kw`, waited on until every pick has its
+    verdict. `sanitize` in kw: the lock-order sanitizer and race detector
+    armed (record mode) around the engine. Returns the replies, the
+    auditor's `to_dict()`, the dispatch counts by kind, the ranks' digests
+    and the sanitizer's violations."""
+    from oryx_tpu_torch.analysis import sanitizers
+    from oryx_tpu_torch.serve.scheduler import ContinuousScheduler
+    from oryx_tpu_torch.utils.metrics import ServingMetrics
+
+    kw = dict(kw)
+    sanitize = kw.pop("sanitize", False)
+    pipe = state["pipes"][key]
+    metrics = ServingMetrics()
+    if sanitize:
+        sanitizers.arm_lock_sanitizer(action="record")
+    violations = None
+    try:
+        sched = ContinuousScheduler(pipe, autostart=False, metrics=metrics,
+                                    **kw)
+        out = _audited_run(sched, reqs, kw)
+        if sanitize:
+            violations = (list(sanitizers.lock_stats().violations)
+                          + sanitizers.race_violations())
+    finally:
+        if sanitize:
+            sanitizers.disarm_lock_sanitizer()
+    return dict(out, dispatches=metrics.by_label("dispatches_total"),
+                digests=pipe.tp.digests(), violations=violations)
+
+
+def _audited_run(sched, reqs, kw):
+    """job_audit's serving and its wait for the audit backlog."""
+    import time
+
+    try:
+        handles = [sched.submit({"question": q}, cap, None,
+                                request_id=f"r{i}")
+                   for i, (q, cap) in enumerate(reqs)]
+        sched.start()
+        replies = [h.result(timeout=300) for h in handles]
+        want = len(reqs) // kw.get("audit_sample_every", len(reqs) + 1)
+        end = time.monotonic() + 300
+        while (sched.auditor.to_dict()["total"] < want
+               or sched.auditor.pending()):
+            if time.monotonic() > end:
+                raise TimeoutError(f"audits never drained: "
+                                   f"{sched.auditor.to_dict()}")
+            time.sleep(0.05)
+        audits = sched.auditor.to_dict()
+    finally:
+        sched.close()
+    return {"replies": replies, "audits": audits}
+
+
 def pool_rows(world, k_rows, fmt, page_size):
     """Write whole K rows [N, Hk, D] into a one-page-per-row quantized
     pool of this rank's heads, through the model's write path; return
@@ -589,7 +646,8 @@ def job_fit(state, key, tree, cfg_dict, mode, batches, steps, resume=False):
         "history": _history(trainer),
         "params": {n: t.numpy() for n, t in trainer.full_params().items()},
         "reports": [{k: r[k] for k in ("param_shapes", "mu_shapes",
-                                       "param_bytes", "moment_bytes")}
+                                       "param_bytes", "moment_bytes",
+                                       "vit_rows")}
                     for r in reports],
         "step": trainer.state.step,
     }
