@@ -238,7 +238,7 @@ Phases (any failure exits non-zero):
      tokens/s, model FLOPs and MFU (utils/flops.py), device fwd+bwd and
      optimizer time, peak memory. Then one 4-step fit under each remat
      policy (none, block, dots, attn, attn_qkv, attn_o) from one start, on
-     a model of full width cut to REMAT_LAYERS = 7 decoder layers (random,
+     a model of full width cut to REMAT_LAYERS = 2 decoder layers (random,
      seed 0, its own adapters): peak memory and step walls, losses
      identical to "attn"'s (a policy that runs out of card memory is
      reported as not fitting, and its losses are held against "attn"'s at
@@ -355,6 +355,12 @@ Phases (any failure exits non-zero):
      bf16 verdicts printed (not gated, as in phase 20), then the
      auditor's K1 prefill (`flash_fwd[tp_audit_prefill]`) and one-row K3
      (`paged_decode[tp_audit]`) at rank 0's call shapes vs their twins.
+     (f) The same pipe with LoRA adapters of oryx_7b_sft_lora.json's r
+     and alpha on its seven targets (A and B drawn from a seed, whole on
+     both ranks): phase 3's mix through chat_batch, both ranks' digests
+     equal, replies other than (a)'s, prefill logits within NOISE_RATIO
+     of the one-process bf16 error against an fp32 witness of phase 2's
+     weights with the same adapters.
  25. (Runs after 1, before 2, on the empty card: ddp holds two whole
      copies of (a)'s state.) Data/sequence-parallel training and fsdp
      serving, two ranks on the one card (this process rank 0), their
@@ -381,7 +387,16 @@ Phases (any failure exits non-zero):
      (a)'s config at fsdp=2 x tp=2 on four ranks of the card, 2 rows a
      batch, twice: bit-identical fits, losses and grad norms within rel
      1e-3 of an fsdp=2 fit on the same rows (run in (a)'s world), the four
-     ranks' launches equal, each rank's bytes and peak. Then K1-lse/K5 vs their twins at
+     ranks' launches equal, each rank's bytes and peak (each fit in four
+     fresh ranks). (f) In the second fit's world, `oryx_7b_sft_lora.json`
+     (r = 128, seven targets) at 2 + 4 layers, 2 rows a batch, twice:
+     bit-identical fits, losses and grad norms within rel 1e-3 of an
+     fsdp=2 LoRA fit on the same rows and weights (run in (a)'s world),
+     on every rank every frozen leaf bit-unchanged and every lora_b moved
+     and finite, every rank's adapters bit-equal and each one's change
+     (norm of after minus before) within rel 1e-2 of the reference's, the
+     four ranks' launches equal, each rank's peak. Then
+     K1-lse/K5 vs their twins at
      the fsdp decoder's, the ring block's, (a)'s ViT shard's (4,096 query
      patches against 8,192, 16 heads) and (e)'s decoder (14 q / 2 kv
      heads) and ViT shard (8 heads) call shapes.
@@ -2393,15 +2408,19 @@ def sampled_device_time(pipe, unarmed, card) -> dict:
     Returns the per-kind device and wall seconds."""
     import threading
 
+    from oryx_tpu_torch.ops.cuda import graphs
     from oryx_tpu_torch.ops.cuda import paged_attention as pa
     from oryx_tpu_torch.utils import xplane
 
     server = HttpServer(pipe, engine="continuous", **HTTP_SERVE,
                         profile_sample_every=PROFILE_EVERY)
     sched = server.srv.scheduler
-    marks, counted, on_demand = [], [], []
+    marks, counted, on_demand, periodic = [], [], [], []
     begin, finish = sched.profiler.begin, sched.profiler.finish_capture
+    end_sample = sched.profiler.end
     planes_of = xplane.planes_from_kineto
+    replay = graphs.CountedGraph.replay
+    replays = [0]
 
     def counting(events):
         # Every kernel record of the capture (the Chrome trace stops at
@@ -2419,11 +2438,27 @@ def sampled_device_time(pipe, unarmed, card) -> dict:
     # capture begins before a loop turn's dispatch and closes after one,
     # once its kernels are done), so a mark cannot fall inside a dispatch.
     def begin_marked():
-        marks.append(("begin", k4()))
+        marks.append(("begin", k4(), replays[0]))
         return begin()
 
+    def end_marked(kind, t0_ns, t1_ns):
+        # A periodic sample: its dispatch's K4 launches, whether it
+        # replayed graphs, and its capture's K4 records (measured, not
+        # held: such a capture stops at once).
+        _, k4_0, replays_0 = marks[-1]
+        launched, graph = k4() - k4_0, replays[0] > replays_0
+        n = len(counted)
+        out = end_sample(kind, t0_ns, t1_ns)
+        if len(counted) > n:
+            periodic.append((graph, launched, counted[n][0]))
+        return out
+
+    def replay_counted(graph):
+        replays[0] += 1
+        return replay(graph)
+
     def finish_marked(windows):
-        marks.append(("finish", k4()))
+        marks.append(("finish", k4(), replays[0]))
         n = len(counted)
         out = finish(windows)
         # The planes this capture parsed (periodic samples parse later).
@@ -2431,8 +2466,10 @@ def sampled_device_time(pipe, unarmed, card) -> dict:
         return out
 
     sched.profiler.begin = begin_marked
+    sched.profiler.end = end_marked
     sched.profiler.finish_capture = finish_marked
     xplane.planes_from_kineto = counting
+    graphs.CountedGraph.replay = replay_counted
     try:
         t0 = time.perf_counter()
         replies = _sequential(server, "p21b")
@@ -2458,9 +2495,16 @@ def sampled_device_time(pipe, unarmed, card) -> dict:
         metrics_after = server.get("/metrics")[1]
     finally:
         xplane.planes_from_kineto = planes_of
+        graphs.CountedGraph.replay = replay
         server.close()
     print(f"  (b) profile_sample_every={PROFILE_EVERY}: {wall:.2f} s for the "
           f"four requests ({card})")
+    for graph in (True, False):
+        got_ = [(n, r) for g, n, r in periodic if g == graph and n]
+        print(f"    periodic samples of {'graph-replay' if graph else 'eager'}"
+              f" dispatches with K4: {len(got_)}, K4 records "
+              f"{sum(r for _, r in got_)} of {sum(n for n, _ in got_)} "
+              f"launched (short in {sum(1 for n, r in got_ if r < n)})")
     if replies != unarmed:
         raise SystemExit(f"phase 21: sampled replies {replies} vs {unarmed}")
     sampled = [r for r in timeline["records"] if r["device_us"] is not None]
@@ -2490,7 +2534,7 @@ def sampled_device_time(pipe, unarmed, card) -> dict:
         raise SystemExit(f"phase 21: /debug/profile {status}, request "
                          f"{code}: {text[:300]}")
     prof = json.loads(text)
-    end = max(i for i, (kind, _) in enumerate(marks) if kind == "finish")
+    end = max(i for i, (kind, *_) in enumerate(marks) if kind == "finish")
     start = max(i for i in range(end) if marks[i][0] == "begin")
     launched = marks[end][1] - marks[start][1]
     k4_events, k1_events = on_demand[-1]
@@ -3991,8 +4035,9 @@ LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
 REMAT_POLICIES = ("none", "block", "dots", "attn", "attn_qkv", "attn_o")
 UNFIT_BATCH = 1  # records a batch for a policy that does not fit at 4
 # Decoder layers of phase 17's remat-policy fits (full width; the run's
-# time limit: 28 layers cost ~120 s over the eight fits and their saves).
-REMAT_LAYERS = 7
+# time limit: 28 layers cost ~120 s over the eight fits and their saves,
+# and phases 24 (f) and 25 (f) share what is left).
+REMAT_LAYERS = 2
 PACK_BUCKET = 4096
 PACK_ROWS = 4
 PACK_LENGTHS = (64, 1500)  # tokens of a packed text sample, drawn uniformly
@@ -5321,6 +5366,110 @@ def _key_launches(run, which, match) -> tuple[int, int]:
     return tuple(sum(row[i] for i in cols) for row in run["table"][:2])
 
 
+# Phase 24 (f)'s adapters: oryx_7b_sft_lora.json's r and alpha on its seven
+# targets, A and B both drawn N(0, 0.02) from this seed (B nonzero, so the
+# adapters change the function).
+TP_LORA_SEED = 24
+
+
+def tp_lora(pipe, cfg_llm, on: bool) -> None:
+    """Phase 24 (f): attach (on) or remove the seeded whole adapters of
+    oryx_7b_sft_lora.json to every decoder projection of `pipe`'s model,
+    in its compute dtype: on a tp rank (a dispatch every rank runs) its
+    shard holds them whole; in one process the whole model does. Each
+    rank draws the same tensors, in one order, on its own card."""
+    from oryx_tpu_torch.models import oryx, qwen2
+    from oryx_tpu_torch.utils.quant import LORA_LEAVES
+
+    lora = lora_config().train.lora
+    whole = qwen2.Qwen2(cfg_llm, device="meta")
+    dev = pipe.device
+    g = torch.Generator(dev).manual_seed(TP_LORA_SEED)
+    dtype = oryx.compute_dtype(pipe.cfg)
+    for name in lora.targets:
+        for i, layer in enumerate(pipe.params.llm.layers):
+            mod = getattr(layer, name)
+            if not on:
+                for leaf in LORA_LEAVES:
+                    del mod._parameters[leaf]
+                continue
+            shape = getattr(whole.layers[i], name)
+            a = torch.randn((shape.in_features, lora.r), generator=g,
+                            device=dev) * 0.02
+            b = torch.randn((lora.r, shape.out_features), generator=g,
+                            device=dev) * 0.02
+            s = torch.full((1, 1), lora.scaling, device=dev)
+            for leaf, t in zip(LORA_LEAVES, (a, b, s)):
+                mod.register_parameter(leaf, torch.nn.Parameter(
+                    t.to(dtype), requires_grad=False))
+
+
+def tp_adapted(smoke, world, tpipe, cfg, reqs, plain, witness,
+               card) -> None:
+    """Phase 24 (f): the same tp pipe with nonzero adapters (`tp_lora`):
+    phase 3's mix through chat_batch, both ranks' sampled tokens equal,
+    the replies other than `plain` ((a)'s), and the prefill logits within
+    NOISE_RATIO of the one-process bf16 error against the fp32 witness of
+    the same adapted weights (`witness`: their (bf16, fp32) logits)."""
+    la, lf = witness
+    world.call(smoke.tp_lora, tpipe, cfg.llm, True)
+    try:
+        world.call(smoke.tp_zero_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replies, counts = tpipe.chat_batch(
+            reqs, max_new_tokens=MAX_NEW, return_token_counts=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _rank_launches(smoke, world)
+        digests = world.digests()
+        lt = world.call(smoke.prefill_logits, tpipe, reqs)
+    finally:
+        world.call(smoke.tp_lora, tpipe, cfg.llm, False)
+    if len(set(digests)) != 1:
+        raise SystemExit(f"phase 24 (f): the ranks sampled different "
+                         f"tokens: {digests}")
+    if not bool(torch.isfinite(lt).all()):
+        raise SystemExit("phase 24 (f): adapted tp logits are not finite")
+
+    def rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+
+    rt, r1 = rel(lt, lf), rel(la, lf)
+    changed = sum(a != b for a, b in zip(replies, plain))
+    print(f"  (f) adapters r = 128 on the seven targets: chat_batch wall "
+          f"{wall:.3f} s, tokens {[gt for _, gt in counts]}, both ranks' "
+          f"digests equal ({digests[0][:16]}); {changed} of {len(reqs)} "
+          f"replies differ from the unadapted pipe's; prefill logits rel L2 "
+          f"vs the adapted fp32 witness: tp {[f'{x:.3e}' for x in rt]}, one "
+          f"process {[f'{x:.3e}' for x in r1]} (limit {NOISE_RATIO}x) "
+          f"({card})")
+    if any(a > NOISE_RATIO * b for a, b in zip(rt, r1)):
+        raise SystemExit("phase 24 (f): adapted tp prefill logits are "
+                         "further from the fp32 witness than bf16 noise "
+                         "allows")
+    if not changed:
+        raise SystemExit("phase 24 (f): the adapters changed no reply")
+
+
+def adapted_witness(params, cfg, reqs) -> tuple:
+    """Phase 24 (f)'s witness: phase 3's mix's prefill logits of phase 2's
+    weights with `tp_lora`'s adapters in one process, bf16 and fp32 (the
+    fp32 witness of phase 4: weights upcast in every product, plain
+    attention)."""
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    tok = ByteTokenizer()
+    pipes = [Pipeline(tok, params, cfg, device="cuda"),
+             Pipeline(tok, params, dataclasses.replace(
+                 cfg, attn_impl="xla", dtype="float32"), device="cuda")]
+    tp_lora(pipes[0], cfg.llm, True)
+    try:
+        return tuple(prefill_logits(p, reqs) for p in pipes)
+    finally:
+        tp_lora(pipes[0], cfg.llm, False)
+
+
 # Phase 24 (e)'s reply cap: every replayed token is a one-row dispatch of
 # both ranks (145 ms at 32 tokens; NVIDIA H100 80GB HBM3, 700 W).
 TP_AUDIT_NEW = 16
@@ -5402,7 +5551,8 @@ def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
     rank 0, rank 1 started by parse_shard_arg), both ranks on the one
     card over gloo, each drawing its shard of phase 2's seeded weights;
     (a) chat_batch, (b) the sharded engine, (c) K1/K3/K4 at the per-rank
-    shapes. Returns the kernel rows."""
+    shapes, (e) the auditor, (f) chat_batch with LoRA adapters. Returns
+    the kernel rows."""
     import importlib
     from types import SimpleNamespace
 
@@ -5417,6 +5567,7 @@ def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
     # Functions a dispatch names must import on every rank: this script as
     # the module `chip_smoke`, not as __main__.
     smoke = importlib.import_module("chip_smoke")
+    witness = adapted_witness(params, cfg, reqs)
     t0 = time.perf_counter()
     mesh, _ = mesh_lib.parse_shard_arg("tp=2")
     world = tp_lib.current()
@@ -5566,6 +5717,7 @@ def tensor_parallel(params, cfg, reqs, toks0, la, lf, card) -> list[dict]:
             rows.append(row)
 
         rows.extend(tp_audit(smoke, world, tpipe, rcfg, reqs, gen, card))
+        tp_adapted(smoke, world, tpipe, cfg, reqs, replies, witness, card)
 
         # (b, continued) a follower that dies: the engine reports dead
         # within the collective timeout, nothing hangs.
@@ -5621,6 +5773,11 @@ TP_BATCH = 2
 # on the same rows: bf16 rounding moved them by 4-5e-5 (NVIDIA H100 80GB
 # HBM3, 700 W); a tp backward without its group sum moves them by tenths.
 GRAD_NORM_REL = 1e-3
+# (f): each adapter's change over the fit (the norm of after minus before)
+# against the fsdp=2 LoRA fit's. Adam's steps are near sign(g) times the
+# rate, so the norm follows the set of moved entries, not bf16 rounding;
+# a column layer's B that missed its tp sum moves ~0.71x as far.
+LORA_CHANGE_REL = 1e-2
 
 
 def par_config(path, layers, **top):
@@ -5657,6 +5814,7 @@ def par_free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
 
 
 def par_guard(on: bool) -> None:
@@ -5697,9 +5855,14 @@ def _unsaved_trainer():
 
 def par_fit(smoke, cfg, mode, data, label, card) -> dict:
     """One fit of PAR_STEPS steps over the host batches `data`, every
-    rank's launch counters zeroed just before and read just after."""
+    rank's launch counters zeroed just before and read just after. Under
+    tune "lora" on ranks, each rank's leaves are held against their start
+    (`lora_start`, `lora_moved`)."""
     trainer = _unsaved_trainer()(cfg, device="cuda", sharding_mode=mode)
     world = trainer.world
+    lora = cfg.train.tune == "lora" and world is not None
+    if lora:
+        world.call(smoke.lora_start, trainer.zero)
     if world is not None:
         world.call(smoke.par_zero)
     else:
@@ -5718,6 +5881,8 @@ def par_fit(smoke, cfg, mode, data, label, card) -> dict:
     if world is not None:
         run["reports"] = trainer.rank_reports()
         run["peak"] = world.peak_memory()
+    if lora:
+        run["lora"] = world.call(smoke.lora_moved, trainer.zero)
     else:
         run["peak"] = [torch.cuda.max_memory_allocated()]
     print(f"  {label}: losses {run['losses']} grad norms {run['norms']} | "
@@ -5744,6 +5909,46 @@ def par_fit(smoke, cfg, mode, data, label, card) -> dict:
     return run
 
 
+def lora_start(rt) -> None:
+    """Keep a host copy of this rank's leaves as the fit starts (a
+    dispatch every rank runs on its RankTrainer; on the host, so that the
+    fit's peak card memory is its own)."""
+    rt.lora_start = {n: p.detach().to("cpu", copy=True)
+                     for n, p in rt.state.params.named_parameters()}
+
+
+def lora_moved(rt) -> list[dict]:
+    """Every rank's leaves against `lora_start`'s copy: the frozen leaves
+    changed (names), the lora_b leaves moved, whether every adapter is
+    finite, each adapter's change (the L2 norm of its leaf after the fit
+    minus before) and a digest of every adapter's bytes (a dispatch; the
+    copy is dropped)."""
+    import hashlib
+
+    from oryx_tpu_torch.parallel.zero import gather_objects
+
+    start = rt.__dict__.pop("lora_start")
+    digest = hashlib.sha256()
+    out = {"rank": rt.world.rank, "frozen_changed": [], "lora_b": 0,
+           "lora_b_moved": 0, "finite": True, "change": {}}
+    for n, p in rt.state.params.named_parameters():
+        host = p.detach().cpu()
+        same = torch.equal(host, start[n])
+        if not rt.tx.mask[n] and not same:
+            out["frozen_changed"].append(n)
+        if "lora_" in n:
+            out["finite"] &= bool(torch.isfinite(host).all())
+            digest.update(host.reshape(-1).view(torch.uint8).numpy())
+        if n.endswith(("lora_a", "lora_b")):
+            out["change"][n] = float(torch.linalg.vector_norm(
+                host.double() - start[n].double()))
+        if n.endswith("lora_b"):
+            out["lora_b"] += 1
+            out["lora_b_moved"] += int(not same)
+    out["digest"] = digest.hexdigest()[:16]
+    return gather_objects(rt.world, out)
+
+
 def _resident(rep) -> int:
     return rep["param_bytes"] + rep["grad_bytes"] + rep["moment_bytes"]
 
@@ -5752,10 +5957,11 @@ def _rel_diff(a, b) -> float:
     return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
 
 
-def zero_stages(smoke, card) -> tuple[dict, list, object]:
+def zero_stages(smoke, card) -> tuple:
     """Phase 25 (a): 2 steps of oryx_7b_sft.json (tune full) at ZERO_LAYERS
     on fsdp=2 in each of fsdp, zero2 and ddp, twice each, and once on one
-    process. Returns (the fsdp run, the batches, the fsdp config)."""
+    process; then (e)'s and (f)'s references on fsdp=2. Returns (the fsdp
+    run, the batches, the fsdp config, (e)'s and (f)'s references)."""
     from oryx_tpu_torch import config
     from oryx_tpu_torch.parallel import tp as tp_lib
 
@@ -5838,22 +6044,31 @@ def zero_stages(smoke, card) -> tuple[dict, list, object]:
         cfg.train, global_batch_size=TP_BATCH))
     data2 = list(itertools.islice(train_batches(cfg2, batch=TP_BATCH),
                                   PAR_STEPS))
+    # (f)'s reference: a LoRA fit on fsdp=2, TP_BATCH rows a batch.
+    cfg3 = lora_par_config(config.MeshConfig(fsdp=2))
+    data3 = list(itertools.islice(train_batches(
+        cfg3, sft_records(), batch=TP_BATCH), PAR_STEPS))
     world.call(smoke.par_guard, True)
     try:
         ref2 = par_fit(smoke, cfg2, "fsdp", data2,
                        f"fsdp, {TP_BATCH} rows a batch ((e)'s reference)",
                        card)
+        ref3 = par_fit(smoke, cfg3, "fsdp", data3,
+                       f"fsdp, LoRA, {TP_BATCH} rows a batch ((f)'s "
+                       f"reference)", card)
     finally:
         world.call(smoke.par_guard, False)
-    return runs["fsdp"][0], data, cfg, (ref2, data2, cfg2)
+    return runs["fsdp"][0], data, cfg, (ref2, data2, cfg2), (ref3, data3)
 
 
-def fsdp_tp(smoke, ref, card) -> dict:
+def fsdp_tp(smoke, ref, lora_ref, card) -> dict:
     """Phase 25 (e): (a)'s config at fsdp=2 x tp=2 on four ranks sharing
     the card, TP_BATCH rows a batch (one a data rank), twice: the two fits
     bit-identical, losses within rel 1e-3 of (a)'s fsdp fit on the same
     rows and so are its grad norms, every rank's K1-lse/K5 launches equal,
-    each rank's resident bytes and peak printed. Returns the first fit."""
+    each rank's resident bytes and peak printed. Then (f) in the second
+    fit's world: two LoRA fits (`lora_tp_checks` against `lora_ref`).
+    Returns (e)'s first fit."""
     from oryx_tpu_torch import config
     from oryx_tpu_torch.parallel import tp as tp_lib
 
@@ -5864,19 +6079,32 @@ def fsdp_tp(smoke, ref, card) -> dict:
     torch.cuda.empty_cache()
     print(f"  (e) rank 0 holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
           f"before the four ranks start")
-    t0 = time.perf_counter()
-    world = tp_lib.start(4, tp_lib.default_devices(4, "cuda"))
-    print(f"  (e) four ranks up in {time.perf_counter() - t0:.1f} s: backend "
-          f"{world.backend}, devices {[str(d) for d in world.devices]}")
-    world.call(smoke.par_guard, True)
-    try:
-        runs = [par_fit(smoke, cfg, "fsdp", data,
-                        f"(e) fsdp=2 x tp=2 run {i}", card) for i in range(2)]
-    finally:
-        world.call(smoke.par_guard, False)
-        world.shutdown()
-        gc.collect()
-        torch.cuda.empty_cache()
+    runs, lora_runs = [], []
+    # Each of (e)'s fits in four fresh ranks: the card holds their state
+    # with ~1 GB to spare, and a second full fit in the same processes ran
+    # a follower out of memory on some machines. (f)'s fits (12.5 GB a
+    # rank) follow the second in its world.
+    for i in range(2):
+        t0 = time.perf_counter()
+        world = tp_lib.start(4, tp_lib.default_devices(4, "cuda"))
+        print(f"  (e) four ranks up in {time.perf_counter() - t0:.1f} s: "
+              f"backend {world.backend}, devices "
+              f"{[str(d) for d in world.devices]}")
+        world.call(smoke.par_guard, True)
+        try:
+            runs.append(par_fit(smoke, cfg, "fsdp", data,
+                                f"(e) fsdp=2 x tp=2 run {i}", card))
+            if i:
+                lora_runs = [par_fit(
+                    smoke, lora_par_config(cfg.mesh), "fsdp", lora_ref[1],
+                    f"(f) LoRA fsdp=2 x tp=2 run {j}", card)
+                    for j in range(2)]
+        finally:
+            world.call(smoke.par_guard, False)
+            world.shutdown()
+            gc.collect()
+            torch.cuda.empty_cache()
+    lora_tp_checks(lora_runs, lora_ref[0], runs[0], card)
     a, b = runs
     if (a["losses"], a["norms"]) != (b["losses"], b["norms"]):
         raise SystemExit("phase 25 (e): the two fsdp x tp fits differ")
@@ -5906,6 +6134,92 @@ def fsdp_tp(smoke, ref, card) -> dict:
           f"{vit} of {P}; peak a rank "
           f"{[round(x / 1e9, 2) for x in a['peak']]} GB ({card})")
     return a
+
+
+def lora_par_config(mesh):
+    """Phase 25 (f): oryx_7b_sft_lora.json (r = 128, alpha 256, the seven
+    targets) at ZERO_LAYERS, TP_BATCH rows a batch, on `mesh`."""
+    cfg = par_config(LORA_CONFIG, ZERO_LAYERS, mesh=mesh)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, global_batch_size=TP_BATCH))
+
+
+def lora_tp_checks(runs, ref, full, card) -> None:
+    """Phase 25 (f): the two LoRA fits at fsdp=2 x tp=2 bit-identical,
+    losses and grad norms within rel 1e-3 / GRAD_NORM_REL of the fsdp=2
+    LoRA fit on the same rows and weights, on every rank every frozen
+    leaf bit-unchanged and every lora_b moved and finite, every rank's
+    adapters bit-equal, each adapter's change within LORA_CHANGE_REL of
+    the reference's, the four ranks' K1-lse/K5 launches equal; rank 0's
+    K1-lse/K5 call shapes printed beside (e)'s (`full`: the tune-full
+    fit)."""
+    a, b = runs
+    if (a["losses"], a["norms"]) != (b["losses"], b["norms"]):
+        raise SystemExit("phase 25 (f): the two LoRA fsdp x tp fits differ")
+    rel = _rel_diff(a["losses"], ref["losses"])
+    rel_norm = _rel_diff(a["norms"], ref["norms"])
+    if rel > 1e-3 or rel_norm > GRAD_NORM_REL:
+        raise SystemExit(f"phase 25 (f): losses rel {rel:.2e} (limit 1e-3), "
+                         f"grad norms rel {rel_norm:.2e} (limit "
+                         f"{GRAD_NORM_REL}) of the fsdp=2 LoRA fit")
+    for run in runs:
+        for r in run["lora"]:
+            if r["frozen_changed"] or not r["finite"] or \
+                    r["lora_b_moved"] != r["lora_b"] or not r["lora_b"]:
+                raise SystemExit(f"phase 25 (f): rank {r['rank']}: frozen "
+                                 f"leaves changed {r['frozen_changed'][:3]},"
+                                 f" lora_b moved {r['lora_b_moved']} of "
+                                 f"{r['lora_b']}, finite {r['finite']}")
+    # The adapters' gradients: a rank whose partial sums missed its tp
+    # group updates its own copy of each adapter from its own columns, so
+    # the ranks' copies part and a column layer's B moves ~0.7x as far.
+    digests = [[r["digest"] for r in run["lora"]] for run in (*runs, ref)]
+    if any(len(set(d)) != 1 for d in digests) or digests[0] != digests[1]:
+        raise SystemExit(f"phase 25 (f): the adapters' digests by rank "
+                         f"(two fits, then the reference) {digests}")
+    want = ref["lora"][0]["change"]
+    worst, leaf = _worst_change(a["lora"][0]["change"], want)
+    if worst > LORA_CHANGE_REL:
+        raise SystemExit(f"phase 25 (f): {leaf} moved rel {worst:.2e} "
+                         f"(limit {LORA_CHANGE_REL}) from the fsdp=2 LoRA "
+                         f"fit's change")
+    launches = [rep["launches"] for rep in a["reports"]]
+    if any(x != launches[0] for x in launches) or not all(
+            launches[0].values()):
+        raise SystemExit(f"phase 25 (f): the ranks' launches {launches}")
+    shapes = a["reports"][0]["param_shapes"]
+    print(f"  (f) the two LoRA fits bit-identical; losses within rel "
+          f"{rel:.2e} (limit 1e-3) and grad norms within rel {rel_norm:.2e} "
+          f"(limit {GRAD_NORM_REL}) of the fsdp=2 LoRA fit on the same rows;"
+          f" on each rank every frozen leaf bit-unchanged and all "
+          f"{a['lora'][0]['lora_b']} lora_b moved and finite; every "
+          f"rank's adapters bit-equal to the others' (digest "
+          f"{digests[0][0]}; the reference's {digests[2][0]}); each "
+          f"adapter's change within "
+          f"rel {worst:.2e} of the reference's (limit {LORA_CHANGE_REL}, "
+          f"worst {leaf}; lora_a unmoved in both: "
+          f"{sum(1 for n, v in want.items() if n.endswith('lora_a') and not v)}"
+          f" of {sum(1 for n in want if n.endswith('lora_a'))}); adapters held "
+          f"whole (q_proj A {shapes['llm.layers.0.q_proj.lora_a']}, B "
+          f"{shapes['llm.layers.0.q_proj.lora_b']} beside its weight "
+          f"{shapes['llm.layers.0.q_proj.weight']}); the four ranks' "
+          f"K1-lse/K5a/K5b launches equal {launches[0]}; peak a rank "
+          f"{[round(x / 1e9, 2) for x in a['peak']]} GB ({card})")
+    same = all(sorted(a[k]) == sorted(full[k]) for k in ("lse", "dq", "dkv"))
+    print(f"  (f) rank 0's K1-lse/K5 call shapes {'==' if same else '!='} "
+          f"(e)'s: {a['lse']}")
+
+
+def _worst_change(got: dict, want: dict) -> tuple[float, str]:
+    """The largest relative difference between two fits' adapter changes
+    (leaf name -> L2 norm of after minus before), and its leaf; a leaf
+    the reference left unmoved must stay unmoved."""
+    worst, leaf = 0.0, ""
+    for n, w in want.items():
+        rel = abs(got[n] - w) / w if w else float("inf" if got[n] else 0)
+        if rel >= worst:
+            worst, leaf = rel, n
+    return worst, leaf
 
 
 def vit_shard_case(cfg, host, width: int, heads: int, gen) -> dict:
@@ -6179,7 +6493,7 @@ def parallel_training(card) -> list[dict]:
     """Phase 25: (a) the ZeRO stages, (b) ring attention, (d) fsdp serving
     on two ranks of the card (this process rank 0, rank 1 started by the
     first Trainer's mesh), then (c) the CLI as two processes, (e) fsdp=2 x
-    tp=2 on four ranks, and the K1/K5 rows at the ring block's, the fsdp
+    tp=2 on four ranks, (f) LoRA there, and the K1/K5 rows at the ring block's, the fsdp
     decoder's, the ViT shard's and the tp decoder's and ViT shard's
     shapes. Returns the kernel rows."""
     import importlib
@@ -6187,14 +6501,14 @@ def parallel_training(card) -> list[dict]:
     from oryx_tpu_torch.parallel import tp as tp_lib
 
     smoke = importlib.import_module("chip_smoke")
-    fsdp_run, data, cfg_a, ref = zero_stages(smoke, card)
+    fsdp_run, data, cfg_a, ref, lora_ref = zero_stages(smoke, card)
     ring_run = ring_training(smoke, card)
     fsdp_serving(smoke, cfg_a, card)
     tp_lib.current().shutdown()
     gc.collect()
     torch.cuda.empty_cache()
     cli_two_processes(cfg_a, fsdp_run, card)
-    tp_run = fsdp_tp(smoke, ref, card)
+    tp_run = fsdp_tp(smoke, ref, lora_ref, card)
 
     # The kernel rows at the two new call shapes; launches from (a)'s first
     # fsdp fit and (b)'s fit, on rank 0.

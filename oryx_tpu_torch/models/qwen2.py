@@ -297,13 +297,14 @@ def _block(
     rows `forward` computed once for every layer; a quantized page plane
     quantizes them on write, and a T > 1 prefill reads it through the
     dequantizing `gather_pages`). tp: a tensor-parallel shard's world: the
-    layer holds its own heads and MLP columns, and the o_proj and
-    down_proj partial products are summed over the ranks."""
+    layer holds its own heads and MLP columns (LoRA adapters whole), and
+    the o_proj and down_proj partial products are summed over the
+    ranks."""
     B, T, _ = h.shape
     x = column_input(lp.input_norm(h), tp)
     # Names for the "attn_qkv" / "attn_o" remat policies (utils/remat.py).
     q, k, v = linear_group(x, (lp.q_proj, lp.k_proj, lp.v_proj),
-                           ("attn_q", "attn_k", "attn_v"))
+                           ("attn_q", "attn_k", "attn_v"), tp)
     # Head counts from the widths: a tensor-parallel shard holds its own.
     q = q.view(B, T, -1, cfg.head_dim)
     k = k.view(B, T, -1, cfg.head_dim)
@@ -366,7 +367,7 @@ def _block(
     h = h + row_linear(attn_out.reshape(B, T, -1), lp.o_proj, tp, "attn_o")
 
     x = column_input(lp.post_attn_norm(h), tp)
-    gate, up = linear_group(x, (lp.gate_proj, lp.up_proj))
+    gate, up = linear_group(x, (lp.gate_proj, lp.up_proj), None, tp)
     return h + row_linear(F.silu(gate) * up, lp.down_proj, tp)
 
 

@@ -448,25 +448,33 @@ class CheckpointParams:
 def rank_params(params, cfg: OryxConfig, mesh, device, mode: str = "tp"
                 ) -> nn.Module:
     """This rank's shard of `params` (a whole OryxModel, a state dict,
-    SeededParams or CheckpointParams) on `device`: under "tp" its three
+    SeededParams or CheckpointParams; LoRA adapters, when the weights
+    carry them, whole on every rank) on `device`: under "tp" its three
     parts carrying the world (`local_model`), under "fsdp" its layers
     gathering their leaves as they run (`serving_shardings`)."""
     from oryx_tpu_torch.models.oryx import empty_model
+    from oryx_tpu_torch.models.qwen2 import lora_shells
     from oryx_tpu_torch.parallel import tp as tp_lib
 
     world = tp_lib.current()
-    shardings = serving_shardings(mesh, empty_model(cfg), mode,
-                                  rank=world.rank)
+    source = params
+    if isinstance(params, CheckpointParams):
+        from oryx_tpu_torch.utils import safetensors as st
+
+        source = st.load_safetensors_dir(params.path)
+    elif isinstance(params, nn.Module):
+        source = params.state_dict()
+    # The placements cover the source's LoRA leaves too (whole).
+    shape = empty_model(cfg)
+    if not isinstance(params, SeededParams):
+        lora_shells(shape, source)
+    shardings = serving_shardings(mesh, shape, mode, rank=world.rank)
     if isinstance(params, SeededParams):
         state = seeded_shard(cfg, shardings, params.seed, device=device,
                              dtype=params.dtype)
-    elif isinstance(params, CheckpointParams):
-        from oryx_tpu_torch.utils import safetensors as st
-
-        state = shard_params(st.load_safetensors_dir(params.path), shardings,
-                             device=device, dtype=params.dtype)
     else:
-        state = shard_params(params, shardings, device=device)
+        state = shard_params(source, shardings, device=device,
+                             dtype=getattr(params, "dtype", None))
     if mode == "tp":
         return local_model(cfg, state, world)
     from oryx_tpu_torch.parallel import zero

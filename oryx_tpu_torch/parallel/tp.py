@@ -328,6 +328,12 @@ class World:
     def controller(self) -> bool:
         return self.rank == 0
 
+    @property
+    def index(self) -> int:
+        """This rank's place in its tensor-parallel group: a serving
+        world is the group."""
+        return self.rank
+
     # ---- collectives inside a dispatch ------------------------------------
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:

@@ -45,6 +45,13 @@ row-parallel products (o_proj, down_proj, the ViT's o_proj and fc2, the
 projector's fc2) sum over the tp group with an identity backward, and the
 column-parallel inputs (q/k/v, gate/up, fc1, the projector's fc1) sum
 their gradient over it. A tp group computes one loss from the same rows.
+LoRA adapters stay whole on every rank in every mode (JAX's param_specs
+name no adapter leaf), and the products use the rank's columns of B or
+rows of A (utils/quant.py). Their gradients are then partial over the tp
+group, all but a row-parallel layer's B and scale, which every rank of
+the group computes whole from the same sum: the partial ones are summed
+over the tp group and the loss ranks at once (every rank), the others
+over the loss ranks as any whole leaf.
 
 The step (`RankTrainer.step`). Each rank takes its rows of the batch (its
 index on the (dp, fsdp) width) and, under sp, its T / sp slice of every
@@ -74,10 +81,9 @@ shards of the trainable leaves and of the optimizer state with
 `torch.save` under `<checkpoint_dir>/rank<r>of<n>/` (utils/checkpoint.py),
 so a resumed run continues bit for bit.
 
-Refused: tune "lora" with tp > 1 (adapters on tp-split layers are not
-part of the port yet), sp > 1 without a ring attn_impl (each rank would
-attend only its own slice), and rows or sequence lengths that do not
-divide over the data width and sp.
+Refused: sp > 1 without a ring attn_impl (each rank would attend only
+its own slice), and rows or sequence lengths that do not divide over the
+data width and sp.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ from torch import nn
 
 from oryx_tpu_torch.parallel import sharding
 from oryx_tpu_torch.parallel import tp as tp_lib
+from oryx_tpu_torch.utils.quant import LORA_LEAVES
 
 MODES = ("fsdp", "zero2", "ddp")
 _LAYER = re.compile(r"^(llm|vit)\.layers\.\d+\.")
@@ -182,6 +189,11 @@ class TpGroup:
         self.world = world
         self.group = list(group)
         self.size = len(self.group)
+
+    @property
+    def index(self) -> int:
+        """This rank's place in the group (the cut its leaves hold)."""
+        return self.group.index(self.world.rank)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         if op != "sum":
@@ -311,11 +323,6 @@ class RankTrainer(Gatherer):
         self.cfg, self.mode = cfg, mode
         self.shape = tuple(mesh_shape)
         dp, fsdp, tp, sp = self.shape
-        if tp > 1 and cfg.train.tune == "lora":
-            raise ValueError(
-                f"mesh tp={tp} with tune 'lora': LoRA adapters on "
-                "tensor-parallel layers are not part of the port yet "
-                "(ROADMAP.md Queue 1)")
         if sp > 1 and not cfg.attn_impl.startswith("ring"):
             raise ValueError(
                 f"mesh sp={sp} needs attn_impl 'ring' or 'ring_flash', "
@@ -327,6 +334,8 @@ class RankTrainer(Gatherer):
         self.dp_group = sharding.axis_group(self.shape, rank, "dp")
         self.loss_group = sharding.axis_group(self.shape, rank,
                                               ("dp", "fsdp", "sp"))
+        self.every_group = sharding.axis_group(self.shape, rank,
+                                               sharding.AXES)
         self.sp_group = tuple(sharding.axis_group(self.shape, rank, "sp"))
         self.tp_group = sharding.axis_group(self.shape, rank, "tp")
         self.vit_rows = None
@@ -366,6 +375,7 @@ class RankTrainer(Gatherer):
                     mod._parameters[leaf] = nn.Parameter(
                         place.take(p).clone(), requires_grad=True)
         self.names = [n for n, _ in model.named_parameters()]
+        self.tp_partial = _tp_partial(self.names, self.param_place)
         if tp > 1:
             # Each rank holds its heads and MLP columns; the model's
             # row-parallel sums and column-parallel inputs meet the group.
@@ -467,7 +477,7 @@ class RankTrainer(Gatherer):
         chunk already reduce-scattered under fsdp; whole local gradients
         otherwise) -> the optimizer's layout, summed over the loss ranks.
         Each replaced gradient is freed as its sum lands."""
-        whole, chunks = [], []
+        whole, chunks, partial = [], [], []
         for i, n in enumerate(self.names):
             opt, par = self.opt_place[n], self.param_place[n]
             if par.split:
@@ -478,9 +488,12 @@ class RankTrainer(Gatherer):
                     g, self.shard_group, opt.dim).to(g.dtype)
                 del g
                 chunks.append(i)
+            elif n in self.tp_partial:
+                partial.append(i)
             else:
                 whole.append(i)
         self._sum_into(grads, whole, self.loss_group)
+        self._sum_into(grads, partial, self.every_group)
         if len(self.dp_group) > 1:
             self._sum_into(grads, chunks, self.dp_group)
 
@@ -726,6 +739,21 @@ class RankTrainer(Gatherer):
             self.ckpt = CheckpointManager(
                 rank_dir(directory, self.world.rank, self.world.size))
         return self.ckpt
+
+
+def _tp_partial(names, places) -> set[str]:
+    """The LoRA leaves whose gradient a tp rank holds partial (a column
+    layer's A, B and scale, a row layer's A; the layer's kind by its
+    weight's tp cut: output columns, dim 0, or input rows, dim 1)."""
+    out = set()
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        weight = places.get(f"{owner}.weight")
+        cut = None if weight is None else weight.tp
+        if leaf in LORA_LEAVES and cut is not None and (
+                cut[0] == 0 or leaf == "lora_a"):
+            out.add(name)
+    return out
 
 
 class _Shape:

@@ -35,7 +35,10 @@
                         (on-demand device-time capture: the next K engine
                          dispatches under torch.profiler, answered with a
                          Chrome trace and the per-kind attribution; 503
-                         when the engine runs no dispatch in time)
+                         when the engine runs no dispatch in time; on the
+                         card the engine then waits 0.2 s before the
+                         capture stops, utils/profiling.CAPTURE_GRACE_S,
+                         and serves nothing meanwhile)
 
 Content may be a plain string or OpenAI content-part lists; image parts
 (`{"type": "image_url", "image_url": {"url": "data:image/png;base64,..."
@@ -1422,8 +1425,10 @@ def main(argv: list[str] | None = None) -> None:
         "in a torch.profiler capture and credit its device busy time to "
         "oryx_device_time_seconds_total{kind=} and the step's "
         "/debug/timeline record (0 = off; a failed capture only counts in "
-        "oryx_profile_capture_errors_total). GET /debug/profile?steps=K "
-        "captures on demand either way",
+        "oryx_profile_capture_errors_total; on the card a sample of a "
+        "CUDA graph replay may miss late kernel records). GET "
+        "/debug/profile?steps=K captures on demand either way, and on the "
+        "card holds the engine 0.2 s as it stops",
     )
     ap.add_argument(
         "--ttft-slo", type=float, default=None,

@@ -154,6 +154,19 @@ def op_profile(fn, *args, trace_dir: str, steps: int = 3, top_n: int = 25,
 # "other" bucket for capture time outside every window.
 DISPATCH_KINDS = ("ragged", "spec", "prefill", "decode", "other")
 
+# Seconds an on-demand capture on the card stays open after its last
+# dispatch's kernels are done. CUPTI stamps some kernel records of CUDA
+# graph replays after the host has seen those kernels finish (by up to
+# milliseconds), and the profiler drops every record stamped past the
+# session's stop. On an H100 a capture stopped at once lost 1-56 of its
+# 896 K4 records in 7 of 26 runs; held open 0.2 s it lost none in 8, and
+# 1 s none in 16 (scripts/torch_capture_check.py; PERF.md §6). The wait
+# runs on the engine thread: every on-demand capture on the card holds
+# serving this long after its last dispatch. A periodic sample stops at
+# once, so it may miss such late records of a graph-replay dispatch and
+# undercount that dispatch's device time (PERF.md §6 counts them).
+CAPTURE_GRACE_S = 0.2
+
 
 def attribute_capture(planes, windows: list[tuple[str, int, int]],
                       session_end_ns: int = 0) -> dict:
@@ -200,7 +213,11 @@ class DeviceTimeSampler:
     Failure contract: a capture that cannot start, stop, parse or
     attribute increments ``oryx_profile_capture_errors_total{stage=}`` and
     the engine step proceeds unprofiled; sampling may lose a sample, never
-    a token. A capture observes the dispatch and never changes it.
+    a token. A capture observes the dispatch and never changes its
+    tokens; an on-demand capture on the card delays the next dispatch by
+    CAPTURE_GRACE_S (the engine thread waits before the stop), and a
+    periodic sample of a graph replay may undercount its device time
+    (see CAPTURE_GRACE_S).
 
     Engine-thread-owned; the profiler is process-global, so a concurrent
     capture elsewhere in the process surfaces as a counted stage="start"
@@ -263,11 +280,13 @@ class DeviceTimeSampler:
         except Exception:
             self._err("stop")
 
-    def _stop_and_parse(self):
-        """Stop the in-flight capture and build its planes; returns
-        (planes, session_end_ns) or None with the stage counted."""
+    def _stop_and_parse(self, grace_s: float = 0.0):
+        """Stop the in-flight capture `grace_s` after now (the engine idle
+        meanwhile) and build its planes; returns (planes, session_end_ns)
+        or None with the stage counted."""
         prof, self._prof = self._prof, None
         try:
+            time.sleep(grace_s)
             _stop(prof)
             end_ns = trace_lib.now_ns()
         except Exception:
@@ -316,8 +335,11 @@ class DeviceTimeSampler:
         """Close an on-demand multi-step capture: the /debug/profile body, a
         Chrome trace plus per-kind attribution over the captured dispatch
         windows. Errors come back as {"error": ...} (and the stage
-        counter), never raised into the engine loop."""
-        parsed = self._stop_and_parse()
+        counter), never raised into the engine loop. On the card the
+        capture stays open CAPTURE_GRACE_S past the last window, so that
+        it keeps every kernel record of the captured dispatches."""
+        parsed = self._stop_and_parse(
+            CAPTURE_GRACE_S if self.device.type == "cuda" else 0.0)
         if parsed is None:
             return {"error": "profile capture failed (see "
                     "oryx_profile_capture_errors_total)"}

@@ -33,6 +33,16 @@ before fp32 `tiny` promotes it), so codes and scales are byte-equal to
 JAX's for fp32 and bf16 leaves. A layer (float or int8) that carries LoRA
 adapters (`models/qwen2.add_lora_params`) adds their residual after the
 base product and before the bias, as JAX's `_linear`.
+
+On a tensor-parallel rank (parallel/tp.py, parallel/zero.TpGroup) the
+adapters stay whole, as JAX's `param_specs` leaves them, while the base
+weight holds the rank's cut. A column-parallel layer (q/k/v, gate/up)
+adds ((x A) B[:, cols]) * scale, `cols` its weight's output columns; a
+row-parallel one (o, down) sums x_r A[rows_r] over the group in the same
+all-reduce as its base product, then adds ((sum) B) * scale once. The
+gradients this leaves on a training rank: a column layer's A, B and
+scale and a row layer's A are partial over the tp group, a row layer's
+B and scale whole (parallel/zero.RankTrainer sums the former).
 """
 
 from __future__ import annotations
@@ -280,11 +290,16 @@ def lora_of(mod: nn.Module):
 
 
 def _lora_residual(x: torch.Tensor, y: torch.Tensor, lora,
-                   bias: torch.Tensor | None) -> torch.Tensor:
+                   bias: torch.Tensor | None, tp=None) -> torch.Tensor:
     """JAX `_linear`'s order after the base product y = x . W: the low-rank
-    residual ((x A) B) * scale, then the bias, each in x's dtype."""
+    residual ((x A) B) * scale, then the bias, each in x's dtype. tp: the
+    group of a column-parallel rank, whose y holds its cut of the output
+    columns: the residual takes the same columns of B."""
     a, b, s = lora
     dt = x.dtype
+    if tp is not None and tp.size > 1:
+        n = y.shape[-1]
+        b = b.narrow(1, tp.index * n, n)
     y = y + torch.matmul(torch.matmul(x, a.to(dt)), b.to(dt)) * s.to(dt)
     return y if bias is None else y + bias.to(dt)
 
@@ -309,30 +324,45 @@ def _bias(mod: nn.Module):
 
 
 def linear(x: torch.Tensor, mod: nn.Module,
-           name: str | None = None) -> torch.Tensor:
+           name: str | None = None, tp=None) -> torch.Tensor:
     """x . W^T (+ b) in x's dtype, for every weight a model multiplies by:
     an nn.Linear, a Q8Linear, or an embedding table (the tied head). A
     layer with LoRA adapters adds ((x A) B) * scale after the base product
     and before the bias, as JAX's `_linear`. `name`: under a remat policy
     that saves it (utils/remat.py), the base product is computed as that
-    name's."""
+    name's. tp: the group of a column-parallel rank (its weight holds its
+    output columns; the residual takes the same columns of B)."""
     lora = lora_of(mod)
     if name is not None and remat.naming():
         with remat.named(name):
             y = _base(x, mod, lora is None)
     else:
         y = _base(x, mod, lora is None)
-    return y if lora is None else _lora_residual(x, y, lora, _bias(mod))
+    return y if lora is None else _lora_residual(x, y, lora, _bias(mod), tp)
 
 
 def row_linear(x: torch.Tensor, mod: nn.Module, tp,
                name: str | None = None) -> torch.Tensor:
     """`linear` of a product whose input rows are split over
     tensor-parallel ranks (parallel/tp.py): each rank's partial product,
-    summed over the ranks, then the bias once. tp None: `linear`."""
+    summed over the ranks, then the bias once. With LoRA adapters the
+    rank's x_r A[rows_r] joins its partial product in the one sum, and
+    ((x A) B) * scale is added after it, before the bias. tp None:
+    `linear`."""
     if tp is None or tp.size == 1:
         return linear(x, mod, name)
-    y = tp.all_reduce(_base(x, mod, False))
+    y = _base(x, mod, False)
+    lora = lora_of(mod)
+    if lora is None:
+        y = tp.all_reduce(y)
+    else:
+        a, b, s = lora
+        dt = x.dtype
+        n = x.shape[-1]
+        xa = torch.matmul(x, a.narrow(0, tp.index * n, n).to(dt))
+        y, xa = tp.all_reduce(torch.cat([y, xa], -1)).split(
+            [y.shape[-1], xa.shape[-1]], -1)
+        y = y + torch.matmul(xa, b.to(dt)) * s.to(dt)
     bias = _bias(mod)
     return y if bias is None else y + bias.to(y.dtype)
 
@@ -347,12 +377,13 @@ def column_input(x: torch.Tensor, tp) -> torch.Tensor:
     return x if enter is None or tp.size == 1 else enter(x)
 
 
-def linear_group(x: torch.Tensor, mods,
-                 names=None) -> list[torch.Tensor]:
-    """[linear(x, m, name) for m, name in zip(mods, names)]: Q8Linears of
-    one input width take one grouped q8 product (one launch on the card,
-    each output with the bits of its own product; a member's LoRA residual
-    and bias are added after it); other layers take `linear` one by one."""
+def linear_group(x: torch.Tensor, mods, names=None,
+                 tp=None) -> list[torch.Tensor]:
+    """[linear(x, m, name, tp) for m, name in zip(mods, names)]: Q8Linears
+    of one input width take one grouped q8 product (one launch on the
+    card, each output with the bits of its own product; a member's LoRA
+    residual and bias are added after it); other layers take `linear` one
+    by one. tp: as `linear`'s (the members are column-parallel)."""
     names = names or (None,) * len(mods)
     if len(mods) > 1 and all(isinstance(m, Q8Linear) for m in mods) and len(
             {m.in_features for m in mods}) == 1:
@@ -362,9 +393,9 @@ def linear_group(x: torch.Tensor, mods,
              m._buffers["bias"] if lora is None else None)
             for m, lora in zip(mods, loras)])
         return [y if lora is None else
-                _lora_residual(x, y, lora, m._buffers["bias"])
+                _lora_residual(x, y, lora, m._buffers["bias"], tp)
                 for y, m, lora in zip(ys, mods, loras)]
-    return [linear(x, m, n) for m, n in zip(mods, names)]
+    return [linear(x, m, n, tp) for m, n in zip(mods, names)]
 
 
 def embed_rows(table, ids: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,10 @@ dispatches.
     python3 scripts/torch_capture_check.py [--runs 5]
 
 Each run prints the phase's own lines, among them the capture's K4 kernel
-records beside the K4 wrapper's launches over the captured steps; then
-the activity records CUPTI reports it dropped since the last run
+records beside the K4 wrapper's launches over the captured steps, and the
+periodic samples' K4 records beside their dispatches' launches (graph
+replays apart from eager dispatches; measured, not held); then the
+activity records CUPTI reports it dropped since the last run
 (`cuptiActivityGetNumDroppedRecords`, when libcupti is loaded). The last
 line sums the runs (a run whose check failed counts as failed, and the
 others still run). Exits 1 when any run failed.
@@ -86,16 +88,25 @@ def _cupti():
 
 
 def _dropped():
-    """The activity records CUPTI says it dropped (its global queue), or
-    None when libcupti is not loaded in this process."""
+    """The activity records CUPTI says it dropped: from its global queue
+    and from the current context's (`cuptiActivityGetNumDroppedRecords`),
+    or None when libcupti is not loaded in this process."""
     import ctypes
 
     lib = _cupti()
     if lib is None:
         return None
-    n = ctypes.c_size_t(0)
-    rc = lib.cuptiActivityGetNumDroppedRecords(None, 0, ctypes.byref(n))
-    return int(n.value) if rc == 0 else f"error {rc}"
+    out = []
+    ctx = ctypes.c_void_p(0)
+    try:
+        ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx))
+    except OSError:
+        pass
+    for c in (None, ctx):
+        n = ctypes.c_size_t(0)
+        rc = lib.cuptiActivityGetNumDroppedRecords(c, 0, ctypes.byref(n))
+        out.append(int(n.value) if rc == 0 else f"error {rc}")
+    return {"global": out[0], "context": out[1]}
 
 
 if __name__ == "__main__":

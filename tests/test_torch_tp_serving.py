@@ -9,7 +9,12 @@ the sharded restore, the sharded cached session), tests/test_engine.py
 tests/test_ragged_attention.py, test_fused_decode.py, test_speculative.py
 and test_journal.py; adds prefill logits, the quantized pool's bytes under
 tp, the four entry points, the followers' sampled tokens and a dead
-follower. The port's ranks live in one rank-0 process for the module
+follower. A model with unmerged LoRA adapters (whole on each rank, the
+residuals taken on the rank's columns of B or rows of A) serves through
+`chat_batch`, the ragged engine and the auditor as JAX's tp=2 mesh and
+its unsharded pipeline do; a LoRA fit on the same two ranks exports its
+adapters from rank 0 and resumes from its rank checkpoints bit for bit.
+The port's ranks live in one rank-0 process for the module
 (tests/torch_tp_common.py); this process holds jax and never joins them."""
 
 import numpy as np
@@ -46,6 +51,9 @@ MIX = [
     {"question": "what happens?", "images": FRAMES, "is_video": True},
 ]
 REQS = [("hello there", 12), ("hello there friend", 12)]
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+LORA = jcfg.LoraConfig(enable=True, r=4, alpha=8.0, targets=LORA_TARGETS)
 
 
 def _scaled(tree):
@@ -82,6 +90,36 @@ def ranks(model):
         yield d, shards
     finally:
         d.close()
+
+
+@pytest.fixture(scope="module")
+def adapted(model, ranks):
+    """The scaled tiny model with nonzero adapters on all seven decoder
+    projections (lora_b drawn x0.5), its JAX pipelines unsharded and on
+    the tp=2 mesh, and the port's tp=2 pipe over it (key "lora")."""
+    import dataclasses
+
+    cfg, tree = model
+    cj = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, lora=LORA))
+    t = joryx.enable_lora(jax.tree_util.tree_map(jnp.asarray, tree), cj,
+                          jax.random.key(1))
+    rng = np.random.default_rng(1)
+
+    def f(path, leaf):
+        a = np.asarray(leaf, np.float32)
+        if str(getattr(path[-1], "key", "")) == "lora_b":
+            return (0.5 * rng.standard_normal(a.shape)).astype(np.float32)
+        return a
+
+    tree_l = jax.tree_util.tree_map_with_path(f, t)
+    params = jax.tree_util.tree_map(jnp.asarray, tree_l)
+    mesh = jbuild_mesh(JMeshConfig(tp=2), devices=jax.devices()[:2])
+    d, _ = ranks
+    d.run("job_pipeline", "lora", tree_l, cj.to_dict())
+    return (cj, tree_l, OryxInference(CharTokenizer(), params, cj),
+            OryxInference(CharTokenizer(), params, cj, mesh=mesh,
+                          sharding_mode="tp"))
 
 
 def _solo(jpipe, reqs):
@@ -126,6 +164,179 @@ def test_prefill_logits_within_tolerance(ranks, model, jpipes):
                              input_ids=jnp.asarray([ids], jnp.int32))
     want = np.asarray(want[0, -1], np.float32)
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-3)
+
+
+def test_adapted_model_serves_as_jax_on_tp(ranks, adapted, jpipes):
+    """A model with unmerged adapters at tp=2: chat_batch over images,
+    text and video == JAX's tp=2 mesh == JAX unsharded, byte for byte,
+    and the adapters change the replies; the prefill logits are JAX's
+    adapted model's."""
+    d, _ = ranks
+    cj, tree_l, ref, jtp = adapted
+    want = ref.chat_batch(MIX, max_new_tokens=8)
+    assert jtp.chat_batch(MIX, max_new_tokens=8) == want
+    assert d.run("job_chat_batch", "lora", MIX,
+                 {"max_new_tokens": 8}) == want
+    assert want != jpipes[0].chat_batch(MIX, max_new_tokens=8)
+    ids = [min(ord(c), 500) for c in "tell me about the picture"]
+    got = d.run("job_prefill_logits", "lora", ids)
+    params = jax.tree_util.tree_map(jnp.asarray, tree_l)
+    with jax.default_matmul_precision("highest"):
+        logits, _ = jqwen2.forward(params["llm"], cj.llm,
+                                   input_ids=jnp.asarray([ids], jnp.int32))
+    np.testing.assert_allclose(got, np.asarray(logits[0, -1], np.float32),
+                               atol=2e-4, rtol=2e-3)
+
+
+def test_adapted_checkpoint_serves_on_tp(ranks, adapted, tmp_path):
+    """A save_pretrained directory that keeps the adapters, read by each
+    rank off the file (CheckpointParams, the entry points' --shard
+    route): the adapters whole on each rank, chat == JAX's unsharded
+    adapted pipeline."""
+    from oryx_tpu_torch.config import OryxConfig
+    from oryx_tpu_torch.models.convert import from_jax_params
+    from oryx_tpu_torch.serve import builder
+
+    d, _ = ranks
+    cj, tree_l, ref, _ = adapted
+    tc = OryxConfig.from_dict(cj.to_dict())
+    model_dir = str(tmp_path / "adapted")
+    builder.save_pretrained(model_dir, tc, from_jax_params(tree_l, tc))
+    shapes = d.run("job_pipeline_dir", "lora_dir", model_dir, cj.to_dict())
+    r = LORA.r
+    assert shapes["llm.layers.0.q_proj.lora_b"] == (
+        r, cj.llm.num_heads * cj.llm.head_dim)
+    assert shapes["llm.layers.0.o_proj.lora_a"] == (
+        cj.llm.num_heads * cj.llm.head_dim, r)
+    q = "hello there friend"
+    assert d.run("job_chat", "lora_dir", q, {"max_new_tokens": 8}) == \
+        ref.chat(q, max_new_tokens=8)
+
+
+def test_adapted_ragged_engine_and_audit_on_tp(ranks, adapted):
+    """The ragged engine and the auditor (every request replayed) over the
+    adapted tp pipe: replies == JAX's unsharded pipeline, every verdict
+    passes, both ranks' digests equal."""
+    d, _ = ranks
+    _, _, ref, _ = adapted
+    want = _solo(ref, REQS)
+    out = d.run("job_engine", "lora", REQS,
+                {"ragged": True, "prefill_chunk": 32})
+    assert out["replies"] == want
+    assert out["dispatches"].get("ragged", 0) > 0
+    reqs = REQS[:1]
+    audited = d.run("job_audit", "lora", reqs,
+                    dict(GEOM, audit_sample_every=1))
+    assert [r[0] for r in audited["replies"]] == want[:1]
+    assert audited["audits"]["total"] == 1
+    assert audited["audits"]["verdicts"]["pass"] == 1, audited["audits"]
+    assert len(set(audited["digests"])) == 1
+
+
+_FITS: dict = {}
+
+
+def _lora_fit(d, tmp_path, name, steps, resume=False, ckpt=None):
+    """A LoRA Trainer on the module's two ranks (mesh tp=2, adapters on
+    the seven targets), 3 steps of one training batch: job_fit's result,
+    the trainer kept under `name`."""
+    import dataclasses
+
+    from oryx_tpu_torch import config as tcfg
+    from torch_train_common import cfgs, make_batches
+
+    cj, _ = cfgs(impl="xla", tune="lora", lr=1e-3, lora=LORA)
+    with jax.default_matmul_precision("highest"):
+        b = make_batches()[1]
+    data = [{k: v[0] for k, v in b.items()}] * 3
+    ct = tcfg.OryxConfig.from_dict(dataclasses.replace(
+        cj, mesh=JMeshConfig(tp=2), train=dataclasses.replace(
+            cj.train, log_every=1, checkpoint_every=100,
+            checkpoint_dir=str(ckpt or tmp_path / name))).to_dict())
+    tree = as_numpy_tree(_lora_tree(cj))
+    return d.run("job_fit", name, tree, ct.to_dict(), "fsdp", data, steps,
+                 resume), ct, tree
+
+
+def _lora_tree(cj):
+    from torch_train_common import make_tree
+
+    if "tree" not in _FITS:
+        _FITS["tree"] = joryx.enable_lora(
+            jax.tree_util.tree_map(jnp.asarray, make_tree()), cj,
+            jax.random.key(2))
+    return _FITS["tree"]
+
+
+def _straight(d, tmp_path):
+    if "straight" not in _FITS:
+        _FITS["straight"] = _lora_fit(d, tmp_path, "lstraight", 3)
+    return _FITS["straight"]
+
+
+def test_lora_tp_fit_exports_peft_from_rank_zero(ranks, tmp_path):
+    """A LoRA fit at tp=2: the PEFT directory rank 0 writes from its
+    gathered leaves is byte-equal to the one one process writes from the
+    same adapters, and to JAX's exporter's."""
+    import os
+
+    import torch
+
+    from oryx_tpu.models import import_hf as jimport
+    from oryx_tpu_torch.models import import_hf as timport
+    from oryx_tpu_torch.models.convert import from_jax_params
+
+    d, _ = ranks
+    (got, ct, tree) = _straight(d, tmp_path)
+    files = d.run("job_lora_export", "lstraight", str(tmp_path / "tp"))
+    model = from_jax_params(tree, ct)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.from_numpy(got["params"][n]))
+    adapters = [n for n in got["params"] if "lora_b" in n]
+    assert adapters and all(
+        not np.array_equal(got["params"][n], _leaf(tree, n))
+        for n in adapters)
+    one = str(tmp_path / "one")
+    timport.export_lora_dir(model.llm, ct.train.lora, one)
+    assert files == {n: open(os.path.join(one, n), "rb").read()
+                     for n in sorted(os.listdir(one))}
+    from oryx_tpu_torch.models.convert import to_jax_layout
+
+    jdir = str(tmp_path / "jax")
+    jimport.export_lora_dir(jax.tree_util.tree_map(
+        jnp.asarray, to_jax_layout(model)["llm"]), LORA, jdir)
+    assert files == {n: open(os.path.join(jdir, n), "rb").read()
+                     for n in sorted(os.listdir(jdir))}
+
+
+def _leaf(tree, name):
+    """The whole leaf `name` (the port's state-dict name) of a JAX tree:
+    a decoder layer's slice of the stacked leaf, the kernel transposed."""
+    parts = name.split(".")
+    layer = int(parts[2])
+    node = tree
+    for k in [parts[0], parts[1]] + parts[3:]:
+        node = node[k]
+    return np.asarray(node)[layer]
+
+
+def test_lora_tp_resume_continues_identically(ranks, tmp_path):
+    """Two LoRA steps at tp=2, the final rank checkpoints, then a fresh
+    Trainer on the same directory resumes and takes step 3: its loss,
+    grad norm and every leaf (the adapters included) are the
+    uninterrupted run's bits."""
+    d, _ = ranks
+    straight, _, _ = _straight(d, tmp_path)
+    ckpt = tmp_path / "resume"
+    first, _, _ = _lora_fit(d, tmp_path, "lfirst", 2, ckpt=ckpt)
+    assert first["step"] == 2
+    resumed, _, _ = _lora_fit(d, tmp_path, "lresumed", 3, resume=True,
+                              ckpt=ckpt)
+    assert resumed["start"] == 2 and resumed["step"] == 3
+    assert resumed["history"] == straight["history"][-1:]
+    for n, t in straight["params"].items():
+        assert np.array_equal(resumed["params"][n], t), n
 
 
 def test_sharded_engine_builds_on_tp_mesh(ranks, jpipes):

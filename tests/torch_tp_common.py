@@ -131,6 +131,19 @@ def job_pipeline(state, key, tree, cfg_dict, mesh_key="mesh", mode="tp"):
             "o_cols": int(pipe.params.llm.layers[0].o_proj.weight.shape[1])}
 
 
+def job_pipeline_dir(state, key, model_dir, cfg_dict):
+    """A tp Pipeline whose ranks each read their slices off a
+    `save_pretrained` directory (sharding.CheckpointParams), under
+    `key`."""
+    from oryx_tpu_torch.parallel.sharding import CheckpointParams
+    from oryx_tpu_torch.serve.pipeline import Pipeline
+
+    state["pipes"][key] = Pipeline(
+        CharTokenizer(), CheckpointParams(model_dir), _cfg(cfg_dict),
+        device="cpu", mesh=state["mesh"])
+    return job_shapes(state, key)
+
+
 def job_chat_batch(state, key, requests, kw):
     return state["pipes"][key].chat_batch(requests, **kw)
 
@@ -651,6 +664,22 @@ def job_fit(state, key, tree, cfg_dict, mode, batches, steps, resume=False):
                     for r in reports],
         "step": trainer.state.step,
     }
+
+
+def job_lora_export(state, key, out_dir):
+    """The PEFT adapter directory of the LoRA trainer kept under `key`,
+    written from rank 0 (`export_lora_dir` over its leaves gathered
+    whole); the files' bytes by name."""
+    import os
+
+    from oryx_tpu_torch.models.import_hf import export_lora_dir
+    from oryx_tpu_torch.parallel.sharding import frozen_model
+
+    trainer = state["trainers"][key]
+    model = frozen_model(trainer.cfg, trainer.full_params())
+    export_lora_dir(model.llm, trainer.cfg.train.lora, out_dir)
+    return {n: open(os.path.join(out_dir, n), "rb").read()
+            for n in sorted(os.listdir(out_dir))}
 
 
 def job_cli(state, argv):
